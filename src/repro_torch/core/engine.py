@@ -1,0 +1,138 @@
+"""ArcaneEngine — software decode of the xmnmc ISA at dispatch time.
+
+Counterpart of repro.core.engine. Every model-level matrix operation is
+encoded as an xmnmc instruction word (bit-exact with the reference encoder),
+logged when ``record=True``, and dispatched to one kernel invocation.
+
+backend: "cuda" — the hand-written CUDA kernels (CUDA tensors only; a CPU
+                  tensor raises),
+         "ref"  — plain PyTorch on any device, mirroring the reference
+                  engine's ref path (gemm accumulates in f32 and casts
+                  without rounding; attention is the blocked online-softmax
+                  oracle),
+         "auto" — per call: the kernel for CUDA tensors, plain PyTorch for
+                  CPU tensors.
+
+Width suffixes are extended to float dtypes: .w ↦ f32/i32, .h ↦ bf16/i16,
+.b ↦ i8.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from repro_torch.core.encoding import ElemWidth, encode_xmk, fx_encode
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.ref import attention_chunked_ref
+from repro_torch.kernels.gemm.kernel import gemm_cuda
+
+
+def _width_of(dtype: torch.dtype) -> ElemWidth:
+    if dtype.itemsize >= 4:
+        return ElemWidth.W
+    if dtype.itemsize == 2:
+        return ElemWidth.H
+    return ElemWidth.B
+
+
+@dataclasses.dataclass(frozen=True)
+class TraceEntry:
+    word: int            # encoded xmnmc instruction
+    mnemonic: str
+    shapes: tuple
+    flops: int
+
+
+class ArcaneEngine:
+    """Dispatch facade used by every model layer."""
+
+    def __init__(self, backend: str = "auto", *, attn_block_k: int = 256,
+                 record: bool = False):
+        if backend not in ("cuda", "ref", "auto"):
+            raise ValueError(f"unknown backend {backend!r}")
+        self.backend = backend
+        self.attn_block_k = attn_block_k
+        self.record = record
+        self.trace: list[TraceEntry] = []
+
+    def _kernel(self, t: torch.Tensor) -> bool:
+        """Whether this call goes to the CUDA kernel."""
+        if self.backend == "ref":
+            return False
+        if self.backend == "cuda" and not t.is_cuda:
+            raise ValueError("ArcaneEngine('cuda') was given a CPU tensor")
+        return t.is_cuda
+
+    # ------------------------------------------------------------- recording
+    def _log(self, func5: int, dtype, shapes, flops: int, **kw) -> None:
+        if not self.record:
+            return
+        off = encode_xmk(func5, _width_of(dtype), md=0, **kw)
+        self.trace.append(TraceEntry(
+            word=off.word, mnemonic=off.instr.mnemonic,
+            shapes=tuple(tuple(int(d) for d in s) for s in shapes),
+            flops=int(flops)))
+
+    # ------------------------------------------------------------------ ops
+    def gemm(self, x: torch.Tensor, w: torch.Tensor,
+             c: Optional[torch.Tensor] = None, *, alpha: float = 1.0,
+             beta: float = 1.0, out_dtype=None) -> torch.Tensor:
+        """xmk0 over arbitrary leading dims: (..., k) @ (k, n) [+ beta*c]."""
+        lead = x.shape[:-1]
+        k = x.shape[-1]
+        n = w.shape[-1]
+        m = 1
+        for s in lead:
+            m *= s
+        self._log(0, x.dtype, (x.shape, w.shape), 2 * m * k * n,
+                  alpha=fx_encode(min(max(alpha, -127), 127)),
+                  beta=fx_encode(min(max(beta, -127), 127)))
+        x2 = x.reshape(m, k)
+        c2 = c.reshape(m, n) if c is not None else None
+        if self._kernel(x):
+            out = gemm_cuda(x2, w, c2, alpha=alpha, beta=beta,
+                            out_dtype=out_dtype or x.dtype)
+        else:
+            out = x2.float() @ w.float()
+            if alpha != 1.0:
+                out = alpha * out
+            if c2 is not None:
+                out = out + beta * c2.float()
+            out = out.to(out_dtype or x.dtype)
+        return out.reshape(*lead, n)
+
+    def attention(self, q, k, v, *, causal=True, window=None, softcap=None,
+                  scale=None, kv_len=None) -> torch.Tensor:
+        b, hq, sq, d = q.shape
+        skv = k.shape[2]
+        self._log(5, q.dtype, (q.shape, k.shape), 4 * b * hq * sq * skv * d)
+        kw = dict(causal=causal, window=window, softcap=softcap, scale=scale,
+                  kv_len=kv_len)
+        if self._kernel(q):
+            return flash_attention_cuda(q, k, v, **kw)
+        return attention_chunked_ref(q, k, v, chunk=self.attn_block_k, **kw)
+
+    def decode_attention(self, q, k, v, lengths, *, softcap=None, scale=None,
+                         window=None) -> torch.Tensor:
+        b, hq, d = q.shape
+        hkv, s = k.shape[1], k.shape[2]
+        self._log(6, q.dtype, (q.shape, k.shape), 4 * b * hq * s * d)
+        qg = q.reshape(b, hkv, hq // hkv, d)
+        fn = decode_attention_cuda if self._kernel(q) else decode_attention_ref
+        out = fn(qg, k, v, lengths, softcap=softcap, scale=scale,
+                 window=window)
+        return out.reshape(b, hq, d)
+
+
+_DEFAULT: Optional[ArcaneEngine] = None
+
+
+def default_engine() -> ArcaneEngine:
+    global _DEFAULT
+    if _DEFAULT is None:
+        _DEFAULT = ArcaneEngine()
+    return _DEFAULT

@@ -1,0 +1,35 @@
+"""Shared helpers for the kernel suite (counterpart of repro.kernels.common)."""
+from __future__ import annotations
+
+import torch
+
+
+def is_integer(dtype: torch.dtype) -> bool:
+    return not dtype.is_floating_point and not dtype.is_complex \
+        and dtype != torch.bool
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """Accumulator type: int32 for integer datapaths, f32 otherwise."""
+    return torch.int32 if is_integer(dtype) else torch.float32
+
+
+NEG_INF = float(-1e30)   # mask value that survives bf16 rounding
+
+
+def check_cuda(what: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor lies on the same CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: the kernel takes CUDA tensors on one "
+                             f"device, got {t.device} (and {dev})")
+
+
+def check_dtype(what: str, t: torch.Tensor, allowed) -> None:
+    if t.dtype not in allowed:
+        raise ValueError(f"{what}: dtype {t.dtype} not in {sorted(map(str, allowed))}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,28 @@
+"""Public decode attention: head grouping, then the CUDA kernel for CUDA
+tensors or the plain version for CPU tensors."""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     lengths: torch.Tensor, *, softcap: Optional[float] = None,
+                     scale: Optional[float] = None,
+                     window: Optional[int] = None) -> torch.Tensor:
+    """One-token GQA decode over a KV cache.
+
+    q: (B, Hq, D); k, v: (B, Hkv, S, D); lengths: (B,) → (B, Hq, D).
+    """
+    b, hq, d = q.shape
+    hkv = k.shape[1]
+    if hq % hkv:
+        raise ValueError(f"decode_attention: {hq} query heads on {hkv} KV heads")
+    qg = q.reshape(b, hkv, hq // hkv, d)
+    fn = decode_attention_cuda if q.is_cuda else decode_attention_ref
+    out = fn(qg, k, v, lengths, softcap=softcap, scale=scale, window=window)
+    return out.reshape(b, hq, d)

@@ -1,0 +1,83 @@
+"""Serving launcher: batched continuous decoding on one device
+(counterpart of repro.launch.serve).
+
+Usage (on a machine with an NVIDIA H100; the kernels build at first use)::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
+        --requests 6 --max-new 16 --max-len 1024 --prompt-len 16 512
+
+``--device cpu --backend ref`` runs the plain PyTorch path on the CPU,
+``--smoke`` the arch's reduced config. The weights are random, drawn on the
+device from ``--seed``.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.models.transformer import LM
+from repro_torch.serving.engine import ServeSession
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="gemma2-9b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--max-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--max-len", type=int, default=256)
+    ap.add_argument("--prompt-len", type=int, nargs=2, default=(4, 24),
+                    metavar=("MIN", "MAX"),
+                    help="prompt lengths are drawn from [MIN, MAX)")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--backend", default="auto", choices=("auto", "cuda", "ref"))
+    ap.add_argument("--seed", type=int, default=0)
+    return ap.parse_args(argv)
+
+
+def build(args: argparse.Namespace):
+    """(model, params) for the arguments, weights drawn on the device."""
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    device = resolve_device(args.device)
+    model = LM(cfg, ArcaneEngine(backend=args.backend), device=device)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    return model, model.init_params(gen)
+
+
+def serve(model: LM, params, args: argparse.Namespace) -> dict:
+    """Serve ``args.requests`` random prompts to completion."""
+    sess = ServeSession(model, params, max_slots=args.slots,
+                        max_len=args.max_len, seed=args.seed)
+    rng = np.random.default_rng(args.seed)
+    lo, hi = args.prompt_len
+    for _ in range(args.requests):
+        plen = int(rng.integers(lo, hi))
+        sess.submit(rng.integers(0, model.cfg.vocab, plen),
+                    max_new_tokens=args.max_new)
+    t0 = time.perf_counter()
+    done = sess.run_to_completion()
+    dt = time.perf_counter() - t0
+    tokens = sum(len(r.out_tokens) for r in done)
+    return {"requests": len(done), "submitted": args.requests,
+            "tokens": tokens, "seconds": dt, "session": sess}
+
+
+def run(argv=None) -> dict:
+    args = parse_args(argv)
+    model, params = build(args)
+    out = serve(model, params, args)
+    print(f"served {out['requests']} requests, {out['tokens']} tokens in "
+          f"{out['seconds']:.2f}s ({out['tokens'] / out['seconds']:.1f} tok/s) "
+          f"on {model.device}")
+    return out
+
+
+if __name__ == "__main__":
+    run()

@@ -1,0 +1,38 @@
+"""Carry weights across from the reference: numpy pytree → the port's params.
+
+The reference's params pytree, after ``np.asarray`` on every leaf, has the
+same nesting as the port's (dicts, a tuple of per-pattern-position stacks).
+A bf16 leaf arrives as a numpy array of the ``bfloat16`` extension dtype;
+its bits are read through ``view(np.uint16)`` and re-typed as
+``torch.bfloat16``, so no bf16-aware numpy package is needed.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import tree_leaves, tree_map
+
+
+def tensor_from_numpy(arr: np.ndarray, device) -> torch.Tensor:
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        bits = np.ascontiguousarray(arr).view(np.uint16).view(np.int16)
+        return torch.from_numpy(bits.copy()).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.ascontiguousarray(arr).copy()).to(device)
+
+
+def params_from_numpy(tree, cfg: ModelConfig, device=None):
+    """The reference's params (numpy leaves) as the port's params on
+    ``device`` (the card unless told otherwise)."""
+    dev = resolve_device(device)
+    if len(tree["blocks"]) != cfg.period:
+        raise ValueError(f"{cfg.name}: {len(tree['blocks'])} block stacks, "
+                         f"the pattern has {cfg.period}")
+    for leaf in tree_leaves(tree["blocks"]):
+        if leaf.shape[0] != cfg.n_periods:
+            raise ValueError(f"{cfg.name}: a block leaf of shape {leaf.shape} "
+                             f"is not stacked over {cfg.n_periods} periods")
+    return tree_map(lambda x: tensor_from_numpy(x, dev), tree)

@@ -1,0 +1,22 @@
+"""Gated MLP — all GeMMs via xmk0 dispatch (counterpart of repro.models.mlp)."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.models.layers import activation, dense, dense_init
+
+
+def mlp_init(gen, cfg: ModelConfig, device) -> dict:
+    d, ff, dt = cfg.d_model, cfg.d_ff, cfg.pdtype
+    return {"gate": dense_init(gen, d, ff, dt, device),
+            "up": dense_init(gen, d, ff, dt, device),
+            "down": dense_init(gen, ff, d, dt, device)}
+
+
+def mlp(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
+        x: torch.Tensor) -> torch.Tensor:
+    g = activation(cfg.act)(dense(engine, params["gate"], x))
+    u = dense(engine, params["up"], x)
+    return dense(engine, params["down"], g * u)

@@ -1,0 +1,143 @@
+"""Serving engine: continuous-batching decode over the cache-resident kernels
+(counterpart of repro.serving.engine).
+
+A fixed pool of ``max_slots`` sequence slots shares one batched KV cache.
+Requests are admitted into free slots at any step (batch-1 prefill of the
+prompt); every step decodes one token for all slots. The decode kernel
+reads only each slot's valid cache rows, so ragged lengths cost nothing
+extra.
+
+Timing: ``stats`` sums the host-clock seconds of prefills and decode steps.
+Each ends in a device-to-host copy of the sampled token, which waits for
+the device, so the clock covers the device's work.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.models.transformer import LM
+
+PyTree = Any
+
+
+@dataclasses.dataclass
+class Request:
+    uid: int
+    prompt: np.ndarray           # (S,) int32
+    max_new_tokens: int = 32
+    temperature: float = 0.0
+    out_tokens: list = dataclasses.field(default_factory=list)
+    done: bool = False
+
+
+class ServeSession:
+    def __init__(self, model: LM, params: PyTree, *, max_slots: int = 4,
+                 max_len: int = 512, eos_id: Optional[int] = None,
+                 seed: int = 0):
+        self.model = model
+        self.params = params
+        self.device = model.device
+        self.max_slots = max_slots
+        self.max_len = max_len
+        self.eos_id = eos_id
+        self.cache = model.init_cache(max_slots, max_len)
+        self.positions = np.zeros((max_slots,), np.int32)
+        self.slots: list[Optional[Request]] = [None] * max_slots
+        self.last_tokens = np.zeros((max_slots,), np.int32)
+        self._uid = 0
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.pending: list[Request] = []
+        self.finished: list[Request] = []
+        self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
+                      "decode_s": 0.0, "decode_steps": 0}
+
+    # ------------------------------------------------------------------ API
+    def submit(self, prompt, **kw) -> Request:
+        req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32), **kw)
+        self._uid += 1
+        self.pending.append(req)
+        return req
+
+    def _admit(self) -> None:
+        for slot in range(self.max_slots):
+            if self.slots[slot] is not None or not self.pending:
+                continue
+            req = self.pending.pop(0)
+            s = len(req.prompt)
+            if s + req.max_new_tokens > self.max_len:
+                raise ValueError(f"request {req.uid}: {s} prompt + "
+                                 f"{req.max_new_tokens} new tokens exceed "
+                                 f"max_len {self.max_len}")
+            t0 = time.perf_counter()
+            # The reference prefills into a fresh batch-1 cache and inserts
+            # it into the slot. Here the slot's rows of the batched cache
+            # are zeroed and prefilled in place, through views: the same
+            # contents, without a second cache.
+            one_cache = tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
+                              for c in self.cache)
+            for c in one_cache:
+                for v in c.values():
+                    v.zero_()
+            tokens = torch.as_tensor(req.prompt[None], device=self.device)
+            logits, _ = self.model.prefill(self.params, {"tokens": tokens},
+                                           one_cache)
+            tok = int(self._sample(logits, req.temperature)[0])
+            self.stats["prefill_s"] += time.perf_counter() - t0
+            self.stats["prefill_tokens"] += s
+            req.out_tokens.append(tok)
+            self.slots[slot] = req
+            self.positions[slot] = s
+            self.last_tokens[slot] = tok
+
+    def _sample(self, logits: torch.Tensor, temperature: float) -> np.ndarray:
+        """Greedy argmax (first index on ties) or a temperature draw from
+        the session's seeded generator; returns host int32."""
+        if temperature <= 0.0:
+            tok = torch.argmax(logits, dim=-1)
+        else:
+            probs = torch.softmax(logits.float() / temperature, dim=-1)
+            tok = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+        return tok.to(torch.int32).cpu().numpy()
+
+    def step(self) -> int:
+        """Admit pending requests, decode one token for all live slots.
+        Returns number of live slots."""
+        self._admit()
+        live = [i for i, r in enumerate(self.slots) if r is not None]
+        if not live:
+            return 0
+        t0 = time.perf_counter()
+        tokens = torch.as_tensor(self.last_tokens, device=self.device)
+        positions = torch.as_tensor(self.positions, device=self.device)
+        logits, self.cache = self.model.decode_step(self.params, tokens,
+                                                    positions, self.cache)
+        greedy = self._sample(logits, 0.0)
+        self.stats["decode_s"] += time.perf_counter() - t0
+        self.stats["decode_steps"] += 1
+        for slot in live:
+            req = self.slots[slot]
+            tok = int(greedy[slot]) if req.temperature <= 0.0 else int(
+                self._sample(logits[slot:slot + 1], req.temperature)[0])
+            req.out_tokens.append(tok)
+            self.positions[slot] += 1
+            self.last_tokens[slot] = tok
+            hit_eos = self.eos_id is not None and tok == self.eos_id
+            full = len(req.out_tokens) >= req.max_new_tokens or \
+                self.positions[slot] + 1 >= self.max_len
+            if hit_eos or full:
+                req.done = True
+                self.finished.append(req)
+                self.slots[slot] = None
+        return len(live)
+
+    def run_to_completion(self, max_steps: int = 10_000) -> list[Request]:
+        for _ in range(max_steps):
+            if not self.pending and all(s is None for s in self.slots):
+                break
+            self.step()
+        return self.finished

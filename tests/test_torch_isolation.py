@@ -1,0 +1,61 @@
+"""The PyTorch port stands alone: it imports neither jax nor the reference
+package, and its own copies of configs and encoding equal the reference's."""
+import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+from repro.configs import get_config as jax_get_config
+from repro.configs import get_smoke_config as jax_get_smoke_config
+from repro.core.encoding import ElemWidth as JaxElemWidth
+from repro.core.encoding import encode_xmk as jax_encode_xmk
+from repro.core.isa import fx_encode as jax_fx_encode
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.core.encoding import ElemWidth, encode_xmk, fx_encode
+
+SRC = Path(__file__).resolve().parents[1] / "src"
+
+
+def test_port_imports_no_jax_and_no_reference():
+    mods = sorted(
+        ".".join(p.relative_to(SRC).with_suffix("").parts).replace(
+            ".__init__", "")
+        for p in (SRC / "repro_torch").rglob("*.py"))
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "print(len(sys.modules)); assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 25
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_configs_equal_reference(arch):
+    for mine, ref in ((get_config(arch), jax_get_config(arch)),
+                      (get_smoke_config(arch), jax_get_smoke_config(arch))):
+        assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+        assert mine.n_periods == ref.n_periods
+        assert str(mine.pdtype).split(".")[-1] == str(ref.pdtype)
+        assert mine.param_count() == ref.param_count()
+
+
+@pytest.mark.parametrize("func5", [0, 1, 2, 4, 5, 6, 30])
+@pytest.mark.parametrize("width", ["W", "H", "B"])
+def test_encode_xmk_words_match_reference(func5, width):
+    for alpha, beta in ((1.0, 1.0), (0.5, -1.5), (-127, 127), (1.0, 0.0)):
+        kw = dict(md=3, ms1=1, ms2=2, ms3=4, alpha=fx_encode(alpha),
+                  beta=fx_encode(beta))
+        assert fx_encode(alpha) == jax_fx_encode(alpha)
+        mine = encode_xmk(func5, ElemWidth[width], **kw)
+        ref = jax_encode_xmk(func5, JaxElemWidth[width], **kw)
+        assert mine.word == ref.word
+        assert mine.instr.mnemonic == ref.instr.mnemonic
+        assert (mine.operands.rs1, mine.operands.rs2, mine.operands.rs3) == \
+            (ref.operands.rs1, ref.operands.rs2, ref.operands.rs3)
