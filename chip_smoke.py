@@ -5,12 +5,17 @@
 
 Phases:
   1. device: needs ``torch.cuda.is_available()``; prints the card's name and
-     power limit (nvidia-smi) and builds the three CUDA kernels from
+     power limit (nvidia-smi) and builds the six CUDA kernels from
      ``src/repro_torch/csrc`` with nvcc (one process per source, in
      parallel).
-  2. kernels: each kernel against its plain PyTorch version on the card, in
-     bf16 and f32, at the full-width shapes of gemma2-9b (plus stablelm-3b
-     and qwen2.5-32b shapes). Per case: max |kernel - plain| beside its
+  2. kernels: the time of an empty kernel between the timer's events (the
+     floor of every time below), then each kernel against its plain
+     PyTorch version on the card:
+     gemm and the attention kernels in bf16 and f32 at the full-width
+     shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes);
+     conv_layer, maxpool and leakyrelu in int8, int16, int32, f32 and bf16
+     at the paper's Fig. 4 shapes (3x256x256, k 3/5/7), ragged edges, and a
+     first CNN layer's width (3x226x226, 64 filters). Per case: max |kernel - plain| beside its
      tolerance, the kernel's time (CUDA events, median, L2 flushed before
      each launch), the least time the card could take (bytes at 3.35 TB/s
      or operations at the dtype's peak, whichever is larger), the plain
@@ -24,7 +29,15 @@ Phases:
      step, 42 flash per prompt and 42 decode per step. Then one request's
      prefill logits and first decode-step logits through
      ArcaneEngine("cuda") are held against ArcaneEngine("ref") on the card.
-  4. result: a JSON line of the kernels, then the device line, last.
+  4. cnn: the paper's CNN layer through ``repro_torch.launch.cnn`` (3x256x256
+     int8 with k 3 and 7, int32 with k 3; 3x226x226 bf16 with 64 filters):
+     the fused leg (one conv_layer launch) against the unfused leg (plain
+     conv, F maxpool launches, one leakyrelu launch) and against the plain
+     conv_layer on the card, with each leg's time and their ratio. The
+     counts are zeroed before the phase and must come out exactly as
+     counted. Then torch.profiler over each leg of the Listing 1 run and of
+     the 64-filter run: the card's busy time per pass and its idle share.
+  5. result: a JSON line of the kernels, then the device line, last.
 
 Any failure exits non-zero before the last line. Details go to
 build/chip_smoke/chip_smoke.json, the nvcc report to
@@ -48,7 +61,9 @@ sys.path.insert(0, str(ROOT / "src"))
 HBM_BYTES_PER_S = 3.35e12            # H100 SXM data sheet
 PEAK = {"bfloat16": 989e12,          # dense tensor-core bf16
         "float32": 67e12,            # f32 outside the tensor cores (no TF32)
-        "int8": 1979e12}
+        "int8": 1979e12,             # dense tensor-core int8
+        "int16": 33.5e12,            # int32 CUDA cores: 64 lanes an SM beside
+        "int32": 33.5e12}            # 128 f32 lanes, half the f32 rate
 FLUSH_BYTES = 128 * 2**20            # > the 50 MB L2
 SPIN_CYCLES = 10_000_000             # about 5 ms at the H100's clock
 
@@ -255,6 +270,123 @@ def run_flash(torch, timer, gen, rows):
                              bound_by=by))
 
 
+# ---------------------------------------------------- phase 2: CNN kernels
+CNN_DTYPES = ("int8", "int16", "int32", "float32", "bfloat16")
+
+
+def cnn_tensor(torch, gen, shape, dt_name, lo=-8, hi=8):
+    dt = getattr(torch, dt_name)
+    if dt_name.startswith("int"):
+        return torch.randint(lo, hi, shape, generator=gen, device="cuda", dtype=dt)
+    return torch.randn(shape, generator=gen, device="cuda").to(dt)
+
+
+def exact_err(out, ref) -> float:
+    """max |out - ref| over the elements that are not NaN in both; inf where
+    NaN in one only."""
+    nan_o, nan_r = out.isnan(), ref.isnan()
+    if out.shape != ref.shape or out.dtype != ref.dtype or not bool((nan_o == nan_r).all()):
+        return math.inf
+    d = (out.double() - ref.double()).abs()[~nan_r]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def cnn_row(torch, timer, rows, kernel, case, dt_name, out, ref, atol, rtol,
+            fn, plain, lib, nbytes, ops):
+    err = exact_err(out, ref)
+    absmax = float(ref.double().nan_to_num(0.0).abs().max())
+    ms = timer.ms(fn)
+    plain_ms = timer.ms(plain, reps=5)
+    lib_ms = timer.ms(lib) if lib is not None else None
+    bms, by = bound_ms(nbytes, ops, dt_name)
+    rows.append(dict(kernel=kernel, case=case, dtype=dt_name, max_abs_err=err,
+                     ref_absmax=absmax, atol=atol, rtol=rtol,
+                     ok=check_close(err, absmax, atol, rtol), ms=ms,
+                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
+                     bound_by=by))
+
+
+def run_conv(torch, timer, gen, rows):
+    import torch.nn.functional as F
+    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
+    from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    from repro_torch.launch.cnn import FLOAT_TOL
+    cases = [((3, 256, 256), 1, k, dt, slope) for k in (3, 5, 7)
+             for dt in CNN_DTYPES for slope in (0.0, 0.125)]
+    cases += [((3, 255, 253), 2, 5, dt, 0.125) for dt in CNN_DTYPES]
+    cases += [((3, 226, 226), 64, 3, dt, 0.125) for dt in ("int8", "bfloat16")]
+    for (c, h, w), nf, k, dt, slope in cases:
+        x = cnn_tensor(torch, gen, (c, h, w), dt)
+        f = cnn_tensor(torch, gen, (nf, c, k, k), dt, -4, 4)
+        out = conv_layer_cuda(x, f, negative_slope=slope)
+        ref = conv_layer_ref(x, f, negative_slope=slope)
+        torch.cuda.synchronize()
+        atol, rtol = FLOAT_TOL.get(getattr(torch, dt), (0.0, 0.0))
+        lib = None
+        if not dt.startswith("int"):
+            def lib(x=x, f=f, slope=slope):
+                return F.leaky_relu(F.max_pool2d(F.conv2d(x[None], f), 2), slope)
+        isz = x.element_size()
+        cnn_row(torch, timer, rows, "conv_layer",
+                f"{c}x{h}x{w} k={k} F={nf} slope={slope}", dt, out, ref, atol,
+                rtol, lambda: conv_layer_cuda(x, f, negative_slope=slope),
+                lambda: conv_layer_ref(x, f, negative_slope=slope), lib,
+                (x.numel() + f.numel()) * isz + out.numel() * out.element_size(),
+                2.0 * nf * c * (h - k + 1) * (w - k + 1) * k * k)
+
+
+def run_maxpool(torch, timer, gen, rows):
+    import torch.nn.functional as F
+    from repro_torch.kernels.maxpool.kernel import maxpool_cuda
+    from repro_torch.kernels.maxpool.ref import maxpool_ref
+    cases = [((254, 254), 2, 2, dt) for dt in ("int8", "int32", "float32", "bfloat16")]
+    cases += [((255, 253), win, st, dt) for win, st in ((3, 2), (3, 3), (4, 1))
+              for dt in ("int8", "int32", "float32", "bfloat16")]
+    cases += [((254, 254), 2, 2, "float32 NaN")]
+    for (h, w), win, st, dt in cases:
+        name = dt.split()[0]
+        x = cnn_tensor(torch, gen, (h, w), name, -100, 100)
+        if dt.endswith("NaN"):
+            idx = torch.randint(0, h * w, (500,), generator=gen, device="cuda")
+            x.view(-1)[idx] = float("nan")
+        out = maxpool_cuda(x, win=win, stride=st)
+        ref = maxpool_ref(x, win=win, stride=st)
+        torch.cuda.synchronize()
+        lib = None
+        if not name.startswith("int"):
+            def lib(x=x, win=win, st=st):
+                return F.max_pool2d(x[None, None], win, st)
+        isz = x.element_size()
+        cnn_row(torch, timer, rows, "maxpool",
+                f"{h}x{w} win={win} stride={st}" + (" NaN" if dt.endswith("NaN") else ""),
+                name, out, ref, 0.0, 0.0,
+                lambda: maxpool_cuda(x, win=win, stride=st),
+                lambda: maxpool_ref(x, win=win, stride=st), lib,
+                (x.numel() + out.numel()) * isz, float(out.numel() * win * win))
+
+
+def run_leakyrelu(torch, timer, gen, rows):
+    import torch.nn.functional as F
+    from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
+    from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
+    for shape in ((1, 127, 127), (64, 112, 112)):
+        for dt in CNN_DTYPES:
+            for slope in (0.5, 0.01):
+                x = cnn_tensor(torch, gen, shape, dt, -100, 100)
+                out = leakyrelu_cuda(x, negative_slope=slope)
+                ref = leakyrelu_ref(x, negative_slope=slope)
+                torch.cuda.synchronize()
+                lib = None
+                if not dt.startswith("int"):
+                    def lib(x=x, slope=slope):
+                        return F.leaky_relu(x, slope)
+                cnn_row(torch, timer, rows, "leakyrelu",
+                        f"{shape} slope={slope}", dt, out, ref, 0.0, 0.0,
+                        lambda: leakyrelu_cuda(x, negative_slope=slope),
+                        lambda: leakyrelu_ref(x, negative_slope=slope), lib,
+                        2 * x.numel() * x.element_size(), float(x.numel()))
+
+
 # ---------------------------------------------------------------- phase 3
 def run_serve(torch, summary: dict) -> dict:
     from repro_torch.core.engine import ArcaneEngine
@@ -366,8 +498,21 @@ def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     sess.run_to_completion()
+    out = busy_share(prof, wall_ms, steps, "step")
+    print(f"profile: {json.dumps(out)}", flush=True)
+    return out
+
+
+def busy_share(prof, wall_ms: float, n: int, unit: str) -> dict:
+    """The card's busy time per unit of work from a profile, its idle share
+    of the host clock, and the kernels that take the most device time.
+    Only the device's own events count: an aten op's row repeats the time
+    of the kernels it launched."""
+    from torch.autograd import DeviceType
     dev = {}
     for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
@@ -375,11 +520,99 @@ def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
             dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
-    out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
-           "device_busy_ms_per_step": busy / steps,
-           "device_idle_share": (1 - busy / wall_ms) if busy else None,
-           "top_device_ms_per_step": [(k[:60], v / steps) for k, v in top]}
-    print(f"profile: {json.dumps(out)}", flush=True)
+    return {"steps" if unit == "step" else "passes": n,
+            f"wall_ms_per_{unit}": wall_ms / n,
+            f"device_busy_ms_per_{unit}": busy / n,
+            "device_idle_share": (1 - busy / wall_ms) if busy else None,
+            f"top_device_ms_per_{unit}": [(k[:60], v / n) for k, v in top]}
+
+
+# ---------------------------------------------------------------- phase 4
+CNN_RUNS = [
+    ["--size", "256", "--k", "3", "--dtype", "int8"],     # Listing 1, ReLU
+    ["--size", "256", "--k", "7", "--dtype", "int8", "--slope", "0.125"],
+    ["--size", "256", "--k", "3", "--dtype", "int32"],    # the 32-bit worst case
+    ["--size", "226", "--k", "3", "--filters", "64", "--dtype", "bfloat16",
+     "--slope", "0.125"],
+]
+
+
+def run_cnn(torch) -> dict:
+    """The CNN path through the launcher: per run, exactly 1 conv_layer, F
+    maxpool and 1 leakyrelu launch per pass of the two legs, fused ==
+    unfused, and fused == the plain conv_layer on the card."""
+    from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    from repro_torch.launch import cnn
+
+    for w in cnn.WRAPPERS:
+        w.launches = 0
+    expect_total = {w.__name__: 0 for w in cnn.WRAPPERS}
+    runs = []
+    for argv in CNN_RUNS:
+        args = cnn.parse_args(argv + ["--backend", "cuda", "--seed", "0"])
+        try:
+            out = cnn.run(args)
+        except AssertionError as e:
+            fail(str(e))
+        expect = {"conv_layer_cuda": 1, "maxpool_cuda": args.filters,
+                  "leakyrelu_cuda": 1}
+        for k, v in expect.items():
+            expect_total[k] += v * out["passes"]
+        ref = conv_layer_ref(out["x"], out["f"], negative_slope=args.slope)
+        fused = out["fused"]
+        shape = (args.filters, (args.size - args.k + 1) // 2,
+                 (args.size - args.k + 1) // 2)
+        rec = {"case": " ".join(argv), "shape": list(fused.shape),
+               "launches_per_pass": out["launches"], "passes": out["passes"],
+               "max_abs_diff_unfused": out["max_abs_diff"],
+               "max_abs_diff_plain": cnn.max_err(fused, ref),
+               "fused_ms": out["fused_ms"], "unfused_ms": out["unfused_ms"],
+               "unfused_over_fused": out["unfused_over_fused"]}
+        runs.append(rec)
+        print(f"cnn: {rec['case']}: fused {rec['fused_ms']:.4f} ms, unfused "
+              f"{rec['unfused_ms']:.4f} ms, unfused/fused "
+              f"{rec['unfused_over_fused']:.2f}; |fused-unfused| "
+              f"{rec['max_abs_diff_unfused']}, |fused-plain| "
+              f"{rec['max_abs_diff_plain']}; launches/pass {out['launches']}",
+              flush=True)
+        if out["launches"] != expect:
+            fail(f"cnn: {rec['case']}: launches {out['launches']}, expected {expect}")
+        if tuple(fused.shape) != shape or fused.dtype != out["x"].dtype \
+                or not bool(torch.isfinite(fused.float()).all()):
+            fail(f"cnn: {rec['case']}: output {tuple(fused.shape)} "
+                 f"{fused.dtype}, expected {shape}, finite")
+        if not cnn.agree(fused, ref):
+            fail(f"cnn: {rec['case']}: fused disagrees with the plain conv_layer")
+    counts = cnn.launches()
+    print(f"cnn: launches {counts} expected {expect_total}", flush=True)
+    if counts != expect_total or min(counts.values()) <= 0:
+        fail("cnn: the CNN path did not run through every kernel as counted")
+    profiles = {" ".join(CNN_RUNS[i]): profile_cnn(torch, CNN_RUNS[i]) for i in (0, 3)}
+    return {"runs": runs, "launches": counts, "profile": profiles}
+
+
+def profile_cnn(torch, argv, passes: int = 10) -> dict:
+    """torch.profiler over a few passes of each leg of one CNN run (after
+    the counted runs): the card's busy time per pass and its idle share."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.launch import cnn
+    args = cnn.parse_args(argv)
+    x, f = cnn.make_inputs(args, torch.device("cuda"))
+    engine = ArcaneEngine("cuda")
+    out = {}
+    for leg in (cnn.fused, cnn.unfused):
+        leg(engine, x, f, args.slope)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(passes):
+                leg(engine, x, f, args.slope)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        out[leg.__name__] = busy_share(prof, wall_ms, passes, "pass")
+        print(f"profile: cnn {' '.join(argv)} {leg.__name__}: "
+              f"{json.dumps(out[leg.__name__])}", flush=True)
     return out
 
 
@@ -390,16 +623,30 @@ SERVE_ATOL = 1.0
 SERVE_MEAN_ATOL = 0.1
 
 
+# name: (source, TPU kernel, wrapper, phase of its launches, representative
+# case, its dtype)
 KERNELS = {
     "gemm": ("src/repro_torch/csrc/gemm.cu",
-             "src/repro/kernels/gemm/kernel.py:97", "gemm_cuda",
-             "gemma2 gate_up M=4 K=3584 N=14336"),
+             "src/repro/kernels/gemm/kernel.py:97", "gemm_cuda", "serve",
+             "gemma2 gate_up M=4 K=3584 N=14336", "bfloat16"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:100",
-                         "decode_attention_cuda", "gemma2 B=4"),
+                         "decode_attention_cuda", "serve", "gemma2 B=4",
+                         "bfloat16"),
     "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                         "src/repro/kernels/flash_attention/kernel.py:131",
-                        "flash_attention_cuda", "gemma2 B=1 Hq=16 Hkv=8 D=256 Sq=512"),
+                        "flash_attention_cuda", "serve",
+                        "gemma2 B=1 Hq=16 Hkv=8 D=256 Sq=512", "bfloat16"),
+    "conv_layer": ("src/repro_torch/csrc/convlayer.cu",
+                   "src/repro/kernels/convlayer/kernel.py:99",
+                   "conv_layer_cuda", "cnn", "3x256x256 k=3 F=1 slope=0.0",
+                   "int8"),
+    "maxpool": ("src/repro_torch/csrc/maxpool.cu",
+                "src/repro/kernels/maxpool/kernel.py:54", "maxpool_cuda",
+                "cnn", "254x254 win=2 stride=2", "int8"),
+    "leakyrelu": ("src/repro_torch/csrc/leakyrelu.cu",
+                  "src/repro/kernels/leakyrelu/kernel.py:37",
+                  "leakyrelu_cuda", "cnn", "(1, 127, 127) slope=0.5", "int8"),
 }
 
 
@@ -438,8 +685,12 @@ def main() -> None:
     rows: list[dict] = []
     failures: list[str] = []
     timer = Timer(torch)
+    summary["launch_floor_ms"] = timer.ms(lambda: torch.cuda._sleep(0))
+    print(f"timer: an empty kernel takes {summary['launch_floor_ms']:.4f} ms "
+          f"between the events", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for run in (run_gemm, run_decode, run_flash):
+    for run in (run_gemm, run_decode, run_flash, run_conv, run_maxpool,
+                run_leakyrelu):
         run(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
@@ -447,7 +698,7 @@ def main() -> None:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{r['kernel']} [{r['dtype']}] {r['case']}: max_abs_err={r['max_abs_err']:.3e} "
               f"(atol={r['atol']} rtol={r['rtol']}) {'ok' if r['ok'] else 'FAIL'} "
-              f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.4f} ({r['bound_by']}) "
+              f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
     summary["cases"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
@@ -459,20 +710,24 @@ def main() -> None:
     summary["serve"] = run_serve(torch, summary)
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 4: the CNN layer path
+    summary["cnn"] = run_cnn(torch)
+    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+
     if failures:
         fail("; ".join(failures))
 
-    # ---- phase 4: result
+    # ---- phase 5: result
     kernels = []
-    for name, (src, replaces, wrapper, rep) in KERNELS.items():
+    for name, (src, replaces, wrapper, phase, rep, rep_dt) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
-        pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == "bfloat16"),
+        pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == rep_dt),
                     mine[0] if mine else None)
-        launches = summary.get("serve", {}).get("launches", {}).get(wrapper)
+        launches = summary[phase]["launches"][wrapper]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
-            "case": pick["case"] + " bf16" if pick else None,
+            "case": f"{pick['case']} {pick['dtype']}" if pick else None,
             **{k: (pick[k] if pick else None) for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         })

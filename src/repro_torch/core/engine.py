@@ -9,9 +9,11 @@ backend: "cuda" — the hand-written CUDA kernels (CUDA tensors only; a CPU
          "ref"  — plain PyTorch on any device, mirroring the reference
                   engine's ref path (gemm accumulates in f32 and casts
                   without rounding; attention is the blocked online-softmax
-                  oracle),
+                  oracle; leakyrelu of an integer tensor returns the
+                  unrounded f32 product, as the reference's does),
          "auto" — per call: the kernel for CUDA tensors, plain PyTorch for
-                  CPU tensors.
+                  CPU tensors (for leakyrelu the kernel's plain version,
+                  which rounds as the kernel does).
 
 Width suffixes are extended to float dtypes: .w ↦ f32/i32, .h ↦ bf16/i16,
 .b ↦ i8.
@@ -24,11 +26,18 @@ from typing import Optional
 import torch
 
 from repro_torch.core.encoding import ElemWidth, encode_xmk, fx_encode
+from repro_torch.kernels.common import is_integer
+from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
+from repro_torch.kernels.convlayer.ref import conv_layer_ref
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_chunked_ref
 from repro_torch.kernels.gemm.kernel import gemm_cuda
+from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
+from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
+from repro_torch.kernels.maxpool.kernel import maxpool_cuda
+from repro_torch.kernels.maxpool.ref import maxpool_ref
 
 
 def _width_of(dtype: torch.dtype) -> ElemWidth:
@@ -104,6 +113,38 @@ class ArcaneEngine:
                 out = out + beta * c2.float()
             out = out.to(out_dtype or x.dtype)
         return out.reshape(*lead, n)
+
+    def leakyrelu(self, x: torch.Tensor, *,
+                  negative_slope: float = 0.01) -> torch.Tensor:
+        """xmk1 on a contiguous tensor of any shape."""
+        self._log(1, x.dtype, (x.shape,), x.numel())
+        if self.backend != "ref":
+            fn = leakyrelu_cuda if self._kernel(x) else leakyrelu_ref
+            return fn(x, negative_slope=negative_slope)
+        # jnp.where(x >= 0, x, slope * x): the Python slope takes a float
+        # x's dtype and makes an integer x f32, unrounded
+        if is_integer(x.dtype):
+            neg = negative_slope * x.float()
+        else:
+            neg = x * torch.tensor(negative_slope, dtype=x.dtype)
+        return torch.where(x >= 0, x, neg)
+
+    def maxpool(self, x: torch.Tensor, *, win: int = 2,
+                stride: Optional[int] = None) -> torch.Tensor:
+        """xmk2 over one (H, W) map."""
+        self._log(2, x.dtype, (x.shape,), x.numel())
+        fn = maxpool_cuda if self._kernel(x) else maxpool_ref
+        return fn(x, win=win, stride=stride)
+
+    def conv_layer(self, x: torch.Tensor, f: torch.Tensor, *,
+                   negative_slope: float = 0.0) -> torch.Tensor:
+        """xmk4: x (C, H, W), f (F, C, KH, KW) → (F, H', W'), in x's dtype."""
+        cch, h, w = x.shape
+        nf, _, kh, kw = f.shape
+        self._log(4, x.dtype, (x.shape, f.shape),
+                  2 * nf * cch * (h - kh + 1) * (w - kw + 1) * kh * kw)
+        fn = conv_layer_cuda if self._kernel(x) else conv_layer_ref
+        return fn(x, f, negative_slope=negative_slope)
 
     def attention(self, q, k, v, *, causal=True, window=None, softcap=None,
                   scale=None, kv_len=None) -> torch.Tensor:

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled on its own by
 ``nvcc`` for ``sm_90a`` into ``build/repro_torch_kernels/lib<name>.so`` at the
 root of the checkout, the first time a kernel is asked for, then loaded with
-``ctypes``. A library is rebuilt when its source is newer. ``build_all``
+``ctypes``. A library is rebuilt when its source, or a shared header
+``csrc/*.cuh``, is newer. ``build_all``
 starts one ``nvcc`` per source, all at once. A failed build raises with the
 compiler's output.
 """
@@ -18,7 +19,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("gemm", "decode_attention", "flash_attention")
+SOURCES = ("gemm", "decode_attention", "flash_attention", "convlayer",
+           "maxpool", "leakyrelu")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -42,7 +44,8 @@ def _paths(name: str) -> tuple[Path, Path]:
 
 def _stale(name: str) -> bool:
     src, lib = _paths(name)
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+    newest = max(p.stat().st_mtime for p in (src, *CSRC.glob("*.cuh")))
+    return not lib.exists() or lib.stat().st_mtime < newest
 
 
 def _start(name: str) -> subprocess.Popen:

@@ -14,6 +14,10 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int32 if is_integer(dtype) else torch.float32
 
 
+# dtype codes of the CNN-path kernels (csrc/elem.cuh elem::Code)
+ELEM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
+              torch.int32: 3, torch.int16: 4}
+
 NEG_INF = float(-1e30)   # mask value that survives bf16 rounding
 
 

@@ -8,12 +8,18 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
+from repro_torch.kernels.convlayer.ref import conv_layer_ref
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gemm.kernel import gemm_cuda
 from repro_torch.kernels.gemm.ref import gemm_ref
+from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
+from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
+from repro_torch.kernels.maxpool.kernel import maxpool_cuda
+from repro_torch.kernels.maxpool.ref import maxpool_ref
 
 FLASH_VARIANTS = [
     dict(causal=True),
@@ -38,6 +44,16 @@ def test_kernel_wrappers_refuse_cpu_tensors():
         decode_attention_cuda(q, q, q, torch.ones((1,), dtype=torch.int32))
     with pytest.raises(ValueError):
         flash_attention_cuda(q, q, q)
+
+
+def test_cnn_kernel_wrappers_refuse_cpu_tensors():
+    x = torch.zeros((3, 8, 8))
+    with pytest.raises(ValueError):
+        conv_layer_cuda(x, torch.zeros((1, 3, 3, 3)))
+    with pytest.raises(ValueError):
+        maxpool_cuda(x[0])
+    with pytest.raises(ValueError):
+        leakyrelu_cuda(x)
 
 
 # --------------------------------------------------- the kernels on a card
@@ -76,3 +92,49 @@ def test_cuda_kernels_match_plain_versions(cuda_device, rng, dt):
             f32(decode_attention_cuda(qd, kd, vd, ln, window=window)),
             f32(decode_attention_ref(qd, kd, vd, ln, window=window)),
             atol=atol * 10, rtol=1e-2)
+
+
+CNN_DTYPES = {"int8": torch.int8, "int16": torch.int16, "int32": torch.int32,
+              "f32": torch.float32, "bf16": torch.bfloat16}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(CNN_DTYPES))
+def test_cnn_kernels_match_plain_versions(cuda_device, rng, dt):
+    """Exact for integers and for maxpool and leakyrelu; conv in f32 and
+    bf16 within the sum-order tolerance of launch/cnn.py FLOAT_TOL."""
+    tdt = CNN_DTYPES[dt]
+    integer = dt in ("int8", "int16", "int32")
+
+    def t(*shape, lo=-8, hi=8):
+        v = rng.integers(lo, hi, shape) if integer else rng.standard_normal(shape)
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device=cuda_device, dtype=tdt)
+
+    for (c, h, w), (nf, k) in [((3, 16, 16), (1, 3)), ((3, 33, 29), (2, 5)),
+                               ((3, 40, 37), (9, 7)), ((5, 20, 70), (3, 2))]:
+        x, f = t(c, h, w), t(nf, c, k, k, lo=-4, hi=4)
+        for slope in (0.0, 0.5):
+            out = conv_layer_cuda(x, f, negative_slope=slope)
+            ref = conv_layer_ref(x, f, negative_slope=slope)
+            if integer:
+                assert torch.equal(out, ref)
+            else:
+                atol, rtol = (1e-5, 2e-5) if dt == "f32" else (1e-5, 2.0**-7)
+                err = float((out.double() - ref.double()).abs().max())
+                assert err <= atol + rtol * float(ref.double().abs().max())
+    m = t(37, 53, lo=-100, hi=100)
+    if not integer:
+        m[3, 4] = float("nan")
+    for win, stride in [(2, 2), (3, 2), (3, 3), (4, 1)]:
+        assert torch.equal(maxpool_cuda(m, win=win, stride=stride).isnan(),
+                           maxpool_ref(m, win=win, stride=stride).isnan())
+        a = maxpool_cuda(m, win=win, stride=stride)
+        b = maxpool_ref(m, win=win, stride=stride)
+        assert torch.equal(a.nan_to_num(0.0), b.nan_to_num(0.0))
+    for shape in [(17, 300), (1, 1), (3, 127, 127), (1001,)]:
+        v = t(*shape, lo=-100, hi=100)
+        for slope in (0.5, 0.01):
+            assert torch.equal(leakyrelu_cuda(v, negative_slope=slope),
+                               leakyrelu_ref(v, negative_slope=slope))
+    assert torch.equal(leakyrelu_cuda(v[1:], negative_slope=0.5),
+                       leakyrelu_ref(v[1:], negative_slope=0.5))    # unaligned
