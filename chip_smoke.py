@@ -12,7 +12,14 @@ Phases:
      floor of every time below), then each kernel against its plain
      PyTorch version on the card:
      gemm and the attention kernels in bf16 and f32 at the full-width
-     shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes);
+     shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes), the
+     bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
+     also at a ragged S = 100; each row names the variant the wrapper picks
+     (gemm: gemv / wgmma / wmma / fma; flash: mma / simt), and a bf16 row
+     on a tensor-core variant also holds the earlier design (wmma, simt)
+     to the plain version on the same inputs, at the same tolerance, and
+     times it; gemma2's unembed (table.T) also at M = 512, where a
+     sequence's logits take wmma;
      conv_layer, maxpool and leakyrelu in int8, int16, int32, f32 and bf16
      at the paper's Fig. 4 shapes (3x256x256, k 3/5/7), ragged edges, and a
      first CNN layer's width (3x226x226, 64 filters). Per case: max |kernel - plain| beside its
@@ -26,9 +33,13 @@ Phases:
      launcher: 4 slots, max_len 1024, 6 requests of 16-512 prompt tokens and
      16 new tokens. The kernels' launch counts are zeroed just before and
      read just after, and must be exactly 295 gemm per prompt and per decode
-     step, 42 flash per prompt and 42 decode per step. Then one request's
+     step, 42 flash per prompt and 42 decode per step; by variant, exactly
+     294 wgmma per prompt, 1 gemv per prompt and 295 per decode step, 42
+     mma flash per prompt, and no wmma, fma or simt. Then one request's
      prefill logits and first decode-step logits through
-     ArcaneEngine("cuda") are held against ArcaneEngine("ref") on the card.
+     ArcaneEngine("cuda") are held against ArcaneEngine("ref") on the card,
+     and torch.profiler runs over one 512-token prefill and over a few
+     decode steps: device busy time, idle share, time by kernel.
   4. cnn: the paper's CNN layer through ``repro_torch.launch.cnn`` (3x256x256
      int8 with k 3 and 7, int32 with k 3; 3x226x226 bf16 with 64 filters):
      the fused leg (one conv_layer launch) against the unfused leg (plain
@@ -37,7 +48,8 @@ Phases:
      counts are zeroed before the phase and must come out exactly as
      counted. Then torch.profiler over each leg of the Listing 1 run and of
      the 64-filter run: the card's busy time per pass and its idle share.
-  5. result: a JSON line of the kernels, then the device line, last.
+  5. result: a JSON line of the kernels (with each one's launches per
+     variant), then the device line, last.
 
 Any failure exits non-zero before the last line. Details go to
 build/chip_smoke/chip_smoke.json, the nvcc report to
@@ -120,6 +132,12 @@ def gemm_cases(torch):
         for m in (4, 512):
             cases.append(("stablelm up", dt, m, 2560, 6912, "w"))
             cases.append(("qwen2.5 k+bias", dt, m, 5120, 1024, "bias"))
+    # LM.forward's unembed of a whole sequence: table.T at M > 8 takes wmma
+    cases.append(("gemma2 unembed", torch.bfloat16, 512, 3584, 256000, "t"))
+    for m in (16, 100, 513):      # ragged prompt lengths: TMA zero-fills the edges
+        for name, k, n in g2:
+            if name in ("q", "gate_up"):
+                cases.append((f"gemma2 {name}", torch.bfloat16, m, k, n, "w"))
     for m in (4, 512):
         cases.append(("int8", torch.int8, m, 1024, 1024, "w"))
     return cases
@@ -130,7 +148,7 @@ def check_close(err: float, ref_absmax: float, atol: float, rtol: float) -> bool
 
 
 def run_gemm(torch, timer, gen, rows):
-    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    from repro_torch.kernels.gemm.kernel import _gemm, gemm_cuda, gemm_variant
     from repro_torch.kernels.gemm.ref import gemm_ref
     for name, dt, m, k, n, kind in gemm_cases(torch):
         if dt == torch.int8:
@@ -149,8 +167,15 @@ def run_gemm(torch, timer, gen, rows):
         kw = dict(alpha=1.0, beta=1.0 if c is not None else 0.0, out_dtype=out_dtype)
         out = gemm_cuda(a, b, c, **kw)
         ref = gemm_ref(a, b, c, **kw)
+        variant = gemm_variant(a, b)
+        # where wgmma runs, the earlier WMMA kernel is held on the same inputs
+        earlier = _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, "wmma") \
+            if variant == "wgmma" else None
         torch.cuda.synchronize()
         err = float((out.double() - ref.double()).abs().max())
+        earlier_err = None if earlier is None else \
+            float((earlier.double() - ref.double()).abs().max())
+        del earlier
         absmax = float(ref.double().abs().max())
         if dt == torch.int8:
             atol, rtol = 0.0, 0.0
@@ -158,8 +183,11 @@ def run_gemm(torch, timer, gen, rows):
             atol, rtol = 1e-3, 1.6e-2      # two bf16 ulps of the result
         else:
             atol, rtol = 2e-3, 1e-5        # f32 sums of K terms in another order
-        ok = check_close(err, absmax, atol, rtol)
+        ok = check_close(err, absmax, atol, rtol) and (
+            earlier_err is None or check_close(earlier_err, absmax, atol, rtol))
         ms = timer.ms(lambda: gemm_cuda(a, b, c, **kw))
+        wmma = None if earlier_err is None else timer.ms(
+            lambda: _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, "wmma"))
         plain = timer.ms(lambda: gemm_ref(a, b, c, **kw), reps=5)
         lib = None
         if dt != torch.int8:
@@ -172,8 +200,10 @@ def run_gemm(torch, timer, gen, rows):
             + (n * c.element_size() if c is not None else 0)
         bms, by = bound_ms(nbytes, 2.0 * m * k * n, str(dt).split(".")[-1])
         rows.append(dict(kernel="gemm", case=f"{name} M={m} K={k} N={n}",
-                         dtype=str(dt).split(".")[-1], max_abs_err=err,
-                         ref_absmax=absmax, atol=atol, rtol=rtol, ok=ok, ms=ms,
+                         dtype=str(dt).split(".")[-1], variant=variant,
+                         max_abs_err=err, ref_absmax=absmax, atol=atol,
+                         rtol=rtol, ok=ok, ms=ms, earlier_ms=wmma,
+                         earlier_max_abs_err=earlier_err,
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
                          bound_by=by))
 
@@ -227,12 +257,16 @@ def run_decode(torch, timer, gen, rows):
 
 
 def run_flash(torch, timer, gen, rows):
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import (_flash,
+                                                            flash_attention_cuda,
+                                                            flash_variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     cases = [("gemma2", 1, 16, 8, 256, 512, 512, True, None, 50.0),
              ("gemma2", 1, 16, 8, 256, 4608, 4608, True, 4096, 50.0),
              ("stablelm", 1, 32, 32, 80, 512, 512, True, None, None),
-             ("gemma2 Sq!=Skv", 1, 16, 8, 256, 256, 512, True, None, None)]
+             ("gemma2 Sq!=Skv", 1, 16, 8, 256, 256, 512, True, None, None),
+             ("qwen2.5", 1, 40, 8, 128, 512, 512, True, None, None),
+             ("stablelm", 1, 32, 32, 80, 100, 100, True, None, None)]
     for dt in (torch.bfloat16, torch.float32):
         for name, b, hq, hkv, d, sq, skv, causal, win, cap in cases:
             # transposed head views, as the model hands them over
@@ -242,10 +276,23 @@ def run_flash(torch, timer, gen, rows):
             kw = dict(causal=causal, window=win, softcap=cap)
             out = flash_attention_cuda(q, k, v, **kw)
             ref = attention_ref(q, k, v, **kw)
+            variant = flash_variant(q, k, v)
+            # where mma runs, the earlier CUDA-core kernel is held on the
+            # same inputs
+            earlier = _flash(q, k, v, causal, win, cap, None, None, "simt") \
+                if variant == "mma" else None
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
+            earlier_err = None if earlier is None else \
+                float((earlier.float() - ref.float()).abs().max())
+            del earlier
+            # bf16: output rounding, plus on mma the rounding of P to bf16
+            # before P V, at most 2^-9 max|v| (about 0.009 at these |v|)
             atol = 2e-2 if dt == torch.bfloat16 else 2e-4
+            ok = err <= atol and (earlier_err is None or earlier_err <= atol)
             ms = timer.ms(lambda: flash_attention_cuda(q, k, v, **kw))
+            simt = None if earlier_err is None else timer.ms(
+                lambda: _flash(q, k, v, causal, win, cap, None, None, "simt"))
             plain = timer.ms(lambda: attention_ref(q, k, v, **kw), reps=3, warmup=1)
             lib = None
             if cap is None and win is None:
@@ -264,10 +311,11 @@ def run_flash(torch, timer, gen, rows):
             rows.append(dict(kernel="flash_attention",
                              case=f"{name} B={b} Hq={hq} Hkv={hkv} D={d} Sq={sq} "
                                   f"Skv={skv} causal={causal} window={win} softcap={cap}",
-                             dtype=str(dt).split(".")[-1], max_abs_err=err,
-                             atol=atol, rtol=0.0, ok=err <= atol, ms=ms,
-                             plain_ms=plain, library_ms=lib, bound_ms=bms,
-                             bound_by=by))
+                             dtype=str(dt).split(".")[-1], variant=variant,
+                             max_abs_err=err, atol=atol, rtol=0.0, ok=ok,
+                             ms=ms, earlier_ms=simt, earlier_max_abs_err=earlier_err,
+                             plain_ms=plain,
+                             library_ms=lib, bound_ms=bms, bound_by=by))
 
 
 # ---------------------------------------------------- phase 2: CNN kernels
@@ -411,8 +459,11 @@ def run_serve(torch, summary: dict) -> dict:
     wrappers = (gemm_cuda, flash_attention_cuda, decode_attention_cuda)
     for w in wrappers:
         w.launches = 0
+    for w in (gemm_cuda, flash_attention_cuda):
+        w.variants = dict.fromkeys(w.variants, 0)
     out = launcher.serve(model, params, args)
     counts = {w.__name__: w.launches for w in wrappers}
+    variants = {w.__name__: dict(w.variants) for w in (gemm_cuda, flash_attention_cuda)}
 
     sess = out["session"]
     st = sess.stats
@@ -432,6 +483,14 @@ def run_serve(torch, summary: dict) -> dict:
           f"(prompts={n_prompts} decode_steps={n_steps})", flush=True)
     if counts != expect or min(counts.values()) <= 0:
         fail("serve: the main path did not run through every kernel as counted")
+    # every prefill projection on wgmma, every prefill attention on mma
+    proj = (per - 1) * n_prompts
+    expect_var = {"gemm_cuda": {"gemv": n_prompts + per * n_steps, "wgmma": proj,
+                                "wmma": 0, "fma": 0},
+                  "flash_attention_cuda": {"simt": 0, "mma": cfg.n_layers * n_prompts}}
+    print(f"serve: variants {variants} expected {expect_var}", flush=True)
+    if variants != expect_var:
+        fail("serve: the main path did not run through the tensor-core variants as counted")
     metrics = {
         "requests": len(done), "tokens": out["tokens"], "seconds": out["seconds"],
         "tokens_per_s": out["tokens"] / out["seconds"],
@@ -439,11 +498,12 @@ def run_serve(torch, summary: dict) -> dict:
         "decode_step_ms": st["decode_s"] / n_steps * 1e3,
         "prefill_tokens": st["prefill_tokens"],
         "prefill_ms_per_token": st["prefill_s"] / st["prefill_tokens"] * 1e3,
-        "max_memory_allocated": peak, "launches": counts,
+        "max_memory_allocated": peak, "launches": counts, "variants": variants,
         "prompt_lens": [len(r.prompt) for r in sorted(done, key=lambda r: r.uid)],
     }
     print("serve: " + " ".join(f"{k}={v}" for k, v in metrics.items()
-                               if k not in ("launches", "prompt_lens")), flush=True)
+                               if k not in ("launches", "variants", "prompt_lens")),
+          flush=True)
 
     # one request through ArcaneEngine("cuda") and ("ref") on the same weights
     req = min(done, key=lambda r: r.uid)
@@ -476,8 +536,40 @@ def run_serve(torch, summary: dict) -> dict:
         if c["max_abs"] > SERVE_ATOL or c["mean_abs"] > SERVE_MEAN_ATOL:
             fail(f"serve: {what} logits of the two engines disagree: {c}")
     metrics["greedy_agreement"] = {k: v["argmax_equal"] for k, v in cmp.items()}
+    metrics["prefill_profile"] = profile_prefill(torch, model, params)
     metrics["decode_profile"] = profile_decode(torch, sess, args.max_len)
     return metrics
+
+
+def profile_prefill(torch, model, params, prompt_len: int = 512) -> dict:
+    """torch.profiler over one prefill of a 512-token prompt at batch 1, as
+    the session admits a request: the card's busy time, its idle share of
+    the host clock, and device time by kernel: the wgmma GEMM, the mma flash
+    attention, and the rest."""
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(2)
+    tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, prompt_len)),
+                             device=model.device)
+    cache = model.init_cache(1, prompt_len + 8)
+    model.prefill(params, {"tokens": tokens}, cache)          # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    del cache
+    dev = device_ms(prof)
+    out = busy_share(prof, wall_ms, 1, "prefill")
+    groups = {"gemm_wgmma": 0.0, "flash_mma": 0.0, "rest": 0.0}
+    for name, ms in dev.items():
+        key = "gemm_wgmma" if "gemm_wgmma_kernel" in name else \
+            "flash_mma" if "flash_mma_kernel" in name else "rest"
+        groups[key] += ms
+    out.update(prompt_len=prompt_len, wall_ms_per_token=wall_ms / prompt_len,
+               device_ms_by_kernel=groups)
+    print(f"profile: prefill {json.dumps(out)}", flush=True)
+    return out
 
 
 def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
@@ -503,11 +595,9 @@ def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
     return out
 
 
-def busy_share(prof, wall_ms: float, n: int, unit: str) -> dict:
-    """The card's busy time per unit of work from a profile, its idle share
-    of the host clock, and the kernels that take the most device time.
-    Only the device's own events count: an aten op's row repeats the time
-    of the kernels it launched."""
+def device_ms(prof) -> dict:
+    """Device time (ms) by kernel name, from the device's own events only:
+    an aten op's row repeats the time of the kernels it launched."""
     from torch.autograd import DeviceType
     dev = {}
     for evt in prof.key_averages():
@@ -518,6 +608,13 @@ def busy_share(prof, wall_ms: float, n: int, unit: str) -> dict:
             us = getattr(evt, "self_cuda_time_total", 0)
         if us > 0:
             dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
+    return dev
+
+
+def busy_share(prof, wall_ms: float, n: int, unit: str) -> dict:
+    """The card's busy time per unit of work from a profile, its idle share
+    of the host clock, and the kernels that take the most device time."""
+    dev = device_ms(prof)
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"steps" if unit == "step" else "passes": n,
@@ -628,7 +725,7 @@ SERVE_MEAN_ATOL = 0.1
 KERNELS = {
     "gemm": ("src/repro_torch/csrc/gemm.cu",
              "src/repro/kernels/gemm/kernel.py:97", "gemm_cuda", "serve",
-             "gemma2 gate_up M=4 K=3584 N=14336", "bfloat16"),
+             "gemma2 gate_up M=512 K=3584 N=14336", "bfloat16"),
     "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                          "src/repro/kernels/decode_attention/kernel.py:100",
                          "decode_attention_cuda", "serve", "gemma2 B=4",
@@ -696,9 +793,12 @@ def main() -> None:
     torch.cuda.empty_cache()
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"{r['kernel']} [{r['dtype']}] {r['case']}: max_abs_err={r['max_abs_err']:.3e} "
+        var = f" variant={r['variant']}" if "variant" in r else ""
+        earlier = "" if r.get("earlier_ms") is None else \
+            f" earlier_ms={r['earlier_ms']:.4f} earlier_max_abs_err={r['earlier_max_abs_err']:.3e}"
+        print(f"{r['kernel']} [{r['dtype']}] {r['case']}:{var} max_abs_err={r['max_abs_err']:.3e} "
               f"(atol={r['atol']} rtol={r['rtol']}) {'ok' if r['ok'] else 'FAIL'} "
-              f"ms={r['ms']:.4f} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"ms={r['ms']:.4f}{earlier} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
     summary["cases"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
@@ -727,6 +827,7 @@ def main() -> None:
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches,
+            "variants": summary[phase].get("variants", {}).get(wrapper),
             "case": f"{pick['case']} {pick['dtype']}" if pick else None,
             **{k: (pick[k] if pick else None) for k in
                ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},

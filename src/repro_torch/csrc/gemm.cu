@@ -14,13 +14,19 @@
 //    matrix), gemv_t when its K stride is 1 (the unembed's transposed
 //    table view, read in place: no copy of the 1.8 GB table). Ragged M, N
 //    and K are masked in the kernel, so no weight is ever padded or copied.
-//  * Prefill (M = prompt length) is bound by operations. bf16 goes through
-//    tensor cores with WMMA 16x16x16 tiles (64x128 block tile, 8 warps);
-//    f32 and int8 go through a register-blocked CUDA-core kernel. Both
-//    are simple: no cp.async pipeline, no wgmma/TMA yet.
+//  * Prefill (M = prompt length) is bound by operations. bf16 with A
+//    K-contiguous and B N-contiguous goes through Hopper's tensor cores:
+//    TMA loads into a 4-stage ring under mbarriers, one producer warp, two
+//    consumer warpgroups on wgmma (128x128 block tile). Other bf16 layouts
+//    (a transposed table view, unaligned rows) go through WMMA 16x16x16
+//    tiles; f32 and int8 through a register-blocked CUDA-core kernel.
+//  * The variant (gemv, wgmma, wmma, fma) is picked by the caller from the
+//    operands (gemm_variant in kernel.py) and checked again here; a variant
+//    that cannot take the operands is refused, never replaced.
 //  * C is read through its own strides, so a broadcast bias (M stride 0)
 //    is never materialised.
 // Every launch returns cudaGetLastError() to the caller.
+#include <cuda.h>            // CUtensorMap and its enums (types only)
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <mma.h>
@@ -79,8 +85,18 @@ struct Epi {
   int has_c;
 };
 
-// The reference epilogue, element by element (separate mul and add, as the
-// reference does them; no fused multiply-add).
+// alpha * acc + beta * C, rounded half to even for an integer output
+// (separate mul and add, as the reference does them; no fused multiply-add).
+__device__ __forceinline__ float epi_scaled(const Epi& e, int m, int n, float v) {
+  if (e.alpha != 1.0f) v = __fmul_rn(e.alpha, v);
+  if (e.has_c)
+    v = __fadd_rn(v, __fmul_rn(e.beta, load_any(e.c, e.c_code,
+                                                (ll)m * e.scm + (ll)n * e.scn)));
+  if (e.out_code == I8 || e.out_code == I32) v = rintf(v);
+  return v;
+}
+
+// The reference epilogue, element by element.
 template <typename AccT>
 __device__ __forceinline__ void epilogue(const Epi& e, int m, int n, AccT acc) {
   const ll di = (ll)m * e.N + n;
@@ -89,13 +105,24 @@ __device__ __forceinline__ void epilogue(const Epi& e, int m, int n, AccT acc) {
     else store_float(e.d, e.out_code, di, acc);
     return;
   }
-  float v = (float)acc;
-  if (e.alpha != 1.0f) v = __fmul_rn(e.alpha, v);
-  if (e.has_c)
-    v = __fadd_rn(v, __fmul_rn(e.beta, load_any(e.c, e.c_code,
-                                                (ll)m * e.scm + (ll)n * e.scn)));
-  if (e.out_code == I8 || e.out_code == I32) v = rintf(v);
-  store_float(e.d, e.out_code, di, v);
+  store_float(e.d, e.out_code, di, epi_scaled(e, m, n, (float)acc));
+}
+
+// The same for columns n and n + 1 (n even): one 4-byte store for a bf16
+// output with N even, else element by element with the N edge masked.
+__device__ __forceinline__ void epilogue_pair(const Epi& e, int m, int n,
+                                              float v0, float v1) {
+  if (e.out_code == BF16 && (e.N & 1) == 0 && n + 1 < e.N) {
+    if (e.alpha != 1.0f || e.has_c) {
+      v0 = epi_scaled(e, m, n, v0);
+      v1 = epi_scaled(e, m, n + 1, v1);
+    }
+    *reinterpret_cast<__nv_bfloat162*>((bf16*)e.d + (ll)m * e.N + n) =
+        __floats2bfloat162_rn(v0, v1);
+    return;
+  }
+  if (n < e.N) epilogue(e, m, n, v0);
+  if (n + 1 < e.N) epilogue(e, m, n + 1, v1);
 }
 
 // V elements of T from global memory, as one 16- or 8-byte load when V > 1.
@@ -411,6 +438,312 @@ gemm_wmma_bf16_kernel(const bf16* __restrict__ a, ll sam, ll sak,
     }
 }
 
+// ------------------------------------------------------ bf16 wgmma + TMA
+// bf16 at M > 8 with A K-contiguous and B N-contiguous (rows and bases
+// 16-byte aligned): a 128x128 block tile (128x64 where 128x128 tiles
+// would fill at most half the SMs: gemma2 kv at M=512 is 64 such tiles, q
+// at M <= 128 is 32), K steps of 64, a ring of STAGES
+// stages in shared memory loaded by TMA with 128-byte swizzle under
+// mbarriers. One producer warp keeps the loads in flight; two consumer
+// warpgroups each run wgmma m64n128k16 (bf16 -> f32) on 64 rows of the
+// tile, keeping one group of products in flight while the next stage is
+// waited for. A is K-major for wgmma; B (K, N) is MN-major, read through
+// the descriptor's transpose bit. TMA zero-fills past the ragged M, N and
+// K edges and the epilogue masks its stores, so no operand is padded or
+// copied.
+namespace wg {
+
+constexpr int BM = 128, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2;                      // warpgroups of 64 rows
+constexpr int THREADS = CONSUMERS * 128 + 32;     // + the producer warp
+constexpr int A_BYTES = BM * BK * 2;              // 16 KB: 128 rows of 128 B
+constexpr int B_ATOM = BK * 64 * 2;               // 8 KB: 64 rows of 64 columns
+// Per block tile width BN (128, or 64 where 128-wide tiles leave SMs idle):
+template <int BN> __host__ __device__ constexpr int stage_bytes() { return A_BYTES + BK * BN * 2; }
+template <int BN> __host__ __device__ constexpr int smem_bytes() {
+  return STAGES * stage_bytes<BN>() + 2 * STAGES * 8 + 1024;   // + barriers, alignment
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+// Until the phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n .reg .pred p;\n"
+        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        " selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  } while (!done);
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// Shared-memory matrix descriptor, 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw128(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
+}
+// Keeps the compiler from moving accumulator accesses across a wait.
+template <int R>
+__device__ __forceinline__ void fence_acc(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
+// d (64x128 f32, per warpgroup) += A (64x16, K-major) * B (16x128, MN-major)
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
+      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+// d (64x64 f32, per warpgroup) += A (64x16, K-major) * B (16x64, MN-major)
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(1));
+}
+
+template <int BN>
+__device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
+  if constexpr (BN == 128) wgmma_m64n128k16(d, da, db);
+  else wgmma_m64n64k16(d, da, db);
+}
+
+template <int BN>
+__global__ void __launch_bounds__(THREADS, 1)
+gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
+                  const __grid_constant__ CUtensorMap tb, int M, int N, int K,
+                  Epi e) {
+  constexpr int STAGE_BYTES = stage_bytes<BN>();
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;  // swizzle atoms
+  const uint32_t bars = base + STAGES * STAGE_BYTES;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (STAGES + s); };
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = (K + BK - 1) / BK;
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), CONSUMERS * 4);        // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == CONSUMERS * 4) {                    // producer
+    if (lane == 0) {
+      for (int kt = 0; kt < KT; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(empty(s), ((kt / STAGES) & 1) ^ 1);
+        const uint32_t a_dst = base + s * STAGE_BYTES, b_dst = a_dst + A_BYTES;
+        mbar_expect_tx(full(s), STAGE_BYTES);
+        tma_load_2d(a_dst, &ta, full(s), kt * BK, m0);
+#pragma unroll
+        for (int c = 0; c < BN / 64; ++c)
+          tma_load_2d(b_dst + c * B_ATOM, &tb, full(s), n0 + 64 * c, kt * BK);
+      }
+    }
+    return;
+  }
+
+  const int wgi = warp / 4;                       // consumer warpgroup
+  float acc[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) acc[i] = 0.0f;
+  for (int kt = 0; kt < KT; ++kt) {
+    const int s = kt % STAGES;
+    mbar_wait(full(s), (kt / STAGES) & 1);
+    // A: this warpgroup's 64 rows of 128 B; 8-row atoms 1024 B apart, k16
+    // steps 32 B into the swizzled row. B: 8-row (K) atoms 1024 B apart,
+    // 64-column blocks 8 KB apart, k16 steps 2 KB.
+    const uint32_t a_s = base + s * STAGE_BYTES + wgi * (64 * 128);
+    const uint32_t b_s = base + s * STAGE_BYTES + A_BYTES;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      wgmma_tile<BN>(acc, desc_sw128(a_s + kk * 32, 16, 1024),
+                     desc_sw128(b_s + kk * 2048, B_ATOM, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();                              // stage kt-1 is read
+    if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % STAGES));
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+
+  // accumulator layout: warp w of the group holds rows 16w .. 16w+15; for
+  // each 8-column tile j, acc[4j], acc[4j+1] at (row lane/4, cols
+  // 8j + 2(lane%4) + 0, 1) and acc[4j+2], acc[4j+3] 8 rows below.
+  const int row0 = m0 + wgi * 64 + (warp % 4) * 16 + lane / 4;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int n = n0 + 8 * j + 2 * (lane % 4);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int m = row0 + 8 * i;
+      if (m < M) epilogue_pair(e, m, n, acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled (a libcuda entry point), fetched through the
+// runtime so the library needs no -lcuda.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                              cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 2-D bf16 tensor map: `outer` rows of `inner` elements, rows `row_bytes`
+// apart, boxes of box_inner x box_outer, 128-byte swizzle, zero fill.
+bool make_map(CUtensorMap* map, const void* ptr, ll inner, ll outer,
+              ll row_bytes, uint32_t box_inner, uint32_t box_outer) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {(cuuint64_t)inner, (cuuint64_t)outer};
+  const cuuint64_t strides[1] = {(cuuint64_t)row_bytes};
+  const cuuint32_t box[2] = {box_inner, box_outer};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// Per device, once: its SM count, and the dynamic shared memory each
+// instantiation needs (a function attribute). A call then only encodes
+// its two tensor maps.
+constexpr int MAX_DEVICES = 64;
+
+int device_sms(int* sms) {
+  static int cached[MAX_DEVICES] = {};    // 0: not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gemm_wgmma_kernel<128>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_bytes<128>());
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(gemm_wgmma_kernel<64>,
+                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 smem_bytes<64>());
+    if (err != cudaSuccess) return (int)err;
+    cached[dev] = n;
+  }
+  *sms = cached[dev];
+  return 0;
+}
+
+template <int BN>
+void launch_bn(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
+               int K, const Epi& e, cudaStream_t s) {
+  // M tiles vary fastest: the blocks that share a strip of B run together
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  gemm_wgmma_kernel<BN><<<grid, THREADS, smem_bytes<BN>(), s>>>(ta, tb, M, N, K, e);
+}
+
+int launch(const bf16* a, ll sam, const bf16* b, ll sbk, int M, int N, int K,
+           const Epi& e, cudaStream_t s) {
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, a, K, M, sam * 2, BK, BM) ||
+      !make_map(&tb, b, N, K, sbk * 2, 64, BK))
+    return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err) return err;
+  // 64-wide tiles (twice the blocks) only where 128-wide ones would fill at
+  // most half the SMs; with more tiles than that, the narrower tile's
+  // extra reads of A cost more than the idle SMs (on the H100, gemma2 down
+  // at M=512, 112 tiles, took half as long again at 64 wide)
+  const ll tiles = (ll)((M + BM - 1) / BM) * ((N + 127) / 128);
+  if (2 * tiles > sms) launch_bn<128>(ta, tb, M, N, K, e, s);
+  else launch_bn<64>(ta, tb, M, N, K, e, s);
+  return 0;
+}
+
+}  // namespace wg
+
 inline bool aligned(const void* p, ll bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
@@ -466,33 +799,57 @@ void launch_wmma(const bf16* a, ll sam, ll sak, const bf16* b, ll sbk, ll sbn,
     gemm_wmma_bf16_kernel<false, false><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbk, sbn, M, N, K, e);
 }
 
+enum Variant { GEMV = 0, WGMMA = 1, WMMA = 2, FMA = 3 };
+
+// What the wgmma variant takes (gemm_variant in kernel.py mirrors it).
+bool wgmma_ok(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
+              int M, int N, int K) {
+  return M > 8 && sak == 1 && sbn == 1 && sam % 8 == 0 && sbk % 8 == 0 &&
+         sam >= K && sbk >= N && aligned(a, 16) && aligned(b, 16);
+}
+
 }  // namespace
 
-// Type codes: 0 f32, 1 bf16, 2 int8, 3 int32. c may be null (no epilogue
-// term). d is (M, N) contiguous. Returns cudaGetLastError() after launch.
+// Type codes: 0 f32, 1 bf16, 2 int8, 3 int32. Variant: 0 gemv (M <= 8), 1
+// wgmma, 2 wmma (bf16, M > 8), 3 fma (f32 or int8, M > 8); a variant that
+// cannot take the operands returns cudaErrorInvalidValue. c may be null
+// (no epilogue term). d is (M, N) contiguous. Returns cudaGetLastError()
+// after the launch.
 extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
                            ll sbk, ll sbn, const void* c, ll scm, ll scn,
                            int c_code, void* d, int out_code, int M, int N,
                            int K, int in_code, float alpha, float beta,
-                           void* stream) {
+                           int variant, void* stream) {
   const Epi e{c, scm, scn, c_code, d, out_code, N, alpha, beta, c != nullptr};
   cudaStream_t s = (cudaStream_t)stream;
+  if (in_code != F32 && in_code != BF16 && in_code != I8) return (int)cudaErrorInvalidValue;
+  bool ok;
+  switch (variant) {
+    case GEMV: ok = M <= 8; break;
+    case WGMMA: ok = in_code == BF16 && wgmma_ok(a, sam, sak, b, sbk, sbn, M, N, K); break;
+    case WMMA: ok = in_code == BF16 && M > 8; break;
+    case FMA: ok = in_code != BF16 && M > 8; break;
+    default: ok = false;
+  }
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (M <= 0 || N <= 0) return (int)cudaGetLastError();
-  switch (in_code) {
-    case F32:
-      if (M <= 8) launch_small_m((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);
-      else launch_fma((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);
+  int err = 0;
+  switch (variant) {
+    case GEMV:
+      if (in_code == F32) launch_small_m((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);
+      else if (in_code == BF16) launch_small_m((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
+      else launch_small_m((const int8_t*)a, sam, sak, (const int8_t*)b, sbk, sbn, M, N, K, e, s);
       break;
-    case BF16:
-      if (M <= 8) launch_small_m((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
-      else launch_wmma((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
+    case WGMMA:
+      err = wg::launch((const bf16*)a, sam, (const bf16*)b, sbk, M, N, K, e, s);
       break;
-    case I8:
-      if (M <= 8) launch_small_m((const int8_t*)a, sam, sak, (const int8_t*)b, sbk, sbn, M, N, K, e, s);
-      else launch_fma((const int8_t*)a, sam, sak, (const int8_t*)b, sbk, sbn, M, N, K, e, s);
+    case WMMA:
+      launch_wmma((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      if (in_code == F32) launch_fma((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);
+      else launch_fma((const int8_t*)a, sam, sak, (const int8_t*)b, sbk, sbn, M, N, K, e, s);
   }
+  if (err) return err;
   return (int)cudaGetLastError();
 }

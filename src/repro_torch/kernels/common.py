@@ -37,3 +37,13 @@ def check_dtype(what: str, t: torch.Tensor, allowed) -> None:
 
 def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def strides_of(t: torch.Tensor) -> tuple:
+    """t.stride() with the stride of every size-1 dimension set to 0: it is
+    never stepped, and PyTorch leaves it arbitrary."""
+    return tuple(0 if n == 1 else s for s, n in zip(t.stride(), t.shape))
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0

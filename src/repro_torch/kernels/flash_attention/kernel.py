@@ -3,8 +3,10 @@
 
 Replaces ``repro/kernels/flash_attention/kernel.py: flash_attention_pallas``.
 q, k and v are read through their strides, so the transposed head views of
-the model need no copy. ``flash_attention_cuda.launches`` counts the
-kernel's launches.
+the model need no copy. Two variants: ``mma`` (bf16 on tensor cores) where
+``flash_variant`` finds the operands allow it, else ``simt`` (CUDA cores in
+f32). ``flash_attention_cuda.launches`` counts the kernel's launches and
+``flash_attention_cuda.variants`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -14,9 +16,11 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda, check_dtype, stream_ptr
+from repro_torch.kernels.common import (aligned16, check_cuda, check_dtype,
+                                        stream_ptr, strides_of)
 
 CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"simt": 0, "mma": 1}
 
 _FN = None
 
@@ -27,10 +31,25 @@ def _fn():
         fn = _build.load("flash_attention").flash_attention_launch
         V, L, I, F = _build.VP, _build.I64, _build.I32, _build.F32
         fn.argtypes = [V, L, L, L, L, V, L, L, L, L, V, L, L, L, L, V,
-                       I, I, I, I, I, I, I, I, I, F, F, I, V]
+                       I, I, I, I, I, I, I, I, I, F, F, I, I, V]
         fn.restype = I
         _FN = fn
     return _FN
+
+
+def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """``mma`` when the tensor-core kernel takes the operands: bf16, D a
+    multiple of 16 up to 256, D stride 1, every other stride a multiple of
+    16 bytes, each base 16-byte aligned (``mma_ok`` in the source checks the
+    same). Else ``simt``."""
+    d = q.shape[-1]
+    if q.dtype != torch.bfloat16 or d % 16 or d > 256:
+        return "simt"
+    for t in (q, k, v):
+        st = strides_of(t)
+        if st[3] != 1 or any(s % 8 for s in st[:3]) or not aligned16(t):
+            return "simt"
+    return "mma"
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -39,6 +58,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          scale: Optional[float] = None,
                          kv_len: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D), any strides → (B, Hq, Sq, D)."""
+    return _flash(q, k, v, causal, window, softcap, scale, kv_len, None)
+
+
+def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+           window: Optional[int], softcap: Optional[float],
+           scale: Optional[float], kv_len: Optional[int],
+           variant: Optional[str]) -> torch.Tensor:
+    """``flash_attention_cuda`` with the variant named: None takes
+    ``flash_variant``'s choice, ``simt`` runs the CUDA-core kernel on any
+    operands (so that ``chip_smoke.py`` holds it to the plain version in
+    bf16 at the model's shapes too)."""
     check_cuda("flash_attention", q, k, v)
     check_dtype("flash_attention q", q, CODES)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -62,15 +92,22 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_attention: window={window}")
     if scale is None:
         scale = 1.0 / math.sqrt(d)
+    best = flash_variant(q, k, v)
+    variant = variant or best
+    if variant not in ("simt", best):
+        raise ValueError(f"flash_attention: variant {variant!r} does not take "
+                         "these operands")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
-    err = _fn()(q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride(),
-                v.data_ptr(), *v.stride(), out.data_ptr(), b, hq, hkv, sq,
+    err = _fn()(q.data_ptr(), *strides_of(q), k.data_ptr(), *strides_of(k),
+                v.data_ptr(), *strides_of(v), out.data_ptr(), b, hq, hkv, sq,
                 skv, d, kv_len, int(causal), int(window or 0),
                 float(softcap or 0.0), float(scale), CODES[q.dtype],
-                stream_ptr(q))
+                VARIANTS[variant], stream_ptr(q))
     flash_attention_cuda.launches += 1
+    flash_attention_cuda.variants[variant] += 1
     _build.check(err, "flash_attention")
     return out
 
 
 flash_attention_cuda.launches = 0
+flash_attention_cuda.variants = dict.fromkeys(VARIANTS, 0)

@@ -12,9 +12,10 @@ from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
 from repro_torch.kernels.convlayer.ref import conv_layer_ref
 from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
+                                                        flash_variant)
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gemm.kernel import gemm_cuda
+from repro_torch.kernels.gemm.kernel import gemm_cuda, gemm_variant
 from repro_torch.kernels.gemm.ref import gemm_ref
 from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
 from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
@@ -92,6 +93,86 @@ def test_cuda_kernels_match_plain_versions(cuda_device, rng, dt):
             f32(decode_attention_cuda(qd, kd, vd, ln, window=window)),
             f32(decode_attention_ref(qd, kd, vd, ln, window=window)),
             atol=atol * 10, rtol=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(17, 3584, 2048), (513, 4096, 3584),
+                                   (100, 128, 256), (40, 200, 72)])
+def test_wgmma_gemm_matches_plain_version(cuda_device, rng, m, k, n):
+    """The TMA + wgmma GEMM at ragged (M, K, N) with a broadcast bias, within
+    chip_smoke's bf16 tolerance (two bf16 ulps of the result). (513, 4096,
+    3584) takes 128-wide tiles, the others 64-wide ones."""
+    def t(*shape, s=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * s).astype(np.float32)
+                                ).to(device=cuda_device, dtype=torch.bfloat16)
+
+    a, b = t(m, k), t(k, n, s=k ** -0.5)
+    c = t(n).expand(m, n)
+    assert gemm_variant(a, b) == "wgmma"
+    before = dict(gemm_cuda.variants)
+    out = gemm_cuda(a, b, c, beta=1.0)
+    assert gemm_cuda.variants["wgmma"] == before["wgmma"] + 1
+    assert {v: gemm_cuda.variants[v] for v in before if v != "wgmma"} == \
+        {v: n_ for v, n_ in before.items() if v != "wgmma"}
+    ref = gemm_ref(a, b, c, beta=1.0)
+    err = float((out.double() - ref.double()).abs().max())
+    assert err <= 1e-3 + 1.6e-2 * float(ref.double().abs().max())
+
+
+MMA_CASES = [  # (Hq, Hkv, Sq, Skv, kwargs)
+    (8, 2, 130, 130, dict(causal=True)),
+    (4, 4, 96, 200, dict(causal=False)),
+    (8, 2, 129, 129, dict(causal=True, window=37, softcap=30.0)),
+    (4, 2, 100, 333, dict(causal=True, softcap=50.0)),
+    (5, 1, 200, 64, dict(causal=True)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_mma_flash_matches_plain_version(cuda_device, rng, d):
+    """The tensor-core flash kernel on head views (B, S, H, D).transpose(1, 2)
+    with causal, window, soft cap, GQA and Sq != Skv, within atol 2e-2 (the
+    bf16 output's rounding plus P rounded to bf16, at most 2^-9 max|v|).
+    D = 96 takes the kernel built for any multiple of 16, the others their
+    own instantiations."""
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(device=cuda_device, dtype=torch.bfloat16)
+
+    for hq, hkv, sq, skv, kw in MMA_CASES:
+        q = t(2, sq, hq, d).transpose(1, 2)
+        k, v = (t(2, skv, hkv, d).transpose(1, 2) for _ in range(2))
+        assert flash_variant(q, k, v) == "mma"
+        before = flash_attention_cuda.variants["mma"]
+        out = flash_attention_cuda(q, k, v, **kw)
+        assert flash_attention_cuda.variants["mma"] == before + 1
+        err = float((out.float() - attention_ref(q, k, v, **kw).float()).abs().max())
+        assert err <= 2e-2, (hq, hkv, sq, skv, kw, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["d72", "d_strided"])
+def test_simt_flash_bf16_matches_plain_version(cuda_device, rng, layout):
+    """bf16 operands the tensor-core kernel does not take (D = 72, not a
+    multiple of 16; a D stride of 2) run the CUDA-core kernel, within the
+    bf16 output's rounding (atol 2e-2, as for mma)."""
+    d = 72 if layout == "d72" else 64
+
+    def t(*shape):
+        x = torch.from_numpy(rng.standard_normal((*shape, 2)).astype(np.float32)
+                             ).to(device=cuda_device, dtype=torch.bfloat16)
+        return x[..., 0] if layout == "d_strided" else x[..., 0].contiguous()
+
+    for hq, hkv, sq, skv, kw in MMA_CASES:
+        q = t(2, sq, hq, d).transpose(1, 2)
+        k, v = (t(2, skv, hkv, d).transpose(1, 2) for _ in range(2))
+        assert flash_variant(q, k, v) == "simt"
+        before = flash_attention_cuda.variants["simt"]
+        out = flash_attention_cuda(q, k, v, **kw)
+        assert flash_attention_cuda.variants["simt"] == before + 1
+        err = float((out.float() - attention_ref(q, k, v, **kw).float()).abs().max())
+        assert err <= 2e-2, (hq, hkv, sq, skv, kw, err)
 
 
 CNN_DTYPES = {"int8": torch.int8, "int16": torch.int16, "int32": torch.int32,

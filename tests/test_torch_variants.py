@@ -1,0 +1,200 @@
+"""Which kernel variant the wrappers pick from the operands, on the CPU.
+
+``gemm_variant`` and ``flash_variant`` are pure functions of dtype, shape,
+strides and alignment; here they run on meta tensors (no storage) at the
+full-width shapes of the three served models, and on the tensors a CPU
+prefill of each model really hands the engine. The C side checks the same
+conditions again on the card (``wgmma_ok`` in ``csrc/gemm.cu``, ``mma_ok``
+in ``csrc/flash_attention.cu``). A last test emulates the tensor-core flash
+kernel's roundings in plain PyTorch and holds them to the card's tolerance.
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.kernels.common import NEG_INF
+from repro_torch.kernels.flash_attention.kernel import flash_variant
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.gemm.kernel import gemm_variant
+from repro_torch.models.attention import _merge_heads, _split_heads
+from repro_torch.models.transformer import LM
+
+BF16 = torch.bfloat16
+ARCHS = ("gemma2-9b", "stablelm-3b", "qwen2.5-32b")
+
+
+def meta(*shape, dtype=BF16):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def projections(arch: str, m: int):
+    """(name, A, B) of one layer's prefill projections at M = m: A as the
+    engine reshapes the activation, B a weight of the stacked (n_periods,
+    K, N) parameter, as ``LM`` indexes it."""
+    cfg = get_config(arch)
+    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+    x = meta(1, m, d).reshape(m, d)
+    heads = _merge_heads(meta(1, cfg.n_heads, m, hd)).reshape(m, cfg.n_heads * hd)
+    act = meta(1, m, ff).reshape(m, ff)
+
+    def w(k, n):
+        return meta(cfg.n_periods, k, n)[1]
+
+    return [("q", x, w(d, cfg.n_heads * hd)), ("k", x, w(d, cfg.n_kv_heads * hd)),
+            ("o", heads, w(cfg.n_heads * hd, d)), ("up", x, w(d, ff)),
+            ("down", act, w(ff, d))]
+
+
+@pytest.mark.parametrize("m", [16, 100, 512, 513])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_gemm_variant_prefill_projections_take_wgmma(arch, m):
+    for name, a, b in projections(arch, m):
+        assert gemm_variant(a, b) == "wgmma", (arch, name, m)
+
+
+@pytest.mark.parametrize("case,expected", [
+    ("decode M=1", "gemv"), ("decode M=4", "gemv"), ("M=8", "gemv"),
+    ("K=257", "wmma"), ("table.T", "wmma"), ("f32", "fma"), ("int8", "fma"),
+    ("unaligned A base", "wmma"), ("broadcast A", "wmma"),
+])
+def test_gemm_variant_other_operands_keep_their_kernels(case, expected):
+    w = meta(3584, 14336)
+    a, b = {
+        "decode M=1": (meta(1, 3584), w),
+        "decode M=4": (meta(4, 3584), w),
+        "M=8": (meta(8, 3584), w),
+        "K=257": (meta(33, 257), meta(257, 65)),
+        "table.T": (meta(512, 3584), meta(256000, 3584).T),
+        "f32": (meta(512, 3584, dtype=torch.float32), meta(3584, 14336, dtype=torch.float32)),
+        "int8": (meta(512, 1024, dtype=torch.int8), meta(1024, 1024, dtype=torch.int8)),
+        "unaligned A base": (torch.empty(512 * 3584 + 1, dtype=BF16)[1:].view(512, 3584), w),
+        "broadcast A": (meta(1, 3584).expand(512, 3584), w),
+    }[case]
+    assert gemm_variant(a, b) == expected
+
+
+@pytest.mark.parametrize("s", [16, 100, 512])
+@pytest.mark.parametrize("arch", ARCHS)
+def test_flash_variant_split_head_views_take_mma(arch, s):
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    q = _split_heads(meta(1, s, cfg.n_heads * hd), cfg.n_heads)
+    k = _split_heads(meta(1, s, cfg.n_kv_heads * hd), cfg.n_kv_heads)
+    assert flash_variant(q, k, k) == "mma"
+    assert flash_variant(q.contiguous(), k.contiguous(), k) == "mma"
+
+
+@pytest.mark.parametrize("case", ["f32", "D stride 2", "D=72", "unaligned base"])
+def test_flash_variant_other_operands_take_simt(case):
+    q = _split_heads(meta(1, 64, 16 * 256), 16)
+    k = _split_heads(meta(1, 64, 8 * 256), 8)
+    if case == "f32":
+        q, k = q.float(), k.float()
+    elif case == "D stride 2":
+        k = meta(1, 8, 64, 512)[..., ::2]
+    elif case == "D=72":
+        q = _split_heads(meta(1, 64, 16 * 72), 16)
+        k = _split_heads(meta(1, 64, 8 * 72), 8)
+    else:
+        k = torch.empty(8 * 64 * 256 + 1, dtype=BF16)[1:].view(1, 8, 64, 256)
+    assert flash_variant(q, k, k) == "simt"
+
+
+class VariantSpy(ArcaneEngine):
+    """The ref engine, recording the variant each gemm and attention call
+    would take on the card for the same tensors."""
+
+    def __init__(self):
+        super().__init__("ref")
+        self.seen = []
+
+    def gemm(self, x, w, c=None, **kw):
+        self.seen.append(gemm_variant(x.reshape(-1, x.shape[-1]), w))
+        return super().gemm(x, w, c, **kw)
+
+    def attention(self, q, k, v, **kw):
+        self.seen.append(flash_variant(q, k, v))
+        return super().attention(q, k, v, **kw)
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_cpu_prefill_hands_the_engine_tensor_core_operands(arch):
+    """A bf16 prefill of the smoke config on the CPU: the tensors the model
+    gives the engine (rotated q and k, the v view, merged heads, weight
+    views) select wgmma for every projection, mma for every attention and
+    gemv for the last position's unembed."""
+    cfg = get_smoke_config(arch)
+    engine = VariantSpy()
+    model = LM(cfg, engine, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab, (1, 24)))
+    model.prefill(params, {"tokens": tokens}, model.init_cache(1, 32))
+    per_layer = ["wgmma"] * 3 + ["mma", "wgmma"] + ["wgmma"] * 3
+    assert engine.seen == per_layer * cfg.n_layers + ["gemv"]
+
+
+def flash_mma_emulated(q, k, v, *, causal, softcap, bkv):
+    """The tensor-core kernel's arithmetic in plain PyTorch: scores are f32
+    sums of bf16 products, scaled after the product; soft cap and mask; two
+    warp sets, each running its own online softmax over its half (bkv / 2
+    keys) of every tile of ``bkv`` keys, with l summed from the f32 P and P
+    rounded to bf16 before P V, O in f32; the two sets' m, l and O merged
+    at the end."""
+    hq, sq, d = q.shape[1:]
+    hkv, skv = k.shape[1:3]
+    scale = 1.0 / math.sqrt(d)
+    qf = q.float()
+    kf = k.float().repeat_interleave(hq // hkv, dim=1)
+    vf = v.float().repeat_interleave(hq // hkv, dim=1)
+    rows = torch.arange(sq)[:, None]
+    half = bkv // 2
+    sets = []
+    for first in (0, half):
+        m = torch.full((*q.shape[:3], 1), NEG_INF)
+        l = torch.zeros_like(m)
+        acc = torch.zeros(q.shape)
+        for k0 in range(first, skv, bkv):
+            s = qf @ kf[:, :, k0:k0 + half].transpose(-1, -2) * scale
+            if softcap:
+                s = softcap * torch.tanh(s / softcap)
+            if causal:
+                s = torch.where(k0 + torch.arange(s.shape[-1])[None, :] <= rows, s,
+                                torch.full_like(s, NEG_INF))
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+            p = torch.exp(s - m_new)
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1, keepdim=True)
+            acc = alpha * acc + p.to(BF16).float() @ vf[:, :, k0:k0 + half]
+            m = m_new
+        sets.append((m, l, acc))
+    (m0, l0, o0), (m1, l1, o1) = sets
+    mx = torch.maximum(m0, m1)
+    c0, c1 = torch.exp(m0 - mx), torch.exp(m1 - mx)
+    return (o0 * c0 + o1 * c1) / torch.clamp(l0 * c0 + l1 * c1, min=1e-30)
+
+
+def test_flash_mma_roundings_stay_within_the_card_tolerance():
+    """gemma2's D=256, S=512, soft cap 50, GQA 16/8, causal, with the
+    kernel's tiles of 64 keys split between two warp sets and merged at the
+    end. Rounding P to bf16 moves each
+    output by at most 2^-9 max|v|; after the output's own bf16 rounding the
+    result stays within chip_smoke's bf16 tolerance (atol 2e-2) of
+    attention_ref."""
+    rng = np.random.default_rng(0)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(BF16)
+
+    q = t(1, 512, 16, 256).transpose(1, 2)
+    k = t(1, 512, 8, 256).transpose(1, 2)
+    v = t(1, 512, 8, 256).transpose(1, 2)
+    emu = flash_mma_emulated(q, k, v, causal=True, softcap=50.0, bkv=64)
+    exact = attention_ref(q.float(), k.float(), v.float(), causal=True, softcap=50.0)
+    vmax = float(v.float().abs().max())
+    assert float((emu - exact).abs().max()) <= 2.0**-9 * vmax + 1e-5
+    ref = attention_ref(q, k, v, causal=True, softcap=50.0)
+    assert float((emu.to(BF16).float() - ref.float()).abs().max()) <= 2e-2
