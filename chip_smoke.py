@@ -12,7 +12,9 @@ Phases:
      floor of every time below), then each kernel against its plain
      PyTorch version on the card:
      gemm and the attention kernels in bf16 and f32 at the full-width
-     shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes), the
+     shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes, and
+     decode attention over a long qwen2.5 cache: B=8, S=8192, every row
+     full, bf16), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
      also at a ragged S = 100; each row names the variant the wrapper picks
      (gemm: gemv / wgmma / wmma / fma; flash: mma / simt), and a bf16 row
@@ -27,7 +29,14 @@ Phases:
      each launch), the least time the card could take (bytes at 3.35 TB/s
      or operations at the dtype's peak, whichever is larger), the plain
      version's time, and one PyTorch library call's time where one computes
-     the same function (never called by the port).
+     the same function (never called by the port). The decode-step
+     kernels (decode attention, the split-K GEMV at M <= 8) also run twice
+     on the same inputs and must give the same bits; each row prints its
+     bytes over its time as a share of the 3.35 TB/s memory rate. Decode
+     attention is held per output row to one bf16 ulp of the row's largest
+     value (f32: 1e-5 of it), and on the long cache the same check must
+     reject two planted faults: the last quarter of the keys (the last
+     split) dropped, and the score scale 10% off.
   3. serve: gemma2-9b at full width (42 layers, d 3584, vocab 256000, bf16,
      random weights drawn on the card from a seed) through the port's
      launcher: 4 slots, max_len 1024, 6 requests of 16-512 prompt tokens and
@@ -129,7 +138,7 @@ def gemm_cases(torch):
                 cases.append((f"gemma2 {name}", dt, m, k, n, "w"))
         for m in (1, 4):
             cases.append(("gemma2 unembed", dt, m, 3584, 256000, "t"))
-        for m in (4, 512):
+        for m in (1, 4, 512):
             cases.append(("stablelm up", dt, m, 2560, 6912, "w"))
             cases.append(("qwen2.5 k+bias", dt, m, 5120, 1024, "bias"))
     # LM.forward's unembed of a whole sequence: table.T at M > 8 takes wmma
@@ -171,6 +180,8 @@ def run_gemm(torch, timer, gen, rows):
         # where wgmma runs, the earlier WMMA kernel is held on the same inputs
         earlier = _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, "wmma") \
             if variant == "wgmma" else None
+        # the split-K GEMV adds its splits in a fixed order: same bits again
+        same = torch.equal(out, gemm_cuda(a, b, c, **kw)) if variant == "gemv" else None
         torch.cuda.synchronize()
         err = float((out.double() - ref.double()).abs().max())
         earlier_err = None if earlier is None else \
@@ -183,7 +194,7 @@ def run_gemm(torch, timer, gen, rows):
             atol, rtol = 1e-3, 1.6e-2      # two bf16 ulps of the result
         else:
             atol, rtol = 2e-3, 1e-5        # f32 sums of K terms in another order
-        ok = check_close(err, absmax, atol, rtol) and (
+        ok = check_close(err, absmax, atol, rtol) and same is not False and (
             earlier_err is None or check_close(earlier_err, absmax, atol, rtol))
         ms = timer.ms(lambda: gemm_cuda(a, b, c, **kw))
         wmma = None if earlier_err is None else timer.ms(
@@ -202,10 +213,10 @@ def run_gemm(torch, timer, gen, rows):
         rows.append(dict(kernel="gemm", case=f"{name} M={m} K={k} N={n}",
                          dtype=str(dt).split(".")[-1], variant=variant,
                          max_abs_err=err, ref_absmax=absmax, atol=atol,
-                         rtol=rtol, ok=ok, ms=ms, earlier_ms=wmma,
-                         earlier_max_abs_err=earlier_err,
+                         rtol=rtol, ok=ok, deterministic=same, ms=ms,
+                         earlier_ms=wmma, earlier_max_abs_err=earlier_err,
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
-                         bound_by=by))
+                         bound_by=by, bytes=nbytes))
 
 
 def sdpa(q, k, v, **kw):
@@ -214,17 +225,37 @@ def sdpa(q, k, v, **kw):
     return F.scaled_dot_product_attention(q, k, v, enable_gqa=True, **kw)
 
 
+# decode attention, per output row (b, h, g): |out - ref| <= atol + rtol *
+# max|ref| over the row's D values. Kernel and plain version sum in f32 in
+# another order and round once to the output's dtype, so in bf16 they may
+# land one ulp apart, at most 2^-7 of the row's largest value; in f32 the
+# orders differ by about 1e-6 of it. Every element is also held to the
+# former absolute limit (2e-2 bf16, 2e-4 f32).
+DECODE_TOL = {"bfloat16": (1e-5, 2.0 ** -7, 2e-2), "float32": (1e-5, 1e-5, 2e-4)}
+
+
+def row_limit_ratio(out, ref, atol: float, rtol: float) -> float:
+    """The largest ratio over the output rows (the last axis) of
+    max |out - ref| to atol + rtol * max |ref|: at most 1 where they agree."""
+    o, r = out.double(), ref.double()
+    return float(((o - r).abs().amax(-1) / (atol + rtol * r.abs().amax(-1))).max())
+
+
 def run_decode(torch, timer, gen, rows):
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-    cases = [("gemma2", 4, 16, 8, 256, 1024, 50.0, None),
-             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 4096),
-             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 300),
-             ("stablelm", 4, 32, 32, 80, 1024, None, None),
-             ("qwen2.5", 4, 40, 8, 128, 1024, None, None)]
-    lengths = [1024, 517, 100, 1]
+    ring = [1024, 517, 100, 1]       # the serving phase's lengths at max_len 1024
+    cases = [("gemma2", 4, 16, 8, 256, 1024, 50.0, None, ring),
+             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 4096, ring),
+             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 300, ring),
+             ("stablelm", 4, 32, 32, 80, 1024, None, None, ring),
+             ("qwen2.5", 4, 40, 8, 128, 1024, None, None, ring),
+             # a long cache, every row full: 268 MB of K and V in bf16
+             ("qwen2.5", 8, 40, 8, 128, 8192, None, None, [8192] * 8)]
     for dt in (torch.bfloat16, torch.float32):
-        for name, b, hq, hkv, d, s, cap, win in cases:
+        for name, b, hq, hkv, d, s, cap, win, lengths in cases:
+            if s > 1024 and dt != torch.bfloat16:
+                continue
             g = hq // hkv
             q = torch.randn((b, hkv, g, d), device="cuda", generator=gen).to(dt)
             k = torch.randn((b, hkv, s, d), device="cuda", generator=gen).to(dt)
@@ -232,10 +263,27 @@ def run_decode(torch, timer, gen, rows):
             ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
             kw = dict(softcap=cap, window=win)
             out = decode_attention_cuda(q, k, v, ln, **kw)
+            # the splits are merged in a fixed order: same bits again
+            same = torch.equal(out, decode_attention_cuda(q, k, v, ln, **kw))
             ref = decode_attention_ref(q, k, v, ln, **kw)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
-            atol = 2e-2 if dt == torch.bfloat16 else 2e-4
+            dt_name = str(dt).split(".")[-1]
+            atol, rtol, abs_cap = DECODE_TOL[dt_name]
+            ratio = row_limit_ratio(out, ref, atol, rtol)
+            ok = ratio <= 1.0 and err <= abs_cap and same
+            faults = None
+            if s > 1024:
+                # planted faults: what a kernel that dropped the last quarter
+                # of the keys (the last of the 4 splits that decode_splits
+                # gives this cache on 132 SMs), or scaled the scores 10% too
+                # much, would return. The check above must reject both.
+                lost = decode_attention_cuda(q, k, v, ln - s // 4, **kw)
+                scaled = decode_attention_cuda(q, k, v, ln, scale=1.1 / math.sqrt(d), **kw)
+                faults = {"last_quarter_dropped": row_limit_ratio(lost, ref, atol, rtol),
+                          "scale_10pct_off": row_limit_ratio(scaled, ref, atol, rtol)}
+                del lost, scaled
+                ok = ok and min(faults.values()) > 1.0
             ms = timer.ms(lambda: decode_attention_cuda(q, k, v, ln, **kw))
             plain = timer.ms(lambda: decode_attention_ref(q, k, v, ln, **kw), reps=5)
             lib = None
@@ -246,14 +294,16 @@ def run_decode(torch, timer, gen, rows):
             valid = sum(min(x, s) - (max(x - win, 0) if win else 0) for x in lengths)
             isz = q.element_size()
             nbytes = (2 * q.numel() + 2 * valid * hkv * d) * isz + b * 4
-            bms, by = bound_ms(nbytes, 4.0 * valid * g * hkv * d, str(dt).split(".")[-1])
+            bms, by = bound_ms(nbytes, 4.0 * valid * g * hkv * d, dt_name)
             rows.append(dict(kernel="decode_attention",
                              case=f"{name} B={b} Hq={hq} Hkv={hkv} D={d} S={s} "
                                   f"len={lengths} softcap={cap} window={win}",
-                             dtype=str(dt).split(".")[-1], max_abs_err=err,
-                             atol=atol, rtol=0.0, ok=err <= atol, ms=ms,
+                             dtype=dt_name, max_abs_err=err,
+                             atol=atol, rtol=rtol, abs_cap=abs_cap, row_limit_ratio=ratio,
+                             planted_fault_ratio=faults, ok=ok,
+                             deterministic=same, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=bms,
-                             bound_by=by))
+                             bound_by=by, bytes=nbytes))
 
 
 def run_flash(torch, timer, gen, rows):
@@ -315,7 +365,8 @@ def run_flash(torch, timer, gen, rows):
                              max_abs_err=err, atol=atol, rtol=0.0, ok=ok,
                              ms=ms, earlier_ms=simt, earlier_max_abs_err=earlier_err,
                              plain_ms=plain,
-                             library_ms=lib, bound_ms=bms, bound_by=by))
+                             library_ms=lib, bound_ms=bms, bound_by=by,
+                             bytes=nbytes))
 
 
 # ---------------------------------------------------- phase 2: CNN kernels
@@ -351,7 +402,7 @@ def cnn_row(torch, timer, rows, kernel, case, dt_name, out, ref, atol, rtol,
                      ref_absmax=absmax, atol=atol, rtol=rtol,
                      ok=check_close(err, absmax, atol, rtol), ms=ms,
                      plain_ms=plain_ms, library_ms=lib_ms, bound_ms=bms,
-                     bound_by=by))
+                     bound_by=by, bytes=nbytes))
 
 
 def run_conv(torch, timer, gen, rows):
@@ -575,7 +626,9 @@ def profile_prefill(torch, model, params, prompt_len: int = 512) -> dict:
 def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
     """torch.profiler over a few batched decode steps of the session (all 4
     slots live): the card's busy time, its idle share of the host clock,
-    and the kernels that take the most device time."""
+    the kernels that take the most device time, and device time per step
+    by kernel: the GEMV (gemv_n, gemv_t), decode attention (split and
+    merge kernels) and the rest."""
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(1)
     for _ in range(sess.max_slots):
@@ -591,6 +644,13 @@ def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     sess.run_to_completion()
     out = busy_share(prof, wall_ms, steps, "step")
+    groups = {"gemv": 0.0, "decode_attention": 0.0, "rest": 0.0}
+    for name, ms in device_ms(prof).items():
+        key = "gemv" if "gemv_" in name else \
+            "decode_attention" if "split_kernel" in name or "merge_kernel" in name \
+            else "rest"
+        groups[key] += ms / steps
+    out["device_ms_per_step_by_kernel"] = groups
     print(f"profile: {json.dumps(out)}", flush=True)
     return out
 
@@ -796,9 +856,22 @@ def main() -> None:
         var = f" variant={r['variant']}" if "variant" in r else ""
         earlier = "" if r.get("earlier_ms") is None else \
             f" earlier_ms={r['earlier_ms']:.4f} earlier_max_abs_err={r['earlier_max_abs_err']:.3e}"
+        det = "" if r.get("deterministic") is None else \
+            f" same_bits_twice={r['deterministic']}"
+        tol = f"atol={r['atol']} rtol={r['rtol']}"
+        if "row_limit_ratio" in r:
+            tol += (f" per row, abs<={r['abs_cap']}; worst err/limit "
+                    f"{r['row_limit_ratio']:.3f}")
+        if r.get("planted_fault_ratio"):
+            tol += "; planted faults err/limit " + ", ".join(
+                f"{k} {v:.1f}" for k, v in r["planted_fault_ratio"].items())
+        # bytes moved (each input read once, each output written once) over
+        # the kernel's time, as a share of the 3.35 TB/s memory rate
+        r["mem_rate_share"] = r["bytes"] / HBM_BYTES_PER_S * 1e3 / r["ms"]
         print(f"{r['kernel']} [{r['dtype']}] {r['case']}:{var} max_abs_err={r['max_abs_err']:.3e} "
-              f"(atol={r['atol']} rtol={r['rtol']}) {'ok' if r['ok'] else 'FAIL'} "
+              f"({tol}) {'ok' if r['ok'] else 'FAIL'}{det} "
               f"ms={r['ms']:.4f}{earlier} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"mem_rate_share={r['mem_rate_share']:.3f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
     summary["cases"] = rows
     (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))

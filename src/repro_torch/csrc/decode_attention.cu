@@ -9,17 +9,31 @@
 // the output is acc / max(l, 1e-30), in q's dtype.
 //
 // What bounds it on this card, and what the design does about it: the
-// bytes of the valid cache rows. The group of G query heads that shares a
-// KV head (G = 1, 2 or 5 on the served configs, far below a tensor-core
-// tile) is handled by one block per (batch, KV head), so each cache row is
-// read once for all G heads. The block's 8 warps each take a run of keys;
-// per key, the 32 lanes split D into 4-element pieces (8- or 16-byte loads)
-// and each warp keeps its own online-softmax state; the states are merged
-// in shared memory at the end, warp by warp in a fixed order. Only the
-// valid rows are read: the lengths stay on the device and are read by the
-// kernel, so no host copy is needed, and rows outside the window are
-// never touched. One block per (batch, KV head) leaves SMs idle at a small
-// batch; splitting S across blocks is later work.
+// bytes of the valid cache rows, read once for all G query heads of a KV
+// head (G <= 8 on the served configs, far below a tensor-core tile). A
+// batch of 4 has only 4 * Hkv (batch, KV head) pairs, so the cache's S
+// axis is split across blocks as well (flash-decoding): the grid is
+// (B * Hkv, splits), `splits` chosen by the caller from S, B * Hkv and the
+// SM count (decode_splits in kernel.py), never from the lengths, which
+// stay on the device. Split j owns keys [j * chunk, (j + 1) * chunk) with
+// chunk = ceil(S / splits) rounded up to 32 keys; a split that holds no
+// valid key writes the empty state (m = -1e30, l = 0) and returns.
+// Inside a split, 4 warps walk tiles of K and V staged in shared memory by
+// 16-byte cp.async, at least one tile in flight ahead of the arithmetic
+// (rows padded by 16 bytes, so a lane per key reads its row without bank
+// conflicts): 32-key tiles, three stages, for rows over 256 bytes, else
+// 64-key tiles (two keys a lane), two stages. Scores: lanes are keys, warps
+// split D, and their partial sums meet in shared memory once per tile, so
+// no shuffle runs per key. Softmax: one warp per head takes the tile's max
+// and rescales once per tile, in log2 units (scale and log2 e folded into
+// q; exp2 and tanh on the SFU's ex2.approx). P V: threads split D into
+// 16-byte pieces and the tile's keys into groups; the groups' sums meet in
+// shared memory once per split.
+// Merge: a second small kernel in the same call (merge_kernel) combines
+// the splits' (m, l, acc) partials, kept in an f32 workspace the caller
+// allocates, in split order. It was chosen over a last-arriving-block
+// merge because it keeps no state between calls (no ticket counters to
+// reset) and its order, hence every bit of the output, is fixed.
 // Every launch returns cudaGetLastError() to the caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -31,191 +45,410 @@ typedef __nv_bfloat16 bf16;
 namespace {
 
 constexpr float NEG_INF = -1e30f;
-constexpr int WARPS = 8;
-constexpr int UNROLL = 4;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int THREADS = 128;
+constexpr int NW = THREADS / 32;
+constexpr int ALIGN = 32;       // a split's keys are a multiple of this
 constexpr int DMAX = 256;
+constexpr int MAX_DEVICES = 64;
+constexpr int MAX_SPLITS = 256;   // splits a merge takes (its weights' room)
+constexpr int MERGE_THREADS = 256;
 
 __device__ __forceinline__ float widen(float x) { return x; }
 __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// Four consecutive elements as one 16-byte (f32) or 8-byte (bf16) load.
-__device__ __forceinline__ void load4(const float* p, float (&o)[4]) {
-  const float4 x = __ldg(reinterpret_cast<const float4*>(p));
+// 16 bytes of T from shared memory, widened to f32
+__device__ __forceinline__ void lds16(const float* p, float (&o)[4]) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
   o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
 }
-__device__ __forceinline__ void load4(const bf16* p, float (&o)[4]) {
-  const uint2 x = __ldg(reinterpret_cast<const uint2*>(p));
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&x.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&x.y);
-  const float2 a = __bfloat1622float2(lo), b = __bfloat1622float2(hi);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
+__device__ __forceinline__ void lds16(const bf16* p, float (&o)[8]) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// GMAX >= G query heads per KV head; lane owns elements
-// [4 (lane + 32 i), 4 (lane + 32 i) + 4) of D for i < NQ (D <= 128 NQ).
-template <typename T, int GMAX, int NQ>
-__global__ void __launch_bounds__(WARPS * 32)
-decode_kernel(const T* __restrict__ q, ll sqb, ll sqh, ll sqg, ll sqd,
-              const T* __restrict__ k, ll skb, ll skh, ll sks,
-              const T* __restrict__ v, ll svb, ll svh, ll svs,
-              const int* __restrict__ lengths, T* __restrict__ out,
-              int H, int G, int S, int D, float scale, float softcap,
-              int window) {
-  __shared__ float accs[GMAX][DMAX];
-  __shared__ float mw[WARPS][GMAX], lw[WARPS][GMAX];
-  const int b = blockIdx.x / H, h = blockIdx.x % H;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int i = threadIdx.x; i < GMAX * DMAX; i += WARPS * 32)
-    accs[i / DMAX][i % DMAX] = 0.0f;
-
-  const int len = min(lengths[b], S);
-  const int start = window > 0 ? max(len - window, 0) : 0;
-
-  float qr[GMAX][NQ][4], acc[GMAX][NQ][4], m[GMAX], l[GMAX];
-#pragma unroll
-  for (int g = 0; g < GMAX; ++g) {
-    m[g] = NEG_INF;
-    l[g] = 0.0f;
-#pragma unroll
-    for (int i = 0; i < NQ; ++i)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = 4 * (lane + 32 * i) + e;
-        qr[g][i][e] = (g < G && d < D)
-            ? widen(q[b * sqb + h * sqh + g * sqg + d * sqd]) * scale : 0.0f;
-        acc[g][i][e] = 0.0f;
-      }
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    o[2 * i] = f.x; o[2 * i + 1] = f.y;
   }
-  const T* kb = k + b * skb + h * skh;
-  const T* vb = v + b * svb + h * svh;
+}
 
-  for (int j0 = start + warp * UNROLL; j0 < len; j0 += WARPS * UNROLL) {
-    float kr[UNROLL][NQ][4], vr[UNROLL][NQ][4];
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u)
-#pragma unroll
-      for (int i = 0; i < NQ; ++i) {
-        const int j = j0 + u, d0 = 4 * (lane + 32 * i);
-        if (j < len && d0 < D) {
-          load4(kb + j * sks + d0, kr[u][i]);
-          load4(vb + j * svs + d0, vr[u][i]);
-        } else {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) kr[u][i][e] = vr[u][i][e] = 0.0f;
-        }
-      }
-#pragma unroll
-    for (int u = 0; u < UNROLL; ++u) {
-      if (j0 + u >= len) break;                  // uniform across the warp
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        float s = 0.0f;
-#pragma unroll
-        for (int i = 0; i < NQ; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s += qr[g][i][e] * kr[u][i][e];
-        s = warp_sum(s);
-        if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
-        const float m_new = fmaxf(m[g], s);
-        const float alpha = expf(m[g] - m_new), p = expf(s - m_new);
-        l[g] = alpha * l[g] + p;
-#pragma unroll
-        for (int i = 0; i < NQ; ++i)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[g][i][e] = alpha * acc[g][i][e] + p * vr[u][i][e];
-        m[g] = m_new;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(valid ? 16 : 0) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+
+// 2^x and tanh(x) by the SFU's ex2.approx (relative error about 2^-22)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+__device__ __forceinline__ float fast_tanh(float x) {
+  return 1.0f - __fdividef(2.0f, fast_exp2(2.0f * LOG2E * x) + 1.0f);
+}
+
+__host__ __device__ constexpr int split_chunk(int S, int splits) {
+  return ((S + splits - 1) / splits + ALIGN - 1) / ALIGN * ALIGN;
+}
+
+// A tile is 32 KPL keys, KPL a lane: 2 where a cache row is at most 256
+// bytes (bf16 D <= 128, f32 D <= 64), halving the tile's serial phases per
+// key, else 1. Tiles in flight: STAGES - 1.
+__host__ __device__ constexpr int stages(int kpl) { return kpl == 1 ? 3 : 2; }
+
+// Shared memory of one block: the tile ring (or, after the last tile, the
+// key groups' P V sums), q, the warps' partial scores, P and the rescales.
+template <typename T, int KPL>
+__host__ __device__ constexpr int ring_bytes(int D) {
+  return stages(KPL) * 2 * 32 * KPL * (D * (int)sizeof(T) + 16);
+}
+template <typename T, int KPL>
+__host__ __device__ constexpr int smem_bytes(int D, int G) {
+  const int ce = 16 / (int)sizeof(T), groups = THREADS / (D / ce), tk = 32 * KPL;
+  const int ring = ring_bytes<T, KPL>(D), red = groups * G * D * 4;
+  return (ring > red ? ring : red) + G * D * 4 + NW * G * tk * 4 + G * tk * 4 + G * 4;
+}
+
+struct Args {
+  const void* q; ll sqb, sqh, sqg, sqd;
+  const void* k; ll skb, skh, sks;
+  const void* v; ll svb, svh, svs;
+  const int* lengths;
+  float* ws;            // m (P, G), l (P, G), acc (P, G, D); P = B H splits
+  int H, S, D, splits;
+  float qscale;         // scale * log2 e, or scale / softcap with a soft cap
+  float capl2;          // softcap * log2 e, or 0
+  int window;
+};
+
+// One (batch, KV head, split): the split's (m, l, acc) into the workspace.
+template <typename T, int G, int KPL>
+__global__ void __launch_bounds__(THREADS)
+split_kernel(Args a) {
+  constexpr int CE = 16 / (int)sizeof(T);        // elements per 16 bytes
+  constexpr int TK = 32 * KPL, STAGES = stages(KPL);
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, RS = D + 16 / (int)sizeof(T); // padded row, elements
+  const int NCH = D / CE, KG = THREADS / NCH;     // 16-byte pieces of a row
+  T* ring = reinterpret_cast<T*>(smem);
+  const int rb = ring_bytes<T, KPL>(D), red_b = KG * G * D * 4;
+  float* qs = reinterpret_cast<float*>(smem + (rb > red_b ? rb : red_b));
+  float* sp = qs + G * D;                          // [NW][G][TK]
+  float* ps = sp + NW * G * TK;                    // [G][TK]
+  float* alph = ps + G * TK;                       // [G]
+
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  // a length above S ends the row at S; the window starts from the length
+  // itself, as in the reference
+  const int len_b = a.lengths[b], len = min(len_b, a.S);
+  const int start = a.window > 0 ? max(len_b - a.window, 0) : 0;
+  const int chunk = split_chunk(a.S, a.splits);
+  const int lo = max(start, split * chunk), hi = min(len, (split + 1) * chunk);
+  const ll pi = (ll)bh * a.splits + split;         // this partial's index
+  const ll P = (ll)gridDim.x * a.splits;
+  if (lo >= hi) {                                  // no valid key here
+    if (t < G) { a.ws[pi * G + t] = NEG_INF; a.ws[(P + pi) * G + t] = 0.0f; }
+    return;
+  }
+
+  const T* kb = (const T*)a.k + b * a.skb + h * a.skh;
+  const T* vb = (const T*)a.v + b * a.svb + h * a.svh;
+  const int nt = (hi - lo + TK - 1) / TK;
+  auto issue = [&](int tile) {
+    if (tile < nt) {
+      T* ks = ring + (tile % STAGES) * 2 * TK * RS;
+      T* vs = ks + TK * RS;
+      const int k0 = lo + tile * TK;
+      for (int i = t; i < TK * NCH; i += THREADS) {
+        const int r = i / NCH, c = (i % NCH) * CE, j = k0 + r;
+        const bool in = j < hi;
+        cp_async16(smem_u32(ks + r * RS + c), kb + (in ? j * a.sks + c : 0), in);
+        cp_async16(smem_u32(vs + r * RS + c), vb + (in ? j * a.svs + c : 0), in);
       }
     }
-  }
+    cp_commit();                                   // empty groups keep the count
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  // merge the warps' states: rescale to the block-wide max, add in order
-  if (lane == 0)
+  // q, scaled, into shared memory: every load of a thread in flight at once
+  const T* qb = (const T*)a.q + b * a.sqb + h * a.sqh;
+  constexpr int QU = (G * DMAX + THREADS - 1) / THREADS;
+  float qv[QU];
 #pragma unroll
-    for (int g = 0; g < GMAX; ++g) { mw[warp][g] = m[g]; lw[warp][g] = l[g]; }
-  __syncthreads();
-  for (int w = 0; w < WARPS; ++w) {
-    if (warp == w) {
+  for (int u = 0; u < QU; ++u) {
+    const int i = t + u * THREADS;
+    qv[u] = i < G * D ? widen(qb[(i / D) * a.sqg + (i % D) * a.sqd]) : 0.0f;
+  }
 #pragma unroll
-      for (int g = 0; g < GMAX; ++g) {
-        float mx = NEG_INF;
-        for (int x = 0; x < WARPS; ++x) mx = fmaxf(mx, mw[x][g]);
-        const float sc = expf(m[g] - mx);
+  for (int u = 0; u < QU; ++u)
+    if (t + u * THREADS < G * D) qs[t + u * THREADS] = qv[u] * a.qscale;
+
+  // softmax state: warp w owns heads w, w + NW (m uniform, l per lane)
+  constexpr int HPW = (G + NW - 1) / NW;
+  float m[HPW], l[HPW];
 #pragma unroll
-        for (int i = 0; i < NQ; ++i)
+  for (int i = 0; i < HPW; ++i) { m[i] = NEG_INF; l[i] = 0.0f; }
+  // P V: thread t owns piece c of D for the keys kg, kg + KG, ...
+  const int pc = t % NCH, kg = t / NCH;
+  const bool pv = kg < KG;
+  float acc[G][CE];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            const int d = 4 * (lane + 32 * i) + e;
-            if (d < D) accs[g][d] += sc * acc[g][i][e];
-          }
+  for (int g = 0; g < G; ++g)
+#pragma unroll
+    for (int e = 0; e < CE; ++e) acc[g][e] = 0.0f;
+
+  for (int tile = 0; tile < nt; ++tile) {
+    issue(tile + STAGES - 1);
+    cp_wait<STAGES - 1>();
+    __syncthreads();                               // tile's K, V and q visible
+    const T* ks = ring + (tile % STAGES) * 2 * TK * RS;
+    const T* vs = ks + TK * RS;
+
+    // scores: lane = key (KPL of them), warp = a share of D's 16-byte pieces
+    float part[KPL][G];
+#pragma unroll
+    for (int x = 0; x < KPL; ++x)
+#pragma unroll
+      for (int g = 0; g < G; ++g) part[x][g] = 0.0f;
+    for (int c = warp; c < NCH; c += NW) {
+      float kv[KPL][CE];
+#pragma unroll
+      for (int x = 0; x < KPL; ++x) lds16(ks + (lane + 32 * x) * RS + c * CE, kv[x]);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float* qp = qs + g * D + c * CE;
+#pragma unroll
+        for (int e = 0; e < CE; e += 4) {
+          const float4 qq = *reinterpret_cast<const float4*>(qp + e);
+#pragma unroll
+          for (int x = 0; x < KPL; ++x)
+            part[x][g] += qq.x * kv[x][e] + qq.y * kv[x][e + 1] + qq.z * kv[x][e + 2] +
+                          qq.w * kv[x][e + 3];
+        }
+      }
+    }
+#pragma unroll
+    for (int x = 0; x < KPL; ++x)
+#pragma unroll
+      for (int g = 0; g < G; ++g) sp[(warp * G + g) * TK + lane + 32 * x] = part[x][g];
+    __syncthreads();
+
+    // softmax: one max and one rescale per head and tile
+#pragma unroll
+    for (int i = 0; i < HPW; ++i) {
+      const int g = warp + NW * i;
+      if (g < G) {
+        float sc[KPL], mx = NEG_INF;
+#pragma unroll
+        for (int x = 0; x < KPL; ++x) {
+          float s = 0.0f;
+#pragma unroll
+          for (int w = 0; w < NW; ++w) s += sp[(w * G + g) * TK + lane + 32 * x];
+          if (a.capl2 > 0.0f) s = a.capl2 * fast_tanh(s);
+          sc[x] = lo + tile * TK + lane + 32 * x < hi ? s : NEG_INF;
+          mx = fmaxf(mx, sc[x]);
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = fast_exp2(m[i] - m_new);
+        float psum = 0.0f;
+#pragma unroll
+        for (int x = 0; x < KPL; ++x) {
+          const bool valid = lo + tile * TK + lane + 32 * x < hi;
+          const float p = valid ? fast_exp2(sc[x] - m_new) : 0.0f;
+          ps[g * TK + lane + 32 * x] = p;
+          psum += p;
+        }
+        l[i] = alpha * l[i] + psum;
+        m[i] = m_new;
+        if (lane == 0) alph[g] = alpha;
       }
     }
     __syncthreads();
+
+    // P V for this thread's piece of D and its keys of the tile
+    if (pv) {
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        const float al = alph[g];
+#pragma unroll
+        for (int e = 0; e < CE; ++e) acc[g][e] *= al;
+      }
+      for (int r = kg; r < TK; r += KG) {
+        float vv[CE];
+        lds16(vs + r * RS + pc * CE, vv);
+#pragma unroll
+        for (int g = 0; g < G; ++g) {
+          const float p = ps[g * TK + r];
+#pragma unroll
+          for (int e = 0; e < CE; ++e) acc[g][e] += p * vv[e];
+        }
+      }
+    }
+    __syncthreads();                               // the stage may be refilled
   }
-  for (int i = threadIdx.x; i < G * D; i += WARPS * 32) {
-    const int g = i / D, d = i % D;
-    float mx = NEG_INF, lsum = 0.0f;
-    for (int x = 0; x < WARPS; ++x) mx = fmaxf(mx, mw[x][g]);
-    for (int x = 0; x < WARPS; ++x) lsum += lw[x][g] * expf(mw[x][g] - mx);
-    put(out + ((ll)(b * H + h) * G + g) * D + d, accs[g][d] / fmaxf(lsum, 1e-30f));
+  cp_wait<0>();
+  __syncthreads();
+
+  // the key groups' sums meet in shared memory (over the ring), in order
+  float* red = reinterpret_cast<float*>(smem);     // [KG][G][D]
+  if (pv)
+#pragma unroll
+    for (int g = 0; g < G; ++g)
+#pragma unroll
+      for (int e = 0; e < CE; ++e) red[(kg * G + g) * D + pc * CE + e] = acc[g][e];
+#pragma unroll
+  for (int i = 0; i < HPW; ++i) {
+    const int g = warp + NW * i;
+    float ls = l[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    if (g < G && lane == 0) { a.ws[pi * G + g] = m[i]; a.ws[(P + pi) * G + g] = ls; }
+  }
+  __syncthreads();
+  float* wacc = a.ws + 2 * P * G + pi * G * D;
+  for (int i = t; i < G * D; i += THREADS) {
+    float s = 0.0f;
+    for (int x = 0; x < KG; ++x) s += red[x * G * D + i];
+    wacc[i] = s;
   }
 }
 
-template <typename T, int GMAX>
-void launch_g(const T* q, ll sqb, ll sqh, ll sqg, ll sqd, const T* k, ll skb,
-              ll skh, ll sks, const T* v, ll svb, ll svh, ll svs,
-              const int* lengths, T* out, int B, int H, int G, int S, int D,
-              float scale, float softcap, int window, cudaStream_t s) {
-  const dim3 grid(B * H);
-  if (D <= 128)
-    decode_kernel<T, GMAX, 1><<<grid, WARPS * 32, 0, s>>>(
-        q, sqb, sqh, sqg, sqd, k, skb, skh, sks, v, svb, svh, svs, lengths,
-        out, H, G, S, D, scale, softcap, window);
-  else
-    decode_kernel<T, GMAX, 2><<<grid, WARPS * 32, 0, s>>>(
-        q, sqb, sqh, sqg, sqd, k, skb, skh, sks, v, svb, svh, svs, lengths,
-        out, H, G, S, D, scale, softcap, window);
+// The splits of one (batch, KV head), combined in split order. First one
+// warp per head finds the largest m and the sum of the rescaled l (lanes
+// over splits, then a shuffle tree: a fixed order), and keeps each split's
+// weight exp2(m_s - m) in shared memory, 0 for a split with l = 0 (it held
+// no valid key, and its acc was never written); then every output sums its
+// splits with their loads in flight.
+template <typename T>
+__global__ void __launch_bounds__(MERGE_THREADS)
+merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int D,
+             int splits) {
+  __shared__ float wgt[MAX_SPLITS * 8], lsum[8];
+  const int bh = blockIdx.x, t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const ll P = (ll)gridDim.x * splits;
+  const float* wm = ws + (ll)bh * splits * G;
+  const float* wl = ws + (P + (ll)bh * splits) * G;
+  const float* wa = ws + 2 * P * G + (ll)bh * splits * G * D;
+  for (int g = warp; g < G; g += MERGE_THREADS / 32) {
+    float mx = NEG_INF;
+    for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, __ldg(&wm[s * G + g]));
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+    float ls = 0.0f;
+    for (int s = lane; s < splits; s += 32) {
+      const float l = __ldg(&wl[s * G + g]);
+      const float c = l > 0.0f ? fast_exp2(__ldg(&wm[s * G + g]) - mx) : 0.0f;
+      wgt[s * G + g] = c;
+      ls += c * l;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    if (lane == 0) lsum[g] = ls;
+  }
+  __syncthreads();
+  for (int i = t; i < G * D; i += MERGE_THREADS) {
+    const int g = i / D;
+    float o = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float c = wgt[s * G + g];
+      o += c * (c > 0.0f ? __ldg(&wa[(ll)s * G * D + i]) : 0.0f);
+    }
+    put(out + (ll)bh * G * D + i, o / fmaxf(lsum[g], 1e-30f));
+  }
+}
+
+// Raises the dynamic shared memory limit of an instantiation once per device.
+template <typename T, int G, int KPL>
+int launch_k(const Args& a, T* out, int BH, cudaStream_t s) {
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    // the most the instantiation takes: D up to DMAX, or 256 bytes a row
+    constexpr int dmax = KPL == 1 ? DMAX : 256 / (int)sizeof(T);
+    err = cudaFuncSetAttribute(split_kernel<T, G, KPL>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem_bytes<T, KPL>(dmax, G));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  split_kernel<T, G, KPL><<<dim3(BH, a.splits), THREADS, smem_bytes<T, KPL>(a.D, G), s>>>(a);
+  merge_kernel<T><<<BH, MERGE_THREADS, 0, s>>>(a.ws, out, G, a.D, a.splits);
+  return 0;
+}
+
+template <typename T, int G>
+int launch_g(const Args& a, T* out, int BH, cudaStream_t s) {
+  return a.D * (int)sizeof(T) <= 256 ? launch_k<T, G, 2>(a, out, BH, s)
+                                     : launch_k<T, G, 1>(a, out, BH, s);
 }
 
 template <typename T>
-int launch(const void* q, ll sqb, ll sqh, ll sqg, ll sqd, const void* k,
-           ll skb, ll skh, ll sks, const void* v, ll svb, ll svh, ll svs,
-           const int* lengths, void* out, int B, int H, int G, int S, int D,
-           float scale, float softcap, int window, cudaStream_t s) {
-  const T* qq = (const T*)q; const T* kk = (const T*)k; const T* vv = (const T*)v;
-  T* oo = (T*)out;
-  if (G <= 1) launch_g<T, 1>(qq, sqb, sqh, sqg, sqd, kk, skb, skh, sks, vv, svb, svh, svs, lengths, oo, B, H, G, S, D, scale, softcap, window, s);
-  else if (G <= 2) launch_g<T, 2>(qq, sqb, sqh, sqg, sqd, kk, skb, skh, sks, vv, svb, svh, svs, lengths, oo, B, H, G, S, D, scale, softcap, window, s);
-  else if (G <= 4) launch_g<T, 4>(qq, sqb, sqh, sqg, sqd, kk, skb, skh, sks, vv, svb, svh, svs, lengths, oo, B, H, G, S, D, scale, softcap, window, s);
-  else if (G <= 8) launch_g<T, 8>(qq, sqb, sqh, sqg, sqd, kk, skb, skh, sks, vv, svb, svh, svs, lengths, oo, B, H, G, S, D, scale, softcap, window, s);
-  else return (int)cudaErrorInvalidValue;
-  return 0;
+int launch(const Args& a, void* out, int BH, int G, cudaStream_t s) {
+  T* o = (T*)out;
+  switch (G) {
+    case 1: return launch_g<T, 1>(a, o, BH, s);
+    case 2: return launch_g<T, 2>(a, o, BH, s);
+    case 3: return launch_g<T, 3>(a, o, BH, s);
+    case 4: return launch_g<T, 4>(a, o, BH, s);
+    case 5: return launch_g<T, 5>(a, o, BH, s);
+    case 6: return launch_g<T, 6>(a, o, BH, s);
+    case 7: return launch_g<T, 7>(a, o, BH, s);
+    case 8: return launch_g<T, 8>(a, o, BH, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// dtype_code 0 f32, 1 bf16. k and v have unit D stride, their S stride a
-// multiple of 4 and 16-byte-aligned rows; q takes any strides. softcap <= 0
-// means none, window <= 0 means none. out is (B, H, G, D) contiguous.
+// dtype_code 0 f32, 1 bf16. k and v have unit D stride and 16-byte-aligned
+// rows (base and every stride a multiple of 16 bytes); q takes any strides.
+// D a multiple of 16 up to 256, 1 <= G <= 8. softcap <= 0 means none,
+// window <= 0 means none. out is (B, H, G, D) contiguous; ws holds
+// B * H * splits * G * (D + 2) floats. splits must leave no split without
+// a key of [0, S), and be at most 256 (decode_splits in kernel.py); another
+// value is refused.
 extern "C" int decode_attention_launch(
     const void* q, ll sqb, ll sqh, ll sqg, ll sqd, const void* k, ll skb,
     ll skh, ll sks, const void* v, ll svb, ll svh, ll svs, const int* lengths,
-    void* out, int B, int H, int G, int S, int D, int dtype_code, float scale,
-    float softcap, int window, void* stream) {
-  if (D > DMAX || D % 4 != 0) return (int)cudaErrorInvalidValue;
+    void* out, float* ws, int B, int H, int G, int S, int D, int splits,
+    int dtype_code, float scale, float softcap, int window, void* stream) {
+  if (D > DMAX || D <= 0 || D % 16 != 0 || G < 1 || G > 8)
+    return (int)cudaErrorInvalidValue;
+  if (splits < 1 || splits > MAX_SPLITS ||
+      (ll)(splits - 1) * split_chunk(S, splits) >= (S > 1 ? S : 1))
+    return (int)cudaErrorInvalidValue;
   if (B * H == 0) return (int)cudaGetLastError();
+  const bool cap = softcap > 0.0f;
+  const Args a{q, sqb, sqh, sqg, sqd, k, skb, skh, sks, v, svb, svh, svs,
+               lengths, ws, H, S, D, splits,
+               cap ? scale / softcap : scale * LOG2E, cap ? softcap * LOG2E : 0.0f,
+               window};
   cudaStream_t s = (cudaStream_t)stream;
-  int err = dtype_code == 0
-      ? launch<float>(q, sqb, sqh, sqg, sqd, k, skb, skh, sks, v, svb, svh, svs, lengths, out, B, H, G, S, D, scale, softcap, window, s)
-      : launch<bf16>(q, sqb, sqh, sqg, sqd, k, skb, skh, sks, v, svb, svh, svs, lengths, out, B, H, G, S, D, scale, softcap, window, s);
+  const int err = dtype_code == 0 ? launch<float>(a, out, B * H, G, s)
+                                  : launch<bf16>(a, out, B * H, G, s);
   if (err) return err;
   return (int)cudaGetLastError();
 }

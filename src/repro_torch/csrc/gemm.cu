@@ -9,11 +9,17 @@
 // What bounds it on this card, and what the design does about it:
 //  * Decode (M = live slots, 1..8) is bound by the bytes of B: every weight
 //    is read once per step, at 2 flop per weight element and row of A. Two
-//    GEMV-shaped kernels stream B at 16 bytes a thread with A staged in
-//    shared memory as f32: gemv_n when B's N stride is 1 (a weight
-//    matrix), gemv_t when its K stride is 1 (the unembed's transposed
-//    table view, read in place: no copy of the 1.8 GB table). Ragged M, N
-//    and K are masked in the kernel, so no weight is ever padded or copied.
+//    GEMV-shaped kernels stream B at 16 bytes a lane: gemv_n when B's N
+//    stride is 1 (a weight matrix; 128-column strips, 256 contiguous bytes
+//    of each bf16 row), gemv_t when its K stride is 1 (the unembed's
+//    transposed table view, read in place: no copy of the 1.8 GB table; a
+//    warp reads 512 contiguous bytes of a column). K is split across blocks
+//    so that even a narrow projection (N = 1024) fills the card several
+//    times over; each block stages its slice of A once and keeps 8 loads
+//    of B in flight a lane with no barrier in its loop, and the splits'
+//    sums meet in a workspace, added in a fixed order by the last block of
+//    each strip. Ragged M, N and K are masked in the kernel, so no weight
+//    is ever padded or copied.
 //  * Prefill (M = prompt length) is bound by operations. bf16 with A
 //    K-contiguous and B N-contiguous goes through Hopper's tensor cores:
 //    TMA loads into a 4-stage ring under mbarriers, one producer warp, two
@@ -139,6 +145,42 @@ __device__ __forceinline__ void ldg_vec(const T* p, T (&out)[V]) {
   }
 }
 
+// Four 16-byte loads of read-only global memory in one statement, so that
+// the compiler cannot spread them among the arithmetic that uses them: all
+// four are in flight at once. Where ok[i] is false, r[i] keeps its value.
+__device__ __forceinline__ void ldg16x4(uint4* r, const void* const* p, const bool* ok) {
+  asm volatile(
+      "{\n\t.reg .pred q0, q1, q2, q3;\n\t"
+      "setp.ne.b32 q0, %20, 0;\n\tsetp.ne.b32 q1, %21, 0;\n\t"
+      "setp.ne.b32 q2, %22, 0;\n\tsetp.ne.b32 q3, %23, 0;\n\t"
+      "@q0 ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%16];\n\t"
+      "@q1 ld.global.nc.v4.u32 {%4, %5, %6, %7}, [%17];\n\t"
+      "@q2 ld.global.nc.v4.u32 {%8, %9, %10, %11}, [%18];\n\t"
+      "@q3 ld.global.nc.v4.u32 {%12, %13, %14, %15}, [%19];\n\t}"
+      : "+r"(r[0].x), "+r"(r[0].y), "+r"(r[0].z), "+r"(r[0].w),
+        "+r"(r[1].x), "+r"(r[1].y), "+r"(r[1].z), "+r"(r[1].w),
+        "+r"(r[2].x), "+r"(r[2].y), "+r"(r[2].z), "+r"(r[2].w),
+        "+r"(r[3].x), "+r"(r[3].y), "+r"(r[3].z), "+r"(r[3].w)
+      : "l"(p[0]), "l"(p[1]), "l"(p[2]), "l"(p[3]),
+        "r"((int)ok[0]), "r"((int)ok[1]), "r"((int)ok[2]), "r"((int)ok[3]));
+}
+
+// Eight rows or columns of B, 16 bytes each (V elements of T), all in
+// flight before the first is used; zeros where ok[i] is false.
+template <typename T, int V>
+__device__ __forceinline__ void ldg16x8(T (&out)[8][V], const T* const* p,
+                                        const bool* ok) {
+  static_assert(V * sizeof(T) == 16, "16-byte pieces");
+  uint4 r[8];
+  const void* q[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) { r[i] = make_uint4(0u, 0u, 0u, 0u); q[i] = p[i]; }
+  ldg16x4(r, q, ok);
+  ldg16x4(r + 4, q + 4, ok + 4);
+#pragma unroll
+  for (int i = 0; i < 8; ++i) *reinterpret_cast<uint4*>(out[i]) = r[i];
+}
+
 // V accumulator-typed values from shared memory, 16 bytes at a time.
 template <typename AccT, int V>
 __device__ __forceinline__ void lds_vec(const AccT* p, AccT (&out)[V]) {
@@ -158,150 +200,350 @@ __host__ __device__ constexpr int vec_width() {
 }
 
 constexpr int THREADS = 256;
-constexpr int KC = 512;      // K chunk of A staged in shared memory (GEMV)
 
-// Stage rows [0, MMAX) x columns [k0, k0 + KC) of A into shared memory,
-// widened to the accumulator type; rows >= M and columns >= K are zero.
-template <typename T, typename AccT, int MMAX>
-__device__ __forceinline__ void stage_a(AccT (*As)[KC], const T* a, ll sam,
-                                        ll sak, int M, int K, int k0) {
-  for (int i = threadIdx.x; i < MMAX * KC; i += THREADS) {
-    const int m = i / KC, k = i % KC;
-    As[m][k] = (m < M && k0 + k < K) ? widen(a[(ll)m * sam + (ll)(k0 + k) * sak])
-                                     : AccT(0);
+// ------------------------------------------------------------------ GEMV
+// M <= 8 (decode). The grid is (column strips, K splits): a block takes one
+// strip of columns and `chunk` rows of K and streams its part of B with no
+// barrier in the loop, eight 16-byte loads of B in flight a lane. gemv_n
+// (B read along N) stages its (M, chunk) slice of A in shared memory once
+// (f32, int32 for int8) and issues its loads of B as one group (ldg16x8);
+// gemv_t (B read along K) reads A's pieces from global memory beside B's,
+// so its chunk has no bound and the unembed's 8000 strips take K whole
+// (on the H100, faster in bf16 than splits of K over a staged A). With one
+// split the block applies the epilogue; with more, each block writes its
+// partial sums to a workspace (f32, int32 for int8) and the last block of
+// a strip to arrive (a ticket counter per strip, which that block resets
+// to 0) adds the partials in split order and applies the epilogue once, to
+// the full sum.
+// Strips are narrow (128 columns along N, 32 along K), so that the splits a
+// strip needs to fill the card, and the partials its last block reads, stay
+// few. The split plan (splits, chunk) comes from gemv_plan in kernel.py and
+// is checked in plan_ok.
+namespace gv {
+
+constexpr int NW = 4;              // warps of a gemv_n block
+constexpr int NW_T = 4;            // warps of a gemv_t block
+constexpr int KC = 1024;           // most rows of K a gemv_n block takes
+constexpr int U = 8;               // pieces of B a lane has in flight
+constexpr int CPW = U;             // columns a warp owns (gemv_t)
+constexpr int TCOLS = NW_T * CPW;  // columns of a gemv_t strip
+
+struct Args {
+  const void* a; ll sam, sak;
+  const void* b; ll sbk, sbn;
+  int M, N, K, splits, chunk;
+  void* ws;                  // (splits, M, N) partial sums when splits > 1
+  unsigned* tickets;         // one zeroed counter per strip when splits > 1
+  int a_vec;                 // A read 16 bytes at a time (a_vec_ok)
+};
+
+// Rows [0, MMAX) x columns [k0, k0 + chunk) of A, widened; zero past M, K.
+// Each thread has SU loads in flight (16 bytes each when a_vec), so the
+// block waits about one memory latency for A, once.
+template <typename T, typename AccT, int MMAX, int NT>
+__device__ __forceinline__ void stage_a(AccT* As, const Args& g, int k0) {
+  constexpr int SU = 4;
+  const T* a = (const T*)g.a;
+  if (g.a_vec) {
+    constexpr int AV = 16 / (int)sizeof(T);
+    const int per_row = g.chunk / AV, total = MMAX * per_row;
+    for (int i0 = threadIdx.x; i0 < total; i0 += NT * SU) {
+      alignas(16) T v[SU][AV];
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int i = i0 + u * NT, m = i / per_row, kk = (i % per_row) * AV;
+        if (i < total && m < g.M && k0 + kk < g.K) {
+          ldg_vec<T, AV>(a + (ll)m * g.sam + k0 + kk, v[u]);
+        } else {
+#pragma unroll
+          for (int x = 0; x < AV; ++x) v[u][x] = T(0);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < SU; ++u) {
+        const int i = i0 + u * NT, m = i / per_row, kk = (i % per_row) * AV;
+        if (i < total)
+#pragma unroll
+          for (int x = 0; x < AV; ++x) As[m * KC + kk + x] = widen(v[u][x]);
+      }
+    }
+    return;
+  }
+  const int total = MMAX * g.chunk;
+  for (int i0 = threadIdx.x; i0 < total; i0 += NT * SU) {
+    AccT v[SU];
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = i0 + u * NT, m = i / g.chunk, k = k0 + i % g.chunk;
+      v[u] = (i < total && m < g.M && k < g.K) ? widen(a[(ll)m * g.sam + (ll)k * g.sak])
+                                               : AccT(0);
+    }
+#pragma unroll
+    for (int u = 0; u < SU; ++u) {
+      const int i = i0 + u * NT;
+      if (i < total) As[(i / g.chunk) * KC + i % g.chunk] = v[u];
+    }
   }
 }
 
-// ---------------------------------------------------------------- gemv_n
-// B's N stride is 1 (or general when !VEC). Four threads cover one row of a
-// BN-column strip (16 bytes each); the block's 64 row groups walk K and are
-// summed at the end, first by warp shuffles, then through shared memory.
+// The strip's sums `sum(m, j)` (j < COLS, column n0 + j) reach the output:
+// directly with one split, else through the workspace and the strip's last
+// block, which keeps PER sums a thread and reads the splits in order with
+// the loads of several splits in flight. Called by every thread.
+template <typename AccT, int COLS, int MMAX, int NT, typename F>
+__device__ __forceinline__ void finish(const Args& g, const Epi& e, int n0, F sum) {
+  constexpr int PER = (MMAX * COLS + NT - 1) / NT;
+  const int t = threadIdx.x;
+  if (g.splits == 1) {
+    for (int i = t; i < g.M * COLS; i += NT) {
+      const int m = i / COLS, n = n0 + i % COLS;
+      if (n < g.N) epilogue(e, m, n, sum(m, i % COLS));
+    }
+    return;
+  }
+  AccT* ws = (AccT*)g.ws;
+  for (int i = t; i < g.M * COLS; i += NT) {
+    const int m = i / COLS, n = n0 + i % COLS;
+    if (n < g.N) ws[((ll)blockIdx.y * g.M + m) * g.N + n] = sum(m, i % COLS);
+  }
+  __shared__ unsigned ticket;
+  __threadfence();
+  __syncthreads();
+  if (t == 0) ticket = atomicAdd(&g.tickets[blockIdx.x], 1u);
+  __syncthreads();
+  if (ticket != (unsigned)g.splits - 1) return;
+  __threadfence();
+  AccT s[PER];
+#pragma unroll
+  for (int r = 0; r < PER; ++r) s[r] = AccT(0);
+#pragma unroll 8
+  for (int sp = 0; sp < g.splits; ++sp)
+#pragma unroll
+    for (int r = 0; r < PER; ++r) {
+      const int i = t + r * NT, m = i / COLS, n = n0 + i % COLS;
+      if (m < g.M && n < g.N) s[r] += __ldcg(&ws[((ll)sp * g.M + m) * g.N + n]);
+    }
+#pragma unroll
+  for (int r = 0; r < PER; ++r) {
+    const int i = t + r * NT, m = i / COLS, n = n0 + i % COLS;
+    if (m < g.M && n < g.N) epilogue(e, m, n, s[r]);
+  }
+  if (t == 0) g.tickets[blockIdx.x] = 0u;
+}
+
+// B's N stride is 1 (or general when !VEC). A strip is 128 columns: LPR
+// lanes span it (16 bytes a lane: 256 contiguous bytes of a bf16 row, 512
+// of an f32 one), so a warp covers RPW rows at once. Each of the 4 warps
+// takes a quarter of the chunk's rows; per step a lane takes U consecutive
+// rows (the first step's loads in flight while A is staged), and the warps
+// meet in shared memory at the end.
 template <typename T, int MMAX, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-gemv_n_kernel(const T* __restrict__ a, ll sam, ll sak, const T* __restrict__ b,
-              ll sbk, ll sbn, int M, int N, int K, Epi e) {
+__global__ void __launch_bounds__(NW * 32)
+gemv_n_kernel(Args g, Epi e) {
   using AccT = typename AccOf<T>::type;
+  constexpr int NT = NW * 32;
   constexpr int V = vec_width<T, VEC>();
-  constexpr int TPR = 4;
-  constexpr int BN = TPR * V;
-  constexpr int R = THREADS / TPR;
-  __shared__ __align__(16) AccT As[MMAX][KC];
-  __shared__ AccT red[THREADS / 32][MMAX][BN];
-  const int t = threadIdx.x, cg = t % TPR, r = t / TPR;
-  const int n0 = blockIdx.x * BN + cg * V;
+  constexpr int BN = VEC ? 128 : 32;
+  constexpr int LPR = BN / V;          // lanes across a row
+  constexpr int RPW = 32 / LPR;        // rows a warp covers at once
+  constexpr int STEP = RPW * U;        // rows a warp takes per step
+  __shared__ __align__(16) AccT As[MMAX * KC];   // A, then the warps' sums
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int part = lane / LPR, col = lane % LPR;
+  const int n0 = blockIdx.x * BN, n = n0 + col * V;
+  const int k0 = blockIdx.y * g.chunk, sub = g.chunk / NW;   // sub % STEP == 0
+  const T* b = (const T*)g.b;
+  const int kend = min(g.K - k0, (warp + 1) * sub);
+  // this lane's U rows of the step at kk (16-byte pieces issued as a group)
+  auto load = [&](int kk, T (&bv)[U][V]) {
+    const int r0 = kk + part * U;
+    if constexpr (V * sizeof(T) == 16) {
+      const T* ptr[U];
+      bool ok[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        ok[u] = n < g.N && r0 + u < kend;
+        ptr[u] = ok[u] ? b + (ll)(k0 + r0 + u) * g.sbk + n : b;
+      }
+      ldg16x8<T, V>(bv, ptr, ok);
+    } else {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (n < g.N && r0 + u < kend) {
+          const T* bp = b + (ll)(k0 + r0 + u) * g.sbk;
+          if constexpr (VEC) ldg_vec<T, V>(bp + n, bv[u]);   // N % V == 0 here
+          else bv[u][0] = bp[(ll)n * g.sbn];
+        } else {
+#pragma unroll
+          for (int v = 0; v < V; ++v) bv[u][v] = T(0);
+        }
+      }
+    }
+  };
+  // the first step's loads are in flight while A is staged
+  alignas(16) T bv[U][V];
+  if (warp * sub < kend) load(warp * sub, bv);
+  stage_a<T, AccT, MMAX, NT>(As, g, k0);
+  __syncthreads();
   AccT acc[MMAX][V];
 #pragma unroll
   for (int m = 0; m < MMAX; ++m)
 #pragma unroll
     for (int v = 0; v < V; ++v) acc[m][v] = AccT(0);
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    stage_a<T, AccT, MMAX>(As, a, sam, sak, M, K, k0);
-    __syncthreads();
-#pragma unroll 4
-    for (int k = r; k < kc; k += R) {
-      alignas(16) T bv[V];
-      const T* bp = b + (ll)(k0 + k) * sbk;
-      if constexpr (VEC) {
-        if (n0 < N) {
-          ldg_vec<T, V>(bp + n0, bv);   // N % V == 0 here
-        } else {
+  for (int kk = warp * sub; kk < kend; kk += STEP) {
+    if (kk != warp * sub) load(kk, bv);
+    const int r0 = kk + part * U;
 #pragma unroll
-          for (int v = 0; v < V; ++v) bv[v] = T(0);
-        }
-      } else {
-        bv[0] = n0 < N ? bp[(ll)n0 * sbn] : T(0);
-      }
+    for (int m = 0; m < MMAX; ++m) {
+      alignas(16) AccT av[U];
+      lds_vec<AccT, U>(&As[m * KC + r0], av);
 #pragma unroll
-      for (int m = 0; m < MMAX; ++m) {
-        const AccT av = As[m][k];
+      for (int u = 0; u < U; ++u)
 #pragma unroll
-        for (int v = 0; v < V; ++v) acc[m][v] += av * widen(bv[v]);
-      }
+        for (int v = 0; v < V; ++v) acc[m][v] += av[u] * widen(bv[u][v]);
     }
   }
-#pragma unroll
-  for (int m = 0; m < MMAX; ++m)
-#pragma unroll
-    for (int v = 0; v < V; ++v)
-#pragma unroll
-      for (int off = TPR; off < 32; off <<= 1)
-        acc[m][v] += __shfl_xor_sync(0xffffffffu, acc[m][v], off);
-  const int warp = t / 32, lane = t % 32;
-  if (lane < TPR)
+  if constexpr (RPW == 2)
 #pragma unroll
     for (int m = 0; m < MMAX; ++m)
 #pragma unroll
-      for (int v = 0; v < V; ++v) red[warp][m][lane * V + v] = acc[m][v];
+      for (int v = 0; v < V; ++v) acc[m][v] += __shfl_xor_sync(0xffffffffu, acc[m][v], 16);
+  __syncthreads();                                 // A is no longer read
+  AccT* red = As;                                  // [NW][MMAX][V][LPR]
+  if (lane < LPR)
+#pragma unroll
+    for (int m = 0; m < MMAX; ++m)
+#pragma unroll
+      for (int v = 0; v < V; ++v) red[((warp * MMAX + m) * V + v) * LPR + lane] = acc[m][v];
   __syncthreads();
-  for (int i = t; i < M * BN; i += THREADS) {
-    const int m = i / BN, j = i % BN, n = blockIdx.x * BN + j;
+  finish<AccT, BN, MMAX, NT>(g, e, n0, [&](int m, int j) {   // j = lane V + v
     AccT s = AccT(0);
 #pragma unroll
-    for (int w = 0; w < THREADS / 32; ++w) s += red[w][m][j];
-    if (n < N) epilogue(e, m, n, s);
-  }
+    for (int w = 0; w < NW; ++w) s += red[((w * MMAX + m) * V + j % V) * LPR + j / V];
+    return s;
+  });
 }
 
-// ---------------------------------------------------------------- gemv_t
 // B's K stride is 1: column n of B is a contiguous run of K elements (a row
-// of the table behind a transposed view). Each warp owns CPW columns; its
-// lanes read 16 bytes of each column per step and reduce by shuffles.
+// of the table behind a transposed view). Each of the 4 warps owns CPW
+// columns; per step its lanes read 16 contiguous bytes of each of them (512
+// bytes a warp and column) and the matching piece of each row of A, which
+// they widen in registers: A is read straight from global memory (L1 and L2
+// keep it), so a block takes any number of rows of K with no barrier. The
+// warp reduces by shuffles once, at the end.
 template <typename T, int MMAX, bool VEC>
-__global__ void __launch_bounds__(THREADS)
-gemv_t_kernel(const T* __restrict__ a, ll sam, ll sak, const T* __restrict__ b,
-              ll sbn, int M, int N, int K, Epi e) {
+__global__ void __launch_bounds__(NW_T * 32)
+gemv_t_kernel(Args g, Epi e) {
   using AccT = typename AccOf<T>::type;
   constexpr int V = vec_width<T, VEC>();
-  constexpr int CPW = 8;
-  constexpr int BN = (THREADS / 32) * CPW;
-  __shared__ __align__(16) AccT As[MMAX][KC];
+  __shared__ AccT sums[MMAX][TCOLS];
   const int t = threadIdx.x, warp = t / 32, lane = t % 32;
-  const int nb = blockIdx.x * BN + warp * CPW;
+  const int n0 = blockIdx.x * TCOLS, nb = n0 + warp * CPW;
+  const int k0 = blockIdx.y * g.chunk;
+  const T* a = (const T*)g.a;
+  const T* b = (const T*)g.b;
+  const int kend = min(g.K - k0, g.chunk);         // K % V == 0 when VEC
   AccT acc[MMAX][CPW];
 #pragma unroll
   for (int m = 0; m < MMAX; ++m)
 #pragma unroll
     for (int c = 0; c < CPW; ++c) acc[m][c] = AccT(0);
-
-  for (int k0 = 0; k0 < K; k0 += KC) {
-    const int kc = min(KC, K - k0);
-    __syncthreads();
-    stage_a<T, AccT, MMAX>(As, a, sam, sak, M, K, k0);
-    __syncthreads();
-    for (int k = lane * V; k < kc; k += 32 * V) {   // K % V == 0 when VEC
-      alignas(16) AccT av[MMAX][V];
+  for (int kk = lane * V; kk < kend; kk += 32 * V) {
+    alignas(16) T bv[CPW][V];
 #pragma unroll
-      for (int m = 0; m < MMAX; ++m) lds_vec<AccT, V>(&As[m][k], av[m]);
+    for (int c = 0; c < CPW; ++c) {
+      if (nb + c < g.N) {
+        ldg_vec<T, V>(b + (ll)(nb + c) * g.sbn + k0 + kk, bv[c]);
+      } else {
 #pragma unroll
-      for (int c = 0; c < CPW; ++c) {
-        const int n = nb + c;
-        if (n >= N) break;
-        alignas(16) T bv[V];
-        ldg_vec<T, V>(b + (ll)n * sbn + k0 + k, bv);
-#pragma unroll
-        for (int m = 0; m < MMAX; ++m)
-#pragma unroll
-          for (int v = 0; v < V; ++v) acc[m][c] += av[m][v] * widen(bv[v]);
+        for (int v = 0; v < V; ++v) bv[c][v] = T(0);
       }
+    }
+#pragma unroll
+    for (int m = 0; m < MMAX; ++m) {
+      if (m >= g.M) break;
+      alignas(16) T av[V];
+      if (VEC && g.a_vec) {
+        ldg_vec<T, V>(a + (ll)m * g.sam + k0 + kk, av);
+      } else {
+#pragma unroll
+        for (int v = 0; v < V; ++v)
+          av[v] = k0 + kk + v < g.K ? a[(ll)m * g.sam + (ll)(k0 + kk + v) * g.sak] : T(0);
+      }
+#pragma unroll
+      for (int c = 0; c < CPW; ++c)
+#pragma unroll
+        for (int v = 0; v < V; ++v) acc[m][c] += widen(av[v]) * widen(bv[c][v]);
     }
   }
 #pragma unroll
   for (int m = 0; m < MMAX; ++m)
 #pragma unroll
-    for (int c = 0; c < CPW; ++c)
+    for (int c = 0; c < CPW; ++c) {
 #pragma unroll
       for (int off = 16; off > 0; off >>= 1)
         acc[m][c] += __shfl_xor_sync(0xffffffffu, acc[m][c], off);
-  if (lane == 0)
-#pragma unroll
-    for (int c = 0; c < CPW; ++c)
-#pragma unroll
-      for (int m = 0; m < MMAX; ++m)
-        if (m < M && nb + c < N) epilogue(e, m, nb + c, acc[m][c]);
+      if (lane == 0) sums[m][warp * CPW + c] = acc[m][c];
+    }
+  __syncthreads();
+  finish<AccT, TCOLS, MMAX, NW_T * 32>(g, e, n0, [&](int m, int j) { return sums[m][j]; });
 }
+
+inline bool aligned(const void* p, ll bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// B read along K (the unembed's table.T) or along N.
+inline bool t_layout(const Args& g) { return g.sbk == 1 && g.sbn != 1; }
+
+// The plan fits the kernels: chunk a multiple of the rows a block steps by
+// (64 along N, 32 along K), up to KC rows along N (the slice of A staged),
+// every split holding rows of K, and a workspace and counters when
+// splits > 1.
+inline bool plan_ok(const Args& g) {
+  if (g.splits < 1 || g.splits > 65535 || g.chunk <= 0 || (!t_layout(g) && g.chunk > KC) ||
+      g.chunk % (t_layout(g) ? 32 : NW * 16) != 0)
+    return false;
+  if ((ll)g.splits * g.chunk < g.K || (ll)(g.splits - 1) * g.chunk >= (g.K > 1 ? g.K : 1))
+    return false;
+  return g.splits == 1 || (g.ws != nullptr && g.tickets != nullptr);
+}
+
+template <typename T, int MMAX>
+void launch_m(const Args& g, const Epi& e, cudaStream_t s) {
+  constexpr int V = vec_width<T, true>();
+  constexpr ll VB = V * sizeof(T);
+  if (t_layout(g)) {
+    const dim3 grid((g.N + TCOLS - 1) / TCOLS, g.splits);
+    if (g.K % V == 0 && aligned(g.b, VB) && (g.sbn * (ll)sizeof(T)) % VB == 0)
+      gemv_t_kernel<T, MMAX, true><<<grid, NW_T * 32, 0, s>>>(g, e);
+    else
+      gemv_t_kernel<T, MMAX, false><<<grid, NW_T * 32, 0, s>>>(g, e);
+  } else if (g.sbn == 1 && g.N % V == 0 && aligned(g.b, VB) &&
+             (g.sbk * (ll)sizeof(T)) % VB == 0) {
+    gemv_n_kernel<T, MMAX, true><<<dim3((g.N + 127) / 128, g.splits), NW * 32, 0, s>>>(g, e);
+  } else {
+    gemv_n_kernel<T, MMAX, false><<<dim3((g.N + 31) / 32, g.splits), NW * 32, 0, s>>>(g, e);
+  }
+}
+
+// A K-contiguous, 16-byte aligned rows, K a multiple of 16 bytes: A is
+// staged 16 bytes at a time.
+template <typename T>
+bool a_vec_ok(const Args& g) {
+  return g.sak == 1 && (g.K * (ll)sizeof(T)) % 16 == 0 && aligned(g.a, 16) &&
+         (g.M == 1 || (g.sam * (ll)sizeof(T)) % 16 == 0);
+}
+
+template <typename T>
+void launch(Args g, const Epi& e, cudaStream_t s) {
+  g.a_vec = a_vec_ok<T>(g);
+  if (g.M <= 1) launch_m<T, 1>(g, e, s);
+  else if (g.M <= 4) launch_m<T, 4>(g, e, s);
+  else launch_m<T, 8>(g, e, s);
+}
+
+}  // namespace gv
 
 // ------------------------------------------------------- CUDA-core tiles
 // f32 and int8 at M > 8: a 64x64 block tile, K steps of 16, each thread a
@@ -744,38 +986,7 @@ int launch(const bf16* a, ll sam, const bf16* b, ll sbk, int M, int N, int K,
 
 }  // namespace wg
 
-inline bool aligned(const void* p, ll bytes) {
-  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
-}
-
-template <typename T, int MMAX>
-void launch_gemv(const T* a, ll sam, ll sak, const T* b, ll sbk, ll sbn,
-                 int M, int N, int K, const Epi& e, cudaStream_t s) {
-  constexpr int V = vec_width<T, true>();
-  constexpr ll VB = V * sizeof(T);
-  if (sbk == 1 && sbn != 1) {
-    constexpr int BN = (THREADS / 32) * 8;
-    const dim3 grid((N + BN - 1) / BN);
-    if (K % V == 0 && aligned(b, VB) && (sbn * (ll)sizeof(T)) % VB == 0)
-      gemv_t_kernel<T, MMAX, true><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbn, M, N, K, e);
-    else
-      gemv_t_kernel<T, MMAX, false><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbn, M, N, K, e);
-  } else if (sbn == 1 && N % V == 0 && aligned(b, VB) && (sbk * (ll)sizeof(T)) % VB == 0) {
-    const dim3 grid((N + 4 * V - 1) / (4 * V));
-    gemv_n_kernel<T, MMAX, true><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbk, sbn, M, N, K, e);
-  } else {
-    const dim3 grid((N + 3) / 4);
-    gemv_n_kernel<T, MMAX, false><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbk, sbn, M, N, K, e);
-  }
-}
-
-template <typename T>
-void launch_small_m(const T* a, ll sam, ll sak, const T* b, ll sbk, ll sbn,
-                    int M, int N, int K, const Epi& e, cudaStream_t s) {
-  if (M <= 1) launch_gemv<T, 1>(a, sam, sak, b, sbk, sbn, M, N, K, e, s);
-  else if (M <= 4) launch_gemv<T, 4>(a, sam, sak, b, sbk, sbn, M, N, K, e, s);
-  else launch_gemv<T, 8>(a, sam, sak, b, sbk, sbn, M, N, K, e, s);
-}
+using gv::aligned;
 
 template <typename T>
 void launch_fma(const T* a, ll sam, ll sak, const T* b, ll sbk, ll sbn,
@@ -813,19 +1024,26 @@ bool wgmma_ok(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
 // Type codes: 0 f32, 1 bf16, 2 int8, 3 int32. Variant: 0 gemv (M <= 8), 1
 // wgmma, 2 wmma (bf16, M > 8), 3 fma (f32 or int8, M > 8); a variant that
 // cannot take the operands returns cudaErrorInvalidValue. c may be null
-// (no epilogue term). d is (M, N) contiguous. Returns cudaGetLastError()
-// after the launch.
+// (no epilogue term). d is (M, N) contiguous. gemv only: K is split into
+// `splits` runs of `chunk` rows (gemv_plan in kernel.py); with splits > 1,
+// ws holds splits * M * N partial sums (f32, int32 for int8) and tickets
+// one zeroed counter per 32 columns of N, left zeroed again; launches that
+// may overlap must not share them (kernel.py keeps a set per stream). A
+// plan the kernels cannot take is refused. Returns cudaGetLastError() after the
+// launch.
 extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
                            ll sbk, ll sbn, const void* c, ll scm, ll scn,
                            int c_code, void* d, int out_code, int M, int N,
                            int K, int in_code, float alpha, float beta,
-                           int variant, void* stream) {
+                           int variant, int splits, int chunk, void* ws,
+                           unsigned* tickets, void* stream) {
   const Epi e{c, scm, scn, c_code, d, out_code, N, alpha, beta, c != nullptr};
+  const gv::Args g{a, sam, sak, b, sbk, sbn, M, N, K, splits, chunk, ws, tickets, 0};
   cudaStream_t s = (cudaStream_t)stream;
   if (in_code != F32 && in_code != BF16 && in_code != I8) return (int)cudaErrorInvalidValue;
   bool ok;
   switch (variant) {
-    case GEMV: ok = M <= 8; break;
+    case GEMV: ok = M <= 8 && gv::plan_ok(g); break;
     case WGMMA: ok = in_code == BF16 && wgmma_ok(a, sam, sak, b, sbk, sbn, M, N, K); break;
     case WMMA: ok = in_code == BF16 && M > 8; break;
     case FMA: ok = in_code != BF16 && M > 8; break;
@@ -836,9 +1054,9 @@ extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
   int err = 0;
   switch (variant) {
     case GEMV:
-      if (in_code == F32) launch_small_m((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);
-      else if (in_code == BF16) launch_small_m((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
-      else launch_small_m((const int8_t*)a, sam, sak, (const int8_t*)b, sbk, sbn, M, N, K, e, s);
+      if (in_code == F32) gv::launch<float>(g, e, s);
+      else if (in_code == BF16) gv::launch<bf16>(g, e, s);
+      else gv::launch<int8_t>(g, e, s);
       break;
     case WGMMA:
       err = wg::launch((const bf16*)a, sam, (const bf16*)b, sbk, M, N, K, e, s);

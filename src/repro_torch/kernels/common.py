@@ -39,6 +39,23 @@ def stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def ceil_div(x: int, y: int) -> int:
+    return -(-x // y)
+
+
+_SMS: dict = {}
+
+
+def sm_count(device: torch.device) -> int:
+    """The card's SM count (read once per device): the split plans size
+    their grids by it."""
+    n = _SMS.get(device.index)
+    if n is None:
+        n = _SMS[device.index] = \
+            torch.cuda.get_device_properties(device).multi_processor_count
+    return n
+
+
 def strides_of(t: torch.Tensor) -> tuple:
     """t.stride() with the stride of every size-1 dimension set to 0: it is
     never stepped, and PyTorch leaves it arbitrary."""

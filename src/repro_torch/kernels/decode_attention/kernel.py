@@ -2,9 +2,12 @@
 (``csrc/decode_attention.cu``).
 
 Replaces ``repro/kernels/decode_attention/kernel.py:
-decode_attention_pallas``. The lengths stay on the device: the kernel reads
-them, and nothing is copied to the host. ``decode_attention_cuda.launches``
-counts the kernel's launches.
+decode_attention_pallas``. The cache's S axis is split across blocks
+(``decode_splits``); the splits' partial states go to an f32 workspace and a
+second kernel of the same call merges them in split order. The lengths stay
+on the device: the kernel reads them, and nothing is copied to the host.
+``decode_attention_cuda.launches`` counts the wrapper's launches (one per
+call, the merge included).
 """
 from __future__ import annotations
 
@@ -13,9 +16,12 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import check_cuda, check_dtype, stream_ptr
+from repro_torch.kernels.common import (ceil_div, check_cuda, check_dtype,
+                                        sm_count, stream_ptr)
 
 CODES = {torch.float32: 0, torch.bfloat16: 1}
+ALIGN = 32           # a split's keys are a multiple of this (ALIGN there)
+MAX_SPLITS = 256     # the most splits the merge takes (MAX_SPLITS there)
 
 _FN = None
 
@@ -25,19 +31,38 @@ def _fn():
     if _FN is None:
         fn = _build.load("decode_attention").decode_attention_launch
         V, L, I, F = _build.VP, _build.I64, _build.I32, _build.F32
-        fn.argtypes = [V, L, L, L, L, V, L, L, L, V, L, L, L, V, V,
-                       I, I, I, I, I, I, F, F, I, V]
+        fn.argtypes = [V, L, L, L, L, V, L, L, L, V, L, L, L, V, V, V,
+                       I, I, I, I, I, I, I, F, F, I, V]
         fn.restype = I
         _FN = fn
     return _FN
 
 
+def split_chunk(s: int, splits: int) -> int:
+    """Keys of one split: ceil(S / splits) rounded up to ``ALIGN``."""
+    return ceil_div(ceil_div(s, splits), ALIGN) * ALIGN
+
+
+def decode_splits(b: int, hkv: int, s: int, sms: int) -> int:
+    """Splits of the cache's S axis: about two (batch, KV head, split)
+    blocks for each of the ``sms`` SMs (rounded down, so that they run in
+    one round where two fit on an SM), at least one wave, at least
+    ``ALIGN`` keys a split, no split without a key of [0, S), and at most
+    ``MAX_SPLITS``. A function of the cache's capacity, not of the lengths,
+    so no length is read on the host. The C side refuses a value that
+    leaves a split empty."""
+    pairs = max(b * hkv, 1)
+    want = min(MAX_SPLITS, max(1, 2 * sms // pairs, ceil_div(sms, pairs)))
+    chunk = max(ALIGN, split_chunk(s, want))
+    return max(1, ceil_div(s, chunk))
+
+
 def _check_cache(name: str, t: torch.Tensor) -> None:
-    align = 4 * t.element_size()
-    if t.stride(3) != 1 or t.stride(2) % 4 or t.data_ptr() % align \
-            or t.stride(0) % 4 or t.stride(1) % 4:
+    esz = t.element_size()
+    if t.stride(3) != 1 or t.data_ptr() % 16 \
+            or any(x * esz % 16 for x in t.stride()[:3]):
         raise ValueError(f"decode_attention: {name} needs a unit D stride, "
-                         f"other strides a multiple of 4 and {align}-byte "
+                         f"other strides a multiple of 16 bytes and 16-byte "
                          f"alignment, got strides {t.stride()}")
 
 
@@ -72,10 +97,15 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"decode_attention: window={window}")
     if scale is None:
         scale = 1.0 / (d ** 0.5)
+    s = k.shape[2]
+    splits = decode_splits(b, hkv, s, sm_count(q.device))
     out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    ws = torch.empty(b * hkv * splits * g * (d + 2), dtype=torch.float32,
+                     device=q.device)
     err = _fn()(q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride()[:3],
                 v.data_ptr(), *v.stride()[:3], lengths.data_ptr(),
-                out.data_ptr(), b, hkv, g, k.shape[2], d, CODES[q.dtype],
+                out.data_ptr(), ws.data_ptr(), b, hkv, g, s, d, splits,
+                CODES[q.dtype],
                 float(scale), float(softcap or 0.0), int(window or 0),
                 stream_ptr(q))
     decode_attention_cuda.launches += 1

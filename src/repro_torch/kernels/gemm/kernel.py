@@ -6,8 +6,10 @@ B and C through their strides: a transposed view (the unembed's
 no copy. ``gemm_variant`` picks the kernel from the operands: ``gemv`` for
 M <= 8, ``wgmma`` (TMA + wgmma on tensor cores) for bf16 with A
 K-contiguous and B N-contiguous, ``wmma`` for other bf16 layouts, ``fma``
-(CUDA cores) for f32 and int8. ``gemm_cuda.launches`` counts the kernel's
-launches and ``gemm_cuda.variants`` the launches of each variant.
+(CUDA cores) for f32 and int8. At M <= 8 the GEMV kernels split K across
+blocks by ``gemv_plan``; the splits' partial sums go to a workspace and
+are added in split order on the card. ``gemm_cuda.launches`` counts the
+kernel's launches and ``gemm_cuda.variants`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -16,14 +18,20 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (acc_dtype, aligned16, check_cuda,
-                                        check_dtype, stream_ptr)
+from repro_torch.kernels.common import (acc_dtype, aligned16, ceil_div,
+                                        check_cuda, check_dtype, sm_count,
+                                        stream_ptr)
 
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 IN_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
 VARIANTS = {"gemv": 0, "wgmma": 1, "wmma": 2, "fma": 3}
+GEMV_KC = 1024          # most rows of K a GEMV block takes, B read along N (KC there)
+GEMV_NCOLS = 128        # columns of a GEMV strip, B read along N
+GEMV_TCOLS = 32         # the same, B read along K
+GEMV_NSTEP = 64         # rows a GEMV block steps by, B read along N
 
 _FN = None
+_TICKETS: dict = {}     # (device index, stream) -> zeroed int32 counters
 
 
 def _fn():
@@ -32,7 +40,7 @@ def _fn():
         fn = _build.load("gemm").gemm_launch
         V, L, I, F = _build.VP, _build.I64, _build.I32, _build.F32
         fn.argtypes = [V, L, L, V, L, L, V, L, L, I, V, I, I, I, I, I, F, F,
-                       I, V]
+                       I, I, I, V, V, V]
         fn.restype = I
         _FN = fn
     return _FN
@@ -57,6 +65,47 @@ def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     if _tma_ok(a, k) and _tma_ok(b, b.shape[1]):
         return "wgmma"
     return "wmma"
+
+
+def b_layout(b: torch.Tensor) -> str:
+    """``t`` where B is read along K (K stride 1: the unembed's ``table.T``),
+    ``n`` otherwise (``t_layout`` in the source)."""
+    return "t" if b.stride(0) == 1 and b.stride(1) != 1 else "n"
+
+
+def gemv_plan(n: int, k: int, layout: str, sms: int) -> tuple[int, int]:
+    """(splits, chunk) of the GEMV's K axis: at least two waves of ``sms``
+    SMs over (column strips x splits), ``chunk`` a multiple of the rows a
+    block steps by along N (``GEMV_NSTEP``) and of 32 along K, and no split
+    without rows; with B read along N also at most ``GEMV_KC`` rows a split
+    (the slice of A a block stages), while along K a block reads A as it
+    goes and takes any number of rows; ``plan_ok`` in the source checks the
+    same. Strips are ``GEMV_NCOLS`` columns with B read along N,
+    ``GEMV_TCOLS`` along K. M and the dtype change the work per byte, not
+    the bytes, and do not enter."""
+    if layout == "t":
+        strips, step, most = ceil_div(n, GEMV_TCOLS), 32, 1
+    else:
+        strips, step = ceil_div(n, GEMV_NCOLS), GEMV_NSTEP
+        most = ceil_div(k, GEMV_KC)
+    want = max(ceil_div(2 * sms, max(strips, 1)), most, 1)
+    # rounded down, so that the splits reach `want`
+    chunk = max(step, ceil_div(k, want) // step * step)
+    return max(1, ceil_div(k, chunk)), chunk
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """Zeroed counters, one for each 32 columns of N: each GEMV leaves the
+    ones it used at 0 again, so they are made once per device and stream
+    (and grown). GEMVs on one stream run one after another and may share
+    them; GEMVs on two streams may overlap, so each stream has its own."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    need = ceil_div(n, 32)
+    if t is None or t.numel() < need:
+        t = _TICKETS[key] = torch.zeros(max(need, 8192), dtype=torch.int32,
+                                        device=device)
+    return t
 
 
 def gemm_cuda(a: torch.Tensor, b: torch.Tensor,
@@ -100,6 +149,14 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
         raise ValueError(f"gemm: variant {variant!r} does not take these "
                          "operands")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)
+    stream = stream_ptr(a)
+    splits, chunk, ws, tickets = 1, 0, None, None
+    if variant == "gemv":
+        splits, chunk = gemv_plan(n, k, b_layout(b), sm_count(a.device))
+        if splits > 1:
+            ws = torch.empty(splits * m * n, dtype=acc_dtype(a.dtype),
+                             device=a.device)
+            tickets = _tickets(a.device, stream, n)
     err = _fn()(a.data_ptr(), a.stride(0), a.stride(1),
                 b.data_ptr(), b.stride(0), b.stride(1),
                 None if c is None else c.data_ptr(),
@@ -107,7 +164,9 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
                 0 if c is None else c.stride(1),
                 CODES[c.dtype] if c is not None else 0,
                 out.data_ptr(), CODES[out_dtype], m, n, k, CODES[a.dtype],
-                float(alpha), float(beta), VARIANTS[variant], stream_ptr(a))
+                float(alpha), float(beta), VARIANTS[variant], splits, chunk,
+                None if ws is None else ws.data_ptr(),
+                None if tickets is None else tickets.data_ptr(), stream)
     gemm_cuda.launches += 1
     gemm_cuda.variants[variant] += 1
     _build.check(err, "gemm")

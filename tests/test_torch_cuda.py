@@ -10,12 +10,15 @@ import torch
 
 from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
 from repro_torch.kernels.convlayer.ref import conv_layer_ref
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
+                                                         decode_splits,
+                                                         split_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
                                                         flash_variant)
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gemm.kernel import gemm_cuda, gemm_variant
+from repro_torch.kernels.gemm.kernel import (b_layout, gemm_cuda, gemm_variant,
+                                             gemv_plan)
 from repro_torch.kernels.gemm.ref import gemm_ref
 from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
 from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
@@ -219,3 +222,162 @@ def test_cnn_kernels_match_plain_versions(cuda_device, rng, dt):
                                leakyrelu_ref(v, negative_slope=slope))
     assert torch.equal(leakyrelu_cuda(v[1:], negative_slope=0.5),
                        leakyrelu_ref(v[1:], negative_slope=0.5))    # unaligned
+
+
+# ------------------------------------------- the decode-step kernels (split)
+def sm_count() -> int:
+    return torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [1, 2, 5, 8])
+@pytest.mark.parametrize("d", [80, 128, 256])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_split_boundaries(cuda_device, rng, dt, d, g):
+    """The split decode kernel against decode_attention_ref at lengths on
+    either side of every split boundary (and 1, S, and S + 5 as the ring
+    layout's clamp would leave it), with windows that start inside a split
+    and soft cap, within chip_smoke's tolerances (f32 2e-4, bf16 2e-2); a
+    second launch on the same inputs gives the same bits."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    b, hkv, s = 40, 2, 1000
+    splits = decode_splits(b, hkv, s, sm_count())
+    chunk = split_chunk(s, splits)
+    assert splits > 1 and (splits - 1) * chunk < s
+    lens = [1, s, s + 5]
+    lens += [c * chunk + o for c in range(1, splits) for o in (-1, 0, 1)]
+    assert len(lens) <= b
+    lens += rng.integers(1, s + 1, b - len(lens)).tolist()
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(device=cuda_device, dtype=tdt)
+
+    q, k, v = t(b, hkv, g, d), t(b, hkv, s, d), t(b, hkv, s, d)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    atol = 2e-4 if dt == "f32" else 2e-2
+    for kw in (dict(), dict(window=50), dict(window=chunk + 3, softcap=30.0),
+               dict(softcap=50.0), dict(window=4 * s)):
+        out = decode_attention_cuda(q, k, v, ln, **kw)
+        again = decode_attention_cuda(q, k, v, ln, **kw)
+        ref = decode_attention_ref(q, k, v, ln, **kw)
+        err = float((out.float() - ref.float()).abs().max())
+        assert err <= atol, (kw, err)
+        assert torch.equal(out, again), kw
+
+
+def served_gemms():
+    """(K, N, B layout) of every decode projection of the three served
+    models: q, k/v, o, gate/up, down (B read along N) and the unembed
+    (``table.T``, read along K)."""
+    out = set()
+    for d, hq, hkv, hd, ff, vocab in [(3584, 16, 8, 256, 14336, 256000),
+                                      (2560, 32, 32, 80, 6912, 50304),
+                                      (5120, 40, 8, 128, 27648, 152064)]:
+        out |= {(d, hq * hd, "n"), (d, hkv * hd, "n"), (hq * hd, d, "n"),
+                (d, ff, "n"), (ff, d, "n"), (d, vocab, "t")}
+    return sorted(out)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+@pytest.mark.parametrize("layout", ["n", "t"])
+def test_gemv_served_shapes(cuda_device, dt, layout):
+    """The split-K GEMV at M = 1..8 on every served (K, N), in both B
+    layouts, half of them with a broadcast bias, within chip_smoke's gemm
+    tolerances (bf16: two bf16 ulps of the result; f32: sums in another
+    order); a second launch gives the same bits."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    atol, rtol = (1e-3, 1.6e-2) if dt == "bf16" else (2e-3, 1e-5)
+    for i, (k, n, _) in enumerate(served_gemms()):
+        if layout == "t":
+            b = (torch.randn((n, k), device=cuda_device, generator=gen) / k ** 0.5).to(tdt).T
+        else:
+            b = (torch.randn((k, n), device=cuda_device, generator=gen) / k ** 0.5).to(tdt)
+        assert b_layout(b) == layout
+        for m in range(1, 9):
+            a = torch.randn((m, k), device=cuda_device, generator=gen).to(tdt)
+            c = None
+            if (i + m) % 2:
+                c = torch.randn((n,), device=cuda_device, generator=gen).to(tdt).expand(m, n)
+            kw = dict(beta=1.0 if c is not None else 0.0)
+            before = gemm_cuda.variants["gemv"]
+            out = gemm_cuda(a, b, c, **kw)
+            assert gemm_cuda.variants["gemv"] == before + 1
+            again = gemm_cuda(a, b, c, **kw)
+            ref = gemm_ref(a, b, c, **kw)
+            err = float((out.double() - ref.double()).abs().max())
+            assert err <= atol + rtol * float(ref.double().abs().max()), (k, n, m, err)
+            assert torch.equal(out, again), (k, n, m)
+        del b
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n", "t"])
+def test_gemv_int8_exact(cuda_device, rng, layout):
+    """int8 at M = 1..8, exact: int32 partial sums over the K splits, then
+    alpha and the bias applied once, rounded half to even into int8 and
+    int32; ragged K and N (the scalar paths) and served widths alike."""
+    for k, n in [(1000, 1000), (3584, 2048), (14336, 3584), (5120, 1024), (300, 130)]:
+        sp, _ = gemv_plan(n, k, layout, sm_count())
+        assert sp > 1
+        w = torch.from_numpy(rng.integers(-8, 8, (k, n) if layout == "n" else (n, k))
+                             .astype(np.int8)).to(cuda_device)
+        b = w if layout == "n" else w.T
+        for m in range(1, 9):
+            a = torch.from_numpy(rng.integers(-8, 8, (m, k)).astype(np.int8)).to(cuda_device)
+            c = torch.from_numpy(rng.integers(-100, 100, (n,)).astype(np.int32)
+                                 ).to(cuda_device).expand(m, n)
+            # the int8 output's scale keeps every value inside int8's range
+            for kw in (dict(), dict(alpha=0.5, beta=3.0, out_dtype=torch.int32),
+                       dict(alpha=2.0**-14, beta=0.25, out_dtype=torch.int8)):
+                cc = c if "beta" in kw else None
+                out = gemm_cuda(a, b, cc, **kw)
+                assert torch.equal(out, gemm_ref(a, b, cc, **kw)), (k, n, m, kw)
+                assert torch.equal(out, gemm_cuda(a, b, cc, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n", "t"])
+def test_gemv_strided_a(cuda_device, rng, layout):
+    """A that cannot be read 16 bytes at a time (every other column of a
+    wider matrix, an odd row pitch, a transposed view) at M = 1, 3, 8, in
+    int8 and f32 with small integers, so that every sum is exact whatever
+    its order."""
+    for k, n in [(3584, 4096), (1000, 130)]:
+        wi = rng.integers(-8, 8, (k, n) if layout == "n" else (n, k)).astype(np.int8)
+        for dt in (torch.int8, torch.float32):
+            w = torch.from_numpy(wi).to(device=cuda_device, dtype=dt)
+            b = w if layout == "n" else w.T
+            for m in (1, 3, 8):
+                base = torch.from_numpy(rng.integers(-8, 8, (m, 2 * k + 1)).astype(np.int8)
+                                        ).to(device=cuda_device, dtype=dt)
+                for a in (base[:, :2 * k:2], base[:, 1:k + 1],
+                          base[:, :k].t().contiguous().t()):
+                    assert torch.equal(gemm_cuda(a, b), gemm_ref(a, b)), (k, n, dt, m, a.stride())
+
+
+@pytest.mark.cuda
+def test_gemv_on_two_streams(cuda_device, rng):
+    """Split-K GEMVs that overlap on two streams keep their own ticket
+    counters: each result equals the same GEMV's on one stream, bit for
+    bit."""
+    k, n = 14336, 3584
+    b = torch.from_numpy((rng.standard_normal((k, n)) / np.sqrt(k)).astype(np.float32)
+                         ).to(cuda_device).bfloat16()
+    a = [torch.from_numpy(rng.standard_normal((4, k)).astype(np.float32)
+                          ).to(cuda_device).bfloat16() for _ in range(8)]
+    want = [gemm_cuda(x, b) for x in a]
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for st in streams:
+        st.wait_stream(torch.cuda.current_stream())
+    got = []
+    for i, x in enumerate(a):
+        with torch.cuda.stream(streams[i % 2]):
+            got.append(gemm_cuda(x, b))
+    for st in streams:
+        torch.cuda.current_stream().wait_stream(st)
+    torch.cuda.synchronize()
+    for i, (w, g) in enumerate(zip(want, got)):
+        assert torch.equal(w, g), i
