@@ -2,6 +2,7 @@
 """Chip smoke of the PyTorch/CUDA port (``src/repro_torch``) on one NVIDIA H100.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cnn-kernels-only --json PATH   # phases 1-2, CNN kernels
 
 Phases:
   1. device: needs ``torch.cuda.is_available()``; prints the card's name and
@@ -24,7 +25,10 @@ Phases:
      sequence's logits take wmma;
      conv_layer, maxpool and leakyrelu in int8, int16, int32, f32 and bf16
      at the paper's Fig. 4 shapes (3x256x256, k 3/5/7), ragged edges, and a
-     first CNN layer's width (3x226x226, 64 filters). Per case: max |kernel - plain| beside its
+     first CNN layer's width (3x226x226, 64 filters; in bf16 and int8 also
+     1 to 32 filters); each conv row names the variant conv_variant picks
+     (mma / simt), and a bf16 or int8 row also holds the other variant to
+     the plain version and times it. Per case: max |kernel - plain| beside its
      tolerance, the kernel's time (CUDA events, median, L2 flushed before
      each launch), the least time the card could take (bytes at 3.35 TB/s
      or operations at the dtype's peak, whichever is larger), the plain
@@ -55,14 +59,22 @@ Phases:
      conv, F maxpool launches, one leakyrelu launch) and against the plain
      conv_layer on the card, with each leg's time and their ratio. The
      counts are zeroed before the phase and must come out exactly as
-     counted. Then torch.profiler over each leg of the Listing 1 run and of
-     the 64-filter run: the card's busy time per pass and its idle share.
+     counted, conv_layer's per variant too (every launch on conv_variant's
+     pick: mma for the bf16 64-filter run, simt for int32). Then
+     torch.profiler over each leg of the Listing 1 run and of the 64-filter
+     run: the card's busy time per pass and its idle share, in a window
+     that opens with a primer kernel and is padded by 50 ms on both sides;
+     the profiler must see a device event for every launch of the port's
+     CNN kernels in it or the run fails.
   5. result: a JSON line of the kernels (with each one's launches per
      variant), then the device line, last.
 
 Any failure exits non-zero before the last line. Details go to
-build/chip_smoke/chip_smoke.json, the nvcc report to
-build/chip_smoke/chip_smoke_build.txt.
+build/chip_smoke/chip_smoke.json (or --json), the nvcc report to
+build/chip_smoke/chip_smoke_build.txt. ``--cnn-kernels-only`` runs phases
+1-2 for the three CNN kernels and prints no result line; it also runs
+against an earlier tree's wrappers (without variants), to time two trees'
+kernels in one call.
 """
 from __future__ import annotations
 
@@ -406,19 +418,33 @@ def cnn_row(torch, timer, rows, kernel, case, dt_name, out, ref, atol, rtol,
 
 
 def run_conv(torch, timer, gen, rows):
+    """conv_layer against its plain version; each bf16 and int8 row also
+    holds the variant the picker did not take to the plain version and
+    times it (``other_*``), which is where ``MMA_MIN_FILTERS`` comes from.
+    A wrapper without variants (an earlier tree's) is timed as it is."""
     import torch.nn.functional as F
-    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
+    from repro_torch.kernels.convlayer import kernel as conv_kernel
     from repro_torch.kernels.convlayer.ref import conv_layer_ref
     from repro_torch.launch.cnn import FLOAT_TOL
+    conv_layer_cuda = conv_kernel.conv_layer_cuda
+    pick = getattr(conv_kernel, "conv_variant", None)
     cases = [((3, 256, 256), 1, k, dt, slope) for k in (3, 5, 7)
              for dt in CNN_DTYPES for slope in (0.0, 0.125)]
     cases += [((3, 255, 253), 2, 5, dt, 0.125) for dt in CNN_DTYPES]
-    cases += [((3, 226, 226), 64, 3, dt, 0.125) for dt in ("int8", "bfloat16")]
+    cases += [((3, 226, 226), 64, 3, dt, 0.125) for dt in CNN_DTYPES]
+    # the filter count at which mma overtakes simt
+    cases += [((3, 226, 226), nf, 3, dt, 0.125) for nf in (1, 2, 4, 8, 16, 32)
+              for dt in ("int8", "bfloat16")]
     for (c, h, w), nf, k, dt, slope in cases:
         x = cnn_tensor(torch, gen, (c, h, w), dt)
         f = cnn_tensor(torch, gen, (nf, c, k, k), dt, -4, 4)
         out = conv_layer_cuda(x, f, negative_slope=slope)
         ref = conv_layer_ref(x, f, negative_slope=slope)
+        variant = pick(x, f) if pick else None
+        other = {"mma": "simt", "simt": "mma"}[variant] \
+            if variant and dt in ("int8", "bfloat16") else None
+        other_out = None if other is None else \
+            conv_layer_cuda(x, f, negative_slope=slope, variant=other)
         torch.cuda.synchronize()
         atol, rtol = FLOAT_TOL.get(getattr(torch, dt), (0.0, 0.0))
         lib = None
@@ -432,6 +458,16 @@ def run_conv(torch, timer, gen, rows):
                 lambda: conv_layer_ref(x, f, negative_slope=slope), lib,
                 (x.numel() + f.numel()) * isz + out.numel() * out.element_size(),
                 2.0 * nf * c * (h - k + 1) * (w - k + 1) * k * k)
+        if variant:
+            rows[-1]["variant"] = variant
+        if other:
+            err = exact_err(other_out, ref)
+            rows[-1].update(
+                other_variant=other, other_max_abs_err=err,
+                other_ms=timer.ms(lambda: conv_layer_cuda(x, f, negative_slope=slope,
+                                                          variant=other)))
+            rows[-1]["ok"] = rows[-1]["ok"] and check_close(
+                err, rows[-1]["ref_absmax"], atol, rtol)
 
 
 def run_maxpool(torch, timer, gen, rows):
@@ -655,9 +691,10 @@ def profile_decode(torch, sess, max_len: int, steps: int = 3) -> dict:
     return out
 
 
-def device_ms(prof) -> dict:
+def device_ms(prof, exclude=()) -> dict:
     """Device time (ms) by kernel name, from the device's own events only:
-    an aten op's row repeats the time of the kernels it launched."""
+    an aten op's row repeats the time of the kernels it launched. Kernels
+    whose name holds a string of ``exclude`` are left out."""
     from torch.autograd import DeviceType
     dev = {}
     for evt in prof.key_averages():
@@ -666,15 +703,15 @@ def device_ms(prof) -> dict:
         us = getattr(evt, "self_device_time_total", None)
         if us is None:
             us = getattr(evt, "self_cuda_time_total", 0)
-        if us > 0:
+        if us > 0 and not any(x in evt.key for x in exclude):
             dev[evt.key] = dev.get(evt.key, 0.0) + us / 1e3
     return dev
 
 
-def busy_share(prof, wall_ms: float, n: int, unit: str) -> dict:
+def busy_share(prof, wall_ms: float, n: int, unit: str, exclude=()) -> dict:
     """The card's busy time per unit of work from a profile, its idle share
     of the host clock, and the kernels that take the most device time."""
-    dev = device_ms(prof)
+    dev = device_ms(prof, exclude)
     busy = sum(dev.values())
     top = sorted(dev.items(), key=lambda kv: -kv[1])[:8]
     return {"steps" if unit == "step" else "passes": n,
@@ -694,33 +731,50 @@ CNN_RUNS = [
 ]
 
 
+# the conv_layer variant each CNN run must take, where the run fixes it
+CNN_VARIANT = {"int32": "simt", "bfloat16 64": "mma"}
+
+
 def run_cnn(torch) -> dict:
     """The CNN path through the launcher: per run, exactly 1 conv_layer, F
-    maxpool and 1 leakyrelu launch per pass of the two legs, fused ==
-    unfused, and fused == the plain conv_layer on the card."""
+    maxpool and 1 leakyrelu launch per pass of the two legs, every
+    conv_layer launch on the variant ``conv_variant`` picks (and on mma for
+    the bf16 64-filter run, on simt for int32), fused == unfused, and fused
+    == the plain conv_layer on the card."""
+    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda, conv_variant
     from repro_torch.kernels.convlayer.ref import conv_layer_ref
     from repro_torch.launch import cnn
 
     for w in cnn.WRAPPERS:
         w.launches = 0
+    conv_layer_cuda.variants = dict.fromkeys(conv_layer_cuda.variants, 0)
     expect_total = {w.__name__: 0 for w in cnn.WRAPPERS}
+    expect_variants = dict.fromkeys(conv_layer_cuda.variants, 0)
     runs = []
     for argv in CNN_RUNS:
         args = cnn.parse_args(argv + ["--backend", "cuda", "--seed", "0"])
+        before = dict(conv_layer_cuda.variants)
         try:
             out = cnn.run(args)
         except AssertionError as e:
             fail(str(e))
+        variants = {k: v - before[k] for k, v in conv_layer_cuda.variants.items()}
+        variant = conv_variant(out["x"], out["f"])
+        fixed = CNN_VARIANT.get(args.dtype) or CNN_VARIANT.get(f"{args.dtype} {args.filters}")
+        if fixed and variant != fixed:
+            fail(f"cnn: {' '.join(argv)}: conv_variant picks {variant}, not {fixed}")
         expect = {"conv_layer_cuda": 1, "maxpool_cuda": args.filters,
                   "leakyrelu_cuda": 1}
         for k, v in expect.items():
             expect_total[k] += v * out["passes"]
+        expect_variants[variant] += out["passes"]
         ref = conv_layer_ref(out["x"], out["f"], negative_slope=args.slope)
         fused = out["fused"]
         shape = (args.filters, (args.size - args.k + 1) // 2,
                  (args.size - args.k + 1) // 2)
         rec = {"case": " ".join(argv), "shape": list(fused.shape),
                "launches_per_pass": out["launches"], "passes": out["passes"],
+               "conv_variant": variant, "conv_variants": variants,
                "max_abs_diff_unfused": out["max_abs_diff"],
                "max_abs_diff_plain": cnn.max_err(fused, ref),
                "fused_ms": out["fused_ms"], "unfused_ms": out["unfused_ms"],
@@ -730,10 +784,13 @@ def run_cnn(torch) -> dict:
               f"{rec['unfused_ms']:.4f} ms, unfused/fused "
               f"{rec['unfused_over_fused']:.2f}; |fused-unfused| "
               f"{rec['max_abs_diff_unfused']}, |fused-plain| "
-              f"{rec['max_abs_diff_plain']}; launches/pass {out['launches']}",
-              flush=True)
+              f"{rec['max_abs_diff_plain']}; launches/pass {out['launches']}; "
+              f"conv_layer variants {variants}", flush=True)
         if out["launches"] != expect:
             fail(f"cnn: {rec['case']}: launches {out['launches']}, expected {expect}")
+        if variants != {k: (out["passes"] if k == variant else 0) for k in variants}:
+            fail(f"cnn: {rec['case']}: conv_layer variants {variants}, expected "
+                 f"{out['passes']} on {variant}")
         if tuple(fused.shape) != shape or fused.dtype != out["x"].dtype \
                 or not bool(torch.isfinite(fused.float()).all()):
             fail(f"cnn: {rec['case']}: output {tuple(fused.shape)} "
@@ -741,16 +798,52 @@ def run_cnn(torch) -> dict:
         if not cnn.agree(fused, ref):
             fail(f"cnn: {rec['case']}: fused disagrees with the plain conv_layer")
     counts = cnn.launches()
-    print(f"cnn: launches {counts} expected {expect_total}", flush=True)
+    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants)}
+    print(f"cnn: launches {counts} expected {expect_total}; variants {variants} "
+          f"expected {expect_variants}", flush=True)
     if counts != expect_total or min(counts.values()) <= 0:
         fail("cnn: the CNN path did not run through every kernel as counted")
+    if variants["conv_layer_cuda"] != expect_variants:
+        fail("cnn: the CNN path did not run through the conv_layer variants as counted")
     profiles = {" ".join(CNN_RUNS[i]): profile_cnn(torch, CNN_RUNS[i]) for i in (0, 3)}
-    return {"runs": runs, "launches": counts, "profile": profiles}
+    return {"runs": runs, "launches": counts, "variants": variants,
+            "profile": profiles}
+
+
+# the port's CNN kernels by the names the profiler gives them
+CNN_KERNEL_NAMES = ("conv_mma_kernel", "conv_simt_kernel", "maxpool_kernel",
+                    "leakyrelu_kernel")
+PROFILE_PAD_S = 0.05
+
+
+def launch_record(prof) -> dict:
+    """A profile's kernel launch calls against the device events it holds:
+    the positions (in launch order) of the launches it holds no kernel for,
+    and the least time from a launch call to its kernel's start (us; below
+    0 the device's clock reads early against the host's)."""
+    from torch.autograd import DeviceType
+    events = prof.profiler.kineto_results.events()
+    dev = {e.correlation_id(): e for e in events if e.device_type() == DeviceType.CUDA}
+    calls = sorted((e for e in events if e.device_type() == DeviceType.CPU
+                    and "LaunchKernel" in e.name()), key=lambda e: e.start_ns())
+    lags = [(dev[c.correlation_id()].start_ns() - c.start_ns()) / 1e3
+            for c in calls if c.correlation_id() in dev]
+    return {"launch_calls": len(calls),
+            "missing_at": [i for i, c in enumerate(calls) if c.correlation_id() not in dev],
+            "launch_to_kernel_us_min": min(lags) if lags else None}
 
 
 def profile_cnn(torch, argv, passes: int = 10) -> dict:
     """torch.profiler over a few passes of each leg of one CNN run (after
-    the counted runs): the card's busy time per pass and its idle share."""
+    the counted runs): the card's busy time per pass and its idle share.
+    Late in a run the profiler drops the device record of the first kernel
+    launched in a session, so each measured window opens with a primer, an
+    empty kernel launched before the passes (its time is left out), and
+    stays open PROFILE_PAD_S before and after them; one bare window per leg
+    (no primer, no pad) records what is lost without. Each window counts the device events of the port's CNN
+    kernels against their launches in it (the wrappers' counts); the run
+    fails if the measured window misses one or reads no device time."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.launch import cnn
@@ -761,15 +854,36 @@ def profile_cnn(torch, argv, passes: int = 10) -> dict:
     for leg in (cnn.fused, cnn.unfused):
         leg(engine, x, f, args.slope)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(passes):
-                leg(engine, x, f, args.slope)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        out[leg.__name__] = busy_share(prof, wall_ms, passes, "pass")
-        print(f"profile: cnn {' '.join(argv)} {leg.__name__}: "
-              f"{json.dumps(out[leg.__name__])}", flush=True)
+        for primed in (False, True):
+            before = sum(cnn.launches().values())
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                if primed:
+                    time.sleep(PROFILE_PAD_S)
+                    torch.cuda._sleep(0)
+                t0 = time.perf_counter()
+                for _ in range(passes):
+                    leg(engine, x, f, args.slope)
+                torch.cuda.synchronize()
+                wall_ms = (time.perf_counter() - t0) * 1e3
+                if primed:
+                    time.sleep(PROFILE_PAD_S)
+            launched = sum(cnn.launches().values()) - before
+            seen = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
+                       and any(n in e.name for n in CNN_KERNEL_NAMES))
+            res = busy_share(prof, wall_ms, passes, "pass", exclude=("spin_kernel",))
+            res.update(kernel_launches=launched, kernel_events=seen, **launch_record(prof))
+            if not primed:
+                bare = {k: res[k] for k in ("kernel_launches", "kernel_events",
+                                            "device_busy_ms_per_pass", "missing_at",
+                                            "launch_to_kernel_us_min")}
+        res["bare"] = bare
+        out[leg.__name__] = res
+        print(f"profile: cnn {' '.join(argv)} {leg.__name__}: {json.dumps(res)}",
+              flush=True)
+        if seen != launched or (launched and not res["device_busy_ms_per_pass"]):
+            fail(f"profile: cnn {' '.join(argv)} {leg.__name__}: the profiler saw "
+                 f"{seen} of {launched} kernel launches "
+                 f"({res['device_busy_ms_per_pass']} ms busy a pass)")
     return out
 
 
@@ -796,18 +910,26 @@ KERNELS = {
                         "gemma2 B=1 Hq=16 Hkv=8 D=256 Sq=512", "bfloat16"),
     "conv_layer": ("src/repro_torch/csrc/convlayer.cu",
                    "src/repro/kernels/convlayer/kernel.py:99",
-                   "conv_layer_cuda", "cnn", "3x256x256 k=3 F=1 slope=0.0",
-                   "int8"),
+                   "conv_layer_cuda", "cnn", "3x226x226 k=3 F=64 slope=0.125",
+                   "bfloat16"),
     "maxpool": ("src/repro_torch/csrc/maxpool.cu",
                 "src/repro/kernels/maxpool/kernel.py:54", "maxpool_cuda",
-                "cnn", "254x254 win=2 stride=2", "int8"),
+                "cnn", "254x254 win=2 stride=2", "float32"),
     "leakyrelu": ("src/repro_torch/csrc/leakyrelu.cu",
                   "src/repro/kernels/leakyrelu/kernel.py:37",
-                  "leakyrelu_cuda", "cnn", "(1, 127, 127) slope=0.5", "int8"),
+                  "leakyrelu_cuda", "cnn", "(64, 112, 112) slope=0.5", "float32"),
 }
 
 
-def main() -> None:
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
+    ap.add_argument("--cnn-kernels-only", action="store_true",
+                    help="phases 1-2 for conv_layer, maxpool and leakyrelu only "
+                         "(to time two trees' kernels in one call); no result line")
+    ap.add_argument("--json", default=None,
+                    help="where the details go (default build/chip_smoke/chip_smoke.json)")
+    opts = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs the card")
@@ -819,6 +941,7 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
     out_dir = ROOT / "build" / "chip_smoke"
     out_dir.mkdir(parents=True, exist_ok=True)
+    out_json = Path(opts.json) if opts.json else out_dir / "chip_smoke.json"
 
     # ---- phase 1: device
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -829,8 +952,9 @@ def main() -> None:
     print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"python={sys.version.split()[0]}", flush=True)
-    build_s = _build.build_all()
-    print(f"build: {', '.join(_build.SOURCES)} in {build_s:.1f}s "
+    names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else _build.SOURCES
+    build_s = _build.build_all(names)
+    print(f"build: {', '.join(names)} in {build_s:.1f}s "
           f"(nvcc, sm_90a, parallel)", flush=True)
     (out_dir / "chip_smoke_build.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
@@ -846,8 +970,8 @@ def main() -> None:
     print(f"timer: an empty kernel takes {summary['launch_floor_ms']:.4f} ms "
           f"between the events", flush=True)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for run in (run_gemm, run_decode, run_flash, run_conv, run_maxpool,
-                run_leakyrelu):
+    phase2 = (run_gemm, run_decode, run_flash, run_conv, run_maxpool, run_leakyrelu)
+    for run in phase2[3:] if opts.cnn_kernels_only else phase2:
         run(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
@@ -856,6 +980,9 @@ def main() -> None:
         var = f" variant={r['variant']}" if "variant" in r else ""
         earlier = "" if r.get("earlier_ms") is None else \
             f" earlier_ms={r['earlier_ms']:.4f} earlier_max_abs_err={r['earlier_max_abs_err']:.3e}"
+        other = "" if r.get("other_ms") is None else \
+            (f" other_variant={r['other_variant']} other_ms={r['other_ms']:.4f} "
+             f"other_max_abs_err={r['other_max_abs_err']:.3e}")
         det = "" if r.get("deterministic") is None else \
             f" same_bits_twice={r['deterministic']}"
         tol = f"atol={r['atol']} rtol={r['rtol']}"
@@ -870,22 +997,28 @@ def main() -> None:
         r["mem_rate_share"] = r["bytes"] / HBM_BYTES_PER_S * 1e3 / r["ms"]
         print(f"{r['kernel']} [{r['dtype']}] {r['case']}:{var} max_abs_err={r['max_abs_err']:.3e} "
               f"({tol}) {'ok' if r['ok'] else 'FAIL'}{det} "
-              f"ms={r['ms']:.4f}{earlier} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
+              f"ms={r['ms']:.4f}{earlier}{other} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
               f"mem_rate_share={r['mem_rate_share']:.3f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
     summary["cases"] = rows
-    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    out_json.write_text(json.dumps(summary, indent=1))
     bad = [r for r in rows if not r["ok"]]
     if bad:      # reported after the serving phase has run too
         failures.append(f"{len(bad)} kernel case(s) disagree with the plain version")
+    if opts.cnn_kernels_only:
+        if failures:
+            fail("; ".join(failures))
+        print(f"chip_smoke: {len(rows)} CNN kernel cases agree; details in {out_json}",
+              flush=True)
+        return
 
     # ---- phase 3: serving
     summary["serve"] = run_serve(torch, summary)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    out_json.write_text(json.dumps(summary, indent=1))
 
     # ---- phase 4: the CNN layer path
     summary["cnn"] = run_cnn(torch)
-    (out_dir / "chip_smoke.json").write_text(json.dumps(summary, indent=1))
+    out_json.write_text(json.dumps(summary, indent=1))
 
     if failures:
         fail("; ".join(failures))

@@ -5,7 +5,13 @@ Replaces ``repro/kernels/convlayer/kernel.py: conv_layer_pallas``. Takes
 contiguous x (C, H, W) and f (F, C, KH, KW) of one dtype (int8, int16,
 int32, f32 or bf16) and writes out_dtype, of the input's kind. The TPU
 knobs ``block_rows`` and ``interpret`` have no counterpart.
-``conv_layer_cuda.launches`` counts the kernel's launches.
+``conv_variant`` picks the kernel from the operands: ``mma`` (implicit GEMM
+on mma.sync tensor cores) for bf16 from 16 filters and int8 from 4
+(``MMA_MIN_FILTERS``), ``simt`` (CUDA cores) otherwise: int16, int32, f32
+(true f32, never TF32) and fewer filters. ``mma_rows`` is the order in
+which an ``mma`` block lays its conv outputs along M.
+``conv_layer_cuda.launches`` counts the kernel's launches and
+``conv_layer_cuda.variants`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -16,6 +22,16 @@ from repro_torch.kernels.common import (ELEM_CODES, check_cuda, check_dtype,
                                         stream_ptr)
 from repro_torch.kernels.convlayer.ref import check_kinds
 
+VARIANTS = {"mma": 0, "simt": 1}
+# the filter count from which mma is the faster, by dtype (chip_smoke's
+# 3x226x226 k=3 rows at 1 to 64 filters, both variants timed, on the H100):
+# bf16 takes simt up to 8 filters and mma from 16, int8 ties at 2 and takes
+# mma from 4
+MMA_MIN_FILTERS = {torch.bfloat16: 16, torch.int8: 4}
+# an mma block (csrc/convlayer.cu, namespace mma): PY x PX pooled outputs
+# (M = 4 * PY * PX conv outputs), 4 warps of 8 pooled outputs, NT filters
+MMA_PY, MMA_PX, MMA_WARPS, MMA_NT = 2, 16, 4, 64
+
 _FN = None
 
 
@@ -25,18 +41,45 @@ def _fn():
         fn = _build.load("convlayer").conv_layer_launch
         I = _build.I32
         fn.argtypes = [_build.VP, _build.VP, _build.VP, I, I, I, I, I, I, I,
-                       I, _build.F32, _build.VP]
+                       I, _build.F32, I, _build.VP]
         fn.restype = I
         _FN = fn
     return _FN
 
 
+def conv_variant(x: torch.Tensor, f: torch.Tensor) -> str:
+    """The kernel that takes x (C, H, W) and f (F, C, KH, KW): ``mma`` for
+    bf16 and int8 with at least ``MMA_MIN_FILTERS[dtype]`` filters,
+    ``simt`` otherwise."""
+    least = MMA_MIN_FILTERS.get(x.dtype)
+    return "mma" if least is not None and f.shape[0] >= least else "simt"
+
+
+def mma_rows() -> dict:
+    """(warp, m-tile, row) -> (conv row, conv col) within an mma block's
+    tile of 2 * MMA_PY x 2 * MMA_PX conv outputs. Lane 4 g + t holds rows g
+    and g + 8 of both of its warp's m-tiles: m-tile 0 the top-left (row g)
+    and top-right (g + 8) conv outputs of pooled output 8 w + g, m-tile 1
+    the bottom-left and bottom-right."""
+    rows = {}
+    for w in range(MMA_WARPS):
+        for g in range(8):
+            py, px = divmod(8 * w + g, MMA_PX)
+            for mt in (0, 1):
+                for right in (0, 1):
+                    rows[(w, mt, g + 8 * right)] = (2 * py + mt, 2 * px + right)
+    return rows
+
+
 def conv_layer_cuda(x: torch.Tensor, f: torch.Tensor, *,
-                    negative_slope: float = 0.0,
-                    out_dtype=None) -> torch.Tensor:
+                    negative_slope: float = 0.0, out_dtype=None,
+                    variant: str | None = None) -> torch.Tensor:
     """Fused conv(valid) + maxpool(2×2/2) + LeakyReLU on the card.
 
     x: (C, H, W); f: (F, C, KH, KW) → (F, (H-KH+1)//2, (W-KW+1)//2).
+    ``variant`` (for tests and timing) names the kernel: None takes
+    ``conv_variant``'s choice; ``simt`` takes any operands, ``mma`` bf16
+    and int8 at any filter count.
     """
     check_cuda("conv_layer", x, f)
     check_dtype("conv_layer", x, ELEM_CODES)
@@ -57,13 +100,19 @@ def conv_layer_cuda(x: torch.Tensor, f: torch.Tensor, *,
     if out_h < 1 or out_w < 1 or x.numel() >= 2**31:
         raise ValueError(f"conv_layer: x {tuple(x.shape)} with a {kh}x{kw} "
                          f"filter has no pooled output")
+    variant = variant or conv_variant(x, f)
+    if variant not in VARIANTS or (variant == "mma" and x.dtype not in MMA_MIN_FILTERS):
+        raise ValueError(f"conv_layer: variant {variant!r} does not take "
+                         f"{x.dtype}")
     out = torch.empty((nf, out_h, out_w), dtype=out_dtype, device=x.device)
     err = _fn()(x.data_ptr(), f.data_ptr(), out.data_ptr(), cch, h, w, nf,
                 kh, kw, ELEM_CODES[x.dtype], ELEM_CODES[out_dtype],
-                float(negative_slope), stream_ptr(x))
+                float(negative_slope), VARIANTS[variant], stream_ptr(x))
     conv_layer_cuda.launches += 1
+    conv_layer_cuda.variants[variant] += 1
     _build.check(err, "conv_layer")
     return out
 
 
 conv_layer_cuda.launches = 0
+conv_layer_cuda.variants = dict.fromkeys(VARIANTS, 0)

@@ -2,7 +2,8 @@
 
 Replaces ``repro/kernels/leakyrelu/kernel.py: leakyrelu_pallas``. Takes a
 contiguous tensor of any shape in int8, int16, int32, f32 or bf16 and reads
-it flat, with no padding. ``leakyrelu_cuda.launches`` counts the kernel's
+it flat, with no padding; the grid is sized by the card's SM count.
+``leakyrelu_cuda.launches`` counts the kernel's
 launches.
 """
 from __future__ import annotations
@@ -11,7 +12,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (ELEM_CODES, check_cuda, check_dtype,
-                                        stream_ptr)
+                                        sm_count, stream_ptr)
 
 _FN = None
 
@@ -21,7 +22,7 @@ def _fn():
     if _FN is None:
         fn = _build.load("leakyrelu").leakyrelu_launch
         fn.argtypes = [_build.VP, _build.VP, _build.I64, _build.I32,
-                       _build.F32, _build.VP]
+                       _build.F32, _build.I32, _build.VP]
         fn.restype = _build.I32
         _FN = fn
     return _FN
@@ -38,7 +39,7 @@ def leakyrelu_cuda(x: torch.Tensor, *,
                          f"got strides {x.stride()}")
     out = torch.empty_like(x)
     err = _fn()(x.data_ptr(), out.data_ptr(), x.numel(), ELEM_CODES[x.dtype],
-                float(negative_slope), stream_ptr(x))
+                float(negative_slope), sm_count(x.device), stream_ptr(x))
     leakyrelu_cuda.launches += 1
     _build.check(err, "leakyrelu")
     return out

@@ -381,3 +381,113 @@ def test_gemv_on_two_streams(cuda_device, rng):
     torch.cuda.synchronize()
     for i, (w, g) in enumerate(zip(want, got)):
         assert torch.equal(w, g), i
+
+
+# ------------------------------------- the conv_layer variants, leakyrelu
+CONV_TOL = {torch.float32: (1e-5, 2e-5), torch.bfloat16: (1e-5, 2.0**-7)}
+CONV_VARIANT_DTYPES = [("mma", "bf16"), ("mma", "int8")] + \
+    [("simt", dt) for dt in CNN_DTYPES]
+
+
+def conv_inputs(rng, dev, tdt, c, h, w, nf, k, lo=-8, hi=8):
+    if tdt.is_floating_point:
+        x, f = rng.standard_normal((c, h, w)), rng.standard_normal((nf, c, k, k))
+    else:
+        x, f = rng.integers(lo, hi, (c, h, w)), rng.integers(lo // 2, hi // 2, (nf, c, k, k))
+    return (torch.from_numpy(np.asarray(v, np.float32)).to(device=dev, dtype=tdt)
+            for v in (x, f))
+
+
+def assert_conv_close(out, ref):
+    """Exact for integers; within launch/cnn.py FLOAT_TOL for floats, with
+    NaN where the plain version has NaN and the same infinities."""
+    if not out.dtype.is_floating_point:
+        assert torch.equal(out, ref)
+        return
+    atol, rtol = CONV_TOL[out.dtype]
+    o, r = out.double(), ref.double()
+    assert torch.equal(o.isnan(), r.isnan())
+    assert torch.equal(o.isinf(), r.isinf())
+    assert torch.equal(o[r.isinf()], r[r.isinf()])
+    fin = torch.isfinite(r)
+    err = float((o[fin] - r[fin]).abs().max()) if bool(fin.any()) else 0.0
+    assert err <= atol + rtol * float(r[fin].abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dt", CONV_VARIANT_DTYPES)
+def test_conv_variants_match_plain_version(cuda_device, rng, variant, dt):
+    """Each variant named explicitly, at ragged shapes and filter counts
+    around the n-tile (8) and the block's filters (mma 64, simt 16), against
+    conv_layer_ref; the variant counter moves by one per launch, and a
+    second launch gives the same bits."""
+    tdt = CNN_DTYPES[dt]
+    for nf in (1, 7, 8, 9, 63, 64, 65):
+        for k, (c, h, w) in zip((2, 3, 5, 7), ((3, 33, 29), (1, 40, 70),
+                                               (4, 21, 37), (3, 17, 100))):
+            x, f = conv_inputs(rng, cuda_device, tdt, c, h, w, nf, k)
+            slope = 0.25 if nf % 2 else 0.0
+            before = dict(conv_layer_cuda.variants)
+            out = conv_layer_cuda(x, f, negative_slope=slope, variant=variant)
+            assert conv_layer_cuda.variants[variant] == before[variant] + 1
+            assert_conv_close(out, conv_layer_ref(x, f, negative_slope=slope))
+            again = conv_layer_cuda(x, f, negative_slope=slope, variant=variant)
+            assert torch.equal(out, again), (nf, k)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["bf16", "int8"])
+def test_conv_simt_agrees_with_mma(cuda_device, rng, dt):
+    """The same layer through both variants: int8 bit for bit; bf16 both
+    within the tolerance of the plain version and of each other. Also with
+    the other output kind's widest type, and at a width whose rows allow
+    16-byte copies (256) and one that does not (226)."""
+    tdt = CNN_DTYPES[dt]
+    for (c, h, w), nf, k in [((3, 226, 226), 64, 3), ((3, 64, 256), 16, 5),
+                             ((3, 31, 47), 9, 7)]:
+        x, f = conv_inputs(rng, cuda_device, tdt, c, h, w, nf, k)
+        for out_dtype in (tdt, torch.int32 if dt == "int8" else torch.float32):
+            kw = dict(negative_slope=0.125, out_dtype=out_dtype)
+            a = conv_layer_cuda(x, f, variant="mma", **kw)
+            b = conv_layer_cuda(x, f, variant="simt", **kw)
+            ref = conv_layer_ref(x, f, **kw)
+            assert_conv_close(a, ref)
+            assert_conv_close(b, ref)
+            if dt == "int8":
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["mma", "simt"])
+def test_conv_bf16_nan_and_inf_propagate(cuda_device, rng, variant):
+    """NaN and inf in a bf16 x: the NaN pattern (inf * 0 and inf - inf
+    included) and the infinities are the plain version's."""
+    x, f = conv_inputs(rng, cuda_device, torch.bfloat16, 3, 40, 70, 9, 3)
+    x[0, 3, 5] = float("nan")
+    x[1, 20, 30] = float("inf")
+    x[2, 30, 2] = float("-inf")
+    x[0, 10, 50] = float("inf")
+    x[1, 10, 51] = float("-inf")
+    f[0, 1] = 0.0                                       # inf * 0 = NaN
+    out = conv_layer_cuda(x, f, negative_slope=0.125, variant=variant)
+    ref = conv_layer_ref(x, f, negative_slope=0.125)
+    assert bool(ref.isnan().any()) and bool(ref.isinf().any())
+    assert_conv_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(CNN_DTYPES))
+def test_leakyrelu_tails_and_alignment(cuda_device, rng, dt):
+    """Lengths that leave 0 to 15 elements past the last 16-byte chunk,
+    from an aligned start and from one element in (the scalar path), and a
+    length past one wave of blocks (the grid-stride loop): bit for bit."""
+    tdt = CNN_DTYPES[dt]
+    per = 16 // torch.empty((), dtype=tdt).element_size()
+    lengths = [16 * 37 + r for r in range(16)] + [per * 132 * 8 * 256 * 4 * 2 + 5]
+    for n in lengths:
+        v = rng.integers(-100, 100, n + 1) if dt.startswith("int") else \
+            rng.standard_normal(n + 1) * 50
+        base = torch.from_numpy(np.asarray(v, np.float32)).to(device=cuda_device, dtype=tdt)
+        for x in (base[:n], base[1:]):
+            assert torch.equal(leakyrelu_cuda(x, negative_slope=0.3),
+                               leakyrelu_ref(x, negative_slope=0.3)), (n, x.data_ptr() % 16)
