@@ -28,19 +28,30 @@ Phases:
      first CNN layer's width (3x226x226, 64 filters; in bf16 and int8 also
      1 to 32 filters); each conv row names the variant conv_variant picks
      (mma / simt), and a bf16 or int8 row also holds the other variant to
-     the plain version and times it. Per case: max |kernel - plain| beside its
+     the plain version and times it; maxpool also on the CNN leg's 224x224
+     f32 maps and on maps of 1 to 67 MB (8192x8192 int8, 4096x4096 f32 and
+     bf16, 4095x4093 bf16 with 3x3 windows at stride 2, 4096x4096 bf16 at
+     3x3 stride 1), held bit for bit (integer views), each row naming
+     maxpool_plan's variant (vector / band / scalar) and also holding and
+     timing every other variant that takes the map. Per case: max
+     |kernel - plain| beside its
      tolerance, the kernel's time (CUDA events, median, L2 flushed before
      each launch), the least time the card could take (bytes at 3.35 TB/s
      or operations at the dtype's peak, whichever is larger), the plain
      version's time, and one PyTorch library call's time where one computes
-     the same function (never called by the port). The decode-step
+     the same function (never called by the port); a `timer:` line gives
+     the share of the memory rate copies of 42 to 128 MiB moved reach under
+     the same timer. The decode-step
      kernels (decode attention, the split-K GEMV at M <= 8) also run twice
      on the same inputs and must give the same bits; each row prints its
      bytes over its time as a share of the 3.35 TB/s memory rate. Decode
      attention is held per output row to one bf16 ulp of the row's largest
      value (f32: 1e-5 of it), and on the long cache the same check must
      reject two planted faults: the last quarter of the keys (the last
-     split) dropped, and the score scale 10% off.
+     split) dropped, and the score scale 10% off. Then a `host:` line per
+     CNN wrapper: its host us a call (least of 5 medians of 200 calls, the
+     card kept busy), split into checks, allocation, stream lookup, the
+     ctypes call and the rest, beside PyTorch's own empty launch.
   3. serve: gemma2-9b at full width (42 layers, d 3584, vocab 256000, bf16,
      random weights drawn on the card from a seed) through the port's
      launcher: 4 slots, max_len 1024, 6 requests of 16-512 prompt tokens and
@@ -59,8 +70,10 @@ Phases:
      conv, F maxpool launches, one leakyrelu launch) and against the plain
      conv_layer on the card, with each leg's time and their ratio. The
      counts are zeroed before the phase and must come out exactly as
-     counted, conv_layer's per variant too (every launch on conv_variant's
-     pick: mma for the bf16 64-filter run, simt for int32). Then
+     counted, conv_layer's and maxpool's per variant too (every launch on
+     conv_variant's and maxpool_plan's pick: mma for the bf16 64-filter
+     run, simt for int32; vector for the 224x224 f32 maps, scalar for the
+     254x254 and 250x250 int32 ones). Then
      torch.profiler over each leg of the Listing 1 run and of the 64-filter
      run: the card's busy time per pass and its idle share, in a window
      that opens with a primer kernel and is padded by 50 ms on both sides;
@@ -72,9 +85,11 @@ Phases:
 Any failure exits non-zero before the last line. Details go to
 build/chip_smoke/chip_smoke.json (or --json), the nvcc report to
 build/chip_smoke/chip_smoke_build.txt. ``--cnn-kernels-only`` runs phases
-1-2 for the three CNN kernels and prints no result line; it also runs
-against an earlier tree's wrappers (without variants), to time two trees'
-kernels in one call.
+1-2 for the three CNN kernels (with the host: lines) and prints no result
+line; it also runs against an earlier tree's wrappers (without variants),
+to time two trees' kernels in one call. ``--decode-host`` only times the
+serving decode step's host clock (``decode_host:`` line), to compare two
+trees in turns, and prints no result line.
 """
 from __future__ import annotations
 
@@ -130,6 +145,26 @@ class Timer:
             e.synchronize()
             times.append(s.elapsed_time(e))
         return statistics.median(times)
+
+
+def copy_calibration(torch, timer) -> dict:
+    """Device-to-device copies of 21, 42 and 64 MiB (twice that moved) under
+    the timer: the share of the memory rate a plain copy of about a large
+    maxpool row's bytes reaches, beside which that row's mem_rate_share
+    reads (the flush leaves dirty lines in L2 that the timed call writes
+    back, which costs a smaller copy a larger share)."""
+    out = {}
+    for mib in (21, 42, 64):
+        x = torch.ones(mib * 2**18, dtype=torch.float32, device="cuda")
+        y = torch.empty_like(x)
+        ms = timer.ms(lambda: y.copy_(x))
+        out[f"{2 * mib}MiB"] = {"ms": ms, "mem_rate_share":
+                                2 * x.numel() * 4 / HBM_BYTES_PER_S * 1e3 / ms}
+        del x, y
+    print("timer: a copy moving " + ", ".join(
+        f"{k} takes {v['ms']:.4f} ms (share {v['mem_rate_share']:.3f})"
+        for k, v in out.items()), flush=True)
+    return out
 
 
 def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
@@ -403,12 +438,12 @@ def exact_err(out, ref) -> float:
 
 
 def cnn_row(torch, timer, rows, kernel, case, dt_name, out, ref, atol, rtol,
-            fn, plain, lib, nbytes, ops):
+            fn, plain, lib, nbytes, ops, reps=10):
     err = exact_err(out, ref)
     absmax = float(ref.double().nan_to_num(0.0).abs().max())
-    ms = timer.ms(fn)
+    ms = timer.ms(fn, reps=reps)
     plain_ms = timer.ms(plain, reps=5)
-    lib_ms = timer.ms(lib) if lib is not None else None
+    lib_ms = timer.ms(lib, reps=reps) if lib is not None else None
     bms, by = bound_ms(nbytes, ops, dt_name)
     rows.append(dict(kernel=kernel, case=case, dtype=dt_name, max_abs_err=err,
                      ref_absmax=absmax, atol=atol, rtol=rtol,
@@ -471,13 +506,28 @@ def run_conv(torch, timer, gen, rows):
 
 
 def run_maxpool(torch, timer, gen, rows):
+    """maxpool against its plain version at the CNN path's maps (254 x 254
+    int32 and 224 x 224 f32 accumulators), odd pitches with every window,
+    NaN, maps of 1 to 16 MB, and large maps where the memory rate bounds it
+    (84, 42 and 67 MB moved, fewer reps), all bit for bit. Each row names
+    the variant maxpool_plan picks and also holds every other variant that
+    takes the map to the plain version and times it (``<variant>_ms``). A
+    wrapper without variants (an earlier tree's) is timed as it is."""
     import torch.nn.functional as F
-    from repro_torch.kernels.maxpool.kernel import maxpool_cuda
+    from repro_torch.kernels.common import sm_count
+    from repro_torch.kernels.maxpool import kernel as pool_kernel
     from repro_torch.kernels.maxpool.ref import maxpool_ref
+    maxpool_cuda = pool_kernel.maxpool_cuda
+    plan = getattr(pool_kernel, "maxpool_plan", None)
     cases = [((254, 254), 2, 2, dt) for dt in ("int8", "int32", "float32", "bfloat16")]
     cases += [((255, 253), win, st, dt) for win, st in ((3, 2), (3, 3), (4, 1))
               for dt in ("int8", "int32", "float32", "bfloat16")]
-    cases += [((254, 254), 2, 2, "float32 NaN")]
+    cases += [((254, 254), 2, 2, "float32 NaN"), ((224, 224), 2, 2, "float32")]
+    cases += [((1024, 1024), 2, 2, "float32"), ((2048, 2048), 2, 2, "float32"),
+              ((2048, 2048), 2, 2, "int8"), ((4096, 4096), 2, 2, "int8")]
+    cases += [((8192, 8192), 2, 2, "int8"), ((4096, 4096), 2, 2, "float32"),
+              ((4096, 4096), 2, 2, "bfloat16"), ((4095, 4093), 3, 2, "bfloat16"),
+              ((4096, 4096), 3, 1, "bfloat16")]
     for (h, w), win, st, dt in cases:
         name = dt.split()[0]
         x = cnn_tensor(torch, gen, (h, w), name, -100, 100)
@@ -486,18 +536,48 @@ def run_maxpool(torch, timer, gen, rows):
             x.view(-1)[idx] = float("nan")
         out = maxpool_cuda(x, win=win, stride=st)
         ref = maxpool_ref(x, win=win, stride=st)
+        isz, sms = x.element_size(), sm_count(x.device)
+        variant = plan(h, w, win, st, isz, sms).variant if plan else None
+        others = {}       # every other variant that takes the shape
+        for v in (getattr(pool_kernel, "VARIANTS", {}) if plan else {}):
+            try:
+                if v != variant and plan(h, w, win, st, isz, sms, v):
+                    others[v] = maxpool_cuda(x, win=win, stride=st, variant=v)
+            except ValueError:
+                pass
         torch.cuda.synchronize()
         lib = None
         if not name.startswith("int"):
             def lib(x=x, win=win, st=st):
                 return F.max_pool2d(x[None, None], win, st)
-        isz = x.element_size()
+        reps = 5 if h * w * isz > 2**24 else 10
         cnn_row(torch, timer, rows, "maxpool",
                 f"{h}x{w} win={win} stride={st}" + (" NaN" if dt.endswith("NaN") else ""),
                 name, out, ref, 0.0, 0.0,
                 lambda: maxpool_cuda(x, win=win, stride=st),
                 lambda: maxpool_ref(x, win=win, stride=st), lib,
-                (x.numel() + out.numel()) * isz, float(out.numel() * win * win))
+                (x.numel() + out.numel()) * isz, float(out.numel() * win * win),
+                reps=reps)
+        # every output one of the input's elements, bit for bit (+-0 too)
+        rows[-1]["same_bits"] = torch.equal(int_view(torch, out), int_view(torch, ref))
+        rows[-1]["ok"] = rows[-1]["ok"] and rows[-1]["same_bits"]
+        if variant:
+            rows[-1]["variant"] = variant
+        rows[-1]["others"] = []
+        for v, o in others.items():
+            same = torch.equal(int_view(torch, o), int_view(torch, ref))
+            rows[-1]["others"].append(dict(
+                variant=v, max_abs_err=exact_err(o, ref), same_bits=same,
+                ms=timer.ms(lambda v=v: maxpool_cuda(x, win=win, stride=st, variant=v),
+                            reps=reps)))
+            rows[-1]["ok"] = rows[-1]["ok"] and same
+        del x, out, ref, others
+
+
+def int_view(torch, t):
+    """t's raw bits as integers (floats of 4 and 2 bytes)."""
+    return t.view({4: torch.int32, 2: torch.int16}[t.element_size()]) \
+        if t.is_floating_point() else t
 
 
 def run_leakyrelu(torch, timer, gen, rows):
@@ -520,6 +600,113 @@ def run_leakyrelu(torch, timer, gen, rows):
                         lambda: leakyrelu_cuda(x, negative_slope=slope),
                         lambda: leakyrelu_ref(x, negative_slope=slope), lib,
                         2 * x.numel() * x.element_size(), float(x.numel()))
+
+
+# ------------------------------------------------- phase 2: host per call
+HOST_CALLS, HOST_ROUNDS = 200, 5
+
+
+class HostClock:
+    """Host ns of the steps of a wrapper's calls: each wrapped function
+    adds the time it takes to its step's count."""
+
+    def __init__(self):
+        self.ns: dict = {}
+
+    def wrap(self, step: str, fn):
+        def timed(*args, **kw):
+            t0 = time.perf_counter_ns()
+            try:
+                return fn(*args, **kw)
+            finally:
+                self.ns[step] = self.ns.get(step, 0) + time.perf_counter_ns() - t0
+        return timed
+
+
+def host_calls_us(torch, fn, clock: HostClock | None = None) -> dict:
+    """Host us of one call of fn: the median over HOST_CALLS back-to-back
+    calls, with a spin kernel queued ahead so that no call waits on the
+    card, the least of HOST_ROUNDS such medians (the host's clock is shared
+    with other work); with a clock, each step's share of a call the same
+    way."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(HOST_ROUNDS):
+        torch.cuda._sleep(SPIN_CYCLES * 4)
+        total, steps = [], []
+        for _ in range(HOST_CALLS):
+            if clock:
+                clock.ns = {}
+            t0 = time.perf_counter_ns()
+            fn()
+            total.append(time.perf_counter_ns() - t0)
+            if clock:
+                steps.append(dict(clock.ns))
+        torch.cuda.synchronize()
+        res = {"call_us": statistics.median(total) / 1e3}
+        for step in sorted({k for d in steps for k in d}):
+            res[f"{step}_us"] = statistics.median(d.get(step, 0) for d in steps) / 1e3
+        rounds.append(res)
+    return {k: min(r[k] for r in rounds) for k in rounds[0]}
+
+
+# A step is what the functions of these names, where a wrapper's module has
+# them, and PyTorch's allocators take; the rest of the call is "rest".
+HOST_STEPS = {"check_cuda": "checks", "check_dtype": "checks",
+              "check_kinds": "checks", "stream_ptr": "stream"}
+
+
+def run_host(torch) -> dict:
+    """The host cost of one call of each CNN wrapper at a shape of the cnn:
+    runs, on this tree's wrappers: the whole call (unwrapped), then the same
+    calls with each step wrapped by a HostClock: checks, output allocation
+    (torch.empty, empty_like, Tensor.new_empty), stream lookup, the ctypes
+    call (the launch included) and the rest (the whole call less the
+    steps). ``floor`` is the host cost of launching an empty kernel
+    through PyTorch."""
+    from repro_torch.kernels.convlayer import kernel as conv_kernel
+    from repro_torch.kernels.leakyrelu import kernel as relu_kernel
+    from repro_torch.kernels.maxpool import kernel as pool_kernel
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = cnn_tensor(torch, gen, (3, 226, 226), "bfloat16")
+    f = cnn_tensor(torch, gen, (64, 3, 3, 3), "bfloat16", -4, 4)
+    y = cnn_tensor(torch, gen, (224, 224), "float32")
+    z = cnn_tensor(torch, gen, (64, 112, 112), "float32")
+    cases = [("conv_layer", "3x226x226 k=3 F=64 bfloat16", conv_kernel,
+              lambda: conv_kernel.conv_layer_cuda(x, f, negative_slope=0.125)),
+             ("maxpool", "224x224 win=2 float32", pool_kernel,
+              lambda: pool_kernel.maxpool_cuda(y)),
+             ("leakyrelu", "(64, 112, 112) float32", relu_kernel,
+              lambda: relu_kernel.leakyrelu_cuda(z, negative_slope=0.125))]
+    out = {"floor": host_calls_us(torch, lambda: torch.cuda._sleep(0))}
+    print(f"host: floor (torch.cuda._sleep(0)): {json.dumps(out['floor'])}", flush=True)
+    allocators = [(torch, "empty"), (torch, "empty_like"), (torch.Tensor, "new_empty")]
+    for name, case, mod, call in cases:
+        res = host_calls_us(torch, call)
+        clock = HostClock()
+        call()
+        saved = [(mod, n, getattr(mod, n)) for n in (*HOST_STEPS, "_FN") if hasattr(mod, n)]
+        saved += [(owner, n, getattr(owner, n)) for owner, n in allocators]
+        try:
+            for owner, n, fn in saved:
+                step = "ctypes" if n == "_FN" else HOST_STEPS.get(n, "alloc")
+                setattr(owner, n, clock.wrap(step, fn))
+            steps = host_calls_us(torch, call, clock)
+        finally:
+            for owner, n, fn in saved:
+                setattr(owner, n, fn)
+        for k, v in steps.items():
+            if k != "call_us":
+                res[k] = v
+        res["rest_us"] = res["call_us"] - sum(v for k, v in steps.items() if k != "call_us")
+        res["case"] = case
+        out[name] = res
+        print(f"host: {name} {case}: " + " ".join(
+            f"{k}={v:.2f}" for k, v in res.items() if k != "case")
+            + f" (least of {HOST_ROUNDS} medians of {HOST_CALLS} calls, card busy)",
+            flush=True)
+    return out
 
 
 # ---------------------------------------------------------------- phase 3
@@ -626,6 +813,41 @@ def run_serve(torch, summary: dict) -> dict:
     metrics["prefill_profile"] = profile_prefill(torch, model, params)
     metrics["decode_profile"] = profile_decode(torch, sess, args.max_len)
     return metrics
+
+
+def run_decode_host(torch, steps: int = 30, warm: int = 3) -> dict:
+    """The host clock of the serving path's batched decode step: gemma2-9b
+    at full width (random weights from seed 0) through the port's launcher,
+    4 slots live with 256-token prompts, each step timed from its call to
+    the card's end; the median, least and most of ``steps`` steps after
+    ``warm``."""
+    from repro_torch.launch import serve as launcher
+    from repro_torch.serving.engine import ServeSession
+    args = launcher.parse_args(["--arch", "gemma2-9b", "--slots", "4", "--max-len",
+                                "1024", "--seed", "0", "--backend", "cuda"])
+    model, params = launcher.build(args)
+    sess = ServeSession(model, params, max_slots=args.slots, max_len=args.max_len,
+                        seed=args.seed)
+    rng = np.random.default_rng(1)
+    for _ in range(args.slots):
+        sess.submit(rng.integers(0, model.cfg.vocab, 256),
+                    max_new_tokens=warm + steps + 2)
+    sess.step()                       # admits (prefills) every request
+    for _ in range(warm):
+        sess.step()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        sess.step()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    out = {"median_ms": statistics.median(times), "min_ms": min(times),
+           "max_ms": max(times), "steps": steps}
+    print(f"decode_host: {model.cfg.name} {args.slots} slots: step_ms median="
+          f"{out['median_ms']:.2f} min={out['min_ms']:.2f} max={out['max_ms']:.2f} "
+          f"({steps} steps, host clock)", flush=True)
+    return out
 
 
 def profile_prefill(torch, model, params, prompt_len: int = 512) -> dict:
@@ -739,17 +961,25 @@ def run_cnn(torch) -> dict:
     """The CNN path through the launcher: per run, exactly 1 conv_layer, F
     maxpool and 1 leakyrelu launch per pass of the two legs, every
     conv_layer launch on the variant ``conv_variant`` picks (and on mma for
-    the bf16 64-filter run, on simt for int32), fused == unfused, and fused
-    == the plain conv_layer on the card."""
+    the bf16 64-filter run, on simt for int32) and every maxpool launch on
+    the one ``maxpool_plan`` picks for the run's maps (vector for the bf16
+    run's 224 x 224 f32 maps, scalar for the 254 x 254 and 250 x 250
+    int32 ones), fused == unfused, and fused == the plain conv_layer on the
+    card."""
     from repro_torch.kernels.convlayer.kernel import conv_layer_cuda, conv_variant
     from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    from repro_torch.kernels.common import acc_dtype, sm_count
+    from repro_torch.kernels.maxpool.kernel import maxpool_cuda, maxpool_plan
     from repro_torch.launch import cnn
 
     for w in cnn.WRAPPERS:
         w.launches = 0
     conv_layer_cuda.variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    maxpool_cuda.variants = dict.fromkeys(maxpool_cuda.variants, 0)
     expect_total = {w.__name__: 0 for w in cnn.WRAPPERS}
     expect_variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    # the op-by-op leg pools the F accumulator maps y[i] (16-byte aligned)
+    expect_pool = dict.fromkeys(maxpool_cuda.variants, 0)
     runs = []
     for argv in CNN_RUNS:
         args = cnn.parse_args(argv + ["--backend", "cuda", "--seed", "0"])
@@ -768,6 +998,10 @@ def run_cnn(torch) -> dict:
         for k, v in expect.items():
             expect_total[k] += v * out["passes"]
         expect_variants[variant] += out["passes"]
+        side = args.size - args.k + 1
+        pool = maxpool_plan(side, side, 2, 2, acc_dtype(out["x"].dtype).itemsize,
+                            sm_count(out["x"].device)).variant
+        expect_pool[pool] += args.filters * out["passes"]
         ref = conv_layer_ref(out["x"], out["f"], negative_slope=args.slope)
         fused = out["fused"]
         shape = (args.filters, (args.size - args.k + 1) // 2,
@@ -798,21 +1032,24 @@ def run_cnn(torch) -> dict:
         if not cnn.agree(fused, ref):
             fail(f"cnn: {rec['case']}: fused disagrees with the plain conv_layer")
     counts = cnn.launches()
-    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants)}
+    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants),
+                "maxpool_cuda": dict(maxpool_cuda.variants)}
     print(f"cnn: launches {counts} expected {expect_total}; variants {variants} "
-          f"expected {expect_variants}", flush=True)
+          f"expected conv_layer {expect_variants}, maxpool {expect_pool}", flush=True)
     if counts != expect_total or min(counts.values()) <= 0:
         fail("cnn: the CNN path did not run through every kernel as counted")
     if variants["conv_layer_cuda"] != expect_variants:
         fail("cnn: the CNN path did not run through the conv_layer variants as counted")
+    if variants["maxpool_cuda"] != expect_pool:
+        fail("cnn: the CNN path did not run through the maxpool variants as counted")
     profiles = {" ".join(CNN_RUNS[i]): profile_cnn(torch, CNN_RUNS[i]) for i in (0, 3)}
     return {"runs": runs, "launches": counts, "variants": variants,
             "profile": profiles}
 
 
 # the port's CNN kernels by the names the profiler gives them
-CNN_KERNEL_NAMES = ("conv_mma_kernel", "conv_simt_kernel", "maxpool_kernel",
-                    "leakyrelu_kernel")
+CNN_KERNEL_NAMES = ("conv_mma_kernel", "conv_simt_kernel", "maxpool_vector_kernel",
+                    "maxpool_scalar_kernel", "maxpool_band_kernel", "leakyrelu_kernel")
 PROFILE_PAD_S = 0.05
 
 
@@ -914,7 +1151,7 @@ KERNELS = {
                    "bfloat16"),
     "maxpool": ("src/repro_torch/csrc/maxpool.cu",
                 "src/repro/kernels/maxpool/kernel.py:54", "maxpool_cuda",
-                "cnn", "254x254 win=2 stride=2", "float32"),
+                "cnn", "224x224 win=2 stride=2", "float32"),
     "leakyrelu": ("src/repro_torch/csrc/leakyrelu.cu",
                   "src/repro/kernels/leakyrelu/kernel.py:37",
                   "leakyrelu_cuda", "cnn", "(64, 112, 112) slope=0.5", "float32"),
@@ -927,6 +1164,9 @@ def main(argv=None) -> None:
     ap.add_argument("--cnn-kernels-only", action="store_true",
                     help="phases 1-2 for conv_layer, maxpool and leakyrelu only "
                          "(to time two trees' kernels in one call); no result line")
+    ap.add_argument("--decode-host", action="store_true",
+                    help="only the serving decode step's host clock (to time two "
+                         "trees in turns); no result line")
     ap.add_argument("--json", default=None,
                     help="where the details go (default build/chip_smoke/chip_smoke.json)")
     opts = ap.parse_args(argv)
@@ -952,7 +1192,8 @@ def main(argv=None) -> None:
     print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
           f"torch={torch.__version__} cuda={torch.version.cuda} "
           f"python={sys.version.split()[0]}", flush=True)
-    names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else _build.SOURCES
+    names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else \
+        ("gemm", "decode_attention", "flash_attention") if opts.decode_host else _build.SOURCES
     build_s = _build.build_all(names)
     print(f"build: {', '.join(names)} in {build_s:.1f}s "
           f"(nvcc, sm_90a, parallel)", flush=True)
@@ -962,6 +1203,11 @@ def main(argv=None) -> None:
                "torch": torch.__version__, "cuda": torch.version.cuda,
                "build_s": build_s}
 
+    if opts.decode_host:
+        summary["decode_host"] = run_decode_host(torch)
+        out_json.write_text(json.dumps(summary, indent=1))
+        return
+
     # ---- phase 2: kernels vs plain versions
     rows: list[dict] = []
     failures: list[str] = []
@@ -969,6 +1215,7 @@ def main(argv=None) -> None:
     summary["launch_floor_ms"] = timer.ms(lambda: torch.cuda._sleep(0))
     print(f"timer: an empty kernel takes {summary['launch_floor_ms']:.4f} ms "
           f"between the events", flush=True)
+    summary["copy_calibration"] = copy_calibration(torch, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
     phase2 = (run_gemm, run_decode, run_flash, run_conv, run_maxpool, run_leakyrelu)
     for run in phase2[3:] if opts.cnn_kernels_only else phase2:
@@ -983,8 +1230,13 @@ def main(argv=None) -> None:
         other = "" if r.get("other_ms") is None else \
             (f" other_variant={r['other_variant']} other_ms={r['other_ms']:.4f} "
              f"other_max_abs_err={r['other_max_abs_err']:.3e}")
+        for o in r.get("others", ()):
+            other += (f" {o['variant']}_ms={o['ms']:.4f} {o['variant']}_same_bits="
+                      f"{o['same_bits']}")
         det = "" if r.get("deterministic") is None else \
             f" same_bits_twice={r['deterministic']}"
+        if "same_bits" in r:
+            det += f" same_bits={r['same_bits']}"
         tol = f"atol={r['atol']} rtol={r['rtol']}"
         if "row_limit_ratio" in r:
             tol += (f" per row, abs<={r['abs_cap']}; worst err/limit "
@@ -1001,6 +1253,7 @@ def main(argv=None) -> None:
               f"mem_rate_share={r['mem_rate_share']:.3f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
     summary["cases"] = rows
+    summary["host"] = run_host(torch)
     out_json.write_text(json.dumps(summary, indent=1))
     bad = [r for r in rows if not r["ok"]]
     if bad:      # reported after the serving phase has run too

@@ -177,3 +177,8 @@ def default_engine() -> ArcaneEngine:
     if _DEFAULT is None:
         _DEFAULT = ArcaneEngine()
     return _DEFAULT
+
+
+def set_default_engine(engine: ArcaneEngine) -> None:
+    global _DEFAULT
+    _DEFAULT = engine

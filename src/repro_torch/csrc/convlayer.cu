@@ -600,22 +600,29 @@ int launch_in(int variant, const void* x, const void* f, void* out, int C,
 
 }  // namespace
 
-// x (C, H, W) and f (F, C, KH, KW) contiguous, of the type in_code; out
-// (F, OH, OW) contiguous, of the type out_code (kernels/common.py
+// The launch's parameters, laid out as kernels/convlayer/kernel.py: Params.
+struct LayerParams {
+  int C, H, W, F, KH, KW, in_code, out_code;
+  float slope;
+  int variant;
+};
+
+// x (C, H, W) and f (F, C, KH, KW) contiguous, of the type p->in_code; out
+// (F, OH, OW) contiguous, of the type p->out_code (kernels/common.py
 // ELEM_CODES): an integer type for an integer input, a float type for a
 // float input. KH <= H and KW <= W with at least one pooled output.
-// variant: 0 mma (bf16 or int8 only), 1 simt.
+// p->variant: 0 mma (bf16 or int8 only), 1 simt.
 extern "C" int conv_layer_launch(const void* x, const void* f, void* out,
-                                 int C, int H, int W, int F, int KH, int KW,
-                                 int in_code, int out_code, float slope,
-                                 int variant, void* stream) {
+                                 const LayerParams* p, void* stream) {
+  const int C = p->C, H = p->H, W = p->W, F = p->F, KH = p->KH, KW = p->KW;
   if (C < 1 || F < 1 || KH < 1 || KW < 1 || (H - KH + 1) / 2 < 1 ||
-      (W - KW + 1) / 2 < 1 || (variant != MMA && variant != SIMT))
+      (W - KW + 1) / 2 < 1 || (p->variant != MMA && p->variant != SIMT))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   int err = 0;
-  ELEM_DISPATCH(in_code, T,
-    err = launch_in<T>(variant, x, f, out, C, H, W, F, KH, KW, out_code, slope, s))
+  ELEM_DISPATCH(p->in_code, T,
+    err = launch_in<T>(p->variant, x, f, out, C, H, W, F, KH, KW, p->out_code,
+                       p->slope, s))
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -2,7 +2,7 @@
 // leakyrelu.cu): the dtype codes shared with kernels/common.py ELEM_CODES,
 // conversions that round as the reference does (integers to f32 and f32 to
 // bf16 to nearest even, f32 to an integer half to even), and a max that
-// propagates NaN as jnp.maximum does.
+// picks as jnp.maximum does (NaN propagates, +0 over -0).
 #pragma once
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -35,15 +35,16 @@ template <> __device__ __forceinline__ int8_t from_f32<int8_t>(float v) { return
 template <> __device__ __forceinline__ int16_t from_f32<int16_t>(float v) { return (int16_t)__float2int_rn(v); }
 template <> __device__ __forceinline__ int32_t from_f32<int32_t>(float v) { return __float2int_rn(v); }
 
-// Whether v replaces the running max m: larger, or NaN (for integers,
-// larger). Once m is NaN nothing but another NaN replaces it.
+// Whether v replaces the running max m, as jnp.maximum(m, v) picks: larger,
+// or NaN (the later of two NaNs), or +0 over -0 (for integers, larger).
+// Once m is NaN nothing but another NaN replaces it.
 template <typename T>
 __device__ __forceinline__ bool takes(T v, T m) {
   if constexpr (is_int<T>) {
     return v > m;
   } else {
-    const float a = to_f32(v);
-    return a != a || a > to_f32(m);
+    const float a = to_f32(v), b = to_f32(m);
+    return a != a || a > b || (a == b && __float_as_uint(a) < __float_as_uint(b));
   }
 }
 

@@ -105,13 +105,20 @@ void launch(const void* x, void* out, ll n, float slope, int sms, cudaStream_t s
 
 }  // namespace
 
-// x and out hold n contiguous elements of the type `code` (kernels/common.py
-// ELEM_CODES); sms: the card's SM count, which sizes the grid.
-extern "C" int leakyrelu_launch(const void* x, void* out, ll n, int code,
-                                float slope, int sms, void* stream) {
-  if (sms < 1) return (int)cudaErrorInvalidValue;
-  if (n <= 0) return (int)cudaGetLastError();
+// The launch's parameters, laid out as kernels/leakyrelu/kernel.py: Params.
+struct Params {
+  ll n;          // elements of x and out
+  int code;      // their type (kernels/common.py ELEM_CODES)
+  float slope;
+  int sms;       // the card's SM count, which sizes the grid
+};
+
+// x and out hold p->n contiguous elements of the type p->code.
+extern "C" int leakyrelu_launch(const void* x, void* out, const Params* p,
+                                void* stream) {
+  if (p->sms < 1) return (int)cudaErrorInvalidValue;
+  if (p->n <= 0) return (int)cudaGetLastError();
   cudaStream_t s = (cudaStream_t)stream;
-  ELEM_DISPATCH(code, T, launch<T>(x, out, n, slope, sms, s))
+  ELEM_DISPATCH(p->code, T, launch<T>(x, out, p->n, p->slope, p->sms, s))
   return (int)cudaGetLastError();
 }

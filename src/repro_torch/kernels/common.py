@@ -20,14 +20,32 @@ ELEM_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2,
 
 NEG_INF = float(-1e30)   # mask value that survives bf16 rounding
 
+# launches a CNN wrapper keeps (checks passed and parameters made, by key)
+# before its cache starts again
+LAUNCH_KEYS = 1024
+
+
+class LaunchCache(dict):
+    """A wrapper's launches by key: what the key decides (its checks passed,
+    the launch's parameters made) is worked out once. A call looks its key
+    up with ``get`` and, on a miss, ``make``s it."""
+
+    def make(self, key, build, *args):
+        """build(*args), kept under key (the cache starts again once it
+        holds LAUNCH_KEYS); build raises where the key's checks fail."""
+        if len(self) >= LAUNCH_KEYS:
+            self.clear()
+        launch = self[key] = build(*args)
+        return launch
+
 
 def check_cuda(what: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor lies on the same CUDA device."""
-    dev = tensors[0].device
+    index = tensors[0].get_device()
     for t in tensors:
-        if not t.is_cuda or t.device != dev:
+        if not t.is_cuda or t.get_device() != index:
             raise ValueError(f"{what}: the kernel takes CUDA tensors on one "
-                             f"device, got {t.device} (and {dev})")
+                             f"device, got {t.device} (and {tensors[0].device})")
 
 
 def check_dtype(what: str, t: torch.Tensor, allowed) -> None:
@@ -36,7 +54,10 @@ def check_dtype(what: str, t: torch.Tensor, allowed) -> None:
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """The raw pointer of the current stream of CUDA tensor t's device, the
+    same as ``torch.cuda.current_stream(t.device).cuda_stream`` without a
+    Stream object per call."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def ceil_div(x: int, y: int) -> int:

@@ -11,15 +11,19 @@ on mma.sync tensor cores) for bf16 from 16 filters and int8 from 4
 (true f32, never TF32) and fewer filters. ``mma_rows`` is the order in
 which an ``mma`` block lays its conv outputs along M.
 ``conv_layer_cuda.launches`` counts the kernel's launches and
-``conv_layer_cuda.variants`` the launches of each variant.
+``conv_layer_cuda.variants`` the launches of each variant. The checks and
+the launch's parameters of a (shapes, dtypes, slope, variant, device) are
+worked out once, so a call passes five arguments to one ctypes call.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.common import (ELEM_CODES, check_cuda, check_dtype,
-                                        stream_ptr)
+from repro_torch.kernels.common import (ELEM_CODES, LaunchCache, check_cuda,
+                                        check_dtype, stream_ptr)
 from repro_torch.kernels.convlayer.ref import check_kinds
 
 VARIANTS = {"mma": 0, "simt": 1}
@@ -32,17 +36,26 @@ MMA_MIN_FILTERS = {torch.bfloat16: 16, torch.int8: 4}
 # (M = 4 * PY * PX conv outputs), 4 warps of 8 pooled outputs, NT filters
 MMA_PY, MMA_PX, MMA_WARPS, MMA_NT = 2, 16, 4, 64
 
+
+class Params(ctypes.Structure):
+    """The launch's parameters (``csrc/convlayer.cu``: LayerParams)."""
+    _fields_ = [(n, ctypes.c_int) for n in ("c", "h", "w", "f", "kh", "kw",
+                                             "in_code", "out_code")] + \
+        [("slope", ctypes.c_float), ("variant", ctypes.c_int)]
+
+
 _FN = None
+# (x shape, f shape, dtypes, out_dtype, slope, variant, device) ->
+# (out shape, out dtype, variant, Params, its address)
+_LAUNCHES = LaunchCache()
 
 
 def _fn():
     global _FN
     if _FN is None:
         fn = _build.load("convlayer").conv_layer_launch
-        I = _build.I32
-        fn.argtypes = [_build.VP, _build.VP, _build.VP, I, I, I, I, I, I, I,
-                       I, _build.F32, I, _build.VP]
-        fn.restype = I
+        fn.argtypes = [_build.VP] * 5
+        fn.restype = _build.I32
         _FN = fn
     return _FN
 
@@ -82,6 +95,27 @@ def conv_layer_cuda(x: torch.Tensor, f: torch.Tensor, *,
     and int8 at any filter count.
     """
     check_cuda("conv_layer", x, f)
+    key = (x.shape, f.shape, x.dtype, f.dtype, out_dtype, negative_slope,
+           variant, x.get_device())
+    launch = _LAUNCHES.get(key) or \
+        _LAUNCHES.make(key, _launch_for, x, f, negative_slope, out_dtype, variant)
+    if not x.is_contiguous() or not f.is_contiguous():
+        raise ValueError(f"conv_layer: the kernel takes contiguous x (C, H, W) "
+                         f"and f (F, C, KH, KW), got {tuple(x.shape)} and "
+                         f"{tuple(f.shape)}")
+    shape, out_dtype, variant, _, params = launch
+    out = x.new_empty(shape, dtype=out_dtype)
+    err = _fn()(x.data_ptr(), f.data_ptr(), out.data_ptr(), params, stream_ptr(x))
+    conv_layer_cuda.launches += 1
+    conv_layer_cuda.variants[variant] += 1
+    _build.check(err, "conv_layer")
+    return out
+
+
+def _launch_for(x: torch.Tensor, f: torch.Tensor, negative_slope: float,
+                out_dtype, variant: str | None):
+    """(out shape, out dtype, variant, Params, its address) for the key of
+    (x, f, ...), after the checks that the key decides."""
     check_dtype("conv_layer", x, ELEM_CODES)
     if f.dtype != x.dtype:
         raise ValueError(f"conv_layer: x is {x.dtype} but f is {f.dtype}")
@@ -89,8 +123,7 @@ def conv_layer_cuda(x: torch.Tensor, f: torch.Tensor, *,
     if out_dtype not in ELEM_CODES:
         raise ValueError(f"conv_layer: out_dtype {out_dtype} not supported")
     check_kinds(x.dtype, out_dtype)
-    if x.dim() != 3 or f.dim() != 4 or f.shape[1] != x.shape[0] \
-            or not x.is_contiguous() or not f.is_contiguous():
+    if x.dim() != 3 or f.dim() != 4 or f.shape[1] != x.shape[0]:
         raise ValueError(f"conv_layer: the kernel takes contiguous x (C, H, W) "
                          f"and f (F, C, KH, KW), got {tuple(x.shape)} and "
                          f"{tuple(f.shape)}")
@@ -104,14 +137,9 @@ def conv_layer_cuda(x: torch.Tensor, f: torch.Tensor, *,
     if variant not in VARIANTS or (variant == "mma" and x.dtype not in MMA_MIN_FILTERS):
         raise ValueError(f"conv_layer: variant {variant!r} does not take "
                          f"{x.dtype}")
-    out = torch.empty((nf, out_h, out_w), dtype=out_dtype, device=x.device)
-    err = _fn()(x.data_ptr(), f.data_ptr(), out.data_ptr(), cch, h, w, nf,
-                kh, kw, ELEM_CODES[x.dtype], ELEM_CODES[out_dtype],
-                float(negative_slope), VARIANTS[variant], stream_ptr(x))
-    conv_layer_cuda.launches += 1
-    conv_layer_cuda.variants[variant] += 1
-    _build.check(err, "conv_layer")
-    return out
+    p = Params(cch, h, w, nf, kh, kw, ELEM_CODES[x.dtype], ELEM_CODES[out_dtype],
+               float(negative_slope), VARIANTS[variant])
+    return (nf, out_h, out_w), out_dtype, variant, p, ctypes.addressof(p)
 
 
 conv_layer_cuda.launches = 0

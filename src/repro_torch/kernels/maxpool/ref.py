@@ -7,10 +7,20 @@ from typing import Optional
 import torch
 
 
+def takes(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Where v replaces the running max m, as ``jnp.maximum(m, v)`` picks:
+    larger, or NaN (the later of two NaNs), or +0 over -0 (which
+    ``torch.maximum`` would leave as it found them)."""
+    if not v.is_floating_point():
+        return v > m
+    return (v > m) | v.isnan() | ((v == m) & m.signbit() & ~v.signbit())
+
+
 def maxpool_ref(x: torch.Tensor, *, win: int = 2,
                 stride: Optional[int] = None) -> torch.Tensor:
     """Max over win x win windows of x (H, W) at ``stride`` (default
-    ``win``); the ragged tail is dropped and NaN propagates."""
+    ``win``), the windows walked in row-major order; the ragged tail is
+    dropped and NaN propagates."""
     stride = stride or win
     h, w = x.shape
     out_h = (h - win) // stride + 1
@@ -20,5 +30,5 @@ def maxpool_ref(x: torch.Tensor, *, win: int = 2,
         for dj in range(win):
             sl = x[di:di + (out_h - 1) * stride + 1:stride,
                    dj:dj + (out_w - 1) * stride + 1:stride]
-            acc = sl if acc is None else torch.maximum(acc, sl)
+            acc = sl if acc is None else torch.where(takes(sl, acc), sl, acc)
     return acc

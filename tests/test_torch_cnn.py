@@ -204,6 +204,36 @@ def test_engine_auto_on_cpu_runs_the_kernels_plain_versions(rng):
         ArcaneEngine("cuda").maxpool(tx[0])
 
 
+def test_set_default_engine_matches_reference():
+    """set_default_engine: default_engine() then returns the engine given,
+    and a model built without an engine takes it, in both packages; None
+    brings back a fresh ArcaneEngine() on the next call."""
+    from repro.configs import get_smoke_config as jax_smoke
+    from repro.core import engine as jax_engine_mod
+    from repro.models.transformer import LM as JaxLM
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core import engine as engine_mod
+    from repro_torch.models.transformer import LM
+
+    for mod, make, lm in (
+            (jax_engine_mod, lambda: JaxEngine(backend="ref", record=True),
+             lambda: JaxLM(jax_smoke("stablelm-3b"))),
+            (engine_mod, lambda: ArcaneEngine("ref", record=True),
+             lambda: LM(get_smoke_config("stablelm-3b"), device="cpu"))):
+        before = mod.default_engine()
+        try:
+            mine = make()
+            assert mod.set_default_engine(mine) is None
+            assert mod.default_engine() is mine and lm().engine is mine
+            mod.set_default_engine(None)
+            fresh = mod.default_engine()
+            assert fresh is not mine and not fresh.record
+            assert fresh.backend == mod.ArcaneEngine().backend
+        finally:
+            mod.set_default_engine(before)
+        assert mod.default_engine() is before
+
+
 # -------------------------------------------------------------- launcher
 @pytest.mark.parametrize("k", [3, 5])
 @pytest.mark.parametrize("dt", ["int8", "int32", "float32"])

@@ -22,7 +22,7 @@ from repro_torch.kernels.gemm.kernel import (b_layout, gemm_cuda, gemm_variant,
 from repro_torch.kernels.gemm.ref import gemm_ref
 from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
 from repro_torch.kernels.leakyrelu.ref import leakyrelu_ref
-from repro_torch.kernels.maxpool.kernel import maxpool_cuda
+from repro_torch.kernels.maxpool.kernel import maxpool_cuda, maxpool_plan
 from repro_torch.kernels.maxpool.ref import maxpool_ref
 
 FLASH_VARIANTS = [
@@ -491,3 +491,133 @@ def test_leakyrelu_tails_and_alignment(cuda_device, rng, dt):
         for x in (base[:n], base[1:]):
             assert torch.equal(leakyrelu_cuda(x, negative_slope=0.3),
                                leakyrelu_ref(x, negative_slope=0.3)), (n, x.data_ptr() % 16)
+
+
+# --------------------------------------- maxpool: vector, band and scalar
+MAXPOOL_WINDOWS = [(2, 2), (3, 2), (3, 3), (4, 1)]     # chip_smoke.py's
+
+
+def int_view(t: torch.Tensor) -> torch.Tensor:
+    """The raw bits of t as an integer tensor (NaN and -0 compare as bits)."""
+    return {torch.float32: lambda: t.view(torch.int32),
+            torch.bfloat16: lambda: t.view(torch.int16)}.get(t.dtype, lambda: t)()
+
+
+def pool_map(rng, dev, tdt, shape):
+    """Integers over a wide range; floats normal with +0, -0 and NaN."""
+    if not tdt.is_floating_point:
+        v = rng.integers(-100, 100, shape)
+        return torch.from_numpy(np.asarray(v, np.float32)).to(device=dev, dtype=tdt)
+    x = torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(dev)
+    pick = torch.from_numpy(rng.random(shape)).to(dev)
+    x[pick < 0.2] = 0.0
+    x[(pick >= 0.2) & (pick < 0.4)] = -0.0
+    x[pick > 0.99] = float("nan")
+    return x.to(tdt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", list(CNN_DTYPES))
+def test_maxpool_bits_match_plain_version(cuda_device, rng, dt):
+    """The plan's pick and each variant that takes the map, bit for bit
+    (integer views) against maxpool_ref at every window of chip_smoke.py:
+    odd pitches, the maps y[i] of stacks (on 16 bytes, and one element
+    past: there vector refuses and band stages each row's unaligned head
+    and tail element by element), rows of a multiple of 16 bytes (vector
+    at 2 x 2), NaN and +-0, large maps (band for the overlapping windows);
+    each launch counted on its variant."""
+    tdt = CNN_DTYPES[dt]
+    isz = torch.empty((), dtype=tdt).element_size()
+    stack = pool_map(rng, cuda_device, tdt, (4, 37, 53))
+    square = pool_map(rng, cuda_device, tdt, (3, 64, 64))
+    flat = pool_map(rng, cuda_device, tdt, (64 * 64 + 1,))
+    maps = [pool_map(rng, cuda_device, tdt, (255, 253)),
+            pool_map(rng, cuda_device, tdt, (1, 1)), flat[1:].view(64, 64),
+            pool_map(rng, cuda_device, tdt, (4095, 4093)),
+            pool_map(rng, cuda_device, tdt, (2048, 2048))]
+    maps += [stack[i] for i in range(4)] + [square[i] for i in range(3)]
+    for m in maps:
+        assert m.is_contiguous()
+        (h, w), aligned = m.shape, m.data_ptr() % 16 == 0
+        for win, stride in MAXPOOL_WINDOWS:
+            if win > min(h, w):
+                continue
+            ref = maxpool_ref(m, win=win, stride=stride)
+            vector = win == stride == 2 and w * isz % 16 == 0 and aligned
+            pick = maxpool_plan(h, w, win, stride, isz, sm_count(), aligned=aligned).variant
+            runs = [(None, pick), ("scalar", "scalar"), ("band", "band")]
+            runs += [("vector", "vector")] if vector else []
+            for named, variant in runs:
+                before = dict(maxpool_cuda.variants)
+                out = maxpool_cuda(m, win=win, stride=stride, variant=named)
+                assert maxpool_cuda.variants == \
+                    {k: v + (k == variant) for k, v in before.items()}
+                assert torch.equal(int_view(out), int_view(ref)), \
+                    (tuple(m.shape), m.data_ptr() % 16, win, stride, variant)
+            if not vector and win == stride == 2:
+                with pytest.raises(ValueError):
+                    maxpool_cuda(m, win=win, stride=stride, variant="vector")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["int8", "f32", "bf16"])
+def test_maxpool_variants(cuda_device, rng, dt):
+    """scalar with several outputs a thread (a map past one wave of
+    threads) and on a window past 4 x 4 (the loop over win), vector on
+    rows of a multiple of 16 bytes and on more output rows than a grid's
+    65535, band on large maps of overlapping windows and on more tile rows
+    than a grid's 65535: each counted once per launch and bit for bit the
+    plain version."""
+    tdt = CNN_DTYPES[dt]
+    isz = torch.empty((), dtype=tdt).element_size()
+    cases = [((3, 40001), 3, 2, "scalar"), ((1001, 1999), 2, 2, "scalar"),
+             ((163, 165), 160, 2, "scalar"), ((131074, 16 // isz), 2, 2, "vector"),
+             ((2048, 2048), 2, 2, "vector"), ((2000, 1999), 3, 2, "band"),
+             ((1001, 1003), 4, 1, "band"), ((400001, 9), 3, 2, "band")]
+    for shape, win, stride, variant in cases:
+        x = pool_map(rng, cuda_device, tdt, shape)
+        before = dict(maxpool_cuda.variants)
+        out = maxpool_cuda(x, win=win, stride=stride)
+        after = dict(maxpool_cuda.variants)
+        assert after == {k: v + (k == variant) for k, v in before.items()}
+        assert torch.equal(int_view(out), int_view(maxpool_ref(x, win=win, stride=stride)))
+
+
+@pytest.mark.cuda
+def test_cnn_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
+    """After a call that fills the wrappers' per-key launch cache, the same
+    shapes with another dtype, a non-contiguous layout, a tensor on the CPU
+    or an impossible window still raise ValueError."""
+    x = torch.zeros((8, 9), device=cuda_device)
+    maxpool_cuda(x)
+    for bad in (lambda: maxpool_cuda(x.half()),
+                lambda: maxpool_cuda(torch.zeros((9, 8), device=cuda_device).T),
+                lambda: maxpool_cuda(x.cpu()),
+                lambda: maxpool_cuda(x[None]),
+                lambda: maxpool_cuda(x, win=9),
+                lambda: maxpool_cuda(x, win=2, stride=-1),
+                lambda: maxpool_cuda(x, win=9, variant="scalar"),
+                lambda: maxpool_cuda(x, win=3, variant="vector"),
+                lambda: maxpool_cuda(x, win=5, stride=1, variant="band"),
+                lambda: maxpool_cuda(x, variant="tiled")):
+        with pytest.raises(ValueError):
+            bad()
+    c = torch.zeros((3, 12, 12), device=cuda_device, dtype=torch.bfloat16)
+    f = torch.zeros((2, 3, 3, 3), device=cuda_device, dtype=torch.bfloat16)
+    conv_layer_cuda(c, f)
+    for bad in (lambda: conv_layer_cuda(c, f.cpu()),
+                lambda: conv_layer_cuda(c, f.float()),
+                lambda: conv_layer_cuda(c.float(), f.float(), variant="mma"),
+                lambda: conv_layer_cuda(c, f, out_dtype=torch.int32),
+                lambda: conv_layer_cuda(c, f.transpose(2, 3).contiguous().transpose(2, 3)),
+                lambda: conv_layer_cuda(c[:, :3, :3].contiguous(), f),
+                lambda: conv_layer_cuda(c.half(), f.half())):
+        with pytest.raises(ValueError):
+            bad()
+    v = torch.zeros((4, 6), device=cuda_device)
+    leakyrelu_cuda(v)
+    for bad in (lambda: leakyrelu_cuda(v.half()),
+                lambda: leakyrelu_cuda(torch.zeros((6, 4), device=cuda_device).T),
+                lambda: leakyrelu_cuda(v.cpu())):
+        with pytest.raises(ValueError):
+            bad()
