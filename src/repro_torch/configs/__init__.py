@@ -1,15 +1,19 @@
-"""Config registry: ``--arch <id>`` resolution for the dense archs the port
+"""Config registry: ``--arch <id>`` resolution for the archs the port
 serves (own copy of the relevant part of repro.configs)."""
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import LayerSpec, ModelConfig
+from repro_torch.configs.base import (LayerSpec, MLAConfig, ModelConfig,
+                                      MoEConfig)
 
 ARCHS: dict[str, str] = {
     "stablelm-3b": "stablelm_3b",
     "gemma2-9b": "gemma2_9b",
     "qwen2.5-32b": "qwen2_5_32b",
+    "granite-moe-1b-a400m": "granite_moe_1b_a400m",
+    "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
+    "minicpm3-4b": "minicpm3_4b",
 }
 
 
@@ -21,5 +25,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}").smoke()
 
 
-__all__ = ["ARCHS", "LayerSpec", "ModelConfig", "get_config",
-           "get_smoke_config"]
+__all__ = ["ARCHS", "LayerSpec", "MLAConfig", "ModelConfig", "MoEConfig",
+           "get_config", "get_smoke_config"]

@@ -2,9 +2,10 @@
 
 The fields and their defaults are those of the reference, so that a config
 built here equals the reference's field by field. What differs: the
-submodule configs of the unported families are untyped placeholders;
-``pdtype``/``cdtype`` map the dtype strings to ``torch.dtype``, and
-``param_count`` covers the dense layer kinds this package runs.
+submodule configs of the unported families (``mamba``, ``rwkv``) are
+untyped placeholders; ``pdtype``/``cdtype`` map the dtype strings to
+``torch.dtype``, and ``param_count`` covers the layer kinds this package
+runs (``attn``, ``attn_local``, ``mla``, with dense or MoE FFNs).
 """
 from __future__ import annotations
 
@@ -15,6 +16,23 @@ import torch
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
           "float16": torch.float16}
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    capacity_factor: float = 1.25
+    router_aux_coef: float = 0.01
+
+
+@dataclasses.dataclass(frozen=True)
+class MLAConfig:
+    q_lora_rank: int = 768
+    kv_lora_rank: int = 256
+    qk_nope_head_dim: int = 64
+    qk_rope_head_dim: int = 32
+    v_head_dim: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,10 +64,10 @@ class ModelConfig:
     local_window: Optional[int] = None
     # serving: local (sliding-window) layers keep a window-sized ring cache
     ring_local_cache: bool = False
-    # --- submodule configs of the families not ported yet (always None in
-    # the three dense archs here; kept so the fields match the reference)
-    moe: Optional[object] = None
-    mla: Optional[object] = None
+    # --- submodule configs (mamba and rwkv: families not ported yet, always
+    # None here; kept so the fields match the reference)
+    moe: Optional[MoEConfig] = None
+    mla: Optional[MLAConfig] = None
     mamba: Optional[object] = None
     rwkv: Optional[object] = None
     # --- encoder/decoder
@@ -89,13 +107,42 @@ class ModelConfig:
         return DTYPES[self.compute_dtype]
 
     def param_count(self) -> int:
-        """Analytic parameter count of a dense attention model."""
+        """Analytic parameter count (embedding + blocks) of the layer kinds
+        this package runs, term for term as the reference's."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
+        n = self.n_periods
         total = v * d * (1 if self.tie_embeddings else 2)
         for spec in self.pattern:
-            if spec.kind not in ("attn", "attn_local") or spec.moe:
+            if spec.kind in ("attn", "attn_local"):
+                qkv = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
+                total += n * (qkv + self.n_heads * hd * d)
+            elif spec.kind == "mla":
+                m = self.mla
+                qk_head = m.qk_nope_head_dim + m.qk_rope_head_dim
+                total += n * (
+                    d * m.q_lora_rank + m.q_lora_rank * self.n_heads * qk_head
+                    + d * (m.kv_lora_rank + m.qk_rope_head_dim)
+                    + m.kv_lora_rank * self.n_heads
+                    * (m.qk_nope_head_dim + m.v_head_dim)
+                    + self.n_heads * m.v_head_dim * d)
+            else:
                 raise NotImplementedError(spec)
-            qkv = d * (self.n_heads * hd) + 2 * d * (self.n_kv_heads * hd)
-            total += self.n_periods * (qkv + self.n_heads * hd * d + 3 * d * ff)
+            if spec.moe and self.moe is not None:
+                total += n * (d * self.moe.n_experts
+                              + self.moe.n_experts * 3 * d * ff)
+            else:
+                total += n * 3 * d * ff
+        if self.enc_dec:
+            raise NotImplementedError("enc_dec")
         return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: top_k of n_experts)."""
+        if self.moe is None:
+            return self.param_count()
+        d, ff = self.d_model, self.d_ff
+        inactive = sum(
+            self.n_periods * (self.moe.n_experts - self.moe.top_k) * 3 * d * ff
+            for spec in self.pattern if spec.moe)
+        return self.param_count() - inactive

@@ -81,14 +81,31 @@ __device__ __forceinline__ bool takes(A v, A m) {
   else return v != v || v > m;
 }
 
-// The 2x2 max in the reference's order (NaN propagates).
+// A float max m of values whose sign bits ANDed are `signs`, with +0 over
+// -0 as jnp's max picks: where m is zero every value is <= 0, so m is -0
+// only if every value's sign bit is set. One fix per pooled value, not a
+// third test in every compare (which cost the short float kernels up to
+// 12%). The mma variant's sums come from the tensor cores, whose zero
+// signs IEEE does not fix, so its pool (pool4) takes the fix.
+template <typename A>
+__device__ __forceinline__ A zero_sign(A m, uint32_t signs) {
+  if constexpr (std::is_same<A, uint32_t>::value) return m;
+  else return m == 0.0f ? __uint_as_float(signs & 0x80000000u) : m;
+}
+template <typename A>
+__device__ __forceinline__ uint32_t sign_bits(A v) {
+  if constexpr (std::is_same<A, uint32_t>::value) return 0u;
+  else return __float_as_uint(v);
+}
+
+// The 2x2 max in the reference's order (NaN propagates; +0 over -0).
 template <typename A>
 __device__ __forceinline__ A pool4(A a00, A a01, A a10, A a11) {
   A m = a00;
   if (takes(a01, m)) m = a01;
   if (takes(a10, m)) m = a10;
   if (takes(a11, m)) m = a11;
-  return m;
+  return zero_sign(m, sign_bits(a00) & sign_bits(a01) & sign_bits(a10) & sign_bits(a11));
 }
 
 // LeakyReLU on the pooled accumulator, then the cast to O.
@@ -522,7 +539,10 @@ conv_simt_kernel(const T* __restrict__ x, const T* __restrict__ f,
     }
 #pragma unroll
     for (int fi = 0; fi < FT; ++fi) {
-      // top: max(a00, a01), then the bottom's max(a10, a11) from lane + 16
+      // top: max(a00, a01), then the bottom's max(a10, a11) from lane + 16.
+      // No zero sign fix here (pool4 has one): these sums start at +0 and
+      // add in IEEE arithmetic, where +0 + -0 = +0, so no conv output of
+      // this variant is -0 and the first of equal values is the max's bits.
       A m = takes(a[fi][1], a[fi][0]) ? a[fi][1] : a[fi][0];
       const A low = __shfl_xor_sync(0xffffffffu, m, PX);
       if (takes(low, m)) m = low;

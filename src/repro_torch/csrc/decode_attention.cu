@@ -10,7 +10,7 @@
 //
 // What bounds it on this card, and what the design does about it: the
 // bytes of the valid cache rows, read once for all G query heads of a KV
-// head (G <= 8 on the served configs, far below a tensor-core tile). A
+// head (G <= 8 on the dense configs, far below a tensor-core tile). A
 // batch of 4 has only 4 * Hkv (batch, KV head) pairs, so the cache's S
 // axis is split across blocks as well (flash-decoding): the grid is
 // (B * Hkv, splits), `splits` chosen by the caller from S, B * Hkv and the
@@ -29,9 +29,25 @@
 // q; exp2 and tanh on the SFU's ex2.approx). P V: threads split D into
 // 16-byte pieces and the tile's keys into groups; the groups' sums meet in
 // shared memory once per split.
-// Merge: a second small kernel in the same call (merge_kernel) combines
-// the splits' (m, l, acc) partials, kept in an f32 workspace the caller
-// allocates, in split order. It was chosen over a last-arriving-block
+// That kernel (the `narrow` variant) keeps every head's P V accumulators
+// in each thread, so it takes G <= 8 and D <= 256. MLA's absorbed decode
+// has one latent KV head for all query heads: G = 40, D = 288 (minicpm3-4b),
+// where 40 heads x 8 f32 accumulators per 16-byte piece do not fit in
+// registers. The `wide` variant (split_wide_kernel) takes any G <= 40 and
+// D <= 288 whose rows are a multiple of 16 bytes: 8 warps walk 32-key
+// tiles (one key a lane; three stages for bf16, two for f32), each warp
+// scoring its heads (w, w + 8, ...) over the whole row, so no partial
+// scores cross warps, and taking their softmax in registers; then each
+// thread owns one 16-byte piece of D for a fixed set of heads (at most
+// GH, a template parameter) and adds the tile's keys into registers. Each
+// split reads its K and V tiles once for all G heads, and no accumulator
+// is shared, so the partials go straight to the workspace. A simple CUDA-
+// core design: the m16n8k16 tensor-core form (40 query rows against
+// 288-wide key tiles, as in FlashMLA) is left for later.
+// Merge: a second small kernel in the same call (merge_kernel), a block
+// per (batch, KV head, query head), combines the splits' (m, l, acc)
+// partials, kept in an f32 workspace the caller allocates, in split
+// order. It was chosen over a last-arriving-block
 // merge because it keeps no state between calls (no ticket counters to
 // reset) and its order, hence every bit of the output, is fixed.
 // Every launch returns cudaGetLastError() to the caller.
@@ -49,7 +65,14 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
 constexpr int ALIGN = 32;       // a split's keys are a multiple of this
-constexpr int DMAX = 256;
+constexpr int DMAX = 256;       // the narrow variant's largest D
+constexpr int GNARROW = 8;      // the narrow variant's largest G
+constexpr int WDMAX = 288;      // the largest D (the wide variant's)
+constexpr int GMAX = 40;        // the largest G (the wide variant's)
+constexpr int WTHREADS = 256;   // the wide variant's block
+constexpr int WNW = WTHREADS / 32;
+constexpr int WGW = (GMAX + WNW - 1) / WNW;   // heads a wide warp scores
+constexpr int WTK = 32;         // keys a wide tile: one a lane
 constexpr int MAX_DEVICES = 64;
 constexpr int MAX_SPLITS = 256;   // splits a merge takes (its weights' room)
 constexpr int MERGE_THREADS = 256;
@@ -59,7 +82,7 @@ __device__ __forceinline__ float widen(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ void put(float* p, float v) { *p = v; }
 __device__ __forceinline__ void put(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 
-// 16 bytes of T from shared memory, widened to f32
+// 16 bytes of T (shared or global memory, 16-byte aligned), widened to f32
 __device__ __forceinline__ void lds16(const float* p, float (&o)[4]) {
   const float4 x = *reinterpret_cast<const float4*>(p);
   o[0] = x.x; o[1] = x.y; o[2] = x.z; o[3] = x.w;
@@ -332,54 +355,266 @@ split_kernel(Args a) {
   }
 }
 
-// The splits of one (batch, KV head), combined in split order. First one
-// warp per head finds the largest m and the sum of the rescaled l (lanes
-// over splits, then a shuffle tree: a fixed order), and keeps each split's
+// The wide variant: one (batch, KV head, split), any G <= GMAX, GH heads
+// at most per P V thread. Its (m, l, acc) go to the workspace as the narrow
+// variant's do.
+template <typename T>
+__host__ __device__ constexpr int wide_stages() { return sizeof(T) == 2 ? 3 : 2; }
+template <typename T>
+__host__ __device__ constexpr int wide_smem_bytes(int D, int G) {
+  return wide_stages<T>() * 2 * WTK * (D * (int)sizeof(T) + 16) + G * D * 4 +
+         G * WTK * 4 + G * 4;
+}
+// heads a P V thread owns: ceil(G / (WTHREADS / pieces of D)), rounded up
+// to a power of two (the template instances)
+__host__ __device__ constexpr int wide_gh(int D, int G, int esz) {
+  const int kg = WTHREADS / (D * esz / 16), need = (G + kg - 1) / kg;
+  int gh = 1;
+  while (gh < need) gh *= 2;
+  return gh;
+}
+
+template <typename T, int GH>
+__global__ void __launch_bounds__(WTHREADS)
+split_wide_kernel(Args a, int G) {
+  constexpr int CE = 16 / (int)sizeof(T);        // elements per 16 bytes
+  constexpr int STAGES = wide_stages<T>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int D = a.D, RS = D + CE;                  // padded row, elements
+  const int NCH = D / CE, KG = WTHREADS / NCH;     // pieces, P V head groups
+  T* ring = reinterpret_cast<T*>(smem);
+  float* qs = reinterpret_cast<float*>(smem + STAGES * 2 * WTK * RS * sizeof(T));
+  float* ps = qs + G * D;                          // [G][WTK]
+  float* alph = ps + G * WTK;                      // [G]
+
+  const int bh = blockIdx.x, split = blockIdx.y;
+  const int b = bh / a.H, h = bh % a.H;
+  const int t = threadIdx.x, warp = t / 32, lane = t % 32;
+  const int len_b = a.lengths[b], len = min(len_b, a.S);
+  const int start = a.window > 0 ? max(len_b - a.window, 0) : 0;
+  const int chunk = split_chunk(a.S, a.splits);
+  const int lo = max(start, split * chunk), hi = min(len, (split + 1) * chunk);
+  const ll pi = (ll)bh * a.splits + split;
+  const ll P = (ll)gridDim.x * a.splits;
+  if (lo >= hi) {                                  // no valid key here
+    if (t < G) { a.ws[pi * G + t] = NEG_INF; a.ws[(P + pi) * G + t] = 0.0f; }
+    return;
+  }
+
+  const T* kb = (const T*)a.k + b * a.skb + h * a.skh;
+  const T* vb = (const T*)a.v + b * a.svb + h * a.svh;
+  const int nt = (hi - lo + WTK - 1) / WTK;
+  auto issue = [&](int tile) {
+    if (tile < nt) {
+      T* ks = ring + (tile % STAGES) * 2 * WTK * RS;
+      T* vs = ks + WTK * RS;
+      const int k0 = lo + tile * WTK;
+      for (int i = t; i < WTK * NCH; i += WTHREADS) {
+        const int r = i / NCH, c = (i % NCH) * CE, j = k0 + r;
+        const bool in = j < hi;
+        cp_async16(smem_u32(ks + r * RS + c), kb + (in ? j * a.sks + c : 0), in);
+        cp_async16(smem_u32(vs + r * RS + c), vb + (in ? j * a.svs + c : 0), in);
+      }
+    }
+    cp_commit();
+  };
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) issue(s);
+
+  // q, scaled, into shared memory: 16 bytes a load where q's rows allow
+  const T* qb = (const T*)a.q + b * a.sqb + h * a.sqh;
+  if (a.sqd == 1 && a.sqg * (ll)sizeof(T) % 16 == 0 && (uintptr_t)qb % 16 == 0) {
+#pragma unroll 4
+    for (int i = t; i < G * NCH; i += WTHREADS) {
+      const int g = i / NCH, c = (i % NCH) * CE;
+      float qv[CE];
+      lds16(qb + g * a.sqg + c, qv);
+#pragma unroll
+      for (int e = 0; e < CE; ++e) qs[g * D + c + e] = qv[e] * a.qscale;
+    }
+  } else {
+#pragma unroll 4
+    for (int i = t; i < G * D; i += WTHREADS)
+      qs[i] = widen(qb[(i / D) * a.sqg + (i % D) * a.sqd]) * a.qscale;
+  }
+
+  // softmax state of the heads warp w scores: w + WNW * i (m uniform, l
+  // per lane)
+  float m[WGW], l[WGW];
+#pragma unroll
+  for (int i = 0; i < WGW; ++i) { m[i] = NEG_INF; l[i] = 0.0f; }
+  // P V: thread t owns piece pc of D for the heads hg, hg + KG, ...
+  const int pc = t % NCH, hg = t / NCH;
+  const bool pv = hg < KG;
+  float acc[GH][CE];
+#pragma unroll
+  for (int j = 0; j < GH; ++j)
+#pragma unroll
+    for (int e = 0; e < CE; ++e) acc[j][e] = 0.0f;
+
+  for (int tile = 0; tile < nt; ++tile) {
+    issue(tile + STAGES - 1);
+    cp_wait<STAGES - 1>();
+    __syncthreads();                               // tile's K, V and q visible
+    const T* ks = ring + (tile % STAGES) * 2 * WTK * RS;
+    const T* vs = ks + WTK * RS;
+
+    // scores: lane = key, the warp's heads over the whole row
+    float part[WGW];
+#pragma unroll
+    for (int i = 0; i < WGW; ++i) part[i] = 0.0f;
+    const T* krow = ks + lane * RS;
+#pragma unroll 4
+    for (int c = 0; c < NCH; ++c) {
+      float kv[CE];
+      lds16(krow + c * CE, kv);
+#pragma unroll
+      for (int i = 0; i < WGW; ++i) {
+        const int g = warp + WNW * i;
+        if (g < G) {
+          const float* qp = qs + g * D + c * CE;
+#pragma unroll
+          for (int e = 0; e < CE; e += 4) {
+            const float4 qq = *reinterpret_cast<const float4*>(qp + e);
+            part[i] += qq.x * kv[e] + qq.y * kv[e + 1] + qq.z * kv[e + 2] +
+                       qq.w * kv[e + 3];
+          }
+        }
+      }
+    }
+    // softmax: one max and one rescale per head and tile
+    const bool valid = lo + tile * WTK + lane < hi;
+#pragma unroll
+    for (int i = 0; i < WGW; ++i) {
+      const int g = warp + WNW * i;
+      if (g < G) {
+        float sc = part[i];
+        if (a.capl2 > 0.0f) sc = a.capl2 * fast_tanh(sc);
+        sc = valid ? sc : NEG_INF;
+        float mx = sc;
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float alpha = fast_exp2(m[i] - m_new);
+        const float p = valid ? fast_exp2(sc - m_new) : 0.0f;
+        ps[g * WTK + lane] = p;
+        l[i] = alpha * l[i] + p;
+        m[i] = m_new;
+        if (lane == 0) alph[g] = alpha;
+      }
+    }
+    __syncthreads();
+
+    // P V for this thread's piece of D and its heads, over the tile's keys
+    if (pv) {
+#pragma unroll
+      for (int j = 0; j < GH; ++j) {
+        const int g = hg + KG * j;
+        const float al = g < G ? alph[g] : 1.0f;
+#pragma unroll
+        for (int e = 0; e < CE; ++e) acc[j][e] *= al;
+      }
+#pragma unroll 4
+      for (int r = 0; r < WTK; ++r) {
+        float vv[CE];
+        lds16(vs + r * RS + pc * CE, vv);
+#pragma unroll
+        for (int j = 0; j < GH; ++j) {
+          const int g = hg + KG * j;
+          if (g < G) {
+            const float p = ps[g * WTK + r];
+#pragma unroll
+            for (int e = 0; e < CE; ++e) acc[j][e] += p * vv[e];
+          }
+        }
+      }
+    }
+    __syncthreads();                               // the stage may be refilled
+  }
+  cp_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < WGW; ++i) {
+    const int g = warp + WNW * i;
+    float ls = l[i];
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
+    if (g < G && lane == 0) { a.ws[pi * G + g] = m[i]; a.ws[(P + pi) * G + g] = ls; }
+  }
+  // each thread's CE floats of a head, a warp's stores contiguous: in
+  // 16-byte stores where the accumulators start on 16 bytes (P * G even;
+  // D * 4 bytes and a piece's offset are multiples of 16)
+  float* wacc = a.ws + 2 * P * G + pi * G * D;
+  const bool vec = ((uintptr_t)wacc & 15) == 0;
+  if (pv)
+#pragma unroll
+    for (int j = 0; j < GH; ++j) {
+      const int g = hg + KG * j;
+      if (g < G) {
+        float* w = wacc + g * D + pc * CE;
+        if (vec) {
+#pragma unroll
+          for (int e = 0; e < CE; e += 4)
+            *reinterpret_cast<float4*>(w + e) =
+                make_float4(acc[j][e], acc[j][e + 1], acc[j][e + 2], acc[j][e + 3]);
+        } else {
+#pragma unroll
+          for (int e = 0; e < CE; ++e) w[e] = acc[j][e];
+        }
+      }
+    }
+}
+
+// The splits of one (batch, KV head, query head), combined in split order:
+// a block per head, so that MLA's 40 heads on one KV head spread over 40
+// blocks (a block per KV head left 4 blocks to merge 1.5 MB each). First
+// warp 0 finds the largest m and the sum of the rescaled l (lanes over
+// splits, then a shuffle tree: a fixed order), and keeps each split's
 // weight exp2(m_s - m) in shared memory, 0 for a split with l = 0 (it held
-// no valid key, and its acc was never written); then every output sums its
-// splits with their loads in flight.
+// no valid key, and its acc was never written); then each of the head's D
+// outputs sums its splits with their loads in flight.
 template <typename T>
 __global__ void __launch_bounds__(MERGE_THREADS)
 merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int D,
              int splits) {
-  __shared__ float wgt[MAX_SPLITS * 8], lsum[8];
-  const int bh = blockIdx.x, t = threadIdx.x, warp = t / 32, lane = t % 32;
+  __shared__ float wgt[MAX_SPLITS], lsum;
+  const int bh = blockIdx.x, g = blockIdx.y, t = threadIdx.x;
   const ll P = (ll)gridDim.x * splits;
   const float* wm = ws + (ll)bh * splits * G;
   const float* wl = ws + (P + (ll)bh * splits) * G;
-  const float* wa = ws + 2 * P * G + (ll)bh * splits * G * D;
-  for (int g = warp; g < G; g += MERGE_THREADS / 32) {
+  const float* wa = ws + 2 * P * G + (ll)bh * splits * G * D + (ll)g * D;
+  if (t < 32) {
     float mx = NEG_INF;
-    for (int s = lane; s < splits; s += 32) mx = fmaxf(mx, __ldg(&wm[s * G + g]));
+    for (int s = t; s < splits; s += 32) mx = fmaxf(mx, __ldg(&wm[s * G + g]));
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
     float ls = 0.0f;
-    for (int s = lane; s < splits; s += 32) {
+    for (int s = t; s < splits; s += 32) {
       const float l = __ldg(&wl[s * G + g]);
       const float c = l > 0.0f ? fast_exp2(__ldg(&wm[s * G + g]) - mx) : 0.0f;
-      wgt[s * G + g] = c;
+      wgt[s] = c;
       ls += c * l;
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
-    if (lane == 0) lsum[g] = ls;
+    if (t == 0) lsum = ls;
   }
   __syncthreads();
-  for (int i = t; i < G * D; i += MERGE_THREADS) {
-    const int g = i / D;
+  for (int i = t; i < D; i += MERGE_THREADS) {
     float o = 0.0f;
-#pragma unroll 8
+#pragma unroll 16
     for (int s = 0; s < splits; ++s) {
-      const float c = wgt[s * G + g];
+      const float c = wgt[s];
       o += c * (c > 0.0f ? __ldg(&wa[(ll)s * G * D + i]) : 0.0f);
     }
-    put(out + (ll)bh * G * D + i, o / fmaxf(lsum[g], 1e-30f));
+    put(out + ((ll)bh * G + g) * D + i, o / fmaxf(lsum, 1e-30f));
   }
 }
 
 // Raises the dynamic shared memory limit of an instantiation once per device.
 template <typename T, int G, int KPL>
-int launch_k(const Args& a, T* out, int BH, cudaStream_t s) {
+int launch_k(const Args& a, int BH, cudaStream_t s) {
   static bool ready[MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -395,47 +630,93 @@ int launch_k(const Args& a, T* out, int BH, cudaStream_t s) {
     ready[dev] = true;
   }
   split_kernel<T, G, KPL><<<dim3(BH, a.splits), THREADS, smem_bytes<T, KPL>(a.D, G), s>>>(a);
-  merge_kernel<T><<<BH, MERGE_THREADS, 0, s>>>(a.ws, out, G, a.D, a.splits);
   return 0;
 }
 
 template <typename T, int G>
-int launch_g(const Args& a, T* out, int BH, cudaStream_t s) {
-  return a.D * (int)sizeof(T) <= 256 ? launch_k<T, G, 2>(a, out, BH, s)
-                                     : launch_k<T, G, 1>(a, out, BH, s);
+int launch_g(const Args& a, int BH, cudaStream_t s) {
+  return a.D * (int)sizeof(T) <= 256 ? launch_k<T, G, 2>(a, BH, s)
+                                     : launch_k<T, G, 1>(a, BH, s);
+}
+
+template <typename T, int GH>
+int launch_w(const Args& a, int BH, int G, cudaStream_t s) {
+  static bool ready[MAX_DEVICES] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (!ready[dev]) {
+    err = cudaFuncSetAttribute(split_wide_kernel<T, GH>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               wide_smem_bytes<T>(WDMAX, GMAX));
+    if (err != cudaSuccess) return (int)err;
+    ready[dev] = true;
+  }
+  split_wide_kernel<T, GH><<<dim3(BH, a.splits), WTHREADS,
+                             wide_smem_bytes<T>(a.D, G), s>>>(a, G);
+  return 0;
 }
 
 template <typename T>
-int launch(const Args& a, void* out, int BH, int G, cudaStream_t s) {
-  T* o = (T*)out;
-  switch (G) {
-    case 1: return launch_g<T, 1>(a, o, BH, s);
-    case 2: return launch_g<T, 2>(a, o, BH, s);
-    case 3: return launch_g<T, 3>(a, o, BH, s);
-    case 4: return launch_g<T, 4>(a, o, BH, s);
-    case 5: return launch_g<T, 5>(a, o, BH, s);
-    case 6: return launch_g<T, 6>(a, o, BH, s);
-    case 7: return launch_g<T, 7>(a, o, BH, s);
-    case 8: return launch_g<T, 8>(a, o, BH, s);
+int launch_wide(const Args& a, int BH, int G, cudaStream_t s) {
+  switch (wide_gh(a.D, G, (int)sizeof(T))) {
+    case 1: return launch_w<T, 1>(a, BH, G, s);
+    case 2: return launch_w<T, 2>(a, BH, G, s);
+    case 4: return launch_w<T, 4>(a, BH, G, s);
+    case 8: return launch_w<T, 8>(a, BH, G, s);
+    case 16:
+      if constexpr (sizeof(T) == 4) return launch_w<T, 16>(a, BH, G, s);
+      return (int)cudaErrorInvalidValue;
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+template <typename T>
+int launch_narrow(const Args& a, int BH, int G, cudaStream_t s) {
+  switch (G) {
+    case 1: return launch_g<T, 1>(a, BH, s);
+    case 2: return launch_g<T, 2>(a, BH, s);
+    case 3: return launch_g<T, 3>(a, BH, s);
+    case 4: return launch_g<T, 4>(a, BH, s);
+    case 5: return launch_g<T, 5>(a, BH, s);
+    case 6: return launch_g<T, 6>(a, BH, s);
+    case 7: return launch_g<T, 7>(a, BH, s);
+    case 8: return launch_g<T, 8>(a, BH, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+int launch(const Args& a, void* out, int BH, int G, bool wide, cudaStream_t s) {
+  T* o = (T*)out;
+  int err = wide ? launch_wide<T>(a, BH, G, s) : launch_narrow<T>(a, BH, G, s);
+  if (err) return err;
+  merge_kernel<T><<<dim3(BH, G), MERGE_THREADS, 0, s>>>(a.ws, o, G, a.D, a.splits);
+  return 0;
 }
 
 }  // namespace
 
 // dtype_code 0 f32, 1 bf16. k and v have unit D stride and 16-byte-aligned
 // rows (base and every stride a multiple of 16 bytes); q takes any strides.
-// D a multiple of 16 up to 256, 1 <= G <= 8. softcap <= 0 means none,
-// window <= 0 means none. out is (B, H, G, D) contiguous; ws holds
-// B * H * splits * G * (D + 2) floats. splits must leave no split without
-// a key of [0, S), and be at most 256 (decode_splits in kernel.py); another
-// value is refused.
+// 1 <= G <= 40 and D up to 288 with rows of a multiple of 16 bytes; the
+// narrow variant (variant 0) only G <= 8 and D <= 256, the wide one
+// (variant 1) all of them. softcap <= 0 means none, window <= 0 means none.
+// out is (B, H, G, D) contiguous; ws holds B * H * splits * G * (D + 2)
+// floats. splits must leave no split without a key of [0, S), and be at
+// most 256 (decode_splits in kernel.py); another value is refused.
 extern "C" int decode_attention_launch(
     const void* q, ll sqb, ll sqh, ll sqg, ll sqd, const void* k, ll skb,
     ll skh, ll sks, const void* v, ll svb, ll svh, ll svs, const int* lengths,
     void* out, float* ws, int B, int H, int G, int S, int D, int splits,
-    int dtype_code, float scale, float softcap, int window, void* stream) {
-  if (D > DMAX || D <= 0 || D % 16 != 0 || G < 1 || G > 8)
+    int dtype_code, int variant, float scale, float softcap, int window,
+    void* stream) {
+  const int esz = dtype_code == 0 ? 4 : 2;
+  if ((dtype_code != 0 && dtype_code != 1) || D > WDMAX || D <= 0 ||
+      D * esz % 16 != 0 || G < 1 || G > GMAX)
+    return (int)cudaErrorInvalidValue;
+  if (variant != 1 && (variant != 0 || G > GNARROW || D > DMAX))
     return (int)cudaErrorInvalidValue;
   if (splits < 1 || splits > MAX_SPLITS ||
       (ll)(splits - 1) * split_chunk(S, splits) >= (S > 1 ? S : 1))
@@ -447,8 +728,9 @@ extern "C" int decode_attention_launch(
                cap ? scale / softcap : scale * LOG2E, cap ? softcap * LOG2E : 0.0f,
                window};
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = dtype_code == 0 ? launch<float>(a, out, B * H, G, s)
-                                  : launch<bf16>(a, out, B * H, G, s);
+  const bool wide = variant == 1;
+  const int err = dtype_code == 0 ? launch<float>(a, out, B * H, G, wide, s)
+                                  : launch<bf16>(a, out, B * H, G, wide, s);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.common import acc_dtype, is_integer
+from repro_torch.kernels.maxpool.ref import takes
 
 
 def check_kinds(x_dtype: torch.dtype, out_dtype: torch.dtype) -> None:
@@ -15,6 +16,20 @@ def check_kinds(x_dtype: torch.dtype, out_dtype: torch.dtype) -> None:
     if is_integer(x_dtype) != is_integer(out_dtype):
         raise ValueError(f"conv_layer: out_dtype {out_dtype} is not of the "
                          f"kind of the input {x_dtype}")
+
+
+def pool2x2(acc: torch.Tensor) -> torch.Tensor:
+    """Max over the 2x2/2 windows of the conv maps acc (F, H', W') (the
+    ragged tail dropped), as jnp's max picks: NaN propagates, +0 wins over
+    -0 in either order (``torch.amax`` would keep the first of the two)."""
+    nf, h, w = acc.shape
+    ph, pw = h // 2, w // 2
+    win = acc[:, :ph * 2, :pw * 2].reshape(nf, ph, 2, pw, 2)
+    pooled = win[:, :, 0, :, 0]
+    for i, j in ((0, 1), (1, 0), (1, 1)):
+        v = win[:, :, i, :, j]
+        pooled = torch.where(takes(v, pooled), v, pooled)
+    return pooled
 
 
 def conv_layer_ref(x: torch.Tensor, f: torch.Tensor, *,
@@ -36,8 +51,7 @@ def conv_layer_ref(x: torch.Tensor, f: torch.Tensor, *,
             window = xl[:, di:di + conv_h, dj:dj + conv_w]
             # (1, C, H', W') * (F, C, 1, 1) summed over C; int32 wraps
             out = out + (window[None] * fl[:, :, di, dj, None, None]).sum(1, dtype=acc)
-    ph, pw = conv_h // 2, conv_w // 2
-    pooled = out[:, :ph * 2, :pw * 2].reshape(nf, ph, 2, pw, 2).amax(dim=(2, 4))
+    pooled = pool2x2(out)
     neg = negative_slope * pooled.float()
     if is_integer(out_dtype):
         # two's-complement wrap on the narrowing cast, through int32

@@ -6,8 +6,12 @@ decode_attention_pallas``. The cache's S axis is split across blocks
 (``decode_splits``); the splits' partial states go to an f32 workspace and a
 second kernel of the same call merges them in split order. The lengths stay
 on the device: the kernel reads them, and nothing is copied to the host.
-``decode_attention_cuda.launches`` counts the wrapper's launches (one per
-call, the merge included).
+Two variants of the split kernel: ``narrow`` (G <= 8, D <= 256: each
+thread holds every head's accumulators) and ``wide`` (any shape the
+kernel takes, up to MLA's absorbed decode at G = 40, D = 288), picked by
+``decode_variant``. ``decode_attention_cuda.launches`` counts the wrapper's
+launches (one per call, the merge included) and
+``decode_attention_cuda.variants`` the launches of each variant.
 """
 from __future__ import annotations
 
@@ -18,8 +22,11 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.common import (ceil_div, check_cuda, check_dtype,
                                         sm_count, stream_ptr)
+from repro_torch.kernels.decode_attention.ref import check_shape
 
 CODES = {torch.float32: 0, torch.bfloat16: 1}
+VARIANTS = {"narrow": 0, "wide": 1}
+NARROW_GMAX, NARROW_DMAX = 8, 256   # what the narrow variant takes
 ALIGN = 32           # a split's keys are a multiple of this (ALIGN there)
 MAX_SPLITS = 256     # the most splits the merge takes (MAX_SPLITS there)
 
@@ -32,7 +39,7 @@ def _fn():
         fn = _build.load("decode_attention").decode_attention_launch
         V, L, I, F = _build.VP, _build.I64, _build.I32, _build.F32
         fn.argtypes = [V, L, L, L, L, V, L, L, L, V, L, L, L, V, V, V,
-                       I, I, I, I, I, I, I, F, F, I, V]
+                       I, I, I, I, I, I, I, I, F, F, I, V]
         fn.restype = I
         _FN = fn
     return _FN
@@ -57,6 +64,12 @@ def decode_splits(b: int, hkv: int, s: int, sms: int) -> int:
     return max(1, ceil_div(s, chunk))
 
 
+def decode_variant(g: int, d: int) -> str:
+    """``narrow`` where it takes the shape (G <= 8, D <= 256), else
+    ``wide`` (the C side checks the pick again)."""
+    return "narrow" if g <= NARROW_GMAX and d <= NARROW_DMAX else "wide"
+
+
 def _check_cache(name: str, t: torch.Tensor) -> None:
     esz = t.element_size()
     if t.stride(3) != 1 or t.data_ptr() % 16 \
@@ -73,6 +86,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           window: Optional[int] = None) -> torch.Tensor:
     """q: (B, Hkv, G, D) any strides; k, v: (B, Hkv, S, D); lengths: (B,)
     int32 on the card → (B, Hkv, G, D)."""
+    return _decode(q, k, v, lengths, softcap, scale, window, None)
+
+
+def _decode(q, k, v, lengths, softcap, scale, window, variant):
+    """``decode_attention_cuda`` with the variant named: None takes
+    ``decode_variant``'s pick; ``wide`` runs on any shape the kernel takes
+    (so that the card tests and ``chip_smoke.py`` hold it to the plain
+    version at the narrow shapes too)."""
     check_cuda("decode_attention", q, k, v, lengths)
     check_dtype("decode_attention q", q, CODES)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -84,9 +105,12 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if tuple(k.shape[:2]) != (b, hkv) or k.shape[3] != d:
         raise ValueError(f"decode_attention: q {tuple(q.shape)} does not "
                          f"match the cache {tuple(k.shape)}")
-    if d % 16 or d > 256 or g > 8:
-        raise ValueError(f"decode_attention: D={d} (a multiple of 16 up to "
-                         f"256) and G={g} (up to 8) are what the kernel takes")
+    check_shape(g, d, q.element_size())
+    best = decode_variant(g, d)
+    variant = variant or best
+    if variant not in ("wide", best):
+        raise ValueError(f"decode_attention: variant {variant!r} does not take "
+                         f"G={g}, D={d}")
     if lengths.dtype != torch.int32 or tuple(lengths.shape) != (b,) \
             or lengths.stride(0) != 1:
         raise ValueError("decode_attention: lengths must be a contiguous "
@@ -105,12 +129,14 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     err = _fn()(q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride()[:3],
                 v.data_ptr(), *v.stride()[:3], lengths.data_ptr(),
                 out.data_ptr(), ws.data_ptr(), b, hkv, g, s, d, splits,
-                CODES[q.dtype],
+                CODES[q.dtype], VARIANTS[variant],
                 float(scale), float(softcap or 0.0), int(window or 0),
                 stream_ptr(q))
     decode_attention_cuda.launches += 1
+    decode_attention_cuda.variants[variant] += 1
     _build.check(err, "decode_attention")
     return out
 
 
 decode_attention_cuda.launches = 0
+decode_attention_cuda.variants = dict.fromkeys(VARIANTS, 0)

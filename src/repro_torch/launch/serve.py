@@ -6,6 +6,9 @@ Usage (on a machine with an NVIDIA H100; the kernels build at first use)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --requests 6 --max-new 16 --max-len 1024 --prompt-len 16 512
 
+``--arch`` is any id of ``repro_torch.configs.ARCHS``: stablelm-3b,
+gemma2-9b, qwen2.5-32b, granite-moe-1b-a400m, llama4-scout-17b-a16e (at
+203 GB in bf16, only ``--smoke`` fits one card) and minicpm3-4b.
 ``--device cpu --backend ref`` runs the plain PyTorch path on the CPU,
 ``--smoke`` the arch's reduced config. The weights are random, drawn on the
 device from ``--seed``.

@@ -1,0 +1,139 @@
+"""Top-k routed Mixture-of-Experts with grouped, capacity-based dispatch
+(counterpart of repro.models.moe).
+
+Tokens are processed in groups of ``S_g`` tokens (``GROUP_TOKENS`` a group,
+``g`` shrunk to a divisor of T); within a group, each (token, choice) slot
+takes a position in its expert by a stable sort, and slots past the
+expert's capacity ``int(cf * S_g * k / E) + 1`` are dropped (they land in a
+spare row at ``E * cap`` that is sliced off). The reference vmaps the
+dispatch over groups; here every step is batched over a leading group axis.
+
+As in the reference, neither the f32 router nor the expert SwiGLU goes
+through the engine: the router is a plain f32 matmul and the experts are
+grouped products ``(E, G*cap, d) @ (E, d, ff)`` (the reference's
+``jnp.einsum``, outside any Pallas kernel), so the MoE FFN logs no xmnmc
+instruction and launches no port kernel.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.models.layers import activation, dense_init, truncated_normal_init
+
+# Target tokens per dispatch group.
+GROUP_TOKENS = 8192
+
+
+def moe_init(gen, cfg: ModelConfig, device) -> dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    e = cfg.moe.n_experts
+    dt = cfg.pdtype
+    scale = 1.0 / math.sqrt(d)
+    return {
+        "router": dense_init(gen, d, e, torch.float32, device),
+        "gate": truncated_normal_init(gen, (e, d, ff), dt, scale, device),
+        "up": truncated_normal_init(gen, (e, d, ff), dt, scale, device),
+        "down": truncated_normal_init(gen, (e, ff, d), dt, 1.0 / math.sqrt(ff),
+                                      device),
+    }
+
+
+def _group_dispatch(xt, expert_ids, gate_vals, e: int, cap: int):
+    """Group-local dispatch of G groups. xt: (G, S_g, d); ids/gates:
+    (G, S_g, k).
+
+    Returns (dispatched (G, E·cap, d), flat_idx (G, S_g·k), keep, slot_gate).
+    """
+    g, s_g, d = xt.shape
+    k = expert_ids.shape[-1]
+    dev = xt.device
+    slot_expert = expert_ids.reshape(g, s_g * k)
+    slot_gate = gate_vals.reshape(g, s_g * k)
+    n_slots = s_g * k
+    order = torch.argsort(slot_expert, dim=-1, stable=True)
+    sorted_e = torch.gather(slot_expert, 1, order)
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos_sorted = torch.arange(n_slots, device=dev) - torch.gather(
+        group_start, 1, sorted_e)
+    slot_pos = torch.zeros_like(pos_sorted).scatter_(1, order, pos_sorted)
+    keep = slot_pos < cap
+    flat_idx = torch.where(keep, slot_expert * cap + slot_pos,
+                           torch.full_like(slot_pos, e * cap))
+    token_of_slot = torch.arange(s_g, device=dev).repeat_interleave(k)
+    dispatched = xt.new_zeros((g, e * cap + 1, d))
+    rows = torch.arange(g, device=dev)[:, None]
+    # kept slots hit distinct rows; dropped ones all hit the spare row
+    dispatched[rows, flat_idx] = xt[:, token_of_slot]
+    return dispatched[:, : e * cap], flat_idx, keep, slot_gate
+
+
+def _group_combine(y, flat_idx, keep, slot_gate, k: int):
+    """Inverse of _group_dispatch. y: (G, E·cap, d) → (G, S_g, d)."""
+    g, e_cap, d = y.shape
+    rows = torch.arange(g, device=y.device)[:, None]
+    gathered = y[rows, flat_idx.clamp(0, e_cap - 1)]
+    gathered = torch.where(keep[..., None], gathered, torch.zeros_like(gathered))
+    weighted = gathered * slot_gate[..., None].to(gathered.dtype)
+    return weighted.reshape(g, -1, k, d).sum(dim=2)
+
+
+def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(E, C, a) @ (E, a, b) → f32, the products and sums in f32 (the
+    reference's ``preferred_element_type=jnp.float32``). On the card a bf16
+    pair runs as one batched cuBLAS product that accumulates in f32 and
+    writes f32 (``out_dtype``), so the weights are read once, as they are;
+    elsewhere both operands are widened to f32 first, which is exact."""
+    if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+        return torch.bmm(x, w, out_dtype=torch.float32)
+    return torch.bmm(x.float(), w.float())
+
+
+def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
+        x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) → (out, aux_loss)."""
+    b, s, d = x.shape
+    mcfg = cfg.moe
+    e, k = mcfg.n_experts, mcfg.top_k
+    t = b * s
+    xt = x.reshape(t, d)
+
+    # ---- router (f32 for numerical stability of the softmax) -------------
+    logits = xt.float() @ params["router"]["w"].float()
+    probs = torch.softmax(logits, dim=-1)                      # (T, E)
+    gate_vals, expert_ids = torch.topk(probs, k, dim=-1)       # (T, k)
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
+
+    # ---- load-balancing aux loss (Switch/GShard) --------------------------
+    me = probs.mean(dim=0)
+    ce = F.one_hot(expert_ids, e).float().sum(dim=1).mean(dim=0)
+    aux = e * torch.sum(me * ce) * mcfg.router_aux_coef
+
+    # ---- grouped dispatch --------------------------------------------------
+    g = max(1, t // GROUP_TOKENS)
+    while t % g:           # g must divide T; shrink to the nearest divisor
+        g -= 1
+    s_g = t // g
+    cap = int(mcfg.capacity_factor * s_g * k / e) + 1
+    dispatched, flat_idx, keep, slot_gate = _group_dispatch(
+        xt.reshape(g, s_g, d), expert_ids.reshape(g, s_g, k),
+        gate_vals.reshape(g, s_g, k), e, cap)
+    # (G, E, cap, d) → (E, G·cap, d)
+    xe = dispatched.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+
+    # ---- grouped expert SwiGLU --------------------------------------------
+    act = activation(cfg.act)
+    gg = act(_expert_matmul(xe, params["gate"]))
+    uu = _expert_matmul(xe, params["up"])
+    y = _expert_matmul((gg * uu).to(xe.dtype), params["down"]).to(xt.dtype)
+
+    # ---- combine ------------------------------------------------------------
+    yg = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
+    out = _group_combine(yg, flat_idx, keep, slot_gate, k)     # (G, S_g, d)
+    return out.reshape(b, s, d).to(x.dtype), aux.float()

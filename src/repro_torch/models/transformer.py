@@ -1,5 +1,5 @@
-"""Decoder-only LM (counterpart of repro.models.transformer, for the dense
-attention families).
+"""Decoder-only LM (counterpart of repro.models.transformer, for the
+attention, MLA and MoE families).
 
 Params keep the reference layout: per pattern position, a dict of stacked
 leaves with a leading ``n_periods`` axis. A Python loop over periods takes
@@ -90,16 +90,19 @@ class LM:
 
     # ------------------------------------------------------------ forward
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """→ (logits (B, S, V) f32, aux loss 0)."""
+        """→ (logits (B, S, V) f32, MoE aux loss summed over layers)."""
         cfg = self.cfg
         x = embed(params["embed"], batch["tokens"],
                   scale=cfg.embed_scale).to(cfg.cdtype)
         positions = torch.arange(x.shape[1], device=x.device)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_periods):
             for j, spec in enumerate(cfg.pattern):
-                x = blk.block_forward(self.engine, _index(params["blocks"][j], i),
-                                      cfg, spec, x, positions)
-        return self._unembed(params, x), torch.zeros((), device=x.device)
+                x, a = blk.block_forward(self.engine,
+                                         _index(params["blocks"][j], i), cfg,
+                                         spec, x, positions)
+                aux = aux + a
+        return self._unembed(params, x), aux
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int, *, dtype=None) -> tuple:

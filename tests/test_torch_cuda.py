@@ -10,8 +10,10 @@ import torch
 
 from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
 from repro_torch.kernels.convlayer.ref import conv_layer_ref
-from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
+from repro_torch.kernels.decode_attention.kernel import (_decode,
+                                                         decode_attention_cuda,
                                                          decode_splits,
+                                                         decode_variant,
                                                          split_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
@@ -621,3 +623,137 @@ def test_cnn_wrappers_refuse_what_the_kernels_do_not_take(cuda_device):
                 lambda: leakyrelu_cuda(v.cpu())):
         with pytest.raises(ValueError):
             bad()
+
+
+# --------------------------- decode attention at MLA's absorbed decode shape
+@pytest.mark.cuda
+@pytest.mark.parametrize("g", [2, 8, 9, 40])
+@pytest.mark.parametrize("d", [24, 64, 256, 288])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_absorbed_shapes(cuda_device, rng, dt, d, g):
+    """G up to 40 and D up to 288 (minicpm3-4b's absorbed decode: one latent
+    KV head, D = 256 + 32; minicpm3-smoke's D = 24), ragged lengths with 1
+    and S, against decode_attention_ref within chip_smoke's tolerances; the
+    wide variant also where the narrow one is picked, and a second launch
+    gives the same bits."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    b, hkv, s = 4, 1 if g >= 9 else 2, 300
+    lens = [1, s, 37, 129]
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(device=cuda_device, dtype=tdt)
+
+    q, k, v = t(b, hkv, g, d), t(b, hkv, s, d), t(b, hkv, s, d)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    pick = decode_variant(g, d)
+    assert pick == ("narrow" if g <= 8 and d <= 256 else "wide")
+    atol = 2e-4 if dt == "f32" else 2e-2
+    for variant in sorted({pick, "wide"}):
+        for kw in (dict(scale=1.0 / 96 ** 0.5), dict(window=50, softcap=30.0)):
+            before = dict(decode_attention_cuda.variants)
+            out = _decode(q, k, v, ln, kw.get("softcap"), kw.get("scale"),
+                          kw.get("window"), variant)
+            assert decode_attention_cuda.variants[variant] == before[variant] + 1
+            again = _decode(q, k, v, ln, kw.get("softcap"), kw.get("scale"),
+                            kw.get("window"), variant)
+            ref = decode_attention_ref(q, k, v, ln, **kw)
+            err = float((out.float() - ref.float()).abs().max())
+            assert err <= atol, (variant, kw, err)
+            assert torch.equal(out, again), (variant, kw)
+
+
+@pytest.mark.cuda
+def test_decode_attention_refuses_shapes_outside_the_kernel(cuda_device):
+    """What the plain version refuses, the wrapper refuses too; the narrow
+    variant is refused past G = 8."""
+    ln = torch.ones((1,), dtype=torch.int32, device=cuda_device)
+    for g, d, dt in ((41, 64, torch.bfloat16), (4, 296, torch.bfloat16),
+                     (4, 20, torch.bfloat16)):
+        q = torch.zeros((1, 1, g, d), device=cuda_device, dtype=dt)
+        kv = torch.zeros((1, 1, 8, d), device=cuda_device, dtype=dt)
+        with pytest.raises(ValueError):
+            decode_attention_cuda(q, kv, kv, ln)
+    q = torch.zeros((1, 1, 9, 64), device=cuda_device)
+    kv = torch.zeros((1, 1, 8, 64), device=cuda_device)
+    with pytest.raises(ValueError):
+        _decode(q, kv, kv, ln, None, None, None, "narrow")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_gemv_granite_unembed_odd_n(cuda_device, dt):
+    """granite-moe-1b's tied unembed: table.T at M = 1..4, K = 1024 and the
+    odd N = 49155 (output rows of 196,620 bytes, not a multiple of 16),
+    against the plain version within chip_smoke's gemm tolerances."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    table = (torch.randn((49155, 1024), device=cuda_device, generator=gen)
+             / 32.0).to(tdt)
+    b = table.T
+    assert b_layout(b) == "t"
+    atol, rtol = (1e-3, 1.6e-2) if dt == "bf16" else (2e-3, 1e-5)
+    for m in (1, 4):
+        a = torch.randn((m, 1024), device=cuda_device, generator=gen).to(tdt)
+        assert gemm_variant(a, b) == "gemv"
+        out = gemm_cuda(a, b, out_dtype=torch.float32)
+        ref = gemm_ref(a, b, out_dtype=torch.float32)
+        err = float((out.double() - ref.double()).abs().max())
+        assert out.shape == (m, 49155)
+        assert err <= atol + rtol * float(ref.double().abs().max()), (m, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "llama4-scout-17b-a16e",
+                                  "minicpm3-4b"])
+def test_smoke_serve_cuda_matches_ref(cuda_device, arch):
+    """One greedy serve of the arch's smoke config through the cuda engine
+    and through the ref engine on the same weights: in f32 the same tokens;
+    in bf16 (the launcher's dtype) every request finishes, launching the
+    MoE/MLA path's kernels."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import ServeSession
+
+    def serve(cfg, backend, params=None):
+        model = LM(cfg, ArcaneEngine(backend), device=cuda_device)
+        if params is None:
+            params = model.init_params(
+                torch.Generator(device=cuda_device).manual_seed(0))
+        sess = ServeSession(model, params, max_slots=3, max_len=64)
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab, (5, 40))
+        reqs = [sess.submit(p[:n], max_new_tokens=6)
+                for p, n in zip(prompts, (3, 17, 9, 33, 1))]
+        sess.run_to_completion()
+        return [r.out_tokens for r in reqs], params
+
+    f32 = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    mine, params = serve(f32, "cuda")
+    ref, _ = serve(f32, "ref", params)
+    assert mine == ref
+    before = decode_attention_cuda.launches
+    toks, _ = serve(get_smoke_config(arch), "cuda")
+    assert all(len(x) == 6 for x in toks)
+    assert decode_attention_cuda.launches > before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,dt", [("simt", "f32"), ("simt", "bf16"),
+                                        ("mma", "bf16")])
+def test_conv_signed_zero_windows(cuda_device, variant, dt):
+    """conv_layer on windows of -0 and +0 conv outputs (one channel, 1x1
+    filters of -1 on zeros of both signs): the kernel's bits are the plain
+    version's (+0 in every window, as JAX's max takes +0 over -0)."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    x = torch.tensor([[[0.0, -0.0, 0.0, 0.0, 0.0, 0.0],
+                       [0.0, 0.0, -0.0, -0.0, 0.0, 0.0]]]).to(cuda_device, tdt)
+    f = -torch.ones((16, 1, 1, 1), device=cuda_device, dtype=tdt)
+    out = conv_layer_cuda(x, f, variant=variant)
+    ref = conv_layer_ref(x, f)
+    assert out.shape == (16, 1, 3)
+    assert torch.equal(int_view(out), int_view(ref))
+    assert int(int_view(out).abs().sum()) == 0

@@ -115,6 +115,76 @@ def test_gemv_plan_fills_two_waves(arch, m):
         assert (splits - 1) * chunk < k <= splits * chunk, (arch, name)
 
 
+# the decode shapes of the MoE and MLA families: granite-moe-1b's attention
+# (8 KV heads) and projections; minicpm3-4b's absorbed decode (one latent KV
+# head for the 40 query heads) and its MLA projections
+def slice_projections(arch: str, m: int):
+    """(name, A, B) of one decode step's engine GEMMs at M = m live slots
+    (granite's MoE FFN runs none; minicpm3's MLA runs q_down, q_up, kv_down
+    and o before its MLP)."""
+    cfg = get_config(arch)
+    d = cfg.d_model
+
+    def w(k, n):
+        return meta(cfg.n_periods, k, n)[1]
+
+    x = meta(m, d)
+    out = [("unembed", x, meta(cfg.vocab, d).T)]
+    if cfg.mla is None:
+        hd = cfg.resolved_head_dim
+        heads = _merge_heads(meta(m, cfg.n_heads, 1, hd)).reshape(m, cfg.n_heads * hd)
+        return out + [("q", x, w(d, cfg.n_heads * hd)),
+                      ("k", x, w(d, cfg.n_kv_heads * hd)),
+                      ("v", x, w(d, cfg.n_kv_heads * hd)),
+                      ("o", heads, w(cfg.n_heads * hd, d))]
+    ml, ff = cfg.mla, cfg.d_ff
+    qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+    return out + [("q_down", x, w(d, ml.q_lora_rank)),
+                  ("q_up", meta(m, ml.q_lora_rank), w(ml.q_lora_rank, cfg.n_heads * qk)),
+                  ("kv_down", x, w(d, ml.kv_lora_rank + ml.qk_rope_head_dim)),
+                  ("o", meta(m, cfg.n_heads * ml.v_head_dim),
+                   w(cfg.n_heads * ml.v_head_dim, d)),
+                  ("gate", x, w(d, ff)), ("up", x, w(d, ff)),
+                  ("down", meta(m, ff), w(ff, d))]
+
+
+@pytest.mark.parametrize("m", [1, 4, 8])
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "minicpm3-4b"])
+def test_gemv_plan_at_moe_and_mla_shapes(arch, m):
+    """Every decode GEMM of granite-moe-1b and minicpm3-4b: two waves of
+    blocks, or, where K is too short for that (granite's q, k, v, o at
+    K = 1024, minicpm3's q_down and kv_down), the least chunk, one step of
+    rows a split; granite's unembed (N = 49155, odd) reads the table along K
+    and takes K whole."""
+    for name, a, b in slice_projections(arch, m):
+        k, n = b.shape
+        layout = b_layout(b)
+        assert layout == ("t" if name == "unembed" else "n"), name
+        splits, chunk = gemv_plan(n, k, layout, SMS)
+        strips = math.ceil(n / (GEMV_TCOLS if layout == "t" else GEMV_NCOLS))
+        step = 32 if layout == "t" else GEMV_NSTEP
+        assert strips * splits >= 2 * SMS or chunk == step, (arch, name)
+        assert (splits - 1) * chunk < k <= splits * chunk, (arch, name)
+        assert chunk % step == 0 and 0 < chunk <= (k if layout == "t" else GEMV_KC)
+        if name == "unembed":
+            assert (splits, chunk) == (1, k), (arch, splits, chunk)
+
+
+@pytest.mark.parametrize("s", [1024, 4096, 8192])
+@pytest.mark.parametrize("b", [1, 4, 8])
+@pytest.mark.parametrize("hkv", [8, 1])
+def test_decode_splits_at_moe_and_mla_shapes(hkv, b, s):
+    """granite-moe-1b's 8 KV heads and minicpm3-4b's one latent head: a
+    wave of blocks, or, where the (batch, head) pairs are too few for that
+    at this S (MLA at 4 slots and S = 1024: 4 pairs), splits of the least
+    32 keys; no split without keys, and the merge takes the count."""
+    splits = decode_splits(b, hkv, s, SMS)
+    chunk = split_chunk(s, splits)
+    assert 1 <= splits <= MAX_SPLITS
+    assert b * hkv * splits >= SMS or chunk == ALIGN, (b, hkv, s, splits)
+    assert (splits - 1) * chunk < s <= splits * chunk
+
+
 @pytest.mark.parametrize("sms", [SMS, 114, 16])
 @pytest.mark.parametrize("layout", ["n", "t"])
 @pytest.mark.parametrize("k,n", [(0, 5), (1, 1), (64, 1), (300, 130), (1000, 1000),
@@ -219,6 +289,28 @@ def test_decode_split_merge_matches_the_oracles(rng, tile, g, kw):
     jref = jax_decode_ref(jnp.asarray(q_np), jnp.asarray(k_np), jnp.asarray(v_np),
                           jnp.asarray(lengths), **kw)
     np.testing.assert_allclose(emu.numpy(), ref.numpy(), atol=2e-5, rtol=1e-5)
+    np.testing.assert_allclose(emu.numpy(), np.asarray(jref), atol=2e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("g,d", [(40, 288), (9, 24)])
+def test_wide_split_merge_matches_the_oracles(rng, g, d):
+    """The wide variant's arithmetic (32-key tiles, one key a lane, the
+    same split and merge) at MLA's absorbed decode: one latent KV head for
+    40 query heads at D = 288, and a small D with G past the narrow
+    variant's 8, at minicpm3's scale 1/sqrt(96)."""
+    s_len, splits = 200, 4
+    chunk = split_chunk(s_len, splits)
+    lengths = np.array([1, chunk + 1, s_len], np.int32)
+    b = len(lengths)
+    q_np = rng.standard_normal((b, 1, g, d)).astype(np.float32)
+    k_np = rng.standard_normal((b, 1, s_len, d)).astype(np.float32)
+    v_np = rng.standard_normal((b, 1, s_len, d)).astype(np.float32)
+    q, k, v = (torch.from_numpy(x) for x in (q_np, k_np, v_np))
+    ln = torch.from_numpy(lengths)
+    kw = dict(scale=1.0 / math.sqrt(96))
+    emu = decode_split_emulated(q, k, v, ln, splits=splits, tile=32, **kw)
+    jref = jax_decode_ref(jnp.asarray(q_np), jnp.asarray(k_np), jnp.asarray(v_np),
+                          jnp.asarray(lengths), **kw)
     np.testing.assert_allclose(emu.numpy(), np.asarray(jref), atol=2e-5, rtol=1e-5)
 
 

@@ -1,5 +1,6 @@
 """The port's LM against the reference LM on the same weights (f32 smoke
-configs of the three dense archs), plus the port's own decode invariants."""
+configs of every arch the port serves), plus the port's own decode
+invariants."""
 import dataclasses
 
 import jax
@@ -11,7 +12,7 @@ import torch
 from repro.configs import get_smoke_config as jax_smoke
 from repro.core.engine import ArcaneEngine as JaxEngine
 from repro.models.transformer import LM as JaxLM
-from repro_torch.configs import ARCHS, get_smoke_config
+from repro_torch.configs import ARCHS, LayerSpec, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import LM
@@ -70,6 +71,9 @@ def _decode_errors(model, params, toks, prefix, max_len=64):
 def test_golden_incremental_decode(arch, rng):
     """Prefill + token-by-token decode must match the parallel forward."""
     model, params, _, _ = pair(arch)
+    if model.cfg.moe is not None:   # no capacity drops on either path
+        model.cfg = dataclasses.replace(model.cfg, moe=dataclasses.replace(
+            model.cfg.moe, capacity_factor=8.0))
     toks = torch.from_numpy(rng.integers(0, model.cfg.vocab, (2, 16)))
     errs, _ = _decode_errors(model, params, toks, 12)
     assert max(errs) < 2e-3, f"{arch}: {errs}"
@@ -111,7 +115,12 @@ def test_cuda_device_without_card_raises():
         LM(get_smoke_config("gemma2-9b"), device="cuda")
 
 
-def test_unported_kinds_raise():
-    cfg = dataclasses.replace(get_smoke_config("gemma2-9b"), enc_dec=True)
+@pytest.mark.parametrize("kind", ["mamba", "rwkv", "enc_dec"])
+def test_unported_kinds_raise(kind):
+    cfg = get_smoke_config("gemma2-9b")
+    if kind == "enc_dec":
+        cfg = dataclasses.replace(cfg, enc_dec=True)
+    else:
+        cfg = dataclasses.replace(cfg, pattern=(LayerSpec(kind=kind),))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         LM(cfg, device="cpu")
