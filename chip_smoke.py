@@ -16,7 +16,11 @@ Phases:
      shapes of gemma2-9b (plus stablelm-3b and qwen2.5-32b shapes, and
      decode attention over a long qwen2.5 cache: B=8, S=8192, every row
      full, bf16; granite-moe-1b's decode attention and its tied unembed,
-     table.T at the odd N = 49155; MLA's absorbed decode attention at
+     table.T at the odd N = 49155; rwkv6-1.6b's decay LoRA (N or K = 64)
+     and unembed (N = 65536); jamba's Mamba x_proj (N = 544) and dt_proj
+     (A a view of x_proj's output, rows 544 apart) at full width, and
+     jamba-smoke's (N = 12; A rows of 24 bytes); int8 also beside
+     torch._int_mm; MLA's absorbed decode attention at
      minicpm3-4b's G = 40, D = 288 and minicpm3-smoke's G = 4, D = 24, each
      row naming decode_variant's pick, narrow or wide), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
@@ -55,24 +59,46 @@ Phases:
      CNN wrapper: its host us a call (least of 5 medians of 200 calls, the
      card kept busy), split into checks, allocation, stream lookup, the
      ctypes call and the rest, beside PyTorch's own empty launch.
-  3. serve: gemma2-9b, granite-moe-1b-a400m and minicpm3-4b in turn, each
-     at full width (bf16, random weights drawn on the card from seed 0)
-     through the port's launcher, and freed before the next: 4 slots,
-     max_len 1024, 6 requests of 16-512 prompt tokens and 16 new tokens.
-     The kernels' launch counts are zeroed just before each run and read
-     just after, and must be exactly (SERVE_MODELS): gemm per decode step
-     42*7+1 = 295 (gemma2), 24*4+1 = 97 (granite: its MoE FFN runs no
-     engine GEMM), 62*7+1 = 435 (minicpm3), per prompt 295, 97 and
-     62*10+1 = 621 (mla_prefill projects twice, as the reference does);
-     one flash launch per layer and prompt, one decode attention launch
-     per layer and step; by variant, every prompt projection on wgmma,
-     every other GEMM on gemv, every flash on mma, decode attention on
-     narrow (gemma2, granite) or wide (minicpm3's absorbed decode), and no
-     wmma, fma or simt. Then one request's prefill logits and first
+  3. serve: gemma2-9b, granite-moe-1b-a400m, minicpm3-4b and rwkv6-1.6b
+     in turn, each at full width (bf16, random weights drawn on the card
+     from seed 0), then jamba-smoke, through the port's launcher, each
+     freed before the next: 4 slots, max_len 1024 (jamba-smoke 128), 6
+     requests of 16 new tokens and 16-512 prompt tokens (rwkv6 from
+     {16, 32, ..., 512}, jamba-smoke from {4, 9, 16, 32, 48, 64}: the
+     lengths the recurrent scans' chunks take). The kernels' launch counts
+     are zeroed just before each run and read just after, and must be
+     exactly (``expected_launches``): per prompt and per decode step each
+     layer's engine GEMMs by its kind (``layer_gemms``: gemma2 7 a layer,
+     granite 4 (its MoE FFN runs no engine GEMM), minicpm3 7 a step and 10
+     a prompt (mla_prefill projects twice, as the reference does), rwkv6
+     10, jamba-smoke's Mamba layers 4 a step and 5 a prompt (in_proj again
+     for the conv state), its attention layer 4, dense FFNs 3, MoE 0) plus
+     the unembed, each on gemm_variant's pick for its shapes (every
+     full-width prompt projection on wgmma, every decode GEMM on gemv;
+     jamba-smoke's x_proj and dt_proj on wmma past 8 rows); one flash
+     launch per attention layer and prompt, one decode attention launch
+     per attention layer and step (none for rwkv6), on flash_variant's and
+     decode_variant's picks. Then one request's prefill logits and first
      decode-step logits through ArcaneEngine("cuda") are held against
-     ArcaneEngine("ref") on the card, and torch.profiler runs over one
-     512-token prefill and over a few decode steps: device busy time, idle
-     share, time by kernel.
+     ArcaneEngine("ref") on the card (uncapped models also on an f32 copy
+     of the weights); rwkv6's bf16 ones against the library engine
+     (cuBLAS's bf16 GEMM in the kernels' place; its entry in SERVE_MODELS
+     says why), where the same check must reject three planted GEMM faults
+     (GEMM_FAULTS), and every GEMM of its prefill and first step also runs
+     on the model's own activations through the kernel, cuBLAS and the
+     plain version (``gemm_on_activations``: bits that differ, ulps, the
+     direction of the kernel's rounding). torch.profiler runs over one
+     512-token prefill and over a few decode steps, each window opened by
+     64 primer kernels, and must see a device event for every launch of
+     the serving kernels in it: device busy time, idle share, time by
+     kernel; for rwkv6 also the share of a 512-token prefill's host clock
+     that the plain wkv recurrence takes. Then one Mamba block of
+     jamba-1.5-large-398b at full width (d 8192, d_inner 16384; random
+     bf16 weights): a prefill of 4 x 512 tokens and 8 decode steps through
+     ArcaneEngine("cuda"), ("ref") and the planted faults' engines;
+     outputs and conv and SSM states within limits set between the sound
+     kernels' reading and the faults', every fault outside them; GEMM
+     launches exact by variant (8 wgmma, 56 gemv).
   4. cnn: the paper's CNN layer through ``repro_torch.launch.cnn`` (3x256x256
      int8 with k 3 and 7, int32 with k 3; 3x226x226 bf16 with 64 filters):
      the fused leg (one conv_layer launch) against the unfused leg (plain
@@ -85,12 +111,15 @@ Phases:
      254x254 and 250x250 int32 ones). Then
      torch.profiler over each leg of the Listing 1 run and of the 64-filter
      run: the card's busy time per pass and its idle share, in a window
-     that opens with 8 primer kernels and is padded by 50 ms on both sides;
+     that opens with 64 primer kernels and is padded by 50 ms on both sides;
      the profiler must see a device event for every launch of the port's
-     CNN kernels in it or the run fails.
+     CNN kernels in it or the run fails. This phase runs before phase 3:
+     after the five serving runs' profiles a window lost the device
+     records of its first 13 launches (on the H100, torch 2.11).
   5. result: a JSON line of the kernels (with each one's launches per
-     variant and, for the serving kernels, per model; decode attention's
-     MLA rows and gemm's granite unembed rows as ``more_cases``), then the
+     variant and, for the serving kernels, per model; gemm's also in the
+     Mamba block's run; decode attention's MLA rows and gemm's granite
+     unembed, rwkv6, jamba and int8 rows as ``more_cases``), then the
      device line, last.
 
 Any failure exits non-zero before the last line. Details go to
@@ -98,14 +127,17 @@ build/chip_smoke/chip_smoke.json (or --json), the nvcc report to
 build/chip_smoke/chip_smoke_build.txt. ``--cnn-kernels-only`` runs phases
 1-2 for the three CNN kernels (with the host: lines) and prints no result
 line; it also runs against an earlier tree's wrappers (without variants),
-to time two trees' kernels in one call. ``--decode-host`` only times the
-serving decode step's host clock (``decode_host:`` line), to compare two
-trees in turns, and prints no result line.
+to time two trees' kernels in one call. ``--decode-host [ARCH]`` only
+times the serving decode step's host clock (``decode_host:`` line;
+gemma2-9b unless an arch id is named), to compare two trees in turns, and
+prints no result line.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -186,7 +218,8 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 
 # ---------------------------------------------------------------- phase 2
 def gemm_cases(torch):
-    """(name, dtype, M, K, N, kind): kind 'w' weight, 't' table.T, 'bias'."""
+    """(name, dtype, M, K, N, kind): kind 'w' weight, 't' table.T, 'bias',
+    'a<R>' a weight with A the first K columns of an (M, R) tensor."""
     g2 = [("q", 3584, 4096), ("kv", 3584, 2048), ("gate_up", 3584, 14336),
           ("o", 4096, 3584), ("down", 14336, 3584)]
     cases = []
@@ -210,11 +243,31 @@ def gemm_cases(torch):
                 cases.append((f"gemma2 {name}", torch.bfloat16, m, k, n, "w"))
     for m in (4, 512):
         cases.append(("int8", torch.int8, m, 1024, 1024, "w"))
+    # the recurrent families' shapes: rwkv6-1.6b's decay LoRA (N or K one
+    # 64-wide tile) and its unembed; jamba's Mamba at full width (x_proj,
+    # and dt_proj reading the first 512 columns of x_proj's output in
+    # place, rows 544 apart) at the block's M = 4 and 4 x 512; jamba-smoke's
+    # x_proj (N = 12) and dt_proj (K = 4, rows 12 apart: 24 bytes, no
+    # 16-byte rows), decode and prompt
+    for m in (4, 512):
+        cases.append(("rwkv6 wA", torch.bfloat16, m, 2048, 64, "w"))
+        cases.append(("rwkv6 wB", torch.bfloat16, m, 64, 2048, "w"))
+    for m in (1, 4):
+        cases.append(("rwkv6 unembed", torch.bfloat16, m, 2048, 65536, "t"))
+    for m in (4, 2048):
+        cases.append(("jamba x_proj", torch.bfloat16, m, 16384, 544, "w"))
+        cases.append(("jamba dt_proj", torch.bfloat16, m, 512, 16384, "a544"))
+    for m in (4, 16, 64):
+        cases.append(("jamba-smoke x_proj", torch.bfloat16, m, 128, 12, "w"))
+        cases.append(("jamba-smoke dt_proj", torch.bfloat16, m, 4, 128, "a12"))
     return cases
 
 
 def check_close(err: float, ref_absmax: float, atol: float, rtol: float) -> bool:
     return err <= atol + rtol * ref_absmax
+
+
+GEMM_BF16_TOL = (1e-3, 1.6e-2)        # atol, rtol: two bf16 ulps of the result
 
 
 def run_gemm(torch, timer, gen, rows):
@@ -225,7 +278,8 @@ def run_gemm(torch, timer, gen, rows):
             a = torch.randint(-8, 8, (m, k), device="cuda", dtype=torch.int8, generator=gen)
             b = torch.randint(-8, 8, (k, n), device="cuda", dtype=torch.int8, generator=gen)
         else:
-            a = torch.randn((m, k), device="cuda", generator=gen).to(dt)
+            width = int(kind[1:]) if kind.startswith("a") else k
+            a = torch.randn((m, width), device="cuda", generator=gen).to(dt)[:, :k]
             if kind == "t":
                 b = (torch.randn((n, k), device="cuda", generator=gen) / math.sqrt(k)).to(dt).T
             else:
@@ -252,7 +306,7 @@ def run_gemm(torch, timer, gen, rows):
         if dt == torch.int8:
             atol, rtol = 0.0, 0.0
         elif out.dtype == torch.bfloat16:
-            atol, rtol = 1e-3, 1.6e-2      # two bf16 ulps of the result
+            atol, rtol = GEMM_BF16_TOL
         else:
             atol, rtol = 2e-3, 1e-5        # f32 sums of K terms in another order
         ok = check_close(err, absmax, atol, rtol) and same is not False and (
@@ -267,6 +321,11 @@ def run_gemm(torch, timer, gen, rows):
                 lib = timer.ms(lambda: torch.addmm(c, a, b))
             else:
                 lib = timer.ms(lambda: torch.matmul(a, b))
+        elif m > 16 and k % 8 == 0 and n % 8 == 0:
+            # int8 x int8 -> int32, the function at alpha 1, beta 0
+            if not torch.equal(torch._int_mm(a, b), out):
+                ok = False
+            lib = timer.ms(lambda: torch._int_mm(a, b))
         isz = a.element_size()
         nbytes = (m * k + k * n) * isz + out.numel() * out.element_size() \
             + (n * c.element_size() if c is not None else 0)
@@ -737,41 +796,141 @@ def run_host(torch) -> dict:
 
 
 # ---------------------------------------------------------------- phase 3
-# The served models, in order, with the engine GEMMs of one layer in a
-# decode step and in a prompt (each adds the unembed once): gemma2-9b's
-# q, k, v, o, gate, up, down; granite-moe-1b's q, k, v, o (its MoE FFN runs
-# no engine GEMM: the f32 router and the expert products are PyTorch calls,
-# as the reference's are plain jnp); minicpm3-4b's MLA q_down, q_up,
-# kv_down, o and the MLP's three, with mla_prefill projecting q and the
-# latents twice (once for the cache, once in the forward), as the reference
-# does.
-SERVE_MODELS = (("gemma2-9b", 7, 7), ("granite-moe-1b-a400m", 4, 4),
-                ("minicpm3-4b", 7, 10))
+# The served models, in order: full width unless ``smoke``; 4 slots, 6
+# requests of 16 new tokens; prompt lengths drawn from [16, 513), or from
+# ``prompt_lens`` where the recurrent scans' chunk contract (rwkv6: 64;
+# jamba-smoke: 16) refuses the others. Their launch counts come from
+# ``layer_gemms`` and the attention layers of each model's pattern.
+SERVE_MODELS = (
+    dict(arch="gemma2-9b"), dict(arch="granite-moe-1b-a400m"),
+    dict(arch="minicpm3-4b"),
+    # rwkv6's bf16 logits are held to the library engine (``library_engine``):
+    # this random-weight model carries a GEMM that sums K in another order
+    # than the plain version past the limits against ref (the plain version
+    # summing K in two halves, ``halves_engine``, lands as far from ref as
+    # the kernels), while the kernels and cuBLAS sum in the same order (the
+    # same bits in nearly every output: ``gemm_on_activations``; PERF.md)
+    dict(arch="rwkv6-1.6b", prompt_lens=(16, 32, 64, 128, 256, 512),
+         reference="library"),
+    dict(arch="jamba-1.5-large-398b", smoke=True, max_len=128,
+         prompt_lens=(4, 9, 16, 32, 48, 64)),
+)
+ATTN_KINDS = ("attn", "attn_local", "mla")
 
 
-def expected_launches(model, n_prompts: int, n_steps: int, per_step: int,
-                      per_prompt: int) -> tuple[dict, dict]:
-    """The launch counts of a serving run, and per variant: every prompt
-    projection on wgmma, the prompt's unembed (one row) and every decode
-    GEMM on gemv, every prefill attention on mma, every decode attention on
-    decode_variant's pick for the model's (G, D)."""
+def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1) -> list:
+    """(A, B) of each engine GEMM of one layer at M = m rows, as meta
+    tensors in the layouts the model hands the engine (A contiguous unless
+    named; B a weight of a stacked parameter): attention's q, k, v, o;
+    MLA's q_down, q_up, kv_down (twice in a prompt: mla_prefill projects
+    for the cache and again in the forward, as the reference does) and o;
+    Mamba's in_proj, x_proj, dt_proj (A the first dt_rank columns of
+    x_proj's output, in place) and out_proj, and in a prompt in_proj again
+    over the last d_conv - 1 tokens of each of the ``batch`` sequences
+    (the conv state); RWKV's r, k, v, g, the decay LoRA's wA and wB, o and
+    the channel mix's cm_k, cm_v, cm_r; then a dense FFN's gate, up, down.
+    An MoE FFN runs no engine GEMM (the f32 router and the expert products
+    are PyTorch calls, as the reference's are plain jnp)."""
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    def w(k, n):
+        return meta(cfg.n_periods, k, n)[0]
+
+    def act(k, rows=m):
+        return meta(rows, k)
+
+    d, ff = cfg.d_model, cfg.d_ff
+    out = []
+    if spec.kind in ("attn", "attn_local"):
+        q, kv = (h * cfg.resolved_head_dim for h in (cfg.n_heads, cfg.n_kv_heads))
+        out += [(act(d), w(d, q)), (act(d), w(d, kv)), (act(d), w(d, kv)),
+                (act(q), w(q, d))]
+    elif spec.kind == "mla":
+        ml = cfg.mla
+        qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+        proj = [(act(d), w(d, ml.q_lora_rank)),
+                (act(ml.q_lora_rank), w(ml.q_lora_rank, cfg.n_heads * qk)),
+                (act(d), w(d, ml.kv_lora_rank + ml.qk_rope_head_dim))]
+        vo = cfg.n_heads * ml.v_head_dim
+        out += proj * (2 if prompt else 1) + [(act(vo), w(vo, d))]
+    elif spec.kind == "mamba":
+        mb = cfg.mamba
+        di, dtr = mb.expand * d, mb.dt_rank or -(-d // 16)
+        xn = dtr + 2 * mb.d_state
+        out += [(act(d), w(d, 2 * di)), (act(di), w(di, xn)),
+                (act(xn)[:, :dtr], w(dtr, di)), (act(di), w(di, d))]
+        if prompt:
+            out.append((act(d, batch * (mb.d_conv - 1)), w(d, 2 * di)))
+    elif spec.kind == "rwkv":
+        lora = cfg.rwkv.decay_lora
+        return [(act(d), w(d, d))] * 4 + [
+            (act(d), w(d, lora)), (act(lora), w(lora, d)), (act(d), w(d, d)),
+            (act(d), w(d, ff)), (act(ff), w(ff, d)), (act(d), w(d, d))]
+    if not spec.moe:
+        out += [(act(d), w(d, ff)), (act(d), w(d, ff)), (act(ff), w(ff, d))]
+    return out
+
+
+def attention_variants(torch, cfg) -> tuple[str, str]:
+    """The flash variant of a prompt's attention layers (meta q, k, v in
+    the model's layouts: q and k contiguous after the rotary embedding, v
+    a view of its projection's heads; MLA's all contiguous) and the decode
+    variant of a step's (MLA's absorbed decode: one latent head for all)."""
     from repro_torch.kernels.decode_attention.kernel import decode_variant
-    cfg = model.cfg
-    nl = cfg.n_layers
-    if cfg.mla is not None:      # absorbed decode: one latent head for all
-        g, d = cfg.n_heads, cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim
+    from repro_torch.kernels.flash_attention.kernel import flash_variant
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    s, h, hkv = 512, cfg.n_heads, cfg.n_kv_heads
+    if cfg.mla is not None:
+        ml = cfg.mla
+        qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
+        q = k = v = meta(1, h, s, qk)
+        g, d = h, ml.kv_lora_rank + ml.qk_rope_head_dim
     else:
-        g, d = cfg.n_heads // cfg.n_kv_heads, cfg.resolved_head_dim
-    counts = {"gemm_cuda": (nl * per_prompt + 1) * n_prompts
-              + (nl * per_step + 1) * n_steps,
-              "flash_attention_cuda": nl * n_prompts,
-              "decode_attention_cuda": nl * n_steps}
-    dv = decode_variant(g, d)
-    variants = {"gemm_cuda": {"gemv": n_prompts + (nl * per_step + 1) * n_steps,
-                              "wgmma": nl * per_prompt * n_prompts,
-                              "wmma": 0, "fma": 0},
-                "flash_attention_cuda": {"simt": 0, "mma": nl * n_prompts},
-                "decode_attention_cuda": {"narrow": 0, "wide": 0, dv: nl * n_steps}}
+        hd = cfg.resolved_head_dim
+        q, k = meta(1, h, s, hd), meta(1, hkv, s, hd)
+        v = meta(1, s, hkv * hd).reshape(1, s, hkv, hd).transpose(1, 2)
+        g, d = h // hkv, hd
+    return flash_variant(q, k, v), decode_variant(g, d)
+
+
+def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
+                      ) -> tuple[dict, dict]:
+    """The launch counts of a serving run, and per variant: per prompt
+    (batch 1, M = its length) and per decode step (M = the slots) each
+    layer's engine GEMMs (``layer_gemms``) on ``gemm_variant``'s pick, and
+    the unembed of one row or of the slots (a GEMV); one flash launch per
+    attention layer and prompt, one decode attention launch per attention
+    layer and step, on their variants' picks."""
+    from repro_torch.kernels.gemm.kernel import gemm_variant
+    gemm = dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0)
+    table_t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.bfloat16,
+                          device="meta").T
+
+    def add(m, prompt):
+        for spec in cfg.pattern:
+            for a, b in layer_gemms(torch, cfg, spec, m, prompt):
+                gemm[gemm_variant(a, b)] += cfg.n_periods
+        rows = 1 if prompt else m
+        gemm[gemm_variant(table_t.new_empty((rows, cfg.d_model)), table_t)] += 1
+
+    for s in prompt_lens:
+        add(s, True)
+    for _ in range(n_steps):
+        add(slots, False)
+    n_attn = cfg.n_periods * sum(spec.kind in ATTN_KINDS for spec in cfg.pattern)
+    fv, dv = attention_variants(torch, cfg)
+    counts = {"gemm_cuda": sum(gemm.values()),
+              "flash_attention_cuda": n_attn * len(prompt_lens),
+              "decode_attention_cuda": n_attn * n_steps}
+    variants = {"gemm_cuda": gemm,
+                "flash_attention_cuda": {"simt": 0, "mma": 0},
+                "decode_attention_cuda": {"narrow": 0, "wide": 0}}
+    variants["flash_attention_cuda"][fv] += counts["flash_attention_cuda"]
+    variants["decode_attention_cuda"][dv] += counts["decode_attention_cuda"]
     return counts, variants
 
 
@@ -788,62 +947,189 @@ def logits_limits(cfg) -> tuple:
     return None, None, SERVE_RTOL, SERVE_MEAN_RTOL
 
 
-def engines_agree(torch, cfg, params, prompt, max_atol, mean_atol, max_rtol,
-                  mean_rtol) -> dict:
-    """One prompt's prefill logits and its first decode step's through
-    ArcaneEngine("cuda") and ArcaneEngine("ref") on the same weights, on
-    the card: |cuda - ref| (max and mean) beside its limit (an absolute
-    one, or a share of the largest |ref| logit), and whether the argmax
-    agrees. Fails on logits that are not finite or of the wrong shape."""
+def library_engine(torch):
+    """ArcaneEngine("ref") with each GEMM of a bf16 result through one
+    PyTorch call in bf16 (cuBLAS: products summed in f32 on the tensor
+    cores, one rounding), others as "ref": the library's bf16 GEMM as an
+    engine, the yardstick of a model whose SERVE_MODELS entry names it.
+    Used nowhere in the port."""
     from repro_torch.core.engine import ArcaneEngine
+
+    class LibraryEngine(ArcaneEngine):
+        def gemm(self, x, w, c=None, *, alpha=1.0, beta=1.0, out_dtype=None):
+            if x.dtype != torch.bfloat16 or (out_dtype or x.dtype) != x.dtype:
+                return super().gemm(x, w, c, alpha=alpha, beta=beta,
+                                    out_dtype=out_dtype)
+            lead, n = x.shape[:-1], w.shape[-1]
+            x2 = x.reshape(-1, x.shape[-1])
+            out = x2 @ w if c is None else torch.addmm(
+                c.reshape(-1, n), x2, w, beta=beta, alpha=alpha)
+            return out.reshape(*lead, n)
+
+    return LibraryEngine("ref")
+
+
+def halves_engine(torch):
+    """ArcaneEngine("ref") whose GEMMs of a bf16 result sum K in two halves
+    (the plain f32 product of each half, then their sum): the plain
+    version in another order, to read how far a sound change of order
+    moves a model's logits. Used nowhere in the port."""
+    from repro_torch.core.engine import ArcaneEngine
+
+    class HalvesEngine(ArcaneEngine):
+        def gemm(self, x, w, c=None, *, alpha=1.0, beta=1.0, out_dtype=None):
+            h = x.shape[-1] // 2
+            if x.dtype != torch.bfloat16 or (out_dtype or x.dtype) != x.dtype \
+                    or c is not None or alpha != 1.0 or h == 0:
+                return super().gemm(x, w, c, alpha=alpha, beta=beta,
+                                    out_dtype=out_dtype)
+            xf, wf = x.float(), w.float()
+            return (xf[..., :h] @ wf[:h] + xf[..., h:] @ wf[h:]).to(x.dtype)
+
+    return HalvesEngine("ref")
+
+
+# Planted GEMM faults, each a kernel with one bug, that the logits and the
+# Mamba block checks must reject: the result 1% too large ("scale"), the
+# last 64 rows of K left out ("k_tile": one K tile of the wgmma kernel
+# dropped), the f32 sum cut to bf16 toward zero instead of to the nearest
+# ("truncate").
+GEMM_FAULTS = ("scale", "k_tile", "truncate")
+FAULT_K_TILE = 64
+
+
+def fault_engine(torch, fault: str, backend: str = "cuda"):
+    """ArcaneEngine(backend) whose GEMMs of a bf16 result carry the planted
+    ``fault``: the engine's own GEMM with an f32 result (on the card the
+    kernel, same variant and same sums), the fault, then bf16."""
+    from repro_torch.core.engine import ArcaneEngine
+    if fault not in GEMM_FAULTS:
+        raise ValueError(f"unknown fault {fault!r}")
+
+    class FaultEngine(ArcaneEngine):
+        def gemm(self, x, w, c=None, *, alpha=1.0, beta=1.0, out_dtype=None):
+            if x.dtype != torch.bfloat16 or (out_dtype or x.dtype) != x.dtype:
+                return super().gemm(x, w, c, alpha=alpha, beta=beta,
+                                    out_dtype=out_dtype)
+            kw = dict(alpha=alpha, beta=beta, out_dtype=torch.float32)
+            if fault == "k_tile":
+                k = x.shape[-1] - FAULT_K_TILE
+                if k <= 0:
+                    out = x.new_zeros((*x.shape[:-1], w.shape[-1]), dtype=torch.float32)
+                    return (out if c is None else out + beta * c.float()).to(x.dtype)
+                x, w = x[..., :k], w[:k]
+            out = super().gemm(x, w, c, **kw)
+            if fault == "scale":
+                out = out * 1.01
+            elif fault == "truncate":
+                out = (out.view(torch.int32) & -65536).view(torch.float32)
+            return out.to(x.dtype)
+
+    return FaultEngine(backend)
+
+
+def engine_logits(torch, cfg, params, prompt, engines: dict) -> dict:
+    """Each engine's prefill logits of one prompt and its first decode
+    step's (on the token the first engine's prefill picks, fed to every
+    engine), in f32, on the card."""
     from repro_torch.models.transformer import LM
     dev = torch.device("cuda")
     tokens = torch.as_tensor(prompt[None], device=dev)
-    logits = {}
-    for backend in ("cuda", "ref"):
-        m = LM(cfg, ArcaneEngine(backend), device=dev)
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    logits, nxt = {}, None
+    for name, engine in engines.items():
+        m = LM(cfg, engine, device=dev)
         cache = m.init_cache(1, len(prompt) + 8)
         lg, cache = m.prefill(params, {"tokens": tokens}, cache)
-        if backend == "cuda":
+        if nxt is None:
             nxt = torch.argmax(lg, -1).to(torch.int32)
-        pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
         lg2, _ = m.decode_step(params, nxt, pos, cache)
-        logits[backend] = (lg.float(), lg2.float())
+        logits[name] = (lg.float(), lg2.float())
         del cache
+    return logits
+
+
+def logits_gap(cfg, a, b, limits=None) -> dict:
+    """|a - b| (max and mean) of two engines' logits, the largest |b|,
+    whether the argmax agrees and, with ``limits`` (``logits_limits``),
+    the limits beside them (an absolute one, or a share of the largest
+    |b|). Fails on logits ``a`` that are not finite or of the wrong shape."""
+    if not bool(a.isfinite().all()) or tuple(a.shape) != (1, cfg.vocab):
+        fail(f"serve: {cfg.name}: logits not finite or of shape {tuple(a.shape)}")
+    d = (a - b).abs()
+    absmax = float(b.abs().max())
+    out = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+           "ref_absmax": absmax,
+           "argmax_equal": bool((a.argmax(-1) == b.argmax(-1)).all())}
+    if limits is not None:
+        max_atol, mean_atol, max_rtol, mean_rtol = limits
+        out["max_limit"] = max_atol if max_atol else max_rtol * absmax
+        out["mean_limit"] = mean_atol if mean_atol else mean_rtol * absmax
+    return out
+
+
+def within_limits(c: dict) -> bool:
+    """A gap within its limits, max and mean."""
+    return c["max_abs"] <= c["max_limit"] and c["mean_abs"] <= c["mean_limit"]
+
+
+def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref") -> dict:
+    """One prompt's prefill logits and its first decode step's through
+    ArcaneEngine("cuda") against the ``reference`` engine on the same
+    weights, on the card: ``ref`` (ArcaneEngine("ref"), every GEMM the
+    plain f32 product) or ``library`` (``library_engine``). Against the
+    library the gaps to ref of cuda, the library and ``halves_engine`` are
+    kept beside, and each engine of GEMM_FAULTS is held to the library
+    too: the check must reject every one, or the run fails."""
+    from repro_torch.core.engine import ArcaneEngine
+    engines = {"cuda": ArcaneEngine("cuda"), "ref": ArcaneEngine("ref")}
+    if reference == "library":
+        engines["library"] = library_engine(torch)
+        engines["halves"] = halves_engine(torch)
+        engines.update({f"fault {f}": fault_engine(torch, f) for f in GEMM_FAULTS})
+    elif reference != "ref":
+        raise ValueError(f"unknown reference engine {reference!r}")
+    logits = engine_logits(torch, cfg, params, prompt, engines)
     cmp = {}
     for i, what in enumerate(("prefill", "decode")):
-        a, b = logits["cuda"][i], logits["ref"][i]
-        if not bool(torch.isfinite(a).all()) or a.shape != (1, cfg.vocab):
-            fail(f"serve: {cfg.name}: {what} logits not finite or of shape "
-                 f"{tuple(a.shape)}")
-        d = (a - b).abs()
-        absmax = float(b.abs().max())
-        cmp[what] = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
-                     "ref_absmax": absmax,
-                     "max_limit": max_atol if max_atol else max_rtol * absmax,
-                     "mean_limit": mean_atol if mean_atol else mean_rtol * absmax,
-                     "argmax_equal": bool(torch.equal(a.argmax(-1), b.argmax(-1)))}
+        base = logits[reference][i]
+        c = cmp[what] = {"against": reference,
+                         **logits_gap(cfg, logits["cuda"][i], base, limits)}
+        if reference == "ref":
+            continue
+        c["cuda_vs_ref"] = logits_gap(cfg, logits["cuda"][i], logits["ref"][i])
+        c["library_vs_ref"] = logits_gap(cfg, base, logits["ref"][i])
+        c["halves_vs_ref"] = logits_gap(cfg, logits["halves"][i], logits["ref"][i])
+        c["faults"] = {f: logits_gap(cfg, logits[f"fault {f}"][i], base, limits)
+                       for f in GEMM_FAULTS}
+    for f in GEMM_FAULTS if reference != "ref" else ():
+        if all(within_limits(cmp[w]["faults"][f]) for w in cmp):
+            fail(f"serve: {cfg.name}: the logits check against the {reference} "
+                 f"engine does not reject the planted GEMM fault {f!r}: "
+                 f"{json.dumps({w: cmp[w]['faults'][f] for w in cmp})}")
     return cmp
 
 
-def run_serve(torch, summary: dict, arch: str, per_step: int,
-              per_prompt: int) -> dict:
-    """One model served at full width through the port's launcher: 4
-    slots, max_len 1024, 6 requests of 16-512 prompt tokens and 16 new
-    tokens, bf16 weights drawn on the card from seed 0; the launch counts
-    zeroed just before and read just after. Then one request through
-    ArcaneEngine("cuda") and ("ref") on the same weights, and the
-    profiler over a prefill and a few decode steps."""
+def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
+              max_len: int = 1024, prompt_lens=None, reference: str = "ref") -> dict:
+    """One model served through the port's launcher (full width unless
+    ``smoke``): 4 slots, 6 requests of 16 new tokens, prompts of 16-512
+    tokens or drawn from ``prompt_lens``, bf16 weights drawn on the card
+    from seed 0; the launch counts zeroed just before and read just after.
+    Then one request through ArcaneEngine("cuda") and ("ref") on the same
+    weights, and the profiler over a prefill and a few decode steps."""
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
     from repro_torch.kernels.gemm.kernel import gemm_cuda
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import tree_leaves, tree_map
 
-    args = launcher.parse_args([
-        "--arch", arch, "--requests", "6", "--max-new", "16",
-        "--slots", "4", "--max-len", "1024", "--prompt-len", "16", "513",
-        "--seed", "0", "--backend", "cuda"])
+    argv = ["--arch", arch, "--requests", "6", "--max-new", "16",
+            "--slots", "4", "--max-len", str(max_len), "--seed", "0",
+            "--backend", "cuda"]
+    argv += ["--prompt-lens", *map(str, prompt_lens)] if prompt_lens else \
+        ["--prompt-len", "16", "513"]
+    args = launcher.parse_args(argv + (["--smoke"] if smoke else []))
     t0 = time.perf_counter()
     model, params = launcher.build(args)
     cfg = model.cfg
@@ -871,13 +1157,14 @@ def run_serve(torch, summary: dict, arch: str, per_step: int,
         fail(f"serve: {name}: {len(done)}/{args.requests} requests finished, tokens "
              f"{[len(r.out_tokens) for r in done]}")
     n_prompts, n_steps = len(done), st["decode_steps"]
-    expect, expect_var = expected_launches(model, n_prompts, n_steps, per_step,
-                                           per_prompt)
+    lens = [len(r.prompt) for r in done]
+    expect, expect_var = expected_launches(torch, cfg, lens, n_steps, args.slots)
+    per_step = expected_launches(torch, cfg, [], 1, args.slots)[0]["gemm_cuda"]
+    per_prompt = expected_launches(torch, cfg, [16], 0, args.slots)[0]["gemm_cuda"]
     print(f"serve: {name} launches {counts} expected {expect} "
           f"(prompts={n_prompts} decode_steps={n_steps}; gemm a decode step "
-          f"{cfg.n_layers}*{per_step}+1, a prompt {cfg.n_layers}*{per_prompt}+1)",
-          flush=True)
-    if counts != expect or min(counts.values()) <= 0:
+          f"{per_step}, a prompt {per_prompt}, the unembed included)", flush=True)
+    if counts != expect or counts["gemm_cuda"] <= 0:
         fail(f"serve: {name}: the main path did not run through every kernel as counted")
     print(f"serve: {name} variants {variants} expected {expect_var}", flush=True)
     if variants != expect_var:
@@ -890,6 +1177,7 @@ def run_serve(torch, summary: dict, arch: str, per_step: int,
         "prefill_tokens": st["prefill_tokens"],
         "prefill_ms_per_token": st["prefill_s"] / st["prefill_tokens"] * 1e3,
         "max_memory_allocated": peak, "params": n_params, "init_s": init_s,
+        "gemm_per_step": per_step, "gemm_per_prompt": per_prompt,
         "launches": counts, "variants": variants,
         "prompt_lens": [len(r.prompt) for r in sorted(done, key=lambda r: r.uid)],
     }
@@ -897,32 +1185,166 @@ def run_serve(torch, summary: dict, arch: str, per_step: int,
         f"{k}={v}" for k, v in metrics.items()
         if k not in ("launches", "variants", "prompt_lens")), flush=True)
 
-    # one request through ArcaneEngine("cuda") and ("ref") on the same
-    # weights: the served bf16 ones, and for uncapped logits an f32 copy too
+    # one request through ArcaneEngine("cuda") and its reference engine on
+    # the same weights: the served bf16 ones, and for uncapped logits an
+    # f32 copy too (against ref)
     req = min(done, key=lambda r: r.uid)
-    cmp = engines_agree(torch, cfg, params, req.prompt, *logits_limits(cfg))
+    cmp = engines_agree(torch, cfg, params, req.prompt, logits_limits(cfg), reference)
     summary.setdefault("serve_vs_ref", {})[name] = cmp
-    print(f"serve: {name} cuda vs ref logits {json.dumps(cmp)}", flush=True)
+    print(f"serve: {name} cuda vs {reference} logits {json.dumps(cmp)}", flush=True)
     if cfg.final_softcap is None:
         import dataclasses
         cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
         params32 = tree_map(lambda x: x.float(), params)
-        cmp32 = engines_agree(torch, cfg32, params32, req.prompt, None, None,
-                              SERVE_F32_RTOL, SERVE_F32_RTOL)
+        cmp32 = engines_agree(torch, cfg32, params32, req.prompt,
+                              (None, None, SERVE_F32_RTOL, SERVE_F32_RTOL))
         del params32
         summary["serve_vs_ref"][name + " f32"] = cmp32
         print(f"serve: {name} cuda vs ref logits, f32 copy of the weights "
               f"{json.dumps(cmp32)}", flush=True)
         cmp = {**cmp, **{f"{k} f32": v for k, v in cmp32.items()}}
     for what, c in cmp.items():
-        if c["max_abs"] > c["max_limit"] or c["mean_abs"] > c["mean_limit"]:
-            fail(f"serve: {name}: {what} logits of the two engines disagree: {c}")
+        if not within_limits(c):
+            fail(f"serve: {name}: {what} logits of cuda and {c['against']} "
+                 f"disagree: {c}")
         if what.endswith("f32") and not c["argmax_equal"]:
             fail(f"serve: {name}: {what} greedy tokens of the two engines differ: {c}")
     metrics["greedy_agreement"] = {k: v["argmax_equal"] for k, v in cmp.items()}
+    if reference != "ref":
+        metrics["gemm_on_activations"] = gemm_on_activations(
+            torch, model, params, req.prompt, name)
     metrics["prefill_profile"] = profile_prefill(torch, model, params, name)
+    if cfg.rwkv is not None:
+        metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
     metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
     return metrics
+
+
+def wkv_share(torch, model, params, name: str, prompt_len: int = 512) -> dict:
+    """The host clock of one 512-token prefill and the share of it that
+    the plain wkv recurrence (``rwkv6._wkv_scan``, a layer's Python loop
+    over the tokens, on the card) takes: each call is timed from a
+    synchronize before it to one after it."""
+    from repro_torch.models import rwkv6
+    inner, spent = rwkv6._wkv_scan, []
+
+    def timed(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    rng = np.random.default_rng(3)
+    tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, prompt_len)),
+                             device=model.device)
+    cache = model.init_cache(1, prompt_len + 8)
+    rwkv6._wkv_scan = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": tokens}, cache)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        rwkv6._wkv_scan = inner
+    out = {"prompt_len": prompt_len, "prefill_wall_ms": wall * 1e3,
+           "wkv_ms": sum(spent) * 1e3, "wkv_calls": len(spent),
+           "wkv_share": sum(spent) / wall}
+    print(f"profile: {name} prefill wkv recurrence {json.dumps(out)}", flush=True)
+    return out
+
+
+def bf16_ulps(torch, a, b):
+    """|a - b| in bf16 ulps, elementwise: the distance of the two values'
+    bit patterns on the number line (+0 and -0 one apart)."""
+    def ordinal(t):
+        bits = t.contiguous().view(torch.int16).to(torch.int32)
+        return torch.where(bits < 0, -(bits & 0x7FFF) - 1, bits)
+    return (ordinal(a) - ordinal(b)).abs()
+
+
+def gemm_on_activations(torch, model, params, prompt, name: str) -> dict:
+    """Every engine GEMM of a bf16 result in one prefill of ``prompt`` and
+    its first decode step through ArcaneEngine("ref"), each also through
+    the kernel (gemm_cuda) and the library's bf16 GEMM on the same
+    operands, by variant and shape (K, N): outputs compared, the share of
+    the kernel's that differ from the plain version's and from the
+    library's, their largest distance in bf16 ulps, the shares of the
+    kernel's that lie nearer zero and farther from it than the plain
+    version's, and the kernel's f32 sums against the plain version's (the
+    same GEMM with an f32 result): sum((kernel - plain) * sign(plain)) /
+    sum(|plain|), below 0 when they run nearer zero. Fails where the
+    kernel's result misses the plain version's by more than phase 2's
+    bf16 GEMM tolerance (GEMM_BF16_TOL)."""
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.kernels.gemm.kernel import gemm_cuda, gemm_variant
+    atol, rtol = GEMM_BF16_TOL
+    stats = {}
+
+    class Probe(ArcaneEngine):
+        def gemm(self, x, w, c=None, *, alpha=1.0, beta=1.0, out_dtype=None):
+            ref = super().gemm(x, w, c, alpha=alpha, beta=beta, out_dtype=out_dtype)
+            if ref.dtype != torch.bfloat16 or c is not None:
+                return ref
+            a2 = x.reshape(-1, x.shape[-1])
+            r = ref.reshape(a2.shape[0], -1)
+            kern = gemm_cuda(a2, w)
+            lib = a2 @ w
+            r32 = a2.float() @ w.float()
+            k32 = gemm_cuda(a2, w, out_dtype=torch.float32)
+            err = float((kern.float() - r.float()).abs().max())
+            absmax = float(r.float().abs().max())
+            key = f"{gemm_variant(a2, w)} K={w.shape[0]} N={w.shape[1]}"
+            st = stats.setdefault(key, dict(
+                calls=0, outputs=0, differ_plain=0, differ_library=0,
+                max_ulps_plain=0, max_ulps_library=0, nearer_zero=0,
+                farther=0, f32_signed=0.0, f32_abs=0.0, worst_err_over_tol=0.0))
+            st["calls"] += 1
+            st["outputs"] += r.numel()
+            st["differ_plain"] += int((kern != r).sum())
+            st["differ_library"] += int((kern != lib).sum())
+            st["max_ulps_plain"] = max(st["max_ulps_plain"],
+                                       int(bf16_ulps(torch, kern, r).max()))
+            st["max_ulps_library"] = max(st["max_ulps_library"],
+                                         int(bf16_ulps(torch, kern, lib).max()))
+            st["nearer_zero"] += int((kern.float().abs() < r.float().abs()).sum())
+            st["farther"] += int((kern.float().abs() > r.float().abs()).sum())
+            st["f32_signed"] += float(((k32 - r32) * r32.sign()).sum())
+            st["f32_abs"] += float(r32.abs().sum())
+            st["worst_err_over_tol"] = max(st["worst_err_over_tol"],
+                                           err / (atol + rtol * absmax))
+            return ref
+
+    from repro_torch.models.transformer import LM
+    dev = torch.device("cuda")
+    m = LM(model.cfg, Probe("ref"), device=dev)
+    cache = m.init_cache(1, len(prompt) + 8)
+    lg, cache = m.prefill(params, {"tokens": torch.as_tensor(prompt[None], device=dev)},
+                          cache)
+    m.decode_step(params, torch.argmax(lg, -1).to(torch.int32),
+                  torch.tensor([len(prompt)], dtype=torch.int32, device=dev), cache)
+    del cache
+    out = {}
+    for key, st in stats.items():
+        n = st["outputs"]
+        out[key] = {"calls": st["calls"], "outputs": n,
+                    "share_differ_plain": st["differ_plain"] / n,
+                    "share_differ_library": st["differ_library"] / n,
+                    "max_ulps_plain": st["max_ulps_plain"],
+                    "max_ulps_library": st["max_ulps_library"],
+                    "share_nearer_zero": st["nearer_zero"] / n,
+                    "share_farther": st["farther"] / n,
+                    "f32_relative_bias": st["f32_signed"] / st["f32_abs"],
+                    "worst_err_over_tol": st["worst_err_over_tol"]}
+    print(f"serve: {name} gemm on the model's activations (prompt of "
+          f"{len(prompt)}): {json.dumps(out)}", flush=True)
+    bad = [k for k, v in out.items() if v["worst_err_over_tol"] > 1]
+    if bad:
+        fail(f"serve: {name}: gemm misses the plain version on the model's "
+             f"activations at {bad}")
+    return out
 
 
 def run_serving(torch, summary: dict) -> dict:
@@ -930,8 +1352,9 @@ def run_serving(torch, summary: dict) -> dict:
     the kernels' launches summed over the runs."""
     import gc
     out = {"models": {}, "launches": {}, "variants": {}}
-    for arch, per_step, per_prompt in SERVE_MODELS:
-        m = run_serve(torch, summary, arch, per_step, per_prompt)
+    for spec in SERVE_MODELS:
+        arch = spec["arch"] + (" --smoke" if spec.get("smoke") else "")
+        m = run_serve(torch, summary, **spec)
         out["models"][arch] = m
         for w, n in m["launches"].items():
             out["launches"][w] = out["launches"].get(w, 0) + n
@@ -946,15 +1369,124 @@ def run_serving(torch, summary: dict) -> dict:
     return out
 
 
-def run_decode_host(torch, steps: int = 30, warm: int = 3) -> dict:
-    """The host clock of the serving path's batched decode step: gemma2-9b
+# cuda vs ref on the card for the full-width Mamba block, as shares of the
+# largest |ref| value of each tensor (the output of the prefill and of the
+# decode steps, the conv and SSM states after them), max and mean, set
+# between the sound kernels' largest reading and the planted faults'
+# (GEMM_FAULTS), which the check must reject. On the H100 the kernels read
+# at most 6.2e-3 and 1.5e-4 (the decode steps' output); "truncate", the
+# least fault, at most 1.6e-2 (SSM state) and 8.5e-4 (decode output).
+BLOCK_RTOL = 2.0 ** -6
+BLOCK_MEAN_RTOL = 2.0 ** -11
+
+
+def run_mamba_block(torch) -> dict:
+    """One ``mamba`` block of jamba-1.5-large-398b at full width (d 8192,
+    d_inner 16384, d_state 16, dt_rank 512; its pattern's position 0, a
+    dense FFN of 24576), random bf16 weights drawn on the card from seed 0:
+    a prefill of 4 sequences of 512 tokens, then 8 decode steps, through
+    ArcaneEngine("cuda"), through ArcaneEngine("ref") and through each
+    engine of GEMM_FAULTS on the same weights and inputs. Checks the
+    outputs and the conv and SSM states (finite, shaped, cuda within
+    BLOCK_RTOL / BLOCK_MEAN_RTOL of the largest |ref|, every planted fault
+    outside them in some tensor), and cuda's GEMM launches, exactly and per
+    variant (8 a prefill, 7 a step: ``layer_gemms``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.kernels.gemm.kernel import gemm_cuda, gemm_variant
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import tree_leaves
+    cfg = get_config("jamba-1.5-large-398b")
+    spec = cfg.pattern[0]
+    b, s, steps, dev = 4, 512, 8, torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = blocks.block_init(gen, cfg, spec, dev)
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    x = torch.randn((b, s, cfg.d_model), device=dev, generator=gen).to(torch.bfloat16)
+    toks = torch.randn((steps, b, cfg.d_model), device=dev, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, device=dev)
+    engines = {"cuda": ArcaneEngine("cuda"), "ref": ArcaneEngine("ref"),
+               **{f"fault {f}": fault_engine(torch, f) for f in GEMM_FAULTS}}
+    results, times = {}, {}
+    for backend, engine in engines.items():
+        cache = blocks.init_block_cache(cfg, spec, b, s + steps, torch.bfloat16, dev)
+        if backend == "cuda":
+            gemm_cuda.launches = 0
+            gemm_cuda.variants = dict.fromkeys(gemm_cuda.variants, 0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = blocks.block_prefill(engine, params, cfg, spec, x, positions, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        outs = [out[:, -1].float()]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            o, _ = blocks.block_decode(engine, params, cfg, spec, toks[i], pos, cache)
+            outs.append(o.float())
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        if backend == "cuda":
+            launches, variants = gemm_cuda.launches, dict(gemm_cuda.variants)
+            times = {"prefill_ms": (t1 - t0) * 1e3,
+                     "decode_step_ms": (t2 - t1) * 1e3 / steps}
+        results[backend] = {"prefill": out.float(), "decode": torch.stack(outs[1:]),
+                            "conv": cache["conv"].clone(), "ssm": cache["ssm"].clone()}
+        del cache, out, outs
+        torch.cuda.empty_cache()
+    expect = dict.fromkeys(gemm_cuda.variants, 0)
+    for m, prompt, n in ((b * s, True, 1), (b, False, steps)):
+        for a, w in layer_gemms(torch, cfg, spec, m, prompt, batch=b):
+            expect[gemm_variant(a, w)] += n
+    shapes = {"prefill": (b, s, cfg.d_model), "decode": (steps, b, cfg.d_model),
+              "conv": (b, cfg.mamba.d_conv - 1, 2 * cfg.d_model),
+              "ssm": (b, 2 * cfg.d_model, cfg.mamba.d_state)}
+
+    def gap(backend):
+        cmp = {}
+        for k, shape in shapes.items():
+            a, r = results[backend][k], results["ref"][k]
+            if tuple(a.shape) != shape or not bool(torch.isfinite(a).all()):
+                fail(f"mamba block: {backend} {k} of shape {tuple(a.shape)} "
+                     f"(expected {shape}) or not finite")
+            d = (a - r).abs()
+            absmax = float(r.abs().max())
+            cmp[k] = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+                      "ref_absmax": absmax, "max_share": float(d.max()) / absmax,
+                      "mean_share": float(d.mean()) / absmax,
+                      "max_limit": BLOCK_RTOL * absmax,
+                      "mean_limit": BLOCK_MEAN_RTOL * absmax}
+        return cmp
+
+    cmp = gap("cuda")
+    faults = {f: gap(f"fault {f}") for f in GEMM_FAULTS}
+    out = {"params": n_params, "batch": b, "prompt_len": s, "steps": steps,
+           "gemm_launches": launches, "gemm_variants": variants,
+           "expected_variants": expect, "cuda_vs_ref": cmp,
+           "faults_vs_ref": faults, **times}
+    print(f"mamba block: jamba-1.5-large-398b position 0 (mamba, dense FFN) "
+          f"d={cfg.d_model} params={n_params} B={b} S={s} steps={steps}: "
+          f"{json.dumps(out)}", flush=True)
+    if variants != expect or launches != sum(expect.values()):
+        fail(f"mamba block: gemm launches {variants}, expected {expect}")
+    for k, c in cmp.items():
+        if not within_limits(c):
+            fail(f"mamba block: {k} of the two engines disagree: {c}")
+    for f, fc in faults.items():
+        if all(within_limits(c) for c in fc.values()):
+            fail(f"mamba block: the check does not reject the planted GEMM "
+                 f"fault {f!r}: {json.dumps(fc)}")
+    return out
+
+
+def run_decode_host(torch, arch: str, steps: int = 30, warm: int = 3) -> dict:
+    """The host clock of the serving path's batched decode step: ``arch``
     at full width (random weights from seed 0) through the port's launcher,
     4 slots live with 256-token prompts, each step timed from its call to
     the card's end; the median, least and most of ``steps`` steps after
     ``warm``."""
     from repro_torch.launch import serve as launcher
     from repro_torch.serving.engine import ServeSession
-    args = launcher.parse_args(["--arch", "gemma2-9b", "--slots", "4", "--max-len",
+    args = launcher.parse_args(["--arch", arch, "--slots", "4", "--max-len",
                                 "1024", "--seed", "0", "--backend", "cuda"])
     model, params = launcher.build(args)
     sess = ServeSession(model, params, max_slots=args.slots, max_len=args.max_len,
@@ -983,64 +1515,113 @@ def run_decode_host(torch, steps: int = 30, warm: int = 3) -> dict:
 
 def profile_prefill(torch, model, params, name: str, prompt_len: int = 512) -> dict:
     """torch.profiler over one prefill of a 512-token prompt at batch 1, as
-    the session admits a request: the card's busy time, its idle share of
-    the host clock, and device time by kernel: the wgmma GEMM, the mma flash
-    attention, and the rest."""
-    from torch.profiler import ProfilerActivity, profile
+    the session admits a request (in a ``profile_window``): the card's busy
+    time, its idle share of the host clock, and device time by kernel: the
+    wgmma GEMM, the other GEMM variants (the unembed's GEMV; jamba-smoke's
+    wmma and GEMV), the mma flash attention, and the rest. Fails unless the
+    profiler saw a device event for every launch of the serving kernels."""
     rng = np.random.default_rng(2)
     tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, prompt_len)),
                              device=model.device)
     cache = model.init_cache(1, prompt_len + 8)
     model.prefill(params, {"tokens": tokens}, cache)          # warm
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = serve_launches()
+    with profile_window(torch) as prof:
         t0 = time.perf_counter()
         model.prefill(params, {"tokens": tokens}, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del cache
-    dev = device_ms(prof)
-    out = busy_share(prof, wall_ms, 1, "prefill")
-    groups = {"gemm_wgmma": 0.0, "flash_mma": 0.0, "rest": 0.0}
-    for kname, ms in dev.items():
-        key = "gemm_wgmma" if "gemm_wgmma_kernel" in kname else \
-            "flash_mma" if "flash_mma_kernel" in kname else "rest"
+    out = busy_share(prof, wall_ms, 1, "prefill", exclude=("spin_kernel",))
+    groups = {"gemm_wgmma": 0.0, "gemm_other": 0.0, "flash_mma": 0.0, "rest": 0.0}
+    for kname, ms in device_ms(prof, exclude=("spin_kernel",)).items():
+        ids = set(IDENT.findall(kname))
+        key = "gemm_wgmma" if "gemm_wgmma_kernel" in ids else \
+            "gemm_other" if ids & set(SERVE_KERNEL_NAMES["gemm_cuda"]) else \
+            "flash_mma" if "flash_mma_kernel" in ids else "rest"
         groups[key] += ms
     out.update(prompt_len=prompt_len, wall_ms_per_token=wall_ms / prompt_len,
-               device_ms_by_kernel=groups)
+               device_ms_by_kernel=groups,
+               **serve_events_seen(prof, before, f"{name} prefill"))
     print(f"profile: {name} prefill {json.dumps(out)}", flush=True)
     return out
 
 
 def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3) -> dict:
     """torch.profiler over a few batched decode steps of the session (all 4
-    slots live): the card's busy time, its idle share of the host clock,
-    the kernels that take the most device time, and device time per step
-    by kernel: the GEMV (gemv_n, gemv_t), decode attention (split and
-    merge kernels) and the rest."""
-    from torch.profiler import ProfilerActivity, profile
+    slots live; in a ``profile_window``): the card's busy time, its idle
+    share of the host clock, the kernels that take the most device time,
+    and device time per step by kernel: the GEMV (gemv_n, gemv_t), decode
+    attention (split and merge kernels) and the rest. Fails unless the
+    profiler saw a device event for every launch of the serving kernels."""
     rng = np.random.default_rng(1)
     for _ in range(sess.max_slots):
         sess.submit(rng.integers(0, sess.model.cfg.vocab, max_len // 4),
                     max_new_tokens=steps + 2)
     sess.step()                       # admits (prefills) every request
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    before = serve_launches()
+    with profile_window(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             sess.step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    seen = serve_events_seen(prof, before, f"{name} decode")
     sess.run_to_completion()
-    out = busy_share(prof, wall_ms, steps, "step")
+    out = busy_share(prof, wall_ms, steps, "step", exclude=("spin_kernel",))
     groups = {"gemv": 0.0, "decode_attention": 0.0, "rest": 0.0}
-    for kname, ms in device_ms(prof).items():
-        key = "gemv" if "gemv_" in kname else \
-            "decode_attention" if any(k in kname for k in (
-                "split_kernel", "split_wide_kernel", "merge_kernel")) else "rest"
+    for kname, ms in device_ms(prof, exclude=("spin_kernel",)).items():
+        ids = set(IDENT.findall(kname))
+        key = "gemv" if ids & {"gemv_n_kernel", "gemv_t_kernel"} else \
+            "decode_attention" if ids & {"split_kernel", "split_wide_kernel",
+                                         "merge_kernel"} else "rest"
         groups[key] += ms / steps
-    out["device_ms_per_step_by_kernel"] = groups
+    out.update(device_ms_per_step_by_kernel=groups, **seen)
     print(f"profile: {name} decode {json.dumps(out)}", flush=True)
+    return out
+
+
+# the port's serving kernels by the names the profiler gives them: one
+# device event of these for each launch of the wrapper (decode attention's
+# merge kernel, which follows a split kernel, is left out)
+SERVE_KERNEL_NAMES = {
+    "gemm_cuda": ("gemm_fma_kernel", "gemm_wgmma_kernel", "gemm_wmma_bf16_kernel",
+                  "gemv_n_kernel", "gemv_t_kernel"),
+    "flash_attention_cuda": ("flash_kernel", "flash_mma_kernel"),
+    "decode_attention_cuda": ("split_kernel", "split_wide_kernel"),
+}
+IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
+
+
+def serve_launches() -> dict:
+    """The serving kernels' launch counts so far, by wrapper."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    return {w.__name__: w.launches
+            for w in (gemm_cuda, flash_attention_cuda, decode_attention_cuda)}
+
+
+def serve_events_seen(prof, before: dict, what: str) -> dict:
+    """The serving kernels' launches since ``before`` against the device
+    events of those kernels the profile holds, by wrapper; fails where they
+    differ, or where a window with launches read no device time."""
+    from torch.autograd import DeviceType
+    launched = {w: n - before[w] for w, n in serve_launches().items()}
+    seen = dict.fromkeys(SERVE_KERNEL_NAMES, 0)
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        ids = set(IDENT.findall(e.name))
+        for w, names in SERVE_KERNEL_NAMES.items():
+            if ids & set(names):
+                seen[w] += 1
+    out = {"kernel_launches": launched, "kernel_events": seen, **launch_record(prof)}
+    if seen != launched or not device_ms(prof, exclude=("spin_kernel",)):
+        fail(f"profile: {what}: the profiler saw {seen} device events of the "
+             f"serving kernels for {launched} launches")
     return out
 
 
@@ -1182,10 +1763,27 @@ def run_cnn(torch) -> dict:
 CNN_KERNEL_NAMES = ("conv_mma_kernel", "conv_simt_kernel", "maxpool_vector_kernel",
                     "maxpool_scalar_kernel", "maxpool_band_kernel", "leakyrelu_kernel")
 PROFILE_PAD_S = 0.05
-# empty kernels that open a measured window: after the serving phase's
-# profiles the first 4 launches of a window lost their device records
-# (chip_smoke's CNN profile, with three models served before it)
-PRIMER_LAUNCHES = 8
+# empty kernels that open a measured window: late in a run the profiler
+# drops the device records of a session's first kernels (up to 16 in
+# chip_smoke's runs on the H100, torch 2.11)
+PRIMER_LAUNCHES = 64
+
+
+@contextlib.contextmanager
+def profile_window(torch, primed: bool = True):
+    """torch.profiler (CPU and CUDA) over a measured window: primed, it
+    opens with PRIMER_LAUNCHES primers, empty kernels (``spin_kernel``,
+    left out of the busy time), and stays open PROFILE_PAD_S before and
+    after the window's work."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        if primed:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(PRIMER_LAUNCHES):
+                torch.cuda._sleep(0)
+        yield prof
+        if primed:
+            time.sleep(PROFILE_PAD_S)
 
 
 def launch_record(prof) -> dict:
@@ -1208,16 +1806,14 @@ def launch_record(prof) -> dict:
 def profile_cnn(torch, argv, passes: int = 10) -> dict:
     """torch.profiler over a few passes of each leg of one CNN run (after
     the counted runs): the card's busy time per pass and its idle share.
-    Late in a run the profiler drops the device record of the first kernel
-    launched in a session (up to the first 4 once many profiles ran
-    before), so each measured window opens with PRIMER_LAUNCHES primers,
-    empty kernels launched before the passes (their time is left out), and
-    stays open PROFILE_PAD_S before and after them; one bare window per leg
-    (no primer, no pad) records what is lost without. Each window counts the device events of the port's CNN
-    kernels against their launches in it (the wrappers' counts); the run
-    fails if the measured window misses one or reads no device time."""
+    Late in a run the profiler drops the device records of the first
+    kernels launched in a session, so each measured window is a primed
+    ``profile_window``; one bare window per leg (no primer, no pad)
+    records what is lost without. Each window counts the device events of
+    the port's CNN kernels against their launches in it (the wrappers'
+    counts); the run fails if the measured window misses one or reads no
+    device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.launch import cnn
     args = cnn.parse_args(argv)
@@ -1229,18 +1825,12 @@ def profile_cnn(torch, argv, passes: int = 10) -> dict:
         torch.cuda.synchronize()
         for primed in (False, True):
             before = sum(cnn.launches().values())
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                if primed:
-                    time.sleep(PROFILE_PAD_S)
-                    for _ in range(PRIMER_LAUNCHES):
-                        torch.cuda._sleep(0)
+            with profile_window(torch, primed) as prof:
                 t0 = time.perf_counter()
                 for _ in range(passes):
                     leg(engine, x, f, args.slope)
                 torch.cuda.synchronize()
                 wall_ms = (time.perf_counter() - t0) * 1e3
-                if primed:
-                    time.sleep(PROFILE_PAD_S)
             launched = sum(cnn.launches().values()) - before
             seen = sum(1 for e in prof.events() if e.device_type == DeviceType.CUDA
                        and any(n in e.name for n in CNN_KERNEL_NAMES))
@@ -1276,7 +1866,6 @@ SERVE_RTOL = 2.0 ** -4
 SERVE_MEAN_RTOL = 2.0 ** -7
 SERVE_F32_RTOL = 1e-3
 
-
 # name: (source, TPU kernel, wrapper, phase of its launches, representative
 # case, its dtype)
 KERNELS = {
@@ -1305,7 +1894,8 @@ KERNELS = {
 
 
 # the rows of a kernel that the kernels line also carries (bf16)
-MORE_CASES = {"decode_attention": ("minicpm3",), "gemm": ("granite unembed",)}
+MORE_CASES = {"decode_attention": ("minicpm3",),
+              "gemm": ("granite unembed", "rwkv6", "jamba", "int8")}
 
 
 def main(argv=None) -> None:
@@ -1314,9 +1904,11 @@ def main(argv=None) -> None:
     ap.add_argument("--cnn-kernels-only", action="store_true",
                     help="phases 1-2 for conv_layer, maxpool and leakyrelu only "
                          "(to time two trees' kernels in one call); no result line")
-    ap.add_argument("--decode-host", action="store_true",
-                    help="only the serving decode step's host clock (to time two "
-                         "trees in turns); no result line")
+    ap.add_argument("--decode-host", nargs="?", const="gemma2-9b", default=None,
+                    metavar="ARCH",
+                    help="only the serving decode step's host clock of ARCH "
+                         "(default gemma2-9b; to time two trees in turns); no "
+                         "result line")
     ap.add_argument("--json", default=None,
                     help="where the details go (default build/chip_smoke/chip_smoke.json)")
     opts = ap.parse_args(argv)
@@ -1354,7 +1946,7 @@ def main(argv=None) -> None:
                "build_s": build_s}
 
     if opts.decode_host:
-        summary["decode_host"] = run_decode_host(torch)
+        summary["decode_host"] = run_decode_host(torch, opts.decode_host)
         out_json.write_text(json.dumps(summary, indent=1))
         return
 
@@ -1415,12 +2007,14 @@ def main(argv=None) -> None:
               flush=True)
         return
 
-    # ---- phase 3: serving
-    summary["serve"] = run_serving(torch, summary)
+    # ---- phase 4 (first: its profiles must see every launch): the CNN layer path
+    summary["cnn"] = run_cnn(torch)
     out_json.write_text(json.dumps(summary, indent=1))
 
-    # ---- phase 4: the CNN layer path
-    summary["cnn"] = run_cnn(torch)
+    # ---- phase 3: serving, and the full-width Mamba block
+    summary["serve"] = run_serving(torch, summary)
+    out_json.write_text(json.dumps(summary, indent=1))
+    summary["mamba_block"] = run_mamba_block(torch)
     out_json.write_text(json.dumps(summary, indent=1))
 
     if failures:
@@ -1444,11 +2038,14 @@ def main(argv=None) -> None:
         if phase == "serve":     # launches by served model
             entry["launches_by_model"] = {
                 a: m["launches"][wrapper] for a, m in summary["serve"]["models"].items()}
-        more = [r for r in mine if r["dtype"] == "bfloat16"
+        if name == "gemm":       # and by the full-width Mamba block's run
+            entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
+        more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")
                 and r["case"].startswith(MORE_CASES.get(name, ()))]
         if more:                 # this slice's own rows of the kernel
-            entry["more_cases"] = [{"case": r["case"], **{k: r[k] for k in keys}}
-                                   for r in more]
+            entry["more_cases"] = [{"case": f"{r['case']} {r['dtype']}",
+                                    "variant": r.get("variant"),
+                                    **{k: r[k] for k in keys}} for r in more]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

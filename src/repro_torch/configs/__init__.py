@@ -4,8 +4,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import (LayerSpec, MLAConfig, ModelConfig,
-                                      MoEConfig)
+from repro_torch.configs.base import (LayerSpec, MambaConfig, MLAConfig,
+                                      ModelConfig, MoEConfig, RWKVConfig)
 
 ARCHS: dict[str, str] = {
     "stablelm-3b": "stablelm_3b",
@@ -14,6 +14,8 @@ ARCHS: dict[str, str] = {
     "granite-moe-1b-a400m": "granite_moe_1b_a400m",
     "llama4-scout-17b-a16e": "llama4_scout_17b_a16e",
     "minicpm3-4b": "minicpm3_4b",
+    "rwkv6-1.6b": "rwkv6_1_6b",
+    "jamba-1.5-large-398b": "jamba_1_5_large_398b",
 }
 
 
@@ -25,5 +27,5 @@ def get_smoke_config(arch: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{ARCHS[arch]}").smoke()
 
 
-__all__ = ["ARCHS", "LayerSpec", "MLAConfig", "ModelConfig", "MoEConfig",
-           "get_config", "get_smoke_config"]
+__all__ = ["ARCHS", "LayerSpec", "MLAConfig", "MambaConfig", "ModelConfig",
+           "MoEConfig", "RWKVConfig", "get_config", "get_smoke_config"]

@@ -1,11 +1,11 @@
 """Architecture configuration schema (own copy of repro.configs.base).
 
 The fields and their defaults are those of the reference, so that a config
-built here equals the reference's field by field. What differs: the
-submodule configs of the unported families (``mamba``, ``rwkv``) are
-untyped placeholders; ``pdtype``/``cdtype`` map the dtype strings to
-``torch.dtype``, and ``param_count`` covers the layer kinds this package
-runs (``attn``, ``attn_local``, ``mla``, with dense or MoE FFNs).
+built here equals the reference's field by field. What differs:
+``pdtype``/``cdtype`` map the dtype strings to ``torch.dtype``, and
+``param_count`` covers the layer kinds this package runs (``attn``,
+``attn_local``, ``mla``, ``mamba`` and ``rwkv``, with dense or MoE FFNs;
+not the encoder-decoder).
 """
 from __future__ import annotations
 
@@ -33,6 +33,22 @@ class MLAConfig:
     qk_nope_head_dim: int = 64
     qk_rope_head_dim: int = 32
     v_head_dim: int = 64
+
+
+@dataclasses.dataclass(frozen=True)
+class MambaConfig:
+    d_state: int = 16
+    d_conv: int = 4
+    expand: int = 2
+    dt_rank: int = 0          # 0 → ceil(d_model / 16)
+    chunk: int = 128          # scan chunk for the selective scan
+
+
+@dataclasses.dataclass(frozen=True)
+class RWKVConfig:
+    head_size: int = 64
+    decay_lora: int = 64
+    chunk: int = 64
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,12 +80,11 @@ class ModelConfig:
     local_window: Optional[int] = None
     # serving: local (sliding-window) layers keep a window-sized ring cache
     ring_local_cache: bool = False
-    # --- submodule configs (mamba and rwkv: families not ported yet, always
-    # None here; kept so the fields match the reference)
+    # --- submodule configs
     moe: Optional[MoEConfig] = None
     mla: Optional[MLAConfig] = None
-    mamba: Optional[object] = None
-    rwkv: Optional[object] = None
+    mamba: Optional[MambaConfig] = None
+    rwkv: Optional[RWKVConfig] = None
     # --- encoder/decoder
     enc_dec: bool = False
     n_enc_layers: int = 0
@@ -126,6 +141,19 @@ class ModelConfig:
                     + m.kv_lora_rank * self.n_heads
                     * (m.qk_nope_head_dim + m.v_head_dim)
                     + self.n_heads * m.v_head_dim * d)
+            elif spec.kind == "mamba":
+                mb = self.mamba
+                di = mb.expand * d
+                dtr = mb.dt_rank or -(-d // 16)
+                total += n * (d * 2 * di + di * mb.d_conv
+                              + di * (dtr + 2 * mb.d_state) + dtr * di
+                              + di * mb.d_state + di + di * d)
+            elif spec.kind == "rwkv":
+                # r, k, v, g, o and the decay LoRA; the channel mix's two
+                # matrices below (cm_r is not counted, as in the reference)
+                total += n * (5 * d * d + 2 * d * self.rwkv.decay_lora
+                              + 2 * d * ff)
+                continue
             else:
                 raise NotImplementedError(spec)
             if spec.moe and self.moe is not None:

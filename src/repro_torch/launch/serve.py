@@ -8,10 +8,21 @@ Usage (on a machine with an NVIDIA H100; the kernels build at first use)::
 
 ``--arch`` is any id of ``repro_torch.configs.ARCHS``: stablelm-3b,
 gemma2-9b, qwen2.5-32b, granite-moe-1b-a400m, llama4-scout-17b-a16e (at
-203 GB in bf16, only ``--smoke`` fits one card) and minicpm3-4b.
+203 GB in bf16, only ``--smoke`` fits one card), minicpm3-4b, rwkv6-1.6b
+and jamba-1.5-large-398b (about 800 GB in bf16: only ``--smoke``).
 ``--device cpu --backend ref`` runs the plain PyTorch path on the CPU,
 ``--smoke`` the arch's reduced config. The weights are random, drawn on the
 device from ``--seed``.
+
+The recurrent archs keep the reference's prompt-length contract: a prompt
+longer than the scan's chunk (rwkv6 64, jamba's Mamba 128; 16 in both
+smoke configs) must be a multiple of it, and a jamba prompt must hold at
+least 3 tokens (its conv state). A prompt that breaks it raises
+``ValueError`` when it is submitted; ``--prompt-lens`` draws the lengths
+from a list instead of a range, e.g.::
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-1.6b \
+        --smoke --device cpu --prompt-lens 4 9 16 32
 """
 from __future__ import annotations
 
@@ -39,6 +50,9 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--prompt-len", type=int, nargs=2, default=(4, 24),
                     metavar=("MIN", "MAX"),
                     help="prompt lengths are drawn from [MIN, MAX)")
+    ap.add_argument("--prompt-lens", type=int, nargs="+", default=None,
+                    metavar="N", help="prompt lengths are drawn from these "
+                    "(in place of --prompt-len)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--backend", default="auto", choices=("auto", "cuda", "ref"))
     ap.add_argument("--seed", type=int, default=0)
@@ -61,7 +75,8 @@ def serve(model: LM, params, args: argparse.Namespace) -> dict:
     rng = np.random.default_rng(args.seed)
     lo, hi = args.prompt_len
     for _ in range(args.requests):
-        plen = int(rng.integers(lo, hi))
+        plen = int(rng.choice(args.prompt_lens) if args.prompt_lens
+                   else rng.integers(lo, hi))
         sess.submit(rng.integers(0, model.cfg.vocab, plen),
                     max_new_tokens=args.max_new)
     t0 = time.perf_counter()

@@ -1,12 +1,17 @@
 """Layer blocks: norm/residual wiring around the sequence mixers + FFN/MoE
-(counterpart of repro.models.blocks, for the kinds ``attn``, ``attn_local``
-and ``mla``, each with a dense or an MoE FFN).
+(counterpart of repro.models.blocks, for the kinds ``attn``, ``attn_local``,
+``mla`` and ``mamba``, each with a dense or an MoE FFN, and ``rwkv``, which
+carries its own channel mix).
 
 A block is one position in the config's repeating layer pattern, with three
 entry points: forward, prefill (cache write) and decode (one token). The
 cache of a block is a dict of tensors updated in place: ``k``, ``v``
 (B, Hkv, S, hd) for attention, ``c`` (B, S, r) and ``kr`` (B, S, rope) for
-MLA's latent stream.
+MLA's latent stream, ``conv`` (B, d_conv-1, d_inner) and ``ssm`` (B,
+d_inner, d_state) f32 for Mamba, ``S`` (B, H, N, N) f32 and ``tm_x``,
+``cm_x`` (B, d) for RWKV. Where the reference rebinds a cache entry to a
+new state, this module copies the state into the entry: the serving engine
+prefills a slot through views of the batched cache.
 """
 from __future__ import annotations
 
@@ -17,12 +22,14 @@ import torch
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.models import attention as attn
+from repro_torch.models import mamba as mam
 from repro_torch.models import mla as mla_mod
-from repro_torch.models.layers import make_norm
+from repro_torch.models import rwkv6 as rwkv_mod
+from repro_torch.models.layers import dense, make_norm
 from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.moe import moe, moe_init
 
-KINDS = ("attn", "attn_local", "mla")
+KINDS = ("attn", "attn_local", "mla", "mamba", "rwkv")
 
 
 def _check_kind(cfg: ModelConfig, spec: LayerSpec) -> None:
@@ -30,7 +37,20 @@ def _check_kind(cfg: ModelConfig, spec: LayerSpec) -> None:
         raise NotImplementedError(
             f"{cfg.name}: layer kind {spec.kind!r} (enc_dec={cfg.enc_dec}, "
             f"vision_prefix={cfg.vision_prefix}) is not ported yet; see "
-            "ROADMAP.md, Queue 1 items 9-10")
+            "ROADMAP.md, Queue 1 item 10")
+
+
+def check_prompt_length(cfg: ModelConfig, s: int) -> None:
+    """Raise ``ValueError`` for a prompt of ``s`` tokens that the
+    reference's prefill refuses: a recurrent scan's length contract (longer
+    than the chunk and not a multiple of it), and for Mamba a prompt
+    shorter than its conv state (d_conv - 1 tokens), whose state the
+    reference would build short."""
+    kinds = {spec.kind for spec in cfg.pattern}
+    if "rwkv" in kinds:
+        rwkv_mod.check_length(cfg, s)
+    if "mamba" in kinds:
+        mam.check_prompt(cfg, s)
 
 
 def _window(cfg: ModelConfig, spec: LayerSpec):
@@ -50,6 +70,12 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device) -> dict:
     p: dict[str, Any] = {"ln1": ninit(d, dt, device)}
     if spec.kind == "mla":
         p["attn"] = mla_mod.mla_init(gen, cfg, device)
+    elif spec.kind == "mamba":
+        p["mixer"] = mam.mamba_init(gen, cfg, device)
+    elif spec.kind == "rwkv":
+        p["mixer"] = rwkv_mod.rwkv_init(gen, cfg, device)
+        p["ln2"] = ninit(d, dt, device)
+        return p          # rwkv carries its own channel-mix FFN
     else:
         p["attn"] = attn.attention_init(gen, cfg, device)
     p["ln2"] = ninit(d, dt, device)
@@ -75,6 +101,14 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     h = napply(params["ln1"], x)
     if spec.kind == "mla":
         h = mla_mod.mla_forward(engine, params["attn"], cfg, h, positions)
+    elif spec.kind == "mamba":
+        h, _ = mam.mamba_forward(engine, params["mixer"], cfg, h)
+    elif spec.kind == "rwkv":
+        h, _, _ = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h)
+        x = x + h
+        cm, _ = rwkv_mod.rwkv_channel_mix(engine, params["mixer"], cfg,
+                                          napply(params["ln2"], x))
+        return x + cm, 0.0
     else:
         h = attn.attention_forward(engine, params["attn"], cfg, h, positions,
                                    window=_window(cfg, spec))
@@ -86,6 +120,19 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
                      max_len: int, dtype, device) -> dict:
     _check_kind(cfg, spec)
+    f32 = dict(dtype=torch.float32, device=device)
+    if spec.kind == "mamba":
+        di = mam.d_inner(cfg)
+        return {"conv": torch.zeros((batch, cfg.mamba.d_conv - 1, di), **f32),
+                "ssm": torch.zeros((batch, di, cfg.mamba.d_state), **f32)}
+    if spec.kind == "rwkv":
+        n = cfg.rwkv.head_size
+        h = cfg.d_model // n
+        return {"S": torch.zeros((batch, h, n, n), **f32),
+                "tm_x": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device),
+                "cm_x": torch.zeros((batch, cfg.d_model), dtype=dtype,
+                                    device=device)}
     if spec.kind == "mla":
         m = cfg.mla
         return {"c": torch.zeros((batch, max_len, m.kv_lora_rank), dtype=dtype,
@@ -109,6 +156,25 @@ def block_prefill(engine, params, cfg, spec, x, positions, cache):
     if spec.kind == "mla":
         h, cache["c"], cache["kr"] = mla_mod.mla_prefill(
             engine, params["attn"], cfg, h, positions, cache["c"], cache["kr"])
+    elif spec.kind == "mamba":
+        k1 = cfg.mamba.d_conv - 1
+        mam.check_prompt(cfg, x.shape[1])
+        h, last = mam.mamba_forward(engine, params["mixer"], cfg, h)
+        cache["ssm"].copy_(last)
+        # conv state: the last K-1 pre-conv activations, recomputed (ln1
+        # and in_proj of the last K-1 tokens again, as the reference does)
+        tail = napply(params["ln1"], x[:, -k1:])
+        xz_tail = dense(engine, params["mixer"]["in_proj"], tail)
+        cache["conv"].copy_(xz_tail.chunk(2, dim=-1)[0])
+    elif spec.kind == "rwkv":
+        h, S, tm_x = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h)
+        cache["S"].copy_(S)
+        cache["tm_x"].copy_(tm_x)
+        x = x + h
+        cm, cm_x = rwkv_mod.rwkv_channel_mix(engine, params["mixer"], cfg,
+                                             napply(params["ln2"], x))
+        cache["cm_x"].copy_(cm_x)
+        return x + cm, cache
     else:
         h, cache["k"], cache["v"] = attn.attention_prefill(
             engine, params["attn"], cfg, h, positions, cache["k"], cache["v"],
@@ -126,6 +192,22 @@ def block_decode(engine, params, cfg, spec, x, position, cache):
     if spec.kind == "mla":
         h, cache["c"], cache["kr"] = mla_mod.mla_decode(
             engine, params["attn"], cfg, h, position, cache["c"], cache["kr"])
+    elif spec.kind == "mamba":
+        h, conv, ssm = mam.mamba_decode(engine, params["mixer"], cfg, h,
+                                        cache["conv"], cache["ssm"])
+        cache["conv"].copy_(conv)
+        cache["ssm"].copy_(ssm)
+    elif spec.kind == "rwkv":
+        h, S, tm_x = rwkv_mod.rwkv_time_mix_decode(
+            engine, params["mixer"], cfg, h, cache["S"], cache["tm_x"])
+        cache["S"].copy_(S)
+        cache["tm_x"].copy_(tm_x)
+        x = x + h
+        cm, cm_x = rwkv_mod.rwkv_channel_mix(
+            engine, params["mixer"], cfg, napply(params["ln2"], x)[:, None, :],
+            cache["cm_x"])
+        cache["cm_x"].copy_(cm_x)
+        return x + cm[:, 0], cache
     else:
         h, cache["k"], cache["v"] = attn.attention_decode(
             engine, params["attn"], cfg, h, position, cache["k"], cache["v"],

@@ -1,4 +1,5 @@
-"""Carry weights across from the reference: numpy pytree → the port's params.
+"""Carry weights (and caches) across from the reference: numpy pytree → the
+port's params (cache).
 
 The reference's params pytree, after ``np.asarray`` on every leaf, has the
 same nesting as the port's (dicts, a tuple of per-pattern-position stacks).
@@ -36,3 +37,20 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
             raise ValueError(f"{cfg.name}: a block leaf of shape {leaf.shape} "
                              f"is not stacked over {cfg.n_periods} periods")
     return tree_map(lambda x: tensor_from_numpy(x, dev), tree)
+
+
+def cache_from_numpy(tree, cfg: ModelConfig, device=None) -> tuple:
+    """The reference's cache (``LM.init_cache`` / ``prefill`` output, numpy
+    leaves: per pattern position a dict of (n_periods, B, ...) stacks) as
+    the port's cache on ``device``, so that the port decodes on from a
+    reference prefill."""
+    dev = resolve_device(device)
+    if len(tree) != cfg.period:
+        raise ValueError(f"{cfg.name}: {len(tree)} cache stacks, the pattern "
+                         f"has {cfg.period}")
+    for leaf in tree_leaves(tree):
+        if leaf.shape[0] != cfg.n_periods:
+            raise ValueError(f"{cfg.name}: a cache leaf of shape {leaf.shape} "
+                             f"is not stacked over {cfg.n_periods} periods")
+    return tuple(tree_map(lambda x: tensor_from_numpy(x, dev), c)
+                 for c in tree)

@@ -1,5 +1,5 @@
 """Decoder-only LM (counterpart of repro.models.transformer, for the
-attention, MLA and MoE families).
+attention, MLA, MoE and recurrent (Mamba, RWKV-6) families).
 
 Params keep the reference layout: per pattern position, a dict of stacked
 leaves with a leading ``n_periods`` axis. A Python loop over periods takes

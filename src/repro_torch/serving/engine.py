@@ -1,11 +1,13 @@
 """Serving engine: continuous-batching decode over the cache-resident kernels
 (counterpart of repro.serving.engine).
 
-A fixed pool of ``max_slots`` sequence slots shares one batched KV cache.
-Requests are admitted into free slots at any step (batch-1 prefill of the
-prompt); every step decodes one token for all slots. The decode kernel
-reads only each slot's valid cache rows, so ragged lengths cost nothing
-extra.
+A fixed pool of ``max_slots`` sequence slots shares one batched cache: KV
+rows for the attention layers, the recurrent states for the Mamba and RWKV
+layers. Requests are admitted into free slots at any step (batch-1 prefill
+of the prompt, which zeroes the slot's rows and writes its states into
+them); every step decodes one token for all slots and updates every slot's
+states in place. The decode kernel reads only each slot's valid cache rows,
+so ragged lengths cost nothing extra.
 
 Timing: ``stats`` sums the host-clock seconds of prefills and decode steps.
 Each ends in a device-to-host copy of the sampled token, which waits for
@@ -20,6 +22,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.models.blocks import check_prompt_length
 from repro_torch.models.transformer import LM
 
 PyTree = Any
@@ -58,7 +61,10 @@ class ServeSession:
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, **kw) -> Request:
+        """Queue a request; a prompt length the model's prefill refuses
+        (the recurrent scans' chunk contract) raises ``ValueError`` here."""
         req = Request(uid=self._uid, prompt=np.asarray(prompt, np.int32), **kw)
+        check_prompt_length(self.model.cfg, len(req.prompt))
         self._uid += 1
         self.pending.append(req)
         return req

@@ -757,3 +757,91 @@ def test_conv_signed_zero_windows(cuda_device, variant, dt):
     assert out.shape == (16, 1, 3)
     assert torch.equal(int_view(out), int_view(ref))
     assert int(int_view(out).abs().sum()) == 0
+
+
+# --------------------------------------- the recurrent families' GEMM shapes
+RECURRENT_GEMMS = [      # (name, M, K, N, A's row length (None: K), variant)
+    ("rwkv6 wA", 4, 2048, 64, None, "gemv"), ("rwkv6 wA", 512, 2048, 64, None, "wgmma"),
+    ("rwkv6 wB", 4, 64, 2048, None, "gemv"), ("rwkv6 wB", 512, 64, 2048, None, "wgmma"),
+    ("jamba x_proj", 4, 16384, 544, None, "gemv"),
+    ("jamba x_proj", 2048, 16384, 544, None, "wgmma"),
+    ("jamba dt_proj", 4, 512, 16384, 544, "gemv"),
+    ("jamba dt_proj", 2048, 512, 16384, 544, "wgmma"),
+    ("jamba-smoke x_proj", 4, 128, 12, None, "gemv"),
+    ("jamba-smoke x_proj", 64, 128, 12, None, "wmma"),
+    ("jamba-smoke dt_proj", 4, 4, 128, 12, "gemv"),
+    ("jamba-smoke dt_proj", 64, 4, 128, 12, "wmma"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,m,k,n,rows,variant", RECURRENT_GEMMS)
+def test_recurrent_gemm_shapes(cuda_device, name, m, k, n, rows, variant):
+    """rwkv6-1.6b's decay LoRA, jamba's full-width x_proj and dt_proj (A the
+    first 512 columns of x_proj's output, rows 544 apart) and
+    jamba-smoke's (N = 12; A rows of 12 bf16, 24 bytes) in bf16, on the
+    variant chip_smoke.py expects, within its gemm tolerance."""
+    gen = torch.Generator(device=cuda_device).manual_seed(4)
+    a = torch.randn((m, rows or k), device=cuda_device, generator=gen
+                    ).to(torch.bfloat16)[:, :k]
+    b = (torch.randn((k, n), device=cuda_device, generator=gen) / k ** 0.5
+         ).to(torch.bfloat16)
+    assert gemm_variant(a, b) == variant
+    out = gemm_cuda(a, b)
+    ref = gemm_ref(a, b)
+    err = float((out.double() - ref.double()).abs().max())
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    assert err <= 1e-3 + 1.6e-2 * float(ref.double().abs().max()), (name, m, err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+def test_gemv_rwkv6_unembed(cuda_device, m):
+    """rwkv6-1.6b's unembed: table.T at K = 2048, N = 65536, f32 logits."""
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    b = (torch.randn((65536, 2048), device=cuda_device, generator=gen) / 45.0
+         ).to(torch.bfloat16).T
+    a = torch.randn((m, 2048), device=cuda_device, generator=gen).to(torch.bfloat16)
+    assert gemm_variant(a, b) == "gemv"
+    out = gemm_cuda(a, b, out_dtype=torch.float32)
+    ref = gemm_ref(a, b, out_dtype=torch.float32)
+    err = float((out.double() - ref.double()).abs().max())
+    assert err <= 1e-3 + 1.6e-2 * float(ref.double().abs().max()), err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_recurrent_smoke_decode_step_cuda_matches_ref(cuda_device, arch):
+    """A prefill of two 16-token prompts and one decode step of the arch's
+    smoke config through the cuda engine and through the ref engine on the
+    same weights: in f32 the logits and the recurrent states agree to
+    1e-4; in bf16 (the launcher's dtype) the step's logits are finite and
+    the GEMM kernel ran."""
+    import dataclasses
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM, tree_leaves
+
+    def step(cfg, backend, params=None):
+        model = LM(cfg, ArcaneEngine(backend), device=cuda_device)
+        if params is None:
+            params = model.init_params(
+                torch.Generator(device=cuda_device).manual_seed(0))
+        toks = torch.as_tensor(np.random.default_rng(2).integers(0, cfg.vocab, (2, 17)),
+                               device=cuda_device)
+        cache = model.init_cache(2, 32)
+        lg0, _ = model.prefill(params, {"tokens": toks[:, :16]}, cache)
+        pos = torch.full((2,), 16, dtype=torch.int32, device=cuda_device)
+        lg1, _ = model.decode_step(params, toks[:, 16], pos, cache)
+        return (lg0, lg1, *tree_leaves(cache)), params
+
+    f32 = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    mine, params = step(f32, "cuda")
+    ref, _ = step(f32, "ref", params)
+    for x, y in zip(mine, ref):
+        assert torch.allclose(x.float(), y.float(), atol=1e-4, rtol=1e-4)
+    before = gemm_cuda.launches
+    out, _ = step(get_smoke_config(arch), "cuda")
+    assert bool(torch.isfinite(out[1]).all()) and gemm_cuda.launches > before

@@ -44,6 +44,9 @@ def test_configs_equal_reference(arch):
         assert mine.n_periods == ref.n_periods
         assert str(mine.pdtype).split(".")[-1] == str(ref.pdtype)
         assert mine.param_count() == ref.param_count()
+        for sub in ("moe", "mla", "mamba", "rwkv"):   # typed, as the reference's
+            assert type(getattr(mine, sub)).__name__ == \
+                type(getattr(ref, sub)).__name__, sub
 
 
 @pytest.mark.parametrize("func5", [0, 1, 2, 4, 5, 6, 30])

@@ -107,7 +107,10 @@ def test_temperature_sampling_is_seeded(rng):
 def test_greedy_tokens_equal_reference_session(arch, rng):
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     model, params, jmodel, jparams = port_model(arch, key=1, **f32)
-    prompts = [rng.integers(0, model.cfg.vocab, int(n)) for n in (3, 11, 6, 17)]
+    # 17 tokens break the recurrent scans' chunk contract (chunk 16 in the
+    # smoke configs; the reference refuses them too): 16 there
+    last = 16 if model.cfg.mamba or model.cfg.rwkv else 17
+    prompts = [rng.integers(0, model.cfg.vocab, int(n)) for n in (3, 11, 6, last)]
 
     def serve(sess):
         reqs = [sess.submit(p, max_new_tokens=5) for p in prompts]

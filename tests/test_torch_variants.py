@@ -9,6 +9,7 @@ in ``csrc/flash_attention.cu``). A last test emulates the tensor-core flash
 kernel's roundings in plain PyTorch and holds them to the card's tolerance.
 """
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -17,9 +18,11 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.kernels.common import NEG_INF
+from repro_torch.kernels.decode_attention.kernel import decode_variant
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gemm.kernel import gemm_variant
+from repro_torch.launch import serve as launcher
 from repro_torch.models.attention import _merge_heads, _split_heads
 from repro_torch.models.transformer import LM
 
@@ -198,3 +201,177 @@ def test_flash_mma_roundings_stay_within_the_card_tolerance():
     assert float((emu - exact).abs().max()) <= 2.0**-9 * vmax + 1e-5
     ref = attention_ref(q, k, v, causal=True, softcap=50.0)
     assert float((emu.to(BF16).float() - ref.float()).abs().max()) <= 2e-2
+
+
+# ------------------------------------- chip_smoke.py's launch-count model
+def chip_smoke():
+    import importlib
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
+
+class LaunchSpy(ArcaneEngine):
+    """The ref engine, counting the launches and variants each gemm,
+    attention and decode attention call would make on the card for the
+    same tensors (the wrappers' ``launches`` and ``variants``)."""
+
+    def __init__(self):
+        super().__init__("ref")
+        self.counts = {"gemm_cuda": 0, "flash_attention_cuda": 0,
+                       "decode_attention_cuda": 0}
+        self.variants = {"gemm_cuda": dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0),
+                         "flash_attention_cuda": {"simt": 0, "mma": 0},
+                         "decode_attention_cuda": {"narrow": 0, "wide": 0}}
+
+    def _count(self, wrapper, variant):
+        self.counts[wrapper] += 1
+        self.variants[wrapper][variant] += 1
+
+    def gemm(self, x, w, c=None, **kw):
+        self._count("gemm_cuda", gemm_variant(x.reshape(-1, x.shape[-1]), w))
+        return super().gemm(x, w, c, **kw)
+
+    def attention(self, q, k, v, **kw):
+        self._count("flash_attention_cuda", flash_variant(q, k, v))
+        return super().attention(q, k, v, **kw)
+
+    def decode_attention(self, q, k, v, lengths, **kw):
+        self._count("decode_attention_cuda",
+                    decode_variant(q.shape[1] // k.shape[1], q.shape[2]))
+        return super().decode_attention(q, k, v, lengths, **kw)
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m", "minicpm3-4b",
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b"])
+def test_chip_smoke_launch_counts_equal_the_engine_calls(arch):
+    """chip_smoke.py's expected launches of a serving run (per layer kind,
+    by variant from each layer's GEMM shapes) against the calls a bf16
+    smoke-config run through the launcher makes on the CPU, with the
+    prompt lengths its SERVE_MODELS entry draws from (16-512 where it names
+    none)."""
+    cs = chip_smoke()
+    entry = next(e for e in cs.SERVE_MODELS if e["arch"] == arch)
+    lens = entry.get("prompt_lens") or (3, 16, 100, 513)
+    args = launcher.parse_args(["--arch", arch, "--smoke", "--device", "cpu",
+                                "--requests", "5", "--max-new", "3",
+                                "--max-len", "520", "--prompt-lens",
+                                *map(str, lens)])
+    engine = LaunchSpy()
+    model = LM(get_smoke_config(arch), engine, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    sess = launcher.serve(model, params, args)["session"]
+    prompts = [len(r.prompt) for r in sess.finished]
+    counts, variants = cs.expected_launches(torch, model.cfg, prompts,
+                                            sess.stats["decode_steps"], args.slots)
+    assert engine.counts == counts
+    assert engine.variants == variants
+
+
+def test_recurrent_full_width_gemm_variants():
+    """The variants chip_smoke.py expects at full width: rwkv6-1.6b's ten
+    GEMMs a layer (the decay LoRA's N = 64 and K = 64 included) on wgmma
+    in a 512-token prompt and on gemv in a 4-slot step; the jamba Mamba
+    block's eight (dt_proj's A a strided view of x_proj's output, rows 544
+    apart) on wgmma at 4 x 512 rows, its seven on gemv at 4; jamba-smoke's
+    x_proj (N = 12) and dt_proj (rows of 24 bytes) on wmma past 8 rows."""
+    cs = chip_smoke()
+    rwkv = get_config("rwkv6-1.6b")
+    jamba = get_config("jamba-1.5-large-398b")
+    smoke = get_smoke_config("jamba-1.5-large-398b")
+
+    def picks(cfg, m, prompt, batch=1):
+        return [gemm_variant(a, b) for a, b in
+                cs.layer_gemms(torch, cfg, cfg.pattern[0], m, prompt, batch)]
+
+    assert picks(rwkv, 512, True) == ["wgmma"] * 10
+    assert picks(rwkv, 4, False) == ["gemv"] * 10
+    assert picks(jamba, 2048, True, batch=4) == ["wgmma"] * 8
+    assert picks(jamba, 4, False) == ["gemv"] * 7
+    assert picks(smoke, 16, True) == ["wgmma", "wmma", "wmma", "wgmma", "gemv"] \
+        + ["wgmma"] * 3
+
+
+# ------------------------------- chip_smoke.py's planted faults and probes
+def test_bf16_ulps_counts_steps_on_the_number_line():
+    """chip_smoke's ``bf16_ulps``: neighbours one apart, +0 and -0 one
+    apart, a sign change counted through zero."""
+    cs = chip_smoke()
+    one_up = 1.0 + 2.0 ** -7
+    a = torch.tensor([1.0, -1.0, 0.0, 1.0, -2.0 ** -133], dtype=BF16)
+    b = torch.tensor([one_up, -one_up, -0.0, 1.0, 2.0 ** -133], dtype=BF16)
+    assert cs.bf16_ulps(torch, a, b).tolist() == [1, 1, 1, 0, 3]
+
+
+@pytest.mark.parametrize("fault", ["scale", "k_tile", "truncate"])
+def test_fault_engine_plants_its_fault(fault):
+    """chip_smoke's ``fault_engine`` on the plain engine: each planted
+    fault is the product with that one bug (1% too large, the last 64 rows
+    of K left out, cut toward zero to bf16), a bias as C included; a K of
+    at most 64 leaves nothing; f32 GEMMs and f32 results stay sound."""
+    cs = chip_smoke()
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((3, 5, 192), generator=gen).to(BF16)
+    w = torch.randn((192, 40), generator=gen).to(BF16)
+    c = torch.randn((40,), generator=gen).to(BF16).expand(3, 5, 40)
+    eng = cs.fault_engine(torch, fault, backend="ref")
+    out = eng.gemm(x, w, c)
+    k = 192 - 64 if fault == "k_tile" else 192
+    exact = x[..., :k].double() @ w[:k].double() + c.double()
+    f32 = exact.float()
+    if fault == "scale":
+        want = (f32 * 1.01).to(BF16)
+    elif fault == "truncate":
+        want = (f32.view(torch.int32) & -65536).view(torch.float32).to(BF16)
+        assert bool((want.float().abs() <= f32.abs()).all())
+    else:
+        want = f32.to(BF16)
+    assert out.dtype == BF16 and out.shape == (3, 5, 40)
+    assert float((out.float() - want.float()).abs().max()) <= 2.0 ** -7 * float(want.float().abs().max())
+    assert not torch.equal(out, ArcaneEngine("ref").gemm(x, w, c))
+    small = eng.gemm(x[..., :64], w[:64])
+    if fault == "k_tile":
+        assert not bool(small.any())
+    sound = ArcaneEngine("ref")
+    assert torch.equal(eng.gemm(x.float(), w.float()), sound.gemm(x.float(), w.float()))
+    assert torch.equal(eng.gemm(x, w, out_dtype=torch.float32),
+                       sound.gemm(x, w, out_dtype=torch.float32))
+    with pytest.raises(ValueError):
+        cs.fault_engine(torch, "flip", backend="ref")
+
+
+def test_serve_kernel_names_cover_every_launch():
+    """Each ``__global__`` kernel the serving sources launch is counted
+    once for its wrapper in chip_smoke's ``SERVE_KERNEL_NAMES``, the merge
+    kernel that follows decode attention's split kernels excepted; no name
+    there is missing from the sources."""
+    import re
+    cs = chip_smoke()
+    csrc = Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+    names = {w: set(v) for w, v in cs.SERVE_KERNEL_NAMES.items()}
+    for src, wrapper in (("gemm.cu", "gemm_cuda"),
+                         ("flash_attention.cu", "flash_attention_cuda"),
+                         ("decode_attention.cu", "decode_attention_cuda")):
+        text = (csrc / src).read_text()
+        kernels = set(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?(\w+_kernel)\s*\(", text))
+        assert kernels, src
+        assert kernels - {"merge_kernel"} == names[wrapper], src
+
+
+def test_halves_engine_sums_k_in_two_halves():
+    """chip_smoke's ``halves_engine``: a bf16 GEMM is the plain f32 product
+    of each half of K, summed, then rounded; f32 GEMMs, f32 results and an
+    odd K's GEMM stay the plain version's."""
+    cs = chip_smoke()
+    gen = torch.Generator().manual_seed(1)
+    x = torch.randn((2, 7, 96), generator=gen).to(BF16)
+    w = torch.randn((96, 24), generator=gen).to(BF16)
+    eng, plain = cs.halves_engine(torch), ArcaneEngine("ref")
+    want = (x[..., :48].float() @ w[:48].float() + x[..., 48:].float() @ w[48:].float()).to(BF16)
+    assert torch.equal(eng.gemm(x, w), want)
+    assert torch.equal(eng.gemm(x, w, out_dtype=torch.float32),
+                       plain.gemm(x, w, out_dtype=torch.float32))
+    assert torch.equal(eng.gemm(x.float(), w.float()), plain.gemm(x.float(), w.float()))
