@@ -22,7 +22,14 @@ Phases:
      jamba-smoke's (N = 12; A rows of 24 bytes); int8 also beside
      torch._int_mm; MLA's absorbed decode attention at
      minicpm3-4b's G = 40, D = 288 and minicpm3-smoke's G = 4, D = 24, each
-     row naming decode_variant's pick, narrow or wide), the
+     row naming decode_variant's pick, narrow or wide; internvl2-1b's
+     unembed (table.T at the odd N = 151655), its q and k with biases,
+     its prompt's causal attention over 256 + 512 rows at G = 7 and its
+     decode attention; whisper-large-v3's classic MLP with biases at M = 4
+     and 1500, its cross k over 1500 frames, its encoder's bidirectional
+     attention over 1500 frames, its cross-attention in a prompt (Sq = 4
+     and 224 over 1500 keys, non-causal) and in a step (B = 4 over the
+     1500-row cross cache)), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
      also at a ragged S = 100; each row names the variant the wrapper picks
      (gemm: gemv / wgmma / wmma / fma; flash: mma / simt), and a bf16 row
@@ -99,6 +106,25 @@ Phases:
      outputs and conv and SSM states within limits set between the sound
      kernels' reading and the faults', every fault outside them; GEMM
      launches exact by variant (8 wgmma, 56 gemv).
+  3b. serve_embeds: internvl2-1b and whisper-large-v3 at full width (bf16,
+     random weights drawn on the card from seed 0), each freed before the
+     next, through LM.prefill and LM.decode_step (the port's ServeSession,
+     as the reference's, takes token prompts only): four sequences, each
+     prefilled on its own into its slot's view of one 4-slot cache, then 16
+     decode steps for all four at their own positions (EMBED_MODELS:
+     internvl2 behind 256 vision embeddings, text prompts of 16, 64, 200
+     and 512 tokens, max_len 1024; whisper over 1500 audio frames, text
+     prompts of 4, 16, 64 and 224, max_len 448; the stub frontends'
+     embeddings standard normal from the same seed). Launch counts exact
+     per kernel and variant (``expected_launches``: the vision prefix in
+     every prompt's M; whisper's encoder layers, the decoder's cross k and
+     v over the frames in a prompt and q and o in a step, one flash launch
+     for each encoder layer and two for each decoder layer a prompt, two
+     decode attention launches for each decoder layer a step); decode-step
+     and prefill ms (host clock; whisper's encoder alone beside them);
+     cuda vs ref logits in bf16 and on an f32 copy, as phase 3; the
+     profiler over the longest prompt's prefill and three decode steps;
+     peak memory; the weights' elements beside ``param_count()``.
   4. cnn: the paper's CNN layer through ``repro_torch.launch.cnn`` (3x256x256
      int8 with k 3 and 7, int32 with k 3; 3x226x226 bf16 with 64 filters):
      the fused leg (one conv_layer launch) against the unfused leg (plain
@@ -117,10 +143,12 @@ Phases:
      after the five serving runs' profiles a window lost the device
      records of its first 13 launches (on the H100, torch 2.11).
   5. result: a JSON line of the kernels (with each one's launches per
-     variant and, for the serving kernels, per model; gemm's also in the
-     Mamba block's run; decode attention's MLA rows and gemm's granite
-     unembed, rwkv6, jamba and int8 rows as ``more_cases``), then the
-     device line, last.
+     variant and, for the serving kernels, per model, phase 3b's models
+     included; gemm's also in the Mamba block's run; ``more_cases``:
+     decode attention's MLA, whisper and internvl2 rows, flash's whisper
+     and internvl2 rows, gemm's granite unembed, rwkv6, jamba, int8,
+     internvl2 and whisper rows), then the device line, last. A
+     ``phase:`` line after each phase gives its seconds.
 
 Any failure exits non-zero before the last line. Details go to
 build/chip_smoke/chip_smoke.json (or --json), the nvcc report to
@@ -260,6 +288,20 @@ def gemm_cases(torch):
     for m in (4, 16, 64):
         cases.append(("jamba-smoke x_proj", torch.bfloat16, m, 128, 12, "w"))
         cases.append(("jamba-smoke dt_proj", torch.bfloat16, m, 4, 128, "a12"))
+    # inputs other than tokens: internvl2-1b's tied unembed (table.T at the
+    # odd N = 151655: f32 output rows of 606,620 bytes) and its q and k
+    # projections with their biases (a broadcast C); whisper-large-v3's
+    # classic MLP with biases and its cross-attention's k over the 1500
+    # encoder frames of a 30 s window
+    for m in (1, 4):
+        cases.append(("internvl2 unembed", torch.bfloat16, m, 896, 151655, "t"))
+    for m in (4, 512):
+        cases.append(("internvl2 q+bias", torch.bfloat16, m, 896, 896, "bias"))
+        cases.append(("internvl2 k+bias", torch.bfloat16, m, 896, 128, "bias"))
+    for m in (4, 1500):
+        cases.append(("whisper up+bias", torch.bfloat16, m, 1280, 5120, "bias"))
+        cases.append(("whisper down+bias", torch.bfloat16, m, 5120, 1280, "bias"))
+    cases.append(("whisper cross k", torch.bfloat16, 1500, 1280, 1280, "w"))
     return cases
 
 
@@ -361,31 +403,45 @@ def row_limit_ratio(out, ref, atol: float, rtol: float) -> float:
     return float(((o - r).abs().amax(-1) / (atol + rtol * r.abs().amax(-1))).max())
 
 
+# decode attention's cases: (name, B, Hq, Hkv, D, S, softcap, window,
+# lengths, scale, faults); RING the serving phase's lengths at max_len
+# 1024; ``faults`` marks the case that also runs the planted faults
+RING = [1024, 517, 100, 1]
+MLA_SCALE = 1.0 / math.sqrt(96)  # minicpm3's qk head: 64 + 32
+DECODE_CASES = [
+    ("gemma2", 4, 16, 8, 256, 1024, 50.0, None, RING, None, False),
+    ("gemma2", 4, 16, 8, 256, 1024, 50.0, 4096, RING, None, False),
+    ("gemma2", 4, 16, 8, 256, 1024, 50.0, 300, RING, None, False),
+    ("stablelm", 4, 32, 32, 80, 1024, None, None, RING, None, False),
+    ("qwen2.5", 4, 40, 8, 128, 1024, None, None, RING, None, False),
+    # a long cache, every row full: 268 MB of K and V in bf16
+    ("qwen2.5", 8, 40, 8, 128, 8192, None, None, [8192] * 8, None, True),
+    # granite-moe-1b: 16 query heads on 8 KV heads of 64
+    ("granite", 4, 16, 8, 64, 1024, None, None, RING, None, False),
+    # MLA's absorbed decode: one latent KV head for all query
+    # heads, D = kv_lora_rank + rope (minicpm3-4b 256 + 32,
+    # minicpm3-smoke 16 + 8), at the model's scale
+    ("minicpm3 MLA", 4, 40, 1, 288, 1024, None, None, RING, MLA_SCALE, False),
+    ("minicpm3-smoke MLA", 4, 4, 1, 24, 1024, None, None, RING,
+     1.0 / math.sqrt(24), False),
+    # whisper-large-v3's cross-attention in a decode step: the
+    # cross cache of a 30 s window's 1500 frames, every row full
+    ("whisper cross", 4, 20, 20, 64, 1500, None, None, [1500] * 4, None, False),
+    # internvl2-1b: 14 query heads on 2 KV heads (G = 7), the
+    # 256-row vision prefix in front of every sequence's text
+    ("internvl2", 4, 14, 2, 64, 1024, None, None, [784, 472, 336, 288],
+     None, False),
+]
+
+
 def run_decode(torch, timer, gen, rows):
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.decode_attention.kernel import decode_variant
-    ring = [1024, 517, 100, 1]       # the serving phase's lengths at max_len 1024
-    mla_scale = 1.0 / math.sqrt(96)  # minicpm3's qk head: 64 + 32
-    cases = [("gemma2", 4, 16, 8, 256, 1024, 50.0, None, ring, None),
-             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 4096, ring, None),
-             ("gemma2", 4, 16, 8, 256, 1024, 50.0, 300, ring, None),
-             ("stablelm", 4, 32, 32, 80, 1024, None, None, ring, None),
-             ("qwen2.5", 4, 40, 8, 128, 1024, None, None, ring, None),
-             # a long cache, every row full: 268 MB of K and V in bf16
-             ("qwen2.5", 8, 40, 8, 128, 8192, None, None, [8192] * 8, None),
-             # granite-moe-1b: 16 query heads on 8 KV heads of 64
-             ("granite", 4, 16, 8, 64, 1024, None, None, ring, None),
-             # MLA's absorbed decode: one latent KV head for all query
-             # heads, D = kv_lora_rank + rope (minicpm3-4b 256 + 32,
-             # minicpm3-smoke 16 + 8), at the model's scale
-             ("minicpm3 MLA", 4, 40, 1, 288, 1024, None, None, ring, mla_scale),
-             ("minicpm3-smoke MLA", 4, 4, 1, 24, 1024, None, None, ring,
-              1.0 / math.sqrt(24))]
     for dt in (torch.bfloat16, torch.float32):
-        for name, b, hq, hkv, d, s, cap, win, lengths, scale in cases:
+        for name, b, hq, hkv, d, s, cap, win, lengths, scale, faulty in DECODE_CASES:
             if s > 1024 and dt != torch.bfloat16:
-                continue
+                continue            # the long caches run in bf16 only
             g = hq // hkv
             q = torch.randn((b, hkv, g, d), device="cuda", generator=gen).to(dt)
             k = torch.randn((b, hkv, s, d), device="cuda", generator=gen).to(dt)
@@ -403,7 +459,7 @@ def run_decode(torch, timer, gen, rows):
             ratio = row_limit_ratio(out, ref, atol, rtol)
             ok = ratio <= 1.0 and err <= abs_cap and same
             faults = None
-            if s > 1024:
+            if faulty:
                 # planted faults: what a kernel that dropped the last quarter
                 # of the keys (the last of the 4 splits that decode_splits
                 # gives this cache on 132 SMs), or scaled the scores 10% too
@@ -439,19 +495,33 @@ def run_decode(torch, timer, gen, rows):
                              bound_by=by, bytes=nbytes))
 
 
+# flash attention's cases: (name, B, Hq, Hkv, D, Sq, Skv, causal, window,
+# softcap)
+FLASH_CASES = [
+    ("gemma2", 1, 16, 8, 256, 512, 512, True, None, 50.0),
+    ("gemma2", 1, 16, 8, 256, 4608, 4608, True, 4096, 50.0),
+    ("stablelm", 1, 32, 32, 80, 512, 512, True, None, None),
+    ("gemma2 Sq!=Skv", 1, 16, 8, 256, 256, 512, True, None, None),
+    ("qwen2.5", 1, 40, 8, 128, 512, 512, True, None, None),
+    ("stablelm", 1, 32, 32, 80, 100, 100, True, None, None),
+    # whisper-large-v3's encoder over a 30 s window (bidirectional)
+    # and its cross-attention in a prompt (the shortest and the
+    # longest text prompt over the 1500 frames: non-causal, Sq !=
+    # Skv); internvl2-1b's prompt: 256 vision rows + 512 text rows
+    ("whisper encoder", 1, 20, 20, 64, 1500, 1500, False, None, None),
+    ("whisper cross", 1, 20, 20, 64, 4, 1500, False, None, None),
+    ("whisper cross", 1, 20, 20, 64, 224, 1500, False, None, None),
+    ("internvl2 prefix", 1, 14, 2, 64, 768, 768, True, None, None),
+]
+
+
 def run_flash(torch, timer, gen, rows):
     from repro_torch.kernels.flash_attention.kernel import (_flash,
                                                             flash_attention_cuda,
                                                             flash_variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
-    cases = [("gemma2", 1, 16, 8, 256, 512, 512, True, None, 50.0),
-             ("gemma2", 1, 16, 8, 256, 4608, 4608, True, 4096, 50.0),
-             ("stablelm", 1, 32, 32, 80, 512, 512, True, None, None),
-             ("gemma2 Sq!=Skv", 1, 16, 8, 256, 256, 512, True, None, None),
-             ("qwen2.5", 1, 40, 8, 128, 512, 512, True, None, None),
-             ("stablelm", 1, 32, 32, 80, 100, 100, True, None, None)]
     for dt in (torch.bfloat16, torch.float32):
-        for name, b, hq, hkv, d, sq, skv, causal, win, cap in cases:
+        for name, b, hq, hkv, d, sq, skv, causal, win, cap in FLASH_CASES:
             # transposed head views, as the model hands them over
             q = torch.randn((b, sq, hq, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
             k = torch.randn((b, skv, hkv, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
@@ -818,19 +888,28 @@ SERVE_MODELS = (
 ATTN_KINDS = ("attn", "attn_local", "mla")
 
 
-def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1) -> list:
+def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
+                cross_rows: int | None = None) -> list:
     """(A, B) of each engine GEMM of one layer at M = m rows, as meta
     tensors in the layouts the model hands the engine (A contiguous unless
-    named; B a weight of a stacked parameter): attention's q, k, v, o;
+    named; B a weight of a stacked parameter): attention's q, k, v, o
+    (biases, internvl2's, ride along as C and change no pick); with
+    ``cross_rows`` (an encoder-decoder's decoder layer) the
+    cross-attention's k and v over the encoder's ``cross_rows`` rows and
+    its q and o in a prompt, q and o in a step (its K and V are read from
+    the cross cache);
     MLA's q_down, q_up, kv_down (twice in a prompt: mla_prefill projects
     for the cache and again in the forward, as the reference does) and o;
     Mamba's in_proj, x_proj, dt_proj (A the first dt_rank columns of
     x_proj's output, in place) and out_proj, and in a prompt in_proj again
     over the last d_conv - 1 tokens of each of the ``batch`` sequences
     (the conv state); RWKV's r, k, v, g, the decay LoRA's wA and wB, o and
-    the channel mix's cm_k, cm_v, cm_r; then a dense FFN's gate, up, down.
-    An MoE FFN runs no engine GEMM (the f32 router and the expert products
+    the channel mix's cm_k, cm_v, cm_r; then a dense FFN's gate, up, down
+    (whisper's classic MLP: up, down). An encoder's layer is an ``attn``
+    layer at M = its frames. An MoE FFN runs no engine GEMM (the f32 router and the expert products
     are PyTorch calls, as the reference's are plain jnp)."""
+    from repro_torch.models.mlp import classic as classic_mlp
+
     def meta(*shape):
         return torch.empty(shape, dtype=torch.bfloat16, device="meta")
 
@@ -846,6 +925,10 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1) -> list:
         q, kv = (h * cfg.resolved_head_dim for h in (cfg.n_heads, cfg.n_kv_heads))
         out += [(act(d), w(d, q)), (act(d), w(d, kv)), (act(d), w(d, kv)),
                 (act(q), w(q, d))]
+        if cross_rows is not None:
+            if prompt:
+                out += [(act(d, cross_rows), w(d, kv))] * 2
+            out += [(act(d), w(d, q)), (act(q), w(q, d))]
     elif spec.kind == "mla":
         ml = cfg.mla
         qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
@@ -867,7 +950,9 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1) -> list:
         return [(act(d), w(d, d))] * 4 + [
             (act(d), w(d, lora)), (act(lora), w(lora, d)), (act(d), w(d, d)),
             (act(d), w(d, ff)), (act(ff), w(ff, d)), (act(d), w(d, d))]
-    if not spec.moe:
+    if classic_mlp(cfg):
+        out += [(act(d), w(d, ff)), (act(ff), w(ff, d))]
+    elif not spec.moe:
         out += [(act(d), w(d, ff)), (act(d), w(d, ff)), (act(ff), w(ff, d))]
     return out
 
@@ -898,34 +983,46 @@ def attention_variants(torch, cfg) -> tuple[str, str]:
 
 
 def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
-                      ) -> tuple[dict, dict]:
+                      enc_len: int = 0) -> tuple[dict, dict]:
     """The launch counts of a serving run, and per variant: per prompt
-    (batch 1, M = its length) and per decode step (M = the slots) each
-    layer's engine GEMMs (``layer_gemms``) on ``gemm_variant``'s pick, and
-    the unembed of one row or of the slots (a GEMV); one flash launch per
-    attention layer and prompt, one decode attention launch per attention
-    layer and step, on their variants' picks."""
+    (batch 1, M = its length, behind the vision prefix where there is
+    one) and per decode step (M = the slots) each layer's engine GEMMs
+    (``layer_gemms``) on ``gemm_variant``'s pick, and the unembed of one
+    row or of the slots (a GEMV); an encoder-decoder's prompt also runs
+    the encoder's layers at M = ``enc_len`` and each decoder layer's
+    cross-attention over them. Flash attention: one launch per attention
+    layer and prompt (an encoder-decoder's: the encoder's, the decoder's
+    self- and cross-attention); decode attention: one per attention layer
+    and step (and one more over the cross cache); each on its variant's
+    pick."""
     from repro_torch.kernels.gemm.kernel import gemm_variant
+    from repro_torch.models.transformer import ENC_SPEC
     gemm = dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0)
     table_t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.bfloat16,
                           device="meta").T
+    cross = enc_len if cfg.enc_dec else None
 
     def add(m, prompt):
         for spec in cfg.pattern:
-            for a, b in layer_gemms(torch, cfg, spec, m, prompt):
+            for a, b in layer_gemms(torch, cfg, spec, m, prompt, cross_rows=cross):
                 gemm[gemm_variant(a, b)] += cfg.n_periods
+        if prompt and cfg.enc_dec:
+            for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True):
+                gemm[gemm_variant(a, b)] += cfg.n_enc_layers
         rows = 1 if prompt else m
         gemm[gemm_variant(table_t.new_empty((rows, cfg.d_model)), table_t)] += 1
 
     for s in prompt_lens:
-        add(s, True)
+        add(cfg.vision_prefix + s, True)
     for _ in range(n_steps):
         add(slots, False)
     n_attn = cfg.n_periods * sum(spec.kind in ATTN_KINDS for spec in cfg.pattern)
+    n_cross = cfg.n_layers if cfg.enc_dec else 0
     fv, dv = attention_variants(torch, cfg)
     counts = {"gemm_cuda": sum(gemm.values()),
-              "flash_attention_cuda": n_attn * len(prompt_lens),
-              "decode_attention_cuda": n_attn * n_steps}
+              "flash_attention_cuda": (n_attn + n_cross + cfg.n_enc_layers)
+              * len(prompt_lens),
+              "decode_attention_cuda": (n_attn + n_cross) * n_steps}
     variants = {"gemm_cuda": gemm,
                 "flash_attention_cuda": {"simt": 0, "mma": 0},
                 "decode_attention_cuda": {"narrow": 0, "wide": 0}}
@@ -1028,22 +1125,26 @@ def fault_engine(torch, fault: str, backend: str = "cuda"):
     return FaultEngine(backend)
 
 
-def engine_logits(torch, cfg, params, prompt, engines: dict) -> dict:
-    """Each engine's prefill logits of one prompt and its first decode
+def engine_logits(torch, cfg, params, prompt, engines: dict, extra=None) -> dict:
+    """Each engine's prefill logits of one prompt (with ``extra``, the
+    stub frontends' embeddings of a batch of one) and its first decode
     step's (on the token the first engine's prefill picks, fed to every
     engine), in f32, on the card."""
     from repro_torch.models.transformer import LM
     dev = torch.device("cuda")
-    tokens = torch.as_tensor(prompt[None], device=dev)
-    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=dev)
+    extra = extra or {}
+    batch = {"tokens": torch.as_tensor(prompt[None], device=dev), **extra}
+    enc = extra["audio_embeds"].shape[1] if "audio_embeds" in extra else 0
+    at = cfg.vision_prefix + len(prompt)
+    pos = torch.tensor([at], dtype=torch.int32, device=dev)
     logits, nxt = {}, None
     for name, engine in engines.items():
         m = LM(cfg, engine, device=dev)
-        cache = m.init_cache(1, len(prompt) + 8)
-        lg, cache = m.prefill(params, {"tokens": tokens}, cache)
+        cache = m.init_cache(1, at + 8, enc_len=enc)
+        lg, cache = m.prefill(params, batch, cache)
         if nxt is None:
             nxt = torch.argmax(lg, -1).to(torch.int32)
-        lg2, _ = m.decode_step(params, nxt, pos, cache)
+        lg2, _ = m.decode_step(params, nxt, pos, cache, enc_len=enc)
         logits[name] = (lg.float(), lg2.float())
         del cache
     return logits
@@ -1073,7 +1174,8 @@ def within_limits(c: dict) -> bool:
     return c["max_abs"] <= c["max_limit"] and c["mean_abs"] <= c["mean_limit"]
 
 
-def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref") -> dict:
+def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref",
+                  extra=None) -> dict:
     """One prompt's prefill logits and its first decode step's through
     ArcaneEngine("cuda") against the ``reference`` engine on the same
     weights, on the card: ``ref`` (ArcaneEngine("ref"), every GEMM the
@@ -1089,7 +1191,7 @@ def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref") ->
         engines.update({f"fault {f}": fault_engine(torch, f) for f in GEMM_FAULTS})
     elif reference != "ref":
         raise ValueError(f"unknown reference engine {reference!r}")
-    logits = engine_logits(torch, cfg, params, prompt, engines)
+    logits = engine_logits(torch, cfg, params, prompt, engines, extra)
     cmp = {}
     for i, what in enumerate(("prefill", "decode")):
         base = logits[reference][i]
@@ -1110,6 +1212,38 @@ def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref") ->
     return cmp
 
 
+def counted_run(torch, cfg, fn, expect):
+    """``fn()`` with the serving kernels' launch and variant counts zeroed
+    just before and read just after, held exactly to ``expect(fn())``:
+    (counts, variants) as ``expected_launches`` gives them for what ran,
+    and a note for the printed line. The run fails on any other count or
+    variant, or when a kernel of the model's path (the GEMM; flash and
+    decode attention where it has attention layers) was launched no time.
+    Returns fn's result, the counts and the variants."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    wrappers = (gemm_cuda, flash_attention_cuda, decode_attention_cuda)
+    for w in wrappers:
+        w.launches = 0
+        w.variants = dict.fromkeys(w.variants, 0)
+    out = fn()
+    counts = {w.__name__: w.launches for w in wrappers}
+    variants = {w.__name__: dict(w.variants) for w in wrappers}
+    want, want_var, note = expect(out)
+    name = cfg.name
+    print(f"serve: {name} launches {counts} expected {want} {note}", flush=True)
+    print(f"serve: {name} variants {variants} expected {want_var}", flush=True)
+    path = [w.__name__ for w in wrappers]
+    if not (cfg.enc_dec or any(spec.kind in ATTN_KINDS for spec in cfg.pattern)):
+        path = ["gemm_cuda"]
+    if counts != want or min(counts[k] for k in path) <= 0:
+        fail(f"serve: {name}: the main path did not run through every kernel as counted")
+    if variants != want_var:
+        fail(f"serve: {name}: the main path did not run through the variants as counted")
+    return out, counts, variants
+
+
 def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
               max_len: int = 1024, prompt_lens=None, reference: str = "ref") -> dict:
     """One model served through the port's launcher (full width unless
@@ -1118,11 +1252,8 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     from seed 0; the launch counts zeroed just before and read just after.
     Then one request through ArcaneEngine("cuda") and ("ref") on the same
     weights, and the profiler over a prefill and a few decode steps."""
-    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
-    from repro_torch.kernels.gemm.kernel import gemm_cuda
     from repro_torch.launch import serve as launcher
-    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.models.transformer import tree_leaves
 
     argv = ["--arch", arch, "--requests", "6", "--max-new", "16",
             "--slots", "4", "--max-len", str(max_len), "--seed", "0",
@@ -1138,37 +1269,31 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     n_params = sum(t.numel() for t in tree_leaves(params))
     torch.cuda.reset_peak_memory_stats()
 
-    wrappers = (gemm_cuda, flash_attention_cuda, decode_attention_cuda)
-    for w in wrappers:
-        w.launches = 0
-        w.variants = dict.fromkeys(w.variants, 0)
-    out = launcher.serve(model, params, args)
-    counts = {w.__name__: w.launches for w in wrappers}
-    variants = {w.__name__: dict(w.variants) for w in wrappers}
+    name = cfg.name
+    print(f"serve: {name} layers={cfg.n_layers} d={cfg.d_model} vocab={cfg.vocab} "
+          f"params={n_params} init_s={init_s:.2f}", flush=True)
+    per_step = expected_launches(torch, cfg, [], 1, args.slots)[0]["gemm_cuda"]
+    per_prompt = expected_launches(torch, cfg, [16], 0, args.slots)[0]["gemm_cuda"]
 
+    def expect(out):
+        done = out["session"].finished
+        if len(done) != args.requests or \
+                any(len(r.out_tokens) != args.max_new for r in done):
+            fail(f"serve: {name}: {len(done)}/{args.requests} requests finished, "
+                 f"tokens {[len(r.out_tokens) for r in done]}")
+        n_steps = out["session"].stats["decode_steps"]
+        return (*expected_launches(torch, cfg, [len(r.prompt) for r in done],
+                                   n_steps, args.slots),
+                f"(prompts={len(done)} decode_steps={n_steps}; gemm a decode step "
+                f"{per_step}, a prompt {per_prompt}, the unembed included)")
+
+    out, counts, variants = counted_run(
+        torch, cfg, lambda: launcher.serve(model, params, args), expect)
     sess = out["session"]
     st = sess.stats
     peak = torch.cuda.max_memory_allocated()
     done = sess.finished
-    name = cfg.name
-    print(f"serve: {name} layers={cfg.n_layers} d={cfg.d_model} vocab={cfg.vocab} "
-          f"params={n_params} init_s={init_s:.2f}", flush=True)
-    if len(done) != args.requests or any(len(r.out_tokens) != args.max_new for r in done):
-        fail(f"serve: {name}: {len(done)}/{args.requests} requests finished, tokens "
-             f"{[len(r.out_tokens) for r in done]}")
-    n_prompts, n_steps = len(done), st["decode_steps"]
-    lens = [len(r.prompt) for r in done]
-    expect, expect_var = expected_launches(torch, cfg, lens, n_steps, args.slots)
-    per_step = expected_launches(torch, cfg, [], 1, args.slots)[0]["gemm_cuda"]
-    per_prompt = expected_launches(torch, cfg, [16], 0, args.slots)[0]["gemm_cuda"]
-    print(f"serve: {name} launches {counts} expected {expect} "
-          f"(prompts={n_prompts} decode_steps={n_steps}; gemm a decode step "
-          f"{per_step}, a prompt {per_prompt}, the unembed included)", flush=True)
-    if counts != expect or counts["gemm_cuda"] <= 0:
-        fail(f"serve: {name}: the main path did not run through every kernel as counted")
-    print(f"serve: {name} variants {variants} expected {expect_var}", flush=True)
-    if variants != expect_var:
-        fail(f"serve: {name}: the main path did not run through the variants as counted")
+    n_steps = st["decode_steps"]
     metrics = {
         "requests": len(done), "tokens": out["tokens"], "seconds": out["seconds"],
         "tokens_per_s": out["tokens"] / out["seconds"],
@@ -1185,19 +1310,37 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
         f"{k}={v}" for k, v in metrics.items()
         if k not in ("launches", "variants", "prompt_lens")), flush=True)
 
-    # one request through ArcaneEngine("cuda") and its reference engine on
-    # the same weights: the served bf16 ones, and for uncapped logits an
-    # f32 copy too (against ref)
     req = min(done, key=lambda r: r.uid)
-    cmp = engines_agree(torch, cfg, params, req.prompt, logits_limits(cfg), reference)
+    metrics["greedy_agreement"] = check_logits(torch, summary, cfg, params,
+                                               req.prompt, reference)
+    if reference != "ref":
+        metrics["gemm_on_activations"] = gemm_on_activations(
+            torch, model, params, req.prompt, name)
+    metrics["prefill_profile"] = profile_prefill(torch, model, params, name)
+    if cfg.rwkv is not None:
+        metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
+    metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
+    return metrics
+
+
+def check_logits(torch, summary: dict, cfg, params, prompt, reference: str = "ref",
+                 extra=None) -> dict:
+    """One request through ArcaneEngine("cuda") and its reference engine on
+    the same weights: the served bf16 ones, and for uncapped logits an f32
+    copy too (against ref), each within its limits (the f32 copy's argmax
+    equal too) or the run fails. Returns whether each argmax agrees."""
+    name = cfg.name
+    cmp = engines_agree(torch, cfg, params, prompt, logits_limits(cfg), reference,
+                        extra)
     summary.setdefault("serve_vs_ref", {})[name] = cmp
     print(f"serve: {name} cuda vs {reference} logits {json.dumps(cmp)}", flush=True)
     if cfg.final_softcap is None:
         import dataclasses
+        from repro_torch.models.transformer import tree_map
         cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
         params32 = tree_map(lambda x: x.float(), params)
-        cmp32 = engines_agree(torch, cfg32, params32, req.prompt,
-                              (None, None, SERVE_F32_RTOL, SERVE_F32_RTOL))
+        cmp32 = engines_agree(torch, cfg32, params32, prompt,
+                              (None, None, SERVE_F32_RTOL, SERVE_F32_RTOL), extra=extra)
         del params32
         summary["serve_vs_ref"][name + " f32"] = cmp32
         print(f"serve: {name} cuda vs ref logits, f32 copy of the weights "
@@ -1209,15 +1352,7 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
                  f"disagree: {c}")
         if what.endswith("f32") and not c["argmax_equal"]:
             fail(f"serve: {name}: {what} greedy tokens of the two engines differ: {c}")
-    metrics["greedy_agreement"] = {k: v["argmax_equal"] for k, v in cmp.items()}
-    if reference != "ref":
-        metrics["gemm_on_activations"] = gemm_on_activations(
-            torch, model, params, req.prompt, name)
-    metrics["prefill_profile"] = profile_prefill(torch, model, params, name)
-    if cfg.rwkv is not None:
-        metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
-    metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
-    return metrics
+    return {k: v["argmax_equal"] for k, v in cmp.items()}
 
 
 def wkv_share(torch, model, params, name: str, prompt_len: int = 512) -> dict:
@@ -1347,15 +1482,15 @@ def gemm_on_activations(torch, model, params, prompt, name: str) -> dict:
     return out
 
 
-def run_serving(torch, summary: dict) -> dict:
-    """Every model of SERVE_MODELS in turn, each freed before the next;
-    the kernels' launches summed over the runs."""
+def run_serving(torch, summary: dict, specs, runner) -> dict:
+    """Every model of ``specs`` (SERVE_MODELS through ``run_serve``,
+    EMBED_MODELS through ``run_embed_serve``) in turn, each freed before
+    the next; the kernels' launches summed over the runs."""
     import gc
     out = {"models": {}, "launches": {}, "variants": {}}
-    for spec in SERVE_MODELS:
+    for spec in specs:
         arch = spec["arch"] + (" --smoke" if spec.get("smoke") else "")
-        m = run_serve(torch, summary, **spec)
-        out["models"][arch] = m
+        m = out["models"][arch] = runner(torch, summary, **spec)
         for w, n in m["launches"].items():
             out["launches"][w] = out["launches"].get(w, 0) + n
         for w, vs in m["variants"].items():
@@ -1478,6 +1613,155 @@ def run_mamba_block(torch) -> dict:
     return out
 
 
+# Phase 3b: the served models whose prompts are not tokens alone, at full
+# width (bf16, random weights drawn on the card from seed 0), through
+# LM.prefill and LM.decode_step (the port's ServeSession, as the
+# reference's, takes token prompts only). Four sequences, one in each slot
+# of one cache: internvl2-1b behind 256 vision embeddings (one 448 x 448
+# image after InternVL2's pixel shuffle), a VLM answering a question about
+# an image; whisper-large-v3 over the 1500 encoder frames of a 30 s audio
+# window, with text prompts from the start-of-transcript sequence up to
+# whisper's longest previous-text prompt (224), max_len its text context.
+EMBED_MODELS = (
+    dict(arch="internvl2-1b", text_lens=(16, 64, 200, 512), max_len=1024),
+    dict(arch="whisper-large-v3", text_lens=(4, 16, 64, 224), max_len=448,
+         enc_len=1500),
+)
+EMBED_STEPS = 16
+
+
+def embed_inputs(torch, cfg, gen, enc_len: int = 0) -> dict:
+    """The stub frontends' embeddings of one sequence, standard normal in
+    the compute dtype (as tests/test_models.py: make_batch makes them),
+    drawn from ``gen`` on its device: the vision prefix's rows, or the
+    encoder's ``enc_len`` audio frames."""
+    shapes = {}
+    if cfg.vision_prefix:
+        shapes["vision_embeds"] = (1, cfg.vision_prefix, cfg.d_model)
+    if cfg.enc_dec:
+        shapes["audio_embeds"] = (1, enc_len, cfg.d_model)
+    return {k: torch.randn(v, generator=gen, device=gen.device).to(cfg.cdtype)
+            for k, v in shapes.items()}
+
+
+def serve_embeds(torch, model, params, prompts, extras, steps: int, max_len: int,
+                 enc_len: int = 0) -> dict:
+    """Each prompt (tokens with its ``extras`` embeddings) prefilled on its
+    own into its slot's view of one batched cache, zeroed first (as the
+    port's ServeSession admits a request), then ``steps`` greedy decode
+    steps for every slot at its own position (past the vision prefix).
+    Each prefill and step is timed on the host clock to the copy of its
+    sampled tokens to the host, which waits for the device. Returns the
+    times, the cache and the slots' last tokens and positions."""
+    cfg, dev = model.cfg, model.device
+    b = len(prompts)
+    cache = model.init_cache(b, max_len, enc_len=enc_len)
+    last = np.zeros(b, np.int32)
+    pos = np.zeros(b, np.int32)
+    prefill_ms, step_ms = [], []
+    for slot, (prompt, extra) in enumerate(zip(prompts, extras)):
+        t0 = time.perf_counter()
+        view = tuple({k: v[:, slot:slot + 1] for k, v in c.items()} for c in cache)
+        for c in view:
+            for v in c.values():
+                v.zero_()
+        batch = {"tokens": torch.as_tensor(prompt[None], device=dev), **extra}
+        logits, _ = model.prefill(params, batch, view)
+        last[slot] = int(torch.argmax(logits, -1)[0])
+        prefill_ms.append((time.perf_counter() - t0) * 1e3)
+        pos[slot] = cfg.vision_prefix + len(prompt)
+
+    def step():
+        nonlocal last
+        logits, _ = model.decode_step(params, torch.as_tensor(last, device=dev),
+                                      torch.as_tensor(pos, device=dev), cache,
+                                      enc_len=enc_len)
+        last = torch.argmax(logits, -1).to(torch.int32).cpu().numpy()
+        pos[:] += 1
+
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        step()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    return {"prefill_ms": prefill_ms, "decode_step_ms": step_ms, "cache": cache,
+            "step": step}
+
+
+def run_embed_serve(torch, summary: dict, arch: str, text_lens, max_len: int,
+                    enc_len: int = 0) -> dict:
+    """One model of EMBED_MODELS at full width: ``serve_embeds`` with the
+    launch counts zeroed just before and read just after, held exactly to
+    ``expected_launches``; then one request through ArcaneEngine("cuda")
+    and ("ref") (``check_logits``: bf16 and an f32 copy of the weights),
+    the encoder's host clock beside a prefill's (whisper), the profiler
+    over the longest prompt's prefill and over three decode steps, peak
+    memory, and the weights' elements beside the reference formula's
+    ``param_count``."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM, tree_leaves
+    cfg = get_config(arch)
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    model = LM(cfg, ArcaneEngine("cuda"), device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = model.init_params(gen)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in text_lens]
+    extras = [embed_inputs(torch, cfg, gen, enc_len) for _ in prompts]
+    print(f"serve: {cfg.name} layers={cfg.n_layers} enc_layers={cfg.n_enc_layers} "
+          f"d={cfg.d_model} vocab={cfg.vocab} params={n_params} "
+          f"param_count()={cfg.param_count()} init_s={init_s:.2f}", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    one_step = expected_launches(torch, cfg, [], 1, len(prompts), enc_len)
+    one_prompt = {n: expected_launches(torch, cfg, [n], 0, 1, enc_len)[0]
+                  for n in text_lens}
+    run, counts, variants = counted_run(
+        torch, cfg,
+        lambda: serve_embeds(torch, model, params, prompts, extras, EMBED_STEPS,
+                             max_len, enc_len),
+        lambda _: (*expected_launches(torch, cfg, text_lens, EMBED_STEPS,
+                                      len(prompts), enc_len),
+                   f"(prompts={len(prompts)} decode_steps={EMBED_STEPS}; a decode "
+                   f"step {one_step[0]} {one_step[1]}; a prompt by text length "
+                   f"{one_prompt})"))
+    peak = torch.cuda.max_memory_allocated()
+    steps_ms = run["decode_step_ms"]
+    metrics = {
+        "prompt_lens": list(text_lens), "vision_prefix": cfg.vision_prefix,
+        "enc_len": enc_len, "decode_steps": EMBED_STEPS,
+        "decode_step_ms": statistics.median(steps_ms),
+        "decode_step_ms_all": steps_ms,
+        "tokens_per_s": len(prompts) * 1e3 / statistics.median(steps_ms),
+        "prefill_ms": run["prefill_ms"],
+        "max_memory_allocated": peak, "params": n_params,
+        "param_count_formula": cfg.param_count(), "init_s": init_s,
+        "launches": counts, "variants": variants,
+        "launches_per_step": one_step[0], "launches_per_prompt": one_prompt,
+    }
+    if cfg.enc_dec:
+        # the encoder alone, from a synchronize before it to one after it,
+        # beside the whole prefill of the same sequence
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model._encoder(params, extras[-1])
+        torch.cuda.synchronize()
+        metrics["encoder_ms"] = (time.perf_counter() - t0) * 1e3
+        metrics["encoder_share_of_prefill"] = metrics["encoder_ms"] / run["prefill_ms"][-1]
+    print(f"serve: {cfg.name} " + " ".join(
+        f"{k}={v}" for k, v in metrics.items()
+        if k not in ("launches", "variants", "decode_step_ms_all")), flush=True)
+    metrics["greedy_agreement"] = check_logits(torch, summary, cfg, params, prompts[0],
+                                               "ref", extras[0])
+    metrics["prefill_profile"] = profile_prefill(torch, model, params, cfg.name,
+                                                 max(text_lens), extras[-1])
+    metrics["decode_profile"] = profile_steps(torch, run["step"], 3, cfg.name)
+    return metrics
+
+
 def run_decode_host(torch, arch: str, steps: int = 30, warm: int = 3) -> dict:
     """The host clock of the serving path's batched decode step: ``arch``
     at full width (random weights from seed 0) through the port's launcher,
@@ -1513,23 +1797,28 @@ def run_decode_host(torch, arch: str, steps: int = 30, warm: int = 3) -> dict:
     return out
 
 
-def profile_prefill(torch, model, params, name: str, prompt_len: int = 512) -> dict:
+def profile_prefill(torch, model, params, name: str, prompt_len: int = 512,
+                    extra=None) -> dict:
     """torch.profiler over one prefill of a 512-token prompt at batch 1, as
-    the session admits a request (in a ``profile_window``): the card's busy
-    time, its idle share of the host clock, and device time by kernel: the
-    wgmma GEMM, the other GEMM variants (the unembed's GEMV; jamba-smoke's
-    wmma and GEMV), the mma flash attention, and the rest. Fails unless the
-    profiler saw a device event for every launch of the serving kernels."""
+    the session admits a request (in a ``profile_window``; with ``extra``,
+    the stub frontends' embeddings of one sequence, behind the vision
+    prefix or with the encoder): the card's busy time, its idle share of
+    the host clock, and device time by kernel: the wgmma GEMM, the other
+    GEMM variants (the unembed's GEMV; jamba-smoke's wmma and GEMV), the
+    mma flash attention, and the rest. Fails unless the profiler saw a
+    device event for every launch of the serving kernels."""
     rng = np.random.default_rng(2)
-    tokens = torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, prompt_len)),
-                             device=model.device)
-    cache = model.init_cache(1, prompt_len + 8)
-    model.prefill(params, {"tokens": tokens}, cache)          # warm
+    extra = extra or {}
+    batch = {"tokens": torch.as_tensor(rng.integers(0, model.cfg.vocab, (1, prompt_len)),
+                                       device=model.device), **extra}
+    enc = extra["audio_embeds"].shape[1] if "audio_embeds" in extra else 0
+    cache = model.init_cache(1, model.cfg.vision_prefix + prompt_len + 8, enc_len=enc)
+    model.prefill(params, batch, cache)          # warm
     torch.cuda.synchronize()
     before = serve_launches()
     with profile_window(torch) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, {"tokens": tokens}, cache)
+        model.prefill(params, batch, cache)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     del cache
@@ -1560,16 +1849,23 @@ def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3) -> dict
         sess.submit(rng.integers(0, sess.model.cfg.vocab, max_len // 4),
                     max_new_tokens=steps + 2)
     sess.step()                       # admits (prefills) every request
+    out = profile_steps(torch, sess.step, steps, name)
+    sess.run_to_completion()
+    return out
+
+
+def profile_steps(torch, step, steps: int, name: str) -> dict:
+    """torch.profiler over ``steps`` calls of ``step``, one batched decode
+    step each (in a ``profile_window``); what ``profile_decode`` reads."""
     torch.cuda.synchronize()
     before = serve_launches()
     with profile_window(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            sess.step()
+            step()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     seen = serve_events_seen(prof, before, f"{name} decode")
-    sess.run_to_completion()
     out = busy_share(prof, wall_ms, steps, "step", exclude=("spin_kernel",))
     groups = {"gemv": 0.0, "decode_attention": 0.0, "rest": 0.0}
     for kname, ms in device_ms(prof, exclude=("spin_kernel",)).items():
@@ -1894,8 +2190,24 @@ KERNELS = {
 
 
 # the rows of a kernel that the kernels line also carries (bf16)
-MORE_CASES = {"decode_attention": ("minicpm3",),
-              "gemm": ("granite unembed", "rwkv6", "jamba", "int8")}
+MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2"),
+              "flash_attention": ("whisper", "internvl2"),
+              "gemm": ("granite unembed", "rwkv6", "jamba", "int8", "internvl2",
+                       "whisper")}
+
+
+class PhaseClock:
+    """The host seconds of each phase: ``lap`` prints the time since the
+    last lap (or since the clock was made) and keeps it in the summary."""
+
+    def __init__(self, summary: dict):
+        self.summary, self.t = summary, time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        secs, self.t = now - self.t, now
+        self.summary.setdefault("phase_s", {})[name] = secs
+        print(f"phase: {name} {secs:.1f}s", flush=True)
 
 
 def main(argv=None) -> None:
@@ -1926,6 +2238,8 @@ def main(argv=None) -> None:
     out_json = Path(opts.json) if opts.json else out_dir / "chip_smoke.json"
 
     # ---- phase 1: device
+    summary: dict = {}
+    clock = PhaseClock(summary)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -1941,9 +2255,9 @@ def main(argv=None) -> None:
           f"(nvcc, sm_90a, parallel)", flush=True)
     (out_dir / "chip_smoke_build.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
-    summary = {"nvidia_smi": smi_line, "device": torch.cuda.get_device_name(0),
-               "torch": torch.__version__, "cuda": torch.version.cuda,
-               "build_s": build_s}
+    summary.update(nvidia_smi=smi_line, device=torch.cuda.get_device_name(0),
+                   torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
+    clock.lap("device")
 
     if opts.decode_host:
         summary["decode_host"] = run_decode_host(torch, opts.decode_host)
@@ -2008,13 +2322,22 @@ def main(argv=None) -> None:
         return
 
     # ---- phase 4 (first: its profiles must see every launch): the CNN layer path
+    clock.lap("kernels")
     summary["cnn"] = run_cnn(torch)
+    clock.lap("cnn")
     out_json.write_text(json.dumps(summary, indent=1))
 
     # ---- phase 3: serving, and the full-width Mamba block
-    summary["serve"] = run_serving(torch, summary)
+    summary["serve"] = run_serving(torch, summary, SERVE_MODELS, run_serve)
     out_json.write_text(json.dumps(summary, indent=1))
     summary["mamba_block"] = run_mamba_block(torch)
+    clock.lap("serve")
+    out_json.write_text(json.dumps(summary, indent=1))
+
+    # ---- phase 3b: serving the models whose prompts carry embeddings
+    summary["serve_embeds"] = run_serving(torch, summary, EMBED_MODELS,
+                                          run_embed_serve)
+    clock.lap("serve_embeds")
     out_json.write_text(json.dumps(summary, indent=1))
 
     if failures:
@@ -2026,18 +2349,22 @@ def main(argv=None) -> None:
         mine = [r for r in rows if r["kernel"] == name]
         pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == rep_dt),
                     mine[0] if mine else None)
-        launches = summary[phase]["launches"][wrapper]
+        runs = [summary[phase]] + ([summary["serve_embeds"]] if phase == "serve" else [])
+        variants = {}
+        for run in runs:
+            for v, n in run.get("variants", {}).get(wrapper, {}).items():
+                variants[v] = variants.get(v, 0) + n
         keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
         entry = {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": launches,
-            "variants": summary[phase].get("variants", {}).get(wrapper),
+            "launches": sum(run["launches"][wrapper] for run in runs),
+            "variants": variants or None,
             "case": f"{pick['case']} {pick['dtype']}" if pick else None,
             **{k: (pick[k] if pick else None) for k in keys},
         }
         if phase == "serve":     # launches by served model
             entry["launches_by_model"] = {
-                a: m["launches"][wrapper] for a, m in summary["serve"]["models"].items()}
+                a: m["launches"][wrapper] for run in runs for a, m in run["models"].items()}
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
         more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")

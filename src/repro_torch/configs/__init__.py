@@ -1,5 +1,7 @@
-"""Config registry: ``--arch <id>`` resolution for the archs the port
-serves (own copy of the relevant part of repro.configs)."""
+"""Config registry: ``--arch <id>`` resolution for the ten archs of the
+reference (own copy of repro.configs). Every one runs through ``LM``;
+``ServeSession`` takes token prompts only and refuses internvl2-1b's and
+whisper-large-v3's, as the reference's does."""
 from __future__ import annotations
 
 import importlib
@@ -16,6 +18,8 @@ ARCHS: dict[str, str] = {
     "minicpm3-4b": "minicpm3_4b",
     "rwkv6-1.6b": "rwkv6_1_6b",
     "jamba-1.5-large-398b": "jamba_1_5_large_398b",
+    "internvl2-1b": "internvl2_1b",
+    "whisper-large-v3": "whisper_large_v3",
 }
 
 

@@ -3,9 +3,10 @@
 The fields and their defaults are those of the reference, so that a config
 built here equals the reference's field by field. What differs:
 ``pdtype``/``cdtype`` map the dtype strings to ``torch.dtype``, and
-``param_count`` covers the layer kinds this package runs (``attn``,
-``attn_local``, ``mla``, ``mamba`` and ``rwkv``, with dense or MoE FFNs;
-not the encoder-decoder).
+``param_count`` is the reference's formula, term for term (its
+encoder-decoder term counts three d x d_ff matrices a layer, where
+whisper's classic MLP has two: it overcounts the weights that
+``LM.init_params`` draws, as the reference's does).
 """
 from __future__ import annotations
 
@@ -122,8 +123,8 @@ class ModelConfig:
         return DTYPES[self.compute_dtype]
 
     def param_count(self) -> int:
-        """Analytic parameter count (embedding + blocks) of the layer kinds
-        this package runs, term for term as the reference's."""
+        """Analytic parameter count (embedding + blocks), term for term as
+        the reference's."""
         d, ff, v = self.d_model, self.d_ff, self.vocab
         hd = self.resolved_head_dim
         n = self.n_periods
@@ -162,7 +163,10 @@ class ModelConfig:
             else:
                 total += n * 3 * d * ff
         if self.enc_dec:
-            raise NotImplementedError("enc_dec")
+            # encoder blocks + cross attention in decoder
+            qkv = 4 * d * (self.n_heads * hd)
+            total += self.n_enc_layers * (qkv + 3 * d * ff)
+            total += self.n_layers * qkv  # cross-attn in each decoder layer
         return total
 
     def active_param_count(self) -> int:

@@ -6,10 +6,13 @@ Usage (on a machine with an NVIDIA H100; the kernels build at first use)::
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-9b \
         --requests 6 --max-new 16 --max-len 1024 --prompt-len 16 512
 
-``--arch`` is any id of ``repro_torch.configs.ARCHS``: stablelm-3b,
-gemma2-9b, qwen2.5-32b, granite-moe-1b-a400m, llama4-scout-17b-a16e (at
-203 GB in bf16, only ``--smoke`` fits one card), minicpm3-4b, rwkv6-1.6b
-and jamba-1.5-large-398b (about 800 GB in bf16: only ``--smoke``).
+``--arch`` is an id of ``SERVED``: stablelm-3b, gemma2-9b, qwen2.5-32b,
+granite-moe-1b-a400m, llama4-scout-17b-a16e (at 203 GB in bf16, only
+``--smoke`` fits one card), minicpm3-4b, rwkv6-1.6b and
+jamba-1.5-large-398b (about 800 GB in bf16: only ``--smoke``). The
+session takes token prompts only, as the reference's does: internvl2-1b
+and whisper-large-v3 (a vision prefix, an encoder) are refused with a
+``ValueError`` and run through ``LM.prefill`` and ``LM.decode_step``.
 ``--device cpu --backend ref`` runs the plain PyTorch path on the CPU,
 ``--smoke`` the arch's reduced config. The weights are random, drawn on the
 device from ``--seed``.
@@ -33,15 +36,23 @@ import numpy as np
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.models.transformer import LM
-from repro_torch.serving.engine import ServeSession
+from repro_torch.serving.engine import (ServeSession, check_token_prompts,
+                                        takes_token_prompts)
+
+# the archs the session serves: those whose prompts are tokens alone
+SERVED = tuple(a for a in ARCHS if takes_token_prompts(get_config(a)))
 
 
 def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="gemma2-9b")
+    # any id of ARCHS parses, so that build() refuses the others with the
+    # session's own ValueError, which says how to run them
+    ap.add_argument("--arch", default="gemma2-9b", choices=ARCHS,
+                    help="one of " + ", ".join(SERVED) + " (the others' "
+                    "prompts need embeddings: LM.prefill, LM.decode_step)")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--max-new", type=int, default=16)
@@ -62,6 +73,7 @@ def parse_args(argv=None) -> argparse.Namespace:
 def build(args: argparse.Namespace):
     """(model, params) for the arguments, weights drawn on the device."""
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    check_token_prompts(cfg)        # before the weights are drawn
     device = resolve_device(args.device)
     model = LM(cfg, ArcaneEngine(backend=args.backend), device=device)
     gen = torch.Generator(device=device).manual_seed(args.seed)

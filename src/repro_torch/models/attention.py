@@ -52,9 +52,16 @@ def _qkv(engine, params, cfg, x, positions):
 def attention_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                       x: torch.Tensor, positions: torch.Tensor, *,
                       window: Optional[int] = None,
+                      kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
                       causal: bool = True) -> torch.Tensor:
-    """Training/prefill forward. x: (B, S, d)."""
-    q, k, v = _qkv(engine, params, cfg, x, positions)
+    """Training/prefill forward. x: (B, S, d). kv_override: the (B, Hkv,
+    Skv, hd) K and V of a cross-attention (the encoder's, projected); then
+    only q is projected, and neither q nor k is rotated."""
+    if kv_override is None:
+        q, k, v = _qkv(engine, params, cfg, x, positions)
+    else:
+        q = _split_heads(dense(engine, params["q"], x), cfg.n_heads)
+        k, v = kv_override
     out = engine.attention(q, k, v, causal=causal, window=window,
                            softcap=cfg.attn_softcap)
     return dense(engine, params["o"], _merge_heads(out))

@@ -1,7 +1,8 @@
 """Layer blocks: norm/residual wiring around the sequence mixers + FFN/MoE
 (counterpart of repro.models.blocks, for the kinds ``attn``, ``attn_local``,
 ``mla`` and ``mamba``, each with a dense or an MoE FFN, and ``rwkv``, which
-carries its own channel mix).
+carries its own channel mix). An encoder-decoder's decoder blocks also
+carry a cross-attention over the encoder's output (``cross``).
 
 A block is one position in the config's repeating layer pattern, with three
 entry points: forward, prefill (cache write) and decode (one token). The
@@ -9,13 +10,17 @@ cache of a block is a dict of tensors updated in place: ``k``, ``v``
 (B, Hkv, S, hd) for attention, ``c`` (B, S, r) and ``kr`` (B, S, rope) for
 MLA's latent stream, ``conv`` (B, d_conv-1, d_inner) and ``ssm`` (B,
 d_inner, d_state) f32 for Mamba, ``S`` (B, H, N, N) f32 and ``tm_x``,
-``cm_x`` (B, d) for RWKV. Where the reference rebinds a cache entry to a
-new state, this module copies the state into the entry: the serving engine
-prefills a slot through views of the batched cache.
+``cm_x`` (B, d) for RWKV, and for a cross-attention ``xk``, ``xv`` (B,
+Hkv, cross_len, hd): the projected encoder output. Where the reference
+rebinds a cache entry to a new state, this module copies the state into
+the entry: the serving engine prefills a slot through views of the batched
+cache. So the cross cache is a buffer of a fixed ``cross_len``, and a
+prefill whose encoder output has another length raises ``ValueError``
+(the reference rebinds ``xk`` and ``xv`` to an output of any length).
 """
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -33,11 +38,8 @@ KINDS = ("attn", "attn_local", "mla", "mamba", "rwkv")
 
 
 def _check_kind(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.kind not in KINDS or cfg.enc_dec or cfg.vision_prefix:
-        raise NotImplementedError(
-            f"{cfg.name}: layer kind {spec.kind!r} (enc_dec={cfg.enc_dec}, "
-            f"vision_prefix={cfg.vision_prefix}) is not ported yet; see "
-            "ROADMAP.md, Queue 1 item 10")
+    if spec.kind not in KINDS:
+        raise ValueError(f"{cfg.name}: unknown layer kind {spec.kind!r}")
 
 
 def check_prompt_length(cfg: ModelConfig, s: int) -> None:
@@ -63,7 +65,8 @@ def _ring(cfg: ModelConfig, spec: LayerSpec, cache: dict) -> bool:
             and cache["k"].shape[2] == window)
 
 
-def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device) -> dict:
+def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device, *,
+               cross: bool = False) -> dict:
     _check_kind(cfg, spec)
     ninit, _ = make_norm(cfg.norm)
     d, dt = cfg.d_model, cfg.pdtype
@@ -78,9 +81,27 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device) -> dict:
         return p          # rwkv carries its own channel-mix FFN
     else:
         p["attn"] = attn.attention_init(gen, cfg, device)
+    if cross:
+        p["cross_ln"] = ninit(d, dt, device)
+        p["cross"] = attn.attention_init(gen, cfg, device)
     p["ln2"] = ninit(d, dt, device)
     p["ffn"] = (moe_init if spec.moe else mlp_init)(gen, cfg, device)
     return p
+
+
+def _cross_kv(engine, params, cfg, enc_out):
+    """The cross-attention's K and V: the encoder output projected, as
+    (B, Hkv, S_enc, hd) views of the projections."""
+    return tuple(attn._split_heads(dense(engine, params["cross"][n], enc_out),
+                                   cfg.n_kv_heads) for n in ("k", "v"))
+
+
+def _cross(engine, params, cfg, x, positions, kv):
+    """x plus the cross-attention of x over ``kv`` (non-causal)."""
+    _, napply = make_norm(cfg.norm)
+    hc = napply(params["cross_ln"], x)
+    return x + attn.attention_forward(engine, params["cross"], cfg, hc,
+                                      positions, causal=False, kv_override=kv)
 
 
 def _ffn_apply(engine, params, cfg, spec, x):
@@ -92,10 +113,13 @@ def _ffn_apply(engine, params, cfg, spec, x):
 
 
 def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
-                  spec: LayerSpec, x: torch.Tensor,
-                  positions: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor | float]:
+                  spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor, *,
+                  causal: bool = True, enc_out: Optional[torch.Tensor] = None,
+                  ) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Returns (x, moe_aux_loss): an f32 scalar tensor, or 0.0 for a dense
-    FFN."""
+    FFN. ``causal=False``: bidirectional attention (the encoder's);
+    ``enc_out``: the encoder output a decoder block's cross-attention
+    reads."""
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
     h = napply(params["ln1"], x)
@@ -111,14 +135,17 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         return x + cm, 0.0
     else:
         h = attn.attention_forward(engine, params["attn"], cfg, h, positions,
-                                   window=_window(cfg, spec))
+                                   window=_window(cfg, spec), causal=causal)
     x = x + h
+    if enc_out is not None and "cross" in params:
+        x = _cross(engine, params, cfg, x, positions,
+                   _cross_kv(engine, params, cfg, enc_out))
     h, aux = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x))
     return x + h, aux
 
 
 def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
-                     max_len: int, dtype, device) -> dict:
+                     max_len: int, dtype, device, *, cross_len: int = 0) -> dict:
     _check_kind(cfg, spec)
     f32 = dict(dtype=torch.float32, device=device)
     if spec.kind == "mamba":
@@ -143,13 +170,21 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
     if (spec.kind == "attn_local" and cfg.ring_local_cache
             and cfg.local_window and cfg.local_window < max_len):
         s_len = cfg.local_window          # ring buffer
-    shape = (batch, cfg.n_kv_heads, s_len, cfg.resolved_head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+    def zeros(rows):
+        return torch.zeros((batch, cfg.n_kv_heads, rows, cfg.resolved_head_dim),
+                           dtype=dtype, device=device)
+
+    c = {"k": zeros(s_len), "v": zeros(s_len)}
+    if cross_len:
+        c["xk"], c["xv"] = zeros(cross_len), zeros(cross_len)
+    return c
 
 
-def block_prefill(engine, params, cfg, spec, x, positions, cache):
-    """Prefill from position 0; returns (x, cache)."""
+def block_prefill(engine, params, cfg, spec, x, positions, cache, *,
+                  enc_out=None):
+    """Prefill from position 0; returns (x, cache). With ``enc_out`` a
+    decoder block also projects the encoder output once and copies it into
+    its cross cache (``ValueError`` where the lengths differ)."""
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
     h = napply(params["ln1"], x)
@@ -180,12 +215,24 @@ def block_prefill(engine, params, cfg, spec, x, positions, cache):
             engine, params["attn"], cfg, h, positions, cache["k"], cache["v"],
             window=_window(cfg, spec), ring=_ring(cfg, spec, cache))
     x = x + h
+    if enc_out is not None and "cross" in params:
+        kx, vx = _cross_kv(engine, params, cfg, enc_out)
+        if cache["xk"].shape[2] != kx.shape[2]:
+            raise ValueError(f"{cfg.name}: an encoder output of "
+                             f"{kx.shape[2]} frames for a cross cache of "
+                             f"{cache['xk'].shape[2]}")
+        cache["xk"].copy_(kx)
+        cache["xv"].copy_(vx)
+        x = _cross(engine, params, cfg, x, positions, (kx, vx))
     h, _ = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x))
     return x + h, cache
 
 
-def block_decode(engine, params, cfg, spec, x, position, cache):
-    """One-token step. x: (B, d); returns (x, cache)."""
+def block_decode(engine, params, cfg, spec, x, position, cache, *,
+                 enc_len: Optional[int] = None):
+    """One-token step. x: (B, d); returns (x, cache). A decoder block with
+    a cross cache attends over its first ``enc_len`` rows in every
+    sequence."""
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
     h = napply(params["ln1"], x)
@@ -213,6 +260,25 @@ def block_decode(engine, params, cfg, spec, x, position, cache):
             engine, params["attn"], cfg, h, position, cache["k"], cache["v"],
             window=_window(cfg, spec), ring=_ring(cfg, spec, cache))
     x = x + h
+    if "cross" in params and "xk" in cache:
+        x = x + _cross_decode(engine, params["cross"], cfg,
+                              napply(params["cross_ln"], x), cache, enc_len)
     h, _ = _ffn_apply(engine, params, cfg, spec,
                       napply(params["ln2"], x)[:, None, :])
     return x + h[:, 0], cache
+
+
+def _cross_decode(engine, params, cfg, h, cache, enc_len):
+    """One query a sequence over the cross cache: q and o projections
+    around decode attention with every length ``enc_len``."""
+    b, s = h.shape[0], cache["xk"].shape[2]
+    if enc_len is None or not 0 < enc_len <= s:
+        raise ValueError(f"{cfg.name}: enc_len={enc_len} for a cross cache "
+                         f"of {s} frames")
+    q = attn._split_heads(dense(engine, params["q"], h[:, None, :]),
+                          cfg.n_heads)[:, :, 0]                 # (B, Hq, hd)
+    lengths = torch.full((b,), enc_len, dtype=torch.int32, device=h.device)
+    o = engine.decode_attention(q, cache["xk"], cache["xv"], lengths,
+                                softcap=cfg.attn_softcap)
+    return dense(engine, params["o"],
+                 o.reshape(b, cfg.n_heads * cfg.resolved_head_dim))

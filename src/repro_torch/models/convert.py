@@ -32,16 +32,19 @@ def params_from_numpy(tree, cfg: ModelConfig, device=None):
     if len(tree["blocks"]) != cfg.period:
         raise ValueError(f"{cfg.name}: {len(tree['blocks'])} block stacks, "
                          f"the pattern has {cfg.period}")
-    for leaf in tree_leaves(tree["blocks"]):
-        if leaf.shape[0] != cfg.n_periods:
-            raise ValueError(f"{cfg.name}: a block leaf of shape {leaf.shape} "
-                             f"is not stacked over {cfg.n_periods} periods")
+    for key, n, what in (("blocks", cfg.n_periods, "periods"),
+                         ("enc_blocks", cfg.n_enc_layers, "encoder layers")):
+        for leaf in tree_leaves(tree.get(key, ())):
+            if leaf.shape[0] != n:
+                raise ValueError(f"{cfg.name}: a {key} leaf of shape "
+                                 f"{leaf.shape} is not stacked over {n} {what}")
     return tree_map(lambda x: tensor_from_numpy(x, dev), tree)
 
 
 def cache_from_numpy(tree, cfg: ModelConfig, device=None) -> tuple:
     """The reference's cache (``LM.init_cache`` / ``prefill`` output, numpy
-    leaves: per pattern position a dict of (n_periods, B, ...) stacks) as
+    leaves: per pattern position a dict of (n_periods, B, ...) stacks, the
+    cross cache ``xk``/``xv`` of an encoder-decoder included) as
     the port's cache on ``device``, so that the port decodes on from a
     reference prefill."""
     dev = resolve_device(device)

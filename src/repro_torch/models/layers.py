@@ -129,6 +129,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, *,
     return out.to(x.dtype)
 
 
+# ------------------------------------------------------ sinusoidal positions
+def sinusoidal_positions(max_len: int, d: int, device=None) -> torch.Tensor:
+    """Whisper-style fixed sinusoidal position embeddings: (max_len, d) f32."""
+    return sinusoidal_at(torch.arange(max_len, device=device), d)
+
+
+def sinusoidal_at(positions: torch.Tensor, d: int) -> torch.Tensor:
+    """Sinusoidal embedding rows for any positions: (*positions.shape, d)
+    f32, on the positions' device. The frequencies are
+    exp(-log(10000) * i / (half - 1)), computed in f32 in the reference's
+    order."""
+    half = d // 2
+    i = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10000.0) * i / (half - 1))
+    args = positions[..., None].float() * freqs
+    return torch.cat([torch.sin(args), torch.cos(args)], dim=-1)
+
+
 def activation(name: str):
     return {"silu": F.silu,
             "gelu": lambda x: F.gelu(x, approximate="tanh"),   # jax.nn.gelu

@@ -1,5 +1,13 @@
-"""Decoder-only LM (counterpart of repro.models.transformer, for the
-attention, MLA, MoE and recurrent (Mamba, RWKV-6) families).
+"""Model assembly: decoder-only LM (all families), optionally with a
+vision prefix, and encoder-decoder (whisper) (counterpart of
+repro.models.transformer).
+
+Inputs other than tokens are the stub frontends' precomputed embeddings,
+as in the reference: ``batch["vision_embeds"]`` (B, vision_prefix, d) go in
+front of the text's token embeddings; ``batch["audio_embeds"]`` (B,
+S_enc, d) feed the encoder, whose output every decoder block's
+cross-attention reads (in a prompt through the flash kernel, in a decode
+step through decode attention over the cross cache).
 
 Params keep the reference layout: per pattern position, a dict of stacked
 leaves with a leading ``n_periods`` axis. A Python loop over periods takes
@@ -13,10 +21,12 @@ from typing import Any, Callable, Optional
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import ArcaneEngine, default_engine
 from repro_torch.models import blocks as blk
-from repro_torch.models.layers import embed, embedding_init, make_norm, unembed
+from repro_torch.models.layers import (embed, embedding_init, make_norm,
+                                       sinusoidal_at, sinusoidal_positions,
+                                       unembed)
 
 PyTree = Any
 
@@ -53,8 +63,12 @@ def _index(tree: PyTree, i: int) -> PyTree:
     return tree_map(lambda x: x[i], tree)
 
 
+ENC_SPEC = LayerSpec(kind="attn")       # the encoder's layers
+
+
 class LM:
-    """Decoder-only language model on one device."""
+    """Decoder-only (optionally enc-dec / vision-prefixed) language model
+    on one device."""
 
     def __init__(self, cfg: ModelConfig, engine: Optional[ArcaneEngine] = None,
                  *, device=None):
@@ -75,8 +89,14 @@ class LM:
         }
         params["blocks"] = tuple(
             _stack_init(cfg.n_periods,
-                        lambda spec=spec: blk.block_init(gen, cfg, spec, dev))
+                        lambda spec=spec: blk.block_init(gen, cfg, spec, dev,
+                                                         cross=cfg.enc_dec))
             for spec in cfg.pattern)
+        if cfg.enc_dec:
+            params["enc_blocks"] = (
+                _stack_init(cfg.n_enc_layers,
+                            lambda: blk.block_init(gen, cfg, ENC_SPEC, dev)),)
+            params["enc_final_norm"] = ninit(cfg.d_model, cfg.pdtype, dev)
         if not cfg.tie_embeddings:
             params["unembed"] = embedding_init(gen, cfg.vocab, cfg.d_model,
                                                cfg.pdtype, dev)
@@ -89,57 +109,103 @@ class LM:
         return unembed(self.engine, table, x, softcap=self.cfg.final_softcap)
 
     # ------------------------------------------------------------ forward
-    def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
-        """→ (logits (B, S, V) f32, MoE aux loss summed over layers)."""
+    def _embed_inputs(self, params, batch) -> torch.Tensor:
+        """Token embeddings, behind the vision prefix where there is one,
+        plus the decoder's sinusoidal positions for an encoder-decoder, in
+        the table's dtype (as the reference adds them), then cast."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"],
-                  scale=cfg.embed_scale).to(cfg.cdtype)
+        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale)
+        if cfg.vision_prefix:
+            x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
+        if cfg.enc_dec:
+            # the decoder's absolute positions (rope_fraction = 0)
+            pos = sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
+            x = x + pos[None].to(x.dtype)
+        return x.to(cfg.cdtype)
+
+    def _encoder(self, params, batch) -> torch.Tensor:
+        """The encoder over the audio embeddings: sinusoidal positions,
+        ``n_enc_layers`` bidirectional attention blocks, a final norm."""
+        cfg = self.cfg
+        x = batch["audio_embeds"].to(cfg.cdtype)
+        s = x.shape[1]
+        x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
+        positions = torch.arange(s, device=x.device)
+        stack = params["enc_blocks"][0]
+        for i in range(cfg.n_enc_layers):
+            x, _ = blk.block_forward(self.engine, _index(stack, i), cfg,
+                                     ENC_SPEC, x, positions, causal=False)
+        _, napply = make_norm(cfg.norm)
+        return napply(params["enc_final_norm"], x)
+
+    def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """→ (logits (B, S, V) f32 of the text positions, MoE aux loss
+        summed over layers)."""
+        cfg = self.cfg
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        enc_out = self._encoder(params, batch) if cfg.enc_dec else None
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_periods):
             for j, spec in enumerate(cfg.pattern):
                 x, a = blk.block_forward(self.engine,
                                          _index(params["blocks"][j], i), cfg,
-                                         spec, x, positions)
+                                         spec, x, positions, enc_out=enc_out)
                 aux = aux + a
-        return self._unembed(params, x), aux
+        logits = self._unembed(params, x)
+        if cfg.vision_prefix:
+            logits = logits[:, cfg.vision_prefix:]
+        return logits, aux
 
     # ------------------------------------------------------------ serving
-    def init_cache(self, batch: int, max_len: int, *, dtype=None) -> tuple:
+    def init_cache(self, batch: int, max_len: int, *, dtype=None,
+                   enc_len: int = 0) -> tuple:
+        """Zeroed caches of ``max_len`` positions (the vision prefix
+        included); an encoder-decoder's also hold a cross cache of
+        ``enc_len`` frames, which ``prefill`` fills."""
         cfg = self.cfg
         dtype = dtype or cfg.cdtype
 
         def one(spec):
             c = blk.init_block_cache(cfg, spec, batch, max_len, dtype,
-                                     self.device)
+                                     self.device, cross_len=enc_len)
             return {k: v.new_zeros((cfg.n_periods, *v.shape))
                     for k, v in c.items()}
 
         return tuple(one(spec) for spec in cfg.pattern)
 
     def prefill(self, params, batch, cache) -> tuple[torch.Tensor, tuple]:
-        """Process the full prompt; returns (last-position logits, cache)."""
+        """Process the full prompt (the vision prefix and the text; an
+        encoder-decoder's encoder too); returns (last-position logits,
+        cache)."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"],
-                  scale=cfg.embed_scale).to(cfg.cdtype)
+        x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
+        enc_out = self._encoder(params, batch) if cfg.enc_dec else None
         for i in range(cfg.n_periods):
             for j, spec in enumerate(cfg.pattern):
                 x, _ = blk.block_prefill(self.engine,
                                          _index(params["blocks"][j], i), cfg,
                                          spec, x, positions,
-                                         _index(cache[j], i))
+                                         _index(cache[j], i), enc_out=enc_out)
         return self._unembed(params, x[:, -1:])[:, 0], cache
 
     def decode_step(self, params, tokens: torch.Tensor,
-                    position: torch.Tensor, cache: tuple):
-        """tokens: (B,) int; position: (B,) int on the device →
-        (logits (B, V) f32, cache)."""
+                    position: torch.Tensor, cache: tuple, *,
+                    enc_len: int = 0):
+        """tokens: (B,) int; position: (B,) int on the device (past the
+        vision prefix, where there is one) → (logits (B, V) f32, cache).
+        ``enc_len``: the encoder frames each sequence's cross-attention
+        reads (an encoder-decoder's)."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens, scale=cfg.embed_scale).to(cfg.cdtype)
+        x = embed(params["embed"], tokens, scale=cfg.embed_scale)
+        if cfg.enc_dec:
+            x = x + sinusoidal_at(position, cfg.d_model).to(x.dtype)
+        x = x.to(cfg.cdtype)
         for i in range(cfg.n_periods):
             for j, spec in enumerate(cfg.pattern):
                 x, _ = blk.block_decode(self.engine,
                                         _index(params["blocks"][j], i), cfg,
-                                        spec, x, position, _index(cache[j], i))
+                                        spec, x, position, _index(cache[j], i),
+                                        enc_len=enc_len or None)
         return self._unembed(params, x), cache

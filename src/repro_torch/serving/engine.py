@@ -9,6 +9,11 @@ them); every step decodes one token for all slots and updates every slot's
 states in place. The decode kernel reads only each slot's valid cache rows,
 so ragged lengths cost nothing extra.
 
+The session takes token prompts only, as the reference's does: a model
+with a vision prefix or an encoder (internvl2-1b, whisper-large-v3) needs
+embeddings beside the tokens, and is served through ``LM.prefill`` and
+``LM.decode_step`` directly (``check_token_prompts``).
+
 Timing: ``stats`` sums the host-clock seconds of prefills and decode steps.
 Each ends in a device-to-host copy of the sampled token, which waits for
 the device, so the clock covers the device's work.
@@ -22,6 +27,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import check_prompt_length
 from repro_torch.models.transformer import LM
 
@@ -38,10 +44,29 @@ class Request:
     done: bool = False
 
 
+def takes_token_prompts(cfg: ModelConfig) -> bool:
+    """Whether a model's prompts are tokens alone: no vision prefix's or
+    encoder's embeddings go with them."""
+    return not (cfg.vision_prefix or cfg.enc_dec)
+
+
+def check_token_prompts(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a model whose prompts are not tokens alone
+    (``takes_token_prompts``): the session admits token prompts only, as
+    the reference's does."""
+    if not takes_token_prompts(cfg):
+        what = "vision_embeds" if cfg.vision_prefix else "audio_embeds"
+        raise ValueError(
+            f"{cfg.name}: ServeSession takes token prompts only, as the "
+            f"reference's does; this model's prefill also needs "
+            f"batch['{what}']: call LM.prefill and LM.decode_step directly")
+
+
 class ServeSession:
     def __init__(self, model: LM, params: PyTree, *, max_slots: int = 4,
                  max_len: int = 512, eos_id: Optional[int] = None,
                  seed: int = 0):
+        check_token_prompts(model.cfg)
         self.model = model
         self.params = params
         self.device = model.device

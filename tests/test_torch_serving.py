@@ -1,5 +1,6 @@
-"""The port's ServeSession: the cases of tests/test_serving.py, and greedy
-tokens equal to the reference ServeSession on the same weights."""
+"""The port's ServeSession: the cases of tests/test_serving.py, greedy
+tokens equal to the reference ServeSession on the same weights, and both
+sessions refusing the archs whose prompts are not tokens alone."""
 import dataclasses
 
 import jax
@@ -13,9 +14,15 @@ from repro.models.transformer import LM as JaxLM
 from repro.serving.engine import ServeSession as JaxServeSession
 from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.launch import serve as launcher
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import LM
 from repro_torch.serving.engine import ServeSession
+
+# the archs whose prompts need embeddings beside the tokens: neither
+# session admits them
+EMBEDS = ("internvl2-1b", "whisper-large-v3")
+TOKEN_ARCHS = sorted(set(ARCHS) - set(EMBEDS))
 
 
 def port_model(arch, key=0, **repl):
@@ -103,7 +110,7 @@ def test_temperature_sampling_is_seeded(rng):
                for t in a)
 
 
-@pytest.mark.parametrize("arch", sorted(ARCHS))
+@pytest.mark.parametrize("arch", TOKEN_ARCHS)
 def test_greedy_tokens_equal_reference_session(arch, rng):
     f32 = dict(param_dtype="float32", compute_dtype="float32")
     model, params, jmodel, jparams = port_model(arch, key=1, **f32)
@@ -120,3 +127,22 @@ def test_greedy_tokens_equal_reference_session(arch, rng):
     mine = serve(ServeSession(model, params, max_slots=3, max_len=48))
     ref = serve(JaxServeSession(jmodel, jparams, max_slots=3, max_len=48))
     assert mine == ref
+
+
+@pytest.mark.parametrize("arch", EMBEDS)
+def test_sessions_take_token_prompts_only(arch, rng):
+    """The reference's session admits a token prompt and its prefill then
+    misses the embeddings (KeyError); the port's refuses the model when the
+    session is made, and so does the launcher, before drawing weights."""
+    model, params, jmodel, jparams = port_model(arch)
+    extra = "vision_embeds" if model.cfg.vision_prefix else "audio_embeds"
+    jsess = JaxServeSession(jmodel, jparams, max_slots=2, max_len=32)
+    jsess.submit(rng.integers(0, model.cfg.vocab, 5), max_new_tokens=2)
+    with pytest.raises(KeyError, match=extra):
+        jsess.run_to_completion()
+    with pytest.raises(ValueError, match="token prompts only.*LM.prefill"):
+        ServeSession(model, params, max_slots=2, max_len=32)
+    with pytest.raises(ValueError, match="token prompts only"):
+        launcher.build(launcher.parse_args(["--arch", arch, "--smoke",
+                                            "--device", "cpu"]))
+    assert arch not in launcher.SERVED

@@ -270,6 +270,62 @@ def test_chip_smoke_launch_counts_equal_the_engine_calls(arch):
     assert engine.variants == variants
 
 
+@pytest.mark.parametrize("arch,lens,enc_len", [
+    ("internvl2-1b", (1, 3, 16, 100), 0), ("whisper-large-v3", (1, 4, 9, 16), 24)])
+def test_chip_smoke_embed_launch_counts_equal_the_engine_calls(arch, lens, enc_len):
+    """chip_smoke.py's expected launches of its embed serving phase (the
+    vision prefix in front of each prompt; whisper's encoder layers, its
+    decoder's cross-attention in a prompt and over the cross cache in a
+    step, its two-GEMM classic MLP) against the calls that the phase's
+    own serving loop (``serve_embeds``: each prompt into its slot's view,
+    then batched decode steps) makes through LM.prefill and
+    LM.decode_step for a bf16 smoke config on the CPU."""
+    cs = chip_smoke()
+    cfg = get_smoke_config(arch)
+    engine = LaunchSpy()
+    model = LM(cfg, engine, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in lens]
+    extras = [cs.embed_inputs(torch, cfg, gen, enc_len) for _ in prompts]
+    run = cs.serve_embeds(torch, model, params, prompts, extras, 3, 128, enc_len)
+    assert len(run["decode_step_ms"]) == 3 and len(run["prefill_ms"]) == len(lens)
+    counts, variants = cs.expected_launches(torch, cfg, lens, 3, len(lens), enc_len)
+    assert engine.counts == counts
+    assert engine.variants == variants
+    n_cross = cfg.n_layers if cfg.enc_dec else 0
+    assert counts["flash_attention_cuda"] == len(lens) * (
+        cfg.n_layers + n_cross + cfg.n_enc_layers)
+    assert counts["decode_attention_cuda"] == 3 * (cfg.n_layers + n_cross)
+
+
+def test_embed_full_width_gemm_and_attention_variants():
+    """The variants chip_smoke.py expects at full width: internvl2-1b's
+    seven GEMMs a layer on wgmma behind the 256-row vision prefix even for
+    a 16-token text prompt, whisper-large-v3's decoder layer at a 4-token
+    prompt on gemv but for the cross-attention's k and v over the 1500
+    frames (wgmma), its encoder layer's six on wgmma; in a 4-slot step
+    every GEMM on gemv; mma flash attention and narrow decode attention for
+    both."""
+    cs = chip_smoke()
+    from repro_torch.models.transformer import ENC_SPEC
+    vlm, asr = get_config("internvl2-1b"), get_config("whisper-large-v3")
+
+    def picks(cfg, spec, m, prompt, cross=None):
+        return [gemm_variant(a, b) for a, b in
+                cs.layer_gemms(torch, cfg, spec, m, prompt, cross_rows=cross)]
+
+    assert picks(vlm, vlm.pattern[0], 256 + 16, True) == ["wgmma"] * 7
+    assert picks(vlm, vlm.pattern[0], 4, False) == ["gemv"] * 7
+    assert picks(asr, asr.pattern[0], 4, True, 1500) == \
+        ["gemv"] * 4 + ["wgmma"] * 2 + ["gemv"] * 4
+    assert picks(asr, asr.pattern[0], 4, False, 1500) == ["gemv"] * 8
+    assert picks(asr, ENC_SPEC, 1500, True) == ["wgmma"] * 6
+    for cfg in (vlm, asr):
+        assert cs.attention_variants(torch, cfg) == ("mma", "narrow")
+
+
 def test_recurrent_full_width_gemm_variants():
     """The variants chip_smoke.py expects at full width: rwkv6-1.6b's ten
     GEMMs a layer (the decay LoRA's N = 64 and K = 64 included) on wgmma
