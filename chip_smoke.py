@@ -142,9 +142,36 @@ Phases:
      CNN kernels in it or the run fails. This phase runs before phase 3:
      after the five serving runs' profiles a window lost the device
      records of its first 13 launches (on the H100, torch 2.11).
-  5. result: a JSON line of the kernels (with each one's launches per
+  5. train (after phase 3b): granite-moe-1b-a400m at full width (bf16
+     params, an f32 master, seed 0, ArcaneEngine("ref") under autograd:
+     the kernels have no backward), through ``repro_torch.launch.train``:
+     (a) 6 steps of 8 x 512 tokens in 2 microbatches at lr 3e-4 and a
+     checkpoint: each step's loss, grad norm, lr and ms, tokens/s over
+     steps 2-6, peak memory, the model FLOPs' shares of the bf16 and f32
+     peaks; fails on a value that is not finite, a last loss not below the
+     first or a missing checkpoint; (b) the first step's loss, grad norm
+     and grads leaf by leaf (each block leaf layer by layer) against the
+     same step on an f32 copy of the weights, and its microbatch sum
+     against the f64 sum of the very microbatch grads it summed, within
+     GRAD_LIMITS (each part's gain by the limit of its kind), which must
+     reject the six planted TRAIN_FAULTS (the aux loss left out; one
+     layer's grads, the embedding's grad, one layer's ln1 grad x1.01; one
+     layer's router grad x1.03; the microbatch sum in bf16), and the same
+     step with the embedding's index sums in f32 (its repeated tokens'
+     rows within the gain limit of the rest); then torch.profiler over one
+     step, its device time by the op that launched it, forward and
+     backward (``labelled_train_ops``); (c) at 4 layers, 4 steps straight
+     through against 2 steps stopped by SIGTERM (a checkpoint at the step
+     boundary), then a resumed run of 2 more: each step on the stream's
+     batch of its step and the losses within RESUME_RTOL; (d) that
+     checkpoint restored into a fresh LM (bit for bit the trained params)
+     and served through ArcaneEngine("cuda"): 4 requests of 16 new
+     tokens, launch counts exact, cuda vs ref logits under phase 3's
+     limits.
+  6. result: a JSON line of the kernels (with each one's launches per
      variant and, for the serving kernels, per model, phase 3b's models
-     included; gemm's also in the Mamba block's run; ``more_cases``:
+     and phase 5's trained model included; gemm's also in the Mamba
+     block's run; ``more_cases``:
      decode attention's MLA, whisper and internvl2 rows, flash's whisper
      and internvl2 rows, gemm's granite unembed, rwkv6, jamba, int8,
      internvl2 and whisper rows), then the device line, last. A
@@ -1951,6 +1978,643 @@ def busy_share(prof, wall_ms: float, n: int, unit: str, exclude=()) -> dict:
             f"top_device_ms_per_{unit}": [(k[:60], v / n) for k, v in top]}
 
 
+# ---------------------------------------------------------------- phase 5
+# granite-moe-1b-a400m trained at full width through the port's launcher,
+# the step held against an f32 copy, a resume, and the trained weights
+# served through the kernels from their checkpoint.
+TRAIN_ARCH = "granite-moe-1b-a400m"
+TRAIN_ARGV = ["--arch", TRAIN_ARCH, "--batch", "8", "--seq", "512",
+              "--microbatches", "2", "--lr", "3e-4", "--device", "cuda"]
+TRAIN_STEPS = 6
+RESUME_LAYERS = 4             # the resume's cut: 24 layers' state is ~21 GB of .npz
+SERVE_TRAINED_LENS = (16, 64, 200, 512)
+SERVE_TRAINED_MAX_LEN = 1024
+# The step of the bf16 model against the same step on an f32 copy of its
+# weights (same batch), part by part (``_parts``, ``grad_readings``), and
+# its microbatch sum against the f64 sum of the same microbatch grads. Each
+# limit sits between the sound step's reading on the H100 and the planted
+# faults' (TRAIN_FAULTS), which the check must reject; the readings are the
+# same in every run (a seeded path). Each part's gain is read against the
+# limit of its kind, set from the sound step's readings of that kind
+# (NVIDIA H100 80GB HBM3, largest |gain - 1| over the 24 layers):
+#   "gain": every part but those below (sound: the experts' down 4.0e-3,
+#     attention's q 3.5e-3, k 3.1e-3, the experts' gate 2.9e-3, up 2.8e-3,
+#     ln1 1.6e-3, v and o 9e-4, the embedding's other rows 3.8e-4, the
+#     final norm 1e-5);
+#   "gain_router": the router and the MoE's input norm (ln2), whose grads
+#     pass through the top-k choice (sound 9.0e-3 and 1.0e-2: a 1% fault
+#     there is below what an f32 copy resolves, hence the router's x1.03);
+#   "gain_repeated": the embedding rows of tokens the batch repeats
+#     REPEATED times or more (sound 1.8e-2). Their bf16 grad sums a token's
+#     positions in bf16 one by one (the index backward, as the reference's
+#     scatter-add does) and those sums stall as they grow; the same step
+#     with the index sums in f32 (``f32_index_sums``) reads 1.2e-4 there
+#     and must read within "gain".
+# The rest, sound: loss 1.4e-5, grad norm 5.1e-3 (1.5e-4 with the index
+# sums in f32), the largest relative gap 0.044 (the experts' gate, layer
+# 20), the microbatch sum 2.8e-8.
+GRAD_LIMITS = {"loss_rel": 1e-3, "gnorm_rel": 2e-2, "gain": 5e-3,
+               "gain_router": 1.5e-2, "gain_repeated": 5e-2, "rel": 0.1,
+               "acc_rel": 1e-5}
+REPEATED = 32
+ROUTED = ("/ffn/router/w", "/ln2/scale")
+# the planted faults: the aux loss left out of the loss; one layer's grads
+# x1.01; the embedding's grad x1.01; one layer's ln1 grad x1.01; one
+# layer's router grad x1.03; the microbatch sum done in bf16
+TRAIN_FAULTS = ("no_aux", "layer_x1.01", "embed_x1.01", "ln1_x1.01",
+                "router_x1.03", "bf16_sum")
+FAULT_LAYER = 5
+# The resumed run's losses against the straight run's, relative. On the
+# H100 they read equal bit for bit (the index sums of this path's backward
+# add in a fixed order there); an index sum by atomics would add in
+# another order from run to run, so the limit asks for no bit equality.
+# (Each step's batch is held apart against the stream's ``batch_at``.)
+RESUME_RTOL = 1e-5
+
+
+def train_flops(cfg, tokens: int) -> tuple[int, int]:
+    """A step's model FLOPs, 6 × the params a token touches × tokens
+    (attention's own products left out), and remat's second forward of
+    the blocks (2 × their params a token touches × tokens) apart."""
+    n = cfg.active_param_count()
+    n_blocks = n - cfg.vocab * cfg.d_model * (1 if cfg.tie_embeddings else 2)
+    return 6 * n * tokens, 2 * n_blocks * tokens
+
+
+def train_full_width(torch, ckpt_dir: Path) -> dict:
+    """(a) TRAIN_STEPS steps of granite-moe-1b-a400m at full width through
+    ``launch/train.run``, checkpointing into ``ckpt_dir`` (removed after):
+    each step's loss, grad norm, lr and ms (host clock to the loss on the
+    host), tokens/s over steps 2 on, peak memory, the model FLOPs' shares
+    of the bf16 and f32 peaks; ``run_s`` includes the checkpoint's save.
+    Fails on a value that is not finite, on a last loss not below the first
+    or where the last step's checkpoint is missing."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as launcher
+    cfg = get_config(TRAIN_ARCH)
+    argv = TRAIN_ARGV + ["--steps", str(TRAIN_STEPS), "--ckpt-dir", str(ckpt_dir)]
+    args = launcher.parse_args(argv)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = launcher.run(argv)
+    run_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    saved = CheckpointManager(str(ckpt_dir)).latest_step()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    if saved != TRAIN_STEPS:
+        fail(f"train: {cfg.name}: the run's checkpoint is at step {saved}")
+    steps = res["steps"]
+    for s in steps:
+        print(f"train: {cfg.name} step {s['step']} loss {s['loss']:.6f} "
+              f"grad_norm {s['grad_norm']:.6f} lr {s['lr']:.4e} ms {s['ms']:.1f}",
+              flush=True)
+    vals = [v for s in steps for v in (s["loss"], s["grad_norm"], s["lr"])]
+    if len(steps) != TRAIN_STEPS or not all(math.isfinite(v) for v in vals):
+        fail(f"train: {cfg.name}: {len(steps)} steps, values not all finite: {vals}")
+    if steps[-1]["loss"] >= steps[0]["loss"]:
+        fail(f"train: {cfg.name}: the loss did not fall: {res['history']}")
+    tokens = args.batch * args.seq
+    later = steps[1:]
+    step_s = statistics.median(s["ms"] for s in later) / 1e3
+    model_flops, remat_flops = train_flops(cfg, tokens)
+    out = {"steps": steps, "run_s": run_s, "tokens_per_step": tokens,
+           "tokens_per_s": tokens * len(later) / (sum(s["ms"] for s in later) / 1e3),
+           "step_ms_median": step_s * 1e3, "max_memory_allocated": peak,
+           "model_flops_per_step": model_flops, "remat_flops_per_step": remat_flops,
+           "model_flops_share_bf16_peak": model_flops / step_s / PEAK["bfloat16"],
+           "model_flops_share_f32_peak": model_flops / step_s / PEAK["float32"],
+           "with_remat_share_f32_peak": (model_flops + remat_flops) / step_s
+           / PEAK["float32"]}
+    print(f"train: {cfg.name} " + " ".join(
+        f"{k}={v}" for k, v in out.items() if k != "steps"), flush=True)
+    return out
+
+
+class _NoAux:
+    """A model whose loss leaves the MoE aux loss out (a planted fault)."""
+
+    def __init__(self, model):
+        self.model, self.engine = model, model.engine
+
+    def loss(self, params, batch):
+        _, metrics = self.model.loss(params, batch)
+        return metrics["ce"], metrics
+
+
+def _walk(tree, path=""):
+    """(path, leaf) of every leaf, the path's keys and indices joined by
+    "/" (as the checkpoint's keys)."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _walk(v, f"{path}/{k}" if path else k)
+    elif isinstance(tree, (tuple, list)):
+        for i, v in enumerate(tree):
+            yield from _walk(v, f"{path}/{i}" if path else str(i))
+    else:
+        yield path, tree
+
+
+def _parts(grads, tokens) -> dict:
+    """The gradient tree cut into the parts the check reads: each leaf
+    outside the blocks whole, but the embedding table by rows: the rows of
+    tokens that ``tokens`` holds fewer than REPEATED times (unseen ones
+    included) and the rows of the others (``[repeated]``); each block leaf
+    layer by layer (``blocks/0/ffn/router/w[5]``)."""
+    parts = {}
+    for path, leaf in _walk(grads):
+        if path.startswith("blocks/"):
+            for i in range(leaf.shape[0]):
+                parts[f"{path}[{i}]"] = leaf[i]
+        elif path == "embed/table":        # the table the tokens index
+            rep = repeated_rows(tokens, leaf.shape[0])
+            parts[f"{path}[rest]"] = leaf[~rep]
+            parts[f"{path}[repeated]"] = leaf[rep]
+        else:
+            parts[path] = leaf
+    return parts
+
+
+def repeated_rows(tokens, n: int):
+    """A mask of the ``n`` table rows: the tokens that ``tokens`` holds
+    REPEATED times or more."""
+    return tokens.reshape(-1).long().bincount(minlength=n) >= REPEATED
+
+
+def gain_kind(part: str) -> str:
+    """The GRAD_LIMITS key that holds a part's gain."""
+    if part.endswith("[repeated]"):
+        return "gain_repeated"
+    if part.split("[")[0].endswith(ROUTED):
+        return "gain_router"
+    return "gain"
+
+
+def grad_readings(torch, loss, grads, loss32, grads32, micro, tokens) -> dict:
+    """One step's readings against the f32 copy's (``loss32``,
+    ``grads32``): the loss's and the grad norm's relative gaps; for each
+    part (``_parts``) the gain <g, g32> / <g32, g32> (``gain_by_part``: a
+    scaled part reads its scale, noise averages out) and the relative gap
+    |g - g32| / |g32| (``rel_by_part``); the largest |gain - 1| of each
+    kind of part (``gain_kind``: ``gain``, ``gain_router``,
+    ``gain_repeated``), the largest gap over every part (``rel``); and the
+    microbatch sum against the f64 sum of the microbatch grads ``micro``
+    that it summed (their mean), largest relative gap over leaves
+    (``acc_rel``)."""
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim.adamw import global_norm
+    f64 = torch.float64
+    gn, gn32 = float(global_norm(grads)), float(global_norm(grads32))
+    out = {"loss_rel": abs(float(loss) - float(loss32)) / abs(float(loss32)),
+           "gnorm_rel": abs(gn - gn32) / gn32, "gain": 0.0, "gain_router": 0.0,
+           "gain_repeated": 0.0, "rel": 0.0, "acc_rel": 0.0, "worst": {},
+           "gain_by_part": {},
+           "rel_by_part": {}}
+    p32 = _parts(grads32, tokens)
+    for name, g in _parts(grads, tokens).items():
+        a, b = g.to(f64), p32[name].to(f64)
+        nn = float(b.square().sum())
+        if nn == 0:
+            continue
+        gain = float((a * b).sum()) / nn
+        rel = math.sqrt(float((a - b).square().sum()) / nn)
+        out["gain_by_part"][name], out["rel_by_part"][name] = gain, rel
+        for k, v in ((gain_kind(name), abs(gain - 1)), ("rel", rel)):
+            if v >= out[k]:
+                out[k], out["worst"][k] = v, name
+    for (path, g), *ms in zip(_walk(grads), *map(tree_leaves, micro)):
+        ref = sum(m.to(f64) for m in ms) / len(ms)
+        nn = float(ref.square().sum())
+        if nn:
+            v = math.sqrt(float((g.to(f64) - ref).square().sum()) / nn)
+            if v >= out["acc_rel"]:
+                out["acc_rel"], out["worst"]["acc_rel"] = v, path
+    return out
+
+
+def within_grad_limits(r: dict, limits: dict) -> bool:
+    return all(r[k] <= lim for k, lim in limits.items())
+
+
+def step_grads_and_micro(model, params, batch, microbatches: int):
+    """``train/step.step_grads`` → (loss, grads, the grads of each
+    microbatch that it summed), the last taken from its own calls of
+    ``loss_and_grads``."""
+    import repro_torch.train.step as step
+    micro, real = [], step.loss_and_grads
+
+    def spy(*a):
+        out = real(*a)
+        micro.append(out[2])
+        return out
+
+    step.loss_and_grads = spy
+    try:
+        loss, _, grads = step.step_grads(model, params, batch, microbatches)
+    finally:
+        step.loss_and_grads = real
+    return loss, grads, micro
+
+
+@contextlib.contextmanager
+def index_sums_in_f32():
+    """While the block runs, the model's embedding gathers from an f32
+    widening of its table, so that the gather's backward sums a token's
+    positions in f32 and rounds to the table's dtype once."""
+    import repro_torch.models.transformer as transformer
+    real = transformer.embed
+
+    def embed(params, tokens, *, scale=False):
+        table = params["table"]
+        return real({"table": table.float()}, tokens, scale=scale).to(table.dtype)
+
+    transformer.embed = embed
+    try:
+        yield
+    finally:
+        transformer.embed = real
+
+
+def train_grad_check(torch, model, params, batch, microbatches: int = 2,
+                     limits: dict | None = None) -> dict:
+    """(b) A step's grads of the bf16 ``model`` against the same step on an
+    f32 copy of its weights (same batch), with the readings of
+    ``grad_readings`` for the sound step, for the same step with the
+    embedding's index sums in f32 (``f32_index_sums``) and for each planted
+    fault of TRAIN_FAULTS. With ``limits``: fails unless the sound step is
+    within every one, the f32 index sums' repeated rows within "gain" too,
+    and each fault outside at least one."""
+    import dataclasses
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM, tree_map
+    from repro_torch.train.step import step_grads
+    cfg = model.cfg
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model32 = LM(cfg32, ArcaneEngine("ref"), device=model.device)
+    params32 = tree_map(lambda x: x.float(), params)
+    t0 = time.perf_counter()
+    loss32, _, grads32 = step_grads(model32, params32, batch, microbatches)
+    del params32
+    loss, grads, micro = step_grads_and_micro(model, params, batch, microbatches)
+    tokens = batch["tokens"]
+    readings = {"sound": grad_readings(torch, loss, grads, loss32, grads32, micro,
+                                       tokens)}
+    with index_sums_in_f32():
+        r = step_grads_and_micro(model, params, batch, microbatches)
+    readings["f32_index_sums"] = grad_readings(torch, r[0], r[1], loss32, grads32,
+                                               r[2], tokens)
+    del r
+    layer = min(FAULT_LAYER, cfg.n_layers - 1)
+    # the leaves each scaling fault picks, and its scale: a block leaf's
+    # layer ``layer``, another leaf whole
+    picks = {"layer_x1.01": (lambda p: p.startswith("blocks/"), 1.01),
+             "embed_x1.01": (lambda p: p == "embed/table", 1.01),
+             "ln1_x1.01": (lambda p: p.endswith("/ln1/scale"), 1.01),
+             "router_x1.03": (lambda p: p.endswith("/router/w"), 1.03)}
+
+    def scaled(g, pick, by):         # the picked leaves scaled, in f32
+        out = []
+        for path, x in _walk(g):
+            if pick(path):
+                x = x.float().clone()
+                if path.startswith("blocks/"):
+                    x[layer] *= by
+                else:
+                    x *= by
+            out.append(x)
+        it = iter(out)
+        return tree_map(lambda _: next(it), g)
+
+    # each fault where it would live in the code: no aux and the scalings
+    # in the model's loss or gradients (the microbatches' own grads carry
+    # them too), the bf16 sum in the step's sum over the microbatches
+    for fault in TRAIN_FAULTS:
+        if fault == "no_aux":
+            fl, fg, fmicro = step_grads_and_micro(_NoAux(model), params, batch,
+                                                  microbatches)
+        elif fault in picks:
+            pick, by = picks[fault]
+            fl, fg = loss, scaled(grads, pick, by)
+            fmicro = [scaled(m, pick, by) for m in micro]
+        else:
+            acc = tree_map(torch.zeros_like, micro[0])
+            for m in micro:
+                acc = tree_map(lambda a, g: a + g, acc, m)       # bf16 sums
+            fl, fmicro = loss, micro
+            fg = tree_map(lambda a: a.float() / microbatches, acc)
+        readings[fault] = grad_readings(torch, fl, fg, loss32, grads32, fmicro,
+                                        tokens)
+        del fg, fmicro
+    out = {"seconds": time.perf_counter() - t0, "readings": readings,
+           "loss": float(loss), "loss32": float(loss32), "limits": limits,
+           "repeated_tokens": int(repeated_rows(tokens, cfg.vocab).sum())}
+    for k, r in readings.items():
+        shown = {n: v for n, v in r.items() if not n.endswith("_by_part")}
+        print(f"train: {cfg.name} grads {k} {json.dumps(shown)}", flush=True)
+    if limits is not None:
+        if not within_grad_limits(readings["sound"], limits):
+            fail(f"train: {cfg.name}: the bf16 step and its f32 copy disagree: "
+                 f"{readings['sound']} against {limits}")
+        if not within_grad_limits(readings["f32_index_sums"],
+                                  {**limits, "gain_repeated": limits["gain"]}):
+            fail(f"train: {cfg.name}: with the index sums in f32 the step still "
+                 f"disagrees with its f32 copy: {readings['f32_index_sums']}")
+        for fault in TRAIN_FAULTS:
+            if within_grad_limits(readings[fault], limits):
+                fail(f"train: {cfg.name}: the step's check does not reject the "
+                     f"planted fault {fault!r}: {readings[fault]}")
+    return out
+
+
+@contextlib.contextmanager
+def watched_steps(launcher, stop_after: int | None = None):
+    """While the block runs, each train step the launcher makes is wrapped:
+    it records its batch's tokens (on the host) and the params it returns,
+    and raises SIGTERM, the preemption path, once ``stop_after`` steps are
+    done. Yields the record."""
+    import signal
+    from repro_torch.train.step import make_train_step
+    seen = {"tokens": [], "params": None}
+
+    def make(*a, **kw):
+        step = make_train_step(*a, **kw)
+
+        def watched(params, opt_state, batch):
+            out = step(params, opt_state, batch)
+            seen["tokens"].append(batch["tokens"].cpu().numpy())
+            seen["params"] = out[0]
+            if len(seen["tokens"]) == stop_after:
+                signal.raise_signal(signal.SIGTERM)
+            return out
+        return watched
+
+    launcher.make_train_step = make
+    try:
+        yield seen
+    finally:
+        launcher.make_train_step = make_train_step
+
+
+def train_resume(torch, ckpt_dir: Path, rtol: float | None = None) -> dict:
+    """(c) granite-moe-1b-a400m cut to RESUME_LAYERS layers
+    (``launch/train.train`` on the cut config): 4 steps straight through
+    against 2 steps stopped by SIGTERM (the preemption path: a checkpoint
+    at the step boundary), then a new run that resumes from LATEST for 2
+    more. Each step of both must take the stream's batch of its step
+    (``batch_at``) and, with ``rtol``, the losses must agree within it.
+    Returns the readings and the resumed run's trained params."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train as launcher
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    args = launcher.parse_args(TRAIN_ARGV + ["--steps", "4"])
+    with watched_steps(launcher) as seen_straight:
+        straight = launcher.train(cfg, args)
+    del seen_straight["params"]
+    args = launcher.parse_args(TRAIN_ARGV + ["--steps", "4", "--ckpt-dir",
+                                             str(ckpt_dir)])
+    with watched_steps(launcher, stop_after=2) as seen_first:
+        first = launcher.train(cfg, args)
+    with watched_steps(launcher) as seen_second:
+        second = launcher.train(cfg, args)
+    resumed = first["steps"] + second["steps"]
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batches_ok = all(
+        len(seen) == 4 and all(np.array_equal(t, source.batch_at(i)["tokens"])
+                               for i, t in enumerate(seen))
+        for seen in (seen_straight["tokens"],
+                     seen_first["tokens"] + seen_second["tokens"]))
+    if [s["step"] for s in resumed] != [0, 1, 2, 3] or not batches_ok:
+        fail(f"train: resume: a step took another batch than the stream's of "
+             f"its step: {resumed} against {straight['steps']}")
+    gaps = [abs(a["loss"] - b["loss"]) / abs(a["loss"])
+            for a, b in zip(straight["steps"], resumed)]
+    out = {"losses_straight": straight["history"],
+           "losses_resumed": [s["loss"] for s in resumed], "loss_rel_gaps": gaps,
+           "rtol": rtol}
+    print(f"train: resume {json.dumps(out)}", flush=True)
+    if rtol is not None and max(gaps) > rtol:
+        fail(f"train: resume: the resumed run's losses leave {rtol}: {gaps}")
+    return out, seen_second["params"]
+
+
+def serve_prompts(torch, model, params, prompts, max_new: int, max_len: int):
+    """The prompts served to completion by one ServeSession of 4 slots."""
+    from repro_torch.serving.engine import ServeSession
+    sess = ServeSession(model, params, max_slots=4, max_len=max_len)
+    for p in prompts:
+        sess.submit(p, max_new_tokens=max_new)
+    sess.run_to_completion()
+    return sess
+
+
+def trained_prompts(cfg, lens) -> list:
+    """Prompts of the given lengths from the synthetic stream the model was
+    trained on (a step it never saw)."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    toks = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=max(lens),
+                                  global_batch=len(lens))).batch_at(10_000)["tokens"]
+    return [toks[i, :n] for i, n in enumerate(lens)]
+
+
+def serve_trained(torch, summary: dict, trained, ckpt_dir: Path) -> dict:
+    """(d) The resumed run's last checkpoint restored into a fresh LM
+    (``CheckpointManager.restore``; bit for bit the trained params), then
+    served through ArcaneEngine("cuda"): 4 requests of 16 new tokens,
+    launch counts exact (``counted_run``), cuda against ref logits under
+    phase 3's limits (``check_logits``)."""
+    import dataclasses
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM, tree_leaves, tree_map
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH), n_layers=RESUME_LAYERS)
+    mgr = CheckpointManager(str(ckpt_dir))
+    step = mgr.latest_step()
+    like = {"params": tree_map(lambda t: torch.empty_like(t, device="meta"), trained)}
+    params = mgr.restore(step, like, device="cuda")[0]["params"]
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for a, b in zip(tree_leaves(params), tree_leaves(trained)))
+    if not same:
+        fail("train: the restored params differ from the trained ones")
+    model = LM(cfg, ArcaneEngine("cuda"), device="cuda")
+    prompts = trained_prompts(cfg, SERVE_TRAINED_LENS)
+
+    def expect(sess):
+        done = sess.finished
+        if len(done) != len(prompts) or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"train: serve: {len(done)} requests finished")
+        n = sess.stats["decode_steps"]
+        return (*expected_launches(torch, cfg, [len(r.prompt) for r in done], n, 4),
+                f"(restored step {step}: prompts={len(done)} decode_steps={n})")
+
+    sess, counts, variants = counted_run(
+        torch, cfg, lambda: serve_prompts(torch, model, params, prompts, 16,
+                                          SERVE_TRAINED_MAX_LEN), expect)
+    agree = check_logits(torch, summary, cfg, params, prompts[0])
+    return {"restored_step": step, "restored_equal": same, "launches": counts,
+            "variants": variants, "decode_steps": sess.stats["decode_steps"],
+            "greedy_agreement": agree,
+            "out_tokens": [r.out_tokens for r in sorted(sess.finished,
+                                                        key=lambda r: r.uid)]}
+
+
+TRAIN_LABELS = {"gemm": "engine GEMMs (projections, unembed)",
+                "attention": "attention (the ref's chunked einsums)",
+                "moe_experts": "MoE expert products", "moe_dispatch":
+                "MoE dispatch and combine", "moe_router": "MoE router, top-k, aux",
+                "optimizer": "AdamW update"}
+
+
+@contextlib.contextmanager
+def labelled_train_ops(torch, engine):
+    """The engine's gemm and attention, the MoE's expert products,
+    dispatch and combine, the MoE layer itself (its router, top-k and aux
+    loss) and the optimizer's update, each under a ``train::<label>``
+    record_function while the block runs (restored after), so that a
+    profile can put each kernel under the op that launched it, in the
+    forward pass or, through the autograd node's sequence number, in the
+    backward pass."""
+    import functools
+    import repro_torch.models.blocks as blocks
+    import repro_torch.models.moe as moe
+    import repro_torch.train.step as step
+
+    def wrap(label, fn):
+        @functools.wraps(fn)
+        def inner(*a, **kw):
+            with torch.profiler.record_function(f"train::{label}"):
+                return fn(*a, **kw)
+        return inner
+
+    patches = [(engine, "gemm", "gemm"), (engine, "attention", "attention"),
+               (moe, "_expert_matmul", "moe_experts"),
+               (moe, "_group_dispatch", "moe_dispatch"),
+               (moe, "_group_combine", "moe_dispatch"), (blocks, "moe", "moe_router"),
+               (step, "adamw_update", "optimizer")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    for obj, name, label in patches:
+        setattr(obj, name, wrap(label, getattr(obj, name)))
+    try:
+        yield
+    finally:
+        for obj, name, fn in saved:
+            if obj is engine:
+                delattr(obj, name)          # the class's method again
+            else:
+                setattr(obj, name, fn)
+
+
+def ms_by_label(prof, weight) -> dict:
+    """``weight(event)`` (ms) of every CPU op of a profile, summed by the
+    ``train::`` label of its nearest labelled ancestor; an op in the
+    backward pass (under an autograd node, ``...Backward``) takes the label
+    of the forward op whose sequence number the node carries. An op under
+    no label counts as ``other``."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CPU]
+
+    def label_of(e, fwd=None):
+        while e is not None:
+            if e.name.startswith("train::"):
+                return e.name[len("train::"):]
+            if fwd is not None and "Backward" in e.name and e.sequence_nr in fwd:
+                return fwd[e.sequence_nr]
+            e = e.cpu_parent
+        return None
+
+    fwd = {}
+    for e in events:
+        if e.sequence_nr >= 0 and "Backward" not in e.name:
+            lab = label_of(e)
+            if lab is not None:
+                fwd.setdefault(e.sequence_nr, lab)
+    out = dict.fromkeys([*TRAIN_LABELS, "other"], 0.0)
+    for e in events:
+        w = weight(e)
+        if w:
+            out[label_of(e, fwd) or "other"] += w
+    return out
+
+
+def profile_train_step(torch, model, params, batch, microbatches: int = 2) -> dict:
+    """torch.profiler over one train step (the launcher's step function,
+    after one step to warm it; in a ``profile_window``): the card's busy
+    time and idle share, and device time by what launched it
+    (``labelled_train_ops``, ``ms_by_label``)."""
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    opt = adamw_init(opt_cfg, params)
+    with labelled_train_ops(torch, model.engine):
+        step = make_train_step(model, opt_cfg, microbatches=microbatches)
+        params, opt, _ = step(params, opt, batch)
+        torch.cuda.synchronize()
+        with profile_window(torch) as prof:
+            t0 = time.perf_counter()
+            step(params, opt, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    del opt
+    # the labels' own device ranges (annotations spanning their kernels)
+    # are left out with the primers
+    skip = ("spin_kernel", "train::")
+    out = busy_share(prof, wall_ms, 1, "step", exclude=skip)
+    out["device_ms_by_op"] = ms_by_label(prof, lambda e: sum(
+        k.duration for k in e.kernels if not any(x in k.name for x in skip)) / 1e3)
+    print(f"profile: train step {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_train(torch, summary: dict) -> dict:
+    """Phase 5: (a) ``train_full_width``; (b) ``train_grad_check`` on seed
+    0's weights and the launcher's first batch, then ``profile_train_step``
+    on them; (c) ``train_resume``; (d) ``serve_trained``. Each part's state
+    is freed before the next."""
+    import gc
+    import shutil
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import LM
+    ckpt = ROOT / "build" / "chip_smoke" / "train_ckpt"
+    out = {}
+
+    def free(what: str):
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"train: {what} done; {torch.cuda.memory_allocated()} bytes still "
+              f"allocated", flush=True)
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    out["full_width"] = train_full_width(torch, ckpt)
+    free("(a)")
+    cfg = get_config(TRAIN_ARCH)
+    args = launcher.parse_args(TRAIN_ARGV)
+    model = LM(cfg, ArcaneEngine("ref"), device="cuda")
+    params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+    batch = to_device(SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                             global_batch=args.batch)).batch_at(0),
+                      torch.device("cuda"))
+    out["grad_check"] = train_grad_check(torch, model, params, batch,
+                                         args.microbatches, GRAD_LIMITS)
+    free("(b)")
+    out["profile"] = profile_train_step(torch, model, params, batch, args.microbatches)
+    del params
+    free("the profile")
+    out["resume"], trained = train_resume(torch, ckpt, RESUME_RTOL)
+    free("(c)")
+    out["serve"] = serve_trained(torch, summary, trained, ckpt)
+    del trained
+    shutil.rmtree(ckpt, ignore_errors=True)
+    free("(d)")
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 CNN_RUNS = [
     ["--size", "256", "--k", "3", "--dtype", "int8"],     # Listing 1, ReLU
@@ -2340,16 +3004,22 @@ def main(argv=None) -> None:
     clock.lap("serve_embeds")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 5: training, and the trained weights served from their checkpoint
+    summary["train"] = run_train(torch, summary)
+    clock.lap("train")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     if failures:
         fail("; ".join(failures))
 
-    # ---- phase 5: result
+    # ---- phase 6: result
     kernels = []
     for name, (src, replaces, wrapper, phase, rep, rep_dt) in KERNELS.items():
         mine = [r for r in rows if r["kernel"] == name]
         pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == rep_dt),
                     mine[0] if mine else None)
-        runs = [summary[phase]] + ([summary["serve_embeds"]] if phase == "serve" else [])
+        runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"]]
+                                   if phase == "serve" else [])
         variants = {}
         for run in runs:
             for v, n in run.get("variants", {}).get(wrapper, {}).items():
@@ -2364,7 +3034,10 @@ def main(argv=None) -> None:
         }
         if phase == "serve":     # launches by served model
             entry["launches_by_model"] = {
-                a: m["launches"][wrapper] for run in runs for a, m in run["models"].items()}
+                a: m["launches"][wrapper] for run in runs
+                for a, m in run.get("models", {}).items()}
+            entry["launches_by_model"]["trained granite (phase 5)"] = \
+                summary["train"]["serve"]["launches"][wrapper]
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
         more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")

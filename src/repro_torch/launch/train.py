@@ -1,0 +1,171 @@
+"""Training launcher: state on one device, a fault-tolerant loop
+(counterpart of repro.launch.train).
+
+  * **checkpoint/restart**: CheckpointManager (atomic, async); resume is
+    automatic from <ckpt_dir>/LATEST, and the data pipeline regenerates the
+    exact stream from the step counter alone.
+  * **preemption handling**: SIGTERM/SIGINT trigger a synchronous save at
+    the next step boundary before exit.
+  * **step watchdog**: a step that takes more than ``--watchdog-factor`` ×
+    the trailing median is logged as a straggler and counted.
+
+The step runs on ``ArcaneEngine("ref")`` (``--backend``): the CUDA kernels
+have no backward (``train/step.py`` refuses any other engine). Train on the
+card::
+
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch granite-moe-1b-a400m --steps 50 --batch 8 --seq 512
+
+or on the CPU at the reduced config::
+
+    PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
+        --steps 20
+
+``--model-axis`` other than 1 and ``--production-mesh`` (the reference's
+device meshes) raise: the port has no multi-device path yet. ``train(cfg,
+args)`` runs the loop on a config of the caller's (a cut depth, say).
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+import statistics
+import time
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
+from repro_torch.configs import ARCHS, get_config, get_smoke_config
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.models.transformer import LM
+from repro_torch.optim.adamw import AdamWConfig
+from repro_torch.train.step import init_train_state, make_train_step
+
+
+class Preemption:
+    """SIGTERM/SIGINT set ``flag`` while the run lasts; ``close`` puts the
+    earlier handlers back."""
+
+    def __init__(self):
+        self.flag = False
+        self._saved = {}
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            try:
+                self._saved[sig] = signal.signal(sig, self._handler)
+            except ValueError:
+                pass  # not main thread
+
+    def _handler(self, signum, frame):
+        self.flag = True
+
+    def close(self):
+        for sig, handler in self._saved.items():
+            signal.signal(sig, handler)
+
+
+def parse_args(argv=None) -> argparse.Namespace:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="granite-moe-1b-a400m", choices=ARCHS)
+    ap.add_argument("--smoke", action="store_true",
+                    help="use the reduced config (CPU-runnable)")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--lr", type=float, default=3e-4)
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--model-axis", type=int, default=1,
+                    help="only 1: the port has no multi-device path yet")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=50)
+    ap.add_argument("--watchdog-factor", type=float, default=5.0)
+    ap.add_argument("--backend", default="ref",
+                    help="the engine; a train step takes only 'ref'")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="not available: the port has no multi-device path yet")
+    ap.add_argument("--device", default=None,
+                    help="default: the card (cuda); 'cpu' for the plain path")
+    return ap.parse_args(argv)
+
+
+def run(argv=None) -> dict:
+    """Train ``--arch`` (its smoke config with ``--smoke``); see ``train``."""
+    args = parse_args(argv)
+    return train(get_smoke_config(args.arch) if args.smoke
+                 else get_config(args.arch), args)
+
+
+def train(cfg: ModelConfig, args: argparse.Namespace) -> dict:
+    """Train ``cfg`` as ``args`` say; → {"history": each step's loss,
+    "stragglers", "final_loss", "steps": each step's loss, grad_norm, lr
+    and ms}."""
+    if args.model_axis != 1 or args.production_mesh:
+        raise NotImplementedError(
+            "--model-axis > 1 and --production-mesh need the multi-device "
+            "path, which the port does not have yet")
+    device = resolve_device(args.device)
+    model = LM(cfg, ArcaneEngine(backend=args.backend), device=device)
+    opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
+                          total_steps=args.steps)
+    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    params, opt_state = init_train_state(
+        model, opt_cfg, torch.Generator(device=device).manual_seed(0))
+
+    ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
+    start_step = 0
+    if ckpt is not None and ckpt.latest_step() is not None:
+        start_step = ckpt.latest_step()
+        state, _ = ckpt.restore(start_step, {"params": params, "opt": opt_state},
+                                device=device)
+        params, opt_state = state["params"], state["opt"]
+        print(f"[resume] from step {start_step}")
+
+    preempt = Preemption()
+    durations: list[float] = []
+    stragglers = 0
+    history, steps = [], []
+    it = Prefetcher(source, start_step=start_step, device=device)
+    try:
+        for step in range(start_step, args.steps):
+            batch = next(it)
+            t0 = time.perf_counter()
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])           # waits for the device
+            dt = time.perf_counter() - t0
+            durations.append(dt)
+            if len(durations) > 8:
+                med = statistics.median(durations[-32:])
+                if dt > args.watchdog_factor * med:
+                    stragglers += 1
+                    print(f"[watchdog] step {step}: {dt:.2f}s vs median "
+                          f"{med:.2f}s — straggler/hang suspected")
+            history.append(loss)
+            steps.append({"step": step, "loss": loss,
+                          "grad_norm": float(metrics["grad_norm"]),
+                          "lr": float(metrics["lr"]), "ms": dt * 1e3})
+            if step % 10 == 0 or step == args.steps - 1:
+                print(f"step {step:5d} loss {loss:.4f} "
+                      f"lr {float(metrics['lr']):.2e} "
+                      f"gnorm {float(metrics['grad_norm']):.2f} {dt:.2f}s")
+            if ckpt is not None and ((step + 1) % args.ckpt_every == 0
+                                     or preempt.flag or step == args.steps - 1):
+                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                          extra={"loss": loss}, blocking=preempt.flag)
+            if preempt.flag:
+                print(f"[preempt] checkpoint at step {step + 1}, exiting")
+                break
+    finally:
+        preempt.close()
+        it.close()
+        if ckpt is not None:
+            ckpt.wait()
+    return {"history": history, "stragglers": stragglers,
+            "final_loss": history[-1] if history else None, "steps": steps}
+
+
+if __name__ == "__main__":
+    run()

@@ -1,5 +1,6 @@
-"""Carry weights (and caches) across from the reference: numpy pytree → the
-port's params (cache).
+"""Carry weights, caches and optimizer state across from the reference:
+numpy pytree → the port's params (cache, AdamW state), and the port's trees
+back to numpy (``tree_to_numpy``) to set beside the reference's.
 
 The reference's params pytree, after ``np.asarray`` on every leaf, has the
 same nesting as the port's (dicts, a tuple of per-pattern-position stacks).
@@ -57,3 +58,25 @@ def cache_from_numpy(tree, cfg: ModelConfig, device=None) -> tuple:
                              f"is not stacked over {cfg.n_periods} periods")
     return tuple(tree_map(lambda x: tensor_from_numpy(x, dev), c)
                  for c in tree)
+
+
+def opt_state_from_numpy(tree, cfg: ModelConfig, device=None) -> dict:
+    """The reference's AdamW state (``adamw_init`` / ``adamw_update``
+    output, numpy leaves: ``master``, ``m`` and ``v`` shaped as the params,
+    ``step`` an int32 scalar) as the port's on ``device``."""
+    dev = resolve_device(device)
+    out = {k: params_from_numpy(tree[k], cfg, dev) for k in ("master", "m", "v")}
+    out["step"] = torch.tensor(int(tree["step"]), dtype=torch.int32, device=dev)
+    return out
+
+
+def tensor_to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host; bf16 widened to f32 (numpy
+    has no bf16 of its own), exactly."""
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+
+def tree_to_numpy(tree):
+    """A tree of tensors as numpy arrays (``tensor_to_numpy``)."""
+    return tree_map(tensor_to_numpy, tree)

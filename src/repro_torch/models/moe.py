@@ -86,10 +86,14 @@ def _group_combine(y, flat_idx, keep, slot_gate, k: int):
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(E, C, a) @ (E, a, b) → f32, the products and sums in f32 (the
     reference's ``preferred_element_type=jnp.float32``). On the card a bf16
-    pair runs as one batched cuBLAS product that accumulates in f32 and
-    writes f32 (``out_dtype``), so the weights are read once, as they are;
-    elsewhere both operands are widened to f32 first, which is exact."""
-    if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16:
+    pair that autograd does not record (serving) runs as one batched cuBLAS
+    product that accumulates in f32 and writes f32 (``out_dtype``), so the
+    weights are read once, as they are. Under autograd (training), and off
+    the card, both operands are widened to f32 first, which is exact:
+    ``aten::bmm.dtype`` has no derivative."""
+    if x.is_cuda and x.dtype == torch.bfloat16 and w.dtype == torch.bfloat16 \
+            and not (torch.is_grad_enabled()
+                     and (x.requires_grad or w.requires_grad)):
         return torch.bmm(x, w, out_dtype=torch.float32)
     return torch.bmm(x.float(), w.float())
 

@@ -13,12 +13,19 @@ Params keep the reference layout: per pattern position, a dict of stacked
 leaves with a leading ``n_periods`` axis. A Python loop over periods takes
 the place of the reference's ``lax.scan``; each step indexes the stacks
 (views, no copies). The cache has the same layout and is updated in place.
+
+Training (``loss``) differentiates ``forward`` with autograd. With
+``remat`` (the default, as in the reference) each period of the decoder and
+each encoder layer runs under ``torch.utils.checkpoint``: autograd keeps
+only the period's input and runs the period again in the backward pass, the
+reference's ``jax.checkpoint`` around its scan body.
 """
 from __future__ import annotations
 
 from typing import Any, Callable, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
@@ -71,10 +78,11 @@ class LM:
     on one device."""
 
     def __init__(self, cfg: ModelConfig, engine: Optional[ArcaneEngine] = None,
-                 *, device=None):
+                 *, device=None, remat: bool = True):
         self.cfg = cfg
         self.engine = engine or default_engine()
         self.device = resolve_device(device)
+        self.remat = remat
         for spec in cfg.pattern:
             blk._check_kind(cfg, spec)
 
@@ -109,6 +117,20 @@ class LM:
         return unembed(self.engine, table, x, softcap=self.cfg.final_softcap)
 
     # ------------------------------------------------------------ forward
+    def _remats(self, params) -> bool:
+        """Whether ``forward`` checkpoints its periods: ``remat`` is set and
+        autograd records a param (a train step). Serving, ``no_grad`` and
+        params that need no grad run plain."""
+        return self.remat and torch.is_grad_enabled() and any(
+            t.requires_grad for t in tree_leaves(params))
+
+    @staticmethod
+    def _period(remat: bool, fn: Callable, *args):
+        """``fn(*args)``, under activation checkpointing where ``remat``."""
+        if remat:
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
     def _embed_inputs(self, params, batch) -> torch.Tensor:
         """Token embeddings, behind the vision prefix where there is one,
         plus the decoder's sinusoidal positions for an encoder-decoder, in
@@ -123,18 +145,23 @@ class LM:
             x = x + pos[None].to(x.dtype)
         return x.to(cfg.cdtype)
 
-    def _encoder(self, params, batch) -> torch.Tensor:
+    def _encoder(self, params, batch, remat: bool = False) -> torch.Tensor:
         """The encoder over the audio embeddings: sinusoidal positions,
-        ``n_enc_layers`` bidirectional attention blocks, a final norm."""
+        ``n_enc_layers`` bidirectional attention blocks (each checkpointed
+        where ``remat``), a final norm."""
         cfg = self.cfg
         x = batch["audio_embeds"].to(cfg.cdtype)
         s = x.shape[1]
         x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
         positions = torch.arange(s, device=x.device)
         stack = params["enc_blocks"][0]
+
+        def layer_fn(h, i):
+            return blk.block_forward(self.engine, _index(stack, i), cfg,
+                                     ENC_SPEC, h, positions, causal=False)[0]
+
         for i in range(cfg.n_enc_layers):
-            x, _ = blk.block_forward(self.engine, _index(stack, i), cfg,
-                                     ENC_SPEC, x, positions, causal=False)
+            x = self._period(remat, layer_fn, x, i)
         _, napply = make_norm(cfg.norm)
         return napply(params["enc_final_norm"], x)
 
@@ -144,18 +171,42 @@ class LM:
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
-        enc_out = self._encoder(params, batch) if cfg.enc_dec else None
+        remat = self._remats(params)
+        enc_out = self._encoder(params, batch, remat) if cfg.enc_dec else None
+
+        def period_fn(h, aux, i, enc_out):
+            for j, spec in enumerate(cfg.pattern):
+                h, a = blk.block_forward(self.engine,
+                                         _index(params["blocks"][j], i), cfg,
+                                         spec, h, positions, enc_out=enc_out)
+                aux = aux + a
+            return h, aux
+
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
         for i in range(cfg.n_periods):
-            for j, spec in enumerate(cfg.pattern):
-                x, a = blk.block_forward(self.engine,
-                                         _index(params["blocks"][j], i), cfg,
-                                         spec, x, positions, enc_out=enc_out)
-                aux = aux + a
+            x, aux = self._period(remat, period_fn, x, aux, i, enc_out)
         logits = self._unembed(params, x)
         if cfg.vision_prefix:
             logits = logits[:, cfg.vision_prefix:]
         return logits, aux
+
+    def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
+        """Next-token cross-entropy over the (optionally ``loss_mask``ed)
+        text positions plus the summed MoE aux loss → (total, {"ce", "aux",
+        "tokens"}), f32 scalars."""
+        logits, aux = self.forward(params, batch)
+        targets = batch["tokens"][:, 1:].long()
+        lg = logits[:, :-1]
+        mask = batch.get("loss_mask")
+        mask = (mask[:, 1:].to(torch.float32) if mask is not None
+                else torch.ones(targets.shape, dtype=torch.float32,
+                                device=lg.device))
+        logz = torch.logsumexp(lg, dim=-1)
+        gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+        nll = (logz - gold) * mask
+        denom = torch.clamp(mask.sum(), min=1.0)
+        ce = nll.sum() / denom
+        return ce + aux, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, max_len: int, *, dtype=None,

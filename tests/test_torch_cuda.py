@@ -903,3 +903,61 @@ def test_embed_smoke_decode_cuda_matches_ref(cuda_device, arch):
     after = (gemm_cuda.launches, flash_attention_cuda.launches,
              decode_attention_cuda.launches)
     assert all(a > b for a, b in zip(after, before))
+
+
+# ------------------------------------------------------- training on a card
+@pytest.mark.cuda
+@pytest.mark.parametrize("microbatches", [1, 2])
+def test_smoke_train_step_cuda_matches_cpu(cuda_device, microbatches):
+    """One train step of granite-smoke (f32) on the ref engine on the card
+    against the same step on the CPU, from the same weights and batch:
+    loss, grad norm and lr within 1e-5, every new param within 2·lr (an
+    element whose grad is near zero moves by ±lr with the sign of its
+    grad, which two devices may round apart) plus 1e-5."""
+    import dataclasses
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM, tree_leaves, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
+                              param_dtype="float32", compute_dtype="float32")
+    opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=0, total_steps=4)
+    params = LM(cfg, ArcaneEngine("ref"), device="cpu").init_params(
+        torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 32)))
+    out = []
+    for dev in ("cpu", cuda_device):
+        p = tree_map(lambda x: x.to(dev, copy=True), params)
+        model = LM(cfg, ArcaneEngine("ref"), device=dev)
+        step = make_train_step(model, opt_cfg, microbatches=microbatches)
+        out.append(step(p, adamw_init(opt_cfg, p), {"tokens": tokens.to(dev)}))
+    (p_cpu, _, m_cpu), (p_gpu, _, m_gpu) = out
+    for k in m_cpu:
+        np.testing.assert_allclose(float(m_gpu[k]), float(m_cpu[k]), rtol=1e-5)
+    for a, b in zip(tree_leaves(p_gpu), tree_leaves(p_cpu)):
+        np.testing.assert_allclose(f32(a), f32(b), rtol=0, atol=2 * opt_cfg.lr + 1e-5)
+
+
+@pytest.mark.cuda
+def test_expert_matmul_under_autograd(cuda_device):
+    """The MoE's expert product on the card: a bf16 pair that autograd
+    records is widened to f32 (``aten::bmm.dtype`` has no derivative), so
+    its gradients flow; outside autograd it reads the bf16 weights once
+    (``out_dtype``). Both give the same f32 result (exact products, f32
+    sums; cuBLAS may sum in another order: within 1e-5)."""
+    from repro_torch.models.moe import _expert_matmul
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    x = torch.randn((4, 64, 128), generator=gen, device=cuda_device).to(torch.bfloat16)
+    w = torch.randn((4, 128, 96), generator=gen, device=cuda_device).to(torch.bfloat16)
+    with torch.no_grad():
+        plain = _expert_matmul(x, w)
+    wg = w.detach().requires_grad_()
+    y = _expert_matmul(x, wg)
+    assert y.dtype == plain.dtype == torch.float32 and y.grad_fn is not None
+    np.testing.assert_allclose(f32(y.detach()), f32(plain), rtol=1e-5, atol=1e-5)
+    (g,) = torch.autograd.grad(y.sum(), wg)
+    ref = torch.bmm(x.float().transpose(1, 2), torch.ones_like(y))
+    np.testing.assert_allclose(f32(g), f32(ref.to(torch.bfloat16)), rtol=1e-2)
+    with pytest.raises(RuntimeError, match="derivative"):
+        torch.autograd.grad(torch.bmm(x, wg, out_dtype=torch.float32).sum(), wg)

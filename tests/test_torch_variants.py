@@ -431,3 +431,87 @@ def test_halves_engine_sums_k_in_two_halves():
     assert torch.equal(eng.gemm(x, w, out_dtype=torch.float32),
                        plain.gemm(x, w, out_dtype=torch.float32))
     assert torch.equal(eng.gemm(x.float(), w.float()), plain.gemm(x.float(), w.float()))
+
+
+def test_chip_smoke_trained_serve_launch_counts_equal_the_engine_calls():
+    """chip_smoke.py's expected launches of phase 5's serving half (the
+    restored granite, cut to RESUME_LAYERS layers, served by
+    ``serve_prompts`` with prompts from ``trained_prompts``) against the
+    calls a bf16 run of the same loop makes on the CPU (granite-smoke's
+    widths at the same depth; the prompts shortened to fit its 128
+    positions)."""
+    import dataclasses
+    cs = chip_smoke()
+    cfg = dataclasses.replace(get_smoke_config(cs.TRAIN_ARCH), n_layers=cs.RESUME_LAYERS)
+    engine = LaunchSpy()
+    model = LM(cfg, engine, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    lens = [n // 8 for n in cs.SERVE_TRAINED_LENS]
+    prompts = cs.trained_prompts(cfg, lens)
+    assert [len(p) for p in prompts] == lens
+    sess = cs.serve_prompts(torch, model, params, prompts, 16, 96)
+    assert all(len(r.out_tokens) == 16 for r in sess.finished)
+    counts, variants = cs.expected_launches(
+        torch, cfg, [len(r.prompt) for r in sess.finished],
+        sess.stats["decode_steps"], 4)
+    assert engine.counts == counts
+    assert engine.variants == variants
+    assert counts["decode_attention_cuda"] == cs.RESUME_LAYERS * sess.stats["decode_steps"]
+
+
+def test_chip_smoke_train_check_sees_its_planted_faults():
+    """chip_smoke.py's step check (``train_grad_check``) at granite-smoke's
+    width on the CPU, on a batch of the synthetic stream: the parts are
+    every leaf (the block leaves layer by layer) with the embedding's rows
+    cut into the repeated tokens' and the rest; each planted fault moves
+    the reading meant for it (no aux: the loss, 10x the sound step's gap
+    at least; each scaling fault: the parts it scales read its scale
+    times the sound step's gain, every other part as sound; the bf16
+    microbatch sum: its sum against the f64 one, 1000x), and the faults
+    planted in the model leave the microbatch sum as sound as the sound
+    step's; each part's gain is held by the limit of its kind. (Whether
+    the limits separate them is a question of the full width, which the
+    card answers.)"""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    cs = chip_smoke()
+    cfg = get_smoke_config(cs.TRAIN_ARCH)
+    model = LM(cfg, ArcaneEngine("ref"), device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    tokens = torch.from_numpy(SyntheticLM(DataConfig(
+        vocab=cfg.vocab, seq_len=64, global_batch=8)).batch_at(0)["tokens"])
+    r = cs.train_grad_check(torch, model, params, {"tokens": tokens})["readings"]
+    sound = r["sound"]
+    repeated = cs.repeated_rows(tokens, cfg.vocab)
+    assert 0 < int(repeated.sum()) < cfg.vocab
+    parts = cs._parts(params, tokens)
+    assert parts["embed/table[repeated]"].shape[0] == int(repeated.sum())
+    assert parts["embed/table[rest]"].shape[0] == cfg.vocab - int(repeated.sum())
+    n_block_leaves = sum(1 for p, _ in cs._walk(params) if p.startswith("blocks/"))
+    assert len(parts) == 3 + n_block_leaves * cfg.n_layers
+    assert set(sound["gain_by_part"]) == set(parts)
+    assert r["no_aux"]["loss_rel"] > 10 * sound["loss_rel"]
+    layer = f"[{min(cs.FAULT_LAYER, cfg.n_layers - 1)}]"
+    moved = {"layer_x1.01": (lambda part: part.endswith(layer), 1.01),
+             "embed_x1.01": (lambda part: part.startswith("embed/table["), 1.01),
+             "ln1_x1.01": (lambda part: part.endswith("/ln1/scale" + layer), 1.01),
+             "router_x1.03": (lambda part: part.endswith("/router/w" + layer), 1.03)}
+    assert set(moved) | {"no_aux", "bf16_sum"} == set(cs.TRAIN_FAULTS)
+    for fault, (hit, by) in moved.items():
+        assert sum(map(hit, sound["gain_by_part"])) >= 1
+        for part, gain in r[fault]["gain_by_part"].items():
+            want = sound["gain_by_part"][part] * (by if hit(part) else 1)
+            assert gain == pytest.approx(want, rel=1e-6), (fault, part)
+    assert r["bf16_sum"]["acc_rel"] > 1000 * sound["acc_rel"]
+    for fault in ("no_aux", *moved):
+        assert r[fault]["acc_rel"] < 1e-6
+    kinds = {part: cs.gain_kind(part) for part in parts}
+    assert kinds["embed/table[repeated]"] == "gain_repeated"
+    assert kinds["embed/table[rest]"] == kinds["final_norm/scale"] == "gain"
+    assert {kinds[f"blocks/0/{leaf}[0]"] for leaf in ("ffn/router/w", "ln2/scale")} \
+        == {"gain_router"}
+    assert {kinds[f"blocks/0/{leaf}[0]"] for leaf in ("ln1/scale", "attn/q/w",
+                                                       "ffn/down")} == {"gain"}
+    for reading in r.values():
+        assert reading["gain"] == max(abs(g - 1) for part, g in
+                                      reading["gain_by_part"].items()
+                                      if kinds[part] == "gain")
