@@ -168,9 +168,24 @@ Phases:
      and served through ArcaneEngine("cuda"): 4 requests of 16 new
      tokens, launch counts exact, cuda vs ref logits under phase 3's
      limits.
+  5b. multi-device (after phase 5): the multi-device layer on a world of
+     one NCCL rank (a FileStore under build/; no fallback: a failed NCCL
+     init fails the run) and its (1, 1) mesh, granite-moe-1b-a400m at full
+     width as phase 5: (a) 2 steps of the sharded train step (params
+     under param_pspecs, AdamW state under zero_pspecs, grad_shardings=)
+     against 2 plain steps from the same weights, loss, grad norm and
+     every param leaf bit for bit, each step's ms; (b) 6 steps of
+     make_compressed_dp_step with compress=True and False: ms, the
+     all-reduce's share, step 1's quantization readings per leaf (mean +
+     residual within one f32 ulp of the scale of the f32 grad, |residual|
+     within half a level and 2^-16) with two planted payload faults the
+     check must reject, the last losses within the reference's 0.25;
+     (c) pipeline_forward with one stage against the stage; (d) the
+     compressed run's params saved, restored with shardings= and served
+     through the kernels (counts exact, logits as phase 3); peak memory.
   6. result: a JSON line of the kernels (with each one's launches per
      variant and, for the serving kernels, per model, phase 3b's models
-     and phase 5's trained model included; gemm's also in the Mamba
+     and phases 5's and 5b's served models included; gemm's also in the Mamba
      block's run; ``more_cases``:
      decode attention's MLA, whisper and internvl2 rows, flash's whisper
      and internvl2 rows, gemm's granite unembed, rwkv6, jamba, int8,
@@ -2615,6 +2630,358 @@ def run_train(torch, summary: dict) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 5b
+# The multi-device layer on one card: a world of one NCCL rank (the card
+# has one GPU; the multi-rank checks are the CPU tests on gloo ranks), so
+# every collective, DTensor redistribution and point-to-point call of the
+# layer runs through NCCL. granite-moe-1b-a400m at full width, batch and
+# sequence as phase 5.
+MD_STEPS = 2                 # (a) the sharded step against the plain one
+MD_COMPRESSED_STEPS = 6      # (b) compressed against uncompressed
+MD_LOSS_GAP = 0.25           # (b) the reference's bound (tests/test_distributed.py:75)
+# (b) each leaf of step 1: mean + residual against the f32 grad within one
+# f32 ulp of the leaf's scale (exact in f32 but for the rounding of the
+# sum), and |residual| within half a level plus the rounding of gf / scale
+# and of q·scale (2^-16 of the scale covers both)
+MD_RESIDUAL_SLACK = 2.0 ** -16
+MD_FAULTS = ("payload_plus_one", "payload_plus_one_own_residual")
+MD_PIPE = (64, 1024, 4)      # (c) rows, width, microbatches
+
+
+def md_init(torch):
+    """Joins a process group of one NCCL rank (a FileStore under build/);
+    fails where NCCL does not initialise: no fallback."""
+    import torch.distributed as dist
+    store = ROOT / "build" / "chip_smoke" / "md_store"
+    store.parent.mkdir(parents=True, exist_ok=True)
+    store.unlink(missing_ok=True)
+    torch.cuda.set_device(0)
+    try:
+        dist.init_process_group("nccl", store=dist.FileStore(str(store), 1),
+                                rank=0, world_size=1)
+        probe = torch.ones(4, device="cuda")
+        dist.all_reduce(probe)
+        torch.cuda.synchronize()
+    except Exception as e:      # the phase needs NCCL
+        fail(f"multi-device: NCCL did not initialise: {type(e).__name__}: {e}")
+    print(f"multi-device: NCCL {torch.cuda.nccl.version()}, world 1, backend "
+          f"{dist.get_backend()}", flush=True)
+
+
+def md_timed(torch, step, *args) -> tuple:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = step(*args)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def md_sharded_vs_plain(torch, model, opt_cfg, mesh, batches, microbatches) -> dict:
+    """(a) MD_STEPS steps of the plain step (on plain tensors) and of the
+    sharded step (params under ``param_pspecs``, the AdamW state under
+    ``zero_pspecs`` on the (1, 1) mesh, ``grad_shardings=`` their ZeRO
+    tree) from the same seed-0 weights on the same batches: the loss, the
+    grad norm and every param leaf must carry the same bits."""
+    from repro_torch.distributed.sharding import (distribute, param_pspecs,
+                                                  to_shardings, zero_pspecs)
+    from repro_torch.models.transformer import tree_leaves, tree_map
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+
+    def init():
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        return params, adamw_init(opt_cfg, params)
+
+    params, opt = init()
+    step = make_train_step(model, opt_cfg, microbatches=microbatches)
+    plain = []
+    for b in batches:
+        (params, opt, m), ms = md_timed(torch, step, params, opt, b)
+        plain.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms})
+    plain_params = tree_map(lambda t: t.cpu(), params)
+    plain_peak = torch.cuda.max_memory_allocated()
+    del params, opt
+    gc_cuda(torch)
+    params, opt = init()
+    p_sh = to_shardings(param_pspecs(params, mesh), mesh)
+    grad_sh = to_shardings(zero_pspecs(params, mesh), mesh)
+    params = distribute(params, p_sh)
+    opt = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    step = make_train_step(model, opt_cfg, microbatches=microbatches,
+                           grad_shardings=grad_sh)
+    sharded = []
+    for b in batches:
+        (params, opt, m), ms = md_timed(torch, step, params, opt, b)
+        sharded.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
+                        "data_split": m["data_split"]})
+    peak = torch.cuda.max_memory_allocated()
+    same_metrics = all(torch.equal(a[k], b[k]) for a, b in zip(plain, sharded)
+                       for k in ("loss", "grad_norm"))
+    mine = tree_leaves(tree_map(lambda t: t.full_tensor(), params))
+    same_params = all(a.dtype == b.dtype and torch.equal(a.cpu(), b)
+                      for a, b in zip(mine, tree_leaves(plain_params)))
+    leaf = params["blocks"][0]["ffn"]["gate"]
+    out = {"losses": [float(r["loss"]) for r in sharded],
+           "grad_norms": [float(r["grad_norm"]) for r in sharded],
+           "plain_step_ms": [r["ms"] for r in plain],
+           "sharded_step_ms": [r["ms"] for r in sharded],
+           "data_split": [r["data_split"] for r in sharded],
+           "same_bits_metrics": same_metrics, "same_bits_params": same_params,
+           "leaves": len(mine), "expert_gate_placements": str(leaf.placements),
+           "opt_expert_gate_placements":
+               str(opt["master"]["blocks"][0]["ffn"]["gate"].placements),
+           "plain_peak_bytes": plain_peak, "sharded_peak_bytes": peak}
+    print(f"multi-device: (a) sharded vs plain step {json.dumps(out)}", flush=True)
+    if not (same_metrics and same_params):
+        fail(f"multi-device: (a) the sharded step's bits differ from the plain "
+             f"step's: metrics {same_metrics}, params {same_params}")
+    return out
+
+
+def gc_cuda(torch):
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def quant_readings(torch, grads, err_in, means, residuals) -> dict:
+    """Per leaf of a compressed all-reduce on one rank: the largest |mean +
+    residual - (g + err)| in f32 ulps of the leaf's scale and the largest
+    |residual| over the residual bound (scale × (1/2 + slack)); the worst of
+    each over the leaves, and the same readings with each MD_FAULTS fault
+    planted in the largest leaf (one element's payload a level up, with the
+    sound residual; or with the residual of the faulty payload)."""
+    from repro_torch.models.transformer import tree_leaves
+    gs, ms, rs = tree_leaves(grads), tree_leaves(means), tree_leaves(residuals)
+    es = tree_leaves(err_in) if err_in is not None else [None] * len(gs)
+
+    def reading(g, e, m, r):
+        gf = g.float() + (e if e is not None else 0.0)
+        scale = torch.max(torch.abs(gf)) / 127.0 + 1e-30
+        ulp = torch.nextafter(scale, torch.tensor(math.inf, device=scale.device)) - scale
+        recon = float(torch.max(torch.abs(m + r - gf)) / ulp)
+        bound = float(torch.max(torch.abs(r)) / (scale * (0.5 + MD_RESIDUAL_SLACK)))
+        return recon, bound, gf, scale
+
+    worst = {"recon_ulps": 0.0, "residual_over_bound": 0.0}
+    big = max(range(len(gs)), key=lambda i: gs[i].numel())
+    for i in range(len(gs)):
+        recon, bound, gf, scale = reading(gs[i], es[i], ms[i], rs[i])
+        worst["recon_ulps"] = max(worst["recon_ulps"], recon)
+        worst["residual_over_bound"] = max(worst["residual_over_bound"], bound)
+        if i != big:
+            continue
+        # a level up at an element whose residual is not above 0: its own
+        # residual then lies a whole level or more from 0
+        j = int(torch.argmin(rs[i].reshape(-1)))
+        faults = {}
+        m = ms[i].clone()
+        m.view(-1)[j] += scale
+        faults["payload_plus_one"] = reading(gs[i], es[i], m, rs[i])[:2]
+        r = rs[i].clone()
+        r.view(-1)[j] = gf.view(-1)[j] - m.view(-1)[j]
+        faults["payload_plus_one_own_residual"] = reading(gs[i], es[i], m, r)[:2]
+        del m, r
+    worst["faults"] = {k: {"recon_ulps": v[0], "residual_over_bound": v[1]}
+                       for k, v in faults.items()}
+    return worst
+
+
+def md_sound(r: dict) -> bool:
+    return r["recon_ulps"] <= 1.0 and r["residual_over_bound"] <= 1.0
+
+
+def md_compressed(torch, model, opt_cfg, group, batches) -> tuple:
+    """(b) make_compressed_dp_step for MD_COMPRESSED_STEPS steps with
+    compress=True and with compress=False from the same seed-0 weights:
+    each step's ms and the share of it in the gradient all-reduce (host
+    clock, the card synchronised around it); step 1's quantization
+    readings (``quant_readings``) sound and every planted fault rejected;
+    the last losses within MD_LOSS_GAP. Returns the readings and the
+    compressed run's params."""
+    import repro_torch.distributed.collectives as coll
+    from repro_torch.distributed.collectives import (init_error_feedback,
+                                                     make_compressed_dp_step)
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.optim.adamw import adamw_init
+    runs = {}
+    for compress in (True, False):
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw_init(opt_cfg, params)
+        err = init_error_feedback(params)
+        name = "tree_compressed_psum" if compress else "tree_pmean"
+        real = getattr(coll, name)
+        seen = {"comm_ms": [], "readings": None}
+
+        def watched(grads, group, err=None, real=real, seen=seen):
+            first = seen["readings"] is None and compress
+            if first and any(bool(e.any()) for e in tree_leaves(err)):
+                fail("multi-device: (b) the first step's error feedback is not zero")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(grads, group, err) if compress else real(grads, group)
+            torch.cuda.synchronize()
+            seen["comm_ms"].append((time.perf_counter() - t0) * 1e3)
+            if first:
+                seen["readings"] = quant_readings(torch, grads, None, *out)
+            return out
+
+        setattr(coll, name, watched)
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            step = make_compressed_dp_step(model, opt_cfg, group, compress=compress)
+            losses, ms = [], []
+            for b in batches:
+                (params, opt, err, m), t = md_timed(torch, step, params, opt, err, b)
+                losses.append(float(m["loss"]))
+                ms.append(t)
+        finally:
+            setattr(coll, name, real)
+        runs[compress] = {"losses": losses, "step_ms": ms, "comm_ms": seen["comm_ms"],
+                          "all_reduce_share": [c / t for c, t in zip(seen["comm_ms"], ms)],
+                          "peak_bytes": torch.cuda.max_memory_allocated(),
+                          "readings": seen["readings"]}
+        del opt, err
+        if compress:
+            trained = params
+        del params
+        gc_cuda(torch)
+    out = {"compressed": runs[True], "uncompressed": runs[False],
+           "last_loss_gap": abs(runs[True]["losses"][-1] - runs[False]["losses"][-1])}
+    print(f"multi-device: (b) compressed DP {json.dumps(out)}", flush=True)
+    rd = runs[True]["readings"]
+    if not md_sound(rd):
+        fail(f"multi-device: (b) step 1's quantization leaves its bound: {rd}")
+    if any(md_sound(f) for f in rd["faults"].values()):
+        fail(f"multi-device: (b) a planted fault passes the check: {rd['faults']}")
+    if out["last_loss_gap"] >= MD_LOSS_GAP or not all(
+            math.isfinite(v) for r in runs.values() for v in r["losses"]):
+        fail(f"multi-device: (b) compressed and uncompressed runs part: {out}")
+    return out, trained
+
+
+def md_pipeline(torch, group) -> dict:
+    """(c) pipeline_forward with one stage (tanh(h @ w), f32) equals the
+    stage applied to the whole batch."""
+    from repro_torch.distributed.pipeline import pipeline_forward
+    rows, width, micro = MD_PIPE
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    w = torch.randn(width, width, device="cuda", generator=gen) / math.sqrt(width)
+    x = torch.randn(rows, width, device="cuda", generator=gen)
+    fn = lambda p, h: torch.tanh(h @ p)  # noqa: E731
+    out = pipeline_forward(fn, w, x, group=group, n_micro=micro)
+    err = float((out - fn(w, x)).abs().max())
+    res = {"shape": list(out.shape), "max_abs_err": err, "atol": 1e-5}
+    print(f"multi-device: (c) pipeline {json.dumps(res)}", flush=True)
+    if err > 1e-5:
+        fail(f"multi-device: (c) the one-stage pipeline leaves stage_fn(x): {res}")
+    return res
+
+
+def md_checkpoint_serve(torch, summary: dict, cfg, mesh, trained) -> dict:
+    """(d) (b)'s compressed run's params saved (CheckpointManager: the
+    rank gathers, rank 0 writes), restored with ``shardings=`` onto the
+    (1, 1) mesh under ``param_pspecs`` (bit for bit the saved params), then
+    served through ArcaneEngine("cuda") as phase 5 (d) serves: 4 requests
+    of 16 new tokens, launch and variant counts exact, cuda vs ref logits
+    under phase 3's limits."""
+    import shutil
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed.sharding import param_pspecs, to_shardings
+    from repro_torch.models.transformer import LM, tree_leaves, tree_map
+    ckpt = ROOT / "build" / "chip_smoke" / "md_ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    mgr = CheckpointManager(str(ckpt))
+    t0 = time.perf_counter()
+    mgr.save(MD_COMPRESSED_STEPS, {"params": trained})
+    save_s = time.perf_counter() - t0
+    like = {"params": tree_map(lambda t: torch.empty_like(t, device="meta"), trained)}
+    shard = {"params": to_shardings(param_pspecs(trained, mesh), mesh)}
+    t0 = time.perf_counter()
+    restored = mgr.restore(mgr.latest_step(), like, shardings=shard)[0]["params"]
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(ckpt, ignore_errors=True)
+    same = all(type(r).__name__ == "DTensor" and r.dtype == t.dtype
+               and torch.equal(r.full_tensor(), t)
+               for r, t in zip(tree_leaves(restored), tree_leaves(trained)))
+    if not same:
+        fail("multi-device: (d) the restored params differ from the saved ones")
+    params = tree_map(lambda t: t.full_tensor(), restored)
+    del restored
+    model = LM(cfg, ArcaneEngine("cuda"), device="cuda")
+    prompts = trained_prompts(cfg, SERVE_TRAINED_LENS)
+
+    def expect(sess):
+        done = sess.finished
+        if len(done) != len(prompts) or any(len(r.out_tokens) != 16 for r in done):
+            fail(f"multi-device: (d) {len(done)} requests finished")
+        n = sess.stats["decode_steps"]
+        return (*expected_launches(torch, cfg, [len(r.prompt) for r in done], n, 4),
+                f"(restored across the mesh: prompts={len(done)} decode_steps={n})")
+
+    sess, counts, variants = counted_run(
+        torch, cfg, lambda: serve_prompts(torch, model, params, prompts, 16,
+                                          SERVE_TRAINED_MAX_LEN), expect)
+    agree = check_logits(torch, summary, cfg, params, prompts[0])
+    out = {"save_s": save_s, "restore_s": restore_s, "restored_equal": same,
+           "launches": counts, "variants": variants,
+           "decode_steps": sess.stats["decode_steps"], "greedy_agreement": agree}
+    print(f"multi-device: (d) checkpoint and serve {json.dumps(out)}", flush=True)
+    return out
+
+
+def run_multi_device(torch, summary: dict) -> dict:
+    """Phase 5b: on a world of one NCCL rank and its (1, 1) mesh,
+    ``md_sharded_vs_plain`` (a), ``md_compressed`` (b), ``md_pipeline``
+    (c) and ``md_checkpoint_serve`` (d); the phase's peak memory. The
+    process group is destroyed at the end."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.models.transformer import LM
+    from repro_torch.optim.adamw import AdamWConfig
+    md_init(torch)
+    try:
+        gc_cuda(torch)
+        torch.cuda.reset_peak_memory_stats()
+        mesh = make_host_mesh(model_axis=1)
+        group = mesh.get_group("data")
+        cfg = get_config(TRAIN_ARCH)
+        args = launcher.parse_args(TRAIN_ARGV)
+        model = LM(cfg, ArcaneEngine("ref"), device="cuda")
+        opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=MD_COMPRESSED_STEPS)
+        source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                        global_batch=args.batch))
+        batches = [to_device(source.batch_at(i), torch.device("cuda"))
+                   for i in range(MD_COMPRESSED_STEPS)]
+        out = {"mesh": str(mesh)}
+        out["sharded"] = md_sharded_vs_plain(torch, model, opt_cfg, mesh,
+                                             batches[:MD_STEPS], args.microbatches)
+        gc_cuda(torch)
+        out["compressed"], trained = md_compressed(torch, model, opt_cfg, group,
+                                                   batches)
+        out["pipeline"] = md_pipeline(torch, group)
+        out["serve"] = md_checkpoint_serve(torch, summary, cfg, mesh, trained)
+        del trained
+        # each part resets the peak for its own reading: the phase's is the
+        # largest of theirs and of what ran since the last reset
+        out["peak_bytes"] = max(
+            torch.cuda.max_memory_allocated(), out["sharded"]["plain_peak_bytes"],
+            out["sharded"]["sharded_peak_bytes"],
+            *(out["compressed"][k]["peak_bytes"] for k in ("compressed", "uncompressed")))
+        print(f"multi-device: peak {out['peak_bytes'] / 1e9:.2f} GB", flush=True)
+    finally:
+        dist.destroy_process_group()
+    gc_cuda(torch)
+    return out
+
+
 # ---------------------------------------------------------------- phase 4
 CNN_RUNS = [
     ["--size", "256", "--k", "3", "--dtype", "int8"],     # Listing 1, ReLU
@@ -3009,6 +3376,11 @@ def main(argv=None) -> None:
     clock.lap("train")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 5b: the multi-device layer on a world of one NCCL rank
+    summary["multi_device"] = run_multi_device(torch, summary)
+    clock.lap("multi_device")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     if failures:
         fail("; ".join(failures))
 
@@ -3018,7 +3390,8 @@ def main(argv=None) -> None:
         mine = [r for r in rows if r["kernel"] == name]
         pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == rep_dt),
                     mine[0] if mine else None)
-        runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"]]
+        runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
+                                    summary["multi_device"]["serve"]]
                                    if phase == "serve" else [])
         variants = {}
         for run in runs:
@@ -3038,6 +3411,8 @@ def main(argv=None) -> None:
                 for a, m in run.get("models", {}).items()}
             entry["launches_by_model"]["trained granite (phase 5)"] = \
                 summary["train"]["serve"]["launches"][wrapper]
+            entry["launches_by_model"]["restored granite (phase 5b)"] = \
+                summary["multi_device"]["serve"]["launches"][wrapper]
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
         more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")

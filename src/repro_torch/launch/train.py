@@ -1,4 +1,4 @@
-"""Training launcher: state on one device, a fault-tolerant loop
+"""Training launcher: mesh setup, sharded state, a fault-tolerant loop
 (counterpart of repro.launch.train).
 
   * **checkpoint/restart**: CheckpointManager (atomic, async); resume is
@@ -21,18 +21,36 @@ or on the CPU at the reduced config::
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu \\
         --steps 20
 
-``--model-axis`` other than 1 and ``--production-mesh`` (the reference's
-device meshes) raise: the port has no multi-device path yet. ``train(cfg,
-args)`` runs the loop on a config of the caller's (a cut depth, say).
+A multi-process launch (one process a rank, ``torchrun``-style environment:
+``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``, and
+``LOCAL_RANK`` for the card) runs on a mesh: ``(world // --model-axis,
+--model-axis)`` over ``("data", "model")``, or with ``--production-mesh``
+the reference's (16, 16) (256 ranks). NCCL on the card, gloo with
+``--device cpu``. The params are DTensors under ``param_pspecs``, the
+optimizer state under ``zero_pspecs``; the step (``train/step.py``'s
+``sharded_step``) splits the batch over the data axis and shards storage,
+not compute, over the model axis. Every rank reads the same global batch;
+only rank 0 prints the step lines and writes checkpoints. On the CPU::
+
+    RANK=0 WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=29511 \
+        PYTHONPATH=src python -m repro_torch.launch.train --smoke \
+        --device cpu --model-axis 2 --steps 4 &   # and RANK=1, 2, 3
+
+A mesh that needs more than one process, in one process, raises
+``ValueError``; a single process with ``--model-axis 1`` runs on one device
+with no process group. ``train(cfg, args)`` runs the loop on a config of
+the caller's (a cut depth, say).
 """
 from __future__ import annotations
 
 import argparse
+import os
 import signal
 import statistics
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import resolve_device
 from repro_torch.checkpoint.manager import CheckpointManager
@@ -40,6 +58,9 @@ from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.data.pipeline import DataConfig, Prefetcher, SyntheticLM
+from repro_torch.distributed.sharding import (distribute, param_pspecs,
+                                              to_shardings, zero_pspecs)
+from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
 from repro_torch.models.transformer import LM
 from repro_torch.optim.adamw import AdamWConfig
 from repro_torch.train.step import init_train_state, make_train_step
@@ -77,14 +98,14 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--model-axis", type=int, default=1,
-                    help="only 1: the port has no multi-device path yet")
+                    help="the mesh's model axis (a multi-process launch)")
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--watchdog-factor", type=float, default=5.0)
     ap.add_argument("--backend", default="ref",
                     help="the engine; a train step takes only 'ref'")
     ap.add_argument("--production-mesh", action="store_true",
-                    help="not available: the port has no multi-device path yet")
+                    help="the (16, 16) mesh: a launch of 256 processes")
     ap.add_argument("--device", default=None,
                     help="default: the card (cuda); 'cpu' for the plain path")
     return ap.parse_args(argv)
@@ -101,28 +122,66 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> dict:
     """Train ``cfg`` as ``args`` say; → {"history": each step's loss,
     "stragglers", "final_loss", "steps": each step's loss, grad_norm, lr
     and ms}."""
-    if args.model_axis != 1 or args.production_mesh:
-        raise NotImplementedError(
-            "--model-axis > 1 and --production-mesh need the multi-device "
-            "path, which the port does not have yet")
     device = resolve_device(args.device)
+    distributed = init_distributed(args, device)
+    try:
+        return _train(cfg, args, device, distributed)
+    finally:
+        if distributed:
+            dist.destroy_process_group()
+
+
+def init_distributed(args: argparse.Namespace, device: torch.device) -> bool:
+    """Joins the process group of a multi-process launch (``WORLD_SIZE`` >
+    1 in the environment): NCCL on the card (``LOCAL_RANK``'s), gloo on
+    the CPU. → whether it did. A mesh of more than one rank in a single
+    process raises ``ValueError``."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world == 1:
+        if args.model_axis > 1 or args.production_mesh:
+            raise ValueError(
+                "--model-axis > 1 and --production-mesh need a mesh of more "
+                "than one rank: launch one process a rank with RANK, "
+                "WORLD_SIZE, MASTER_ADDR and MASTER_PORT set (torchrun does)")
+        return False
+    if device.type == "cuda":
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", "0")))
+    dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return True
+
+
+def _train(cfg: ModelConfig, args: argparse.Namespace, device: torch.device,
+           distributed: bool) -> dict:
     model = LM(cfg, ArcaneEngine(backend=args.backend), device=device)
     opt_cfg = AdamWConfig(lr=args.lr, warmup_steps=min(20, args.steps // 5),
                           total_steps=args.steps)
-    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches)
     source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
                                     global_batch=args.batch))
     params, opt_state = init_train_state(
         model, opt_cfg, torch.Generator(device=device).manual_seed(0))
+    restore_to = {"device": device}
+    grad_sh = None
+    if distributed:
+        mesh = (make_production_mesh() if args.production_mesh
+                else make_host_mesh(args.model_axis))
+        p_sh = to_shardings(param_pspecs(params, mesh), mesh)
+        o_sh = to_shardings(zero_pspecs(opt_state, mesh), mesh)
+        grad_sh = to_shardings(zero_pspecs(params, mesh), mesh)
+        params, opt_state = distribute(params, p_sh), distribute(opt_state, o_sh)
+        restore_to = {"shardings": {"params": p_sh, "opt": o_sh}}
+    step_fn = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+                              grad_shardings=grad_sh)
+    log = print if not distributed or dist.get_rank() == 0 else \
+        (lambda *a, **kw: None)
 
     ckpt = CheckpointManager(args.ckpt_dir) if args.ckpt_dir else None
     start_step = 0
     if ckpt is not None and ckpt.latest_step() is not None:
         start_step = ckpt.latest_step()
         state, _ = ckpt.restore(start_step, {"params": params, "opt": opt_state},
-                                device=device)
+                                **restore_to)
         params, opt_state = state["params"], state["opt"]
-        print(f"[resume] from step {start_step}")
+        log(f"[resume] from step {start_step}")
 
     preempt = Preemption()
     durations: list[float] = []
@@ -141,22 +200,27 @@ def train(cfg: ModelConfig, args: argparse.Namespace) -> dict:
                 med = statistics.median(durations[-32:])
                 if dt > args.watchdog_factor * med:
                     stragglers += 1
-                    print(f"[watchdog] step {step}: {dt:.2f}s vs median "
+                    log(f"[watchdog] step {step}: {dt:.2f}s vs median "
                           f"{med:.2f}s — straggler/hang suspected")
             history.append(loss)
             steps.append({"step": step, "loss": loss,
                           "grad_norm": float(metrics["grad_norm"]),
                           "lr": float(metrics["lr"]), "ms": dt * 1e3})
             if step % 10 == 0 or step == args.steps - 1:
-                print(f"step {step:5d} loss {loss:.4f} "
+                log(f"step {step:5d} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.2f} {dt:.2f}s")
+            stop = preempt.flag
+            if distributed:     # a signal to one rank stops them all
+                flag = torch.tensor(int(stop), device=device)
+                dist.all_reduce(flag, op=dist.ReduceOp.MAX)
+                stop = bool(flag)
             if ckpt is not None and ((step + 1) % args.ckpt_every == 0
-                                     or preempt.flag or step == args.steps - 1):
+                                     or stop or step == args.steps - 1):
                 ckpt.save(step + 1, {"params": params, "opt": opt_state},
-                          extra={"loss": loss}, blocking=preempt.flag)
-            if preempt.flag:
-                print(f"[preempt] checkpoint at step {step + 1}, exiting")
+                          extra={"loss": loss}, blocking=stop)
+            if stop:
+                log(f"[preempt] checkpoint at step {step + 1}, exiting")
                 break
     finally:
         preempt.close()

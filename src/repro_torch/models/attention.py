@@ -15,6 +15,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import apply_rope, dense, dense_init
 
 
@@ -32,7 +33,8 @@ def attention_init(gen, cfg: ModelConfig, device) -> dict:
 
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, s, _ = x.shape
-    return x.reshape(b, s, n, -1).transpose(1, 2)     # (B, H, S, D) view
+    out = x.reshape(b, s, n, -1).transpose(1, 2)      # (B, H, S, D) view
+    return constrain(out, "batch", "model", None, None)
 
 
 def _merge_heads(x: torch.Tensor) -> torch.Tensor:

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import mla as mla_mod
@@ -122,6 +123,7 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     reads."""
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
+    x = constrain(x, "batch", None, None)
     h = napply(params["ln1"], x)
     if spec.kind == "mla":
         h = mla_mod.mla_forward(engine, params["attn"], cfg, h, positions)

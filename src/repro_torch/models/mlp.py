@@ -6,6 +6,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed.sharding import constrain
 from repro_torch.models.layers import activation, dense, dense_init
 
 
@@ -28,7 +29,9 @@ def mlp(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         x: torch.Tensor) -> torch.Tensor:
     act = activation(cfg.act)
     if "gate" not in params:
-        return dense(engine, params["down"], act(dense(engine, params["up"], x)))
+        h = constrain(act(dense(engine, params["up"], x)), "batch", None, "model")
+        return dense(engine, params["down"], h)
     g = act(dense(engine, params["gate"], x))
     u = dense(engine, params["up"], x)
-    return dense(engine, params["down"], g * u)
+    h = constrain(g * u, "batch", None, "model")
+    return dense(engine, params["down"], h)

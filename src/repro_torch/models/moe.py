@@ -23,10 +23,20 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed.sharding import batch_mean, constrain
 from repro_torch.models.layers import activation, dense_init, truncated_normal_init
 
 # Target tokens per dispatch group.
 GROUP_TOKENS = 8192
+
+
+def dispatch_groups(t: int) -> tuple[int, int]:
+    """(groups, tokens a group) of ``t`` tokens: ``t // GROUP_TOKENS``
+    groups (at least one), shrunk to the nearest divisor of ``t``."""
+    g = max(1, t // GROUP_TOKENS)
+    while t % g:           # g must divide T; shrink to the nearest divisor
+        g -= 1
+    return g, t // g
 
 
 def moe_init(gen, cfg: ModelConfig, device) -> dict:
@@ -115,27 +125,28 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         gate_vals.sum(dim=-1, keepdim=True), min=1e-9)
 
     # ---- load-balancing aux loss (Switch/GShard) --------------------------
-    me = probs.mean(dim=0)
-    ce = F.one_hot(expert_ids, e).float().sum(dim=1).mean(dim=0)
+    # means over the whole batch: a train step that splits the batch over
+    # data ranks averages them over those ranks (batch_mean)
+    me = batch_mean(probs.mean(dim=0))
+    ce = batch_mean(F.one_hot(expert_ids, e).float().sum(dim=1).mean(dim=0))
     aux = e * torch.sum(me * ce) * mcfg.router_aux_coef
 
     # ---- grouped dispatch --------------------------------------------------
-    g = max(1, t // GROUP_TOKENS)
-    while t % g:           # g must divide T; shrink to the nearest divisor
-        g -= 1
-    s_g = t // g
+    g, s_g = dispatch_groups(t)
     cap = int(mcfg.capacity_factor * s_g * k / e) + 1
     dispatched, flat_idx, keep, slot_gate = _group_dispatch(
         xt.reshape(g, s_g, d), expert_ids.reshape(g, s_g, k),
         gate_vals.reshape(g, s_g, k), e, cap)
     # (G, E, cap, d) → (E, G·cap, d)
     xe = dispatched.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
+    xe = constrain(xe, "model", "batch", None)
 
     # ---- grouped expert SwiGLU --------------------------------------------
     act = activation(cfg.act)
     gg = act(_expert_matmul(xe, params["gate"]))
     uu = _expert_matmul(xe, params["up"])
     y = _expert_matmul((gg * uu).to(xe.dtype), params["down"]).to(xt.dtype)
+    y = constrain(y, "model", "batch", None)
 
     # ---- combine ------------------------------------------------------------
     yg = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import torch
 
@@ -75,11 +75,14 @@ def global_norm(tree: PyTree) -> torch.Tensor:
 
 @torch.no_grad()
 def adamw_update(cfg: AdamWConfig, grads: PyTree, state: PyTree,
-                 params: PyTree) -> tuple[PyTree, PyTree, dict]:
+                 params: PyTree, *, grad_norm: Optional[torch.Tensor] = None,
+                 ) -> tuple[PyTree, PyTree, dict]:
     """One AdamW step: (params, state, {"grad_norm", "lr"}), the params and
-    the state updated in place."""
+    the state updated in place. ``grad_norm``: the gradients' global norm
+    where ``grads`` holds only this rank's shards of them (a sharded step
+    computes it across ranks); by default ``global_norm(grads)``."""
     step = state["step"] + 1
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
     lr = lr_at(cfg, step)
     b1c = 1 - cfg.b1 ** step.to(torch.float32)

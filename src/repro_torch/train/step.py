@@ -14,10 +14,16 @@ them outside any Pallas kernel (``tests/test_models.py`` trains on ref).
 """
 from __future__ import annotations
 
+import math
+import sys
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
+from repro_torch.distributed.sharding import (axis_size, batch_entry,
+                                              batch_split, mesh_sizes)
+from repro_torch.models.moe import dispatch_groups
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -69,14 +75,15 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
                     microbatches: int = 1, grad_shardings: PyTree = None):
     """→ ``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: ``loss``, the scalar aux metrics (``ce``, ``aux``,
-    ``tokens``) when ``microbatches`` is 1, ``grad_norm`` and ``lr``. The
-    params and the optimizer state are updated in place and returned.
-    ``grad_shardings`` (the reference's ZeRO layout) belongs to the
-    multi-device path, which the port does not have: only ``None``."""
-    if grad_shardings is not None:
-        raise NotImplementedError(
-            "grad_shardings needs the multi-device path, which the port does "
-            "not have yet; pass None")
+    ``tokens``) when ``microbatches`` is 1, ``grad_norm`` and ``lr``.
+
+    On plain tensors the params and the optimizer state are updated in
+    place and returned. On DTensors (params laid out by ``param_pspecs``,
+    the state by ``zero_pspecs``, on one mesh over every rank) the step
+    runs sharded (``sharded_step``) and its metrics add ``data_split``.
+    ``grad_shardings`` (the reference's ZeRO layout: ``to_shardings`` of
+    ``zero_pspecs``) is where the reduced gradients land; by default the
+    optimizer state's own layout. It needs DTensor params."""
     if model.engine.backend != "ref":
         raise ValueError(
             f"a train step needs ArcaneEngine('ref'), not "
@@ -86,6 +93,12 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
             f"differentiated either")
 
     def train_step(params: PyTree, opt_state: PyTree, batch: dict):
+        if is_sharded(params):
+            return sharded_step(model, opt_cfg, params, opt_state, batch,
+                                microbatches, grad_shardings)
+        if grad_shardings is not None:
+            raise ValueError("grad_shardings lays out the gradients of DTensor "
+                             "params; these params are plain tensors")
         loss, metrics, grads = step_grads(model, params, batch, microbatches)
         params, opt_state, om = adamw_update(opt_cfg, grads, opt_state, params)
         return params, opt_state, {
@@ -93,6 +106,154 @@ def make_train_step(model: LM, opt_cfg: AdamWConfig, *,
             **om}
 
     return train_step
+
+
+# ------------------------------------------------------------- sharded step
+def is_sharded(params: PyTree) -> bool:
+    """Whether the params are DTensors (no DTensor exists before its module
+    is imported, an import of a second)."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(tree_leaves(params)[0], mod.DTensor)
+
+
+def data_split(cfg, mesh, batch: dict, microbatches: int = 1) -> tuple:
+    """The mesh axes a sharded step splits the batch over: those that
+    ``batch_pspecs`` gives a microbatch's leading dim, or none where the
+    split would change the result. The split is exact where the loss is a
+    mean of per-token terms over equal shares: not with a ``loss_mask``
+    (the shares' token counts differ), and for MoE layers only where each
+    shard's tokens are whole dispatch groups of the reference's size (the
+    aux loss's means are averaged over the shards, ``batch_mean``)."""
+    if "loss_mask" in batch:
+        return ()
+    b, s = batch["tokens"].shape
+    entry = batch_entry(b // microbatches, mesh)
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    n = axis_size(mesh, axes)
+    if n > 1 and any(spec.moe for spec in cfg.pattern):
+        g, s_g = dispatch_groups(b // microbatches * (s + cfg.vision_prefix))
+        if g % n or dispatch_groups(g // n * s_g) != (g // n, s_g):
+            return ()
+    return tuple(axes)
+
+
+def split_batch(batch: dict, mesh, axes: tuple, microbatches: int = 1) -> dict:
+    """This rank's part of the batch along ``axes`` (its coordinate there,
+    pod-major): of each microbatch the same share, so that each of its
+    microbatches is its share of the reference's microbatch."""
+    if not axes:
+        return batch
+    sizes, coord = mesh_sizes(mesh), dict(zip(mesh.mesh_dim_names,
+                                              mesh.get_coordinate()))
+    idx, n = 0, 1
+    for a in axes:
+        idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+
+    def part(v):
+        mb = v.reshape(microbatches, -1, *v.shape[1:])
+        w = mb.shape[1] // n
+        return mb[:, idx * w:(idx + 1) * w].reshape(-1, *v.shape[1:])
+
+    return {k: part(v) for k, v in batch.items()}
+
+
+def _group(mesh, axes: tuple):
+    if not axes:
+        return None
+    if len(axes) == 1:
+        return mesh.get_group(axes[0])
+    return mesh[axes]._flatten().get_group()
+
+
+def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
+                 microbatches: int = 1, grad_shardings=None):
+    """The step on DTensor params and optimizer state, computed on local
+    tensors (the model stack runs as on one device):
+
+      1. the params are gathered whole (``full_tensor``, an all-gather);
+      2. the batch is split over the axes of ``data_split`` (or every rank
+         computes all of it: ``data_split`` False in the metrics);
+      3. the grads are reduced over those axes to the optimizer's
+         placements (a reduce-scatter where the optimizer leaf is sharded
+         over them, an all-reduce elsewhere) and divided by their size;
+      4. ``adamw_update`` runs on each rank's shards with the global norm
+         (the shards' squared sums all-reduced, a replicated shard counted
+         once); the updated shards, gathered to the params' placements,
+         become the new params.
+
+    The ``model`` axis shards storage, not compute: every rank runs the
+    whole model on its part of the batch."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    mesh = tree_leaves(params)[0].device_mesh
+    names = mesh.mesh_dim_names
+    axes = data_split(model.cfg, mesh, batch, microbatches)
+    group = _group(mesh, axes)
+    n = axis_size(mesh, axes)
+
+    full = tree_map(lambda p: p.full_tensor(), params)
+    with batch_split(group):
+        loss, metrics, grads = step_grads(model, full,
+                                          split_batch(batch, mesh, axes,
+                                                      microbatches),
+                                          microbatches)
+    del full
+    master = opt_state["master"]
+    partial = [Partial() if a in axes else Replicate() for a in names]
+    if grad_shardings is None:
+        grad_shardings = tree_map(lambda m: m.placements, master)
+    else:
+        grad_shardings = tree_map(lambda sh: sh.placements, grad_shardings)
+
+    def reduce(g, target, m):
+        d = DTensor.from_local(g, mesh, partial, run_check=False)
+        d = d.redistribute(mesh, target)
+        if tuple(target) != tuple(m.placements):
+            d = d.redistribute(mesh, m.placements)
+        local = d.to_local()
+        return local / n if n > 1 else local
+
+    local_grads = tree_map(reduce, grads, grad_shardings, master)
+    del grads
+
+    def sq(g, m):
+        copies = math.prod(s for s, p in zip(mesh.shape, m.placements)
+                           if p == Replicate())
+        t = torch.sum(torch.square(g.to(torch.float32)))
+        return t / copies if copies > 1 else t
+
+    sq_sum = sum(tree_leaves(tree_map(sq, local_grads, master)))
+    dist.all_reduce(sq_sum)        # the mesh spans the world
+    gnorm = torch.sqrt(sq_sum)
+
+    local_state = {k: tree_map(lambda t: t.to_local(), opt_state[k])
+                   for k in ("master", "m", "v")}
+    local_state["step"] = opt_state["step"].to_local()
+    pdtype = tree_map(lambda p: p.dtype, params)
+    new_local = tree_map(lambda m, dt: torch.empty_like(m, dtype=dt),
+                         local_state["master"], pdtype)
+    _, local_state, om = adamw_update(opt_cfg, local_grads, local_state,
+                                      new_local, grad_norm=gnorm)
+    opt_state["step"] = DTensor.from_local(local_state["step"], mesh,
+                                           opt_state["step"].placements,
+                                           run_check=False)
+    params = tree_map(
+        lambda p, new, m: DTensor.from_local(new, mesh, m.placements,
+                                             run_check=False
+                                             ).redistribute(mesh, p.placements),
+        params, new_local, master)
+
+    def mean(v, divide=True):      # over the ranks the batch is split across
+        if n == 1:
+            return v
+        v = v.clone()
+        dist.all_reduce(v, group=group)
+        return v / n if divide else v
+
+    out = {"loss": mean(loss)}
+    for k, v in metrics.items():
+        if v.dim() == 0:
+            out[k] = mean(v, divide=k != "tokens")
+    return params, opt_state, {**out, **om, "data_split": bool(axes)}
 
 
 def make_serve_steps(model: LM, *, enc_len: int = 0):

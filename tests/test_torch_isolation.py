@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: it imports neither jax nor the reference
-package, and its own copies of configs and encoding equal the reference's."""
+package (``torch.distributed`` included), and its own copies of configs,
+encoding and the sharding rules equal the reference's."""
 import dataclasses
 import os
 import subprocess
@@ -13,8 +14,10 @@ from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.core.encoding import ElemWidth as JaxElemWidth
 from repro.core.encoding import encode_xmk as jax_encode_xmk
 from repro.core.isa import fx_encode as jax_fx_encode
+from repro.distributed import sharding as jax_sharding
 from repro_torch.configs import ARCHS, get_config, get_smoke_config
 from repro_torch.core.encoding import ElemWidth, encode_xmk, fx_encode
+from repro_torch.distributed import sharding
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -26,6 +29,8 @@ def test_port_imports_no_jax_and_no_reference():
         for p in (SRC / "repro_torch").rglob("*.py"))
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
+            # what the multi-device layer imports where it is used
+            "import torch.distributed.tensor, torch.distributed.device_mesh\n"
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
             " or m == 'repro' or m.startswith('repro.')]\n"
             "print(len(sys.modules)); assert not bad, bad\n")
@@ -62,3 +67,10 @@ def test_encode_xmk_words_match_reference(func5, width):
         assert mine.instr.mnemonic == ref.instr.mnemonic
         assert (mine.operands.rs1, mine.operands.rs2, mine.operands.rs3) == \
             (ref.operands.rs1, ref.operands.rs2, ref.operands.rs3)
+
+
+def test_sharding_rules_equal_reference():
+    """The port's copy of the sharding rules: ``_PARAM_RULES`` entry for
+    entry (pattern and roles, in order) and ``MIN_CONSTRAIN_ELEMS``."""
+    assert sharding._PARAM_RULES == jax_sharding._PARAM_RULES
+    assert sharding.MIN_CONSTRAIN_ELEMS == jax_sharding.MIN_CONSTRAIN_ELEMS

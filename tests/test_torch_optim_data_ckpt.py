@@ -231,6 +231,27 @@ def test_async_save_then_wait(tmp_path):
     trees_equal(tree, mgr.restore(1, tree)[0])
 
 
+def test_async_save_snapshots_before_in_place_writes(tmp_path):
+    """An async save holds the values of its step: the tensors written in
+    place (``fill_``, ``add_``, as the optimizer's update writes master, m
+    and v) between the save and ``wait`` leave the checkpoint as it was
+    (the snapshot owns its memory; f32 CPU tensors alias their numpy view).
+    The 4M-element leaf keeps the writer thread busy while the writes
+    land."""
+    mgr = CheckpointManager(str(tmp_path))
+    tree = {"big": torch.zeros(1 << 22), "small": torch.arange(4.0),
+            "bf16": torch.full((3,), 0.5, dtype=torch.bfloat16),
+            "step": torch.tensor(3, dtype=torch.int32)}
+    before = tree_map(lambda t: t.clone(), tree)
+    mgr.save(1, tree, blocking=False)
+    tree["big"].fill_(7.0)
+    tree["small"].add_(1.0)
+    tree["bf16"].fill_(2.0)
+    tree["step"].add_(1)
+    mgr.wait()
+    trees_equal(before, mgr.restore(1, before)[0])
+
+
 def test_async_save_error_raised_on_wait(tmp_path):
     mgr = CheckpointManager(str(tmp_path / "ck"))
     os.rmdir(tmp_path / "ck")
@@ -386,8 +407,12 @@ def test_launcher_preemption_checkpoints_and_stops(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flag", [["--model-axis", "2"], ["--production-mesh"]])
-def test_launcher_refuses_meshes(flag):
-    with pytest.raises(NotImplementedError, match="multi-device"):
+def test_launcher_refuses_meshes(flag, monkeypatch):
+    """A mesh of more than one rank needs a multi-process launch (the
+    launcher on 4 gloo ranks: tests/test_torch_distributed.py); in a single
+    process the launcher refuses it."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(ValueError, match="more than one rank"):
         launcher.run(["--smoke", "--device", "cpu", "--steps", "1"] + flag)
 
 

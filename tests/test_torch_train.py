@@ -255,9 +255,15 @@ def test_train_step_refuses_kernel_engines(backend):
 
 
 def test_train_step_refuses_grad_shardings():
+    """``grad_shardings`` lays out the grads of DTensor params (the sharded
+    step, tests/test_torch_distributed.py); on plain params the step
+    refuses it."""
     model = LM(get_smoke_config("qwen2.5-32b"), ArcaneEngine("ref"), device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        make_train_step(model, AdamWConfig(), grad_shardings={})
+    params = model.init_params(torch.Generator().manual_seed(0))
+    step = make_train_step(model, AdamWConfig(), grad_shardings={})
+    batch = {"tokens": torch.zeros((2, 8), dtype=torch.int32)}
+    with pytest.raises(ValueError, match="DTensor params"):
+        step(params, adamw_init(AdamWConfig(), params), batch)
 
 
 def test_microbatches_must_split_the_batch():
