@@ -142,6 +142,30 @@ Phases:
      CNN kernels in it or the run fails. This phase runs before phase 3:
      after the five serving runs' profiles a window lost the device
      records of its first 13 launches (on the H100, torch 2.11).
+  4b. sim (after phase 4): the port's serial simulator
+     (``repro_torch.core``: bridge → C-RT → cache/VPUs) with its main
+     memory and cache lines as tensors on the card (checked: no
+     fallback): Listing 1 at 64x64, k 3 (``examples/arcane_cnn.py``'s
+     program and geometry, 4 VPUs of 64 vregs of 1 KiB, 8 lanes) in
+     widths w, h and b, and one seeded program of 40 kernels
+     (``mixed_program``: gemm with a beta-accumulate, leakyrelu,
+     maxpool, conv2d, conv_layer; strided views, aliased destinations)
+     on 4 VPUs, each run once warm, then timed from the issue to the
+     flushed images on the host, and the same runs on the host CPU in
+     this process. Each card run's flushed images must equal the CPU
+     run's byte for byte and its PhaseStats cycle fields the CPU run's
+     (the CPU tests hold the CPU path to the JAX package's simulator).
+     Listing 1's R must equal ArcaneEngine("cuda").conv_layer on the same
+     A and F (convlayer.cu; conv_layer_cuda's launches are zeroed before
+     the phase and must come out exactly one a width, on conv_variant's
+     pick, every other kernel none) and the plain conv_layer; a
+     disagreement fails with its place and both values. Two planted
+     faults the image check must reject: one byte of the card's flushed
+     image flipped, and a leakyrelu body that scales in float32 on int32
+     inputs near 2^30 (``leaky_f32_library``, beside the sound body's run,
+     which must pass). ``sim:`` lines: cycles, phase shares, modeled
+     speedup, wall seconds and kernels a second on the card and on the
+     host CPU, with the card's name and power limit.
   5. train (after phase 3b): granite-moe-1b-a400m at full width (bf16
      params, an f32 master, seed 0, ArcaneEngine("ref") under autograd:
      the kernels have no backward), through ``repro_torch.launch.train``:
@@ -184,7 +208,8 @@ Phases:
      compressed run's params saved, restored with shardings= and served
      through the kernels (counts exact, logits as phase 3); peak memory.
   6. result: a JSON line of the kernels (with each one's launches per
-     variant and, for the serving kernels, per model, phase 3b's models
+     variant, conv_layer's phase 4b launches included, and, for the
+     serving kernels, per model, phase 3b's models
      and phases 5's and 5b's served models included; gemm's also in the Mamba
      block's run; ``more_cases``:
      decode attention's MLA, whisper and internvl2 rows, flash's whisper
@@ -3178,6 +3203,303 @@ def profile_cnn(torch, argv, passes: int = 10) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 4b
+# The port's serial simulator (repro_torch.core) with its memory and cache
+# lines on the card: Listing 1 at 64 x 64 (the example's geometry) in the
+# three widths, and one seeded mixed program of SIM_MIXED_OPS kernels on 4
+# VPUs, each against the same program on the host CPU in this process.
+SIM_WIDTHS = ("w", "h", "b")
+SIM_MIXED_SEED = 0
+SIM_MIXED_OPS = 40
+SIM_MIXED_RT = {"n_vpus": 4, "vregs_per_vpu": 32, "vlen_bytes": 512,
+                "queue_capacity": 16}
+SIM_KERNELS = ("leakyrelu", "maxpool", "gemm", "conv2d", "conv_layer")
+# the PhaseStats fields a run must reproduce exactly (the *_s fields are
+# host wall time)
+SIM_STAT_FIELDS = ("preamble_cycles", "allocation_cycles", "compute_cycles",
+                   "writeback_cycles", "fault_cycles", "reuse_hits",
+                   "reused_dma_cycles", "kernels_run")
+
+
+def mixed_program(seed: int, n_ops: int, builder, widths):
+    """A seeded program of ``n_ops`` kernels drawn from the whole library
+    (gemm with a beta-accumulate, leakyrelu, maxpool, conv2d, conv_layer)
+    over strided views of seeded buffers, with sources that read earlier
+    results and destinations that alias earlier buffers. ``builder`` is a
+    ProgramBuilder class and ``widths`` its ElemWidth: the port's here, the
+    reference's in the CPU tests, which hold both to the same dict."""
+    rng = np.random.default_rng(seed)
+    width = (widths.B, widths.H, widths.W)[int(rng.integers(3))]
+    b = builder(f"mixed{seed}", width)
+    pool: list = []                          # (name, rows, cols)
+
+    def fresh(rows, cols, placed):
+        name = f"b{len(pool)}"
+        if placed:
+            b.buffer(name, rows, cols, init="random",
+                     seed=seed * 4096 + len(pool), lo=-9, hi=9)
+        else:
+            b.buffer(name, rows, cols)
+        pool.append((name, rows, cols))
+        return name
+
+    def inside(rows, cols, p):
+        fits = [q for q in pool if q[1] >= rows and q[2] >= cols]
+        if not fits or rng.random() >= p:
+            return None
+        name, br, bc = fits[int(rng.integers(len(fits)))]
+        return (name, int(rng.integers(br - rows + 1)),
+                int(rng.integers(bc - cols + 1)), rows, cols)
+
+    def src(rows, cols):
+        v = inside(rows, cols, 0.5)
+        if v is None:                        # a fresh, sometimes padded one
+            pr, pc = int(rng.integers(3)), int(rng.integers(3))
+            v = (fresh(rows + pr, cols + pc, True), int(rng.integers(pr + 1)),
+                 int(rng.integers(pc + 1)), rows, cols)
+        return v
+
+    def dst(rows, cols):
+        return inside(rows, cols, 0.35) or (fresh(rows, cols, False), 0, 0,
+                                            rows, cols)
+
+    for _ in range(n_ops):
+        kind = SIM_KERNELS[int(rng.integers(len(SIM_KERNELS)))]
+        if kind == "leakyrelu":
+            r, c = int(rng.integers(3, 11)), int(rng.integers(3, 11))
+            b.op(kind, [src(r, c)], dst(r, c),
+                 alpha=float(rng.integers(-8, 9)) / 4)
+        elif kind == "maxpool":
+            r, c = int(rng.integers(4, 11)), int(rng.integers(4, 11))
+            win = int(rng.integers(2, min(r, c, 3) + 1))
+            stride = int(rng.integers(1, win + 1))
+            b.op(kind, [src(r, c)],
+                 dst((r - win) // stride + 1, (c - win) // stride + 1),
+                 stride=stride, win_size=win)
+        elif kind == "gemm":
+            m, k, n = (int(rng.integers(2, 9)) for _ in range(3))
+            b.op(kind, [src(m, k), src(k, n), src(m, n)], dst(m, n),
+                 alpha=float(rng.integers(1, 5)) / 2,
+                 beta=float(rng.integers(-2, 3)) / 2)
+        elif kind == "conv2d":
+            r, c = int(rng.integers(5, 11)), int(rng.integers(5, 11))
+            km, kn = int(rng.integers(2, 4)), int(rng.integers(2, 4))
+            b.op(kind, [src(r, c), src(km, kn)],
+                 dst(r - km + 1, c - kn + 1))
+        else:
+            h, w = int(rng.integers(6, 10)), int(rng.integers(6, 11))
+            kk = int(rng.integers(2, 4))
+            b.op(kind, [src(3 * h, w), src(3 * kk, kk)],
+                 dst((h - kk + 1) // 2, (w - kk + 1) // 2))
+    return b.build()
+
+
+def leaky_f32_library():
+    """A planted fault: the kernel library with a leakyrelu body that scales
+    in float32 (the reference scales in float64; on int32 inputs near 2^30
+    float32 drops their low bits)."""
+    import torch
+    from repro_torch.core.encoding import fx_decode
+    from repro_torch.core.isa import (KernelDef, _leakyrelu_dataflow,
+                                      _leakyrelu_preamble, _wrap,
+                                      default_library)
+
+    def body(sources, params, width):
+        x = sources[0].to(torch.int64)
+        neg = torch.round(x.to(torch.float32) * fx_decode(params.get("alpha", 0)))
+        return _wrap(torch.where(x >= 0, x.to(torch.float64), neg.to(torch.float64)),
+                     width)
+
+    lib = default_library()
+    lib.register(KernelDef(1, "leakyrelu", 1, _leakyrelu_preamble, body,
+                           dataflow=_leakyrelu_dataflow), allow_override=True)
+    return lib
+
+
+def leaky_near_2_30(builder, widths):
+    """The program the float32 fault shows on: a 16 x 16 int32 map within
+    2^12 of +-2^30 through leakyrelu at alpha 0.3 (Q8.8 77/256)."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(2**30 - 2**12, 2**30 + 2**12, (16, 16))
+    x *= rng.choice((-1, 1), (16, 16))
+    b = builder("leaky_near_2_30", widths.W)
+    b.data("X", x)
+    b.buffer("Y", 16, 16)
+    b.op("leakyrelu", [b.full("X")], b.full("Y"), alpha=0.3)
+    return b.build()
+
+
+def sim_run(torch, prog, device: str, rt: dict, library=None) -> dict:
+    """``prog`` through the port's serial simulator on ``device``: its
+    flushed images (brought to the host: the run's one read of the device),
+    its cycle fields, and the host seconds from the issue to the images on
+    the host. On the card the memory and the cache lines must be there."""
+    from repro_torch.core import ArcaneCoprocessor, run_program
+    cop = ArcaneCoprocessor(device=device, library=library, **rt)
+    where = {cop.rt.memory.data.device.type, cop.rt.cache.data.device.type}
+    if where != {torch.device(device).type}:
+        fail(f"sim: {prog.name}: memory and lines on {where}, not {device}")
+    t0 = time.perf_counter()
+    run = run_program(cop, prog)
+    images = {k: v.cpu() for k, v in run.flushed_images().items()}
+    wall = time.perf_counter() - t0
+    return {"images": images, "wall_s": wall,
+            "total_cycles": cop.rt.stats.total_cycles,
+            "stats": {f: getattr(cop.rt.stats, f) for f in SIM_STAT_FIELDS}}
+
+
+def sim_listing1(torch, width: str, device: str) -> dict:
+    """Listing 1 as the port's example runs it (stats from the issue on),
+    timed from the issue to R and the flushed images on the host."""
+    from repro_torch.core import ElemWidth
+    from repro_torch.examples import arcane_cnn
+    prog = arcane_cnn.build_listing1(64, 64, 3, ElemWidth.from_suffix(width))
+    t0 = time.perf_counter()
+    res = arcane_cnn.run_listing1(prog, device)
+    R = res["R"].cpu()
+    images = {k: v.cpu() for k, v in res["run"].flushed_images().items()}
+    wall = time.perf_counter() - t0
+    st = res["stats"]
+    return {"prog": prog, "R": R, "images": images, "wall_s": wall,
+            "stats": {f: getattr(st, f) for f in SIM_STAT_FIELDS},
+            "total_cycles": st.total_cycles, "shares": st.shares(),
+            "speedup": arcane_cnn.scalar_cycles(64, 64, 3) / st.total_cycles}
+
+
+def images_equal(torch, a: dict, b: dict) -> bool:
+    """Two runs' flushed images, byte for byte."""
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def first_diff(torch, a, b) -> dict:
+    """Where two integer maps first differ, and both values there."""
+    idx = (a != b).nonzero()
+    if not len(idx):
+        return {}
+    i, j = (int(v) for v in idx[0])
+    return {"at": [i, j], "values": [int(a[i, j]), int(b[i, j])],
+            "n_differ": int(len(idx))}
+
+
+def run_sim(torch, smi_line: str) -> dict:
+    """Phase 4b: the port's serial simulator on the card against the same
+    programs on the host CPU (images byte for byte, cycle fields equal),
+    Listing 1's R against the convlayer.cu kernel and the plain conv_layer
+    (the phase's only kernel launches, counted exactly), and two planted
+    faults the image check must reject."""
+    from repro_torch.core import ElemWidth, ProgramBuilder
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.examples import arcane_cnn
+    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda, conv_variant
+    from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    from repro_torch.launch import cnn
+    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    wrappers = (*cnn.WRAPPERS, gemm_cuda, flash_attention_cuda, decode_attention_cuda)
+    out: dict = {"listing1": {}}
+    for w in wrappers:
+        w.launches = 0
+    conv_layer_cuda.variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    expect_variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    engine = ArcaneEngine("cuda")
+    images_w = {}
+    for width in SIM_WIDTHS:
+        # each timed run follows a warm one (first-call allocations)
+        cpu = [sim_listing1(torch, width, "cpu") for _ in range(2)][-1]
+        card = [sim_listing1(torch, width, "cuda") for _ in range(2)][-1]
+        if width == "w":
+            images_w = {"card": card["images"], "cpu": cpu["images"]}
+        prog = card["prog"]
+        x, f = arcane_cnn.layer_inputs(prog, 64, 64, 3, "cuda")
+        kernel = engine.conv_layer(x, f)[0]
+        expect_variants[conv_variant(x, f)] += 1
+        plain = conv_layer_ref(x, f)[0]
+        wide = conv_layer_ref(x.to(torch.int32), f.to(torch.int32))[0]
+        R = card["R"]
+        rec = {"total_cycles": card["total_cycles"], "kernels_run": card["stats"]["kernels_run"],
+               "shares": card["shares"], "speedup": card["speedup"],
+               "card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+               "card_kernels_per_s": card["stats"]["kernels_run"] / card["wall_s"],
+               "cpu_kernels_per_s": cpu["stats"]["kernels_run"] / cpu["wall_s"],
+               "images_equal_cpu": images_equal(torch, card["images"], cpu["images"]),
+               "stats_equal_cpu": card["stats"] == cpu["stats"]
+               and card["total_cycles"] == cpu["total_cycles"],
+               "R_equals_kernel": torch.equal(R, kernel.cpu()),
+               "kernel_equals_plain": torch.equal(kernel, plain),
+               "pooled_max_int32": int(wide.max()),
+               "wraps": int(wide.max()) > torch.iinfo(R.dtype).max}
+        out["listing1"][width] = rec
+        print(f"sim: listing1 64x64 k=3 int{8 * R.element_size()}: cycles "
+              f"{rec['total_cycles']}, shares " + " ".join(
+                  f"{k}={v:.4f}" for k, v in rec["shares"].items())
+              + f", modeled speedup {rec['speedup']:.4f}x; card {rec['card_wall_s']:.6f} s "
+              f"({rec['card_kernels_per_s']:.1f} kernels/s), host CPU {rec['cpu_wall_s']:.6f} s "
+              f"({rec['cpu_kernels_per_s']:.1f} kernels/s) [{smi_line}]; images == CPU "
+              f"{rec['images_equal_cpu']}, stats == CPU {rec['stats_equal_cpu']}, R == "
+              f"conv_layer_cuda {rec['R_equals_kernel']}, kernel == plain "
+              f"{rec['kernel_equals_plain']}; pooled max in int32 {rec['pooled_max_int32']}"
+              f" (wraps {rec['wraps']})", flush=True)
+        if not (rec["R_equals_kernel"] and rec["kernel_equals_plain"]):
+            fail(f"sim: listing1 {width}: R {first_diff(torch, R, kernel.cpu())} "
+                 f"kernel vs plain {first_diff(torch, kernel, plain)} on A, F of seeds 0, 1")
+        if not (rec["images_equal_cpu"] and rec["stats_equal_cpu"]):
+            fail(f"sim: listing1 {width}: the card's run differs from the CPU's")
+    counts = {w.__name__: w.launches for w in wrappers}
+    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants)}
+    expect = {w.__name__: (len(SIM_WIDTHS) if w is conv_layer_cuda else 0) for w in wrappers}
+    print(f"sim: launches {counts} expected {expect}; conv_layer variants "
+          f"{variants['conv_layer_cuda']} expected {expect_variants}", flush=True)
+    if counts != expect or variants["conv_layer_cuda"] != expect_variants:
+        fail("sim: the phase did not launch the kernels as counted")
+    out.update(launches=counts, variants=variants)
+
+    prog = mixed_program(SIM_MIXED_SEED, SIM_MIXED_OPS, ProgramBuilder, ElemWidth)
+    cpu = [sim_run(torch, prog, "cpu", SIM_MIXED_RT) for _ in range(2)][-1]
+    card = [sim_run(torch, prog, "cuda", SIM_MIXED_RT) for _ in range(2)][-1]
+    kinds = {k: sum(op.kernel == k for op in prog.ops) for k in SIM_KERNELS}
+    rec = {"ops": len(prog.ops), "kernels": kinds, "width": prog.width.suffix,
+           "buffers": len(prog.buffers), "stats": card["stats"],
+           "card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+           "card_kernels_per_s": card["stats"]["kernels_run"] / card["wall_s"],
+           "cpu_kernels_per_s": cpu["stats"]["kernels_run"] / cpu["wall_s"],
+           "images_equal_cpu": images_equal(torch, card["images"], cpu["images"]),
+           "stats_equal_cpu": card["stats"] == cpu["stats"]
+           and card["total_cycles"] == cpu["total_cycles"]}
+    out["mixed"] = rec
+    rec["total_cycles"] = card["total_cycles"]
+    print(f"sim: mixed seed {SIM_MIXED_SEED}, {rec['ops']} ops {kinds} .{rec['width']} "
+          f"on 4 VPUs: cycles {rec['total_cycles']}, kernels {card['stats']['kernels_run']}; card "
+          f"{rec['card_wall_s']:.6f} s ({rec['card_kernels_per_s']:.1f} kernels/s), host CPU "
+          f"{rec['cpu_wall_s']:.6f} s ({rec['cpu_kernels_per_s']:.1f} kernels/s) "
+          f"[{smi_line}]; images == CPU {rec['images_equal_cpu']}, stats == CPU "
+          f"{rec['stats_equal_cpu']}", flush=True)
+    if not (rec["images_equal_cpu"] and rec["stats_equal_cpu"]):
+        fail("sim: the mixed program's card run differs from the CPU's")
+
+    # planted faults: the image check must reject both
+    flipped = {k: v.clone() for k, v in images_w["card"].items()}
+    flipped["R"].view(torch.uint8).reshape(-1)[5].bitwise_xor_(1 << 3)
+    leaky = leaky_near_2_30(ProgramBuilder, ElemWidth)
+    sound_cpu = sim_run(torch, leaky, "cpu", SIM_MIXED_RT)
+    sound_card = sim_run(torch, leaky, "cuda", SIM_MIXED_RT)
+    f32_card = sim_run(torch, leaky, "cuda", SIM_MIXED_RT, library=leaky_f32_library())
+    faults = {"flipped_byte_rejected": not images_equal(torch, flipped,
+                                                        images_w["cpu"]),
+              "leaky_sound_equal": images_equal(torch, sound_card["images"],
+                                                sound_cpu["images"]),
+              "leaky_f32_rejected": not images_equal(torch, f32_card["images"],
+                                                     sound_cpu["images"]),
+              "leaky_f32_diff": first_diff(torch, f32_card["images"]["Y"],
+                                           sound_cpu["images"]["Y"])}
+    out["faults"] = faults
+    print(f"sim: planted faults: {json.dumps(faults)}", flush=True)
+    if not (faults["flipped_byte_rejected"] and faults["leaky_sound_equal"]
+            and faults["leaky_f32_rejected"]):
+        fail("sim: a planted fault passed the image check (or the sound leakyrelu failed it)")
+    return out
+
+
 # gemma2-9b's logits are soft-capped to [-30, 30]. The engines differ only
 # in the order of f32 sums; a bf16 activation that rounds the other way at
 # one of the 42 layers moves logits by a few hundredths on average.
@@ -3358,6 +3680,11 @@ def main(argv=None) -> None:
     clock.lap("cnn")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 4b: the simulator's serial stack on the card
+    summary["sim"] = run_sim(torch, smi_line)
+    clock.lap("sim")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     # ---- phase 3: serving, and the full-width Mamba block
     summary["serve"] = run_serving(torch, summary, SERVE_MODELS, run_serve)
     out_json.write_text(json.dumps(summary, indent=1))
@@ -3392,7 +3719,7 @@ def main(argv=None) -> None:
                     mine[0] if mine else None)
         runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
                                     summary["multi_device"]["serve"]]
-                                   if phase == "serve" else [])
+                                   if phase == "serve" else [summary["sim"]])
         variants = {}
         for run in runs:
             for v, n in run.get("variants", {}).get(wrapper, {}).items():
