@@ -166,6 +166,36 @@ Phases:
      which must pass). ``sim:`` lines: cycles, phase shares, modeled
      speedup, wall seconds and kernels a second on the card and on the
      host CPU, with the card's name and power limit.
+  4c. sim_pipelined (after phase 4b): the port's pipelined simulator
+     (``repro_torch.sim``: the event-driven C-RT over the serial runtime's
+     steps), every runtime built by ``SimConfig.make_runtime(...,
+     device=)`` with memory and lines on the card (checked: no fallback),
+     each run once warm, then timed from the issue to the flushed images on
+     the host, beside the same run on the host CPU in this process (images
+     byte for byte; PhaseStats, PipelineReport and every resource's
+     intervals equal): (1) the paper's Fig. 4 anchors, ``lower_cnn`` of a
+     3x256x256 int8 image with k 3 and 7 (9 strips) on arcane-8vpu and
+     arcane-default through both schedulers, each run's ``l0_out0`` against
+     ArcaneEngine("cuda").conv_layer on the program's x0 and f0
+     (convlayer.cu) and the plain conv_layer (``first_diff`` on a
+     mismatch); serial cycles, makespan, concurrency speedup and the
+     modeled speedup over the scalar core; (2) ``examples/pipelined_cnn``'s
+     program (batch 4) on both configs: serial == pipelined ==
+     ``reference_images`` on the card, each ``feat{i}`` against
+     conv_layer_cuda and the plain conv_layer, the Chrome trace dumped under
+     build/chip_smoke equal to the CPU run's, no resource's intervals
+     overlapping; (3) ``ServingDriver`` on arcane-default with
+     serving-poisson's values (``SERVING_POISSON``) on both schedulers, the
+     run's dict equal to the CPU's; TTFT and latency p50/p99 in cycles,
+     kernels run, wall seconds and kernels a second. conv_layer_cuda's
+     launches are zeroed before the phase and must come out exactly
+     (``pipe_conv_launches``: 4 in (1), 8 in (2)) on conv_variant's pick,
+     every other kernel none. Two planted faults must be rejected: a
+     flipped byte of a card image in (1), one request's TTFT one cycle
+     later in (3)'s dict. The arcane-8vpu event loops of (1) run once more
+     under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising
+     calls made from the port's code are counted (a reading, not a gate)
+     and every reported call is printed with where it was made.
   5. train (after phase 3b): granite-moe-1b-a400m at full width (bf16
      params, an f32 master, seed 0, ArcaneEngine("ref") under autograd:
      the kernels have no backward), through ``repro_torch.launch.train``:
@@ -208,7 +238,7 @@ Phases:
      compressed run's params saved, restored with shardings= and served
      through the kernels (counts exact, logits as phase 3); peak memory.
   6. result: a JSON line of the kernels (with each one's launches per
-     variant, conv_layer's phase 4b launches included, and, for the
+     variant, conv_layer's phase 4b and 4c launches included, and, for the
      serving kernels, per model, phase 3b's models
      and phases 5's and 5b's served models included; gemm's also in the Mamba
      block's run; ``more_cases``:
@@ -3329,6 +3359,12 @@ def leaky_near_2_30(builder, widths):
     return b.build()
 
 
+def on_device(torch, rt, device: str) -> bool:
+    """A runtime's memory and cache lines both on ``device``'s type."""
+    return {rt.memory.data.device.type, rt.cache.data.device.type} == \
+        {torch.device(device).type}
+
+
 def sim_run(torch, prog, device: str, rt: dict, library=None) -> dict:
     """``prog`` through the port's serial simulator on ``device``: its
     flushed images (brought to the host: the run's one read of the device),
@@ -3336,9 +3372,8 @@ def sim_run(torch, prog, device: str, rt: dict, library=None) -> dict:
     the host. On the card the memory and the cache lines must be there."""
     from repro_torch.core import ArcaneCoprocessor, run_program
     cop = ArcaneCoprocessor(device=device, library=library, **rt)
-    where = {cop.rt.memory.data.device.type, cop.rt.cache.data.device.type}
-    if where != {torch.device(device).type}:
-        fail(f"sim: {prog.name}: memory and lines on {where}, not {device}")
+    if not on_device(torch, cop.rt, device):
+        fail(f"sim: {prog.name}: memory and lines not on {device}")
     t0 = time.perf_counter()
     run = run_program(cop, prog)
     images = {k: v.cpu() for k, v in run.flushed_images().items()}
@@ -3497,6 +3532,390 @@ def run_sim(torch, smi_line: str) -> dict:
     if not (faults["flipped_byte_rejected"] and faults["leaky_sound_equal"]
             and faults["leaky_f32_rejected"]):
         fail("sim: a planted fault passed the image check (or the sound leakyrelu failed it)")
+    return out
+
+
+# --------------------------------------------------------------- phase 4c
+# The port's pipelined simulator (repro_torch.sim: the event-driven C-RT
+# over the serial runtime's data plane), every run built through
+# SimConfig.make_runtime(..., device=) with memory and lines on the card and
+# held against the same run on the host CPU in this process: (1) the
+# paper's Fig. 4 anchors, lower_cnn at 256 x 256 int8 with k 3 and 7, on
+# both builtin configs and both schedulers; (2) the pipelined example's
+# program; (3) the serving driver on serving-poisson's values.
+PIPE_CONFIGS = ("arcane-8vpu", "arcane-default")
+PIPE_SCHEDULERS = ("serial", "pipelined")
+PIPE_CNN_HW = 256
+PIPE_CNN_KS = (3, 7)
+PIPE_EXAMPLE_BATCH = 4
+# serving-poisson of dse/scenarios.py:100-130 (ServingScenario's defaults),
+# written here: dse/ is not ported
+SERVING_POISSON = {"n_requests": 8, "mean_gap": 20_000, "seed": 0,
+                   "kv_max": 24, "slots": 4, "prompt_range": (3, 8),
+                   "new_range": (2, 5)}
+PIPE_SERVE_CONFIG = "arcane-default"
+# the PipelineReport fields a card run must reproduce (sim_seconds,
+# events_processed and alias_queries profile the simulator itself)
+PIPE_REPORT_FIELDS = ("makespan", "serial_cycles", "kernels_run",
+                      "resource_busy", "reuse_hits")
+
+
+def pipe_cnn_program(k: int, cfg):
+    """lower_cnn's Fig. 4 anchor: one 3 x 256 x 256 int8 image through the
+    fused conv layer, strip-mined to ``cfg``'s register file."""
+    from repro_torch.core import ElemWidth
+    from repro_torch.lower import CNNSpec, lower_cnn
+    return lower_cnn(CNNSpec(name=f"fig4-b{k}-{PIPE_CNN_HW}", h=PIPE_CNN_HW,
+                             w=PIPE_CNN_HW, k=k, width=ElemWidth.B),
+                     vregs_per_vpu=cfg.vregs_per_vpu, vlen_bytes=cfg.vlen_bytes)
+
+
+def pipe_conv_launches(cnn_progs, example_progs) -> int:
+    """conv_layer_cuda's launches in phase 4c: one whole-image conv for
+    each fused layer of (1) (its strips write one output buffer) and one
+    for each conv_layer op of (2) (each writes a whole feature map)."""
+    fused = sum(len({op.dst.buf for op in p.ops if op.kernel == "conv_layer"})
+                for p in cnn_progs)
+    per_op = sum(op.kernel == "conv_layer" for p in example_progs for op in p.ops)
+    return fused + per_op
+
+
+def pipe_fields(rt) -> dict:
+    """A run's cycle fields: PhaseStats' and, pipelined, the report's and
+    every resource's intervals."""
+    out = {"stats": {f: getattr(rt.stats, f) for f in SIM_STAT_FIELDS},
+           "total_cycles": rt.stats.total_cycles}
+    if hasattr(rt, "report"):
+        rep = rt.report()
+        out["report"] = {f: getattr(rep, f) for f in PIPE_REPORT_FIELDS}
+        out["intervals"] = {r.name: [(iv.start, iv.end) for iv in r.intervals]
+                            for r in rt._all_resources()}
+    return out
+
+
+def pipe_run(torch, prog, cfg, scheduler: str, device: str) -> dict:
+    """``prog`` on a runtime of ``cfg`` on ``device``: the flushed images on
+    the host, the cycle fields and the host seconds from the issue to the
+    images on the host."""
+    from repro_torch.core import run_program
+    rt = cfg.make_runtime(scheduler, device=device)
+    if not on_device(torch, rt, device):
+        fail(f"sim: {prog.name} {scheduler}: memory and lines not on {device}")
+    t0 = time.perf_counter()
+    run = run_program(rt, prog)
+    images = {k: v.cpu() for k, v in run.flushed_images().items()}
+    wall = time.perf_counter() - t0
+    return {"images": images, "wall_s": wall, "rt": rt, **pipe_fields(rt)}
+
+
+def warm_then_timed(fn):
+    """Each timed run follows a warm one (first-call allocations)."""
+    fn()
+    return fn()
+
+
+def same_cycles(a: dict, b: dict) -> bool:
+    return all(a.get(k) == b.get(k) for k in ("stats", "total_cycles", "report",
+                                              "intervals"))
+
+
+def intervals_disjoint(fields: dict) -> bool:
+    """No resource's booked intervals overlap."""
+    for ivs in fields.get("intervals", {}).values():
+        ivs = sorted(ivs)
+        if any(a[1] > b[0] for a, b in zip(ivs, ivs[1:])):
+            return False
+    return True
+
+
+def serving_requests():
+    from repro_torch.sim import poisson_arrivals
+    s = SERVING_POISSON
+    return poisson_arrivals(s["n_requests"], s["mean_gap"],
+                            prompt_range=s["prompt_range"],
+                            new_range=s["new_range"], seed=s["seed"])
+
+
+def serve_run(torch, cfg, scheduler: str, device: str) -> dict:
+    """ServingDriver over serving-poisson's requests on a runtime of ``cfg``
+    on ``device`` (as dse/runner.py builds it: the strip-miner on the
+    config's register file): the run's dict and its host seconds."""
+    from repro_torch.sim import ServingConfig, ServingDriver
+    s = SERVING_POISSON
+    rt = cfg.make_runtime(scheduler, device=device)
+    if not on_device(torch, rt, device):
+        fail(f"sim: serving {scheduler}: memory and lines not on {device}")
+    t0 = time.perf_counter()
+    drv = ServingDriver(rt, ServingConfig(kv_max=s["kv_max"], slots=s["slots"],
+                                          vregs=cfg.vregs_per_vpu,
+                                          vlen=cfg.vlen_bytes))
+    result = drv.run(serving_requests())
+    if device != "cpu":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"result": result, "wall_s": wall,
+            "kernels_run": rt.stats.kernels_run}
+
+
+def latency_percentiles(result: dict) -> dict:
+    """Arrival to last token of each finished request, p50 and p99."""
+    from repro_torch.sim.metrics import _exact_percentile
+    lat = [r["finished"] - r["arrived"] for r in result["per_request"]
+           if r["finished"] is not None]
+    return {"latency_p50": _exact_percentile(lat, 50),
+            "latency_p99": _exact_percentile(lat, 99)}
+
+
+def moved_ttft(result: dict) -> dict:
+    """A planted fault: the first finished request's TTFT one cycle later."""
+    out = json.loads(json.dumps(result))
+    req = next(r for r in out["per_request"] if r["ttft"] is not None)
+    req["ttft"] += 1
+    req["first_token"] += 1
+    return out
+
+
+def flipped_image(torch, images: dict, name: str) -> dict:
+    """A planted fault: one byte of one image flipped."""
+    out = {k: v.clone() for k, v in images.items()}
+    out[name].view(torch.uint8).reshape(-1)[7].bitwise_xor_(1 << 2)
+    return out
+
+
+def count_syncs(torch, fn) -> tuple[int, dict]:
+    """``fn`` under torch.cuda.set_sync_debug_mode("warn"): the number of
+    synchronising calls made from the port's code, and every reported call
+    by the place that made it (the innermost frame of the port's code, then
+    the frame that warned; "?" where no frame of the port's code is on the
+    stack: on the H100 the first switch to "warn" in a process reports one
+    such call itself)."""
+    import traceback
+    import warnings
+    where: dict = {}
+
+    def seen(message, category, filename, lineno, file=None, line=None):
+        if "synchroniz" not in str(message):
+            return
+        ours = [f for f in traceback.extract_stack()[:-1]
+                if "repro_torch" in f.filename]
+        key = (f"{Path(ours[-1].filename).name}:{ours[-1].lineno} "
+               f"{ours[-1].name}" if ours else "?") + \
+            f" <- {Path(filename).name}:{lineno}"
+        where[key] = where.get(key, 0) + 1
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("always")
+        warnings.showwarning = seen
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum(n for k, n in where.items() if not k.startswith("?")), where
+
+
+def pipe_event_loop(torch, prog, cfg, device: str) -> None:
+    """The pipelined event loop alone: placement first, then the issue to
+    the drained queue, just before the flush."""
+    from repro_torch.core import ArcaneCoprocessor, issue_program, place_program
+    cop = ArcaneCoprocessor(runtime=cfg.make_runtime("pipelined", device=device))
+    addrs = place_program(cop, prog)
+    torch.cuda.synchronize()
+    return lambda: (issue_program(cop, prog, addrs), cop.barrier())
+
+
+def run_sim_pipelined(torch, smi_line: str) -> dict:
+    """Phase 4c: the port's pipelined simulator on the card against the
+    same runs on the host CPU (images byte for byte, cycle fields equal),
+    each fused layer and feature map against the convlayer.cu kernel and
+    the plain conv_layer (the phase's only launches, counted exactly), the
+    serving driver's dict, two planted faults, and the synchronising calls
+    of the event loop."""
+    from repro_torch.core import reference_images
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.examples import arcane_cnn, pipelined_cnn
+    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda, conv_variant
+    from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    from repro_torch.launch import cnn
+    from repro_torch.sim import load_config
+    wrappers = (*cnn.WRAPPERS, gemm_cuda, flash_attention_cuda, decode_attention_cuda)
+    for w in wrappers:
+        w.launches = 0
+    conv_layer_cuda.variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    expect_variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    engine = ArcaneEngine("cuda")
+    out: dict = {"cnn": [], "example": [], "serving": {}}
+    cfgs = {name: load_config(name) for name in PIPE_CONFIGS}
+    cnn_progs, example_progs, flip_checked = [], [], None
+
+    # (1) the paper's Fig. 4 anchors
+    for k in PIPE_CNN_KS:
+        for cname, cfg in cfgs.items():
+            prog = pipe_cnn_program(k, cfg)
+            cnn_progs.append(prog)
+            x, f = pipelined_cnn.conv_inputs(prog, "x0", "f0", "cuda")
+            kernel = engine.conv_layer(x, f)[0].cpu()
+            expect_variants[conv_variant(x, f)] += 1
+            plain = conv_layer_ref(x, f)[0].cpu()
+            for sched in PIPE_SCHEDULERS:
+                cpu = warm_then_timed(lambda: pipe_run(torch, prog, cfg, sched, "cpu"))
+                card = warm_then_timed(lambda: pipe_run(torch, prog, cfg, sched, "cuda"))
+                got = card["images"]["l0_out0"]
+                rec = {"k": k, "config": cname, "scheduler": sched,
+                       "strips": len(prog.ops), "serial_cycles": card["total_cycles"],
+                       "kernels_run": card["stats"]["kernels_run"],
+                       "card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+                       "images_equal_cpu": images_equal(torch, card["images"], cpu["images"]),
+                       "cycles_equal_cpu": same_cycles(card, cpu),
+                       "out_equals_kernel": torch.equal(got, kernel),
+                       "kernel_equals_plain": torch.equal(kernel, plain),
+                       "intervals_disjoint": intervals_disjoint(card)}
+                if sched == "pipelined":
+                    rec["makespan"] = card["report"]["makespan"]
+                    rec["concurrency_speedup"] = \
+                        card["report"]["serial_cycles"] / card["report"]["makespan"]
+                cycles_ = rec.get("makespan", rec["serial_cycles"])
+                rec["scalar_speedup"] = arcane_cnn.scalar_cycles(
+                    PIPE_CNN_HW, PIPE_CNN_HW, k) / cycles_
+                out["cnn"].append(rec)
+                extra = (f"pipelined makespan {rec['makespan']}, concurrency speedup "
+                         f"{rec['concurrency_speedup']:.4f}x, " if sched == "pipelined"
+                         else "")
+                total = "serial cycles" if sched == "serial" else "sum of phases"
+                print(f"sim: pipelined phase fig4 {PIPE_CNN_HW}x{PIPE_CNN_HW} int8 k={k} "
+                      f"{cname} {sched}: {rec['strips']} strips, {total} "
+                      f"{rec['serial_cycles']}, {extra}modeled speedup over the scalar "
+                      f"core {rec['scalar_speedup']:.4f}x; card {rec['card_wall_s']:.6f} s, "
+                      f"host CPU {rec['cpu_wall_s']:.6f} s [{smi_line}]; images == CPU "
+                      f"{rec['images_equal_cpu']}, cycles == CPU {rec['cycles_equal_cpu']}, "
+                      f"l0_out0 == conv_layer_cuda {rec['out_equals_kernel']}, kernel == "
+                      f"plain {rec['kernel_equals_plain']}", flush=True)
+                if not (rec["out_equals_kernel"] and rec["kernel_equals_plain"]):
+                    fail(f"sim: fig4 k={k} {cname} {sched}: l0_out0 "
+                         f"{first_diff(torch, got, kernel)} kernel vs plain "
+                         f"{first_diff(torch, kernel, plain)}")
+                if not (rec["images_equal_cpu"] and rec["cycles_equal_cpu"]
+                        and rec["intervals_disjoint"]):
+                    fail(f"sim: fig4 k={k} {cname} {sched}: the card's run differs "
+                         f"from the CPU's")
+                if flip_checked is None and sched == "pipelined":
+                    flip_checked = not images_equal(
+                        torch, flipped_image(torch, card["images"], "l0_out0"),
+                        cpu["images"])
+
+    # (2) the pipelined example's program
+    for cname, cfg in cfgs.items():
+        prog = pipelined_cnn.build_program(batch=PIPE_EXAMPLE_BATCH)
+        example_progs.append(prog)
+        runs = {}
+        for sched in PIPE_SCHEDULERS:
+            runs[sched] = {dev: warm_then_timed(lambda: pipe_run(torch, prog, cfg, sched, dev))
+                           for dev in ("cpu", "cuda")}
+        ref = {k: v.cpu() for k, v in reference_images(prog, device="cuda").items()}
+        card_p, cpu_p = runs["pipelined"]["cuda"], runs["pipelined"]["cpu"]
+        traces = []
+        for dev, run in (("cuda", card_p), ("cpu", cpu_p)):
+            path = ROOT / "build" / "chip_smoke" / f"pipelined_cnn_{cname}_{dev}_trace.json"
+            run["rt"].tracer.dump(str(path))
+            traces.append(json.loads(path.read_text()))
+        feats = []
+        for i in range(PIPE_EXAMPLE_BATCH):
+            x, f = pipelined_cnn.conv_inputs(prog, f"img{i}", "filt", "cuda")
+            kernel = engine.conv_layer(x, f)[0].cpu()
+            expect_variants[conv_variant(x, f)] += 1
+            feats.append(torch.equal(card_p["images"][f"feat{i}"], kernel)
+                         and torch.equal(kernel, conv_layer_ref(x, f)[0].cpu()))
+        rep = card_p["report"]
+        rec = {"config": cname, "kernels_run": rep["kernels_run"],
+               "serial_cycles": runs["serial"]["cuda"]["total_cycles"],
+               "makespan": rep["makespan"],
+               "concurrency_speedup": rep["serial_cycles"] / rep["makespan"],
+               "card_wall_s": {s: runs[s]["cuda"]["wall_s"] for s in PIPE_SCHEDULERS},
+               "cpu_wall_s": {s: runs[s]["cpu"]["wall_s"] for s in PIPE_SCHEDULERS},
+               "serial_equals_pipelined": images_equal(
+                   torch, runs["serial"]["cuda"]["images"], card_p["images"]),
+               "equals_reference_images": images_equal(torch, card_p["images"], ref),
+               "images_equal_cpu": all(images_equal(torch, runs[s]["cuda"]["images"],
+                                                    runs[s]["cpu"]["images"])
+                                       for s in PIPE_SCHEDULERS),
+               "cycles_equal_cpu": all(same_cycles(runs[s]["cuda"], runs[s]["cpu"])
+                                       for s in PIPE_SCHEDULERS),
+               "feats_equal_kernel": feats, "trace_equal_cpu": traces[0] == traces[1],
+               "trace_events": len(traces[0]["traceEvents"]),
+               "intervals_disjoint": intervals_disjoint(card_p)}
+        out["example"].append(rec)
+        print(f"sim: pipelined phase example batch {PIPE_EXAMPLE_BATCH} {cname}: kernels "
+              f"{rec['kernels_run']}, serial cycles {rec['serial_cycles']}, makespan "
+              f"{rec['makespan']}, concurrency speedup {rec['concurrency_speedup']:.4f}x; "
+              f"card s {rec['card_wall_s']}, host CPU s {rec['cpu_wall_s']} [{smi_line}]; "
+              f"serial == pipelined {rec['serial_equals_pipelined']}, == reference_images "
+              f"{rec['equals_reference_images']}, images == CPU {rec['images_equal_cpu']}, "
+              f"cycles == CPU {rec['cycles_equal_cpu']}, feat == conv_layer_cuda {feats}, "
+              f"trace == CPU {rec['trace_equal_cpu']} ({rec['trace_events']} events), "
+              f"intervals disjoint {rec['intervals_disjoint']}", flush=True)
+        if not (rec["serial_equals_pipelined"] and rec["equals_reference_images"]
+                and rec["images_equal_cpu"] and rec["cycles_equal_cpu"] and all(feats)
+                and rec["trace_equal_cpu"] and rec["intervals_disjoint"]):
+            fail(f"sim: the example's program on {cname} failed a check")
+
+    # (3) serving
+    cfg = cfgs[PIPE_SERVE_CONFIG]
+    for sched in PIPE_SCHEDULERS:
+        cpu = warm_then_timed(lambda: serve_run(torch, cfg, sched, "cpu"))
+        card = warm_then_timed(lambda: serve_run(torch, cfg, sched, "cuda"))
+        res = card["result"]
+        rec = {"equal_cpu": res == cpu["result"], "kernels_run": card["kernels_run"],
+               "finished": res["finished"], "ttft_p50": res["ttft_p50"],
+               "ttft_p99": res["ttft_p99"], **latency_percentiles(res),
+               "queue_wait_p99": res["queue_wait_p99"],
+               "card_wall_s": card["wall_s"], "cpu_wall_s": cpu["wall_s"],
+               "card_kernels_per_s": card["kernels_run"] / card["wall_s"],
+               "cpu_kernels_per_s": cpu["kernels_run"] / cpu["wall_s"],
+               "moved_ttft_rejected": moved_ttft(res) != cpu["result"]}
+        out["serving"][sched] = rec
+        print(f"sim: pipelined phase serving-poisson {PIPE_SERVE_CONFIG} {sched}: "
+              f"{rec['finished']} requests, TTFT p50 {rec['ttft_p50']} p99 "
+              f"{rec['ttft_p99']} cycles, latency p50 {rec['latency_p50']} p99 "
+              f"{rec['latency_p99']} cycles, kernels {rec['kernels_run']}; card "
+              f"{rec['card_wall_s']:.6f} s ({rec['card_kernels_per_s']:.1f} kernels/s), "
+              f"host CPU {rec['cpu_wall_s']:.6f} s ({rec['cpu_kernels_per_s']:.1f} "
+              f"kernels/s) [{smi_line}]; dict == CPU {rec['equal_cpu']}", flush=True)
+        if not rec["equal_cpu"]:
+            fail(f"sim: serving {sched}: the card's dict differs from the CPU's")
+
+    # (4) launches, (5) planted faults, (6) synchronising calls
+    counts = {w.__name__: w.launches for w in wrappers}
+    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants)}
+    n_conv = pipe_conv_launches(cnn_progs, example_progs)
+    expect = {w.__name__: (n_conv if w is conv_layer_cuda else 0) for w in wrappers}
+    faults = {"flipped_byte_rejected": bool(flip_checked),
+              "moved_ttft_rejected": all(r["moved_ttft_rejected"]
+                                         for r in out["serving"].values())}
+    syncs = {}
+    for k in PIPE_CNN_KS:
+        prog = pipe_cnn_program(k, cfgs["arcane-8vpu"])
+        syncs[k] = count_syncs(torch, pipe_event_loop(torch, prog, cfgs["arcane-8vpu"],
+                                                      "cuda"))
+    n_sync = sum(n for n, _ in syncs.values())
+    where: dict = {}
+    for _, w in syncs.values():
+        for key, n in w.items():
+            where[key] = where.get(key, 0) + n
+    out.update(launches=counts, variants=variants, faults=faults,
+               sync_calls=n_sync, sync_where=where)
+    print(f"sim: pipelined phase launches {counts} expected {expect}; conv_layer "
+          f"variants {variants['conv_layer_cuda']} expected {expect_variants}; planted "
+          f"faults {json.dumps(faults)}; synchronising calls from the port's code in "
+          f"the arcane-8vpu event loops (k {list(PIPE_CNN_KS)}): {n_sync}, all reported: "
+          f"{json.dumps(where)} [{smi_line}]",
+          flush=True)
+    if counts != expect or variants["conv_layer_cuda"] != expect_variants:
+        fail("sim: the pipelined phase did not launch the kernels as counted")
+    if not all(faults.values()):
+        fail("sim: a planted fault passed the pipelined phase's checks")
     return out
 
 
@@ -3685,6 +4104,11 @@ def main(argv=None) -> None:
     clock.lap("sim")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 4c: the pipelined simulator, its lowerings and serving driver
+    summary["sim_pipelined"] = run_sim_pipelined(torch, smi_line)
+    clock.lap("sim_pipelined")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     # ---- phase 3: serving, and the full-width Mamba block
     summary["serve"] = run_serving(torch, summary, SERVE_MODELS, run_serve)
     out_json.write_text(json.dumps(summary, indent=1))
@@ -3719,7 +4143,8 @@ def main(argv=None) -> None:
                     mine[0] if mine else None)
         runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
                                     summary["multi_device"]["serve"]]
-                                   if phase == "serve" else [summary["sim"]])
+                                   if phase == "serve" else
+                                   [summary["sim"], summary["sim_pipelined"]])
         variants = {}
         for run in runs:
             for v, n in run.get("variants", {}).get(wrapper, {}).items():

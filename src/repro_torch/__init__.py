@@ -13,10 +13,15 @@ import torch
 
 def resolve_device(device=None) -> torch.device:
     """The device an entry point runs on: the card unless the caller asks
-    for the CPU. Asking for CUDA where there is none raises."""
+    for the CPU. Asking for CUDA where there is none raises. A card without
+    an index is the current one (``cuda`` → ``cuda:0``), as a tensor's
+    device reads, so two resolved devices compare equal."""
     dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was asked for but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain PyTorch path")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA was asked for but torch.cuda.is_available() is False; "
+                "pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
     return dev

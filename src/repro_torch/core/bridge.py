@@ -24,6 +24,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import resolve_device
 from repro_torch.core.encoding import (ElemWidth, Offload, encode_xmk,
                                        encode_xmr)
 from repro_torch.core.isa import KernelError, fx_encode
@@ -83,7 +84,7 @@ class ArcaneCoprocessor:
     def __init__(self, runtime: Optional[CacheRuntime] = None, *,
                  device=None, **rt_kwargs):
         if runtime is not None and device is not None and \
-                torch.device(device) != runtime.device:
+                resolve_device(device) != runtime.device:
             raise ValueError(f"device {device} is not the runtime's "
                              f"{runtime.device}")
         self.rt = runtime or CacheRuntime(device=device, **rt_kwargs)

@@ -498,7 +498,7 @@ def run_program(rt_or_cop, prog: KernelProgram, *,
         from repro_torch.core.bridge import ArcaneCoprocessor
         rt_or_cop = ArcaneCoprocessor(device=device)
     cop = _as_cop(rt_or_cop)
-    if device is not None and torch.device(device) != cop.rt.device:
+    if device is not None and resolve_device(device) != cop.rt.device:
         raise ValueError(f"device {device} is not the runtime's "
                          f"{cop.rt.device}")
     sess = RuntimeSession(cop, open_loop=False, validate=validate)

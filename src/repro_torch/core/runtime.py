@@ -140,13 +140,13 @@ class CacheRuntime:
         faults=None,
         device=None,
     ):
-        # Function-level import, as the reference's: once the pipelined
-        # scheduler is ported, repro_torch.sim's package import reaches
-        # this module through it.
+        # Function-level import, as the reference's: repro_torch.sim's
+        # package import reaches this module through sim.pipeline, so a
+        # module-level import would cycle while this module initialises.
         from repro_torch.sim.metrics import SchedulerMetrics
         from repro_torch.sim.faults import as_fault_plan
         if memory is not None and device is not None and \
-                torch.device(device) != memory.device:
+                resolve_device(device) != memory.device:
             raise ValueError(f"device {device} is not the memory's "
                              f"{memory.device}")
         self.device = memory.device if memory is not None \
@@ -410,7 +410,7 @@ class CacheRuntime:
             self._offline_vpu(vpu.index, self.session_now())
 
     # ------------------------------------------------- shared scheduler steps
-    # The serial scheduler above and the reference's pipelined scheduler
+    # The serial scheduler above and repro_torch.sim.pipeline.PipelinedRuntime
     # both drive exactly these four steps; only *when* each step runs
     # differs, so the numerical results are identical by construction.
     def _choose_vpu(self, qk: QueuedKernel) -> int:

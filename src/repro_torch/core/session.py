@@ -25,11 +25,11 @@ The protocol (implemented by both runtimes):
   * ``session.drain()``            — run everything (chained callbacks
     included) to completion and flush deferred results.
 
-On the serial runtime the session clock is modeled-cycles-so-far plus
-injected idle (the reference's pipelined runtime, not ported yet, runs it on
-its event timeline). A closed session (``open_loop=False``) is the batch
-path: :func:`repro_torch.core.program.run_program` is a thin wrapper over
-one.
+On the pipelined runtime (:class:`repro_torch.sim.pipeline.PipelinedRuntime`)
+the session clock is the persistent event timeline; on the serial runtime it
+is modeled-cycles-so-far plus injected idle. A closed session
+(``open_loop=False``) is the batch path:
+:func:`repro_torch.core.program.run_program` is a thin wrapper over one.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
 """Unified metrics layer for the scheduler stack (observability).
 
-Own copy of repro.sim.metrics up to :class:`SchedulerMetrics` (the serving
-request log is not ported yet).
+Own copy of repro.sim.metrics (pure Python: the port imports nothing of
+``repro``).
 
 Three cooperating pieces, all **purely observational** — collection never
 touches scheduler state, books no resources, and draws no randomness, so a
@@ -11,7 +11,7 @@ differential fuzzer asserts exactly that):
   * :class:`MetricsRegistry` — a typed registry of named :class:`Counter` /
     :class:`Gauge` / :class:`Histogram` instruments, threaded through
     :class:`~repro_torch.core.runtime.CacheRuntime` and
-    the pipelined scheduler (not ported yet).
+    :class:`~repro_torch.sim.pipeline.PipelinedRuntime`.
   * :class:`StallTable` — per-kernel **stall attribution**: every cycle
     between a kernel becoming dispatchable (decode complete) and its retire
     (compute done) that the datapath is *not* computing the kernel is binned
@@ -684,3 +684,166 @@ class SchedulerMetrics:
             doc["critical_path"] = None
         return doc
 
+
+# ---------------------------------------------------------------------------
+# Per-request serving lifecycle
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class RequestRecord:
+    """One request's lifecycle timestamps (sim cycles) under a serving run.
+
+    ``ttft`` counts from *arrival* (queue wait included) to the first
+    generated token — the latency a client observes; ``tpot`` is the mean
+    inter-token gap over the remaining ``tokens - 1`` decode steps."""
+
+    rid: int
+    prompt_len: int
+    max_new: int
+    arrived: int
+    admitted: Optional[int] = None
+    first_token: Optional[int] = None
+    finished: Optional[int] = None
+    rejected: Optional[int] = None     # admission-validation bounce time
+    tokens: int = 0
+
+    @property
+    def done(self) -> bool:
+        return self.finished is not None
+
+    @property
+    def queue_wait(self) -> Optional[int]:
+        if self.admitted is None:
+            return None
+        return self.admitted - self.arrived
+
+    @property
+    def ttft(self) -> Optional[int]:
+        if self.first_token is None:
+            return None
+        return self.first_token - self.arrived
+
+    @property
+    def tpot(self) -> Optional[float]:
+        if self.finished is None or self.first_token is None:
+            return None
+        if self.tokens <= 1:
+            return 0.0
+        return (self.finished - self.first_token) / (self.tokens - 1)
+
+    def to_dict(self) -> dict:
+        return {"rid": self.rid, "prompt_len": self.prompt_len,
+                "max_new": self.max_new, "arrived": self.arrived,
+                "admitted": self.admitted, "first_token": self.first_token,
+                "finished": self.finished, "rejected": self.rejected,
+                "tokens": self.tokens,
+                "queue_wait": self.queue_wait, "ttft": self.ttft,
+                "tpot": self.tpot}
+
+
+def _exact_percentile(vals: list, q: float) -> float:
+    """Nearest-rank percentile over raw values (exact, unlike the
+    power-of-two histogram buckets). ``q`` may be fractional — p99.9 ranks
+    on 99.9, not a truncated 99."""
+    if not vals:
+        return 0.0
+    s = sorted(vals)
+    # ceil(len * q / 100) in integer arithmetic: q is scaled to 1e-4
+    # percentile resolution first, so float noise (1000 * 99.9 / 100 ->
+    # 999.0000000000001) can never bump the rank past the true one.
+    qi = int(round(q * 10_000))
+    rank = min(len(s), max(1, -(-len(s) * qi // 1_000_000)))
+    return float(s[rank - 1])
+
+
+class RequestLog:
+    """Request lifecycle tracking for the serving scenario.
+
+    Each transition feeds the shared metrics instruments —
+    ``serving.ttft`` / ``serving.tpot`` / ``serving.queue_wait`` histograms
+    and a ``serving.goodput_tokens_per_kcycle`` gauge — so a serving run's
+    report carries them alongside the scheduler's stall attribution.
+    ``summary()`` additionally computes *exact* percentiles from the raw
+    records (the histograms quantize to power-of-two buckets)."""
+
+    def __init__(self, metrics: "SchedulerMetrics"):
+        self.metrics = metrics
+        self.records: dict[int, RequestRecord] = {}
+
+    # ----------------------------------------------------------- transitions
+    def arrive(self, rid: int, prompt_len: int, max_new: int,
+               t: int) -> RequestRecord:
+        if rid in self.records:
+            raise MetricsError(f"request {rid} already arrived")
+        rec = RequestRecord(rid=rid, prompt_len=prompt_len, max_new=max_new,
+                            arrived=int(t))
+        self.records[rid] = rec
+        self.metrics.inc("serving.requests.arrived")
+        return rec
+
+    def reject(self, rid: int, t: int) -> None:
+        """Admission validation bounced the request (it can never fit the
+        per-request KV budget): it arrived but is never admitted, so it
+        stays out of every latency percentile."""
+        rec = self.records[rid]
+        rec.rejected = int(t)
+        self.metrics.inc("serving.rejected")
+        self.metrics.inc("serving.requests.rejected")
+
+    def admit(self, rid: int, t: int) -> None:
+        rec = self.records[rid]
+        rec.admitted = int(t)
+        self.metrics.inc("serving.requests.admitted")
+        self.metrics.observe("serving.queue_wait", rec.queue_wait)
+
+    def first_token(self, rid: int, t: int) -> None:
+        rec = self.records[rid]
+        rec.first_token = int(t)
+        rec.tokens = max(rec.tokens, 1)
+        self.metrics.observe("serving.ttft", rec.ttft)
+
+    def token(self, rid: int, n: int = 1) -> None:
+        self.records[rid].tokens += n
+
+    def finish(self, rid: int, t: int) -> None:
+        rec = self.records[rid]
+        rec.finished = int(t)
+        self.metrics.inc("serving.requests.finished")
+        if rec.tokens > 1:
+            self.metrics.observe("serving.tpot", int(round(rec.tpot)))
+        done = [r for r in self.records.values() if r.done]
+        toks = sum(r.tokens for r in done)
+        if t > 0:
+            self.metrics.set_gauge("serving.goodput_tokens_per_kcycle",
+                                   round(1000.0 * toks / t, 3))
+
+    # ------------------------------------------------------------- reporting
+    def summary(self, now: Optional[int] = None) -> dict:
+        """Exact lifecycle aggregates from the raw records."""
+        done = [r for r in self.records.values() if r.done]
+        ttfts = [r.ttft for r in done if r.ttft is not None]
+        tpots = [r.tpot for r in done if r.tpot is not None and r.tokens > 1]
+        waits = [r.queue_wait for r in done if r.queue_wait is not None]
+        toks = sum(r.tokens for r in done)
+        end = now if now is not None else max(
+            (r.finished for r in done), default=0)
+        return {
+            "requests": len(self.records),
+            "finished": len(done),
+            "rejected": sum(1 for r in self.records.values()
+                            if r.rejected is not None),
+            "tokens_generated": toks,
+            "ttft_p50": _exact_percentile(ttfts, 50),
+            "ttft_p99": _exact_percentile(ttfts, 99),
+            "ttft_p999": _exact_percentile(ttfts, 99.9),
+            "ttft_mean": (sum(ttfts) / len(ttfts)) if ttfts else 0.0,
+            "tpot_p50": _exact_percentile(tpots, 50),
+            "tpot_p99": _exact_percentile(tpots, 99),
+            "queue_wait_p50": _exact_percentile(waits, 50),
+            "queue_wait_p99": _exact_percentile(waits, 99),
+            "goodput_tokens_per_kcycle":
+                round(1000.0 * toks / end, 3) if end else 0.0,
+            "per_request": [r.to_dict() for r in
+                            sorted(self.records.values(),
+                                   key=lambda r: r.rid)],
+        }

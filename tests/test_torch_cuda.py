@@ -961,3 +961,51 @@ def test_expert_matmul_under_autograd(cuda_device):
     np.testing.assert_allclose(f32(g), f32(ref.to(torch.bfloat16)), rtol=1e-2)
     with pytest.raises(RuntimeError, match="derivative"):
         torch.autograd.grad(torch.bmm(x, wg, out_dtype=torch.float32).sum(), wg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheduler", ["serial", "pipelined"])
+def test_sim_runtimes_on_the_card_match_the_cpu(cuda_device, scheduler):
+    """SimConfig.make_runtime on the card (by default, by "cuda" and on a
+    memory made there): memory and lines on the card, the flushed images
+    and the cycles of the CPU run; pipelined, the same schedule."""
+    import sys
+    from pathlib import Path
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke as cs
+    from repro_torch.core import ElemWidth, MainMemory, ProgramBuilder, run_program
+    from repro_torch.sim import load_config
+    cfg = load_config("arcane-8vpu")
+    prog = cs.mixed_program(4, 16, ProgramBuilder, ElemWidth)
+    cpu = run_program(cfg.make_runtime(scheduler, device="cpu"), prog)
+    want = {k: v for k, v in cpu.flushed_images().items()}
+    for rt in (cfg.make_runtime(scheduler),
+               cfg.make_runtime(scheduler, device="cuda"),
+               cfg.make_runtime(scheduler, device="cuda",
+                                memory=MainMemory(cfg.memory_bytes, device="cuda"))):
+        assert rt.memory.data.is_cuda and rt.cache.data.is_cuda
+        run = run_program(rt, prog)
+        got = run.flushed_images()
+        assert all(torch.equal(got[k].cpu(), want[k]) for k in want)
+        assert rt.stats.total_cycles == cpu.rt.stats.total_cycles
+        if scheduler == "pipelined":
+            assert rt.report().makespan == cpu.rt.report().makespan
+            assert rt.tracer.to_chrome() == cpu.rt.tracer.to_chrome()
+
+
+@pytest.mark.cuda
+def test_pipelined_example_and_serving_on_the_card(cuda_device, tmp_path, capsys):
+    """The pipelined example on the card (feature maps held to
+    convlayer.cu inside it) and the serving driver's dict on the card
+    equal to the CPU's."""
+    from repro_torch.examples import pipelined_cnn
+    from repro_torch.sim import (ServingConfig, ServingDriver, load_config,
+                                 poisson_arrivals)
+    pipelined_cnn.main(["--trace", str(tmp_path / "t.json")])
+    assert "feature maps == convlayer.cu" in capsys.readouterr().out
+    cfg = load_config("arcane-default")
+    reqs = poisson_arrivals(3, 5_000, prompt_range=(3, 5), new_range=(2, 3))
+    res = [ServingDriver(cfg.make_runtime("pipelined", device=d),
+                         ServingConfig(kv_max=12, slots=2)).run(reqs)
+           for d in ("cpu", "cuda")]
+    assert res[0] == res[1] and res[0]["finished"] == 3

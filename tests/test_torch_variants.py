@@ -515,3 +515,94 @@ def test_chip_smoke_train_check_sees_its_planted_faults():
         assert reading["gain"] == max(abs(g - 1) for part, g in
                                       reading["gain_by_part"].items()
                                       if kinds[part] == "gain")
+
+
+# ------------------------------------------- phase 4c: the pipelined simulator
+def test_chip_smoke_serving_values_equal_the_scenarios():
+    """Phase 4c's inline serving values are dse/scenarios.py's
+    serving-poisson, and its request list and driver config are the ones
+    dse/runner.py builds from that scenario on arcane-default."""
+    import dataclasses
+    from repro.dse.scenarios import SERVING_SCENARIOS
+    from repro.sim import load_config as ref_load_config
+    from repro_torch.sim import load_config
+    cs = chip_smoke()
+    scen = SERVING_SCENARIOS["serving-poisson"]
+    assert scen.arrivals == "poisson"
+    assert cs.SERVING_POISSON == {k: getattr(scen, k) for k in cs.SERVING_POISSON}
+    assert set(cs.SERVING_POISSON) == {f.name for f in dataclasses.fields(scen)} - {
+        "name", "arrivals"}
+    assert [dataclasses.asdict(r) for r in cs.serving_requests()] == \
+        [dataclasses.asdict(r) for r in scen.requests()]
+    cfg, rcfg = load_config(cs.PIPE_SERVE_CONFIG), ref_load_config(cs.PIPE_SERVE_CONFIG)
+    want = scen.serving_config(vregs_per_vpu=rcfg.vregs_per_vpu,
+                               vlen_bytes=rcfg.vlen_bytes)
+    assert (want.kv_max, want.slots, want.vregs, want.vlen) == (
+        cs.SERVING_POISSON["kv_max"], cs.SERVING_POISSON["slots"],
+        cfg.vregs_per_vpu, cfg.vlen_bytes)
+
+
+def test_chip_smoke_pipelined_conv_launches_equal_the_runs_conv_ops():
+    """Phase 4c's expected conv_layer launches: (1)'s 9 strips of each
+    fused layer tile its whole output (one whole-image launch per k and
+    config: 4), (2)'s conv ops each write a whole feature map (4 images x 2
+    configs: 8), and every launch takes the simt variant."""
+    from repro_torch.examples import pipelined_cnn
+    from repro_torch.kernels.convlayer.kernel import conv_variant
+    from repro_torch.sim import load_config
+    cs = chip_smoke()
+    cfgs = [load_config(n) for n in cs.PIPE_CONFIGS]
+    cnn = [cs.pipe_cnn_program(k, c) for k in cs.PIPE_CNN_KS for c in cfgs]
+    ex = [pipelined_cnn.build_program(batch=cs.PIPE_EXAMPLE_BATCH) for _ in cfgs]
+    assert cs.pipe_conv_launches(cnn, []) == 4
+    assert cs.pipe_conv_launches([], ex) == 8
+    assert cs.pipe_conv_launches(cnn, ex) == 12
+    for prog in cnn:
+        assert len(prog.ops) == 9 and {op.kernel for op in prog.ops} == {"conv_layer"}
+        out = prog.buffer("l0_out0")
+        assert sum(op.dst.cols for op in prog.ops) == out.cols
+        assert all(op.dst.rows == out.rows for op in prog.ops)
+        x, f = pipelined_cnn.conv_inputs(prog, "x0", "f0", "meta")
+        assert conv_variant(x, f) == "simt" and x.dtype == torch.int8
+    for prog in ex:
+        convs = [op for op in prog.ops if op.kernel == "conv_layer"]
+        assert len(convs) == cs.PIPE_EXAMPLE_BATCH
+        for op in convs:
+            buf = prog.buffer(op.dst.buf)
+            assert (op.dst.rows, op.dst.cols) == (buf.rows, buf.cols)
+        x, f = pipelined_cnn.conv_inputs(prog, "img0", "filt", "meta")
+        assert conv_variant(x, f) == "simt" and x.dtype == torch.int32
+
+
+def test_chip_smoke_pipelined_planted_faults_show_on_the_cpu():
+    """Phase 4c's two planted faults on CPU runs: a flipped byte of a
+    pipelined 256 x 256 run's image and a TTFT one cycle later in a serving
+    dict both fail the equality the card's runs are held to; the sound
+    runs pass it, and the sound serving dict is the reference's."""
+    from repro.sim import ServingConfig as RServingConfig
+    from repro.sim import ServingDriver as RServingDriver
+    from repro.sim import load_config as ref_load_config
+    from repro_torch.sim import load_config
+    cs = chip_smoke()
+    cfg = load_config("arcane-8vpu")
+    prog = cs.pipe_cnn_program(3, cfg)
+    a = cs.pipe_run(torch, prog, cfg, "pipelined", "cpu")
+    b = cs.pipe_run(torch, prog, cfg, "pipelined", "cpu")
+    assert cs.images_equal(torch, a["images"], b["images"]) and cs.same_cycles(a, b)
+    assert cs.intervals_disjoint(a)
+    assert not cs.images_equal(torch, cs.flipped_image(torch, a["images"], "l0_out0"),
+                               b["images"])
+    scfg = load_config(cs.PIPE_SERVE_CONFIG)
+    run = cs.serve_run(torch, scfg, "pipelined", "cpu")
+    assert run["result"] == cs.serve_run(torch, scfg, "pipelined", "cpu")["result"]
+    assert cs.moved_ttft(run["result"]) != run["result"]
+    rcfg = ref_load_config(cs.PIPE_SERVE_CONFIG)
+    s = cs.SERVING_POISSON
+    from repro.dse.scenarios import SERVING_SCENARIOS
+    ref = RServingDriver(rcfg.make_runtime("pipelined"), RServingConfig(
+        kv_max=s["kv_max"], slots=s["slots"], vregs=rcfg.vregs_per_vpu,
+        vlen=rcfg.vlen_bytes)).run(SERVING_SCENARIOS["serving-poisson"].requests())
+    assert run["result"] == ref
+    lat = cs.latency_percentiles(run["result"])
+    assert 0 < lat["latency_p50"] <= lat["latency_p99"]
+    assert run["kernels_run"] == 278
