@@ -105,7 +105,12 @@ Phases:
      ArcaneEngine("cuda"), ("ref") and the planted faults' engines;
      outputs and conv and SSM states within limits set between the sound
      kernels' reading and the faults', every fault outside them; GEMM
-     launches exact by variant (8 wgmma, 56 gemv).
+     launches exact by variant (8 wgmma, 56 gemv). Each served model's
+     ``LM.param_shapes()`` and ``cache_shapes(4, max_len)`` (meta trees,
+     nothing allocated) are held against the params the launcher built and
+     a cache of the session's size: the same paths, shapes and dtypes, and
+     byte sums equal to the bytes the builds asked the allocator for
+     (``requested_bytes``: exact; ``memory_allocated``'s deltas beside).
   3b. serve_embeds: internvl2-1b and whisper-large-v3 at full width (bf16,
      random weights drawn on the card from seed 0), each freed before the
      next, through LM.prefill and LM.decode_step (the port's ServeSession,
@@ -185,7 +190,7 @@ Phases:
      conv_layer_cuda and the plain conv_layer, the Chrome trace dumped under
      build/chip_smoke equal to the CPU run's, no resource's intervals
      overlapping; (3) ``ServingDriver`` on arcane-default with
-     serving-poisson's values (``SERVING_POISSON``) on both schedulers, the
+     serving-poisson (``repro_torch.dse.scenarios``) on both schedulers, the
      run's dict equal to the CPU's; TTFT and latency p50/p99 in cycles,
      kernels run, wall seconds and kernels a second. conv_layer_cuda's
      launches are zeroed before the phase and must come out exactly
@@ -196,6 +201,19 @@ Phases:
      under ``torch.cuda.set_sync_debug_mode("warn")``: the synchronising
      calls made from the port's code are counted (a reading, not a gate)
      and every reported call is printed with where it was made.
+  4d. dse (after phase 4c): the port's design-space sweep
+     (``repro_torch.dse``) over every scenario of the catalog on
+     arcane-default, cache.n_vpus {2, 4, 8} x tiling {flat, 4x16} (48
+     points) and one fault point (cnn-small, flip 0.5, corrupt 0.3, seed
+     3), each a verified run (serial == pipelined == the oracle, or the
+     serving driver's dict), three ways: in-process on the card, through
+     a spawn pool of 4 workers on the card, in-process on the host CPU.
+     Rows and each scenario's Pareto front (makespan or goodput against
+     VPUs) must be identical; the fault point verified and conserved;
+     every cnn-paper (int32) and cnn-small (int8) point's ``l0_out0``
+     equal to ArcaneEngine("cuda").conv_layer (convlayer.cu, one launch a
+     scenario, counted exactly per variant, every other kernel none) and
+     the plain conv_layer. ``dse:`` lines: points a second each way.
   5. train (after phase 3b): granite-moe-1b-a400m at full width (bf16
      params, an f32 master, seed 0, ArcaneEngine("ref") under autograd:
      the kernels have no backward), through ``repro_torch.launch.train``:
@@ -237,8 +255,18 @@ Phases:
      (c) pipeline_forward with one stage against the stage; (d) the
      compressed run's params saved, restored with shardings= and served
      through the kernels (counts exact, logits as phase 3); peak memory.
+  6a. dryrun (after phase 5b): ``repro_torch.launch.dryrun`` on this
+     machine's torch, each cell in its own process, all at once (they
+     trace on the host): gemma2-9b train_4k, prefill_32k, decode_32k and
+     rwkv6-1.6b long_500k on the 16x16 mesh, granite-moe-1b-a400m
+     train_4k on 2x16x16, under the fake process group and
+     FakeTensorMode; a ``dryrun:`` line a cell (FLOPs, argument and peak
+     GiB a rank against the card's 80 GB, collective MiB by op, seconds).
+     Then phase 5's step (8 x 512 tokens, 2 microbatches) traced on a
+     world of one: its MemTracker peak beside the peaks phases 5 and 5b
+     measured in this run (a recorded comparison, no bound).
   6. result: a JSON line of the kernels (with each one's launches per
-     variant, conv_layer's phase 4b and 4c launches included, and, for the
+     variant, conv_layer's phase 4b, 4c and 4d launches included, and, for the
      serving kernels, per model, phase 3b's models
      and phases 5's and 5b's served models included; gemm's also in the Mamba
      block's run; ``more_cases``:
@@ -1341,6 +1369,54 @@ def counted_run(torch, cfg, fn, expect):
     return out, counts, variants
 
 
+def memory_now(torch) -> tuple[int, int]:
+    """(memory_allocated, the bytes the live tensors asked for)."""
+    torch.cuda.synchronize()
+    return (torch.cuda.memory_allocated(),
+            torch.cuda.memory_stats()["requested_bytes.all.current"])
+
+
+def memory_delta(torch, before: tuple) -> dict:
+    now = memory_now(torch)
+    return {"allocated": now[0] - before[0], "requested": now[1] - before[1]}
+
+
+def meta_shapes(torch, model, params, params_delta: dict, slots: int,
+                max_len: int) -> dict:
+    """``LM.param_shapes()`` and ``cache_shapes(slots, max_len)`` (the meta
+    trees) against the real trees: the same paths, shapes and dtypes, and
+    byte sums equal to the bytes the real builds asked the allocator for
+    (its ``requested_bytes`` counter: exact); ``memory_allocated``'s deltas
+    beside them (the allocator's blocks: 512-byte multiples, and a cached
+    block reused whole)."""
+    from repro_torch.distributed.sharding import map_with_path
+    from repro_torch.models.transformer import tree_leaves
+
+    def flat(tree) -> dict:
+        out: dict = {}
+        map_with_path(lambda p, t: out.__setitem__(p, (tuple(t.shape), str(t.dtype))),
+                      tree)
+        return out
+
+    def nbytes(tree) -> int:
+        return sum(t.numel() * t.element_size() for t in tree_leaves(tree))
+
+    before = memory_now(torch)
+    cache = model.init_cache(slots, max_len)
+    cache_delta = memory_delta(torch, before)
+    meta_p, meta_c = model.param_shapes(), model.cache_shapes(slots, max_len)
+    rec = {"params_same_tree": flat(meta_p) == flat(params),
+           "cache_same_tree": flat(meta_c) == flat(cache),
+           "all_meta": all(t.is_meta for t in tree_leaves((meta_p, meta_c))),
+           "params_bytes": nbytes(meta_p), "params_delta": params_delta,
+           "cache_bytes": nbytes(meta_c), "cache_delta": cache_delta}
+    del cache
+    rec["ok"] = (rec["params_same_tree"] and rec["cache_same_tree"] and rec["all_meta"]
+                 and rec["params_bytes"] == params_delta["requested"]
+                 and rec["cache_bytes"] == cache_delta["requested"])
+    return rec
+
+
 def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
               max_len: int = 1024, prompt_lens=None, reference: str = "ref") -> dict:
     """One model served through the port's launcher (full width unless
@@ -1359,14 +1435,19 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
         ["--prompt-len", "16", "513"]
     args = launcher.parse_args(argv + (["--smoke"] if smoke else []))
     t0 = time.perf_counter()
+    before = memory_now(torch)
     model, params = launcher.build(args)
+    params_delta = memory_delta(torch, before)
     cfg = model.cfg
-    torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     n_params = sum(t.numel() for t in tree_leaves(params))
+    name = cfg.name
+    meta = meta_shapes(torch, model, params, params_delta, args.slots, args.max_len)
+    print(f"serve: {name} meta shapes {json.dumps(meta)}", flush=True)
+    if not meta["ok"]:
+        fail(f"serve: {name}: LM.param_shapes/cache_shapes differ from the real trees")
     torch.cuda.reset_peak_memory_stats()
 
-    name = cfg.name
     print(f"serve: {name} layers={cfg.n_layers} d={cfg.d_model} vocab={cfg.vocab} "
           f"params={n_params} init_s={init_s:.2f}", flush=True)
     per_step = expected_launches(torch, cfg, [], 1, args.slots)[0]["gemm_cuda"]
@@ -1399,13 +1480,14 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
         "prefill_tokens": st["prefill_tokens"],
         "prefill_ms_per_token": st["prefill_s"] / st["prefill_tokens"] * 1e3,
         "max_memory_allocated": peak, "params": n_params, "init_s": init_s,
+        "meta_shapes": meta,
         "gemm_per_step": per_step, "gemm_per_prompt": per_prompt,
         "launches": counts, "variants": variants,
         "prompt_lens": [len(r.prompt) for r in sorted(done, key=lambda r: r.uid)],
     }
     print(f"serve: {name} " + " ".join(
         f"{k}={v}" for k, v in metrics.items()
-        if k not in ("launches", "variants", "prompt_lens")), flush=True)
+        if k not in ("launches", "variants", "prompt_lens", "meta_shapes")), flush=True)
 
     req = min(done, key=lambda r: r.uid)
     metrics["greedy_agreement"] = check_logits(torch, summary, cfg, params,
@@ -3548,11 +3630,7 @@ PIPE_SCHEDULERS = ("serial", "pipelined")
 PIPE_CNN_HW = 256
 PIPE_CNN_KS = (3, 7)
 PIPE_EXAMPLE_BATCH = 4
-# serving-poisson of dse/scenarios.py:100-130 (ServingScenario's defaults),
-# written here: dse/ is not ported
-SERVING_POISSON = {"n_requests": 8, "mean_gap": 20_000, "seed": 0,
-                   "kv_max": 24, "slots": 4, "prompt_range": (3, 8),
-                   "new_range": (2, 5)}
+PIPE_SERVE_SCENARIO = "serving-poisson"   # of repro_torch.dse.scenarios
 PIPE_SERVE_CONFIG = "arcane-default"
 # the PipelineReport fields a card run must reproduce (sim_seconds,
 # events_processed and alias_queries profile the simulator itself)
@@ -3628,28 +3706,24 @@ def intervals_disjoint(fields: dict) -> bool:
     return True
 
 
-def serving_requests():
-    from repro_torch.sim import poisson_arrivals
-    s = SERVING_POISSON
-    return poisson_arrivals(s["n_requests"], s["mean_gap"],
-                            prompt_range=s["prompt_range"],
-                            new_range=s["new_range"], seed=s["seed"])
+def serving_scenario():
+    from repro_torch.dse.scenarios import SERVING_SCENARIOS
+    return SERVING_SCENARIOS[PIPE_SERVE_SCENARIO]
 
 
 def serve_run(torch, cfg, scheduler: str, device: str) -> dict:
     """ServingDriver over serving-poisson's requests on a runtime of ``cfg``
     on ``device`` (as dse/runner.py builds it: the strip-miner on the
     config's register file): the run's dict and its host seconds."""
-    from repro_torch.sim import ServingConfig, ServingDriver
-    s = SERVING_POISSON
+    from repro_torch.sim import ServingDriver
+    scen = serving_scenario()
     rt = cfg.make_runtime(scheduler, device=device)
     if not on_device(torch, rt, device):
         fail(f"sim: serving {scheduler}: memory and lines not on {device}")
     t0 = time.perf_counter()
-    drv = ServingDriver(rt, ServingConfig(kv_max=s["kv_max"], slots=s["slots"],
-                                          vregs=cfg.vregs_per_vpu,
-                                          vlen=cfg.vlen_bytes))
-    result = drv.run(serving_requests())
+    drv = ServingDriver(rt, scen.serving_config(vregs_per_vpu=cfg.vregs_per_vpu,
+                                                vlen_bytes=cfg.vlen_bytes))
+    result = drv.run(scen.requests())
     if device != "cpu":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -3919,6 +3993,261 @@ def run_sim_pipelined(torch, smi_line: str) -> dict:
     return out
 
 
+# --------------------------------------------------------------- phase 4d
+# The port's design-space sweep (repro_torch.dse): every scenario of the
+# catalog on arcane-default across DSE_AXES (48 points) and one fault point,
+# run three ways, each row a verified execution (serial == pipelined ==
+# the sequential oracle, or the serving driver's dict): in-process on the
+# card, through a spawn pool of DSE_JOBS workers on the card (each worker a
+# CUDA context of its own), and in-process on the host CPU. The three must
+# give identical rows and identical Pareto fronts.
+DSE_BASE = "arcane-default"
+DSE_AXES = {"vpus": {str(n): {"cache.n_vpus": n} for n in (2, 4, 8)},
+            "tile": {"flat": {"pipeline.tiling.rows": 0, "pipeline.tiling.cols": 0},
+                     "4x16": {"pipeline.tiling.rows": 4, "pipeline.tiling.cols": 16}}}
+DSE_JOBS = 4
+# tests/test_faults.py's recoverable fault point, on the card
+DSE_FAULT_POINT = {"point_id": "cnn-small|faults=flip0.5-corrupt0.3-seed3",
+                   "scenario": "cnn-small", "base": DSE_BASE, "labels": {},
+                   "overrides": {"faults.flip_rate": 0.5, "faults.corrupt_rate": 0.3,
+                                 "faults.seed": 3}}
+# the fused conv layers whose images are held against convlayer.cu
+DSE_CNN_SCENARIOS = ("cnn-paper", "cnn-small")
+# objectives of each scenario's front: a model point's makespan, a serving
+# point's goodput, each against the VPUs it spends
+DSE_OBJECTIVES = {"model": (("makespan", "min"), ("vpus", "min")),
+                  "serving": (("tokens_per_kcycle", "max"), ("vpus", "min"))}
+
+
+def dse_specs() -> list:
+    from repro_torch.dse import SweepGrid, scenario_names
+    grid = SweepGrid(base=DSE_BASE, scenarios=tuple(scenario_names()), axes=DSE_AXES)
+    return [p.to_spec() for p in grid.expand()] + [DSE_FAULT_POINT]
+
+
+def dse_fronts(rows) -> tuple:
+    """annotate_fronts over copies of the rows (with ``vpus`` lifted from
+    the config), scenario by scenario on its kind's objectives: (the
+    fronts' ids by scenario, the annotated rows)."""
+    from repro_torch.dse import annotate_fronts
+    copies = [dict(r, vpus=r["config"]["n_vpus"]) for r in rows]
+    fronts = {}
+    for r in copies:
+        if r["scenario"] not in fronts:
+            fronts[r["scenario"]] = annotate_fronts(
+                [q for q in copies if q["scenario"] == r["scenario"]],
+                DSE_OBJECTIVES[r["kind"]])
+    return fronts, copies
+
+
+def dse_cnn_images(torch, specs, engine, card_rows) -> tuple[list, dict]:
+    """Each point of a fused-conv scenario run once more on the card for
+    its images (its row must equal the sweep's): ``l0_out0`` against
+    convlayer.cu (one launch a scenario) and the plain conv_layer."""
+    from repro_torch.dse import MODEL_SCENARIOS
+    from repro_torch.dse.runner import model_point_images
+    from repro_torch.examples import pipelined_cnn
+    from repro_torch.kernels.convlayer.kernel import conv_variant
+    from repro_torch.kernels.convlayer.ref import conv_layer_ref
+    by_id = {r["point_id"]: r for r in card_rows}
+    out, expect = [], {}
+    for scen in DSE_CNN_SCENARIOS:
+        prog = MODEL_SCENARIOS[scen]()
+        x, f = pipelined_cnn.conv_inputs(prog, "x0", "f0", "cuda")
+        kernel = engine.conv_layer(x, f)[0].cpu()
+        expect[conv_variant(x, f)] = expect.get(conv_variant(x, f), 0) + 1
+        plain = conv_layer_ref(x, f)[0].cpu()
+        for spec in specs:
+            if spec["scenario"] != scen or spec is DSE_FAULT_POINT:
+                continue
+            row, images = model_point_images(spec, device="cuda:0")
+            got = images["l0_out0"].cpu()
+            rec = {"point_id": spec["point_id"], "dtype": str(got.dtype),
+                   "row_equals_sweep": row == by_id[spec["point_id"]],
+                   "equals_kernel": torch.equal(got, kernel),
+                   "kernel_equals_plain": torch.equal(kernel, plain)}
+            out.append(rec)
+            if not all(v for k, v in rec.items() if k not in ("point_id", "dtype")):
+                fail(f"dse: {spec['point_id']}: {json.dumps(rec)}; l0_out0 vs kernel "
+                     f"{first_diff(torch, got, kernel)}, kernel vs plain "
+                     f"{first_diff(torch, kernel, plain)}")
+    return out, expect
+
+
+def run_dse(torch, smi_line: str) -> dict:
+    """Phase 4d: the dse sweep on the card in-process, through the spawn
+    pool on the card and on the host CPU (rows and fronts identical), the
+    fault point verified on the card, the fused conv points' images against
+    the convlayer.cu kernel and the plain conv_layer (the phase's only
+    launches, counted exactly)."""
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.dse import run_point, run_points
+    from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
+    from repro_torch.kernels.gemm.kernel import gemm_cuda
+    from repro_torch.launch import cnn
+    wrappers = (*cnn.WRAPPERS, gemm_cuda, flash_attention_cuda, decode_attention_cuda)
+    for w in wrappers:
+        w.launches = 0
+    conv_layer_cuda.variants = dict.fromkeys(conv_layer_cuda.variants, 0)
+    specs = dse_specs()
+    ways = {"card": lambda: run_points(specs, in_process=True, device="cuda:0"),
+            "card_pool": lambda: run_points(specs, jobs=DSE_JOBS, device="cuda:0"),
+            "cpu": lambda: run_points(specs, in_process=True, device="cpu")}
+    rows, secs = {}, {}
+    for way, fn in ways.items():
+        t0 = time.perf_counter()
+        rows[way] = fn()         # plain numbers, read back from every run
+        secs[way] = time.perf_counter() - t0
+        print(f"dse: {way}: {len(specs)} points in {secs[way]:.3f} s, "
+              f"{len(specs) / secs[way]:.2f} points/s"
+              f"{f' ({DSE_JOBS} spawned workers)' if way == 'card_pool' else ''} "
+              f"[{smi_line}]", flush=True)
+    fronts = {way: dse_fronts(r) for way, r in rows.items()}
+    card = rows["card"]
+    same_rows = {way: r == card for way, r in rows.items()}
+    same_fronts = {way: f == fronts["card"] for way, f in fronts.items()}
+    fault_row = next(r for r in card if r["point_id"] == DSE_FAULT_POINT["point_id"])
+    clean = run_point({**DSE_FAULT_POINT, "point_id": "cnn-small", "overrides": {}},
+                      device="cuda:0")
+    images, expect_variants = dse_cnn_images(torch, specs, ArcaneEngine("cuda"), card)
+    counts = {w.__name__: w.launches for w in wrappers}
+    expect = {w.__name__: (len(DSE_CNN_SCENARIOS) if w is conv_layer_cuda else 0)
+              for w in wrappers}
+    expect_variants = {v: expect_variants.get(v, 0) for v in conv_layer_cuda.variants}
+    variants = {"conv_layer_cuda": dict(conv_layer_cuda.variants)}
+    out = {"points": len(specs), "seconds": secs,
+           "points_per_s": {w: len(specs) / s for w, s in secs.items()},
+           "card_over_cpu_s": secs["card"] / secs["cpu"],
+           "pool_speedup_on_card": secs["card"] / secs["card_pool"],
+           "same_rows": same_rows, "same_fronts": same_fronts,
+           "fronts": fronts["card"][0], "verified": all(r["verified"] for r in card),
+           "conserved": all(r["conservation_ok"] for r in card),
+           "fault_point": {k: fault_row[k] for k in ("verified", "conservation_ok",
+                                                      "makespan", "stall_summary")},
+           "fault_free_makespan": clean["makespan"], "cnn_images": images,
+           "launches": counts, "variants": variants}
+    print(f"dse: rows identical {json.dumps(same_rows)}, fronts identical "
+          f"{json.dumps(same_fronts)}; fronts {json.dumps(out['fronts'])}; every row "
+          f"verified {out['verified']}, conserved {out['conserved']}; card / host CPU "
+          f"{out['card_over_cpu_s']:.3f}x the seconds, pool speedup on the card "
+          f"{out['pool_speedup_on_card']:.3f}x", flush=True)
+    print(f"dse: fault point {DSE_FAULT_POINT['point_id']} on the card: verified "
+          f"{fault_row['verified']}, conserved {fault_row['conservation_ok']}, makespan "
+          f"{fault_row['makespan']} (fault-free {clean['makespan']})", flush=True)
+    print(f"dse: {len(images)} fused conv points' l0_out0 == conv_layer_cuda == plain; "
+          f"launches {counts} expected {expect}; conv_layer variants "
+          f"{variants['conv_layer_cuda']} expected {expect_variants}", flush=True)
+    if not (all(same_rows.values()) and all(same_fronts.values())):
+        fail("dse: the card's, the pool's and the CPU's sweeps differ")
+    if not (out["verified"] and out["conserved"] and fault_row["verified"]
+            and fault_row["conservation_ok"]):
+        fail("dse: a row is not verified or not conserved")
+    if counts != expect or variants["conv_layer_cuda"] != expect_variants:
+        fail("dse: the phase did not launch the kernels as counted")
+    return out
+
+
+# --------------------------------------------------------------- phase 6a
+# The dry-run (repro_torch.launch.dryrun) on this machine's torch: each cell
+# traced under FakeTensorMode on the fake process group's production mesh,
+# one process a cell, all at once (they trace on the host; the card is not
+# used). Then phase 5's own step traced on a world of one, its MemTracker
+# peak beside the peaks phases 5 and 5b measured on the card in this run.
+DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
+                ("gemma2-9b", "prefill_32k", "single"),
+                ("gemma2-9b", "decode_32k", "single"),
+                ("rwkv6-1.6b", "long_500k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "multi"))
+DRYRUN_TIMEOUT_S = 600
+CARD_BYTES = 80e9                    # the H100's memory
+
+
+def dryrun_line(rec: dict, smi_line: str) -> str:
+    mem = rec["memory"]
+    coll = {k: round(v / 2**20, 1) for k, v in rec["collective_bytes"].items()}
+    fits = "fits" if mem["peak_bytes"] <= CARD_BYTES else "exceeds"
+    return (f"dryrun: {rec['arch']} {rec['shape']} mesh {rec['mesh']} "
+            f"({rec['n_devices']} ranks): flops/rank {rec['flops']:.4e}, args "
+            f"{mem['argument_bytes'] / 2**30:.3f} GiB/rank, peak "
+            f"{mem['peak_bytes'] / 2**30:.3f} GiB/rank ({fits} the card's 80 GB), "
+            f"unfused bytes/rank {rec['bytes_accessed']:.4e}, collectives MiB/rank "
+            f"{json.dumps(coll)} calls {json.dumps(rec['collective_calls'])}, "
+            f"traced in {rec['seconds']:.1f} s [{smi_line}]")
+
+
+def dryrun_world_of_one(summary: dict) -> dict:
+    """Phase 5's step (its arch, 8 x 512 tokens in 2 microbatches) traced on
+    a fake world of one, its (1, 1) mesh, as phase 5b's sharded step ran on
+    one NCCL rank: the MemTracker peak beside the peaks measured."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.dryrun import fake_world, trace_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    args = launcher.parse_args(TRAIN_ARGV)
+    shape = ShapeConfig(f"train_{args.batch}x{args.seq}", args.seq, args.batch, "train")
+    with fake_world(1):
+        rec = trace_cell(TRAIN_ARCH, shape, make_host_mesh(model_axis=1),
+                         microbatches=args.microbatches)
+    peak = rec["memory"]["peak_bytes"]
+    plain = summary["train"]["full_width"]["max_memory_allocated"]
+    sharded = summary["multi_device"]["sharded"]["sharded_peak_bytes"]
+    rec["measured"] = {"phase5_plain_peak_bytes": plain,
+                       "phase5b_sharded_peak_bytes": sharded,
+                       "over_phase5": peak / plain, "over_phase5b": peak / sharded}
+    return rec
+
+
+def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
+    """Phase 6a: the dry-run cells, each in its own process, then phase 5's
+    step on a world of one in this process (while the cells trace)."""
+    import os
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = {}
+    try:
+        for arch, shape, mesh in DRYRUN_CELLS:
+            tag = f"{arch}__{shape}__{mesh}"
+            (out_dir / f"{tag}.json").unlink(missing_ok=True)
+            with open(out_dir / f"{tag}.log", "w") as log:
+                procs[tag] = subprocess.Popen(
+                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                     "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
+                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        one = dryrun_world_of_one(summary)
+        deadline = time.monotonic() + DRYRUN_TIMEOUT_S
+        for tag, p in procs.items():
+            p.wait(timeout=max(1.0, deadline - time.monotonic()))
+    except subprocess.TimeoutExpired:
+        fail(f"dryrun: a cell ran past {DRYRUN_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {"cells": {}, "world_of_one": one}
+    for tag, p in procs.items():
+        path = out_dir / f"{tag}.json"
+        if p.returncode != 0 or not path.exists():
+            tail = (out_dir / f"{tag}.log").read_text()[-3000:]
+            fail(f"dryrun: {tag} exited {p.returncode}:\n{tail}")
+        rec = json.loads(path.read_text())
+        out["cells"][tag] = rec
+        print(dryrun_line(rec, smi_line), flush=True)
+    m = one["measured"]
+    print(f"dryrun: phase 5's step ({TRAIN_ARCH}, {one['shape']}, 2 microbatches) on a "
+          f"world of one: MemTracker peak {one['memory']['peak_bytes'] / 1e9:.2f} GB, args "
+          f"{one['memory']['argument_bytes'] / 1e9:.2f} GB, flops "
+          f"{one['flops']:.4e}, traced in {one['seconds']:.1f} s; measured on the card in "
+          f"this run: phase 5's plain step {m['phase5_plain_peak_bytes'] / 1e9:.2f} GB "
+          f"(ratio {m['over_phase5']:.3f}), phase 5b's sharded step on one NCCL rank "
+          f"{m['phase5b_sharded_peak_bytes'] / 1e9:.2f} GB (ratio "
+          f"{m['over_phase5b']:.3f}) [{smi_line}]", flush=True)
+    return out
+
+
 # gemma2-9b's logits are soft-capped to [-30, 30]. The engines differ only
 # in the order of f32 sums; a bf16 activation that rounds the other way at
 # one of the 42 layers moves logits by a few hundredths on average.
@@ -4109,6 +4438,11 @@ def main(argv=None) -> None:
     clock.lap("sim_pipelined")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 4d: the design-space sweep on the card, the spawn pool and the CPU
+    summary["dse"] = run_dse(torch, smi_line)
+    clock.lap("dse")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     # ---- phase 3: serving, and the full-width Mamba block
     summary["serve"] = run_serving(torch, summary, SERVE_MODELS, run_serve)
     out_json.write_text(json.dumps(summary, indent=1))
@@ -4132,6 +4466,11 @@ def main(argv=None) -> None:
     clock.lap("multi_device")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 6a: the dry-run on the production meshes, traced on the host
+    summary["dryrun"] = run_dryrun(torch, summary, smi_line)
+    clock.lap("dryrun")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     if failures:
         fail("; ".join(failures))
 
@@ -4144,7 +4483,8 @@ def main(argv=None) -> None:
         runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
                                     summary["multi_device"]["serve"]]
                                    if phase == "serve" else
-                                   [summary["sim"], summary["sim_pipelined"]])
+                                   [summary["sim"], summary["sim_pipelined"],
+                                    summary["dse"]])
         variants = {}
         for run in runs:
             for v, n in run.get("variants", {}).get(wrapper, {}).items():

@@ -22,6 +22,7 @@ reference's ``jax.checkpoint`` around its scan body.
 """
 from __future__ import annotations
 
+import copy
 from typing import Any, Callable, Optional
 
 import torch
@@ -109,6 +110,17 @@ class LM:
             params["unembed"] = embedding_init(gen, cfg.vocab, cfg.d_model,
                                                cfg.pdtype, dev)
         return params
+
+    def _on_meta(self) -> "LM":
+        meta = copy.copy(self)
+        meta.device = torch.device("meta")
+        return meta
+
+    def param_shapes(self) -> PyTree:
+        """The tree ``init_params`` builds, as tensors on the meta device:
+        the same paths, shapes and dtypes, no weight drawn, no byte
+        allocated."""
+        return self._on_meta().init_params(torch.Generator())
 
     def _unembed(self, params, x):
         _, napply = make_norm(self.cfg.norm)
@@ -224,6 +236,12 @@ class LM:
                     for k, v in c.items()}
 
         return tuple(one(spec) for spec in cfg.pattern)
+
+    def cache_shapes(self, batch: int, max_len: int, *, dtype=None,
+                     enc_len: int = 0) -> tuple:
+        """The tree ``init_cache`` builds, as tensors on the meta device."""
+        return self._on_meta().init_cache(batch, max_len, dtype=dtype,
+                                          enc_len=enc_len)
 
     def prefill(self, params, batch, cache) -> tuple[torch.Tensor, tuple]:
         """Process the full prompt (the vision prefix and the text; an

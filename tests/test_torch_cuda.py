@@ -1009,3 +1009,19 @@ def test_pipelined_example_and_serving_on_the_card(cuda_device, tmp_path, capsys
                          ServingConfig(kv_max=12, slots=2)).run(reqs)
            for d in ("cpu", "cuda")]
     assert res[0] == res[1] and res[0]["finished"] == 3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scenario", ["cnn-small", "moe-granite", "serving-bursty"])
+def test_dse_point_on_the_card_equals_the_cpu(cuda_device, scenario):
+    """A dse point's row is the same on the card (the default device) and
+    on the CPU, and a default run's memory lives on the card."""
+    from repro_torch.dse import run_point
+    from repro_torch.dse.runner import model_point_images
+    spec = {"point_id": scenario, "scenario": scenario,
+            "overrides": {"cache.n_vpus": 2}}
+    row = run_point(spec)
+    assert row == run_point(spec, device="cpu") and row["verified"]
+    if scenario == "cnn-small":
+        _, images = model_point_images(spec)
+        assert all(t.is_cuda for t in images.values())

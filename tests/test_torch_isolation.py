@@ -74,3 +74,47 @@ def test_sharding_rules_equal_reference():
     entry (pattern and roles, in order) and ``MIN_CONSTRAIN_ELEMS``."""
     assert sharding._PARAM_RULES == jax_sharding._PARAM_RULES
     assert sharding.MIN_CONSTRAIN_ELEMS == jax_sharding.MIN_CONSTRAIN_ELEMS
+
+
+def test_dse_and_dry_run_leave_jax_and_the_reference_out():
+    """``repro_torch.dse`` and ``launch/{specs,dryrun}.py`` imported and
+    used (a grid expanded, a point run on the CPU, the input specs of a
+    cell, the fake world joined and left) without ``jax`` or ``repro``."""
+    code = ("import sys\n"
+            "import repro_torch.dse as dse\n"
+            "from repro_torch.launch import dryrun, specs\n"
+            "from repro_torch.configs import SHAPES, get_config\n"
+            "from repro_torch.models.transformer import LM\n"
+            "pts = dse.SweepGrid(scenarios=('cnn-small',)).expand()\n"
+            "dse.run_point(pts[0].to_spec(), device='cpu')\n"
+            "specs.input_specs('gemma2-9b', SHAPES['train_4k'],\n"
+            "                  LM(get_config('gemma2-9b'), device='cpu'))\n"
+            "with dryrun.fake_world(8): pass\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+
+
+def test_shape_grid_equals_reference():
+    """``ShapeConfig``, ``SHAPES``, ``shape_applicable`` and ``grid``: the
+    reference's, field by field."""
+    from repro.configs import SHAPES as JAX_SHAPES
+    from repro.configs import ShapeConfig as JaxShapeConfig
+    from repro.configs import grid as jax_grid
+    from repro.configs import shape_applicable as jax_shape_applicable
+    from repro_torch.configs import SHAPES, ShapeConfig, grid, shape_applicable
+    assert [f.name for f in dataclasses.fields(ShapeConfig)] == \
+        [f.name for f in dataclasses.fields(JaxShapeConfig)]
+    assert list(SHAPES) == list(JAX_SHAPES)
+    for name, shape in SHAPES.items():
+        assert dataclasses.asdict(shape) == dataclasses.asdict(JAX_SHAPES[name])
+    for arch in ARCHS:
+        assert [dataclasses.asdict(s) for s in grid(arch)] == \
+            [dataclasses.asdict(s) for s in jax_grid(arch)]
+        for name in SHAPES:
+            assert shape_applicable(get_config(arch), SHAPES[name]) == \
+                jax_shape_applicable(jax_get_config(arch), JAX_SHAPES[name])

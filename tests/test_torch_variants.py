@@ -519,27 +519,27 @@ def test_chip_smoke_train_check_sees_its_planted_faults():
 
 # ------------------------------------------- phase 4c: the pipelined simulator
 def test_chip_smoke_serving_values_equal_the_scenarios():
-    """Phase 4c's inline serving values are dse/scenarios.py's
-    serving-poisson, and its request list and driver config are the ones
-    dse/runner.py builds from that scenario on arcane-default."""
+    """Phase 4c serves the port's serving-poisson (``repro_torch.dse``),
+    which is the reference's ``dse/scenarios.py`` entry field for field,
+    with the same request list and, on arcane-default, the driver config
+    dse/runner.py builds from it."""
     import dataclasses
     from repro.dse.scenarios import SERVING_SCENARIOS
     from repro.sim import load_config as ref_load_config
     from repro_torch.sim import load_config
     cs = chip_smoke()
-    scen = SERVING_SCENARIOS["serving-poisson"]
+    assert not hasattr(cs, "SERVING_POISSON")
+    scen, mine = SERVING_SCENARIOS[cs.PIPE_SERVE_SCENARIO], cs.serving_scenario()
     assert scen.arrivals == "poisson"
-    assert cs.SERVING_POISSON == {k: getattr(scen, k) for k in cs.SERVING_POISSON}
-    assert set(cs.SERVING_POISSON) == {f.name for f in dataclasses.fields(scen)} - {
-        "name", "arrivals"}
-    assert [dataclasses.asdict(r) for r in cs.serving_requests()] == \
+    assert dataclasses.asdict(mine) == dataclasses.asdict(scen)
+    assert [dataclasses.asdict(r) for r in mine.requests()] == \
         [dataclasses.asdict(r) for r in scen.requests()]
     cfg, rcfg = load_config(cs.PIPE_SERVE_CONFIG), ref_load_config(cs.PIPE_SERVE_CONFIG)
     want = scen.serving_config(vregs_per_vpu=rcfg.vregs_per_vpu,
                                vlen_bytes=rcfg.vlen_bytes)
-    assert (want.kv_max, want.slots, want.vregs, want.vlen) == (
-        cs.SERVING_POISSON["kv_max"], cs.SERVING_POISSON["slots"],
-        cfg.vregs_per_vpu, cfg.vlen_bytes)
+    got = mine.serving_config(vregs_per_vpu=cfg.vregs_per_vpu,
+                              vlen_bytes=cfg.vlen_bytes)
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
 
 
 def test_chip_smoke_pipelined_conv_launches_equal_the_runs_conv_ops():
@@ -597,12 +597,47 @@ def test_chip_smoke_pipelined_planted_faults_show_on_the_cpu():
     assert run["result"] == cs.serve_run(torch, scfg, "pipelined", "cpu")["result"]
     assert cs.moved_ttft(run["result"]) != run["result"]
     rcfg = ref_load_config(cs.PIPE_SERVE_CONFIG)
-    s = cs.SERVING_POISSON
     from repro.dse.scenarios import SERVING_SCENARIOS
+    scen = SERVING_SCENARIOS[cs.PIPE_SERVE_SCENARIO]
     ref = RServingDriver(rcfg.make_runtime("pipelined"), RServingConfig(
-        kv_max=s["kv_max"], slots=s["slots"], vregs=rcfg.vregs_per_vpu,
-        vlen=rcfg.vlen_bytes)).run(SERVING_SCENARIOS["serving-poisson"].requests())
+        kv_max=scen.kv_max, slots=scen.slots, vregs=rcfg.vregs_per_vpu,
+        vlen=rcfg.vlen_bytes)).run(scen.requests())
     assert run["result"] == ref
     lat = cs.latency_percentiles(run["result"])
     assert 0 < lat["latency_p50"] <= lat["latency_p99"]
     assert run["kernels_run"] == 278
+
+
+# ------------------------------------------------- phases 4d and 6a: dse, dry-run
+def test_chip_smoke_dse_grid_and_dryrun_cells():
+    """Phase 4d's grid is every scenario x 3 VPU counts x 2 tilings plus the
+    fault point of tests/test_faults.py, with the reference's point ids; its
+    fronts are per scenario; phase 6a's cells are cells of ``grid(arch)``
+    on the meshes the dry-run names."""
+    import repro.dse as R
+    from repro_torch.configs import ARCHS, grid
+    from repro_torch.dse import scenario_names
+    cs = chip_smoke()
+    specs = cs.dse_specs()
+    assert len(specs) == 49 and specs[-1] is cs.DSE_FAULT_POINT
+    ref = R.SweepGrid(base=cs.DSE_BASE, scenarios=tuple(R.scenario_names()),
+                      axes=cs.DSE_AXES).expand()
+    assert specs[:-1] == [p.to_spec() for p in ref]
+    assert len({s["point_id"] for s in specs}) == 49
+    assert cs.DSE_FAULT_POINT["overrides"] == {
+        "faults.flip_rate": 0.5, "faults.corrupt_rate": 0.3, "faults.seed": 3}
+    rows = [{"point_id": "a", "scenario": "x", "kind": "model", "makespan": 5,
+             "config": {"n_vpus": 4}},
+            {"point_id": "b", "scenario": "x", "kind": "model", "makespan": 7,
+             "config": {"n_vpus": 2}},
+            {"point_id": "c", "scenario": "x", "kind": "model", "makespan": 9,
+             "config": {"n_vpus": 4}},
+            {"point_id": "d", "scenario": "y", "kind": "serving",
+             "tokens_per_kcycle": 1.0, "makespan": 3, "config": {"n_vpus": 8}}]
+    fronts, copies = cs.dse_fronts(rows)
+    assert fronts == {"x": ["a", "b"], "y": ["d"]}
+    assert copies[2]["dominated_by"] == ["a", "b"] and "on_front" not in rows[0]
+    assert set(cs.DSE_CNN_SCENARIOS) <= set(scenario_names())
+    for arch, shape, mesh in cs.DRYRUN_CELLS:
+        assert arch in ARCHS and shape in {s.name for s in grid(arch)}
+        assert mesh in ("single", "multi")
