@@ -255,13 +255,26 @@ Phases:
      (c) pipeline_forward with one stage against the stage; (d) the
      compressed run's params saved, restored with shardings= and served
      through the kernels (counts exact, logits as phase 3); peak memory.
-  6a. dryrun (after phase 5b): ``repro_torch.launch.dryrun`` on this
+  5c. tensor-parallel (after phase 5b): on a world of one NCCL rank and
+     its (1, 1) mesh, where the model axis' collectives run over a group
+     of one: phase 5b (a)'s sharded step is the tensor-parallel train
+     step (the model axis' collectives of its first step counted, the
+     plain step's bits); gemma2-9b at full width served through
+     ``serve_on_mesh`` on ArcaneEngine("cuda"), 4 prompts of 128 in one
+     prefill and 15 decode steps fed the plain serve's tokens: the plain
+     serve's bits, launch and variant counts exact, decode-step host ms
+     and busy ms of both. ``--tp-ranks N`` runs this phase alone on N
+     cards (``tensor-parallel:`` lines).
+  6a. dryrun (after phase 5c): ``repro_torch.launch.dryrun`` on this
      machine's torch, each cell in its own process, all at once (they
      trace on the host): gemma2-9b train_4k, prefill_32k, decode_32k and
      rwkv6-1.6b long_500k on the 16x16 mesh, granite-moe-1b-a400m
      train_4k on 2x16x16, under the fake process group and
-     FakeTensorMode; a ``dryrun:`` line a cell (FLOPs, argument and peak
-     GiB a rank against the card's 80 GB, collective MiB by op, seconds).
+     FakeTensorMode, the steps tensor-parallel over the model axis; a
+     ``dryrun:`` line a cell (FLOPs, argument and peak GiB a rank against
+     the card's 80 GB, collective MiB by op, the leaves gathered over the
+     model axis to compute whole, seconds); a gemma2 cell past 80 GB a
+     rank fails the run.
      Then phase 5's step (8 x 512 tokens, 2 microbatches) traced on a
      world of one: its MemTracker peak beside the peaks phases 5 and 5b
      measured in this run (a recorded comparison, no bound).
@@ -283,7 +296,19 @@ line; it also runs against an earlier tree's wrappers (without variants),
 to time two trees' kernels in one call. ``--decode-host [ARCH]`` only
 times the serving decode step's host clock (``decode_host:`` line;
 gemma2-9b unless an arch id is named), to compare two trees in turns, and
-prints no result line.
+prints no result line. ``--tp-ranks N`` needs N cards of one host: the
+three serving kernels' rows at gemma2-9b's shard shapes on a model axis
+of 4, then N worker processes, a card and an NCCL rank each (``tcp://localhost``, a free port), all at once: (a)
+granite-moe-1b-a400m's tensor-parallel train step at full width on a
+(1, N) and a (2, N/2) mesh, 3 steps each against the plain step and an
+f32 copy on the same card (TP_STEP1 and the plain step's update gap to
+the f32 copy; TP_DRIFT), the planted TP_FAULTS rejected; (b) gemma2-9b
+served tensor-parallel on the cuda engine on a (1, N) mesh: the plain
+serve's greedy tokens, logits within phase 3's limits, launch counts
+exact at the shard shapes, decode-step and busy ms per rank beside one
+card's. A failing rank ends the others. It ends with the kernels line
+(launches summed over the ranks) and the device line, ``count`` the
+cards seen.
 """
 from __future__ import annotations
 
@@ -427,6 +452,16 @@ def gemm_cases(torch):
         cases.append(("whisper up+bias", torch.bfloat16, m, 1280, 5120, "bias"))
         cases.append(("whisper down+bias", torch.bfloat16, m, 5120, 1280, "bias"))
     cases.append(("whisper cross k", torch.bfloat16, 1500, 1280, 1280, "w"))
+    # gemma2-9b's shards on a model axis of 4 (phase 5c): q, k/v and gate/up
+    # column-parallel, o and down row-parallel with f32 partial products
+    # ('w32'), the vocab-shard unembed; a decode step's 4 rows and a
+    # prefill of 4 x 128
+    tp4 = [("q", 3584, 1024, "w"), ("kv", 3584, 512, "w"), ("gate_up", 3584, 3584, "w"),
+           ("o", 1024, 3584, "w32"), ("down", 3584, 3584, "w32")]
+    for m in (4, 512):
+        for name, k, n, kind in tp4:
+            cases.append((f"gemma2 tp4 {name}", torch.bfloat16, m, k, n, kind))
+    cases.append(("gemma2 tp4 unembed", torch.bfloat16, 4, 3584, 64000, "t"))
     return cases
 
 
@@ -437,10 +472,12 @@ def check_close(err: float, ref_absmax: float, atol: float, rtol: float) -> bool
 GEMM_BF16_TOL = (1e-3, 1.6e-2)        # atol, rtol: two bf16 ulps of the result
 
 
-def run_gemm(torch, timer, gen, rows):
+def run_gemm(torch, timer, gen, rows, prefix: str = ""):
     from repro_torch.kernels.gemm.kernel import _gemm, gemm_cuda, gemm_variant
     from repro_torch.kernels.gemm.ref import gemm_ref
     for name, dt, m, k, n, kind in gemm_cases(torch):
+        if not name.startswith(prefix):
+            continue
         if dt == torch.int8:
             a = torch.randint(-8, 8, (m, k), device="cuda", dtype=torch.int8, generator=gen)
             b = torch.randint(-8, 8, (k, n), device="cuda", dtype=torch.int8, generator=gen)
@@ -454,7 +491,7 @@ def run_gemm(torch, timer, gen, rows):
         c = None
         if kind == "bias":
             c = torch.randn((n,), device="cuda", generator=gen).to(dt).expand(m, n)
-        out_dtype = torch.float32 if kind == "t" else None
+        out_dtype = torch.float32 if kind in ("t", "w32") else None
         kw = dict(alpha=1.0, beta=1.0 if c is not None else 0.0, out_dtype=out_dtype)
         out = gemm_cuda(a, b, c, **kw)
         ref = gemm_ref(a, b, c, **kw)
@@ -552,6 +589,9 @@ DECODE_CASES = [
     # whisper-large-v3's cross-attention in a decode step: the
     # cross cache of a 30 s window's 1500 frames, every row full
     ("whisper cross", 4, 20, 20, 64, 1500, None, None, [1500] * 4, None, False),
+    # gemma2-9b's heads on a model axis of 4 (phase 5c): 4 query heads on
+    # 2 KV heads a rank, the cache sharded by heads
+    ("gemma2 tp4", 4, 4, 2, 256, 1024, 50.0, None, RING, None, False),
     # internvl2-1b: 14 query heads on 2 KV heads (G = 7), the
     # 256-row vision prefix in front of every sequence's text
     ("internvl2", 4, 14, 2, 64, 1024, None, None, [784, 472, 336, 288],
@@ -559,12 +599,14 @@ DECODE_CASES = [
 ]
 
 
-def run_decode(torch, timer, gen, rows):
+def run_decode(torch, timer, gen, rows, prefix: str = ""):
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
     from repro_torch.kernels.decode_attention.ref import decode_attention_ref
     from repro_torch.kernels.decode_attention.kernel import decode_variant
     for dt in (torch.bfloat16, torch.float32):
         for name, b, hq, hkv, d, s, cap, win, lengths, scale, faulty in DECODE_CASES:
+            if not name.startswith(prefix):
+                continue
             if s > 1024 and dt != torch.bfloat16:
                 continue            # the long caches run in bf16 only
             g = hq // hkv
@@ -637,16 +679,21 @@ FLASH_CASES = [
     ("whisper cross", 1, 20, 20, 64, 4, 1500, False, None, None),
     ("whisper cross", 1, 20, 20, 64, 224, 1500, False, None, None),
     ("internvl2 prefix", 1, 14, 2, 64, 768, 768, True, None, None),
+    # gemma2-9b's heads on a model axis of 4 (phase 5c): a prefill of 4
+    # prompts of 128, 4 query heads on 2 KV heads a rank
+    ("gemma2 tp4", 4, 4, 2, 256, 128, 128, True, None, 50.0),
 ]
 
 
-def run_flash(torch, timer, gen, rows):
+def run_flash(torch, timer, gen, rows, prefix: str = ""):
     from repro_torch.kernels.flash_attention.kernel import (_flash,
                                                             flash_attention_cuda,
                                                             flash_variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
     for dt in (torch.bfloat16, torch.float32):
         for name, b, hq, hkv, d, sq, skv, causal, win, cap in FLASH_CASES:
+            if not name.startswith(prefix):
+                continue
             # transposed head views, as the model hands them over
             q = torch.randn((b, sq, hq, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
             k = torch.randn((b, skv, hkv, d), device="cuda", generator=gen).to(dt).transpose(1, 2)
@@ -2035,7 +2082,10 @@ def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3) -> dict
 
 def profile_steps(torch, step, steps: int, name: str) -> dict:
     """torch.profiler over ``steps`` calls of ``step``, one batched decode
-    step each (in a ``profile_window``); what ``profile_decode`` reads."""
+    step each (in a ``profile_window``); what ``profile_decode`` reads.
+    NCCL's kernels (a tensor-parallel step's collectives, which wait on the
+    device for the other ranks) are kept out of the busy time and read
+    apart."""
     torch.cuda.synchronize()
     before = serve_launches()
     with profile_window(torch) as prof:
@@ -2045,9 +2095,11 @@ def profile_steps(torch, step, steps: int, name: str) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     seen = serve_events_seen(prof, before, f"{name} decode")
-    out = busy_share(prof, wall_ms, steps, "step", exclude=("spin_kernel",))
+    out = busy_share(prof, wall_ms, steps, "step", exclude=("spin_kernel", "nccl"))
+    out["nccl_device_ms_per_step"] = sum(
+        ms for k, ms in device_ms(prof).items() if "nccl" in k) / steps
     groups = {"gemv": 0.0, "decode_attention": 0.0, "rest": 0.0}
-    for kname, ms in device_ms(prof, exclude=("spin_kernel",)).items():
+    for kname, ms in device_ms(prof, exclude=("spin_kernel", "nccl")).items():
         ids = set(IDENT.findall(kname))
         key = "gemv" if ids & {"gemv_n_kernel", "gemv_t_kernel"} else \
             "decode_attention" if ids & {"split_kernel", "split_wide_kernel",
@@ -2377,9 +2429,10 @@ def index_sums_in_f32():
     import repro_torch.models.transformer as transformer
     real = transformer.embed
 
-    def embed(params, tokens, *, scale=False):
+    def embed(params, tokens, *, scale=False, mg=None):
         table = params["table"]
-        return real({"table": table.float()}, tokens, scale=scale).to(table.dtype)
+        return real({"table": table.float()}, tokens, scale=scale,
+                    mg=mg).to(table.dtype)
 
     transformer.embed = embed
     try:
@@ -2819,11 +2872,12 @@ def md_sharded_vs_plain(torch, model, opt_cfg, mesh, batches, microbatches) -> d
     ``zero_pspecs`` on the (1, 1) mesh, ``grad_shardings=`` their ZeRO
     tree) from the same seed-0 weights on the same batches: the loss, the
     grad norm and every param leaf must carry the same bits."""
+    from torch.distributed.tensor.debug import CommDebugMode
     from repro_torch.distributed.sharding import (distribute, param_pspecs,
                                                   to_shardings, zero_pspecs)
     from repro_torch.models.transformer import tree_leaves, tree_map
     from repro_torch.optim.adamw import adamw_init
-    from repro_torch.train.step import make_train_step
+    from repro_torch.train.step import make_train_step, tp_view
 
     def init():
         params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
@@ -2848,9 +2902,15 @@ def md_sharded_vs_plain(torch, model, opt_cfg, mesh, batches, microbatches) -> d
     torch.cuda.reset_peak_memory_stats()
     step = make_train_step(model, opt_cfg, microbatches=microbatches,
                            grad_shardings=grad_sh)
+    plan = tp_view(model, params, mesh)[0].tp
     sharded = []
-    for b in batches:
-        (params, opt, m), ms = md_timed(torch, step, params, opt, b)
+    for i, b in enumerate(batches):
+        # the first step's collectives, the model axis' (over a group of
+        # one here: the step is tensor-parallel) among them
+        with CommDebugMode() if i == 0 else contextlib.nullcontext() as comm:
+            (params, opt, m), ms = md_timed(torch, step, params, opt, b)
+        if i == 0:
+            tp_collectives = {str(k): v for k, v in comm.get_comm_counts().items()}
         sharded.append({"loss": m["loss"], "grad_norm": m["grad_norm"], "ms": ms,
                         "data_split": m["data_split"]})
     peak = torch.cuda.max_memory_allocated()
@@ -2866,6 +2926,7 @@ def md_sharded_vs_plain(torch, model, opt_cfg, mesh, batches, microbatches) -> d
            "sharded_step_ms": [r["ms"] for r in sharded],
            "data_split": [r["data_split"] for r in sharded],
            "same_bits_metrics": same_metrics, "same_bits_params": same_params,
+           "tp_collectives": tp_collectives, "tp_choices": plan.choices,
            "leaves": len(mine), "expert_gate_placements": str(leaf.placements),
            "opt_expert_gate_placements":
                str(opt["master"]["blocks"][0]["ffn"]["gate"].placements),
@@ -2874,6 +2935,10 @@ def md_sharded_vs_plain(torch, model, opt_cfg, mesh, batches, microbatches) -> d
     if not (same_metrics and same_params):
         fail(f"multi-device: (a) the sharded step's bits differ from the plain "
              f"step's: metrics {same_metrics}, params {same_params}")
+    # one all-reduce is the global norm's; the model axis' sums add the rest
+    if tp_collectives.get("c10d.allreduce_", 0) <= 1:
+        fail(f"multi-device: (a) the sharded step ran no model-axis collective: "
+             f"{tp_collectives}")
     return out
 
 
@@ -3117,6 +3182,473 @@ def run_multi_device(torch, summary: dict) -> dict:
         dist.destroy_process_group()
     gc_cuda(torch)
     return out
+
+
+# --------------------------------------------------------------- phase 5c
+# Tensor parallelism over the mesh's model axis (train/step.py's
+# sharded_step and serve_on_mesh, distributed/tensor_parallel.py). In the
+# default run, on a world of one NCCL rank and its (1, 1) mesh, where every
+# model-axis collective runs over a group of one: phase 5b (a)'s sharded
+# step is the tensor-parallel train step (its model-axis collectives
+# counted there, its bits the plain step's), and ``tp_serve`` serves
+# gemma2-9b through serve_on_mesh on the cuda engine, which must give the
+# plain serve's bits with exact launch counts. With ``--tp-ranks N`` (N
+# cards of one host) N processes, a card and an NCCL rank each, run
+# ``tp_train`` (granite-moe-1b-a400m's TP step on a (1, N) and a (2, N/2)
+# mesh against the plain step on the same card, with planted faults) and
+# ``tp_serve`` on a (1, N) mesh against one card's plain serve.
+TP_STEPS = 3
+# The TP step against the plain step from the same bf16 weights on the same
+# batches. The ranks' partial products are summed in f32 in another order
+# than one card's, a rounding that bf16 then carries. Step 1 (the same
+# params on both sides): the loss and the grad norm as shares of the plain
+# step's within TP_STEP1, and the f32 master's update against the plain
+# step's, |Δtp − Δplain| / |Δplain| over every leaf, within the plain bf16
+# step's own update gap to the same step on an f32 copy of the weights:
+# Adam moves each element by about lr whatever its grad's size, so an
+# element whose grad rounds to the other sign lands 2·lr apart, a
+# rounding's effect that bf16 against f32 shows at its full size. From step
+# 2 on the runs drift apart as any two bf16 runs do: over the TP_STEPS
+# steps each run's gap to the f32 copy's steps (loss, grad norm, update),
+# the TP run's within TP_DRIFT times the plain run's. A planted fault must
+# leave the step-1 limits.
+TP_STEP1 = {"loss_rel": 1e-4, "gnorm_rel": 1e-3}
+TP_DRIFT = 3.0
+TP_FAULTS = ("combine_sum_dropped", "last_rank_experts_zeroed")
+TP_SERVE_ARCH = "gemma2-9b"
+TP_SERVE_SLOTS, TP_SERVE_PROMPT, TP_SERVE_NEW = 4, 128, 16
+TP_SERVE_MAX_LEN = 256
+TP_PROFILE_STEPS = 3
+TP_TIMEOUT_S = 1500
+
+
+def tp_shard_cfg(cfg, m: int):
+    """The config whose whole-model shapes are a rank's shards on m ranks of
+    the model axis, heads whole on each rank (head-parallel attention,
+    column/row FFN, vocab-parallel unembed): the shapes ``expected_launches``
+    counts a rank's kernels at."""
+    import dataclasses
+    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
+                               n_kv_heads=cfg.n_kv_heads // m, d_ff=cfg.d_ff // m,
+                               vocab=cfg.vocab // m)
+
+
+def tp_mesh(shape):
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.launch.mesh import mesh_device_type
+    return init_device_mesh(mesh_device_type(), shape, mesh_dim_names=("data", "model"))
+
+
+@contextlib.contextmanager
+def tp_fault(torch, fault, rank: int, world: int):
+    """A planted fault in the expert-parallel MoE while the block runs: the
+    ranks' partial combines left unsummed, or the last rank's experts
+    returning zeros."""
+    import types
+    import repro_torch.models.moe as moe
+    real_tpm, real_mm = moe.tpm, moe._expert_matmul
+    if fault == "combine_sum_dropped":
+        moe.tpm = types.SimpleNamespace(copy_to_model=real_tpm.copy_to_model,
+                                        reduce_from_model=lambda x, mg: x)
+    elif fault == "last_rank_experts_zeroed" and rank == world - 1:
+        # zeroed in the graph: the backward still reaches every collective
+        moe._expert_matmul = lambda x, w: real_mm(x, w) * 0.0
+    try:
+        yield
+    finally:
+        moe.tpm, moe._expert_matmul = real_tpm, real_mm
+
+
+def update_gap(torch, m0, ref, other) -> float:
+    """|Δother − Δref| / |Δref| over every leaf of two masters updated from
+    ``m0``."""
+    from repro_torch.models.transformer import tree_leaves
+    num = den = 0.0
+    for z, a, b in zip(tree_leaves(m0), tree_leaves(ref), tree_leaves(other)):
+        da, db = a.float() - z.float(), b.float() - z.float()
+        num += float(torch.sum(torch.square(db - da)))
+        den += float(torch.sum(torch.square(da)))
+    return math.sqrt(num / den)
+
+
+def gaps(a: list, b: list) -> dict:
+    """The worst loss and grad-norm gaps of run ``a`` to run ``b`` over their
+    steps, as shares of ``b``'s."""
+    return {"loss_rel": max(abs(x["loss"] - y["loss"]) / abs(y["loss"])
+                            for x, y in zip(a, b)),
+            "gnorm_rel": max(abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                             for x, y in zip(a, b))}
+
+
+def tp_train(torch, dev, meshes, smoke: bool = False) -> dict:
+    """granite-moe-1b-a400m (full width unless ``smoke``; phase 5's batch,
+    seed 0, ArcaneEngine("ref")): TP_STEPS plain steps on this card in
+    bf16 and on an f32 copy of the weights, then the tensor-parallel step
+    from the same weights on each mesh of ``meshes``, the model axis
+    computing each rank's heads, experts and vocab shard: step 1 against
+    the plain step within TP_STEP1 and, its update, within the plain
+    step's own gap to the f32 copy; the steps' gaps to the f32 run within
+    TP_DRIFT times the plain run's; and one TP step on the first mesh with
+    each TP_FAULTS fault planted, which must leave the step-1 limits. Each
+    step's ms."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM, to_device
+    from repro_torch.distributed.sharding import (distribute, param_pspecs,
+                                                  to_shardings, zero_pspecs)
+    from repro_torch.launch import train as launcher
+    from repro_torch.models.transformer import LM, tree_map
+    from repro_torch.optim.adamw import AdamWConfig, adamw_init
+    from repro_torch.train.step import make_train_step, tp_view
+    cfg = (get_smoke_config if smoke else get_config)(TRAIN_ARCH)
+    args = launcher.parse_args(TRAIN_ARGV)
+    model = LM(cfg, ArcaneEngine("ref"), device=dev)
+    steps = TP_STEPS
+    opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
+                                    global_batch=args.batch))
+    batches = [to_device(source.batch_at(i), torch.device(dev)) for i in range(steps)]
+    rank, world = dist.get_rank(), dist.get_world_size()
+
+    def init(f32=False):
+        params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+        if f32:
+            params = tree_map(lambda t: t.float(), params)
+        return params, adamw_init(opt_cfg, params)
+
+    def sync():
+        if dev != "cpu":
+            torch.cuda.synchronize()
+
+    def run(step, params, opt, lo, hi):
+        out = []
+        for b in batches[lo:hi]:
+            sync()
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, b)
+            sync()
+            out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                        "ms": (time.perf_counter() - t0) * 1e3})
+        return params, opt, out
+
+    def masters(params, opt, step, whole=lambda t: t):
+        """A run of ``steps``: its readings and its master after step 1 and
+        after the last (whole tensors, on this card)."""
+        params, opt, first = run(step, params, opt, 0, 1)
+        m1 = tree_map(lambda t: whole(t).clone(), opt["master"])
+        params, opt, rest = run(step, params, opt, 1, steps)
+        return first + rest, m1, tree_map(whole, opt["master"])
+
+    params, opt = init()
+    master0 = tree_map(lambda t: t.clone(), opt["master"])
+    plain, plain1, plain_n = masters(params, opt, make_train_step(
+        model, opt_cfg, microbatches=args.microbatches))
+    del params, opt
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+    model32 = LM(cfg32, ArcaneEngine("ref"), device=dev)
+    params, opt = init(f32=True)
+    f32, f32_1, f32_n = masters(params, opt, make_train_step(
+        model32, opt_cfg, microbatches=args.microbatches))
+    del params, opt, model32
+    drift_plain = {**gaps(plain, f32), "update_rel": update_gap(torch, master0, f32_n,
+                                                                plain_n)}
+    # step 1's update limit: the plain bf16 step's gap to the f32 copy's
+    limits = {**TP_STEP1, "update_rel": update_gap(torch, master0, f32_1, plain1)}
+    del f32_1
+    res = {"arch": cfg.name, "plain": plain, "f32": f32, "drift_plain": drift_plain,
+           "step1_limits": limits, "meshes": {}, "faults": {}}
+
+    def grad_sh(mesh):
+        return to_shardings(zero_pspecs(model.param_shapes(), mesh), mesh)
+
+    def tp_run(shape, fault=None):
+        mesh = tp_mesh(shape)
+        params, opt = init()
+        params = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+        opt = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
+        plan = tp_view(model, params, mesh)[0].tp
+        step = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+                               grad_shardings=grad_sh(mesh))
+        with tp_fault(torch, fault, rank, world):
+            if fault is not None:
+                params, opt, out = run(step, params, opt, 0, 1)
+                return out, tree_map(lambda t: t.full_tensor(), opt["master"]), None, plan
+            out, m1, mn = masters(params, opt, step, lambda t: t.full_tensor())
+        return out, m1, mn, plan
+
+    def step1(out, m1):
+        return {**gaps(out[:1], plain[:1]),
+                "update_rel": update_gap(torch, master0, plain1, m1)}
+
+    for shape in meshes:
+        out, m1, mn, plan = tp_run(shape)
+        first = step1(out, m1)
+        drift = {**gaps(out, f32), "update_rel": update_gap(torch, master0, f32_n, mn)}
+        ok = all(first[k] <= v for k, v in limits.items()) and all(
+            drift[k] <= TP_DRIFT * drift_plain[k] for k in drift)
+        res["meshes"]["x".join(map(str, shape))] = {
+            "steps": out, "step1": first, "drift": drift, "ok": ok,
+            "choices": plan.choices, "gathered_over_model": plan.gathered,
+            "experts_a_rank": cfg.moe.n_experts // shape[1]}
+        del m1, mn
+    # on a model axis of one the ranks' partial combines are the combine:
+    # dropping their sum changes nothing
+    for fault in TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]:
+        out, m1, _, _ = tp_run(meshes[0], fault)
+        first = step1(out, m1)
+        res["faults"][fault] = {**first, "rejected": not all(
+            first[k] <= v for k, v in limits.items())}
+        del m1
+    return res
+
+
+def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
+             exact: bool = False) -> dict:
+    """TP_SERVE_ARCH (full width unless ``smoke``, bf16, seed 0) served on the
+    ``backend`` engine: TP_SERVE_SLOTS prompts of TP_SERVE_PROMPT tokens
+    prefilled as one batch and TP_SERVE_NEW - 1 greedy decode steps on this
+    card, then the same through serve_on_mesh on ``mesh`` (its params and
+    cache under the rules, the model axis computing each rank's heads,
+    FFN columns and vocab shard), fed the plain run's tokens. Every step's
+    greedy tokens must equal the plain run's and its logits be within
+    phase 3's limits (``exact``: the same bits); the TP run's launch and
+    variant counts must be exactly those of the rank's shard shapes
+    (``tp_shard_cfg``). The decode steps' host ms (each synchronised) and
+    the card's busy ms a step (torch.profiler) of both runs."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed.sharding import (cache_pspecs, distribute,
+                                                  param_pspecs, to_shardings)
+    from repro_torch.models.transformer import LM
+    from repro_torch.train.step import serve_on_mesh, tp_view
+    cfg = (get_smoke_config if smoke else get_config)(TP_SERVE_ARCH)
+    model = LM(cfg, ArcaneEngine(backend), device=dev)
+    params = model.init_params(torch.Generator(device=dev).manual_seed(0))
+    b, s, new = TP_SERVE_SLOTS, TP_SERVE_PROMPT, TP_SERVE_NEW
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    on_card = dev != "cpu"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    def decode_ms(fn, tokens):
+        out, ms = [], []
+        for i, tok in enumerate(tokens):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            sync()
+            t0 = time.perf_counter()
+            out.append(fn(tok, pos))
+            sync()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    # the plain serve on this card: its greedy tokens feed both runs
+    with torch.no_grad():
+        cache = model.init_cache(b, TP_SERVE_MAX_LEN)
+        lg, cache = model.prefill(params, {"tokens": prompt}, cache)
+        plain, toks = [lg], [torch.argmax(lg, -1).to(torch.int32)]
+        for i in range(new - 1):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            lg, cache = model.decode_step(params, toks[-1], pos, cache)
+            plain.append(lg)
+            toks.append(torch.argmax(lg, -1).to(torch.int32))
+        _, plain_ms = decode_ms(lambda t, p: model.decode_step(params, t, p, cache)[0],
+                                toks[:TP_PROFILE_STEPS])
+    p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+    cache0 = model.init_cache(b, TP_SERVE_MAX_LEN)
+    c = distribute(cache0, to_shardings(cache_pspecs(cache0, mesh), mesh))
+    del cache0
+    plan = tp_view(model, p, mesh, c)[0].tp
+    m = mesh.shape[mesh.mesh_dim_names.index("model")]
+    box = {}
+
+    def served():
+        lg, box["c"] = serve_on_mesh(model, "prefill", p, c, {"tokens": prompt}, mesh)
+        out = [lg]
+        for i in range(new - 1):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            lg, box["c"] = serve_on_mesh(model, "decode", p, box["c"],
+                                         {"tokens": toks[i], "position": pos}, mesh)
+            out.append(lg)
+        sync()
+        return out
+
+    def expect(_):
+        return (*expected_launches(torch, tp_shard_cfg(cfg, m), [b * s], new - 1, b),
+                f"(tensor-parallel on {m} ranks, rank {plan.mg.rank}: "
+                f"{b} x {s} prompt tokens in one prefill, {new - 1} decode steps)")
+
+    if on_card:
+        tp_out, counts, variants = counted_run(torch, cfg, served, expect)
+    else:
+        tp_out, counts, variants = served(), None, None
+
+    def step_tp(tok, pos):
+        lg, box["c"] = serve_on_mesh(model, "decode", p, box["c"],
+                                     {"tokens": tok, "position": pos}, mesh)
+        return lg
+
+    with torch.no_grad():
+        _, tp_ms = decode_ms(step_tp, toks[:TP_PROFILE_STEPS])
+    gaps = []
+    for a, r in zip(tp_out, plain):
+        d = (a.float() - r.float()).abs()
+        gaps.append({"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+                     "argmax_equal": bool(torch.equal(torch.argmax(a, -1),
+                                                      torch.argmax(r, -1))),
+                     "same_bits": bool(torch.equal(a, r))})
+    max_atol, mean_atol, max_rtol, mean_rtol = logits_limits(cfg)
+    absmax = max(float(r.abs().max()) for r in plain)
+    max_lim = max_atol if max_atol else max_rtol * absmax
+    mean_lim = mean_atol if mean_atol else mean_rtol * absmax
+    ok = all(g["argmax_equal"] and g["max_abs"] <= max_lim and g["mean_abs"] <= mean_lim
+             for g in gaps)
+    if exact:
+        ok = ok and all(g["same_bits"] for g in gaps)
+    out = {"arch": cfg.name, "mesh": "x".join(map(str, mesh.shape)),
+           "rank": plan.mg.rank, "choices": plan.choices,
+           "gathered_over_model": plan.gathered, "launches": counts,
+           "variants": variants, "steps": len(gaps),
+           "greedy_equal": all(g["argmax_equal"] for g in gaps),
+           "same_bits": all(g["same_bits"] for g in gaps),
+           "worst_max_abs": max(g["max_abs"] for g in gaps),
+           "worst_mean_abs": max(g["mean_abs"] for g in gaps),
+           "max_limit": max_lim, "mean_limit": mean_lim, "ok": ok,
+           "tp_decode_ms": tp_ms, "plain_decode_ms": plain_ms}
+    if on_card:
+        out["tp_profile"] = profile_steps(
+            torch, lambda: step_tp(toks[-1], torch.full(
+                (b,), s + new, dtype=torch.int32, device=dev)),
+            TP_PROFILE_STEPS, f"{cfg.name} tp{m} rank {plan.mg.rank}")
+        out["plain_profile"] = profile_steps(
+            torch, lambda: model.decode_step(params, toks[-1], torch.full(
+                (b,), s + new, dtype=torch.int32, device=dev), cache),
+            TP_PROFILE_STEPS, f"{cfg.name} one card")
+    return out
+
+
+def run_tensor_parallel(torch, summary: dict, smi_line: str) -> dict:
+    """Phase 5c in the default run: on a world of one NCCL rank and its
+    (1, 1) mesh, ``tp_serve`` of gemma2-9b on the cuda engine with the
+    plain serve's bits (``exact``); beside it phase 5b (a)'s sharded step,
+    which is the tensor-parallel train step on that mesh (its model-axis
+    collectives and bits read there)."""
+    import torch.distributed as dist
+    md_init(torch)
+    try:
+        gc_cuda(torch)
+        serve = tp_serve(torch, tp_mesh((1, 1)), "cuda", "cuda", exact=True)
+    finally:
+        dist.destroy_process_group()
+    gc_cuda(torch)
+    a = summary["multi_device"]["sharded"]
+    out = {"serve": serve, "train": {k: a[k] for k in (
+        "same_bits_metrics", "same_bits_params", "tp_collectives", "tp_choices")}}
+    print(f"tensor-parallel: world of one, (1, 1) mesh: train step (phase 5b (a)) "
+          f"{json.dumps(out['train'])} [{smi_line}]", flush=True)
+    print(f"tensor-parallel: world of one, (1, 1) mesh: serve "
+          f"{json.dumps(serve)} [{smi_line}]", flush=True)
+    if not serve["ok"]:
+        fail("tensor-parallel: the TP serve on a world of one differs from the "
+             "plain serve's bits")
+    return out
+
+
+def tp_worker(torch, rank: int, world: int, port: int, out_path: Path) -> None:
+    """One rank of ``--tp-ranks``: its card, an NCCL rank of ``world``,
+    ``tp_train`` on the (1, world) and (2, world / 2) meshes and
+    ``tp_serve`` on (1, world); the result as JSON at ``out_path``."""
+    import torch.distributed as dist
+    torch.cuda.set_device(rank)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
+                            rank=rank, world_size=world,
+                            device_id=torch.device("cuda", rank))
+    try:
+        res = {"rank": rank, "device": torch.cuda.get_device_name(rank)}
+        res["train"] = tp_train(torch, "cuda", meshes=((1, world), (2, world // 2))
+                                if world % 2 == 0 else ((1, world),))
+        gc_cuda(torch)
+        res["serve"] = tp_serve(torch, tp_mesh((1, world)), "cuda", "cuda")
+        res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        dist.destroy_process_group()
+    out_path.write_text(json.dumps(res))
+
+
+def run_tp_ranks(torch, n: int, smi_line: str) -> dict:
+    """``--tp-ranks N``: N worker processes (``tp_worker``), a card each,
+    all at once; fails where a worker fails, a TP run leaves its limits
+    (step 1's, TP_DRIFT), a planted fault passes, or the TP serve's greedy
+    tokens, logits or launch counts are off on any rank. Every process it
+    starts is ended."""
+    import os
+    import socket
+    if torch.cuda.device_count() < n:
+        fail(f"tensor-parallel: {n} ranks need {n} cards; "
+             f"{torch.cuda.device_count()} seen")
+    out_dir = ROOT / "build" / "chip_smoke"
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for r in range(n):
+            (out_dir / f"tp_rank{r}.json").unlink(missing_ok=True)
+            log = open(out_dir / f"tp_rank{r}.log", "w")
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()), "--tp-ranks", str(n),
+                 "--tp-worker", str(r), "--tp-port", str(port)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
+            log.close()
+        # a rank that fails leaves the others waiting in a collective: end
+        # them all as soon as one exits with an error
+        deadline = time.monotonic() + TP_TIMEOUT_S
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                fail(f"tensor-parallel: a rank ran past {TP_TIMEOUT_S} s")
+            time.sleep(1.0)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    ranks = []
+    for r, p in enumerate(procs):
+        path = out_dir / f"tp_rank{r}.json"
+        if p.returncode != 0 or not path.exists():
+            tail = (out_dir / f"tp_rank{r}.log").read_text()[-4000:]
+            fail(f"tensor-parallel: rank {r} exited {p.returncode}:\n{tail}")
+        ranks.append(json.loads(path.read_text()))
+    bad = []
+    for res in ranks:
+        r, tr, sv = res["rank"], res["train"], res["serve"]
+        for mesh, m in tr["meshes"].items():
+            print(f"tensor-parallel: rank {r} train {tr['arch']} mesh {mesh}: "
+                  f"{json.dumps(m)} plain {json.dumps(tr['plain'])} [{smi_line}]",
+                  flush=True)
+            if not m["ok"]:
+                bad.append(f"rank {r} mesh {mesh} leaves the step-1 limits "
+                           f"{tr['step1_limits']} or {TP_DRIFT} x the plain run's "
+                           f"drift {tr['drift_plain']}")
+        print(f"tensor-parallel: rank {r} planted faults {json.dumps(tr['faults'])}",
+              flush=True)
+        if not all(f["rejected"] for f in tr["faults"].values()):
+            bad.append(f"rank {r}: a planted fault passes")
+        print(f"tensor-parallel: rank {r} serve {json.dumps(sv)} [{smi_line}]",
+              flush=True)
+        if not sv["ok"]:
+            bad.append(f"rank {r}: the TP serve leaves the plain serve")
+    if bad:
+        fail("tensor-parallel: " + "; ".join(bad))
+    return {"ranks": ranks, "seconds": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4164,6 +4696,17 @@ DRYRUN_TIMEOUT_S = 600
 CARD_BYTES = 80e9                    # the H100's memory
 
 
+def gathered_roots(rec: dict) -> dict:
+    """The leaves a cell gathers over ``model`` to compute whole, by their
+    layer part (``blocks/0/mixer``: the reason), with their count."""
+    out: dict = {}
+    for path, why in rec["gathered_over_model"].items():
+        root = "/".join(path.split("/")[:3])
+        n, _ = out.get(root, (0, why))
+        out[root] = (n + 1, why)
+    return {k: f"{n} leaves: {why}" for k, (n, why) in out.items()}
+
+
 def dryrun_line(rec: dict, smi_line: str) -> str:
     mem = rec["memory"]
     coll = {k: round(v / 2**20, 1) for k, v in rec["collective_bytes"].items()}
@@ -4174,6 +4717,7 @@ def dryrun_line(rec: dict, smi_line: str) -> str:
             f"{mem['peak_bytes'] / 2**30:.3f} GiB/rank ({fits} the card's 80 GB), "
             f"unfused bytes/rank {rec['bytes_accessed']:.4e}, collectives MiB/rank "
             f"{json.dumps(coll)} calls {json.dumps(rec['collective_calls'])}, "
+            f"gathered over model {json.dumps(gathered_roots(rec))}, "
             f"traced in {rec['seconds']:.1f} s [{smi_line}]")
 
 
@@ -4236,6 +4780,11 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
         rec = json.loads(path.read_text())
         out["cells"][tag] = rec
         print(dryrun_line(rec, smi_line), flush=True)
+        # tensor-parallel compute over the model axis brings every gemma2
+        # cell under the card's memory
+        if rec["arch"] == "gemma2-9b" and rec["memory"]["peak_bytes"] > CARD_BYTES:
+            fail(f"dryrun: {tag} traces a peak of {rec['memory']['peak_bytes'] / 1e9:.2f} "
+                 f"GB a rank, past the card's 80 GB")
     m = one["measured"]
     print(f"dryrun: phase 5's step ({TRAIN_ARCH}, {one['shape']}, 2 microbatches) on a "
           f"world of one: MemTracker peak {one['memory']['peak_bytes'] / 1e9:.2f} GB, args "
@@ -4291,94 +4840,60 @@ KERNELS = {
 
 
 # the rows of a kernel that the kernels line also carries (bf16)
-MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2"),
-              "flash_attention": ("whisper", "internvl2"),
+MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2", "gemma2 tp4"),
+              "flash_attention": ("whisper", "internvl2", "gemma2 tp4"),
               "gemm": ("granite unembed", "rwkv6", "jamba", "int8", "internvl2",
-                       "whisper")}
+                       "whisper", "gemma2 tp4")}
 
 
-class PhaseClock:
-    """The host seconds of each phase: ``lap`` prints the time since the
-    last lap (or since the clock was made) and keeps it in the summary."""
-
-    def __init__(self, summary: dict):
-        self.summary, self.t = summary, time.perf_counter()
-
-    def lap(self, name: str) -> None:
-        now = time.perf_counter()
-        secs, self.t = now - self.t, now
-        self.summary.setdefault("phase_s", {})[name] = secs
-        print(f"phase: {name} {secs:.1f}s", flush=True)
-
-
-def main(argv=None) -> None:
-    import argparse
-    ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
-    ap.add_argument("--cnn-kernels-only", action="store_true",
-                    help="phases 1-2 for conv_layer, maxpool and leakyrelu only "
-                         "(to time two trees' kernels in one call); no result line")
-    ap.add_argument("--decode-host", nargs="?", const="gemma2-9b", default=None,
-                    metavar="ARCH",
-                    help="only the serving decode step's host clock of ARCH "
-                         "(default gemma2-9b; to time two trees in turns); no "
-                         "result line")
-    ap.add_argument("--json", default=None,
-                    help="where the details go (default build/chip_smoke/chip_smoke.json)")
-    opts = ap.parse_args(argv)
-    import torch
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is False: this script needs the card")
-    try:
-        from repro_torch.kernels import _build
-    except ImportError as e:
-        fail(f"the port is not importable from {ROOT / 'src'}: {e}")
-    torch.backends.cuda.matmul.allow_tf32 = False      # plain f32 is true f32
-    torch.backends.cudnn.allow_tf32 = False
-    out_dir = ROOT / "build" / "chip_smoke"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    out_json = Path(opts.json) if opts.json else out_dir / "chip_smoke.json"
-
-    # ---- phase 1: device
-    summary: dict = {}
-    clock = PhaseClock(summary)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "nvidia-smi: no output"
-    print(smi_line, flush=True)
-    print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
-          f"torch={torch.__version__} cuda={torch.version.cuda} "
-          f"python={sys.version.split()[0]}", flush=True)
-    names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else \
-        ("gemm", "decode_attention", "flash_attention") if opts.decode_host else _build.SOURCES
-    build_s = _build.build_all(names)
-    print(f"build: {', '.join(names)} in {build_s:.1f}s "
-          f"(nvcc, sm_90a, parallel)", flush=True)
-    (out_dir / "chip_smoke_build.txt").write_text(
-        "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
-    summary.update(nvidia_smi=smi_line, device=torch.cuda.get_device_name(0),
-                   torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
-    clock.lap("device")
-
-    if opts.decode_host:
-        summary["decode_host"] = run_decode_host(torch, opts.decode_host)
-        out_json.write_text(json.dumps(summary, indent=1))
-        return
-
-    # ---- phase 2: kernels vs plain versions
+def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
+                clock) -> None:
+    """``--tp-ranks N``: the serving kernels' phase-2 rows at gemma2-9b's
+    shard shapes on a model axis of 4 (this process, card 0), then phase 5c
+    on N cards (``run_tp_ranks``); the kernels line (launches summed over
+    the ranks' TP serve runs) and the device line with ``count`` the cards
+    used."""
     rows: list[dict] = []
-    failures: list[str] = []
     timer = Timer(torch)
-    summary["launch_floor_ms"] = timer.ms(lambda: torch.cuda._sleep(0))
-    print(f"timer: an empty kernel takes {summary['launch_floor_ms']:.4f} ms "
-          f"between the events", flush=True)
-    summary["copy_calibration"] = copy_calibration(torch, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase2 = (run_gemm, run_decode, run_flash, run_conv, run_maxpool, run_leakyrelu)
-    for run in phase2[3:] if opts.cnn_kernels_only else phase2:
-        run(torch, timer, gen, rows)
+    for run in (run_gemm, run_decode, run_flash):
+        run(torch, timer, gen, rows, prefix="gemma2 tp4")
     del timer
     torch.cuda.empty_cache()
+    print_kernel_rows(rows)
+    summary["cases"] = rows
+    clock.lap("kernels")
+    if not all(r["ok"] for r in rows):
+        fail("tensor-parallel: a kernel case at the shard shapes disagrees with the "
+             "plain version")
+    summary["tensor_parallel"] = run_tp_ranks(torch, n, smi_line)
+    clock.lap("tensor_parallel")
+    out_json.write_text(json.dumps(summary, indent=1))
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for name in ("gemm", "decode_attention", "flash_attention"):
+        src, replaces, wrapper, _, _, _ = KERNELS[name]
+        mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
+        pick = mine[0]
+        kernels.append({
+            "name": name, "route": "cuda", "source": src, "replaces": replaces,
+            "launches": sum(res["serve"]["launches"][wrapper]
+                            for res in summary["tensor_parallel"]["ranks"]),
+            "launches_by_rank": [res["serve"]["launches"][wrapper]
+                                 for res in summary["tensor_parallel"]["ranks"]],
+            "case": f"{pick['case']} {pick['dtype']}",
+            **{k: pick[k] for k in keys},
+            "more_cases": [{"case": f"{r['case']} {r['dtype']}", **{k: r[k] for k in keys}}
+                           for r in mine[1:]]})
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def print_kernel_rows(rows: list) -> None:
+    """A line per kernel case of phase 2 (its share of the memory rate set
+    on the row)."""
     for r in rows:
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         var = f" variant={r['variant']}" if "variant" in r else ""
@@ -4409,6 +4924,105 @@ def main(argv=None) -> None:
               f"ms={r['ms']:.4f}{earlier}{other} bound_ms={r['bound_ms']:.6f} ({r['bound_by']}) "
               f"mem_rate_share={r['mem_rate_share']:.3f} "
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
+
+
+class PhaseClock:
+    """The host seconds of each phase: ``lap`` prints the time since the
+    last lap (or since the clock was made) and keeps it in the summary."""
+
+    def __init__(self, summary: dict):
+        self.summary, self.t = summary, time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        secs, self.t = now - self.t, now
+        self.summary.setdefault("phase_s", {})[name] = secs
+        print(f"phase: {name} {secs:.1f}s", flush=True)
+
+
+def main(argv=None) -> None:
+    import argparse
+    ap = argparse.ArgumentParser(description="Chip smoke of the PyTorch/CUDA port.")
+    ap.add_argument("--cnn-kernels-only", action="store_true",
+                    help="phases 1-2 for conv_layer, maxpool and leakyrelu only "
+                         "(to time two trees' kernels in one call); no result line")
+    ap.add_argument("--decode-host", nargs="?", const="gemma2-9b", default=None,
+                    metavar="ARCH",
+                    help="only the serving decode step's host clock of ARCH "
+                         "(default gemma2-9b; to time two trees in turns); no "
+                         "result line")
+    ap.add_argument("--json", default=None,
+                    help="where the details go (default build/chip_smoke/chip_smoke.json)")
+    ap.add_argument("--tp-ranks", type=int, default=None, metavar="N",
+                    help="only phase 5c on N cards, an NCCL rank each (the "
+                         "tensor-parallel train and serve steps); the kernels "
+                         "line holds the serving kernels at the shard shapes")
+    ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
+    opts = ap.parse_args(argv)
+    import torch
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs the card")
+    try:
+        from repro_torch.kernels import _build
+    except ImportError as e:
+        fail(f"the port is not importable from {ROOT / 'src'}: {e}")
+    torch.backends.cuda.matmul.allow_tf32 = False      # plain f32 is true f32
+    torch.backends.cudnn.allow_tf32 = False
+    out_dir = ROOT / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    out_json = Path(opts.json) if opts.json else out_dir / "chip_smoke.json"
+    if opts.tp_worker is not None:
+        tp_worker(torch, opts.tp_worker, opts.tp_ranks, opts.tp_port,
+                  out_dir / f"tp_rank{opts.tp_worker}.json")
+        return
+
+    # ---- phase 1: device
+    summary: dict = {}
+    clock = PhaseClock(summary)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "nvidia-smi: no output"
+    print(smi_line, flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)} count={torch.cuda.device_count()} "
+          f"torch={torch.__version__} cuda={torch.version.cuda} "
+          f"python={sys.version.split()[0]}", flush=True)
+    names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else \
+        ("gemm", "decode_attention", "flash_attention") \
+        if opts.decode_host or opts.tp_ranks else _build.SOURCES
+    build_s = _build.build_all(names)
+    print(f"build: {', '.join(names)} in {build_s:.1f}s "
+          f"(nvcc, sm_90a, parallel)", flush=True)
+    (out_dir / "chip_smoke_build.txt").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
+    summary.update(nvidia_smi=smi_line, device=torch.cuda.get_device_name(0),
+                   torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
+    clock.lap("device")
+
+    if opts.decode_host:
+        summary["decode_host"] = run_decode_host(torch, opts.decode_host)
+        out_json.write_text(json.dumps(summary, indent=1))
+        return
+    if opts.tp_ranks:
+        run_tp_only(torch, opts.tp_ranks, smi_line, summary, out_json, clock)
+        return
+
+    # ---- phase 2: kernels vs plain versions
+    rows: list[dict] = []
+    failures: list[str] = []
+    timer = Timer(torch)
+    summary["launch_floor_ms"] = timer.ms(lambda: torch.cuda._sleep(0))
+    print(f"timer: an empty kernel takes {summary['launch_floor_ms']:.4f} ms "
+          f"between the events", flush=True)
+    summary["copy_calibration"] = copy_calibration(torch, timer)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    phase2 = (run_gemm, run_decode, run_flash, run_conv, run_maxpool, run_leakyrelu)
+    for run in phase2[3:] if opts.cnn_kernels_only else phase2:
+        run(torch, timer, gen, rows)
+    del timer
+    torch.cuda.empty_cache()
+    print_kernel_rows(rows)
     summary["cases"] = rows
     summary["host"] = run_host(torch)
     out_json.write_text(json.dumps(summary, indent=1))
@@ -4466,6 +5080,11 @@ def main(argv=None) -> None:
     clock.lap("multi_device")
     out_json.write_text(json.dumps(summary, indent=1))
 
+    # ---- phase 5c: tensor parallelism on a world of one NCCL rank
+    summary["tensor_parallel"] = run_tensor_parallel(torch, summary, smi_line)
+    clock.lap("tensor_parallel")
+    out_json.write_text(json.dumps(summary, indent=1))
+
     # ---- phase 6a: the dry-run on the production meshes, traced on the host
     summary["dryrun"] = run_dryrun(torch, summary, smi_line)
     clock.lap("dryrun")
@@ -4481,7 +5100,8 @@ def main(argv=None) -> None:
         pick = next((r for r in mine if r["case"].startswith(rep) and r["dtype"] == rep_dt),
                     mine[0] if mine else None)
         runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
-                                    summary["multi_device"]["serve"]]
+                                    summary["multi_device"]["serve"],
+                                    summary["tensor_parallel"]["serve"]]
                                    if phase == "serve" else
                                    [summary["sim"], summary["sim_pipelined"],
                                     summary["dse"]])
@@ -4505,6 +5125,8 @@ def main(argv=None) -> None:
                 summary["train"]["serve"]["launches"][wrapper]
             entry["launches_by_model"]["restored granite (phase 5b)"] = \
                 summary["multi_device"]["serve"]["launches"][wrapper]
+            entry["launches_by_model"]["gemma2 TP on a (1, 1) mesh (phase 5c)"] = \
+                summary["tensor_parallel"]["serve"]["launches"][wrapper]
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
         more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")

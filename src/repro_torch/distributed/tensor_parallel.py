@@ -1,0 +1,456 @@
+"""Tensor parallelism over the mesh's ``model`` axis: the port's
+counterpart of what XLA's SPMD partitioner does for the reference's
+products.
+
+The reference shards each weight over ``model`` (``param_pspecs``) and XLA
+partitions every product over those shards, so a rank computes its share of
+each projection. Here the model code does it by hand on the rank's local
+shards (Megatron-LM's scheme), reading the layouts the sharding rules gave
+the params and the cache, never inventing its own:
+
+* a column-parallel product (q, k, v, gate, up, the unembed) takes a
+  replicated input through ``copy_to_model`` (identity forward, all-reduce
+  backward) and yields this rank's columns; a row-parallel product (o,
+  down) takes those columns and sums the ranks' partial outputs with
+  ``reduce_from_model`` (all-reduce forward, identity backward), in f32,
+  the bias added once after the sum;
+* ``gather_columns`` (all-gather forward, reduce-scatter backward) gives a
+  rank the k/v weight columns its q heads read where the rules split a kv
+  head between ranks;
+* the vocab-parallel embedding looks up the rows a rank holds and sums the
+  ranks' rows; the loss's log-sum-exp and gold logit are taken over the
+  ranks' vocab shards (``vocab_logsumexp``, ``vocab_gold``);
+* an MoE layer's experts are sharded (expert parallelism): each rank runs
+  its experts on the replicated tokens and the partial combines are summed;
+* a decode step over a cache sharded over its sequence attends each rank's
+  slice and merges the partial softmaxes (``merge_partials``).
+
+A leaf the rules replicate over ``model`` is computed whole, as XLA would.
+A layer whose heads do not split into whole GQA groups a rank
+(``head_parallel``), and the MLA, Mamba and RWKV-6 mixers, gather their
+leaves over ``model`` and compute whole; ``plan`` names every leaf it
+gathers. Every collective runs on the model group, including a group of
+one.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.configs.base import LayerSpec
+from repro_torch.distributed.sharding import map_with_path
+
+PyTree = Any
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelGroup:
+    """The ranks of one ``model`` row of the mesh: its process group, this
+    rank's coordinate on the axis and the axis' size."""
+    group: Any
+    rank: int
+    size: int
+
+    @classmethod
+    def of(cls, mesh) -> "ModelGroup":
+        i = mesh.mesh_dim_names.index("model")
+        return cls(mesh.get_group("model"), mesh.get_local_rank("model"),
+                   mesh.shape[i])
+
+
+def _all_reduce(x: torch.Tensor, mg: ModelGroup, op=dist.ReduceOp.SUM):
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=mg.group)
+    return out
+
+
+def _all_gather(x: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """The ranks' ``x`` side by side along ``dim``, in rank order."""
+    dim = dim % x.dim()
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((mg.size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x, group=mg.group)
+    return out.movedim(0, dim)
+
+
+def _reduce_scatter(x: torch.Tensor, mg: ModelGroup, dim: int) -> torch.Tensor:
+    """The sum over ranks of ``x``, this rank's block of it along ``dim``."""
+    dim = dim % x.dim()
+    x = x.movedim(dim, 0).contiguous()
+    out = x.new_empty((x.shape[0] // mg.size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x, group=mg.group)
+    return out.movedim(0, dim)
+
+
+# ------------------------------------------------- Megatron's two operators
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_reduce(grad, ctx.mg), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        return _all_reduce(x, mg)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _GatherColumns(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg, dim):
+        ctx.mg, ctx.dim = mg, dim
+        return _all_gather(x, mg, dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter(grad, ctx.mg, ctx.dim), None, None
+
+
+def copy_to_model(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """Before a column-parallel product: ``x`` itself; its gradient summed
+    over the model ranks."""
+    return _CopyToModel.apply(x, mg)
+
+
+def reduce_from_model(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """After a row-parallel product: the ranks' partial ``x`` summed; the
+    gradient passed through."""
+    return _ReduceFromModel.apply(x, mg)
+
+
+def gather_columns(w: torch.Tensor, mg: ModelGroup, dim: int = -1) -> torch.Tensor:
+    """The ranks' column shards of a weight joined along ``dim``; the
+    gradient of the whole reduce-scattered back to the shards."""
+    return _GatherColumns.apply(w, mg, dim)
+
+
+def col_input(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """A column-parallel product's input. Under autograd the input is
+    widened to f32 first (the ref engine's product widens it anyway), so
+    its gradient is summed over the ranks in f32 and rounds once, as one
+    device rounds each product's input gradient."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return copy_to_model(x.float(), mg)
+    return x
+
+
+def gather_last(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The ranks' shards joined along the last dim (serving: the vocab
+    shards of the logits, the heads of one decode row); no gradient."""
+    return _all_gather(x, mg, -1)
+
+
+def all_to_all(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """``x[r]`` to rank r; → ``out[r]`` from rank r (serving; no
+    gradient)."""
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x.contiguous(), group=mg.group)
+    return out
+
+
+# ------------------------------------------------------ vocab parallelism
+def vocab_embed(table: torch.Tensor, tokens: torch.Tensor,
+                mg: ModelGroup) -> torch.Tensor:
+    """Rows of a table whose rows are sharded over the model ranks: each
+    rank looks up the ids it holds, zeroes the rest, and the ranks' rows
+    are summed (one rank holds each id)."""
+    rows = table.shape[0]
+    local = tokens.long() - mg.rank * rows
+    inside = (local >= 0) & (local < rows)
+    out = table[local.clamp(0, rows - 1)]
+    out = torch.where(inside[..., None], out, torch.zeros_like(out))
+    return reduce_from_model(out, mg)
+
+
+class _VocabLogSumExp(torch.autograd.Function):
+    """log Σ exp over the ranks' vocab shards of the last dim, in
+    ``torch.logsumexp``'s arithmetic (max, shifted exp sum, log, max
+    added back) and with its backward, ``grad · exp(x − lse)`` on the
+    rank's own logits."""
+
+    @staticmethod
+    def forward(ctx, lg, mg):
+        m = lg.amax(dim=-1, keepdim=True)
+        m = _all_reduce(m, mg, dist.ReduceOp.MAX)
+        m.masked_fill_(m.abs() == math.inf, 0)
+        s = _all_reduce(torch.sum(torch.exp(lg - m), dim=-1), mg)
+        lse = s.log_().add_(m[..., 0])
+        ctx.save_for_backward(lg, lse)
+        return lse
+
+    @staticmethod
+    def backward(ctx, grad):
+        lg, lse = ctx.saved_tensors
+        return grad[..., None] * (lg - lse[..., None]).exp(), None
+
+
+def vocab_logsumexp(lg: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    return _VocabLogSumExp.apply(lg, mg)
+
+
+def vocab_gold(lg: torch.Tensor, targets: torch.Tensor,
+               mg: ModelGroup) -> torch.Tensor:
+    """``lg[..., targets]`` where the last dim is this rank's vocab shard:
+    the rank that holds a target gives its logit, the others 0, summed."""
+    v = lg.shape[-1]
+    local = targets.long() - mg.rank * v
+    inside = (local >= 0) & (local < v)
+    gold = torch.gather(lg, -1, local.clamp(0, v - 1)[..., None])[..., 0]
+    gold = torch.where(inside, gold, torch.zeros_like(gold))
+    return reduce_from_model(gold, mg)
+
+
+# ------------------------------------ decode over a sequence-sharded cache
+def partial_decode_attention(q, k, v, lo, hi, *, softcap=None, scale=None):
+    """Decode attention of q (B, Hq, D) over the keys [lo, hi) (each (B,),
+    local positions) of k, v (B, Hkv, S, D): (out (B, Hq, D) f32, lse (B,
+    Hq) f32); a sequence with no key there has out 0 and lse −inf.
+    Plain PyTorch."""
+    b, hq, d = q.shape
+    hkv, s_len = k.shape[1], k.shape[2]
+    if scale is None:
+        scale = 1.0 / math.sqrt(d)
+    qg = q.float().reshape(b, hkv, hq // hkv, d)
+    s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float()) * scale
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    cols = torch.arange(s_len, device=q.device)[None, None, None, :]
+    mask = (cols >= lo[:, None, None, None]) & (cols < hi[:, None, None, None])
+    s = torch.where(mask, s, torch.full_like(s, -math.inf))
+    m = s.amax(dim=-1, keepdim=True)
+    m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.exp(s - m_safe)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / torch.clamp(l, min=1e-30)
+    lse = (m_safe + torch.log(l))[..., 0]          # −inf where l is 0
+    return out.reshape(b, hq, d), lse.reshape(b, hq)
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor,
+                   mg: ModelGroup) -> torch.Tensor:
+    """The softmax over every rank's keys from the ranks' partial (out,
+    lse): the largest lse (an all-reduce MAX), then the weighted outputs
+    and their weights summed (one all-reduce SUM)."""
+    m = _all_reduce(lse, mg, dist.ReduceOp.MAX)
+    w = torch.exp(lse - m)                               # 0 for an empty rank
+    both = torch.cat([out * w[..., None], w[..., None]], dim=-1)
+    both = _all_reduce(both, mg)
+    return both[..., :-1] / both[..., -1:]
+
+
+# ------------------------------------------------------------------ plans
+def head_parallel(n_heads: int, n_kv_heads: int, m: int) -> bool:
+    """Whether a layer's attention splits by heads over ``m`` ranks: the q
+    heads divide, and a rank's q heads cover whole GQA groups or sit inside
+    one group."""
+    if n_heads % m:
+        return False
+    per, group = n_heads // m, n_heads // n_kv_heads
+    return per % group == 0 or group % per == 0
+
+
+def head_ranges(n_heads: int, n_kv_heads: int, rank: int, m: int) -> tuple:
+    """(q0, nq, k0, nk): a rank's q heads [q0, q0 + nq) and the kv heads
+    [k0, k0 + nk) they read, under ``head_parallel``."""
+    nq = n_heads // m
+    group = n_heads // n_kv_heads
+    q0 = rank * nq
+    return q0, nq, q0 // group, max(1, nq // group)
+
+
+@dataclasses.dataclass(frozen=True)
+class AttnTP:
+    """How one attention (self or cross) of a layer runs: ``heads`` (this
+    rank's q heads, o row-parallel) or whole; ``kv``, where a rank's kv
+    columns come from under ``heads``: its own shard (``local``) or the
+    ranks' shards gathered (``gather``); ``cache``, the layout of its cache
+    over ``model`` while serving: ``heads``, ``seq`` or ``whole``."""
+    mg: ModelGroup
+    heads: bool
+    kv: str = "local"
+    cache: str = "whole"
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTP:
+    """One pattern position's plan: its attention and cross-attention (None
+    where the block has none or computes its mixer whole), the dense FFN
+    column/row-parallel, the MoE experts sharded."""
+    mg: ModelGroup
+    attn: Optional[AttnTP]
+    cross: Optional[AttnTP]
+    ffn: bool
+    experts: bool
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelTP:
+    """The model's plan: the embedding's and the unembedding's tables
+    vocab-parallel, a ``BlockTP`` per pattern position and one for the
+    encoder's layers, the leaves gathered over ``model`` (path: why), and
+    each layer's attention choice (path: "heads" or why it is whole)."""
+    mg: ModelGroup
+    embed: bool
+    unembed: bool
+    blocks: tuple
+    enc: Optional[BlockTP]
+    gathered: dict
+    choices: dict
+
+
+GATHERED_MIXERS = {"mla": "attn", "mamba": "mixer", "rwkv": "mixer"}
+
+
+def model_dims(tree: PyTree, mesh) -> dict:
+    """path → the tensor dim a leaf's layout shards over ``model`` (None:
+    replicated there), read from DTensor placements."""
+    i = mesh.mesh_dim_names.index("model")
+    out: dict = {}
+
+    def fn(path, t):
+        p = t.placements[i]
+        out[path] = p.dim if p.is_shard() else None
+
+    map_with_path(fn, tree)
+    return out
+
+
+def _attn_plan(mg, cfg, dims: dict, prefix: str, cache: Optional[str],
+               cross: bool = False):
+    """(AttnTP, why it is whole or None) of the attention under ``prefix``
+    over a cache laid out by ``cache`` over ``model`` (None: no cache, a
+    train step). A whole layer keeps a cache sharded by sequence (a
+    self-attention's); any other sharded cache is gathered for it."""
+    whole = AttnTP(mg, False, cache="seq" if cache == "seq" and not cross
+                   else "whole")
+    if dims.get(f"{prefix}/q/w") is None or dims.get(f"{prefix}/k/w") is None:
+        return whole, "q or k replicated by the rules"
+    if not head_parallel(cfg.n_heads, cfg.n_kv_heads, mg.size):
+        return whole, (f"{cfg.n_heads} q heads over {mg.size} ranks are not "
+                       f"whole GQA groups a rank")
+    hd = cfg.resolved_head_dim
+    _, _, k0, nk = head_ranges(cfg.n_heads, cfg.n_kv_heads, mg.rank, mg.size)
+    cols = cfg.n_kv_heads * hd // mg.size
+    kv = "local" if (k0 * hd, nk * hd) == (mg.rank * cols, cols) else "gather"
+    if cache is not None and cache not in (("heads",) if cross
+                                           else ("heads", "seq")):
+        return whole, f"its cache is laid out by {cache} over model"
+    if cache == "seq" and not _blocks_contained(cfg, mg.size):
+        return whole, ("a rank's column block of k is not inside its kv "
+                       "heads, so no all-to-all fills its cache slice")
+    return AttnTP(mg, True, kv, cache or "whole"), None
+
+
+def _blocks_contained(cfg, m: int) -> bool:
+    """Whether every rank's column block of k lies inside the kv heads its
+    q heads read (the prefill's all-to-all sends that block)."""
+    hd = cfg.resolved_head_dim
+    cols = cfg.n_kv_heads * hd // m
+    for r in range(m):
+        _, _, k0, nk = head_ranges(cfg.n_heads, cfg.n_kv_heads, r, m)
+        if not (k0 * hd <= r * cols and (r + 1) * cols <= (k0 + nk) * hd):
+            return False
+    return True
+
+
+def cache_kept(tp: "ModelTP", path: str) -> bool:
+    """Whether a serve step computes on the rank's ``model`` shard of the
+    cache leaf at ``path`` ("j/name"): the k/v of a head-parallel layer or
+    of one sharded by sequence, the cross k/v of a head-parallel
+    cross-attention. Every other sharded leaf is gathered for the step."""
+    j, name = path.split("/")
+    blk = tp.blocks[int(j)]
+    if name in ("k", "v"):
+        return blk.attn is not None and (blk.attn.heads or blk.attn.cache == "seq")
+    if name in ("xk", "xv"):
+        return blk.cross is not None and blk.cross.heads
+    return False
+
+
+def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
+         ) -> ModelTP:
+    """The model's plan on the layout ``dims`` (``model_dims`` of the
+    params) and, while serving, ``cache_dims`` (of the cache). A layer's
+    attention is head-parallel where ``head_parallel`` holds and its q is
+    sharded; else its leaves sharded over ``model`` are gathered. While
+    serving, a cross-attention runs head-parallel only over a cache
+    sharded by heads, and a self-attention over one sharded by heads or by
+    sequence."""
+    gathered: dict = {}
+    choices: dict = {}
+
+    def gather_under(prefix: str, why: str):
+        for path, d in dims.items():
+            if path.startswith(prefix + "/") and d is not None:
+                gathered[path] = why
+
+    def cache_mode(j: int, name: str) -> Optional[str]:
+        if cache_dims is None:
+            return None
+        d = cache_dims.get(f"{j}/{name}")
+        if d is None:
+            return "whole"
+        return {2: "heads", 3: "seq"}[d]
+
+    def block(prefix: str, j: Optional[int], spec) -> BlockTP:
+        attn = cross = None
+        if spec.kind in GATHERED_MIXERS:
+            gather_under(f"{prefix}/{GATHERED_MIXERS[spec.kind]}",
+                         f"the {spec.kind} mixer computes whole")
+            choices[f"{prefix}/{GATHERED_MIXERS[spec.kind]}"] = \
+                f"whole: the {spec.kind} mixer"
+        else:
+            cm = cache_mode(j, "k") if j is not None else None
+            attn, why = _attn_plan(mg, cfg, dims, f"{prefix}/attn", cm)
+            if why:
+                gather_under(f"{prefix}/attn", why)
+            choices[f"{prefix}/attn"] = "heads" if attn.heads else f"whole: {why}"
+            if f"{prefix}/cross/q/w" in dims:
+                cm = cache_mode(j, "xk") if j is not None else None
+                cross, why = _attn_plan(mg, cfg, dims, f"{prefix}/cross", cm,
+                                        cross=True)
+                if why:
+                    gather_under(f"{prefix}/cross", why)
+                choices[f"{prefix}/cross"] = ("heads" if cross.heads
+                                              else f"whole: {why}")
+        ffn = dims.get(f"{prefix}/ffn/down/w") is not None
+        experts = dims.get(f"{prefix}/ffn/gate") is not None
+        return BlockTP(mg, attn, cross, ffn, experts)
+
+    blocks = tuple(block(f"blocks/{j}", j, spec)
+                   for j, spec in enumerate(cfg.pattern))
+    enc = block("enc_blocks/0", None, LayerSpec(kind="attn")) if cfg.enc_dec else None
+    unembed = "unembed/table" if "unembed/table" in dims else "embed/table"
+    return ModelTP(mg, dims.get("embed/table") is not None,
+                   dims.get(unembed) is not None, blocks, enc, gathered, choices)
+
+
+def compute_placements(tree: PyTree, mesh, gathered) -> PyTree:
+    """Each DTensor leaf's placements for compute: replicated over the
+    data axes, its ``model`` placement kept, or replicated there too where
+    its path is in ``gathered``."""
+    from torch.distributed.tensor import Replicate
+    i = mesh.mesh_dim_names.index("model")
+
+    def fn(path, t):
+        out = [Replicate()] * len(t.placements)
+        if path not in gathered:
+            out[i] = t.placements[i]
+        return tuple(out)
+
+    return map_with_path(fn, tree)
+
+

@@ -11,28 +11,39 @@ sharding rules lay them:
 
 * **train** cells run ``train/step.py: make_train_step`` on DTensor params
   (``param_pspecs``, ZeRO-3 for ``FSDP_ARCHS``) and AdamW state
-  (``zero_pspecs``), which is ``sharded_step``: the params gathered whole,
-  the batch split over the data axes, the grads reduce-scattered to the
-  ZeRO shards, the global norm all-reduced.
-* **prefill** and **decode** cells run ``make_serve_steps``. The port
-  serves on one device, so the dry-run lays the serve step over the mesh
-  the way ``sharded_step`` lays the train step: the params gathered whole,
-  the cache laid out by ``cache_pspecs`` with its model-axis shards
-  gathered for the step (a rank keeps its shard of the result), the batch
-  split over the axes that shard the cache's rows.
+  (``zero_pspecs``), which is ``sharded_step``: the params gathered over
+  the data axes with their ``model`` shards kept, the model run
+  tensor-parallel over ``model`` (head-parallel attention, column/row
+  FFN, expert-parallel MoE, vocab-parallel embedding, unembedding and
+  loss: ``distributed/tensor_parallel.py``), the batch split over the data
+  axes, the grads reduce-scattered to the ZeRO shards, the global norm
+  all-reduced.
+* **prefill** and **decode** cells run ``train/step.py: serve_on_mesh``,
+  the serve steps laid over the mesh the same way: the params' ``model``
+  shards kept, the cache laid out by ``cache_pspecs`` and computed on where
+  it is (a head-parallel layer's heads, a sequence slice of every kv head,
+  whose decode merges the ranks' partial softmaxes), the batch split over
+  the axes that shard the cache's rows.
+
+The leaves a rank gathers over ``model`` to compute whole (a layer whose
+heads do not split into whole GQA groups a rank; the MLA, Mamba and
+RWKV-6 mixers and their caches) are listed in the record,
+``gathered_over_model`` (path: why).
 
 Three counters watch the step, all over executed ops:
 
 * ``flops``: ``torch.utils.flop_counter.FlopCounterMode``, per rank (the
-  products: matmuls, batched matmuls, convolutions, attention).
+  products: matmuls, batched matmuls, convolutions, attention: a rank's
+  share of the tensor-parallel products).
 * ``bytes_accessed``: the operand and result bytes of every op executed on
   the rank's local tensors, views and collectives left out. These are
   **unfused** eager bytes (``bytes_accessed_kind`` says so): XLA's figure
   is post-fusion, so the two are not comparable.
 * ``collective_bytes``: the bytes of the tensors each collective returns,
   by op, over the collectives the step issues: DTensor's redistributions
-  (``full_tensor``, reduce-scatters) and the plain ``dist.all_reduce`` of
-  the norm and the metrics. ``collective_calls`` counts them by
+  (the gathers over the data axes, reduce-scatters), the model axis'
+  collectives inside the model and the plain ``dist.all_reduce`` of the
+  norm and the metrics. ``collective_calls`` counts them by
   ``CommDebugMode`` (checked against the census's own count).
 
 ``memory.peak_bytes`` is ``torch.distributed._tools.mem_tracker.MemTracker``'s
@@ -81,16 +92,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs import ARCHS, SHAPES, ShapeConfig, get_config, grid
 from repro_torch.core.engine import ArcaneEngine
-from repro_torch.distributed.sharding import (P, batch_axes, batch_entry,
-                                              cache_pspecs, map_with_path,
-                                              param_pspecs, placements,
-                                              set_activation_mesh,
+from repro_torch.distributed.sharding import (P, batch_axes, cache_pspecs,
+                                              map_with_path, param_pspecs,
+                                              placements, set_activation_mesh,
                                               to_shardings, zero_pspecs)
 from repro_torch.launch.mesh import make_production_mesh
 from repro_torch.launch.specs import FSDP_ARCHS, input_specs, opt_config_for
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
-from repro_torch.train.step import (make_serve_steps, make_train_step,
-                                    split_batch)
+from repro_torch.train.step import make_train_step, serve_on_mesh, tp_view
 
 PyTree = Any
 
@@ -226,42 +235,6 @@ def _fake_dtensors(layout: PyTree, mesh) -> PyTree:
     return tree_map(make, layout)
 
 
-# ------------------------------------------------------- the serve step
-def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
-                  enc_len: int = 0):
-    """``make_serve_steps``' prefill or decode step on DTensor params and
-    cache, computed on local tensors as ``sharded_step`` computes a train
-    step: the params gathered whole, the cache's model-axis shards
-    gathered, this rank's rows of the batch and the cache (the axes that
-    shard the cache's rows), then this rank's shard of the new cache kept.
-    → (this rank's logits, the new cache as DTensors)."""
-    from torch.distributed.tensor import DTensor, Replicate
-    prefill_step, decode_step = make_serve_steps(model, enc_len=enc_len)
-    names = mesh.mesh_dim_names
-    b = next(iter(batch.values())).shape[0]
-    entry = batch_entry(b, mesh)
-    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
-
-    def rows_only(c):
-        return [Replicate() if a == "model" else p
-                for a, p in zip(names, c.placements)]
-
-    full = tree_map(lambda p: p.full_tensor(), params)
-    local = tree_map(lambda c: c.redistribute(mesh, rows_only(c)).to_local(),
-                     cache)
-    rows = split_batch(batch, mesh, tuple(axes))
-    with torch.no_grad():
-        if kind == "prefill":
-            logits, local = prefill_step(full, rows, local)
-        else:
-            logits, local = decode_step(full, rows["tokens"], rows["position"],
-                                        local)
-    new = tree_map(lambda c, l: DTensor.from_local(
-        l, mesh, rows_only(c), run_check=False).redistribute(mesh, c.placements),
-        cache, local)
-    return logits, new
-
-
 # ------------------------------------------------------------ one cell
 def trace_cell(arch: str, shape_name: Union[str, ShapeConfig], mesh, *,
                backend: str = "ref", constrain_acts: bool = False,
@@ -329,6 +302,8 @@ def trace_cell(arch: str, shape_name: Union[str, ShapeConfig], mesh, *,
                     serve_on_mesh(model, "prefill" if shape.kind == "prefill"
                                   else "decode", params, state, batch, mesh,
                                   enc_len=shape.seq_len if cfg.enc_dec else 0)
+            plan = tp_view(model, params, mesh,
+                           None if shape.kind == "train" else state)[0].tp
     finally:
         set_activation_mesh(None)
 
@@ -363,6 +338,7 @@ def trace_cell(arch: str, shape_name: Union[str, ShapeConfig], mesh, *,
             "peak_bytes": int(peak),
             "alias_bytes": None,
         },
+        "gathered_over_model": dict(plan.gathered),
         "model": {
             "params": cfg.param_count(),
             "active_params": cfg.active_param_count(),

@@ -28,8 +28,10 @@ A multi-process launch (one process a rank, ``torchrun``-style environment:
 the reference's (16, 16) (256 ranks). NCCL on the card, gloo with
 ``--device cpu``. The params are DTensors under ``param_pspecs``, the
 optimizer state under ``zero_pspecs``; the step (``train/step.py``'s
-``sharded_step``) splits the batch over the data axis and shards storage,
-not compute, over the model axis. Every rank reads the same global batch;
+``sharded_step``) splits the batch over the data axis and computes
+tensor-parallel over the model axis (each rank its heads, FFN columns,
+experts and vocab shard: ``distributed/tensor_parallel.py``). Every rank
+reads the same global batch;
 only rank 0 prints the step lines and writes checkpoints. On the CPU::
 
     RANK=0 WORLD_SIZE=4 MASTER_ADDR=localhost MASTER_PORT=29511 \

@@ -6,6 +6,14 @@ through the flash-attention kernel and decode through the cache-resident
 decode kernel. Unlike the reference's pure functions, prefill and decode
 write the new K/V rows into the cache tensors in place (they are views of
 the model's stacked cache) and return them.
+
+With an ``AttnTP`` (``tp``) of a head-parallel layer a rank computes its q
+heads and the kv heads they read: q, k, v are column-parallel, o is
+row-parallel (``distributed/tensor_parallel.py``). Its cache holds the
+rank's kv heads, or, sharded by sequence, the rank's slice of every kv
+head: a decode step then attends each slice and merges the ranks'
+partial softmaxes (``ref`` engine only: the decode kernel returns no
+log-sum-exp).
 """
 from __future__ import annotations
 
@@ -16,7 +24,9 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed.sharding import constrain
-from repro_torch.models.layers import apply_rope, dense, dense_init
+from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.models.layers import (apply_rope, dense, dense_col,
+                                       dense_init, dense_row)
 
 
 def attention_init(gen, cfg: ModelConfig, device) -> dict:
@@ -42,10 +52,59 @@ def _merge_heads(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b, s, h * d)
 
 
-def _qkv(engine, params, cfg, x, positions):
-    q = _split_heads(dense(engine, params["q"], x), cfg.n_heads)
-    k = _split_heads(dense(engine, params["k"], x), cfg.n_kv_heads)
-    v = _split_heads(dense(engine, params["v"], x), cfg.n_kv_heads)
+def _heads(tp) -> bool:
+    return tp is not None and tp.heads
+
+
+def _head_ranges(cfg, tp) -> tuple:
+    """(q0, nq, k0, nk): the q heads this rank computes and the kv heads
+    they read (all of them without a head-parallel ``tp``)."""
+    if not _heads(tp):
+        return 0, cfg.n_heads, 0, cfg.n_kv_heads
+    return tpm.head_ranges(cfg.n_heads, cfg.n_kv_heads, tp.mg.rank, tp.mg.size)
+
+
+def _proj(engine, params, x, tp):
+    """q, k or v: the rank's own columns (column-parallel) under a
+    head-parallel ``tp``, else whole."""
+    if not _heads(tp):
+        return dense(engine, params, x)
+    return dense_col(engine, params, x, tp.mg)
+
+
+def _out(engine, params, x, tp):
+    """o: row-parallel under a head-parallel ``tp``, else whole."""
+    if not _heads(tp):
+        return dense(engine, params, x)
+    return dense_row(engine, params, x, tp.mg)
+
+
+def _kv_params(params, cfg, tp, k0: int, nk: int) -> dict:
+    """The k or v weight (and bias) columns of kv heads [k0, k0 + nk): the
+    rank's own shard (``local``) or a slice of the shards gathered over
+    model (``gather``)."""
+    if tp.kv == "local":
+        return params
+    hd = cfg.resolved_head_dim
+    return {n: tpm.gather_columns(t, tp.mg)[..., k0 * hd:(k0 + nk) * hd].contiguous()
+            for n, t in params.items()}
+
+
+def _kv(engine, params, cfg, x, tp):
+    """The k and v of the kv heads this rank reads, (B, nk, S, hd) each."""
+    _, _, k0, nk = _head_ranges(cfg, tp)
+    if not _heads(tp):
+        return tuple(_split_heads(dense(engine, params[n], x), nk)
+                     for n in ("k", "v"))
+    return tuple(_split_heads(dense_col(engine, _kv_params(params[n], cfg, tp,
+                                                           k0, nk), x, tp.mg), nk)
+                 for n in ("k", "v"))
+
+
+def _qkv(engine, params, cfg, x, positions, tp=None):
+    _, nq, _, _ = _head_ranges(cfg, tp)
+    q = _split_heads(_proj(engine, params["q"], x, tp), nq)
+    k, v = _kv(engine, params, cfg, x, tp)
     q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     return q, k, v
@@ -55,34 +114,43 @@ def attention_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                       x: torch.Tensor, positions: torch.Tensor, *,
                       window: Optional[int] = None,
                       kv_override: Optional[tuple[torch.Tensor, torch.Tensor]] = None,
-                      causal: bool = True) -> torch.Tensor:
+                      causal: bool = True, tp=None) -> torch.Tensor:
     """Training/prefill forward. x: (B, S, d). kv_override: the (B, Hkv,
-    Skv, hd) K and V of a cross-attention (the encoder's, projected); then
-    only q is projected, and neither q nor k is rotated."""
+    Skv, hd) K and V of a cross-attention (the encoder's, projected; the
+    rank's kv heads under a head-parallel ``tp``); then only q is
+    projected, and neither q nor k is rotated."""
     if kv_override is None:
-        q, k, v = _qkv(engine, params, cfg, x, positions)
+        q, k, v = _qkv(engine, params, cfg, x, positions, tp)
     else:
-        q = _split_heads(dense(engine, params["q"], x), cfg.n_heads)
+        q = _split_heads(_proj(engine, params["q"], x, tp),
+                         _head_ranges(cfg, tp)[1])
         k, v = kv_override
     out = engine.attention(q, k, v, causal=causal, window=window,
                            softcap=cfg.attn_softcap)
-    return dense(engine, params["o"], _merge_heads(out))
+    return _out(engine, params["o"], _merge_heads(out), tp)
 
 
 def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                       x: torch.Tensor, positions: torch.Tensor,
                       cache_k: torch.Tensor, cache_v: torch.Tensor, *,
-                      window: Optional[int] = None, ring: bool = False):
+                      window: Optional[int] = None, ring: bool = False,
+                      tp=None):
     """Prefill: forward + write K/V into the cache at [0, S) in place.
 
     Ring mode (window-sized cache for local layers): only the last
-    ``window`` rows are kept, at slot ``pos % window``.
+    ``window`` rows are kept, at slot ``pos % window``. A cache sharded by
+    sequence (``tp.cache == "seq"``) takes the rank's slice of the rows.
     """
     s = x.shape[1]
-    q, k, v = _qkv(engine, params, cfg, x, positions)
+    q, k, v = _qkv(engine, params, cfg, x, positions, tp)
     out = engine.attention(q, k, v, causal=True, window=window,
                            softcap=cfg.attn_softcap)
-    if ring:
+    if tp is not None and tp.cache == "seq":
+        if ring:
+            raise ValueError(f"{cfg.name}: a ring cache sharded by sequence")
+        for c, t in ((cache_k, k), (cache_v, v)):
+            _write_seq_slice(cfg, tp, c, t)
+    elif ring:
         w = cache_k.shape[2]
         keep = min(w, s)
         slots = torch.arange(s - keep, s, device=x.device) % w
@@ -91,19 +159,47 @@ def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     else:
         cache_k[:, :, :s] = k.to(cache_k.dtype)
         cache_v[:, :, :s] = v.to(cache_v.dtype)
-    return dense(engine, params["o"], _merge_heads(out)), cache_k, cache_v
+    return _out(engine, params["o"], _merge_heads(out), tp), cache_k, cache_v
+
+
+def _write_seq_slice(cfg, tp, cache: torch.Tensor, t: torch.Tensor) -> None:
+    """Prompt rows of every kv head into the rank's sequence slice of the
+    cache (B, Hkv, S_l, hd), from ``t``: every kv head (a whole layer) or
+    the rank's heads (head-parallel), whose rank-own column block goes to
+    each rank's slice by an all-to-all (heads to sequence)."""
+    mg, (b, _, s, hd) = tp.mg, t.shape
+    s_l = cache.shape[2]
+    lo = min(mg.rank * s_l, s)
+    n = min(s, lo + s_l) - lo
+    if not tp.heads:
+        cache[:, :, :n] = t[:, :, lo:lo + n].to(cache.dtype)
+        return
+    _, _, k0, _ = _head_ranges(cfg, tp)
+    cols = cfg.n_kv_heads * hd // mg.size
+    c0 = mg.rank * cols - k0 * hd           # the rank's block in t's columns
+    own = _merge_heads(t)[..., c0:c0 + cols]                # (B, s, cols)
+    # the rank's columns of every rank's slice, padded to whole slices
+    own = torch.nn.functional.pad(own, (0, 0, 0, mg.size * s_l - s))
+    ins = own.reshape(b, mg.size, s_l, cols).transpose(0, 1).contiguous()
+    outs = tpm.all_to_all(ins, mg)              # (m, B, S_l, cols): by rank
+    rows = outs.permute(1, 2, 0, 3).reshape(b, s_l, cfg.n_kv_heads, hd)[:, :n]
+    cache[:, :, :n] = rows.transpose(1, 2).to(cache.dtype)
 
 
 def attention_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                      x: torch.Tensor, position: torch.Tensor,
                      cache_k: torch.Tensor, cache_v: torch.Tensor, *,
-                     window: Optional[int] = None, ring: bool = False):
+                     window: Optional[int] = None, ring: bool = False, tp=None):
     """One-token decode. x: (B, d); position: (B,) current index, on the
     device. The new K/V row is scattered into the cache (one row per
-    sequence, in place), then the decode kernel sweeps the cache."""
+    sequence, in place), then the decode kernel sweeps the cache. Over a
+    cache sharded by sequence (``tp.cache == "seq"``) see ``_decode_seq``."""
+    if tp is not None and tp.cache == "seq":
+        return _decode_seq(engine, params, cfg, x, position, cache_k, cache_v,
+                           window=window, ring=ring, tp=tp)
     b = x.shape[0]
     hd = cfg.resolved_head_dim
-    q, k, v = _qkv(engine, params, cfg, x[:, None, :], position[:, None])
+    q, k, v = _qkv(engine, params, cfg, x[:, None, :], position[:, None], tp)
     w = cache_k.shape[2]
     slot = position % w if ring else position
     rows = torch.arange(b, device=x.device)
@@ -114,5 +210,57 @@ def attention_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                                   lengths.to(torch.int32),
                                   softcap=cfg.attn_softcap,
                                   window=None if ring else window)  # (B,Hq,hd)
-    out = dense(engine, params["o"], out.reshape(b, cfg.n_heads * hd))
+    out = _out(engine, params["o"], out.reshape(b, q.shape[1] * hd), tp)
+    return out, cache_k, cache_v
+
+
+def _row_all_heads(engine, params, cfg, x, tp) -> torch.Tensor:
+    """The new row's k or v of every kv head, (B, 1, Hkv * hd): whole, or
+    the ranks' column blocks of it gathered (a row: no weight moves)."""
+    if not _heads(tp):
+        return dense(engine, params, x)
+    return tpm.gather_last(dense(engine, params, x), tp.mg)
+
+
+def _decode_seq(engine, params, cfg, x, position, cache_k, cache_v, *,
+                window, ring, tp):
+    """One-token decode over a cache sharded by sequence: each rank holds
+    the rows [r·S_l, (r+1)·S_l) of every kv head. The rank that holds the
+    position writes the new row; each rank attends every q head over its
+    rows (``partial_decode_attention``), the ranks merge (``merge_partials``)
+    and a head-parallel rank keeps its q heads for o."""
+    if engine.backend == "cuda" or (engine.backend == "auto" and cache_k.is_cuda):
+        raise ValueError(
+            f"{cfg.name}: decode over a cache sharded by sequence needs each "
+            f"rank's log-sum-exp to merge, which the decode kernel does not "
+            f"return; serve it on ArcaneEngine('ref') or shard the cache by heads")
+    if ring:
+        raise ValueError(f"{cfg.name}: a ring cache sharded by sequence")
+    b, hd, mg = x.shape[0], cfg.resolved_head_dim, tp.mg
+    q0, nq, _, _ = _head_ranges(cfg, tp)
+    x1, pos1 = x[:, None, :], position[:, None]
+    rope = dict(theta=cfg.rope_theta, fraction=cfg.rope_fraction)
+    q = _proj(engine, params["q"], x1, tp)
+    if _heads(tp):
+        q = tpm.gather_last(q, mg)
+    q = apply_rope(_split_heads(q, cfg.n_heads), pos1, **rope)[:, :, 0]
+    k = apply_rope(_split_heads(_row_all_heads(engine, params["k"], cfg, x1, tp),
+                                cfg.n_kv_heads), pos1, **rope)[:, :, 0]
+    v = _split_heads(_row_all_heads(engine, params["v"], cfg, x1, tp),
+                     cfg.n_kv_heads)[:, :, 0]
+    s_l = cache_k.shape[2]
+    start = mg.rank * s_l
+    slot = position - start
+    own = ((slot >= 0) & (slot < s_l))[:, None, None]
+    slot = slot.clamp(0, s_l - 1)
+    rows = torch.arange(b, device=x.device)
+    for c, new in ((cache_k, k), (cache_v, v)):
+        c[rows, :, slot] = torch.where(own, new.to(c.dtype), c[rows, :, slot])
+    hi = (position + 1 - start).clamp(0, s_l)
+    lo = ((position + 1 - window - start).clamp(0, s_l) if window is not None
+          else torch.zeros_like(hi))
+    out, lse = tpm.partial_decode_attention(q, cache_k, cache_v, lo, hi,
+                                            softcap=cfg.attn_softcap)
+    out = tpm.merge_partials(out, lse, mg).to(q.dtype)[:, q0:q0 + nq]
+    out = _out(engine, params["o"], out.reshape(b, nq * hd), tp)
     return out, cache_k, cache_v

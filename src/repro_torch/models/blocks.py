@@ -17,6 +17,11 @@ the entry: the serving engine prefills a slot through views of the batched
 cache. So the cross cache is a buffer of a fixed ``cross_len``, and a
 prefill whose encoder output has another length raises ``ValueError``
 (the reference rebinds ``xk`` and ``xv`` to an output of any length).
+
+Under tensor parallelism each entry point takes the pattern position's
+``BlockTP`` (``tp``): its attention and cross-attention head-parallel or
+whole, its dense FFN column/row-parallel, its MoE experts sharded; the
+norms and the MLA, Mamba and RWKV-6 mixers compute whole.
 """
 from __future__ import annotations
 
@@ -90,33 +95,40 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device, *,
     return p
 
 
-def _cross_kv(engine, params, cfg, enc_out):
+def _part(tp, name: str):
+    return None if tp is None else getattr(tp, name)
+
+
+def _cross_kv(engine, params, cfg, enc_out, tp=None):
     """The cross-attention's K and V: the encoder output projected, as
-    (B, Hkv, S_enc, hd) views of the projections."""
-    return tuple(attn._split_heads(dense(engine, params["cross"][n], enc_out),
-                                   cfg.n_kv_heads) for n in ("k", "v"))
+    (B, Hkv, S_enc, hd) views of the projections (the rank's kv heads
+    under a head-parallel cross-attention)."""
+    return attn._kv(engine, params["cross"], cfg, enc_out, _part(tp, "cross"))
 
 
-def _cross(engine, params, cfg, x, positions, kv):
+def _cross(engine, params, cfg, x, positions, kv, tp=None):
     """x plus the cross-attention of x over ``kv`` (non-causal)."""
     _, napply = make_norm(cfg.norm)
     hc = napply(params["cross_ln"], x)
     return x + attn.attention_forward(engine, params["cross"], cfg, hc,
-                                      positions, causal=False, kv_override=kv)
+                                      positions, causal=False, kv_override=kv,
+                                      tp=_part(tp, "cross"))
 
 
-def _ffn_apply(engine, params, cfg, spec, x):
+def _ffn_apply(engine, params, cfg, spec, x, tp=None):
     """The FFN of the block: (h, MoE aux loss; 0.0 for a dense FFN, a
     Python float, so that the decode step launches nothing for it)."""
     if spec.moe:
-        return moe(engine, params["ffn"], cfg, x)
-    return mlp(engine, params["ffn"], cfg, x), 0.0
+        return moe(engine, params["ffn"], cfg, x,
+                   mg=tp.mg if tp is not None and tp.experts else None)
+    return mlp(engine, params["ffn"], cfg, x,
+               mg=tp.mg if tp is not None and tp.ffn else None), 0.0
 
 
 def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                   spec: LayerSpec, x: torch.Tensor, positions: torch.Tensor, *,
                   causal: bool = True, enc_out: Optional[torch.Tensor] = None,
-                  ) -> tuple[torch.Tensor, torch.Tensor | float]:
+                  tp=None) -> tuple[torch.Tensor, torch.Tensor | float]:
     """Returns (x, moe_aux_loss): an f32 scalar tensor, or 0.0 for a dense
     FFN. ``causal=False``: bidirectional attention (the encoder's);
     ``enc_out``: the encoder output a decoder block's cross-attention
@@ -137,12 +149,13 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         return x + cm, 0.0
     else:
         h = attn.attention_forward(engine, params["attn"], cfg, h, positions,
-                                   window=_window(cfg, spec), causal=causal)
+                                   window=_window(cfg, spec), causal=causal,
+                                   tp=_part(tp, "attn"))
     x = x + h
     if enc_out is not None and "cross" in params:
         x = _cross(engine, params, cfg, x, positions,
-                   _cross_kv(engine, params, cfg, enc_out))
-    h, aux = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x))
+                   _cross_kv(engine, params, cfg, enc_out, tp), tp)
+    h, aux = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x), tp)
     return x + h, aux
 
 
@@ -183,7 +196,7 @@ def init_block_cache(cfg: ModelConfig, spec: LayerSpec, batch: int,
 
 
 def block_prefill(engine, params, cfg, spec, x, positions, cache, *,
-                  enc_out=None):
+                  enc_out=None, tp=None):
     """Prefill from position 0; returns (x, cache). With ``enc_out`` a
     decoder block also projects the encoder output once and copies it into
     its cross cache (``ValueError`` where the lengths differ)."""
@@ -215,23 +228,24 @@ def block_prefill(engine, params, cfg, spec, x, positions, cache, *,
     else:
         h, cache["k"], cache["v"] = attn.attention_prefill(
             engine, params["attn"], cfg, h, positions, cache["k"], cache["v"],
-            window=_window(cfg, spec), ring=_ring(cfg, spec, cache))
+            window=_window(cfg, spec), ring=_ring(cfg, spec, cache),
+            tp=_part(tp, "attn"))
     x = x + h
     if enc_out is not None and "cross" in params:
-        kx, vx = _cross_kv(engine, params, cfg, enc_out)
+        kx, vx = _cross_kv(engine, params, cfg, enc_out, tp)
         if cache["xk"].shape[2] != kx.shape[2]:
             raise ValueError(f"{cfg.name}: an encoder output of "
                              f"{kx.shape[2]} frames for a cross cache of "
                              f"{cache['xk'].shape[2]}")
         cache["xk"].copy_(kx)
         cache["xv"].copy_(vx)
-        x = _cross(engine, params, cfg, x, positions, (kx, vx))
-    h, _ = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x))
+        x = _cross(engine, params, cfg, x, positions, (kx, vx), tp)
+    h, _ = _ffn_apply(engine, params, cfg, spec, napply(params["ln2"], x), tp)
     return x + h, cache
 
 
 def block_decode(engine, params, cfg, spec, x, position, cache, *,
-                 enc_len: Optional[int] = None):
+                 enc_len: Optional[int] = None, tp=None):
     """One-token step. x: (B, d); returns (x, cache). A decoder block with
     a cross cache attends over its first ``enc_len`` rows in every
     sequence."""
@@ -260,27 +274,31 @@ def block_decode(engine, params, cfg, spec, x, position, cache, *,
     else:
         h, cache["k"], cache["v"] = attn.attention_decode(
             engine, params["attn"], cfg, h, position, cache["k"], cache["v"],
-            window=_window(cfg, spec), ring=_ring(cfg, spec, cache))
+            window=_window(cfg, spec), ring=_ring(cfg, spec, cache),
+            tp=_part(tp, "attn"))
     x = x + h
     if "cross" in params and "xk" in cache:
         x = x + _cross_decode(engine, params["cross"], cfg,
-                              napply(params["cross_ln"], x), cache, enc_len)
+                              napply(params["cross_ln"], x), cache, enc_len,
+                              _part(tp, "cross"))
     h, _ = _ffn_apply(engine, params, cfg, spec,
-                      napply(params["ln2"], x)[:, None, :])
+                      napply(params["ln2"], x)[:, None, :], tp)
     return x + h[:, 0], cache
 
 
-def _cross_decode(engine, params, cfg, h, cache, enc_len):
+def _cross_decode(engine, params, cfg, h, cache, enc_len, tp=None):
     """One query a sequence over the cross cache: q and o projections
-    around decode attention with every length ``enc_len``."""
+    around decode attention with every length ``enc_len`` (the rank's q
+    heads over its kv heads under a head-parallel ``tp``)."""
     b, s = h.shape[0], cache["xk"].shape[2]
     if enc_len is None or not 0 < enc_len <= s:
         raise ValueError(f"{cfg.name}: enc_len={enc_len} for a cross cache "
                          f"of {s} frames")
-    q = attn._split_heads(dense(engine, params["q"], h[:, None, :]),
-                          cfg.n_heads)[:, :, 0]                 # (B, Hq, hd)
+    nq = attn._head_ranges(cfg, tp)[1]
+    q = attn._split_heads(attn._proj(engine, params["q"], h[:, None, :], tp),
+                          nq)[:, :, 0]                          # (B, Hq, hd)
     lengths = torch.full((b,), enc_len, dtype=torch.int32, device=h.device)
     o = engine.decode_attention(q, cache["xk"], cache["xv"], lengths,
                                 softcap=cfg.attn_softcap)
-    return dense(engine, params["o"],
-                 o.reshape(b, cfg.n_heads * cfg.resolved_head_dim))
+    return attn._out(engine, params["o"],
+                     o.reshape(b, nq * cfg.resolved_head_dim), tp)

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed import tensor_parallel as tpm
 
 
 def truncated_normal_init(gen: torch.Generator, shape, dtype, scale: float,
@@ -69,14 +70,39 @@ def dense_init(gen, d_in: int, d_out: int, dtype, device, *,
     return p
 
 
-def dense(engine: ArcaneEngine, params: dict, x: torch.Tensor) -> torch.Tensor:
+def dense(engine: ArcaneEngine, params: dict, x: torch.Tensor,
+          out_dtype=None) -> torch.Tensor:
     """xmk0 dispatch: out = x @ W (+ b, fused as the beta*C epilogue; the
-    bias is a broadcast view, read by the kernel through a zero stride)."""
+    bias is a broadcast view, read by the kernel through a zero stride), in
+    ``out_dtype`` (default ``x``'s)."""
     b = params.get("b")
     if b is None:
-        return engine.gemm(x, params["w"])
+        return engine.gemm(x, params["w"], out_dtype=out_dtype)
     c = b.expand(*x.shape[:-1], b.shape[-1])
-    return engine.gemm(x, params["w"], c, alpha=1.0, beta=1.0)
+    return engine.gemm(x, params["w"], c, alpha=1.0, beta=1.0,
+                       out_dtype=out_dtype)
+
+
+def dense_col(engine: ArcaneEngine, params: dict, x: torch.Tensor,
+              mg: tpm.ModelGroup) -> torch.Tensor:
+    """A column-parallel product: this rank's columns of ``x @ W (+ b)``
+    from its column shard of ``W`` (and of ``b``), the input passed through
+    ``col_input`` (its gradient summed over the model ranks). The output
+    keeps ``x``'s dtype."""
+    return dense(engine, params, tpm.col_input(x, mg), x.dtype)
+
+
+def dense_row(engine: ArcaneEngine, params: dict, x: torch.Tensor,
+              mg: tpm.ModelGroup) -> torch.Tensor:
+    """A row-parallel product: this rank's rows of ``W`` against its
+    columns of ``x``, the ranks' partial products summed in f32
+    (``reduce_from_model``), then the bias, once, and one rounding to
+    ``x``'s dtype, as one device's product rounds its f32 sum."""
+    out = engine.gemm(x, params["w"], out_dtype=torch.float32)
+    out = tpm.reduce_from_model(out, mg)
+    if "b" in params:
+        out = out + params["b"].float()
+    return out.to(x.dtype)
 
 
 # ------------------------------------------------------------- embeddings
@@ -84,15 +110,26 @@ def embedding_init(gen, vocab: int, d: int, dtype, device) -> dict:
     return {"table": truncated_normal_init(gen, (vocab, d), dtype, 0.02, device)}
 
 
-def embed(params: dict, tokens: torch.Tensor, *, scale: bool = False) -> torch.Tensor:
-    out = params["table"][tokens]
+def embed(params: dict, tokens: torch.Tensor, *, scale: bool = False,
+          mg: Optional[tpm.ModelGroup] = None) -> torch.Tensor:
+    """Rows of the table; with ``mg``, of a table whose rows (the vocab)
+    are sharded over the model ranks (``vocab_embed``)."""
+    if mg is None:
+        out = params["table"][tokens]
+    else:
+        out = tpm.vocab_embed(params["table"], tokens, mg)
     if scale:
         out = out * math.sqrt(out.shape[-1])      # in the table's dtype
     return out
 
 
 def unembed(engine: ArcaneEngine, params: dict, x: torch.Tensor,
-            *, softcap: Optional[float] = None) -> torch.Tensor:
+            *, softcap: Optional[float] = None,
+            mg: Optional[tpm.ModelGroup] = None) -> torch.Tensor:
+    """f32 logits; with ``mg``, this rank's vocab shard of them (the
+    table's rows sharded over the model ranks; the softcap is elementwise)."""
+    if mg is not None:
+        x = tpm.col_input(x, mg)
     # table.T is a view: the kernel reads the table in place through strides
     logits = engine.gemm(x, params["table"].T, out_dtype=torch.float32)
     if softcap is not None:

@@ -13,16 +13,25 @@ through the engine: the router is a plain f32 matmul and the experts are
 grouped products ``(E, G*cap, d) @ (E, d, ff)`` (the reference's
 ``jnp.einsum``, outside any Pallas kernel), so the MoE FFN logs no xmnmc
 instruction and launches no port kernel.
+
+Under expert parallelism (``mg``: the experts' leaves sharded on E over the
+model ranks) the tokens and the router stay replicated: every rank
+dispatches as above, runs its E/m experts on their slots, and combines
+them; the ranks' partial combines are summed in f32 (only the order of the
+combine's sum changes). No all-to-all is needed while the tokens are
+replicated over the model ranks.
 """
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.sharding import batch_mean, constrain
 from repro_torch.models.layers import activation, dense_init, truncated_normal_init
 
@@ -83,14 +92,15 @@ def _group_dispatch(xt, expert_ids, gate_vals, e: int, cap: int):
     return dispatched[:, : e * cap], flat_idx, keep, slot_gate
 
 
-def _group_combine(y, flat_idx, keep, slot_gate, k: int):
-    """Inverse of _group_dispatch. y: (G, E·cap, d) → (G, S_g, d)."""
+def _group_combine(y, flat_idx, keep, slot_gate, k: int, sum_dtype=None):
+    """Inverse of _group_dispatch. y: (G, E·cap, d) → (G, S_g, d), the sum
+    over a token's k slots in ``sum_dtype`` (default y's)."""
     g, e_cap, d = y.shape
     rows = torch.arange(g, device=y.device)[:, None]
     gathered = y[rows, flat_idx.clamp(0, e_cap - 1)]
     gathered = torch.where(keep[..., None], gathered, torch.zeros_like(gathered))
     weighted = gathered * slot_gate[..., None].to(gathered.dtype)
-    return weighted.reshape(g, -1, k, d).sum(dim=2)
+    return weighted.reshape(g, -1, k, d).sum(dim=2, dtype=sum_dtype)
 
 
 def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -109,8 +119,10 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
 
 
 def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
-        x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (out, aux_loss)."""
+        x: torch.Tensor, mg: Optional[tpm.ModelGroup] = None
+        ) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) → (out, aux_loss); with ``mg``, the rank's experts
+    (module docstring)."""
     b, s, d = x.shape
     mcfg = cfg.moe
     e, k = mcfg.n_experts, mcfg.top_k
@@ -135,11 +147,16 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     g, s_g = dispatch_groups(t)
     cap = int(mcfg.capacity_factor * s_g * k / e) + 1
     dispatched, flat_idx, keep, slot_gate = _group_dispatch(
-        xt.reshape(g, s_g, d), expert_ids.reshape(g, s_g, k),
-        gate_vals.reshape(g, s_g, k), e, cap)
+        xt.reshape(g, s_g, d) if mg is None else tpm.copy_to_model(
+            xt.reshape(g, s_g, d), mg),
+        expert_ids.reshape(g, s_g, k), gate_vals.reshape(g, s_g, k), e, cap)
     # (G, E, cap, d) → (E, G·cap, d)
     xe = dispatched.reshape(g, e, cap, d).transpose(0, 1).reshape(e, g * cap, d)
     xe = constrain(xe, "model", "batch", None)
+    if mg is not None:                # the rank's experts [e0, e0 + e_l)
+        e_l = params["gate"].shape[0]
+        e0 = mg.rank * e_l
+        xe = xe[e0:e0 + e_l]
 
     # ---- grouped expert SwiGLU --------------------------------------------
     act = activation(cfg.act)
@@ -149,6 +166,13 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     y = constrain(y, "model", "batch", None)
 
     # ---- combine ------------------------------------------------------------
+    if mg is not None:                # the other ranks' experts' rows: zero
+        y = F.pad(y, (0, 0, 0, 0, e0, e - e0 - e_l))
     yg = y.reshape(e, g, cap, d).transpose(0, 1).reshape(g, e * cap, d)
-    out = _group_combine(yg, flat_idx, keep, slot_gate, k)     # (G, S_g, d)
+    if mg is None:
+        out = _group_combine(yg, flat_idx, keep, slot_gate, k)  # (G, S_g, d)
+    else:
+        out = tpm.reduce_from_model(_group_combine(
+            yg, flat_idx, keep, tpm.copy_to_model(slot_gate, mg), k,
+            torch.float32), mg)
     return out.reshape(b, s, d).to(x.dtype), aux.float()

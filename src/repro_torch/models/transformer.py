@@ -19,6 +19,13 @@ Training (``loss``) differentiates ``forward`` with autograd. With
 each encoder layer runs under ``torch.utils.checkpoint``: autograd keeps
 only the period's input and runs the period again in the backward pass, the
 reference's ``jax.checkpoint`` around its scan body.
+
+``LM.tensor_parallel(plan)`` is the model computing on a rank's ``model``
+shards (``distributed/tensor_parallel.py: plan``): each block runs its
+pattern position's ``BlockTP``; a vocab-parallel table embeds by the rows
+the rank holds and unembeds to its vocab shard of the logits, which
+``loss`` reduces over the ranks (``vocab_logsumexp``, ``vocab_gold``) and
+``forward``, ``prefill`` and ``decode_step`` gather whole.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import ArcaneEngine, default_engine
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (embed, embedding_init, make_norm,
                                        sinusoidal_at, sinusoidal_positions,
@@ -84,8 +92,24 @@ class LM:
         self.engine = engine or default_engine()
         self.device = resolve_device(device)
         self.remat = remat
+        self.tp: Optional[tpm.ModelTP] = None
         for spec in cfg.pattern:
             blk._check_kind(cfg, spec)
+
+    def tensor_parallel(self, plan: Optional[tpm.ModelTP]) -> "LM":
+        """This model computing on a rank's ``model`` shards under ``plan``
+        (None: whole, on one device)."""
+        out = copy.copy(self)
+        out.tp = plan
+        return out
+
+    def _block_tp(self, j: int):
+        return None if self.tp is None else self.tp.blocks[j]
+
+    def _vocab_mg(self, which: str):
+        """The model group where the ``which`` table is vocab-parallel."""
+        return self.tp.mg if self.tp is not None and getattr(self.tp, which) \
+            else None
 
     # ------------------------------------------------------------- params
     def init_params(self, gen: torch.Generator) -> PyTree:
@@ -126,7 +150,13 @@ class LM:
         _, napply = make_norm(self.cfg.norm)
         x = napply(params["final_norm"], x)
         table = params["unembed" if "unembed" in params else "embed"]
-        return unembed(self.engine, table, x, softcap=self.cfg.final_softcap)
+        return unembed(self.engine, table, x, softcap=self.cfg.final_softcap,
+                       mg=self._vocab_mg("unembed"))
+
+    def _whole_logits(self, logits):
+        """The vocab shards of serving's logits joined (no gradient)."""
+        mg = self._vocab_mg("unembed")
+        return logits if mg is None else tpm.gather_last(logits, mg)
 
     # ------------------------------------------------------------ forward
     def _remats(self, params) -> bool:
@@ -148,7 +178,8 @@ class LM:
         plus the decoder's sinusoidal positions for an encoder-decoder, in
         the table's dtype (as the reference adds them), then cast."""
         cfg = self.cfg
-        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale)
+        x = embed(params["embed"], batch["tokens"], scale=cfg.embed_scale,
+                  mg=self._vocab_mg("embed"))
         if cfg.vision_prefix:
             x = torch.cat([batch["vision_embeds"].to(x.dtype), x], dim=1)
         if cfg.enc_dec:
@@ -167,10 +198,12 @@ class LM:
         x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(x.dtype)[None]
         positions = torch.arange(s, device=x.device)
         stack = params["enc_blocks"][0]
+        tp = None if self.tp is None else self.tp.enc
 
         def layer_fn(h, i):
             return blk.block_forward(self.engine, _index(stack, i), cfg,
-                                     ENC_SPEC, h, positions, causal=False)[0]
+                                     ENC_SPEC, h, positions, causal=False,
+                                     tp=tp)[0]
 
         for i in range(cfg.n_enc_layers):
             x = self._period(remat, layer_fn, x, i)
@@ -179,7 +212,14 @@ class LM:
 
     def forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
         """→ (logits (B, S, V) f32 of the text positions, MoE aux loss
-        summed over layers)."""
+        summed over layers). Under tensor parallelism the logits are the
+        ranks' vocab shards gathered, with no gradient through the gather
+        (``loss`` takes the shards)."""
+        logits, aux = self._forward(params, batch)
+        return self._whole_logits(logits), aux
+
+    def _forward(self, params, batch) -> tuple[torch.Tensor, torch.Tensor]:
+        """``forward`` with the rank's vocab shard of the logits."""
         cfg = self.cfg
         x = self._embed_inputs(params, batch)
         positions = torch.arange(x.shape[1], device=x.device)
@@ -190,7 +230,8 @@ class LM:
             for j, spec in enumerate(cfg.pattern):
                 h, a = blk.block_forward(self.engine,
                                          _index(params["blocks"][j], i), cfg,
-                                         spec, h, positions, enc_out=enc_out)
+                                         spec, h, positions, enc_out=enc_out,
+                                         tp=self._block_tp(j))
                 aux = aux + a
             return h, aux
 
@@ -206,15 +247,20 @@ class LM:
         """Next-token cross-entropy over the (optionally ``loss_mask``ed)
         text positions plus the summed MoE aux loss → (total, {"ce", "aux",
         "tokens"}), f32 scalars."""
-        logits, aux = self.forward(params, batch)
+        logits, aux = self._forward(params, batch)
         targets = batch["tokens"][:, 1:].long()
         lg = logits[:, :-1]
         mask = batch.get("loss_mask")
         mask = (mask[:, 1:].to(torch.float32) if mask is not None
                 else torch.ones(targets.shape, dtype=torch.float32,
                                 device=lg.device))
-        logz = torch.logsumexp(lg, dim=-1)
-        gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+        mg = self._vocab_mg("unembed")
+        if mg is None:
+            logz = torch.logsumexp(lg, dim=-1)
+            gold = torch.gather(lg, -1, targets[..., None])[..., 0]
+        else:
+            logz = tpm.vocab_logsumexp(lg, mg)
+            gold = tpm.vocab_gold(lg, targets, mg)
         nll = (logz - gold) * mask
         denom = torch.clamp(mask.sum(), min=1.0)
         ce = nll.sum() / denom
@@ -256,8 +302,9 @@ class LM:
                 x, _ = blk.block_prefill(self.engine,
                                          _index(params["blocks"][j], i), cfg,
                                          spec, x, positions,
-                                         _index(cache[j], i), enc_out=enc_out)
-        return self._unembed(params, x[:, -1:])[:, 0], cache
+                                         _index(cache[j], i), enc_out=enc_out,
+                                         tp=self._block_tp(j))
+        return self._whole_logits(self._unembed(params, x[:, -1:])[:, 0]), cache
 
     def decode_step(self, params, tokens: torch.Tensor,
                     position: torch.Tensor, cache: tuple, *,
@@ -267,7 +314,8 @@ class LM:
         ``enc_len``: the encoder frames each sequence's cross-attention
         reads (an encoder-decoder's)."""
         cfg = self.cfg
-        x = embed(params["embed"], tokens, scale=cfg.embed_scale)
+        x = embed(params["embed"], tokens, scale=cfg.embed_scale,
+                  mg=self._vocab_mg("embed"))
         if cfg.enc_dec:
             x = x + sinusoidal_at(position, cfg.d_model).to(x.dtype)
         x = x.to(cfg.cdtype)
@@ -276,5 +324,6 @@ class LM:
                 x, _ = blk.block_decode(self.engine,
                                         _index(params["blocks"][j], i), cfg,
                                         spec, x, position, _index(cache[j], i),
-                                        enc_len=enc_len or None)
-        return self._unembed(params, x), cache
+                                        enc_len=enc_len or None,
+                                        tp=self._block_tp(j))
+        return self._whole_logits(self._unembed(params, x)), cache

@@ -3,7 +3,8 @@
 ``make_train_step`` builds the update: the loss and its gradients by
 autograd (remat is inside the model's period loop), optional microbatch
 gradient accumulation into f32 accumulators, then the AdamW update.
-``make_serve_steps`` builds the prefill and single-token decode steps.
+``make_serve_steps`` builds the prefill and single-token decode steps;
+``serve_on_mesh`` runs one of them on DTensor params and cache.
 
 The step runs the model on ``ArcaneEngine("ref")`` only: the reference's
 Pallas kernels define no backward and the port's CUDA kernels have none
@@ -21,8 +22,10 @@ from typing import Any
 import torch
 import torch.distributed as dist
 
+from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.sharding import (axis_size, batch_entry,
-                                              batch_split, mesh_sizes)
+                                              batch_split, map_with_path,
+                                              mesh_sizes)
 from repro_torch.models.moe import dispatch_groups
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
@@ -165,24 +168,40 @@ def _group(mesh, axes: tuple):
     return mesh[axes]._flatten().get_group()
 
 
+def tp_view(model: LM, params, mesh, cache=None) -> tuple:
+    """(the model computing on this rank's ``model`` shards, each param
+    leaf's compute placements): the plan (``tensor_parallel.plan``) reads
+    the params' layout and, while serving, the cache's."""
+    plan = tpm.plan(model.cfg, tpm.model_dims(params, mesh),
+                    tpm.ModelGroup.of(mesh),
+                    None if cache is None else tpm.model_dims(cache, mesh))
+    return (model.tensor_parallel(plan),
+            tpm.compute_placements(params, mesh, plan.gathered))
+
+
 def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
                  microbatches: int = 1, grad_shardings=None):
     """The step on DTensor params and optimizer state, computed on local
-    tensors (the model stack runs as on one device):
+    tensors, tensor-parallel over the mesh's ``model`` axis:
 
-      1. the params are gathered whole (``full_tensor``, an all-gather);
-      2. the batch is split over the axes of ``data_split`` (or every rank
-         computes all of it: ``data_split`` False in the metrics);
-      3. the grads are reduced over those axes to the optimizer's
-         placements (a reduce-scatter where the optimizer leaf is sharded
-         over them, an all-reduce elsewhere) and divided by their size;
+      1. the params are gathered over the data axes (an all-gather where
+         ZeRO-3 shards them there) and keep their ``model`` shards, but for
+         the leaves the plan computes whole (``tp_view``), gathered over
+         ``model`` too;
+      2. the model runs on the rank's shards (``LM.tensor_parallel``: its
+         products' shares, the collectives over ``model`` inside) on the
+         batch split over the axes of ``data_split`` (or all of it:
+         ``data_split`` False in the metrics);
+      3. the grads, model-local as the params were, are reduced over the
+         split axes to the optimizer's placements (a reduce-scatter where
+         the optimizer leaf is sharded over them, an all-reduce elsewhere)
+         and divided by their size; a leaf computed whole takes its
+         ``model`` shard of its grad;
       4. ``adamw_update`` runs on each rank's shards with the global norm
-         (the shards' squared sums all-reduced, a replicated shard counted
-         once); the updated shards, gathered to the params' placements,
-         become the new params.
-
-    The ``model`` axis shards storage, not compute: every rank runs the
-    whole model on its part of the batch."""
+         (the shards' squared sums all-reduced, a shard replicated over
+         any mesh axis, ``model`` included, counted once); the updated
+         shards, gathered to the params' placements, become the new
+         params."""
     from torch.distributed.tensor import DTensor, Partial, Replicate
     mesh = tree_leaves(params)[0].device_mesh
     names = mesh.mesh_dim_names
@@ -190,29 +209,31 @@ def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
     group = _group(mesh, axes)
     n = axis_size(mesh, axes)
 
-    full = tree_map(lambda p: p.full_tensor(), params)
+    tp_model, compute = tp_view(model, params, mesh)
+    local = tree_map(lambda p, pl: p.redistribute(mesh, pl).to_local(),
+                     params, compute)
     with batch_split(group):
-        loss, metrics, grads = step_grads(model, full,
+        loss, metrics, grads = step_grads(tp_model, local,
                                           split_batch(batch, mesh, axes,
                                                       microbatches),
                                           microbatches)
-    del full
+    del local
     master = opt_state["master"]
-    partial = [Partial() if a in axes else Replicate() for a in names]
     if grad_shardings is None:
         grad_shardings = tree_map(lambda m: m.placements, master)
     else:
         grad_shardings = tree_map(lambda sh: sh.placements, grad_shardings)
 
-    def reduce(g, target, m):
-        d = DTensor.from_local(g, mesh, partial, run_check=False)
+    def reduce(g, pl, target, m):
+        src = [Partial() if a in axes else p for a, p in zip(names, pl)]
+        d = DTensor.from_local(g, mesh, src, run_check=False)
         d = d.redistribute(mesh, target)
         if tuple(target) != tuple(m.placements):
             d = d.redistribute(mesh, m.placements)
         local = d.to_local()
         return local / n if n > 1 else local
 
-    local_grads = tree_map(reduce, grads, grad_shardings, master)
+    local_grads = tree_map(reduce, grads, compute, grad_shardings, master)
     del grads
 
     def sq(g, m):
@@ -265,6 +286,65 @@ def make_serve_steps(model: LM, *, enc_len: int = 0):
                                  enc_len=enc_len)
 
     return prefill_step, decode_step
+
+
+def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
+                  enc_len: int = 0):
+    """``make_serve_steps``' prefill or decode step on DTensor params and
+    cache, tensor-parallel over ``model`` as ``sharded_step`` runs a train
+    step: the params gathered over the data axes with their ``model``
+    shards kept (``tp_view``, which reads the cache's layout too); this
+    rank's rows of the batch and the cache (the axes that shard the cache's
+    rows); the cache's ``model`` shards kept where the layer computes on
+    them (``tensor_parallel.cache_kept``: heads of a head-parallel layer,
+    a sequence slice of every kv head) and gathered elsewhere, a rank then
+    keeping its shard of the result. ``batch`` holds ``tokens`` and, for a
+    decode step, ``position``. → (the logits, whole over the vocab; the new
+    cache as DTensors). Where the engine launches the kernels (``cuda``, or
+    ``auto`` on a mesh on the card) a cache sharded by sequence raises
+    ``ValueError``: the decode kernel returns no log-sum-exp to merge the
+    ranks' slices."""
+    from torch.distributed.tensor import DTensor, Replicate
+    names = mesh.mesh_dim_names
+    b = next(iter(batch.values())).shape[0]
+    entry = batch_entry(b, mesh)
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+
+    tp_model, compute = tp_view(model, params, mesh, cache)
+    prefill_step, decode_step = make_serve_steps(tp_model, enc_len=enc_len)
+    plan = tp_model.tp
+    backend = model.engine.backend
+    kernels = backend == "cuda" or (backend == "auto" and mesh.device_type == "cuda")
+    if kernels and any(
+            blk.attn is not None and blk.attn.cache == "seq" for blk in plan.blocks):
+        raise ValueError(
+            f"{model.cfg.name}: the cache is sharded by sequence over model, "
+            f"and the {model.engine.backend!r} engine's decode kernel returns "
+            f"no log-sum-exp to merge the ranks' slices; serve it on "
+            f"ArcaneEngine('ref')")
+
+    def kept(path, c):
+        if tpm.cache_kept(plan, path):
+            return tuple(c.placements)
+        return tuple(Replicate() if a == "model" else p
+                     for a, p in zip(names, c.placements))
+
+    cache_pl = map_with_path(kept, cache)
+    local_p = tree_map(lambda p, pl: p.redistribute(mesh, pl).to_local(),
+                       params, compute)
+    local_c = tree_map(lambda c, pl: c.redistribute(mesh, pl).to_local(),
+                       cache, cache_pl)
+    rows = split_batch(batch, mesh, tuple(axes))
+    with torch.no_grad():
+        if kind == "prefill":
+            logits, local_c = prefill_step(local_p, rows, local_c)
+        else:
+            logits, local_c = decode_step(local_p, rows["tokens"],
+                                          rows["position"], local_c)
+    new = tree_map(lambda c, l, pl: DTensor.from_local(
+        l, mesh, pl, run_check=False).redistribute(mesh, c.placements),
+        cache, local_c, cache_pl)
+    return logits, new
 
 
 def init_train_state(model: LM, opt_cfg: AdamWConfig,

@@ -609,23 +609,27 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-# granite as ``--smoke`` gives it (bf16; MoE with one dispatch group, so
-# every rank computes the whole batch, as one process does); qwen in f32,
-# its batch split over data (in bf16 each rank's grads of half the tokens
-# round apart from one process's: the loss 2.9e-4 off at step 3, and
-# Adam's first steps move a param whose grad changes sign 2·lr apart)
-LAUNCH_CASES = [("granite-moe-1b-a400m", {}), ("qwen2.5-32b", F32)]
+# granite (MoE with one dispatch group, so every rank computes the whole
+# batch) and qwen (its batch split over data too), both in f32: on the
+# (2, 2) mesh the step is tensor-parallel over model, and a
+# tensor-parallel product sums the ranks' f32 partials in another order
+# than one device. bf16 carries that rounding: with granite as
+# ``--smoke`` gives it (bf16), one element of the unembedding's input grad
+# one ulp off at step 2 put the loss 4.8e-4 off at step 3, as each rank's
+# grads of half the tokens in a data split put qwen's 2.9e-4 off (Adam's
+# first steps move a param whose grad changes sign 2·lr apart)
+LAUNCH_CASES = [("granite-moe-1b-a400m", F32), ("qwen2.5-32b", F32)]
 
 
 @pytest.mark.parametrize("arch,dtypes", LAUNCH_CASES, ids=["granite", "qwen-f32"])
 def test_launcher_on_four_ranks_matches_one_process(tmp_path, arch, dtypes):
     """``launch/train.py``'s loop with ``--model-axis 2 --device cpu`` on 4
-    ranks (a 2 x 2 mesh; ``RANK``, ``WORLD_SIZE``, ``MASTER_ADDR`` and
-    ``MASTER_PORT`` in the environment, gloo): 4 steps of 4 x 32 in 2
-    microbatches give the single-process run's loss history within 1e-4
-    on every rank, and the checkpoints rank 0 writes at steps 2 and 4
-    hold the single-process run's params within the limits of the 2 x 4
-    test."""
+    ranks (a 2 x 2 mesh, tensor-parallel over model; ``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR`` and ``MASTER_PORT`` in the
+    environment, gloo): 4 steps of 4 x 32 in 2 microbatches give the
+    single-process run's loss history within 1e-4 on every rank, and the
+    checkpoints rank 0 writes at steps 2 and 4 hold the single-process
+    run's params within the limits of the 2 x 4 test."""
     from repro_torch.checkpoint.manager import CheckpointManager
     from repro_torch.launch import train as launcher
     argv = ["--arch", arch, "--smoke", "--device", "cpu", "--batch", "4",

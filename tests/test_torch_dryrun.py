@@ -139,46 +139,56 @@ def trace_smoke(arch, shape, world=8, model_axis=4, **ov):
                                  cfg_overrides={**smoke_overrides(arch), **ov})
 
 
-def real_flops(arch, shape, rows: int) -> float:
+def real_flops(arch, shape) -> float:
     """FLOPs of rank 0's share of the cell's step on real CPU tensors: the
-    whole model on its ``rows`` rows (the first ones: data coordinate 0)."""
+    same step (``make_train_step`` or ``serve_on_mesh``) on real DTensors
+    of the smoke config's weights in the fake world of 8 (the 2 x 4 mesh),
+    outside FakeTensorMode. The fake group moves no data, so the values are
+    meaningless, but every product has the rank's shapes: its rows of the
+    batch (4 of 8 over a data axis of 2; granite's MoE groups do not split,
+    so every rank takes all 8) and its share of the tensor-parallel
+    products."""
+    from repro_torch.distributed.sharding import (cache_pspecs, distribute,
+                                                  to_shardings)
+    from repro_torch.train.step import serve_on_mesh
     cfg = get_smoke_config(arch)
     model = LM(cfg, ArcaneEngine("ref"), device="cpu")
     params = model.init_params(torch.Generator().manual_seed(0))
     gen = torch.Generator().manual_seed(1)
-    if shape.kind == "decode":
-        cache = model.init_cache(rows, shape.seq_len)
-        batch = (torch.randint(0, cfg.vocab, (rows,), generator=gen),
-                 torch.full((rows,), 3))
-    else:
-        batch = {"tokens": torch.randint(0, cfg.vocab, (rows, shape.seq_len),
-                                         generator=gen)}
-    with FlopCounterMode(display=False) as fc:
-        if shape.kind == "train":
-            step = make_train_step(model, specs.opt_config_for(arch))
-            step(params, adamw_init(specs.opt_config_for(arch), params), batch)
-        else:
-            prefill, decode = make_serve_steps(model)
-            with torch.no_grad():
-                if shape.kind == "prefill":
-                    prefill(params, batch, model.init_cache(rows, shape.seq_len))
-                else:
-                    decode(params, *batch, cache)
+    b = shape.global_batch
+    with dryrun.fake_world(8):
+        mesh = make_host_mesh(model_axis=4)
+        p = distribute(params, to_shardings(param_pspecs(
+            params, mesh, fsdp=arch in specs.FSDP_ARCHS), mesh))
+        with FlopCounterMode(display=False) as fc:
+            if shape.kind == "train":
+                opt = adamw_init(specs.opt_config_for(arch), params)
+                o = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
+                step = make_train_step(model, specs.opt_config_for(arch))
+                step(p, o, {"tokens": torch.randint(0, cfg.vocab, (b, shape.seq_len),
+                                                    generator=gen)})
+            else:
+                cache = model.init_cache(b, shape.seq_len)
+                c = distribute(cache, to_shardings(cache_pspecs(cache, mesh), mesh))
+                batch = ({"tokens": torch.randint(0, cfg.vocab, (b,), generator=gen),
+                          "position": torch.full((b,), 3)} if shape.kind == "decode"
+                         else {"tokens": torch.randint(0, cfg.vocab, (b, shape.seq_len),
+                                                       generator=gen)})
+                serve_on_mesh(model, shape.kind, p, c, batch, mesh)
     return float(fc.get_total_flops())
 
 
-@pytest.mark.parametrize("arch,shape,rows", [
-    ("gemma2-9b", TRAIN, 4), ("gemma2-9b", PREFILL, 4), ("gemma2-9b", DECODE, 4),
-    ("granite-moe-1b-a400m", TRAIN, 8), ("rwkv6-1.6b", PREFILL, 4)],
+@pytest.mark.parametrize("arch,shape", [
+    ("gemma2-9b", TRAIN), ("gemma2-9b", PREFILL), ("gemma2-9b", DECODE),
+    ("granite-moe-1b-a400m", TRAIN), ("rwkv6-1.6b", PREFILL)],
     ids=["gemma2-train", "gemma2-prefill", "gemma2-decode", "granite-train",
          "rwkv6-prefill"])
-def test_trace_flops_equal_a_real_cpu_run(arch, shape, rows):
+def test_trace_flops_equal_a_real_cpu_run(arch, shape):
     """The fake trace's per-rank FLOPs are those of a real run of the rank's
-    share: its rows of the batch (4 of 8 over a data axis of 2; granite's
-    MoE groups do not split, so every rank takes all 8), the whole model."""
+    share (``real_flops``)."""
     rec = trace_smoke(arch, shape)
     assert rec["flops"] > 0
-    assert rec["flops"] == real_flops(arch, shape, rows)
+    assert rec["flops"] == real_flops(arch, shape)
     assert rec["mesh"] == "2x4" and rec["n_devices"] == 8
     assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"] > 0
     assert rec["bytes_accessed_kind"].startswith("unfused")
@@ -193,8 +203,10 @@ def test_trace_flops_equal_a_real_cpu_run(arch, shape, rows):
 def test_trace_is_linear_in_depth(arch, shape):
     """X(L) = X(1) + (L - 1)(X(2) - X(1)) at L = 3 for the FLOPs and each
     collective's bytes: the property the reference's ``extrapolate``
-    assumes, met here by counting every layer. The calls stay the same: one
-    collective a stacked leaf, whatever its depth. (The unfused bytes are
+    assumes, met here by counting every layer. The calls are linear too:
+    one DTensor collective a stacked leaf, whatever its depth, the model
+    axis' collectives a layer each, and those of the embedding, the
+    unembedding and the loss once. (The unfused bytes are
     not linear: a train step's backward of each period's slice of a stacked
     leaf writes a zero stack of every period, and a stack of one period
     needs no copy to gather.)"""
@@ -203,23 +215,42 @@ def test_trace_is_linear_in_depth(arch, shape):
 
     def lin(get):
         x1, x2, x3 = (get(r) for r in recs)
-        return x3 == x1 + 2 * (x2 - x1) and x2 > x1
+        return x3 == x1 + 2 * (x2 - x1) and x2 >= x1
 
-    assert lin(lambda r: r["flops"])
+    assert lin(lambda r: r["flops"]) and recs[1]["flops"] > recs[0]["flops"]
     assert recs[0]["collective_bytes"]
     for op in recs[0]["collective_bytes"]:
         assert lin(lambda r: r["collective_bytes"][op]), op
-        assert len({r["collective_calls"][op] for r in recs}) == 1, op
+        assert lin(lambda r: r["collective_calls"][op]), op
+    assert sum(recs[1]["collective_bytes"].values()) > \
+        sum(recs[0]["collective_bytes"].values())
 
 
-def expected_census(arch: str, mesh_sizes: dict, data_split: bool) -> dict:
-    """The train step's collectives from the specs: each sharded param leaf
-    gathered whole (mesh dims innermost first, each gather's output
-    counted), each grad reduced over the data axis (a reduce-scatter where
-    the ZeRO leaf is sharded there, else an all-reduce), the updated ZeRO
-    shards gathered back to the params' layout, and the 4-byte all-reduces
-    of the norm and, where the batch is split, of the four metrics."""
-    model = LM(get_smoke_config(arch), device="cpu")
+def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
+                    rows: int, seq: int = 32) -> dict:
+    """The tensor-parallel train step's collectives from the specs and the
+    model's shapes (each collective counted by the tensor it returns):
+
+    * each param leaf sharded over data by the params' specs (ZeRO-3)
+      gathered over data, its ``model`` shard kept; each grad, model-local,
+      reduced over the data axis where the batch is split (a reduce-scatter
+      where the ZeRO leaf is sharded there, else an all-reduce); the
+      updated ZeRO shards gathered back to the params' layout; the 4-byte
+      all-reduces of the norm and, where the batch is split, of the four
+      metrics;
+    * in the model, over ``model``, on the rank's ``rows`` x ``seq``
+      tokens: the vocab-parallel embedding's sum (forward) and the
+      unembedding's input-grad sum (backward, f32), the loss's max and two
+      sums; a layer's k and v weight columns gathered (kv heads split
+      between ranks; forward) and reduce-scattered (backward), o's partial
+      products summed (f32), the q, k, v inputs' grads summed (f32); a
+      dense FFN's down summed and its gate and up inputs' grads summed; an
+      MoE layer's partial combine summed (f32) and its tokens' and gates'
+      grads summed. Remat runs each period's forward again in the
+      backward, but for its last collective: the checkpoint stops once the
+      tensors the backward needs are rebuilt."""
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, device="cpu")
     params = model.param_shapes()
     names, sizes = list(mesh_sizes), list(mesh_sizes.values())
     fsdp = arch in specs.FSDP_ARCHS
@@ -232,22 +263,19 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool) -> dict:
         return out
 
     t_, p_, z_ = flat(params), flat(psp), flat(zsp)
+    d, m = names.index("data"), mesh_sizes["model"]
     for path in t_:
         t, ps, zs = t_[path], p_[path], z_[path]
         full = t.numel() * t.element_size()
         sharded = lambda spec, i: any(   # noqa: E731
             e is not None and names[i] in ((e,) if isinstance(e, str) else e)
             for e in spec)
-        local = full // math.prod(sizes[i] for i in range(len(sizes))
-                                  if sharded(ps, i))
-        for i in reversed(range(len(sizes))):          # full_tensor
-            if sharded(ps, i):
-                local *= sizes[i]
-                out["all-gather"] += local
+        model_local = full // (m if sharded(ps, names.index("model")) else 1)
+        if sharded(ps, d):                             # gathered over data
+            out["all-gather"] += model_local
         if data_split:
-            d = names.index("data")
             out["reduce-scatter" if sharded(zs, d) else "all-reduce"] += \
-                full // sizes[d] if sharded(zs, d) else full
+                model_local // sizes[d] if sharded(zs, d) else model_local
         local = full // math.prod(sizes[i] for i in range(len(sizes))
                                   if sharded(zs, i))
         for i in reversed(range(len(sizes))):          # back to the params
@@ -255,6 +283,26 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool) -> dict:
                 local *= sizes[i]
                 out["all-gather"] += local
     out["all-reduce"] += 4 * (5 if data_split else 1)
+
+    it = torch.empty((), dtype=cfg.cdtype).element_size()
+    tok, dm = rows * seq, cfg.d_model
+    act, act32 = tok * dm * it, tok * dm * 4
+    nk = cfg.n_kv_heads * cfg.resolved_head_dim
+    gather_kv = cfg.n_kv_heads % m != 0
+    out["all-reduce"] += act + act32 + 3 * rows * (seq - 1) * 4
+    for _ in range(cfg.n_periods):
+        fwd = []
+        for spec in cfg.pattern:
+            if gather_kv:
+                fwd += [("all-gather", dm * nk * it)] * 2
+                out["reduce-scatter"] += 2 * dm * nk // m * it
+            fwd += [("all-reduce", act32)]               # o
+            out["all-reduce"] += 3 * act32               # q, k, v inputs
+            fwd += [("all-reduce", act32)]               # down / combine
+            out["all-reduce"] += (act + tok * cfg.moe.top_k * 4 if spec.moe
+                                  else 2 * act32)
+        for op, n in fwd + fwd[:-1]:
+            out[op] += n
     return {k: v for k, v in out.items() if v}
 
 
@@ -264,8 +312,24 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool) -> dict:
 def test_census_equals_the_specs(arch, split):
     rec = trace_smoke(arch, TRAIN)
     assert rec["collective_bytes"] == expected_census(
-        arch, {"data": 2, "model": 4}, split)
+        arch, {"data": 2, "model": 4}, split, rows=4 if split else 8)
     assert set(rec["collective_calls"]) == set(rec["collective_bytes"])
+    assert rec["gathered_over_model"] == {}
+
+
+@pytest.mark.parametrize("shape", [TRAIN, PREFILL, DECODE],
+                         ids=["train", "prefill", "decode"])
+def test_tp_cell_flops_and_peak_fall_by_the_model_axis(shape):
+    """stablelm smoke (4 q and 4 kv heads, a d_ff of 128 and an untied
+    vocab of 256: on 4 ranks every product is head-, column-, row- or
+    vocab-parallel) traced on a (2, 1) and a (2, 4) mesh: the rank's FLOPs
+    fall by exactly the model axis, its peak falls, and nothing is
+    gathered over ``model``."""
+    one = trace_smoke("stablelm-3b", shape, world=2, model_axis=1)
+    tp = trace_smoke("stablelm-3b", shape, world=8, model_axis=4)
+    assert tp["flops"] * 4 == one["flops"] > 0
+    assert tp["memory"]["peak_bytes"] < one["memory"]["peak_bytes"]
+    assert tp["gathered_over_model"] == {}
 
 
 @pytest.mark.parametrize("multi", [False, True], ids=["256", "512"])

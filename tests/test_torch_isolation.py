@@ -118,3 +118,41 @@ def test_shape_grid_equals_reference():
         for name in SHAPES:
             assert shape_applicable(get_config(arch), SHAPES[name]) == \
                 jax_shape_applicable(jax_get_config(arch), JAX_SHAPES[name])
+
+
+def test_tensor_parallel_leaves_jax_and_the_reference_out():
+    """``distributed/tensor_parallel.py`` imported and used (the plan of
+    gemma2-9b's production layout, and a tensor-parallel prefill of
+    gemma2 smoke through ``serve_on_mesh`` in a fake world of 4) without
+    ``jax`` or ``repro``."""
+    code = ("import sys, torch\n"
+            "from repro_torch.configs import get_config, get_smoke_config\n"
+            "from repro_torch.distributed import sharding as sh\n"
+            "from repro_torch.distributed import tensor_parallel as tpm\n"
+            "from repro_torch.launch.dryrun import fake_world\n"
+            "from repro_torch.launch.mesh import make_host_mesh\n"
+            "from repro_torch.models.transformer import LM\n"
+            "from repro_torch.train.step import serve_on_mesh\n"
+            "cfg = get_config('gemma2-9b')\n"
+            "specs = sh.param_pspecs(LM(cfg, device='cpu').param_shapes(),\n"
+            "                        {'data': 16, 'model': 16})\n"
+            "dims = {}\n"
+            "sh.map_with_path(lambda p, s: dims.__setitem__(p, next(\n"
+            "    (i for i, e in enumerate(s) if e == 'model'), None)), specs)\n"
+            "assert tpm.plan(cfg, dims, tpm.ModelGroup(None, 3, 16)).blocks[0].attn.heads\n"
+            "model = LM(get_smoke_config('gemma2-9b'), device='cpu')\n"
+            "params = model.init_params(torch.Generator().manual_seed(0))\n"
+            "cache = model.init_cache(2, 16)\n"
+            "with fake_world(4):\n"
+            "    mesh = make_host_mesh(model_axis=4)\n"
+            "    p = sh.distribute(params, sh.to_shardings(sh.param_pspecs(params, mesh), mesh))\n"
+            "    c = sh.distribute(cache, sh.to_shardings(sh.cache_pspecs(cache, mesh), mesh))\n"
+            "    serve_on_mesh(model, 'prefill', p, c,\n"
+            "                  {'tokens': torch.zeros((2, 8), dtype=torch.int32)}, mesh)\n"
+            "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+            " or m == 'repro' or m.startswith('repro.')]\n"
+            "assert not bad, bad\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
