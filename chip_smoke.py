@@ -298,17 +298,25 @@ times the serving decode step's host clock (``decode_host:`` line;
 gemma2-9b unless an arch id is named), to compare two trees in turns, and
 prints no result line. ``--tp-ranks N`` needs N cards of one host: the
 three serving kernels' rows at gemma2-9b's shard shapes on a model axis
-of 4, then N worker processes, a card and an NCCL rank each (``tcp://localhost``, a free port), all at once: (a)
-granite-moe-1b-a400m's tensor-parallel train step at full width on a
-(1, N) and a (2, N/2) mesh, 3 steps each against the plain step and an
-f32 copy on the same card (TP_STEP1 and the plain step's update gap to
-the f32 copy; TP_DRIFT), the planted TP_FAULTS rejected; (b) gemma2-9b
-served tensor-parallel on the cuda engine on a (1, N) mesh: the plain
-serve's greedy tokens, logits within phase 3's limits, launch counts
-exact at the shard shapes, decode-step and busy ms per rank beside one
-card's. A failing rank ends the others. It ends with the kernels line
-(launches summed over the ranks) and the device line, ``count`` the
-cards seen.
+of 4 and the decode attention's lse rows, then N worker processes, a
+card and an NCCL rank each (``tcp://localhost``, a free port), all at
+once, each running the ``--tp-case`` runs (``tp_case_runs``; default all
+but gemma2-seq): granite-moe-1b-a400m's tensor-parallel train step at
+full width on a (1, N) and a (2, N/2) mesh and the mixers' smoke steps
+on (1, N), 3 steps each against the plain step and an f32 copy on the
+same card (TP_STEP1 and the plain step's update gap to the f32 copy;
+TP_DRIFT), the planted TP_FAULTS rejected where there are experts;
+gemma2-9b and the mixers' models served tensor-parallel on the cuda
+engine on a (1, N) mesh (gemma2: the plain serve's greedy tokens and
+logits within phase 3's limits; a mixer's through an f32 copy,
+TP_SERVE_DRIFT), launch and variant counts exact at the shard shapes,
+decode-step and busy ms per rank beside one card's; the full-width Mamba
+block with its unrouted fault; the merged decode attention of a cache
+sharded by sequence at the serves' shapes with its rounded-partials
+fault (``tp_lse_merge``); and (gemma2-seq, with N = 3) gemma2-9b's cache
+sharded by sequence. A failing rank ends the others. It ends with the
+kernels line (launches summed over the ranks) and the device line,
+``count`` the cards seen.
 """
 from __future__ import annotations
 
@@ -660,6 +668,100 @@ def run_decode(torch, timer, gen, rows, prefix: str = ""):
                              deterministic=same, ms=ms,
                              plain_ms=plain, library_ms=lib, bound_ms=bms,
                              bound_by=by, bytes=nbytes))
+
+
+# decode attention with its log-sum-exp over one rank's slice of a cache
+# sharded by sequence: (name, B, Hq, Hkv, D, S_l, softcap, window, the
+# rank-local lengths, scale). The lengths are those a rank passes,
+# unclamped: at most 0 (a slice before the position: empty), inside the
+# slice, its end, past it (a full slice), and, with a window, one whose
+# window starts past the slice (empty). gemma2-9b decode_32k on a model
+# axis of 16 shards its 32,768 positions 2,048 a rank (8 kv heads do not
+# divide 16), the local layers' window 4,096; its ring cache (4,096 slots)
+# 256 a rank; minicpm3-4b's latent cache (max_len 1,024) on 4, 256 a rank.
+LSE_CASES = [
+    ("lse gemma2 decode_32k tp16 global", 8, 16, 8, 256, 2048, 50.0, None,
+     [-3000, 0, 1, 700, 2048, 3000, 7000, 30000], None),
+    ("lse gemma2 decode_32k tp16 local", 8, 16, 8, 256, 2048, 50.0, 4096,
+     [-3000, 0, 1, 700, 2048, 3000, 7000, 30000], None),
+    ("lse gemma2 ring tp16", 8, 16, 8, 256, 256, 50.0, None,
+     [-3840, -1, 0, 1, 100, 255, 256, 4096], None),
+    ("lse minicpm3 MLA tp4", 4, 40, 1, 288, 256, None, None,
+     [-512, 1, 200, 1024], MLA_SCALE),
+]
+LSE_ATOL = 1e-3       # |lse - plain| on rows with a key (natural log units)
+
+
+def run_decode_lse(torch, timer, gen, rows):
+    """Each LSE_CASES case in bf16: the kernel's (out, lse) against the
+    plain version's and against ``partial_decode_attention`` (the plain
+    yardstick of a sequence slice, [lo, hi) from the same lengths), out (f32,
+    unrounded, on all three) per row within DECODE_TOL's f32 limits, lse
+    within LSE_ATOL, an empty row out 0 and lse −inf on all three and no
+    NaN; out rounded to bf16 has the bits of the same call without lse, and
+    each call is one launch. Times the call with lse beside the same call
+    without it."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
+                                                             decode_variant)
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    dt = torch.bfloat16
+    for name, b, hq, hkv, d, s, cap, win, lengths, scale in LSE_CASES:
+        g = hq // hkv
+        q = torch.randn((b, hkv, g, d), device="cuda", generator=gen).to(dt)
+        k = torch.randn((b, hkv, s, d), device="cuda", generator=gen).to(dt)
+        v = torch.randn((b, hkv, s, d), device="cuda", generator=gen).to(dt)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        kw = dict(softcap=cap, window=win, scale=scale)
+        n0 = decode_attention_cuda.launches
+        out, lse = decode_attention_cuda(q, k, v, ln, return_lse=True, **kw)
+        one_launch = decode_attention_cuda.launches == n0 + 1
+        plain_out = decode_attention_cuda(q, k, v, ln, **kw)
+        ref, ref_lse = decode_attention_ref(q, k, v, ln, return_lse=True, **kw)
+        hi = ln.long().clamp(0, s)
+        lo = (ln.long() - win).clamp(0, s) if win else torch.zeros_like(hi)
+        y_out, y_lse = tpm.partial_decode_attention(
+            q.reshape(b, hq, d), k, v, lo, hi, softcap=cap, scale=scale)
+        torch.cuda.synchronize()
+        atol, rtol, abs_cap = DECODE_TOL["float32"]
+        err = float((out - ref).abs().max())
+        ratio = max(row_limit_ratio(out, ref, atol, rtol),
+                    row_limit_ratio(out.reshape(b, hq, d), y_out, atol, rtol))
+        empty = torch.isinf(ref_lse)
+        full = ~empty
+        lse_err = max(float((lse[full] - ref_lse[full]).abs().max()),
+                      float((lse.reshape(b, hq)[full.reshape(b, hq)]
+                             - y_lse[full.reshape(b, hq)]).abs().max()))
+        empties = (torch.equal(torch.isinf(lse), empty)
+                   and torch.equal(torch.isinf(y_lse), empty.reshape(b, hq))
+                   and bool(torch.all(out[empty] == 0))
+                   and not bool(torch.isnan(lse).any() or torch.isnan(out).any()))
+        same = out.dtype == torch.float32 and torch.equal(out.to(dt), plain_out)
+        ok = (ratio <= 1.0 and err <= abs_cap and lse_err <= LSE_ATOL and empties
+              and same and one_launch and bool(empty.any()) and bool(full.any()))
+        ms = timer.ms(lambda: decode_attention_cuda(q, k, v, ln, return_lse=True, **kw))
+        ms_no_lse = timer.ms(lambda: decode_attention_cuda(q, k, v, ln, **kw))
+        plain = timer.ms(lambda: decode_attention_ref(q, k, v, ln, return_lse=True, **kw),
+                         reps=5)
+        valid = sum(max(0, min(x, s) - (max(x - win, 0) if win else 0)) for x in lengths)
+        isz = q.element_size()
+        nbytes = (2 * q.numel() + 2 * valid * hkv * d) * isz + b * 4 + b * hq * 4
+        bms, by = bound_ms(nbytes, 4.0 * valid * g * hkv * d, "bfloat16")
+        rows.append(dict(kernel="decode_attention",
+                         case=f"{name} B={b} Hq={hq} Hkv={hkv} D={d} S_l={s} "
+                              f"len={lengths} softcap={cap} window={win}",
+                         dtype="bfloat16", variant=decode_variant(g, d),
+                         max_abs_err=err, lse_max_abs_err=lse_err,
+                         empty_rows=int(empty.sum()), atol=atol, rtol=rtol,
+                         abs_cap=abs_cap, row_limit_ratio=ratio, ok=ok,
+                         same_bits=same, ms=ms, other_variant="same call without lse",
+                         other_ms=ms_no_lse, other_max_abs_err=err,
+                         plain_ms=plain, library_ms=None, bound_ms=bms,
+                         bound_by=by, bytes=nbytes))
+        print(f"decode_attention lse: {name}: lse max |err| {lse_err:.3e} (limit "
+              f"{LSE_ATOL}), empty rows {int(empty.sum())} of {empty.numel()} "
+              f"(out 0, lse -inf: {empties}), out bits as without lse: {same}, "
+              f"one launch: {one_launch}", flush=True)
 
 
 # flash attention's cases: (name, B, Hq, Hkv, D, Sq, Skv, causal, window,
@@ -1061,7 +1163,8 @@ ATTN_KINDS = ("attn", "attn_local", "mla")
 
 
 def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
-                cross_rows: int | None = None) -> list:
+                cross_rows: int | None = None, split: int = 1,
+                ffn_split: int = 1) -> list:
     """(A, B) of each engine GEMM of one layer at M = m rows, as meta
     tensors in the layouts the model hands the engine (A contiguous unless
     named; B a weight of a stacked parameter): attention's q, k, v, o
@@ -1079,7 +1182,14 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
     the channel mix's cm_k, cm_v, cm_r; then a dense FFN's gate, up, down
     (whisper's classic MLP: up, down). An encoder's layer is an ``attn``
     layer at M = its frames. An MoE FFN runs no engine GEMM (the f32 router and the expert products
-    are PyTorch calls, as the reference's are plain jnp)."""
+    are PyTorch calls, as the reference's are plain jnp). With ``split``
+    the layer's attention or mixer computes a rank's share on a model axis
+    of ``split`` (``tensor_parallel.plan``): column-parallel products of
+    1/split of the columns (q, k, v and MLA's q_up by heads; Mamba's
+    in_proj, dt_proj and RWKV's r, k, v, g, wB, cm_k, cm_r by heads or
+    channels), row-parallel ones of 1/split of K (o, x_proj, out_proj,
+    cm_v), the rest whole (MLA's q_down and kv_down, RWKV's wA); with
+    ``ffn_split`` the dense FFN's columns and rows likewise."""
     from repro_torch.models.mlp import classic as classic_mlp
 
     def meta(*shape):
@@ -1091,10 +1201,10 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
     def act(k, rows=m):
         return meta(rows, k)
 
-    d, ff = cfg.d_model, cfg.d_ff
+    d, ff, t = cfg.d_model, cfg.d_ff, split
     out = []
     if spec.kind in ("attn", "attn_local"):
-        q, kv = (h * cfg.resolved_head_dim for h in (cfg.n_heads, cfg.n_kv_heads))
+        q, kv = (h * cfg.resolved_head_dim // t for h in (cfg.n_heads, cfg.n_kv_heads))
         out += [(act(d), w(d, q)), (act(d), w(d, kv)), (act(d), w(d, kv)),
                 (act(q), w(q, d))]
         if cross_rows is not None:
@@ -1105,23 +1215,24 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
         ml = cfg.mla
         qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
         proj = [(act(d), w(d, ml.q_lora_rank)),
-                (act(ml.q_lora_rank), w(ml.q_lora_rank, cfg.n_heads * qk)),
+                (act(ml.q_lora_rank), w(ml.q_lora_rank, cfg.n_heads // t * qk)),
                 (act(d), w(d, ml.kv_lora_rank + ml.qk_rope_head_dim))]
-        vo = cfg.n_heads * ml.v_head_dim
+        vo = cfg.n_heads // t * ml.v_head_dim
         out += proj * (2 if prompt else 1) + [(act(vo), w(vo, d))]
     elif spec.kind == "mamba":
         mb = cfg.mamba
-        di, dtr = mb.expand * d, mb.dt_rank or -(-d // 16)
+        di, dtr = mb.expand * d // t, mb.dt_rank or -(-d // 16)
         xn = dtr + 2 * mb.d_state
         out += [(act(d), w(d, 2 * di)), (act(di), w(di, xn)),
                 (act(xn)[:, :dtr], w(dtr, di)), (act(di), w(di, d))]
         if prompt:
             out.append((act(d, batch * (mb.d_conv - 1)), w(d, 2 * di)))
     elif spec.kind == "rwkv":
-        lora = cfg.rwkv.decay_lora
-        return [(act(d), w(d, d))] * 4 + [
-            (act(d), w(d, lora)), (act(lora), w(lora, d)), (act(d), w(d, d)),
-            (act(d), w(d, ff)), (act(ff), w(ff, d)), (act(d), w(d, d))]
+        lora, dt, fft = cfg.rwkv.decay_lora, d // t, ff // t
+        return [(act(d), w(d, dt))] * 4 + [
+            (act(d), w(d, lora)), (act(lora), w(lora, dt)), (act(dt), w(dt, d)),
+            (act(d), w(d, fft)), (act(fft), w(fft, d)), (act(d), w(d, dt))]
+    ff //= ffn_split
     if classic_mlp(cfg):
         out += [(act(d), w(d, ff)), (act(ff), w(ff, d))]
     elif not spec.moe:
@@ -1155,7 +1266,8 @@ def attention_variants(torch, cfg) -> tuple[str, str]:
 
 
 def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
-                      enc_len: int = 0) -> tuple[dict, dict]:
+                      enc_len: int = 0, prompt_batch: int = 1,
+                      plan=None) -> tuple[dict, dict]:
     """The launch counts of a serving run, and per variant: per prompt
     (batch 1, M = its length, behind the vision prefix where there is
     one) and per decode step (M = the slots) each layer's engine GEMMs
@@ -1166,17 +1278,34 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     layer and prompt (an encoder-decoder's: the encoder's, the decoder's
     self- and cross-attention); decode attention: one per attention layer
     and step (and one more over the cross cache); each on its variant's
-    pick."""
+    pick. ``prompt_batch``: the sequences of one prompt entry prefilled as
+    one batch (Mamba's conv-state tail runs over the last d_conv - 1 tokens
+    of each). ``plan`` (``tensor_parallel.plan``): a rank's products on its
+    model axis, each layer's attention or mixer, FFN and the unembed at
+    their shards where the plan splits them (``layer_gemms``' ``split``);
+    every kernel still launches once a call, so only variants move."""
     from repro_torch.kernels.gemm.kernel import gemm_variant
     from repro_torch.models.transformer import ENC_SPEC
     gemm = dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0)
-    table_t = torch.empty((cfg.vocab, cfg.d_model), dtype=torch.bfloat16,
+    m_tp = 1 if plan is None else plan.mg.size
+    vocab = cfg.vocab // m_tp if plan is not None and plan.unembed else cfg.vocab
+    table_t = torch.empty((vocab, cfg.d_model), dtype=torch.bfloat16,
                           device="meta").T
     cross = enc_len if cfg.enc_dec else None
 
+    def splits(j):
+        if plan is None:
+            return 1, 1
+        blk = plan.blocks[j]
+        on_shards = blk.mixer or (blk.attn is not None and blk.attn.heads)
+        return (m_tp if on_shards else 1), (m_tp if blk.ffn else 1)
+
     def add(m, prompt):
-        for spec in cfg.pattern:
-            for a, b in layer_gemms(torch, cfg, spec, m, prompt, cross_rows=cross):
+        for j, spec in enumerate(cfg.pattern):
+            split, ffn_split = splits(j)
+            for a, b in layer_gemms(torch, cfg, spec, m, prompt,
+                                    batch=prompt_batch, cross_rows=cross,
+                                    split=split, ffn_split=ffn_split):
                 gemm[gemm_variant(a, b)] += cfg.n_periods
         if prompt and cfg.enc_dec:
             for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True):
@@ -3220,17 +3349,41 @@ TP_SERVE_SLOTS, TP_SERVE_PROMPT, TP_SERVE_NEW = 4, 128, 16
 TP_SERVE_MAX_LEN = 256
 TP_PROFILE_STEPS = 3
 TP_TIMEOUT_S = 1500
-
-
-def tp_shard_cfg(cfg, m: int):
-    """The config whose whole-model shapes are a rank's shards on m ranks of
-    the model axis, heads whole on each rank (head-parallel attention,
-    column/row FFN, vocab-parallel unembed): the shapes ``expected_launches``
-    counts a rank's kernels at."""
-    import dataclasses
-    return dataclasses.replace(cfg, n_heads=cfg.n_heads // m,
-                               n_kv_heads=cfg.n_kv_heads // m, d_ff=cfg.d_ff // m,
-                               vocab=cfg.vocab // m)
+# The mixers' TP serves (MLA, RWKV-6, Mamba): arch → tp_serve's options.
+# minicpm3-4b's latent cache (max_len 256) shards by sequence on 4 ranks;
+# rwkv6-1.6b's prompt is two of its scan's 64-token chunks; jamba-smoke's
+# max_len is its config's 128, its 2 kv heads shard its attention cache by
+# sequence on 4 ranks.
+TP_MIXER_SERVES = {"minicpm3-4b": {},
+                   "rwkv6-1.6b": {},
+                   "jamba-1.5-large-398b": dict(smoke=True, prompt_len=64,
+                                                max_len=128)}
+# the mixers' TP train steps on (1, N): smoke configs, phase 5's batch
+TP_MIXER_TRAINS = ("jamba-1.5-large-398b", "minicpm3-4b")
+# --tp-case gemma2-seq (run with --tp-ranks 3): gemma2-9b at full width on
+# a model axis of 3, the one mesh of four cards on which its full-width
+# cache shards by sequence (8 kv heads do not divide 3; 384 positions do)
+TP3_MAX_LEN = 384
+# A mixer's bf16 TP serve on more than one rank sums its partial products
+# in another order than one card, and bf16 carries that, so it is held to
+# the plain serve through an f32 copy of the weights (``tp_serve_f32``):
+# over the steps, its logits' drift from the f32 run (max and mean |Δ|)
+# within TP_SERVE_DRIFT times the plain bf16 run's (readings of 1.0-1.18x
+# on four H100s); its greedy tokens the plain run's, but for a row where
+# the f32 run's top two logits are nearer than twice the drift the TP run
+# may have at that step (TP_SERVE_DRIFT times the plain run's largest
+# there): a near tie that either order may break; and its logits within
+# phase 3's limits of the plain run's, but for a model whose SERVE_MODELS
+# entry holds it to the library (rwkv6: any change of a GEMM's order moves
+# it past them, ``halves_engine``).
+TP_SERVE_DRIFT = 1.5
+# A sequence-sharded decode attention at a TP serve's shapes
+# (``tp_lse_merge``): the ranks' merged bf16 output against the kernel over
+# the whole cache, bits equal but in at most this share of the elements
+# (both sum in f32, in other orders: 0.01-0.07% on the CPU); each rank's
+# partial rounded to bf16 before the merge (``rounded_partials``: 24-36% on
+# the CPU) must be rejected.
+TP_MERGE_SHARE = 0.01
 
 
 def tp_mesh(shape):
@@ -3280,17 +3433,18 @@ def gaps(a: list, b: list) -> dict:
                              for x, y in zip(a, b))}
 
 
-def tp_train(torch, dev, meshes, smoke: bool = False) -> dict:
-    """granite-moe-1b-a400m (full width unless ``smoke``; phase 5's batch,
-    seed 0, ArcaneEngine("ref")): TP_STEPS plain steps on this card in
+def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) -> dict:
+    """``arch`` (granite-moe-1b-a400m unless named; full width unless
+    ``smoke``; phase 5's batch, seed 0, ArcaneEngine("ref")): TP_STEPS
+    plain steps on this card in
     bf16 and on an f32 copy of the weights, then the tensor-parallel step
     from the same weights on each mesh of ``meshes``, the model axis
     computing each rank's heads, experts and vocab shard: step 1 against
     the plain step within TP_STEP1 and, its update, within the plain
     step's own gap to the f32 copy; the steps' gaps to the f32 run within
-    TP_DRIFT times the plain run's; and one TP step on the first mesh with
-    each TP_FAULTS fault planted, which must leave the step-1 limits. Each
-    step's ms."""
+    TP_DRIFT times the plain run's; and, for a model with experts, one TP
+    step on the first mesh with each TP_FAULTS fault planted, which must
+    leave the step-1 limits. Each step's ms."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config, get_smoke_config
@@ -3302,7 +3456,7 @@ def tp_train(torch, dev, meshes, smoke: bool = False) -> dict:
     from repro_torch.models.transformer import LM, tree_map
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step, tp_view
-    cfg = (get_smoke_config if smoke else get_config)(TRAIN_ARCH)
+    cfg = (get_smoke_config if smoke else get_config)(arch)
     args = launcher.parse_args(TRAIN_ARGV)
     model = LM(cfg, ArcaneEngine("ref"), device=dev)
     steps = TP_STEPS
@@ -3391,11 +3545,11 @@ def tp_train(torch, dev, meshes, smoke: bool = False) -> dict:
         res["meshes"]["x".join(map(str, shape))] = {
             "steps": out, "step1": first, "drift": drift, "ok": ok,
             "choices": plan.choices, "gathered_over_model": plan.gathered,
-            "experts_a_rank": cfg.moe.n_experts // shape[1]}
+            "experts_a_rank": cfg.moe.n_experts // shape[1] if cfg.moe else None}
         del m1, mn
     # on a model axis of one the ranks' partial combines are the combine:
     # dropping their sum changes nothing
-    for fault in TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]:
+    for fault in (TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]) if cfg.moe else ():
         out, m1, _, _ = tp_run(meshes[0], fault)
         first = step1(out, m1)
         res["faults"][fault] = {**first, "rejected": not all(
@@ -3405,28 +3559,38 @@ def tp_train(torch, dev, meshes, smoke: bool = False) -> dict:
 
 
 def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
-             exact: bool = False) -> dict:
-    """TP_SERVE_ARCH (full width unless ``smoke``, bf16, seed 0) served on the
-    ``backend`` engine: TP_SERVE_SLOTS prompts of TP_SERVE_PROMPT tokens
-    prefilled as one batch and TP_SERVE_NEW - 1 greedy decode steps on this
-    card, then the same through serve_on_mesh on ``mesh`` (its params and
-    cache under the rules, the model axis computing each rank's heads,
-    FFN columns and vocab shard), fed the plain run's tokens. Every step's
-    greedy tokens must equal the plain run's and its logits be within
-    phase 3's limits (``exact``: the same bits); the TP run's launch and
-    variant counts must be exactly those of the rank's shard shapes
-    (``tp_shard_cfg``). The decode steps' host ms (each synchronised) and
-    the card's busy ms a step (torch.profiler) of both runs."""
+             exact: bool = False, arch: str = TP_SERVE_ARCH,
+             prompt_len: int = TP_SERVE_PROMPT, max_len: int = TP_SERVE_MAX_LEN,
+             profile: bool = True) -> dict:
+    """``arch`` (TP_SERVE_ARCH unless named; full width unless ``smoke``,
+    bf16, seed 0) served on the ``backend`` engine: TP_SERVE_SLOTS prompts
+    of ``prompt_len`` tokens prefilled as one batch and TP_SERVE_NEW - 1
+    greedy decode steps on this card, then the same through serve_on_mesh
+    on ``mesh`` (its params and cache under the rules, the model axis
+    computing each rank's heads, FFN columns, mixer shards and vocab
+    shard), fed the plain run's tokens. Every step's greedy tokens must
+    equal the plain run's and its logits be within phase 3's limits
+    (``exact``: the same bits); a mixer's TP run on more than one rank is
+    held through an f32 copy instead (``tp_serve_f32``, TP_SERVE_DRIFT),
+    and where its path merges a sequence-sharded cache's partial softmaxes
+    it is served once more with them rounded to bf16 before the merge
+    (``rounded_partials``), which that check's verdict on it shows. The TP
+    run's launch counts must be exactly one card's (every product, prompt
+    attention and decode attention is one launch on either), and its
+    variant counts exactly those of the rank's shapes
+    (``expected_launches`` with the plan). With ``profile``, the decode
+    steps' host ms (each synchronised) and the card's busy ms a step
+    (torch.profiler) of both runs."""
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
                                                   param_pspecs, to_shardings)
     from repro_torch.models.transformer import LM
     from repro_torch.train.step import serve_on_mesh, tp_view
-    cfg = (get_smoke_config if smoke else get_config)(TP_SERVE_ARCH)
+    cfg = (get_smoke_config if smoke else get_config)(arch)
     model = LM(cfg, ArcaneEngine(backend), device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    b, s, new = TP_SERVE_SLOTS, TP_SERVE_PROMPT, TP_SERVE_NEW
+    b, s, new = TP_SERVE_SLOTS, prompt_len, TP_SERVE_NEW
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
     on_card = dev != "cpu"
@@ -3448,7 +3612,7 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
 
     # the plain serve on this card: its greedy tokens feed both runs
     with torch.no_grad():
-        cache = model.init_cache(b, TP_SERVE_MAX_LEN)
+        cache = model.init_cache(b, max_len)
         lg, cache = model.prefill(params, {"tokens": prompt}, cache)
         plain, toks = [lg], [torch.argmax(lg, -1).to(torch.int32)]
         for i in range(new - 1):
@@ -3459,14 +3623,14 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         _, plain_ms = decode_ms(lambda t, p: model.decode_step(params, t, p, cache)[0],
                                 toks[:TP_PROFILE_STEPS])
     p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
-    cache0 = model.init_cache(b, TP_SERVE_MAX_LEN)
+    cache0 = model.init_cache(b, max_len)
     c = distribute(cache0, to_shardings(cache_pspecs(cache0, mesh), mesh))
     del cache0
     plan = tp_view(model, p, mesh, c)[0].tp
     m = mesh.shape[mesh.mesh_dim_names.index("model")]
     box = {}
 
-    def served():
+    def served(c=c):
         lg, box["c"] = serve_on_mesh(model, "prefill", p, c, {"tokens": prompt}, mesh)
         out = [lg]
         for i in range(new - 1):
@@ -3478,7 +3642,8 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         return out
 
     def expect(_):
-        return (*expected_launches(torch, tp_shard_cfg(cfg, m), [b * s], new - 1, b),
+        return (*expected_launches(torch, cfg, [b * s], new - 1, b, prompt_batch=b,
+                                   plan=plan),
                 f"(tensor-parallel on {m} ranks, rank {plan.mg.rank}: "
                 f"{b} x {s} prompt tokens in one prefill, {new - 1} decode steps)")
 
@@ -3492,8 +3657,23 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
                                      {"tokens": tok, "position": pos}, mesh)
         return lg
 
-    with torch.no_grad():
-        _, tp_ms = decode_ms(step_tp, toks[:TP_PROFILE_STEPS])
+    mixer = cfg.mla is not None or cfg.rwkv is not None or cfg.mamba is not None
+    lse_path = any(blk.attn is not None and blk.attn.cache == "seq"
+                   for blk in plan.blocks)
+    fault_out = None
+    if mixer and m > 1 and lse_path:
+        # the same serve with the ranks' partial softmaxes rounded to bf16
+        # before their merge, from a fresh cache
+        cache0 = model.init_cache(b, max_len)
+        c_fault = distribute(cache0, to_shardings(cache_pspecs(cache0, mesh), mesh))
+        del cache0
+        with rounded_partials(torch):
+            fault_out = served(c_fault)
+        del c_fault
+    tp_ms = None
+    if profile:
+        with torch.no_grad():
+            _, tp_ms = decode_ms(step_tp, toks[:TP_PROFILE_STEPS])
     gaps = []
     for a, r in zip(tp_out, plain):
         d = (a.float() - r.float()).abs()
@@ -3505,10 +3685,15 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     absmax = max(float(r.abs().max()) for r in plain)
     max_lim = max_atol if max_atol else max_rtol * absmax
     mean_lim = mean_atol if mean_atol else mean_rtol * absmax
-    ok = all(g["argmax_equal"] and g["max_abs"] <= max_lim and g["mean_abs"] <= mean_lim
-             for g in gaps)
+    within = all(g["max_abs"] <= max_lim and g["mean_abs"] <= mean_lim for g in gaps)
+    ok = within and all(g["argmax_equal"] for g in gaps)
     if exact:
         ok = ok and all(g["same_bits"] for g in gaps)
+    f32 = None
+    if not exact and mixer and m > 1:
+        f32 = tp_serve_f32(torch, model, params, mesh, dev, prompt, toks,
+                           max_len, plain, tp_out, fault_out)
+        ok = f32["ok"]
     out = {"arch": cfg.name, "mesh": "x".join(map(str, mesh.shape)),
            "rank": plan.mg.rank, "choices": plan.choices,
            "gathered_over_model": plan.gathered, "launches": counts,
@@ -3517,9 +3702,10 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
            "same_bits": all(g["same_bits"] for g in gaps),
            "worst_max_abs": max(g["max_abs"] for g in gaps),
            "worst_mean_abs": max(g["mean_abs"] for g in gaps),
-           "max_limit": max_lim, "mean_limit": mean_lim, "ok": ok,
-           "tp_decode_ms": tp_ms, "plain_decode_ms": plain_ms}
-    if on_card:
+           "max_limit": max_lim, "mean_limit": mean_lim,
+           "within_phase3_limits": within, "f32_copy": f32, "ok": ok,
+           "tp_decode_ms": tp_ms, "plain_decode_ms": plain_ms if profile else None}
+    if on_card and profile:
         out["tp_profile"] = profile_steps(
             torch, lambda: step_tp(toks[-1], torch.full(
                 (b,), s + new, dtype=torch.int32, device=dev)),
@@ -3531,60 +3717,411 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     return out
 
 
+def tp_serve_f32(torch, model, params, mesh, dev, prompt, toks, max_len: int,
+                 plain: list, tp_out: list, fault_out=None) -> dict:
+    """A mixer's TP serve held through an f32 copy of the weights: the same
+    serve on that copy, on this card and through serve_on_mesh on ``mesh``,
+    fed the same tokens, must give the same greedy tokens at every step,
+    its logits within SERVE_F32_RTOL of the largest; and the bf16 TP run
+    must pass ``serve_verdict`` against the plain bf16 run and the card's
+    f32 run. ``fault_out``: a faulted bf16 TP run's logits, judged alike."""
+    import dataclasses
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed.sharding import (cache_pspecs, distribute,
+                                                  param_pspecs, to_shardings)
+    from repro_torch.models.transformer import LM, tree_map
+    from repro_torch.train.step import serve_on_mesh
+    cfg32 = dataclasses.replace(model.cfg, param_dtype="float32",
+                                compute_dtype="float32")
+    model32 = LM(cfg32, ArcaneEngine(model.engine.backend), device=dev)
+    params32 = tree_map(lambda t: t.float(), params)
+    b, s = prompt.shape
+    positions = [torch.full((b,), s + i, dtype=torch.int32, device=dev)
+                 for i in range(len(plain) - 1)]
+    with torch.no_grad():
+        cache = model32.init_cache(b, max_len)
+        lg, cache = model32.prefill(params32, {"tokens": prompt}, cache)
+        one = [lg]
+        for tok, pos in zip(toks, positions):
+            lg, cache = model32.decode_step(params32, tok, pos, cache)
+            one.append(lg)
+    del cache
+    p = distribute(params32, to_shardings(param_pspecs(params32, mesh), mesh))
+    del params32
+    c0 = model32.init_cache(b, max_len)
+    c = distribute(c0, to_shardings(cache_pspecs(c0, mesh), mesh))
+    del c0
+    lg, c = serve_on_mesh(model32, "prefill", p, c, {"tokens": prompt}, mesh)
+    tp32 = [lg]
+    for tok, pos in zip(toks, positions):
+        lg, c = serve_on_mesh(model32, "decode", p, c, {"tokens": tok, "position": pos},
+                              mesh)
+        tp32.append(lg)
+    del p, c
+    absmax = max(float(r.abs().max()) for r in one)
+    f32_max = max(float((a - r).abs().max()) for a, r in zip(tp32, one))
+    f32_mean = max(float((a - r).abs().mean()) for a, r in zip(tp32, one))
+    argmax = all(torch.equal(torch.argmax(a, -1), torch.argmax(r, -1))
+                 for a, r in zip(tp32, one))
+    out = {"greedy_equal": argmax, "max_abs": f32_max, "mean_abs": f32_mean,
+           "limit": SERVE_F32_RTOL * absmax,
+           "bf16": serve_verdict(torch, model.cfg, one, plain, tp_out)}
+    out["ok"] = argmax and f32_max <= out["limit"] and out["bf16"]["ok"]
+    if fault_out is not None:
+        out["fault_rounded_partials"] = serve_verdict(torch, model.cfg, one, plain,
+                                                      fault_out)
+    return out
+
+
+def serve_verdict(torch, cfg, one: list, plain: list, tp: list) -> dict:
+    """A bf16 TP serve's logits ``tp`` against the plain bf16 run's
+    (``plain``) and the card's f32 run's (``one``), step by step
+    (TP_SERVE_DRIFT): the drift of each from ``one``, the greedy tokens
+    that differ from the plain run's and those of them at a near tie, and
+    the gap to the plain run against phase 3's limits where SERVE_MODELS
+    holds the model to ref."""
+    def drift(runs):
+        d = [(a.float() - r.float()).abs() for a, r in zip(runs, one)]
+        return [float(x.max()) for x in d], [float(x.mean()) for x in d]
+
+    tp_max, tp_mean = drift(tp)
+    plain_max, plain_mean = drift(plain)
+    flips = near = 0
+    for a, r, f, dp in zip(tp, plain, one, plain_max):
+        top2 = torch.topk(f.float(), 2, dim=-1).values
+        margin = top2[..., 0] - top2[..., 1]
+        flip = torch.argmax(a, -1) != torch.argmax(r, -1)
+        flips += int(flip.sum())
+        near += int((flip & (margin < 2 * TP_SERVE_DRIFT * dp)).sum())
+    max_atol, mean_atol, max_rtol, mean_rtol = logits_limits(cfg)
+    absmax = max(float(r.abs().max()) for r in plain)
+    gap_max = max(float((a.float() - r.float()).abs().max()) for a, r in zip(tp, plain))
+    gap_mean = max(float((a.float() - r.float()).abs().mean()) for a, r in zip(tp, plain))
+    held = cfg.name not in [e["arch"] for e in SERVE_MODELS
+                            if e.get("reference") == "library"]
+    within = (gap_max <= (max_atol or max_rtol * absmax)
+              and gap_mean <= (mean_atol or mean_rtol * absmax))
+    drift_ok = (max(tp_max) <= TP_SERVE_DRIFT * max(plain_max)
+                and max(tp_mean) <= TP_SERVE_DRIFT * max(plain_mean))
+    return {"drift_from_f32": {"tp": [max(tp_max), max(tp_mean)],
+                               "plain": [max(plain_max), max(plain_mean)],
+                               "limit_factor": TP_SERVE_DRIFT},
+            "greedy_flips": flips, "flips_at_near_ties": near,
+            "gap_to_plain": [gap_max, gap_mean],
+            "phase3_limits": [max_atol or max_rtol * absmax,
+                              mean_atol or mean_rtol * absmax] if held else None,
+            "within_phase3_limits": within,
+            "ok": drift_ok and flips == near and (within or not held)}
+
+
+@contextlib.contextmanager
+def rounded_partials(torch):
+    """A planted fault in a sequence-sharded decode attention: each rank's
+    partial softmax output rounded to bf16 before the ranks' merge
+    (``merge_partials``), where the sound path merges it in f32 and rounds
+    once."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    real = tpm.merge_partials
+    tpm.merge_partials = lambda out, lse, mg: real(
+        out.to(torch.bfloat16).float(), lse, mg)
+    try:
+        yield
+    finally:
+        tpm.merge_partials = real
+
+
+def tp_lse_merge(torch, mesh, dev, backend: str, arch: str, smoke: bool = False,
+                 max_len: int = TP_SERVE_MAX_LEN, **_) -> dict:
+    """The decode attention of ``arch``'s TP serve over a cache sharded by
+    sequence on ``mesh``'s model axis, at that serve's shapes
+    (TP_SERVE_SLOTS rows, max_len positions, a slice of max_len / m a
+    rank; MLA's absorbed decode: every head on one latent head): the same
+    bf16 q and cache on every rank (seed 0), each rank's kernel over its
+    slice with the rank-local lengths (``seq_lengths``) and the lse, the
+    ranks merged (``merge_partials``) and rounded once, against the kernel
+    over the whole cache on this card. The rows' positions give a rank an
+    empty slice, a partial one and a full one. The bits must be equal in
+    all but TP_MERGE_SHARE of the elements, and with ``rounded_partials``
+    planted they must not."""
+    from repro_torch.configs import get_config, get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.models.attention import seq_lengths
+    cfg = (get_smoke_config if smoke else get_config)(arch)
+    mg = tpm.ModelGroup.of(mesh)
+    b, s_l = TP_SERVE_SLOTS, max_len // mg.size
+    if cfg.mla is not None:
+        ml = cfg.mla
+        h, hkv, d = cfg.n_heads, 1, ml.kv_lora_rank + ml.qk_rope_head_dim
+        kw = dict(scale=1.0 / math.sqrt(ml.qk_nope_head_dim + ml.qk_rope_head_dim))
+    else:
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        kw = dict(softcap=cfg.attn_softcap)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    q, k, v = randn(b, h, d), randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)
+    pos = torch.tensor([3, s_l + 5, max_len // 2, max_len - 1][:b],
+                       dtype=torch.int32, device=dev)
+    engine = ArcaneEngine(backend)
+    whole = engine.decode_attention(q, k, v, pos + 1, **kw)
+    _, lengths = seq_lengths(pos, s_l, mg, False)
+    lo = mg.rank * s_l
+    k_l, v_l = k[:, :, lo:lo + s_l].contiguous(), v[:, :, lo:lo + s_l].contiguous()
+
+    def merged():
+        out, lse = engine.decode_attention(q, k_l, v_l, lengths.to(torch.int32),
+                                           return_lse=True, **kw)
+        return tpm.merge_partials(out, lse, mg).to(torch.bfloat16)
+
+    def share(x):
+        if not bool(torch.isfinite(x).all()):
+            fail(f"tensor-parallel: {cfg.name}'s merged decode attention is not finite")
+        return float((x.view(torch.int16) != whole.view(torch.int16)).float().mean())
+
+    sound = share(merged())
+    with rounded_partials(torch):
+        fault = share(merged())
+    return {"arch": cfg.name, "rank": mg.rank, "shape": {
+                "B": b, "Hq": h, "Hkv": hkv, "D": d, "S": max_len, "S_l": s_l,
+                "positions": pos.tolist(), "rank_lengths": lengths.tolist()},
+            "share_bits_differ": sound, "fault_share_bits_differ": fault,
+            "limit": TP_MERGE_SHARE, "ok": sound <= TP_MERGE_SHARE,
+            "fault_rejected": fault > TP_MERGE_SHARE}
+
+
+def tp_mamba_block(torch, mesh) -> dict:
+    """Phase 3's jamba Mamba block (``run_mamba_block``: full width, seed 0,
+    4 x 512 prefill, 8 decode steps) on this card through
+    ArcaneEngine("cuda"), then on ``mesh``'s model axis: its params and
+    states laid out by the rules (d_inner 16,384 / m channels a rank, the
+    dense FFN's columns and rows), the block computing on the rank's shards
+    (``BlockTP``: Mamba by channels, in_proj's column block routed to them;
+    the FFN column/row-parallel). The TP output and the states gathered
+    from the ranks must be within BLOCK_RTOL / BLOCK_MEAN_RTOL of the
+    card's; the same with in_proj's column block used unrouted (a planted
+    fault) must not."""
+    import contextlib
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.distributed.sharding import (cache_pspecs, distribute,
+                                                  param_pspecs, to_shardings)
+    from repro_torch.models import blocks
+    from repro_torch.models.transformer import tree_map
+    cfg = get_config("jamba-1.5-large-398b")
+    spec = cfg.pattern[0]
+    b, s, steps = 4, 512, 8
+    dev = torch.device("cuda", torch.cuda.current_device())
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = blocks.block_init(gen, cfg, spec, dev)
+    x = torch.randn((b, s, cfg.d_model), device=dev, generator=gen).to(torch.bfloat16)
+    toks = torch.randn((steps, b, cfg.d_model), device=dev, generator=gen).to(torch.bfloat16)
+    positions = torch.arange(s, device=dev)
+    engine = ArcaneEngine("cuda")
+    mg = tpm.ModelGroup.of(mesh)
+    tp = tpm.BlockTP(mg, None, None, ffn=True, experts=False, mixer=True)
+    local_p = tree_map(lambda t: t.to_local(), distribute(
+        params, to_shardings(param_pspecs(params, mesh), mesh)))
+
+    def run(p, block_tp):
+        cache = blocks.init_block_cache(cfg, spec, b, s + steps, torch.bfloat16, dev)
+        if block_tp is not None:        # the rank's channels of the states
+            stacked = ({k: t[None] for k, t in cache.items()},)
+            cache = {k: t.to_local()[0].contiguous() for k, t in distribute(
+                stacked, to_shardings(cache_pspecs(stacked, mesh), mesh))[0].items()}
+        out, _ = blocks.block_prefill(engine, p, cfg, spec, x, positions, cache,
+                                      tp=block_tp)
+        outs = [out.float()]
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
+            o, _ = blocks.block_decode(engine, p, cfg, spec, toks[i], pos, cache,
+                                       tp=block_tp)
+            outs.append(o.float())
+        res = {"prefill": outs[0], "decode": torch.stack(outs[1:])}
+        if block_tp is not None:
+            res["conv"] = tpm.gather_last(cache["conv"].contiguous(), mg)
+            res["ssm"] = tpm.gather_heads(cache["ssm"].contiguous(), mg)
+        else:
+            res["conv"], res["ssm"] = cache["conv"], cache["ssm"]
+        return {k: v.float() for k, v in res.items()}
+
+    @contextlib.contextmanager
+    def unrouted():
+        real = tpm.route_channels
+        tpm.route_channels = lambda t, g: t
+        try:
+            yield
+        finally:
+            tpm.route_channels = real
+
+    with torch.no_grad():
+        card = run(params, None)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mine = run(local_p, tp)
+        torch.cuda.synchronize()
+        tp_s = time.perf_counter() - t0
+        with unrouted():
+            fault = run(local_p, tp)
+
+    def gap(a_run):
+        cmp = {}
+        for k, r in card.items():
+            a = a_run[k]
+            if a.shape != r.shape or not bool(torch.isfinite(a).all()):
+                fail(f"mamba block tp: {k} of shape {tuple(a.shape)} (expected "
+                     f"{tuple(r.shape)}) or not finite")
+            d = (a - r).abs()
+            absmax = float(r.abs().max())
+            cmp[k] = {"max_abs": float(d.max()), "mean_abs": float(d.mean()),
+                      "ref_absmax": absmax, "max_share": float(d.max()) / absmax,
+                      "mean_share": float(d.mean()) / absmax,
+                      "max_limit": BLOCK_RTOL * absmax,
+                      "mean_limit": BLOCK_MEAN_RTOL * absmax}
+        return cmp
+
+    cmp, bad = gap(mine), gap(fault)
+    ok = all(within_limits(c) for c in cmp.values())
+    rejected = not all(within_limits(c) for c in bad.values())
+    return {"mesh": "x".join(map(str, mesh.shape)), "rank": mg.rank,
+            "d_inner_a_rank": local_p["mixer"]["conv_b"].shape[0],
+            "tp_vs_card": cmp, "fault_unrouted_vs_card": bad, "ok": ok,
+            "fault_rejected": rejected, "tp_seconds": tp_s}
+
+
 def run_tensor_parallel(torch, summary: dict, smi_line: str) -> dict:
     """Phase 5c in the default run: on a world of one NCCL rank and its
-    (1, 1) mesh, ``tp_serve`` of gemma2-9b on the cuda engine with the
-    plain serve's bits (``exact``); beside it phase 5b (a)'s sharded step,
-    which is the tensor-parallel train step on that mesh (its model-axis
-    collectives and bits read there)."""
+    (1, 1) mesh, ``tp_serve`` of gemma2-9b and of the mixers' models
+    (TP_MIXER_SERVES: minicpm3-4b's MLA and rwkv6-1.6b at full width,
+    jamba-smoke's Mamba; their TP code on the kernels, over caches laid out
+    as on more ranks: MLA's latents and jamba's attention by sequence) on
+    the cuda engine with the plain serve's bits (``exact``) and launch
+    counts; beside it phase 5b (a)'s sharded step, which is the
+    tensor-parallel train step on that mesh (its model-axis collectives and
+    bits read there)."""
     import torch.distributed as dist
     md_init(torch)
+    mixers = {}
     try:
         gc_cuda(torch)
         serve = tp_serve(torch, tp_mesh((1, 1)), "cuda", "cuda", exact=True)
+        for arch, kw in TP_MIXER_SERVES.items():
+            gc_cuda(torch)
+            mixers[arch] = tp_serve(torch, tp_mesh((1, 1)), "cuda", "cuda",
+                                    exact=True, arch=arch, profile=False, **kw)
     finally:
         dist.destroy_process_group()
     gc_cuda(torch)
     a = summary["multi_device"]["sharded"]
-    out = {"serve": serve, "train": {k: a[k] for k in (
+    out = {"serve": serve, "mixer_serves": mixers, "train": {k: a[k] for k in (
         "same_bits_metrics", "same_bits_params", "tp_collectives", "tp_choices")}}
     print(f"tensor-parallel: world of one, (1, 1) mesh: train step (phase 5b (a)) "
           f"{json.dumps(out['train'])} [{smi_line}]", flush=True)
-    print(f"tensor-parallel: world of one, (1, 1) mesh: serve "
-          f"{json.dumps(serve)} [{smi_line}]", flush=True)
-    if not serve["ok"]:
-        fail("tensor-parallel: the TP serve on a world of one differs from the "
-             "plain serve's bits")
+    for res in (serve, *mixers.values()):
+        print(f"tensor-parallel: world of one, (1, 1) mesh: serve {res['arch']} "
+              f"{json.dumps(res)} [{smi_line}]", flush=True)
+        if not res["ok"]:
+            fail(f"tensor-parallel: {res['arch']}'s TP serve on a world of one "
+                 f"differs from the plain serve's bits")
+    out["launches"] = {w: sum(r["launches"][w] for r in (serve, *mixers.values()))
+                       for w in serve["launches"]}
+    out["variants"] = {w: {v: sum(r["variants"][w][v] for r in (serve, *mixers.values()))
+                           for v in serve["variants"][w]} for w in serve["variants"]}
     return out
 
 
-def tp_worker(torch, rank: int, world: int, port: int, out_path: Path) -> None:
+def tp_case_runs(torch, world: int) -> dict:
+    """``--tp-case`` name → the run that fills its keys of a rank's result,
+    on a model axis of ``world``."""
+    def mesh():
+        return tp_mesh((1, world))
+
+    def granite_train(res):
+        res["train"] = tp_train(torch, "cuda", meshes=((1, world), (2, world // 2))
+                                if world % 2 == 0 else ((1, world),))
+
+    def mixer_trains(res):
+        res["mixer_trains"] = {}
+        for arch in TP_MIXER_TRAINS:
+            gc_cuda(torch)
+            res["mixer_trains"][arch] = tp_train(torch, "cuda", ((1, world),),
+                                                 smoke=True, arch=arch)
+
+    def gemma2_serve(res, **kw):
+        res["serve"] = tp_serve(torch, mesh(), "cuda", "cuda", **kw)
+
+    def mixer_serves(res):
+        res["mixer_serves"] = {}
+        for arch, kw in TP_MIXER_SERVES.items():
+            gc_cuda(torch)
+            res["mixer_serves"][arch] = tp_serve(torch, mesh(), "cuda", "cuda",
+                                                 arch=arch, **kw)
+
+    def mamba_block(res):
+        res["mamba_block"] = tp_mamba_block(torch, mesh())
+
+    def lse_merge(res, serves=None):
+        res.setdefault("lse_merge", {})
+        for arch, kw in (serves or TP_MIXER_SERVES).items():
+            if arch != "rwkv6-1.6b":            # rwkv6 has no attention layer
+                res["lse_merge"][arch] = tp_lse_merge(torch, mesh(), "cuda", "cuda",
+                                                      arch, **kw)
+
+    def gemma2_seq(res):
+        gemma2_serve(res, max_len=TP3_MAX_LEN)
+        lse_merge(res, {TP_SERVE_ARCH: dict(max_len=TP3_MAX_LEN)})
+
+    return {"granite-train": granite_train, "mixer-trains": mixer_trains,
+            "gemma2-serve": gemma2_serve, "mixer-serves": mixer_serves,
+            "mamba-block": mamba_block, "lse-merge": lse_merge,
+            "gemma2-seq": gemma2_seq}
+
+
+# --tp-case: what ``--tp-ranks N`` runs on each rank, by name (default
+# TP_DEFAULT_CASES; gemma2-seq is meant for --tp-ranks 3)
+TP_CASES = ("granite-train", "mixer-trains", "gemma2-serve", "mixer-serves",
+            "mamba-block", "lse-merge", "gemma2-seq")
+TP_DEFAULT_CASES = TP_CASES[:-1]
+
+
+def tp_worker(torch, rank: int, world: int, port: int, out_path: Path,
+              cases=TP_DEFAULT_CASES) -> None:
     """One rank of ``--tp-ranks``: its card, an NCCL rank of ``world``,
-    ``tp_train`` on the (1, world) and (2, world / 2) meshes and
-    ``tp_serve`` on (1, world); the result as JSON at ``out_path``."""
+    running ``cases`` (``tp_case_runs``) in turn: ``tp_train`` of granite
+    on the (1, world) and (2, world / 2) meshes and of TP_MIXER_TRAINS'
+    smoke configs on (1, world); ``tp_serve`` of gemma2-9b and of
+    TP_MIXER_SERVES on (1, world); ``tp_mamba_block``; ``tp_lse_merge`` at
+    the shapes of the mixer serves with attention; and (gemma2-seq)
+    gemma2-9b's serve at max_len TP3_MAX_LEN with its lse merge (on 3
+    ranks its cache shards by sequence). The result as JSON at
+    ``out_path``."""
     import torch.distributed as dist
     torch.cuda.set_device(rank)
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{port}",
                             rank=rank, world_size=world,
                             device_id=torch.device("cuda", rank))
     try:
-        res = {"rank": rank, "device": torch.cuda.get_device_name(rank)}
-        res["train"] = tp_train(torch, "cuda", meshes=((1, world), (2, world // 2))
-                                if world % 2 == 0 else ((1, world),))
-        gc_cuda(torch)
-        res["serve"] = tp_serve(torch, tp_mesh((1, world)), "cuda", "cuda")
+        res = {"rank": rank, "device": torch.cuda.get_device_name(rank), "cases": cases}
+        runs = tp_case_runs(torch, world)
+        for case in cases:
+            gc_cuda(torch)
+            runs[case](res)
         res["peak_bytes"] = torch.cuda.max_memory_allocated()
     finally:
         dist.destroy_process_group()
     out_path.write_text(json.dumps(res))
 
 
-def run_tp_ranks(torch, n: int, smi_line: str) -> dict:
+def run_tp_ranks(torch, n: int, smi_line: str, cases=TP_DEFAULT_CASES) -> dict:
     """``--tp-ranks N``: N worker processes (``tp_worker``), a card each,
-    all at once; fails where a worker fails, a TP run leaves its limits
-    (step 1's, TP_DRIFT), a planted fault passes, or the TP serve's greedy
-    tokens, logits or launch counts are off on any rank. Every process it
-    starts is ended."""
+    all at once, running ``cases``; fails where a worker fails, a TP run
+    leaves its limits (step 1's, TP_DRIFT; a serve's, TP_SERVE_DRIFT; the
+    lse merge's, TP_MERGE_SHARE), a planted fault passes the check that
+    must reject it, or the TP serve's greedy tokens, logits or launch
+    counts are off on any rank. Every process it starts is ended."""
     import os
     import socket
     if torch.cuda.device_count() < n:
@@ -3603,7 +4140,7 @@ def run_tp_ranks(torch, n: int, smi_line: str) -> dict:
             log = open(out_dir / f"tp_rank{r}.log", "w")
             procs.append(subprocess.Popen(
                 [sys.executable, str(Path(__file__).resolve()), "--tp-ranks", str(n),
-                 "--tp-worker", str(r), "--tp-port", str(port)],
+                 "--tp-worker", str(r), "--tp-port", str(port), "--tp-case", *cases],
                 stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT))
             log.close()
         # a rank that fails leaves the others waiting in a collective: end
@@ -3627,28 +4164,55 @@ def run_tp_ranks(torch, n: int, smi_line: str) -> dict:
             tail = (out_dir / f"tp_rank{r}.log").read_text()[-4000:]
             fail(f"tensor-parallel: rank {r} exited {p.returncode}:\n{tail}")
         ranks.append(json.loads(path.read_text()))
-    bad = []
-    for res in ranks:
-        r, tr, sv = res["rank"], res["train"], res["serve"]
-        for mesh, m in tr["meshes"].items():
-            print(f"tensor-parallel: rank {r} train {tr['arch']} mesh {mesh}: "
-                  f"{json.dumps(m)} plain {json.dumps(tr['plain'])} [{smi_line}]",
-                  flush=True)
-            if not m["ok"]:
-                bad.append(f"rank {r} mesh {mesh} leaves the step-1 limits "
-                           f"{tr['step1_limits']} or {TP_DRIFT} x the plain run's "
-                           f"drift {tr['drift_plain']}")
-        print(f"tensor-parallel: rank {r} planted faults {json.dumps(tr['faults'])}",
-              flush=True)
-        if not all(f["rejected"] for f in tr["faults"].values()):
-            bad.append(f"rank {r}: a planted fault passes")
-        print(f"tensor-parallel: rank {r} serve {json.dumps(sv)} [{smi_line}]",
-              flush=True)
-        if not sv["ok"]:
-            bad.append(f"rank {r}: the TP serve leaves the plain serve")
+    bad = tp_ranks_bad(ranks, n, smi_line)
     if bad:
         fail("tensor-parallel: " + "; ".join(bad))
     return {"ranks": ranks, "seconds": time.perf_counter() - t0}
+
+
+def tp_ranks_bad(ranks: list, n: int, smi_line: str) -> list:
+    """Each rank's results of ``--tp-ranks N`` printed, and what in them
+    fails the run (a run outside its limits, a planted fault that passes)."""
+    bad = []
+    for res in ranks:
+        r = res["rank"]
+        trains = [res["train"]] if "train" in res else []
+        trains += list(res.get("mixer_trains", {}).values())
+        for tr in trains:
+            for mesh, m in tr["meshes"].items():
+                print(f"tensor-parallel: rank {r} train {tr['arch']} mesh {mesh}: "
+                      f"{json.dumps(m)} plain {json.dumps(tr['plain'])} [{smi_line}]",
+                      flush=True)
+                if not m["ok"]:
+                    bad.append(f"rank {r} {tr['arch']} mesh {mesh} leaves the step-1 "
+                               f"limits {tr['step1_limits']} or {TP_DRIFT} x the "
+                               f"plain run's drift {tr['drift_plain']}")
+            if tr["faults"]:
+                print(f"tensor-parallel: rank {r} {tr['arch']} planted faults "
+                      f"{json.dumps(tr['faults'])}", flush=True)
+            if not all(f["rejected"] for f in tr["faults"].values()):
+                bad.append(f"rank {r}: a planted fault passes")
+        for sv in [*([res["serve"]] if "serve" in res else []),
+                   *res.get("mixer_serves", {}).values()]:
+            print(f"tensor-parallel: rank {r} serve {sv['arch']} {json.dumps(sv)} "
+                  f"[{smi_line}]", flush=True)
+            if not sv["ok"]:
+                bad.append(f"rank {r}: {sv['arch']}'s TP serve leaves the plain serve")
+        for lm in res.get("lse_merge", {}).values():
+            print(f"tensor-parallel: rank {r} lse merge {lm['arch']} {json.dumps(lm)} "
+                  f"[{smi_line}]", flush=True)
+            if not (lm["ok"] and lm["fault_rejected"]):
+                bad.append(f"rank {r}: {lm['arch']}'s merged decode attention leaves "
+                           f"the whole cache's, or its planted fault passes")
+        if "mamba_block" in res:
+            mb = res["mamba_block"]
+            print(f"tensor-parallel: rank {r} mamba block {json.dumps(mb)} "
+                  f"[{smi_line}]", flush=True)
+            # on a model axis of one the routing moves nothing: the fault is none
+            if not (mb["ok"] and (mb["fault_rejected"] or n == 1)):
+                bad.append(f"rank {r}: the TP Mamba block leaves the card's, or its "
+                           f"planted fault passes")
+    return bad
 
 
 # ---------------------------------------------------------------- phase 4
@@ -4691,7 +5255,12 @@ DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
                 ("gemma2-9b", "prefill_32k", "single"),
                 ("gemma2-9b", "decode_32k", "single"),
                 ("rwkv6-1.6b", "long_500k", "single"),
+                ("jamba-1.5-large-398b", "long_500k", "single"),
                 ("granite-moe-1b-a400m", "train_4k", "multi"))
+# the cells whose peak a rank must fit the card: tensor-parallel compute
+# over the model axis brings gemma2-9b's cells under it, and jamba's once
+# its 63 Mamba mixers compute on their channel shards
+DRYRUN_FIT = ("gemma2-9b", "jamba-1.5-large-398b")
 DRYRUN_TIMEOUT_S = 600
 CARD_BYTES = 80e9                    # the H100's memory
 
@@ -4780,9 +5349,7 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
         rec = json.loads(path.read_text())
         out["cells"][tag] = rec
         print(dryrun_line(rec, smi_line), flush=True)
-        # tensor-parallel compute over the model axis brings every gemma2
-        # cell under the card's memory
-        if rec["arch"] == "gemma2-9b" and rec["memory"]["peak_bytes"] > CARD_BYTES:
+        if rec["arch"] in DRYRUN_FIT and rec["memory"]["peak_bytes"] > CARD_BYTES:
             fail(f"dryrun: {tag} traces a peak of {rec['memory']['peak_bytes'] / 1e9:.2f} "
                  f"GB a rank, past the card's 80 GB")
     m = one["measured"]
@@ -4840,24 +5407,27 @@ KERNELS = {
 
 
 # the rows of a kernel that the kernels line also carries (bf16)
-MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2", "gemma2 tp4"),
+MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2", "gemma2 tp4",
+                                    "lse"),
               "flash_attention": ("whisper", "internvl2", "gemma2 tp4"),
               "gemm": ("granite unembed", "rwkv6", "jamba", "int8", "internvl2",
                        "whisper", "gemma2 tp4")}
 
 
 def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
-                clock) -> None:
+                clock, cases=TP_DEFAULT_CASES) -> None:
     """``--tp-ranks N``: the serving kernels' phase-2 rows at gemma2-9b's
-    shard shapes on a model axis of 4 (this process, card 0), then phase 5c
-    on N cards (``run_tp_ranks``); the kernels line (launches summed over
-    the ranks' TP serve runs) and the device line with ``count`` the cards
-    used."""
+    shard shapes on a model axis of 4 and the decode attention's
+    log-sum-exp rows (this process, card 0), then phase 5c on N cards
+    (``run_tp_ranks``, running ``cases``); the kernels line (launches
+    summed over the ranks' TP serve runs) and the device line with
+    ``count`` the cards used."""
     rows: list[dict] = []
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for run in (run_gemm, run_decode, run_flash):
         run(torch, timer, gen, rows, prefix="gemma2 tp4")
+    run_decode_lse(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
     print_kernel_rows(rows)
@@ -4866,20 +5436,26 @@ def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
     if not all(r["ok"] for r in rows):
         fail("tensor-parallel: a kernel case at the shard shapes disagrees with the "
              "plain version")
-    summary["tensor_parallel"] = run_tp_ranks(torch, n, smi_line)
+    summary["tensor_parallel"] = run_tp_ranks(torch, n, smi_line, cases)
     clock.lap("tensor_parallel")
     out_json.write_text(json.dumps(summary, indent=1))
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
+
+    def served(res, wrapper):     # a rank's launches over its TP serves
+        return sum(sv["launches"][wrapper] for sv in
+                   [*([res["serve"]] if "serve" in res else []),
+                    *res.get("mixer_serves", {}).values()])
+
     for name in ("gemm", "decode_attention", "flash_attention"):
         src, replaces, wrapper, _, _, _ = KERNELS[name]
         mine = [r for r in rows if r["kernel"] == name and r["dtype"] == "bfloat16"]
         pick = mine[0]
         kernels.append({
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
-            "launches": sum(res["serve"]["launches"][wrapper]
+            "launches": sum(served(res, wrapper)
                             for res in summary["tensor_parallel"]["ranks"]),
-            "launches_by_rank": [res["serve"]["launches"][wrapper]
+            "launches_by_rank": [served(res, wrapper)
                                  for res in summary["tensor_parallel"]["ranks"]],
             "case": f"{pick['case']} {pick['dtype']}",
             **{k: pick[k] for k in keys},
@@ -4926,18 +5502,40 @@ def print_kernel_rows(rows: list) -> None:
               f"plain_ms={r['plain_ms']:.4f} library_ms={lib}", flush=True)
 
 
+# Each phase's budget in host seconds (PhaseClock): about 1.4 times its
+# time on one H100 (PERF.md §6) and at least 30 s; about twice for the
+# parallel nvcc build and the kernel rows (35-48 s each, varying with the
+# machine). A phase that grows shows before the run nears its 1200 s
+# limit; the phases took 804-818 s in all, under RUN_TARGET_S.
+PHASE_BUDGET_S = {"device": 100, "kernels": 100, "cnn": 30, "sim": 30,
+                  "sim_pipelined": 30, "dse": 60, "serve": 380,
+                  "serve_embeds": 60, "train": 160, "multi_device": 80,
+                  "tensor_parallel": 100, "dryrun": 240}
+TP_PHASE_BUDGET_S = {"device": 90, "kernels": 120, "tensor_parallel": 1500}
+RUN_TARGET_S = 900
+
+
 class PhaseClock:
     """The host seconds of each phase: ``lap`` prints the time since the
-    last lap (or since the clock was made) and keeps it in the summary."""
+    last lap (or since the clock was made) beside the phase's budget,
+    keeps it in the summary, and fails the run past the budget."""
 
-    def __init__(self, summary: dict):
-        self.summary, self.t = summary, time.perf_counter()
+    def __init__(self, summary: dict, budgets: dict):
+        self.summary, self.budgets = summary, budgets
+        self.t0 = self.t = time.perf_counter()
 
     def lap(self, name: str) -> None:
         now = time.perf_counter()
         secs, self.t = now - self.t, now
+        budget = self.budgets[name]
         self.summary.setdefault("phase_s", {})[name] = secs
-        print(f"phase: {name} {secs:.1f}s", flush=True)
+        print(f"phase: {name} {secs:.1f}s (budget {budget}s; run so far "
+              f"{now - self.t0:.1f}s)", flush=True)
+        if secs > budget:
+            fail(f"phase {name} took {secs:.1f} s, past its budget of {budget} s")
+
+    def total(self) -> float:
+        return time.perf_counter() - self.t0
 
 
 def main(argv=None) -> None:
@@ -4957,6 +5555,11 @@ def main(argv=None) -> None:
                     help="only phase 5c on N cards, an NCCL rank each (the "
                          "tensor-parallel train and serve steps); the kernels "
                          "line holds the serving kernels at the shard shapes")
+    ap.add_argument("--tp-case", nargs="+", choices=TP_CASES, default=TP_DEFAULT_CASES,
+                    metavar="CASE",
+                    help="with --tp-ranks: the runs on each rank, by name "
+                         f"(default {' '.join(TP_DEFAULT_CASES)}; gemma2-seq, "
+                         "gemma2-9b's cache sharded by sequence, with --tp-ranks 3)")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
@@ -4974,12 +5577,12 @@ def main(argv=None) -> None:
     out_json = Path(opts.json) if opts.json else out_dir / "chip_smoke.json"
     if opts.tp_worker is not None:
         tp_worker(torch, opts.tp_worker, opts.tp_ranks, opts.tp_port,
-                  out_dir / f"tp_rank{opts.tp_worker}.json")
+                  out_dir / f"tp_rank{opts.tp_worker}.json", tuple(opts.tp_case))
         return
 
     # ---- phase 1: device
     summary: dict = {}
-    clock = PhaseClock(summary)
+    clock = PhaseClock(summary, TP_PHASE_BUDGET_S if opts.tp_ranks else PHASE_BUDGET_S)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip().splitlines()
@@ -5005,7 +5608,8 @@ def main(argv=None) -> None:
         out_json.write_text(json.dumps(summary, indent=1))
         return
     if opts.tp_ranks:
-        run_tp_only(torch, opts.tp_ranks, smi_line, summary, out_json, clock)
+        run_tp_only(torch, opts.tp_ranks, smi_line, summary, out_json, clock,
+                    tuple(opts.tp_case))
         return
 
     # ---- phase 2: kernels vs plain versions
@@ -5017,8 +5621,9 @@ def main(argv=None) -> None:
           f"between the events", flush=True)
     summary["copy_calibration"] = copy_calibration(torch, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase2 = (run_gemm, run_decode, run_flash, run_conv, run_maxpool, run_leakyrelu)
-    for run in phase2[3:] if opts.cnn_kernels_only else phase2:
+    phase2 = (run_gemm, run_decode, run_decode_lse, run_flash, run_conv, run_maxpool,
+              run_leakyrelu)
+    for run in phase2[4:] if opts.cnn_kernels_only else phase2:
         run(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
@@ -5092,6 +5697,10 @@ def main(argv=None) -> None:
 
     if failures:
         fail("; ".join(failures))
+    summary["run_s"] = clock.total()
+    print(f"phase: the whole run {summary['run_s']:.1f}s (target {RUN_TARGET_S}s of "
+          f"a 1200 s limit)", flush=True)
+    out_json.write_text(json.dumps(summary, indent=1))
 
     # ---- phase 6: result
     kernels = []
@@ -5101,7 +5710,7 @@ def main(argv=None) -> None:
                     mine[0] if mine else None)
         runs = [summary[phase]] + ([summary["serve_embeds"], summary["train"]["serve"],
                                     summary["multi_device"]["serve"],
-                                    summary["tensor_parallel"]["serve"]]
+                                    summary["tensor_parallel"]]
                                    if phase == "serve" else
                                    [summary["sim"], summary["sim_pipelined"],
                                     summary["dse"]])
@@ -5125,8 +5734,10 @@ def main(argv=None) -> None:
                 summary["train"]["serve"]["launches"][wrapper]
             entry["launches_by_model"]["restored granite (phase 5b)"] = \
                 summary["multi_device"]["serve"]["launches"][wrapper]
-            entry["launches_by_model"]["gemma2 TP on a (1, 1) mesh (phase 5c)"] = \
-                summary["tensor_parallel"]["serve"]["launches"][wrapper]
+            for res in (summary["tensor_parallel"]["serve"],
+                        *summary["tensor_parallel"]["mixer_serves"].values()):
+                entry["launches_by_model"][f"{res['arch']} TP on a (1, 1) mesh "
+                                           f"(phase 5c)"] = res["launches"][wrapper]
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
         more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")

@@ -158,14 +158,20 @@ class ArcaneEngine:
         return attention_chunked_ref(q, k, v, chunk=self.attn_block_k, **kw)
 
     def decode_attention(self, q, k, v, lengths, *, softcap=None, scale=None,
-                         window=None) -> torch.Tensor:
+                         window=None, return_lse=False):
+        """→ (B, Hq, D); with ``return_lse`` that output in f32,
+        unrounded, and the rows' log-sum-exp (B, Hq) f32, from the same
+        launch (a cache sharded by sequence merges its ranks' slices with
+        them and rounds once)."""
         b, hq, d = q.shape
         hkv, s = k.shape[1], k.shape[2]
         self._log(6, q.dtype, (q.shape, k.shape), 4 * b * hq * s * d)
         qg = q.reshape(b, hkv, hq // hkv, d)
         fn = decode_attention_cuda if self._kernel(q) else decode_attention_ref
         out = fn(qg, k, v, lengths, softcap=softcap, scale=scale,
-                 window=window)
+                 window=window, return_lse=return_lse)
+        if return_lse:
+            return out[0].reshape(b, hq, d), out[1].reshape(b, hq)
         return out.reshape(b, hq, d)
 
 

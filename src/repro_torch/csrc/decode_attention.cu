@@ -50,6 +50,16 @@
 // order. It was chosen over a last-arriving-block
 // merge because it keeps no state between calls (no ticket counters to
 // reset) and its order, hence every bit of the output, is fixed.
+// Optionally the merge also writes each row's natural log-sum-exp of its
+// scaled (and capped) scores, f32 (B, Hkv, G): (m + log2 l) ln 2 from the
+// largest split max m and the rescaled sum l it already holds (the scores
+// are in log2 units), -inf for a row with no valid key, whose output is 0;
+// the output is then f32, unrounded, so that the ranks' partials merge
+// and round once, as one device's output does (rounded to q's dtype it is
+// the output without lse, bit for bit). A caller whose cache is sharded
+// by sequence passes each rank's local lengths (the global length minus
+// the slice's first position, unclamped: <= 0 leaves the slice empty, a
+// window start past S too) and merges the ranks' (out, lse).
 // Every launch returns cudaGetLastError() to the caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -62,6 +72,7 @@ namespace {
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 constexpr int THREADS = 128;
 constexpr int NW = THREADS / 32;
 constexpr int ALIGN = 32;       // a split's keys are a multiple of this
@@ -576,8 +587,8 @@ split_wide_kernel(Args a, int G) {
 // outputs sums its splits with their loads in flight.
 template <typename T>
 __global__ void __launch_bounds__(MERGE_THREADS)
-merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int D,
-             int splits) {
+merge_kernel(const float* __restrict__ ws, T* __restrict__ out,
+             float* __restrict__ lse, int G, int D, int splits) {
   __shared__ float wgt[MAX_SPLITS], lsum;
   const int bh = blockIdx.x, g = blockIdx.y, t = threadIdx.x;
   const ll P = (ll)gridDim.x * splits;
@@ -598,7 +609,12 @@ merge_kernel(const float* __restrict__ ws, T* __restrict__ out, int G, int D,
     }
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) ls += __shfl_xor_sync(0xffffffffu, ls, off);
-    if (t == 0) lsum = ls;
+    if (t == 0) {
+      lsum = ls;
+      if (lse != nullptr)
+        lse[(ll)bh * G + g] = ls > 0.0f ? (mx + log2f(ls)) * LN2
+                                        : __int_as_float((int)0xff800000u);
+    }
   }
   __syncthreads();
   for (int i = t; i < D; i += MERGE_THREADS) {
@@ -688,11 +704,16 @@ int launch_narrow(const Args& a, int BH, int G, cudaStream_t s) {
 }
 
 template <typename T>
-int launch(const Args& a, void* out, int BH, int G, bool wide, cudaStream_t s) {
-  T* o = (T*)out;
+int launch(const Args& a, void* out, float* lse, int BH, int G, bool wide,
+           cudaStream_t s) {
   int err = wide ? launch_wide<T>(a, BH, G, s) : launch_narrow<T>(a, BH, G, s);
   if (err) return err;
-  merge_kernel<T><<<dim3(BH, G), MERGE_THREADS, 0, s>>>(a.ws, o, G, a.D, a.splits);
+  if (lse != nullptr)
+    merge_kernel<float><<<dim3(BH, G), MERGE_THREADS, 0, s>>>(
+        a.ws, (float*)out, lse, G, a.D, a.splits);
+  else
+    merge_kernel<T><<<dim3(BH, G), MERGE_THREADS, 0, s>>>(
+        a.ws, (T*)out, nullptr, G, a.D, a.splits);
   return 0;
 }
 
@@ -704,12 +725,12 @@ int launch(const Args& a, void* out, int BH, int G, bool wide, cudaStream_t s) {
 // narrow variant (variant 0) only G <= 8 and D <= 256, the wide one
 // (variant 1) all of them. softcap <= 0 means none, window <= 0 means none.
 // out is (B, H, G, D) contiguous; ws holds B * H * splits * G * (D + 2)
-// floats. splits must leave no split without a key of [0, S), and be at
+// floats; lse, where not null, is (B, H, G) f32 contiguous, and out f32. splits must leave no split without a key of [0, S), and be at
 // most 256 (decode_splits in kernel.py); another value is refused.
 extern "C" int decode_attention_launch(
     const void* q, ll sqb, ll sqh, ll sqg, ll sqd, const void* k, ll skb,
     ll skh, ll sks, const void* v, ll svb, ll svh, ll svs, const int* lengths,
-    void* out, float* ws, int B, int H, int G, int S, int D, int splits,
+    void* out, float* ws, float* lse, int B, int H, int G, int S, int D, int splits,
     int dtype_code, int variant, float scale, float softcap, int window,
     void* stream) {
   const int esz = dtype_code == 0 ? 4 : 2;
@@ -729,8 +750,8 @@ extern "C" int decode_attention_launch(
                window};
   cudaStream_t s = (cudaStream_t)stream;
   const bool wide = variant == 1;
-  const int err = dtype_code == 0 ? launch<float>(a, out, B * H, G, wide, s)
-                                  : launch<bf16>(a, out, B * H, G, wide, s);
+  const int err = dtype_code == 0 ? launch<float>(a, out, lse, B * H, G, wide, s)
+                                  : launch<bf16>(a, out, lse, B * H, G, wide, s);
   if (err) return err;
   return (int)cudaGetLastError();
 }

@@ -180,6 +180,18 @@ def _spec_for(path: str, shape: tuple[int, ...], mesh, *,
     return P(*spec)
 
 
+def model_role_dim(path: str) -> Optional[int]:
+    """The dim of the param at ``path`` that the rules try to shard over
+    ``model`` (the stacked period axis counted, as ``param_pspecs`` counts
+    it), or None where they name none."""
+    for pat, roles in _PARAM_RULES:
+        if re.search(pat, path):
+            if "model" not in roles:
+                return None
+            return roles.index("model") + (1 if "blocks" in path else 0)
+    return None
+
+
 def param_pspecs(params: PyTree, mesh, *, fsdp: bool = False) -> PyTree:
     """Spec tree matching ``params`` (any leaves with a ``shape``: tensors,
     meta tensors, DTensors)."""

@@ -22,15 +22,25 @@ the params and the cache, never inventing its own:
   ranks' vocab shards (``vocab_logsumexp``, ``vocab_gold``);
 * an MoE layer's experts are sharded (expert parallelism): each rank runs
   its experts on the replicated tokens and the partial combines are summed;
-* a decode step over a cache sharded over its sequence attends each rank's
-  slice and merges the partial softmaxes (``merge_partials``).
+* a decode step over a cache sharded over its sequence (a ring cache's
+  slots too) attends each rank's slice, the decode kernel returning each
+  row's log-sum-exp, and merges the partial softmaxes (``merge_partials``);
+* MLA runs its heads (q_up, k_up, v_up column-parallel, o row-parallel;
+  the latents whole on every rank, their sequence-sharded cache decoded
+  over every head and merged); RWKV-6 its heads (r, k, v, g, the decay's
+  wB, the wkv state and group norm; o and the channel mix's cm_v
+  row-parallel, cm_v's sum reduce-scattered to meet cm_r's columns, the
+  product gathered back, ``gather_from_model``); Mamba its channels (the
+  conv, dt_proj, the scan and its state; x_proj and out_proj
+  row-parallel), in_proj's column block of ``[x | z]`` routed to the
+  rank's channels of both halves (``route_channels``).
 
 A leaf the rules replicate over ``model`` is computed whole, as XLA would.
 A layer whose heads do not split into whole GQA groups a rank
-(``head_parallel``), and the MLA, Mamba and RWKV-6 mixers, gather their
-leaves over ``model`` and compute whole; ``plan`` names every leaf it
-gathers. Every collective runs on the model group, including a group of
-one.
+(``head_parallel``), and a mixer whose sharded leaves do not split on
+agreeing head or channel boundaries, gather their leaves over ``model``
+and compute whole; ``plan`` names every leaf it gathers and why. Every
+collective runs on the model group, including a group of one.
 """
 from __future__ import annotations
 
@@ -42,7 +52,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs.base import LayerSpec
-from repro_torch.distributed.sharding import map_with_path
+from repro_torch.distributed.sharding import map_with_path, model_role_dim
 
 PyTree = Any
 
@@ -108,6 +118,29 @@ class _ReduceFromModel(torch.autograd.Function):
         return grad, None
 
 
+class _ReduceScatterLast(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return _reduce_scatter(x, mg, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _all_gather(grad, ctx.mg, -1), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg, ctx.n = mg, x.shape[-1]
+        return _all_gather(x, mg, -1)
+
+    @staticmethod
+    def backward(ctx, grad):
+        r, n = ctx.mg.rank, ctx.n
+        return grad[..., r * n:(r + 1) * n].contiguous(), None
+
+
 class _GatherColumns(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, mg, dim):
@@ -129,6 +162,20 @@ def reduce_from_model(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     """After a row-parallel product: the ranks' partial ``x`` summed; the
     gradient passed through."""
     return _ReduceFromModel.apply(x, mg)
+
+
+def reduce_scatter_from_model(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """After a row-parallel product whose output a rank reads only in its
+    block of the last dim: the ranks' partial ``x`` summed, this rank's
+    block of the sum (its gradient all-gathered back)."""
+    return _ReduceScatterLast.apply(x, mg)
+
+
+def gather_from_model(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The ranks' blocks of an activation joined along the last dim, where
+    what follows is replicated over the ranks: the gradient, the same on
+    every rank, gives each rank its own block back."""
+    return _GatherFromModel.apply(x, mg)
 
 
 def gather_columns(w: torch.Tensor, mg: ModelGroup, dim: int = -1) -> torch.Tensor:
@@ -153,12 +200,76 @@ def gather_last(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     return _all_gather(x, mg, -1)
 
 
+def gather_heads(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The ranks' heads joined along dim 1, (B, H, ...) (serving: MLA's
+    absorbed queries; no gradient)."""
+    return _all_gather(x, mg, 1)
+
+
 def all_to_all(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
     """``x[r]`` to rank r; → ``out[r]`` from rank r (serving; no
     gradient)."""
     out = torch.empty_like(x)
     dist.all_to_all_single(out, x.contiguous(), group=mg.group)
     return out
+
+
+def _route_plan(r: int, m: int) -> tuple:
+    """Rank r's column block of a ``[a | b]`` product whose two halves each
+    split over m ranks: its two units (global units 2r, 2r + 1 of 2m) go
+    to the ranks that own their channels (unit j < m: rank j's part of a;
+    j >= m: rank j − m's part of b). → (r's units in the order it sends
+    them, by destination; the units it sends to each rank; the units it
+    receives from each rank, a's before b's)."""
+    def dest(j):
+        return j if j < m else j - m
+    order = sorted((0, 1), key=lambda e: (dest(2 * r + e), e))
+    send = [sum(dest(2 * r + e) == q for e in (0, 1)) for q in range(m)]
+    recv = [sum(src == q for src in (r // 2, (m + r) // 2)) for q in range(m)]
+    return order, send, recv
+
+
+def _route(x: torch.Tensor, mg: ModelGroup, inverse: bool) -> torch.Tensor:
+    c = x.shape[-1] // 2
+    order, send, recv = _route_plan(mg.rank, mg.size)
+    t = x.movedim(-1, 0)
+    if inverse:
+        send, recv = recv, send
+    else:
+        t = torch.cat([t[e * c:(e + 1) * c] for e in order])
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, [n * c for n in recv], [n * c for n in send],
+                           group=mg.group)
+    if inverse:
+        back = [None, None]
+        for i, e in enumerate(order):
+            back[e] = out[i * c:(i + 1) * c]
+        out = torch.cat(back)
+    # contiguous, so that a routed weight keeps the layout the GEMM's
+    # tensor-core variant reads
+    return out.movedim(0, -1).contiguous()
+
+
+class _RouteChannels(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mg):
+        ctx.mg = mg
+        return _route(x, mg, inverse=False)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _route(grad, ctx.mg, inverse=True), None
+
+
+def route_channels(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """x's last dim is this rank's column block of ``[a | b]`` (both halves
+    n wide, the 2n columns split over the ranks in blocks of 2n/m): →
+    this rank's channels of both halves, ``[a_r | b_r]`` (each n/m, the
+    channels [r·n/m, (r+1)·n/m)), by one all-to-all; the gradient routed
+    back. Mamba's in_proj takes it on its product or on its weight
+    columns (the same columns either way)."""
+    return _RouteChannels.apply(x, mg)
 
 
 # ------------------------------------------------------ vocab parallelism
@@ -286,14 +397,16 @@ class AttnTP:
 
 @dataclasses.dataclass(frozen=True)
 class BlockTP:
-    """One pattern position's plan: its attention and cross-attention (None
-    where the block has none or computes its mixer whole), the dense FFN
-    column/row-parallel, the MoE experts sharded."""
+    """One pattern position's plan: its attention or MLA and its
+    cross-attention (None where the block has none), the dense FFN
+    column/row-parallel, the MoE experts sharded, a Mamba or RWKV-6 mixer
+    on the rank's channels or heads (``mixer``)."""
     mg: ModelGroup
     attn: Optional[AttnTP]
     cross: Optional[AttnTP]
     ffn: bool
     experts: bool
+    mixer: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,7 +424,12 @@ class ModelTP:
     choices: dict
 
 
-GATHERED_MIXERS = {"mla": "attn", "mamba": "mixer", "rwkv": "mixer"}
+# each mixer's params' key in its block, and what it splits over the ranks
+MIXER_SPLIT = {"mla": ("attn", "heads"), "rwkv": ("mixer", "heads"),
+               "mamba": ("mixer", "channels")}
+# each mixer's state cache leaves, computed on the rank's shard where the
+# mixer splits (MLA's latents follow its attention's cache layout)
+MIXER_STATE = {"rwkv": ("S",), "mamba": ("ssm", "conv")}
 
 
 def model_dims(tree: PyTree, mesh) -> dict:
@@ -366,17 +484,57 @@ def _blocks_contained(cfg, m: int) -> bool:
     return True
 
 
+def _mixer_units(cfg, kind: str) -> int:
+    """The heads (MLA, RWKV-6) or channels (Mamba) a mixer splits."""
+    if kind == "mla":
+        return cfg.n_heads
+    if kind == "rwkv":
+        return cfg.d_model // cfg.rwkv.head_size
+    return cfg.mamba.expand * cfg.d_model
+
+
+def _mixer_plan(mg, cfg, kind: str, dims: dict, prefix: str,
+                cache_dims: Optional[dict], j: Optional[int]):
+    """Why the mixer under ``prefix`` computes whole, or None where it
+    runs on the rank's heads or channels: they divide over the ranks, the
+    rules shard every leaf of it on the dim they name for ``model``
+    (``model_role_dim``), and while serving its state cache
+    (``MIXER_STATE``) is sharded too."""
+    units, split = _mixer_units(cfg, kind), MIXER_SPLIT[kind][1]
+    why = []
+    if units % mg.size:
+        why.append(f"{units} {split} do not divide over {mg.size} ranks")
+    off = [path[len(prefix) + 1:] for path, d in dims.items()
+           if path.startswith(prefix + "/")
+           and model_role_dim(path) not in (None, d)]
+    if off:
+        why.append(f"the rules replicate {', '.join(off)}")
+    if not why and cache_dims is not None and j is not None:
+        bad = [n for n in MIXER_STATE.get(kind, ())
+               if cache_dims.get(f"{j}/{n}") is None]
+        if bad:
+            why.append(f"its cache {', '.join(bad)} is not sharded by its {split}")
+    return "; ".join(why) or None
+
+
 def cache_kept(tp: "ModelTP", path: str) -> bool:
     """Whether a serve step computes on the rank's ``model`` shard of the
     cache leaf at ``path`` ("j/name"): the k/v of a head-parallel layer or
-    of one sharded by sequence, the cross k/v of a head-parallel
-    cross-attention. Every other sharded leaf is gathered for the step."""
+    of one sharded by sequence, MLA's latents sharded by sequence, the
+    cross k/v of a head-parallel cross-attention, the state of a Mamba
+    (``ssm``, ``conv``: channels) or RWKV-6 (``S``: heads) mixer computing
+    on its shards. Every other sharded leaf (RWKV-6's token-shift rows
+    among them) is gathered for the step."""
     j, name = path.split("/")
     blk = tp.blocks[int(j)]
     if name in ("k", "v"):
         return blk.attn is not None and (blk.attn.heads or blk.attn.cache == "seq")
+    if name in ("c", "kr"):
+        return blk.attn is not None and blk.attn.cache == "seq"
     if name in ("xk", "xv"):
         return blk.cross is not None and blk.cross.heads
+    if any(name in names for names in MIXER_STATE.values()):
+        return blk.mixer
     return False
 
 
@@ -388,7 +546,10 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
     sharded; else its leaves sharded over ``model`` are gathered. While
     serving, a cross-attention runs head-parallel only over a cache
     sharded by heads, and a self-attention over one sharded by heads or by
-    sequence."""
+    sequence. An MLA, RWKV-6 or Mamba mixer runs on its heads or channels
+    where ``_mixer_plan`` finds its leaves (and state cache) laid out so,
+    else whole, its sharded leaves gathered; MLA keeps a latent cache
+    sharded by sequence either way."""
     gathered: dict = {}
     choices: dict = {}
 
@@ -403,15 +564,26 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
         d = cache_dims.get(f"{j}/{name}")
         if d is None:
             return "whole"
-        return {2: "heads", 3: "seq"}[d]
+        # k, v (L, B, Hkv, S, hd); MLA's c (L, B, S, r)
+        return ({2: "seq"} if name == "c" else {2: "heads", 3: "seq"})[d]
+
+    def mixer(prefix: str, j: Optional[int], spec) -> tuple:
+        key, split = MIXER_SPLIT[spec.kind]
+        root = f"{prefix}/{key}"
+        why = _mixer_plan(mg, cfg, spec.kind, dims, root, cache_dims, j)
+        if why:
+            gather_under(root, why)
+        choices[root] = f"whole: {why}" if why else split
+        if spec.kind != "mla":
+            return None, why is None
+        cm = cache_mode(j, "c") if j is not None else None
+        return AttnTP(mg, why is None, cache="seq" if cm == "seq" else "whole"), False
 
     def block(prefix: str, j: Optional[int], spec) -> BlockTP:
         attn = cross = None
-        if spec.kind in GATHERED_MIXERS:
-            gather_under(f"{prefix}/{GATHERED_MIXERS[spec.kind]}",
-                         f"the {spec.kind} mixer computes whole")
-            choices[f"{prefix}/{GATHERED_MIXERS[spec.kind]}"] = \
-                f"whole: the {spec.kind} mixer"
+        on_shards = False
+        if spec.kind in MIXER_SPLIT:
+            attn, on_shards = mixer(prefix, j, spec)
         else:
             cm = cache_mode(j, "k") if j is not None else None
             attn, why = _attn_plan(mg, cfg, dims, f"{prefix}/attn", cm)
@@ -428,7 +600,7 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
                                               else f"whole: {why}")
         ffn = dims.get(f"{prefix}/ffn/down/w") is not None
         experts = dims.get(f"{prefix}/ffn/gate") is not None
-        return BlockTP(mg, attn, cross, ffn, experts)
+        return BlockTP(mg, attn, cross, ffn, experts, on_shards)
 
     blocks = tuple(block(f"blocks/{j}", j, spec)
                    for j, spec in enumerate(cfg.pattern))

@@ -11,7 +11,11 @@ thread holds every head's accumulators) and ``wide`` (any shape the
 kernel takes, up to MLA's absorbed decode at G = 40, D = 288), picked by
 ``decode_variant``. ``decode_attention_cuda.launches`` counts the wrapper's
 launches (one per call, the merge included) and
-``decode_attention_cuda.variants`` the launches of each variant.
+``decode_attention_cuda.variants`` the launches of each variant. With
+``return_lse`` the merge also writes each row's f32 log-sum-exp (−inf for a
+row with no valid key, whose output is 0), in the same launch, and the
+output in f32, unrounded (rounded, it is the output without lse): a cache
+sharded by sequence merges its ranks' slices with them and rounds once.
 """
 from __future__ import annotations
 
@@ -38,7 +42,7 @@ def _fn():
     if _FN is None:
         fn = _build.load("decode_attention").decode_attention_launch
         V, L, I, F = _build.VP, _build.I64, _build.I32, _build.F32
-        fn.argtypes = [V, L, L, L, L, V, L, L, L, V, L, L, L, V, V, V,
+        fn.argtypes = [V, L, L, L, L, V, L, L, L, V, L, L, L, V, V, V, V,
                        I, I, I, I, I, I, I, I, F, F, I, V]
         fn.restype = I
         _FN = fn
@@ -83,13 +87,17 @@ def decode_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           lengths: torch.Tensor, *,
                           softcap: Optional[float] = None,
                           scale: Optional[float] = None,
-                          window: Optional[int] = None) -> torch.Tensor:
+                          window: Optional[int] = None,
+                          return_lse: bool = False):
     """q: (B, Hkv, G, D) any strides; k, v: (B, Hkv, S, D); lengths: (B,)
-    int32 on the card → (B, Hkv, G, D)."""
-    return _decode(q, k, v, lengths, softcap, scale, window, None)
+    int32 on the card → (B, Hkv, G, D) in q's dtype; with ``return_lse``
+    (that output in f32, unrounded, and the rows' log-sum-exp (B, Hkv, G)
+    f32). A length may be at most 0 (no valid key) or above S (the row ends
+    at S; a window starts from the length)."""
+    return _decode(q, k, v, lengths, softcap, scale, window, None, return_lse)
 
 
-def _decode(q, k, v, lengths, softcap, scale, window, variant):
+def _decode(q, k, v, lengths, softcap, scale, window, variant, return_lse=False):
     """``decode_attention_cuda`` with the variant named: None takes
     ``decode_variant``'s pick; ``wide`` runs on any shape the kernel takes
     (so that the card tests and ``chip_smoke.py`` hold it to the plain
@@ -123,19 +131,23 @@ def _decode(q, k, v, lengths, softcap, scale, window, variant):
         scale = 1.0 / (d ** 0.5)
     s = k.shape[2]
     splits = decode_splits(b, hkv, s, sm_count(q.device))
-    out = torch.empty((b, hkv, g, d), dtype=q.dtype, device=q.device)
+    out = torch.empty((b, hkv, g, d), device=q.device,
+                      dtype=torch.float32 if return_lse else q.dtype)
     ws = torch.empty(b * hkv * splits * g * (d + 2), dtype=torch.float32,
                      device=q.device)
+    lse = (torch.empty((b, hkv, g), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     err = _fn()(q.data_ptr(), *q.stride(), k.data_ptr(), *k.stride()[:3],
                 v.data_ptr(), *v.stride()[:3], lengths.data_ptr(),
-                out.data_ptr(), ws.data_ptr(), b, hkv, g, s, d, splits,
+                out.data_ptr(), ws.data_ptr(),
+                None if lse is None else lse.data_ptr(), b, hkv, g, s, d, splits,
                 CODES[q.dtype], VARIANTS[variant],
                 float(scale), float(softcap or 0.0), int(window or 0),
                 stream_ptr(q))
     decode_attention_cuda.launches += 1
     decode_attention_cuda.variants[variant] += 1
     _build.check(err, "decode_attention")
-    return out
+    return out if lse is None else (out, lse)
 
 
 decode_attention_cuda.launches = 0

@@ -2,6 +2,7 @@
 decode_attention_ref)."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -26,8 +27,14 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          lengths: torch.Tensor, *,
                          softcap: Optional[float] = None,
                          scale: Optional[float] = None,
-                         window: Optional[int] = None) -> torch.Tensor:
-    """q: (B, Hkv, G, D); k, v: (B, Hkv, S, D); lengths: (B,) → (B, Hkv, G, D)."""
+                         window: Optional[int] = None,
+                         return_lse: bool = False):
+    """q: (B, Hkv, G, D); k, v: (B, Hkv, S, D); lengths: (B,) → (B, Hkv, G, D).
+
+    ``return_lse``: (out in f32, unrounded; the rows' natural log-sum-exp
+    of the scaled (and capped) scores over their valid keys, (B, Hkv, G)
+    f32); a row with no valid key (a length at most 0, or a window that
+    starts past S) has out 0 and lse −inf."""
     g, d = q.shape[-2], q.shape[-1]
     check_shape(g, d, q.element_size())
     s_len = k.shape[2]
@@ -42,6 +49,22 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask = mask & (cols >= torch.clamp(ln - window, min=0))
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    if return_lse:
+        return _with_lse(s, mask, v)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", p, v.float())
     return out.to(q.dtype)
+
+
+def _with_lse(s, mask, v):
+    """(out f32, lse) of the masked scores ``s``: exp(s − max) summed over
+    the valid keys; out 0 and lse −inf where a row has none."""
+    mask = mask.expand_as(s)
+    m = s.amax(dim=-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    l = p.sum(dim=-1, keepdim=True)
+    some = l > 0
+    out = torch.einsum("bhgs,bhsd->bhgd", p, v.float()) / torch.where(
+        some, l, torch.ones_like(l))
+    lse = torch.where(some, m + torch.log(l), torch.full_like(l, -math.inf))
+    return out, lse[..., 0]

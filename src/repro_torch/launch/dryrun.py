@@ -21,14 +21,15 @@ sharding rules lay them:
 * **prefill** and **decode** cells run ``train/step.py: serve_on_mesh``,
   the serve steps laid over the mesh the same way: the params' ``model``
   shards kept, the cache laid out by ``cache_pspecs`` and computed on where
-  it is (a head-parallel layer's heads, a sequence slice of every kv head,
-  whose decode merges the ranks' partial softmaxes), the batch split over
-  the axes that shard the cache's rows.
+  it is (a head-parallel layer's heads, a sequence slice of every kv head
+  or of MLA's latents (``--ring-local-cache``: of a ring's slots), whose
+  decode merges the ranks' partial softmaxes, a recurrent mixer's heads or
+  channels), the batch split over the axes that shard the cache's rows.
 
 The leaves a rank gathers over ``model`` to compute whole (a layer whose
-heads do not split into whole GQA groups a rank; the MLA, Mamba and
-RWKV-6 mixers and their caches) are listed in the record,
-``gathered_over_model`` (path: why).
+heads do not split into whole GQA groups a rank, an MLA whose heads do not
+divide the axis, and the caches such layers read) are listed in the
+record, ``gathered_over_model`` (path: why).
 
 Three counters watch the step, all over executed ops:
 

@@ -11,9 +11,9 @@ With an ``AttnTP`` (``tp``) of a head-parallel layer a rank computes its q
 heads and the kv heads they read: q, k, v are column-parallel, o is
 row-parallel (``distributed/tensor_parallel.py``). Its cache holds the
 rank's kv heads, or, sharded by sequence, the rank's slice of every kv
-head: a decode step then attends each slice and merges the ranks'
-partial softmaxes (``ref`` engine only: the decode kernel returns no
-log-sum-exp).
+head (of a ring cache, its slice of the ring's slots): a decode step then
+attends each slice, the decode kernel returning each row's log-sum-exp,
+and merges the ranks' partial softmaxes.
 """
 from __future__ import annotations
 
@@ -139,17 +139,16 @@ def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
 
     Ring mode (window-sized cache for local layers): only the last
     ``window`` rows are kept, at slot ``pos % window``. A cache sharded by
-    sequence (``tp.cache == "seq"``) takes the rank's slice of the rows.
+    sequence (``tp.cache == "seq"``) takes the rank's slice of the rows (of
+    a ring, its slice of the slots).
     """
     s = x.shape[1]
     q, k, v = _qkv(engine, params, cfg, x, positions, tp)
     out = engine.attention(q, k, v, causal=True, window=window,
                            softcap=cfg.attn_softcap)
     if tp is not None and tp.cache == "seq":
-        if ring:
-            raise ValueError(f"{cfg.name}: a ring cache sharded by sequence")
         for c, t in ((cache_k, k), (cache_v, v)):
-            _write_seq_slice(cfg, tp, c, t)
+            _write_seq_slice(cfg, tp, c, t, ring)
     elif ring:
         w = cache_k.shape[2]
         keep = min(w, s)
@@ -162,28 +161,41 @@ def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     return _out(engine, params["o"], _merge_heads(out), tp), cache_k, cache_v
 
 
-def _write_seq_slice(cfg, tp, cache: torch.Tensor, t: torch.Tensor) -> None:
+def slot_positions(s: int, n_slots: int, ring: bool, device) -> torch.Tensor:
+    """The prompt position that lands in each slot of a cache of
+    ``n_slots`` after a prompt of ``s`` tokens: slot g holds position g,
+    or in a ring the last position p < s with p % n_slots == g; the slots
+    from s on hold none (their entries clamped into [0, s))."""
+    g = torch.arange(n_slots, device=device)
+    pos = g + n_slots * torch.div(s - 1 - g, n_slots, rounding_mode="floor") \
+        if ring else g
+    return pos.clamp(0, s - 1)
+
+
+def _write_seq_slice(cfg, tp, cache: torch.Tensor, t: torch.Tensor,
+                     ring: bool = False) -> None:
     """Prompt rows of every kv head into the rank's sequence slice of the
     cache (B, Hkv, S_l, hd), from ``t``: every kv head (a whole layer) or
     the rank's heads (head-parallel), whose rank-own column block goes to
-    each rank's slice by an all-to-all (heads to sequence)."""
+    each rank's slice by an all-to-all (heads to sequence). The slices are
+    of the ring's slots for a ring cache (``slot_positions``)."""
     mg, (b, _, s, hd) = tp.mg, t.shape
     s_l = cache.shape[2]
-    lo = min(mg.rank * s_l, s)
-    n = min(s, lo + s_l) - lo
+    pos = slot_positions(s, mg.size * s_l, ring, t.device).reshape(mg.size, s_l)
+    n = min(max(s - mg.rank * s_l, 0), s_l)      # the slice's filled slots
     if not tp.heads:
-        cache[:, :, :n] = t[:, :, lo:lo + n].to(cache.dtype)
-        return
-    _, _, k0, _ = _head_ranges(cfg, tp)
-    cols = cfg.n_kv_heads * hd // mg.size
-    c0 = mg.rank * cols - k0 * hd           # the rank's block in t's columns
-    own = _merge_heads(t)[..., c0:c0 + cols]                # (B, s, cols)
-    # the rank's columns of every rank's slice, padded to whole slices
-    own = torch.nn.functional.pad(own, (0, 0, 0, mg.size * s_l - s))
-    ins = own.reshape(b, mg.size, s_l, cols).transpose(0, 1).contiguous()
-    outs = tpm.all_to_all(ins, mg)              # (m, B, S_l, cols): by rank
-    rows = outs.permute(1, 2, 0, 3).reshape(b, s_l, cfg.n_kv_heads, hd)[:, :n]
-    cache[:, :, :n] = rows.transpose(1, 2).to(cache.dtype)
+        rows = t[:, :, pos[mg.rank]]
+    else:
+        _, _, k0, _ = _head_ranges(cfg, tp)
+        cols = cfg.n_kv_heads * hd // mg.size
+        c0 = mg.rank * cols - k0 * hd       # the rank's block in t's columns
+        own = _merge_heads(t)[..., c0:c0 + cols]            # (B, s, cols)
+        # the rank's columns of every rank's slice
+        ins = own[:, pos].transpose(0, 1).contiguous()      # (m, B, S_l, cols)
+        outs = tpm.all_to_all(ins, mg)          # (m, B, S_l, cols): by rank
+        rows = outs.permute(1, 2, 0, 3).reshape(b, s_l, cfg.n_kv_heads, hd)
+        rows = rows.transpose(1, 2)
+    cache[:, :, :n] = rows[:, :, :n].to(cache.dtype)
 
 
 def attention_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
@@ -222,20 +234,29 @@ def _row_all_heads(engine, params, cfg, x, tp) -> torch.Tensor:
     return tpm.gather_last(dense(engine, params, x), tp.mg)
 
 
+def seq_lengths(position: torch.Tensor, s_l: int, mg, ring: bool) -> tuple:
+    """A decode step over a cache sharded by sequence, rank ``mg.rank``
+    holding slots [r·S_l, (r+1)·S_l): (the new row's slot in the rank's
+    slice, in range only on its owner; the decode kernel's length over the
+    slice, unclamped: at most 0 for a slice with no valid key, above S_l
+    for a full one). A ring's new row goes to slot ``position % (m·S_l)``
+    and its filled slots are the first min(position + 1, m·S_l)."""
+    start = mg.rank * s_l
+    if ring:
+        w = mg.size * s_l
+        return position % w - start, torch.clamp(position + 1, max=w) - start
+    return position - start, position + 1 - start
+
+
 def _decode_seq(engine, params, cfg, x, position, cache_k, cache_v, *,
                 window, ring, tp):
     """One-token decode over a cache sharded by sequence: each rank holds
-    the rows [r·S_l, (r+1)·S_l) of every kv head. The rank that holds the
-    position writes the new row; each rank attends every q head over its
-    rows (``partial_decode_attention``), the ranks merge (``merge_partials``)
+    the rows [r·S_l, (r+1)·S_l) of every kv head (of a ring, those slots).
+    The rank that holds the new row's slot writes it; each rank attends
+    every q head over its rows (the decode kernel over its slice with the
+    rank-local lengths, returning each row's log-sum-exp; a ring with no
+    window: it holds the window), the ranks merge (``merge_partials``)
     and a head-parallel rank keeps its q heads for o."""
-    if engine.backend == "cuda" or (engine.backend == "auto" and cache_k.is_cuda):
-        raise ValueError(
-            f"{cfg.name}: decode over a cache sharded by sequence needs each "
-            f"rank's log-sum-exp to merge, which the decode kernel does not "
-            f"return; serve it on ArcaneEngine('ref') or shard the cache by heads")
-    if ring:
-        raise ValueError(f"{cfg.name}: a ring cache sharded by sequence")
     b, hd, mg = x.shape[0], cfg.resolved_head_dim, tp.mg
     q0, nq, _, _ = _head_ranges(cfg, tp)
     x1, pos1 = x[:, None, :], position[:, None]
@@ -249,18 +270,17 @@ def _decode_seq(engine, params, cfg, x, position, cache_k, cache_v, *,
     v = _split_heads(_row_all_heads(engine, params["v"], cfg, x1, tp),
                      cfg.n_kv_heads)[:, :, 0]
     s_l = cache_k.shape[2]
-    start = mg.rank * s_l
-    slot = position - start
+    slot, lengths = seq_lengths(position, s_l, mg, ring)
     own = ((slot >= 0) & (slot < s_l))[:, None, None]
     slot = slot.clamp(0, s_l - 1)
     rows = torch.arange(b, device=x.device)
     for c, new in ((cache_k, k), (cache_v, v)):
         c[rows, :, slot] = torch.where(own, new.to(c.dtype), c[rows, :, slot])
-    hi = (position + 1 - start).clamp(0, s_l)
-    lo = ((position + 1 - window - start).clamp(0, s_l) if window is not None
-          else torch.zeros_like(hi))
-    out, lse = tpm.partial_decode_attention(q, cache_k, cache_v, lo, hi,
-                                            softcap=cfg.attn_softcap)
+    out, lse = engine.decode_attention(q, cache_k, cache_v,
+                                       lengths.to(torch.int32),
+                                       softcap=cfg.attn_softcap,
+                                       window=None if ring else window,
+                                       return_lse=True)
     out = tpm.merge_partials(out, lse, mg).to(q.dtype)[:, q0:q0 + nq]
     out = _out(engine, params["o"], out.reshape(b, nq * hd), tp)
     return out, cache_k, cache_v

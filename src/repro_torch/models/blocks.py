@@ -19,9 +19,10 @@ prefill whose encoder output has another length raises ``ValueError``
 (the reference rebinds ``xk`` and ``xv`` to an output of any length).
 
 Under tensor parallelism each entry point takes the pattern position's
-``BlockTP`` (``tp``): its attention and cross-attention head-parallel or
+``BlockTP`` (``tp``): its attention, MLA and cross-attention head-parallel
+or whole, a Mamba or RWKV-6 mixer on the rank's channels or heads or
 whole, its dense FFN column/row-parallel, its MoE experts sharded; the
-norms and the MLA, Mamba and RWKV-6 mixers compute whole.
+norms compute whole.
 """
 from __future__ import annotations
 
@@ -36,7 +37,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import mamba as mam
 from repro_torch.models import mla as mla_mod
 from repro_torch.models import rwkv6 as rwkv_mod
-from repro_torch.models.layers import dense, make_norm
+from repro_torch.models.layers import make_norm
 from repro_torch.models.mlp import mlp, mlp_init
 from repro_torch.models.moe import moe, moe_init
 
@@ -65,10 +66,14 @@ def _window(cfg: ModelConfig, spec: LayerSpec):
     return cfg.local_window if spec.kind == "attn_local" else None
 
 
-def _ring(cfg: ModelConfig, spec: LayerSpec, cache: dict) -> bool:
+def _ring(cfg: ModelConfig, spec: LayerSpec, cache: dict, tp=None) -> bool:
+    """Whether the layer's cache is a ring of ``window`` slots (sharded by
+    sequence: its slices of them)."""
     window = _window(cfg, spec)
+    attn_tp = _part(tp, "attn")
+    slices = attn_tp.mg.size if attn_tp is not None and attn_tp.cache == "seq" else 1
     return (window is not None and cfg.ring_local_cache
-            and cache["k"].shape[2] == window)
+            and cache["k"].shape[2] * slices == window)
 
 
 def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device, *,
@@ -97,6 +102,12 @@ def block_init(gen, cfg: ModelConfig, spec: LayerSpec, device, *,
 
 def _part(tp, name: str):
     return None if tp is None else getattr(tp, name)
+
+
+def _mixer_mg(tp):
+    """The model group a Mamba or RWKV-6 mixer computes its shards over,
+    or None (whole)."""
+    return tp.mg if tp is not None and tp.mixer else None
 
 
 def _cross_kv(engine, params, cfg, enc_out, tp=None):
@@ -137,15 +148,17 @@ def block_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     _, napply = make_norm(cfg.norm)
     x = constrain(x, "batch", None, None)
     h = napply(params["ln1"], x)
+    mg = _mixer_mg(tp)
     if spec.kind == "mla":
-        h = mla_mod.mla_forward(engine, params["attn"], cfg, h, positions)
+        h = mla_mod.mla_forward(engine, params["attn"], cfg, h, positions,
+                                tp=_part(tp, "attn"))
     elif spec.kind == "mamba":
-        h, _ = mam.mamba_forward(engine, params["mixer"], cfg, h)
+        h, _ = mam.mamba_forward(engine, params["mixer"], cfg, h, mg=mg)
     elif spec.kind == "rwkv":
-        h, _, _ = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h)
+        h, _, _ = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h, mg=mg)
         x = x + h
         cm, _ = rwkv_mod.rwkv_channel_mix(engine, params["mixer"], cfg,
-                                          napply(params["ln2"], x))
+                                          napply(params["ln2"], x), mg=mg)
         return x + cm, 0.0
     else:
         h = attn.attention_forward(engine, params["attn"], cfg, h, positions,
@@ -203,32 +216,34 @@ def block_prefill(engine, params, cfg, spec, x, positions, cache, *,
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
     h = napply(params["ln1"], x)
+    mg = _mixer_mg(tp)
     if spec.kind == "mla":
         h, cache["c"], cache["kr"] = mla_mod.mla_prefill(
-            engine, params["attn"], cfg, h, positions, cache["c"], cache["kr"])
+            engine, params["attn"], cfg, h, positions, cache["c"], cache["kr"],
+            tp=_part(tp, "attn"))
     elif spec.kind == "mamba":
         k1 = cfg.mamba.d_conv - 1
         mam.check_prompt(cfg, x.shape[1])
-        h, last = mam.mamba_forward(engine, params["mixer"], cfg, h)
+        h, last = mam.mamba_forward(engine, params["mixer"], cfg, h, mg=mg)
         cache["ssm"].copy_(last)
         # conv state: the last K-1 pre-conv activations, recomputed (ln1
         # and in_proj of the last K-1 tokens again, as the reference does)
         tail = napply(params["ln1"], x[:, -k1:])
-        xz_tail = dense(engine, params["mixer"]["in_proj"], tail)
-        cache["conv"].copy_(xz_tail.chunk(2, dim=-1)[0])
+        cache["conv"].copy_(mam.in_proj(engine, params["mixer"], tail, mg)[0])
     elif spec.kind == "rwkv":
-        h, S, tm_x = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h)
+        h, S, tm_x = rwkv_mod.rwkv_time_mix(engine, params["mixer"], cfg, h,
+                                            mg=mg)
         cache["S"].copy_(S)
         cache["tm_x"].copy_(tm_x)
         x = x + h
         cm, cm_x = rwkv_mod.rwkv_channel_mix(engine, params["mixer"], cfg,
-                                             napply(params["ln2"], x))
+                                             napply(params["ln2"], x), mg=mg)
         cache["cm_x"].copy_(cm_x)
         return x + cm, cache
     else:
         h, cache["k"], cache["v"] = attn.attention_prefill(
             engine, params["attn"], cfg, h, positions, cache["k"], cache["v"],
-            window=_window(cfg, spec), ring=_ring(cfg, spec, cache),
+            window=_window(cfg, spec), ring=_ring(cfg, spec, cache, tp),
             tp=_part(tp, "attn"))
     x = x + h
     if enc_out is not None and "cross" in params:
@@ -252,29 +267,31 @@ def block_decode(engine, params, cfg, spec, x, position, cache, *,
     _check_kind(cfg, spec)
     _, napply = make_norm(cfg.norm)
     h = napply(params["ln1"], x)
+    mg = _mixer_mg(tp)
     if spec.kind == "mla":
         h, cache["c"], cache["kr"] = mla_mod.mla_decode(
-            engine, params["attn"], cfg, h, position, cache["c"], cache["kr"])
+            engine, params["attn"], cfg, h, position, cache["c"], cache["kr"],
+            tp=_part(tp, "attn"))
     elif spec.kind == "mamba":
         h, conv, ssm = mam.mamba_decode(engine, params["mixer"], cfg, h,
-                                        cache["conv"], cache["ssm"])
+                                        cache["conv"], cache["ssm"], mg=mg)
         cache["conv"].copy_(conv)
         cache["ssm"].copy_(ssm)
     elif spec.kind == "rwkv":
         h, S, tm_x = rwkv_mod.rwkv_time_mix_decode(
-            engine, params["mixer"], cfg, h, cache["S"], cache["tm_x"])
+            engine, params["mixer"], cfg, h, cache["S"], cache["tm_x"], mg=mg)
         cache["S"].copy_(S)
         cache["tm_x"].copy_(tm_x)
         x = x + h
         cm, cm_x = rwkv_mod.rwkv_channel_mix(
             engine, params["mixer"], cfg, napply(params["ln2"], x)[:, None, :],
-            cache["cm_x"])
+            cache["cm_x"], mg=mg)
         cache["cm_x"].copy_(cm_x)
         return x + cm[:, 0], cache
     else:
         h, cache["k"], cache["v"] = attn.attention_decode(
             engine, params["attn"], cfg, h, position, cache["k"], cache["v"],
-            window=_window(cfg, spec), ring=_ring(cfg, spec, cache),
+            window=_window(cfg, spec), ring=_ring(cfg, spec, cache, tp),
             tp=_part(tp, "attn"))
     x = x + h
     if "cross" in params and "xk" in cache:

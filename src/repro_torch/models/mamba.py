@@ -15,6 +15,18 @@ the reference's ``associative_scan`` and with a step-by-step recurrence to
 
 The reference refuses a sequence longer than the chunk whose length is not
 a multiple of it; so does this module, with ``ValueError``.
+
+With a model group (``mg``) a rank computes its channels [r·di/m,
+(r+1)·di/m) of both x and z: the conv, dt_proj's columns, dt_bias, A,
+D, the scan and the ``conv``/``ssm`` states are the rank's; x_proj and
+out_proj are row-parallel (x_proj's partial dt, B and C summed in f32 and
+replicated, then entering the rank's channels through ``col_input``).
+The rules shard in_proj by columns over the concatenated ``[x | z]``, so
+a rank's column block is x-channels on the first half of the ranks and
+z-channels on the second: ``in_proj`` routes them to the rank's channels
+of both halves with one all-to-all (``tensor_parallel.route_channels``),
+of the product where it has fewer rows than the weight (a decode step, a
+short prompt), else of the weight's columns (a train step).
 """
 from __future__ import annotations
 
@@ -25,7 +37,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.engine import ArcaneEngine
-from repro_torch.models.layers import dense, dense_init, truncated_normal_init
+from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.models.layers import (dense, dense_col, dense_init, dense_row,
+                                       truncated_normal_init)
 
 
 def _dt_rank(cfg: ModelConfig) -> int:
@@ -79,15 +93,38 @@ def check_prompt(cfg: ModelConfig, s: int) -> None:
             f"conv state ({cfg.mamba.d_conv - 1} tokens)")
 
 
-def _selective_terms(engine, params, cfg, x_conv):
+def in_proj(engine, params, x, mg=None) -> tuple:
+    """x: (B, L, d) → the pre-conv x and the gate z (B, L, di) each; with
+    ``mg`` the rank's channels of both (di / m each): its column block of
+    in_proj routed to them (``route_channels``), on the product or on the
+    weight, whichever has fewer rows."""
+    if mg is None:
+        xz = dense(engine, params["in_proj"], x)
+    elif x.numel() // x.shape[-1] < x.shape[-1]:
+        xz = tpm.route_channels(dense_col(engine, params["in_proj"], x, mg), mg)
+    else:
+        w = tpm.route_channels(params["in_proj"]["w"], mg)
+        xz = dense_col(engine, {"w": w}, x, mg)
+    return xz.chunk(2, dim=-1)
+
+
+def _selective_terms(engine, params, cfg, x_conv, mg=None):
     """x_conv: (B, L, di) → decay a, input contribution b (f32, (B, L, di,
     ds)) and the readout C (f32, (B, L, ds)). dt_proj reads the first
-    dt_rank columns of x_proj's output in place (a strided view)."""
+    dt_rank columns of x_proj's output in place (a strided view). With
+    ``mg``, x_conv and the terms are the rank's channels."""
     ds, dtr = cfg.mamba.d_state, _dt_rank(cfg)
-    proj = dense(engine, params["x_proj"], x_conv)
+    if mg is None:
+        proj = dense(engine, params["x_proj"], x_conv)
+    else:
+        proj = dense_row(engine, params["x_proj"], x_conv, mg)
     dt_lat, bmat, cmat = torch.split(proj, [dtr, ds, ds], dim=-1)
-    dt = F.softplus(dense(engine, params["dt_proj"], dt_lat).float()
-                    + params["dt_bias"])                        # (B,L,di)
+    if mg is None:
+        dt = dense(engine, params["dt_proj"], dt_lat)
+    else:       # B and C, replicated, read by the rank's channels
+        bmat, cmat = tpm.col_input(bmat, mg), tpm.col_input(cmat, mg)
+        dt = dense_col(engine, params["dt_proj"], dt_lat, mg)
+    dt = F.softplus(dt.float() + params["dt_bias"])             # (B,L,di)
     a_cont = -torch.exp(params["A_log"])                        # (di, ds)
     decay = torch.exp(dt[..., None] * a_cont)                   # (B,L,di,ds)
     contrib = (dt * x_conv.float())[..., None] \
@@ -121,17 +158,23 @@ def _chunk_scan(a: torch.Tensor, b: torch.Tensor):
     return a, b
 
 
+def _out(engine, params, y, mg):
+    if mg is None:
+        return dense(engine, params["out_proj"], y)
+    return dense_row(engine, params["out_proj"], y, mg)
+
+
 def mamba_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
-                  x: torch.Tensor, h0=None):
-    """Forward/prefill; x: (B, S, d) → (out, final state (B, di, ds) f32)."""
+                  x: torch.Tensor, h0=None, mg=None):
+    """Forward/prefill; x: (B, S, d) → (out, final state (B, di, ds) f32;
+    the rank's channels with ``mg``)."""
     b, s, _ = x.shape
     check_length(cfg, s)
     chunk = min(cfg.mamba.chunk, s)
-    xz = dense(engine, params["in_proj"], x)
-    xi, z = xz.chunk(2, dim=-1)
+    xi, z = in_proj(engine, params, x, mg)
     x_conv, _ = _causal_conv(params, xi)
     x_conv = F.silu(x_conv).to(x.dtype)
-    decay, contrib, cmat = _selective_terms(engine, params, cfg, x_conv)
+    decay, contrib, cmat = _selective_terms(engine, params, cfg, x_conv, mg)
     h = h0 if h0 is not None else torch.zeros(
         (b, decay.shape[2], cfg.mamba.d_state), dtype=torch.float32,
         device=x.device)
@@ -146,21 +189,21 @@ def mamba_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     y = torch.cat(ys, dim=1)
     y = y + params["D"] * x_conv.float()
     y = y.to(x.dtype) * F.silu(z)
-    return dense(engine, params["out_proj"], y), h
+    return _out(engine, params, y, mg), h
 
 
 def mamba_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                  x: torch.Tensor, conv_state: torch.Tensor,
-                 ssm_state: torch.Tensor):
+                 ssm_state: torch.Tensor, mg=None):
     """One-token step. x: (B, d); conv_state: (B, K-1, di); ssm_state:
-    (B, di, ds) → (out (B, d), conv_state', ssm_state')."""
-    xz = dense(engine, params["in_proj"], x[:, None, :])
-    xi, z = xz.chunk(2, dim=-1)
+    (B, di, ds) (the rank's channels with ``mg``) → (out (B, d),
+    conv_state', ssm_state')."""
+    xi, z = in_proj(engine, params, x[:, None, :], mg)
     x_conv, conv_state = _causal_conv(params, xi, conv_state)
     x_conv = F.silu(x_conv).to(x.dtype)                         # (B,1,di)
-    decay, contrib, cmat = _selective_terms(engine, params, cfg, x_conv)
+    decay, contrib, cmat = _selective_terms(engine, params, cfg, x_conv, mg)
     h = decay[:, 0] * ssm_state + contrib[:, 0]                 # (B,di,ds)
     y = torch.einsum("bds,bs->bd", h, cmat[:, 0])
     y = y + params["D"] * x_conv[:, 0].float()
     y = y.to(x.dtype) * F.silu(z[:, 0])
-    return dense(engine, params["out_proj"], y), conv_state, h
+    return _out(engine, params, y, mg), conv_state, h

@@ -288,6 +288,26 @@ def make_serve_steps(model: LM, *, enc_len: int = 0):
     return prefill_step, decode_step
 
 
+def serve_split(cfg, mesh, tokens) -> tuple:
+    """The mesh axes a serve step splits its rows over: those that shard
+    the cache's rows (``batch_entry``), or none where the model has MoE
+    layers whose dispatch groups of the step's tokens (a prompt's, the
+    vision prefix included, or a decode step's one a row) would not split
+    into whole groups a rank: a group's capacity and drops depend on its
+    tokens, so a split would change the result (as ``data_split`` keeps a
+    train step whole)."""
+    b = tokens.shape[0]
+    entry = batch_entry(b, mesh)
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    n = axis_size(mesh, axes)
+    if n > 1 and any(spec.moe for spec in cfg.pattern):
+        t = b * (tokens.shape[1] + cfg.vision_prefix) if tokens.dim() > 1 else b
+        g, s_g = dispatch_groups(t)
+        if g % n or dispatch_groups(g // n * s_g) != (g // n, s_g):
+            return ()
+    return tuple(axes)
+
+
 def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
                   enc_len: int = 0):
     """``make_serve_steps``' prefill or decode step on DTensor params and
@@ -295,38 +315,28 @@ def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
     step: the params gathered over the data axes with their ``model``
     shards kept (``tp_view``, which reads the cache's layout too); this
     rank's rows of the batch and the cache (the axes that shard the cache's
-    rows); the cache's ``model`` shards kept where the layer computes on
+    rows; ``serve_split``: every row where an MoE layer's dispatch groups
+    would not split whole, the cache's rows then gathered and the rank
+    keeping its rows of the result); the cache's ``model`` shards kept where the layer computes on
     them (``tensor_parallel.cache_kept``: heads of a head-parallel layer,
-    a sequence slice of every kv head) and gathered elsewhere, a rank then
+    a sequence slice of every kv head or of MLA's latents, the heads or
+    channels of a recurrent mixer's state) and gathered elsewhere, a rank then
     keeping its shard of the result. ``batch`` holds ``tokens`` and, for a
     decode step, ``position``. → (the logits, whole over the vocab; the new
-    cache as DTensors). Where the engine launches the kernels (``cuda``, or
-    ``auto`` on a mesh on the card) a cache sharded by sequence raises
-    ``ValueError``: the decode kernel returns no log-sum-exp to merge the
-    ranks' slices."""
+    cache as DTensors). A cache sharded by sequence decodes on any engine:
+    the decode kernel returns each row's log-sum-exp, and the ranks merge
+    their slices."""
     from torch.distributed.tensor import DTensor, Replicate
     names = mesh.mesh_dim_names
-    b = next(iter(batch.values())).shape[0]
-    entry = batch_entry(b, mesh)
-    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    axes = serve_split(model.cfg, mesh, batch["tokens"])
 
     tp_model, compute = tp_view(model, params, mesh, cache)
     prefill_step, decode_step = make_serve_steps(tp_model, enc_len=enc_len)
     plan = tp_model.tp
-    backend = model.engine.backend
-    kernels = backend == "cuda" or (backend == "auto" and mesh.device_type == "cuda")
-    if kernels and any(
-            blk.attn is not None and blk.attn.cache == "seq" for blk in plan.blocks):
-        raise ValueError(
-            f"{model.cfg.name}: the cache is sharded by sequence over model, "
-            f"and the {model.engine.backend!r} engine's decode kernel returns "
-            f"no log-sum-exp to merge the ranks' slices; serve it on "
-            f"ArcaneEngine('ref')")
 
     def kept(path, c):
-        if tpm.cache_kept(plan, path):
-            return tuple(c.placements)
-        return tuple(Replicate() if a == "model" else p
+        model_kept = tpm.cache_kept(plan, path)
+        return tuple(p if (a in axes or (a == "model" and model_kept)) else Replicate()
                      for a, p in zip(names, c.placements))
 
     cache_pl = map_with_path(kept, cache)

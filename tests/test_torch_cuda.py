@@ -268,6 +268,49 @@ def test_decode_attention_split_boundaries(cuda_device, rng, dt, d, g):
         assert torch.equal(out, again), kw
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", ["narrow", "wide"])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_decode_attention_lse_at_rank_local_lengths(cuda_device, rng, dt, variant):
+    """With ``return_lse`` the decode kernel's (out, lse) against the plain
+    version's at rank-local lengths over a slice of 64 keys (a cache sharded
+    by sequence): lengths at most 0 (an empty slice), inside it, at its end
+    and past it, windows that start inside it, past it and before it, with
+    and without a soft cap; narrow at G = 2, D = 128 and wide at G = 40,
+    D = 288 (MLA's absorbed decode). With lse the output is f32, unrounded:
+    rounded to the inputs' dtype it is the same call's without lse, bit for
+    bit. An empty row has out 0 and lse −inf, no NaN; each call is one
+    launch."""
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    b, s = 12, 64
+    hkv, g, d = (2, 2, 128) if variant == "narrow" else (1, 40, 288)
+    lens = [-70, -1, 0, 1, 17, 63, 64, 65, 200, 5, 40, 130]
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(device=cuda_device, dtype=tdt)
+
+    q, k, v = t(b, hkv, g, d), t(b, hkv, s, d), t(b, hkv, s, d)
+    ln = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    atol = 2e-4 if dt == "f32" else 2e-2
+    for kw in (dict(), dict(softcap=50.0, scale=0.05), dict(window=30),
+               dict(window=120, softcap=30.0)):
+        before = decode_attention_cuda.launches
+        out, lse = _decode(q, k, v, ln, kw.get("softcap"), kw.get("scale"),
+                           kw.get("window"), variant, True)
+        assert decode_attention_cuda.launches == before + 1
+        plain = _decode(q, k, v, ln, kw.get("softcap"), kw.get("scale"),
+                        kw.get("window"), variant)
+        ref, ref_lse = decode_attention_ref(q, k, v, ln, return_lse=True, **kw)
+        assert out.dtype == torch.float32 and torch.equal(out.to(tdt), plain), kw
+        assert float((out - ref).abs().max()) <= atol, kw
+        assert not torch.isnan(lse).any() and not torch.isnan(out.float()).any()
+        empty = torch.isinf(ref_lse)
+        assert torch.equal(torch.isinf(lse), empty), kw
+        assert torch.all(out.float()[empty] == 0), kw
+        assert float((lse[~empty] - ref_lse[~empty]).abs().max()) <= 1e-3, kw
+
+
 def served_gemms():
     """(K, N, B layout) of every decode projection of the three served
     models: q, k/v, o, gate/up, down (B read along N) and the unembed

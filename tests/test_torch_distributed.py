@@ -655,3 +655,129 @@ def test_launcher_on_four_ranks_matches_one_process(tmp_path, arch, dtypes):
         assert sorted(a.files) == sorted(b.files)
         for k in a.files:
             np.testing.assert_allclose(b[k], a[k], atol=2e-4, rtol=2e-3)
+
+
+# ------------------------------------------- the bf16 TP step's yardstick
+# The launcher's 4-rank test above runs in f32: in bf16 a tensor-parallel
+# product rounds its f32 partial sums apart from one device's and Adam
+# carries it. So a bf16 TP run is held as chip_smoke's phase 5c holds it
+# on the card: over YARD_STEPS steps each run's gap to the same steps on an
+# f32 copy of the weights (the worst step's loss and grad norm as shares of
+# the f32 run's, and the masters' update |Δrun − Δf32| / |Δf32|), the TP
+# run's within YARD_FACTOR times the plain bf16 run's own gap. A planted
+# fault (the column-parallel inputs' grads left unsummed over the ranks,
+# on every rank, so no collective is skipped on one alone) must leave it.
+YARD_STEPS = 3
+YARD_FACTOR = 1.5
+YARD_KW = dict(lr=3e-3, warmup_steps=0, total_steps=10)
+YARD_ARCHS = ("granite-moe-1b-a400m", "rwkv6-1.6b")
+
+YARD = """
+import contextlib
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.distributed.sharding import (distribute, param_pspecs,
+                                              to_shardings, zero_pspecs)
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.transformer import LM, tree_map
+from repro_torch.optim.adamw import AdamWConfig, adamw_init
+from repro_torch.train.step import make_train_step
+mesh = make_host_mesh(model_axis=4)                 # 1 data x 4 model
+opt_cfg = AdamWConfig(**{kw!r})
+real = tpm.col_input
+res = {{}}
+for arch in {archs!r}:
+    model = LM(get_smoke_config(arch), ArcaneEngine("ref"), device="cpu")
+    params = torch.load(OUT + f"/yard_params_{{arch}}.pt")
+    batches = torch.load(OUT + f"/yard_batches_{{arch}}.pt")
+    for fault in (False, True):
+        p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+        o = distribute(adamw_init(opt_cfg, params),
+                       to_shardings(zero_pspecs(adamw_init(opt_cfg, params), mesh), mesh))
+        step = make_train_step(model, opt_cfg, grad_shardings=to_shardings(
+            zero_pspecs(params, mesh), mesh))
+        if fault:
+            tpm.col_input = lambda x, mg: x
+        try:
+            hist = []
+            for b in batches:
+                p, o, m = step(p, o, b)
+                hist.append({{"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"])}})
+        finally:
+            tpm.col_input = real
+        res[(arch, fault)] = {{"hist": hist,
+                              "master": tree_map(lambda t: t.full_tensor(), o["master"])}}
+if RANK == 0:
+    torch.save(res, OUT + "/yard.pt")
+"""
+
+
+def yard_gaps(run: dict, f32: dict, master0) -> dict:
+    """A run's gaps to the f32 copy's steps: the worst step's loss and grad
+    norm as shares of the f32 run's, and the masters' update."""
+    from repro_torch.models.transformer import tree_leaves
+    num = den = 0.0
+    for z, a, b in zip(tree_leaves(master0), tree_leaves(f32["master"]),
+                       tree_leaves(run["master"])):
+        da, db = a.float() - z.float(), b.float() - z.float()
+        num += float(torch.sum(torch.square(db - da)))
+        den += float(torch.sum(torch.square(da)))
+    pairs = list(zip(run["hist"], f32["hist"]))
+    return {"loss_rel": max(abs(x["loss"] - y["loss"]) / abs(y["loss"]) for x, y in pairs),
+            "gnorm_rel": max(abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                             for x, y in pairs),
+            "update_rel": (num / den) ** 0.5}
+
+
+@pytest.fixture(scope="module")
+def yardstick(tmp_path_factory):
+    """For each YARD_ARCHS smoke config (bf16, seeded weights and batches
+    of 8 x 32): YARD_STEPS plain bf16 steps and the same on an f32 copy of
+    the weights in this process, and on 1 x 4 gloo ranks the TP steps with
+    and without the planted fault (one launch)."""
+    from repro_torch.models.transformer import tree_map
+    tmp = tmp_path_factory.mktemp("yard")
+    out = {}
+    for arch in YARD_ARCHS:
+        cfg = get_smoke_config(arch)
+        model = LM(cfg, ArcaneEngine("ref"), device="cpu")
+        params = model.init_params(torch.Generator().manual_seed(0))
+        rng = np.random.default_rng(2)
+        batches = [{"tokens": torch.from_numpy(rng.integers(
+            0, cfg.vocab, (8, 32)).astype(np.int32))} for _ in range(YARD_STEPS)]
+        torch.save(params, tmp / f"yard_params_{arch}.pt")
+        torch.save(batches, tmp / f"yard_batches_{arch}.pt")
+        opt_cfg = AdamWConfig(**YARD_KW)
+        runs = {}
+        for name, m, p in (
+                ("plain", model, params),
+                ("f32", LM(dataclasses.replace(cfg, **F32), ArcaneEngine("ref"),
+                           device="cpu"), tree_map(lambda t: t.float(), params))):
+            step = make_train_step(m, opt_cfg)
+            opt = adamw_init(opt_cfg, p)
+            hist = []
+            for b in batches:
+                p, opt, met = step(p, opt, b)
+                hist.append({"loss": float(met["loss"]),
+                             "grad_norm": float(met["grad_norm"])})
+            runs[name] = {"hist": hist, "master": opt["master"]}
+        out[arch] = (runs, adamw_init(opt_cfg, params)["master"])
+    run_ranks(4, YARD.format(kw=YARD_KW, archs=YARD_ARCHS), tmp)
+    return out, torch.load(tmp / "yard.pt")
+
+
+@pytest.mark.parametrize("arch", YARD_ARCHS)
+def test_bf16_tp_step_drifts_as_the_plain_step(yardstick, arch):
+    """In bf16 on a 1 x 4 mesh (granite smoke: one expert a rank; rwkv6
+    smoke: head-parallel RWKV-6), YARD_STEPS TP steps drift from an f32
+    copy's steps (loss, grad norm, update) within YARD_FACTOR times the
+    plain bf16 steps' own drift, and the planted fault leaves that
+    limit."""
+    refs, ranks = yardstick
+    runs, master0 = refs[arch]
+    plain = yard_gaps(runs["plain"], runs["f32"], master0)
+    tp = yard_gaps(ranks[(arch, False)], runs["f32"], master0)
+    bad = yard_gaps(ranks[(arch, True)], runs["f32"], master0)
+    assert all(tp[k] <= YARD_FACTOR * plain[k] for k in plain), (tp, plain)
+    assert any(bad[k] > YARD_FACTOR * plain[k] for k in plain), (bad, plain)

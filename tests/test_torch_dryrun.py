@@ -332,6 +332,35 @@ def test_tp_cell_flops_and_peak_fall_by_the_model_axis(shape):
     assert tp["gathered_over_model"] == {}
 
 
+@pytest.mark.parametrize("arch,shape", [
+    ("minicpm3-4b", PREFILL), ("minicpm3-4b", DECODE), ("rwkv6-1.6b", DECODE),
+    ("jamba-1.5-large-398b", PREFILL), ("jamba-1.5-large-398b", DECODE)],
+    ids=["minicpm3-prefill", "minicpm3-decode", "rwkv6-decode", "jamba-prefill",
+         "jamba-decode"])
+def test_mixer_cells_compute_on_their_shards(arch, shape):
+    """The MLA, RWKV-6 and Mamba mixers on the 2 x 4 mesh (heads, heads,
+    channels): nothing gathered over ``model``, and the trace's FLOPs those
+    of a real run of the rank's share (``real_flops``)."""
+    rec = trace_smoke(arch, shape)
+    assert rec["gathered_over_model"] == {}
+    assert rec["flops"] == real_flops(arch, shape)
+
+
+@pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=["prefill", "decode"])
+def test_ring_cache_sharded_by_sequence_traces(shape):
+    """gemma2 smoke with ``ring_local_cache`` (``--ring-local-cache``): its
+    local layers' ring of 16 slots, sharded by sequence over 4 ranks,
+    traces; a prefill's FLOPs are the plain cache's, a decode step's
+    fewer (its local layers attend 16 slots, not 32)."""
+    ring = trace_smoke("gemma2-9b", shape, ring_local_cache=True)
+    plain = trace_smoke("gemma2-9b", shape)
+    assert ring["gathered_over_model"] == {}
+    if shape is PREFILL:
+        assert ring["flops"] == plain["flops"]
+    else:
+        assert 0 < ring["flops"] < plain["flops"]
+
+
 @pytest.mark.parametrize("multi", [False, True], ids=["256", "512"])
 def test_production_meshes_trace_and_tear_down(multi):
     world = 512 if multi else 256

@@ -9,20 +9,29 @@ helpers of tests/test_torch_distributed.py).
   tests/test_distributed.py:33 (atol 2e-4, rtol 2e-3): qwen2.5-32b smoke
   (its kv heads split mid-head), gemma2-9b smoke (softcaps, local windows,
   a tied vocab-parallel table), granite smoke (one expert a rank), a
-  ``loss_mask`` batch, minicpm3, jamba and rwkv6 smoke, whose mixers are
-  gathered over ``model``, whisper smoke (the encoder, cross-attention and
-  the classic MLP's biases) and internvl2 smoke (the vision prefix). All
-  cases run in one launch of 8 ranks.
+  ``loss_mask`` batch, minicpm3 (head-parallel MLA), jamba (channel-parallel
+  Mamba, its in_proj columns routed) and rwkv6 smoke (head-parallel
+  RWKV-6), whisper smoke (the encoder, cross-attention and the classic
+  MLP's biases) and internvl2 smoke (the vision prefix). All cases run in
+  one launch of 8 ranks; nothing is gathered over ``model``.
 * A census of one rank's forward on a 1 × 4 mesh: the q, o, gate, up,
   down and unembed products and the expert and attention products at
-  exactly 1/4 of one device's, no such leaf gathered over ``model``.
+  exactly 1/4 of one device's, no such leaf gathered over ``model``; the
+  MLA, RWKV-6 and Mamba mixers' products likewise, and a planted fault
+  (Mamba's in_proj columns used unrouted) moving the loss.
 * The vocab-parallel cross-entropy and embedding against
   ``F.cross_entropy`` and a plain lookup, targets at the shard edges.
 * A prefill and 8 decode steps on a 1 × 4 mesh over a cache sharded by
-  heads (stablelm) and by sequence (gemma2) against one device and the
-  JAX package's serve steps.
-* The per-layer head-parallel/gathered choice, and the ``cuda`` engine's
-  ``ValueError`` on a cache sharded by sequence.
+  heads (stablelm), by sequence (gemma2; gemma2 with a ring cache for its
+  local layers; jamba's attention), MLA's latents by sequence (minicpm3)
+  and the recurrent states by head or channel (rwkv6, jamba) against one
+  device and the JAX package's serve steps; on the kernels' route (a spy
+  standing in for the kernels on the CPU) the decode steps ask the decode
+  attention for its log-sum-exp at the rank-local lengths.
+* The decode attention's log-sum-exp (the plain version) against
+  ``partial_decode_attention`` and the JAX package's plain version, empty
+  slices included; the ring's slot positions.
+* The per-layer and per-mixer head-parallel/gathered choice.
 """
 import dataclasses
 import threading
@@ -59,11 +68,12 @@ def one_torch_thread():
     torch.set_num_threads(n)
 
 
-def pair(arch: str):
+def pair(arch: str, **extra):
     """(port LM, port params, jax LM, jax params): the smoke config in f32
-    on the reference's weights (``init_params(key(0))``)."""
-    jcfg = dataclasses.replace(jax_smoke(arch), **F32)
-    cfg = dataclasses.replace(get_smoke_config(arch), **F32)
+    (and ``extra``'s changes) on the reference's weights
+    (``init_params(key(0))``)."""
+    jcfg = dataclasses.replace(jax_smoke(arch), **F32, **extra)
+    cfg = dataclasses.replace(get_smoke_config(arch), **F32, **extra)
     jmodel = JaxLM(jcfg, JaxEngine(backend="ref"))
     jparams = jmodel.init_params(jax.random.key(0))
     model = LM(cfg, ArcaneEngine("ref"), device="cpu")
@@ -179,21 +189,18 @@ def _catch(errors: list, fn, *args):
 def test_tp_step_matches_single_device(tp_steps, case):
     """One TP step on 2 x 4 gloo ranks: the loss within 1e-4 and every
     param within atol 2e-4, rtol 2e-3 of the JAX package's single-device
-    step (but jamba's) and of the port's; the leaves gathered over
-    ``model`` are those of the mixers computed whole (MLA, Mamba, RWKV-6),
-    and nothing of qwen, gemma2 or granite."""
+    step (but jamba's) and of the port's; no leaf gathered over ``model``:
+    every attention and MLA by heads, RWKV-6 by heads, Mamba by
+    channels."""
     refs, res = tp_steps
     mine = res[case]
     for params, loss in refs[case].values():
         assert abs(mine["metrics"]["loss"] - loss) < 1e-4
         assert_close(mine["params"], params, atol=2e-4, rtol=2e-3)
-    gathered = {p.split("/")[2] for p in mine["gathered"]}
-    arch = STEP_CASES[case][0]
-    expect = {"minicpm3-4b": {"attn"}, "jamba-1.5-large-398b": {"mixer"},
-              "rwkv6-1.6b": {"mixer"}}.get(arch, set())
-    assert gathered == expect, mine["gathered"]
-    assert all(c == "heads" for p, c in mine["choices"].items()
-               if p.endswith("/attn") and not expect)
+    assert mine["gathered"] == {}
+    kinds = {spec.kind for spec in get_smoke_config(STEP_CASES[case][0]).pattern}
+    expect = {"heads"} | ({"channels"} if "mamba" in kinds else set())
+    assert set(mine["choices"].values()) == expect, mine["choices"]
 
 
 # ---------------------------------------------------------- the census
@@ -280,6 +287,110 @@ def test_rank_census_is_a_quarter_of_one_device(tmp_path):
                            for k in one["comm"])
 
 
+MIXER_CENSUS = """
+import dataclasses
+from torch.utils.flop_counter import FlopCounterMode
+from repro_torch.configs import get_smoke_config
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.distributed.sharding import distribute, param_pspecs, to_shardings
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models.transformer import LM, tree_map
+from repro_torch.train.step import tp_view
+mesh = make_host_mesh(model_axis=4)                 # 1 data x 4 model
+res = {{}}
+route = tpm.route_channels
+for arch in {archs!r}:
+    cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
+                              compute_dtype="float32")
+    params = LM(cfg, device="cpu").init_params(torch.Generator().manual_seed(0))
+    batch = {{"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 16)).astype(np.int32))}}
+    out = {{}}
+    for mode in ("one", "tp", "fault"):
+        if mode == "fault" and "mamba" not in {{s.kind for s in cfg.pattern}}:
+            continue
+        model = LM(cfg, ArcaneEngine("ref", record=True), device="cpu")
+        p = params
+        if mode != "one":
+            d = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+            model, pl = tp_view(model, d, mesh)
+            p = tree_map(lambda t, q: t.redistribute(mesh, q).to_local(), d, pl)
+        if mode == "fault":           # in_proj's column block used unrouted
+            tpm.route_channels = lambda x, mg: x
+        try:
+            with torch.no_grad(), FlopCounterMode(display=False) as fc:
+                model.loss(p, batch)
+            gemm = [e.flops for e in model.engine.trace]
+            with torch.no_grad():
+                logits = model.forward(p, batch)[0]
+        finally:
+            tpm.route_channels = route
+        counts = fc.get_flop_counts()["Global"]
+        out[mode] = {{"gemm": gemm,
+                     "bmm": int(counts.get(torch.ops.aten.bmm, 0)),
+                     "logits": logits,
+                     "gathered": {{}} if mode == "one" else dict(model.tp.gathered)}}
+    res[arch] = out
+torch.save(res, OUT + f"/mixers{{RANK}}.pt")
+"""
+MIXER_ARCHS = ("minicpm3-4b", "rwkv6-1.6b", "jamba-1.5-large-398b")
+
+
+def mixer_products(cfg, r: int, m: int = 4) -> list:
+    """(name, share of one device's FLOPs a rank) of the engine's products
+    of one forward, in order, for the MLA, RWKV-6 and Mamba mixers' archs:
+    the replicated q_down, kv_down and RWKV-6's wA whole, every other
+    product of a mixer 1/m, attention's k and v the share of the kv heads
+    the rank reads."""
+    mixer = {"mla": [("q_down", 1), ("q_up", 1 / m), ("kv_down", 1),
+                     ("attention", 1 / m), ("o", 1 / m)],
+             "rwkv": [(n, 1 / m) for n in ("r", "k", "v", "g")] + [
+                 ("wA", 1), ("wB", 1 / m), ("o", 1 / m), ("cm_k", 1 / m),
+                 ("cm_v", 1 / m), ("cm_r", 1 / m)],
+             "mamba": [(n, 1 / m) for n in ("in_proj", "x_proj", "dt_proj",
+                                              "out_proj")]}
+    _, _, _, nk = tpm.head_ranges(cfg.n_heads, cfg.n_kv_heads, r, m)
+    kv = nk / cfg.n_kv_heads
+    attn = [("q", 1 / m), ("k", kv), ("v", kv), ("attention", 1 / m), ("o", 1 / m)]
+    out = []
+    for _ in range(cfg.n_periods):
+        for spec in cfg.pattern:
+            out += mixer.get(spec.kind, attn)
+            if not spec.moe and spec.kind != "rwkv":
+                out += [("gate", 1 / m), ("up", 1 / m), ("down", 1 / m)]
+    return out + [("unembed", 1 / m)]
+
+
+def test_mixer_census_is_a_quarter_of_one_device(tmp_path):
+    """On each rank of a 1 x 4 mesh, one forward (``LM.loss``) of minicpm3
+    (head-parallel MLA), rwkv6 (head-parallel RWKV-6) and jamba (Mamba by
+    channels, attention by heads over 2 kv heads): each engine product at
+    the share ``mixer_products`` names (1/4, but the replicated q_down,
+    kv_down and wA), the batched products (MLA's k_up/v_up, the scans'
+    readouts, attention, experts) at exactly 1/4, nothing gathered over
+    ``model``, the logits within 1e-5 of one device's; with jamba's in_proj
+    column block used unrouted (a planted fault) the logits leave that by
+    over 100 times."""
+    run_ranks(4, MIXER_CENSUS.format(archs=MIXER_ARCHS), tmp_path)
+    for r in range(4):
+        res = torch.load(tmp_path / f"mixers{r}.pt")
+        for arch in MIXER_ARCHS:
+            cfg = get_smoke_config(arch)
+            one, tp = res[arch]["one"], res[arch]["tp"]
+            names = mixer_products(cfg, r)
+            assert len(one["gemm"]) == len(tp["gemm"]) == len(names), arch
+            for (name, share), f1, ft in zip(names, one["gemm"], tp["gemm"]):
+                assert ft == f1 * share, (arch, name, f1, ft)
+            assert tp["bmm"] * 4 == one["bmm"] > 0, arch
+            assert tp["gathered"] == {}, arch
+            gap = float((tp["logits"] - one["logits"]).abs().max())
+            assert gap < 1e-5, (arch, gap)
+            if "fault" in res[arch]:
+                bad = float((res[arch]["fault"]["logits"] - one["logits"]).abs().max())
+                assert bad > 100 * max(gap, 1e-6), (arch, bad, gap)
+
+
 # ------------------------------------------------------ vocab parallel
 VOCAB = """
 from repro_torch.distributed import tensor_parallel as tpm
@@ -328,7 +439,18 @@ def test_vocab_parallel_loss_and_embedding(tmp_path):
 
 
 # ------------------------------------------------------------- serving
-SERVE_CASES = {"heads": "stablelm-3b", "seq": "gemma2-9b"}
+# layout → (arch, config changes, the cache leaf whose model placement is
+# checked, its sharded dim); "spy" runs gemma2 on the kernels' route
+SERVE_CASES = {
+    "heads": ("stablelm-3b", {}, "k", 2),
+    "seq": ("gemma2-9b", {}, "k", 3),
+    "ring": ("gemma2-9b", {"ring_local_cache": True}, "k", 3),
+    "mla": ("minicpm3-4b", {}, "c", 2),
+    "rwkv": ("rwkv6-1.6b", {}, "S", 2),
+    "mamba": ("jamba-1.5-large-398b", {}, "ssm", 2),
+    "spy": ("gemma2-9b", {"ring_local_cache": True}, "k", 3),
+    "moe": ("granite-moe-1b-a400m", {}, "k", 3),
+}
 PROMPT, STEPS, MAX_LEN, SLOTS = 12, 8, 32, 2
 
 TP_SERVE = """
@@ -340,31 +462,71 @@ from repro_torch.distributed.sharding import (cache_pspecs, distribute,
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import LM, tree_map
 from repro_torch.train.step import serve_on_mesh, tp_view
-mesh = make_host_mesh(model_axis=4)                 # 1 data x 4 model
+
+
+class KernelRoute(ArcaneEngine):
+    \"\"\"The ``cuda`` engine's route, each kernel's plain version standing in
+    for it on the CPU: records every decode attention's lengths and whether
+    it asked for the log-sum-exp.\"\"\"
+
+    def __init__(self):
+        super().__init__("cuda")
+        self.calls = []
+
+    def _kernel(self, t):
+        return False
+
+    def decode_attention(self, q, k, v, lengths, **kw):
+        self.calls.append((lengths.clone(), bool(kw.get("return_lse")),
+                           kw.get("window")))
+        return super().decode_attention(q, k, v, lengths, **kw)
+
+
+mesh = make_host_mesh(model_axis=4)                 # 1 or 2 data x 4 model
+
+
+def whole(lg):
+    # the logits of every sequence: each data rank's rows gathered (an MoE
+    # model's serve step computes every row on every rank)
+    n = mesh.shape[0]
+    if n == 1 or lg.shape[0] == {slots}:
+        return lg
+    out = lg.new_empty((n * lg.shape[0], *lg.shape[1:]))
+    dist.all_gather_into_tensor(out, lg.contiguous(), group=mesh.get_group("data"))
+    return out
+
+
 res = {{}}
-for layout, arch in {cases!r}.items():
+for layout, (arch, extra, leaf, _) in {cases!r}.items():
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
-                              compute_dtype="float32")
-    model = LM(cfg, ArcaneEngine("ref"), device="cpu")
+                              compute_dtype="float32", **extra)
+    engine = KernelRoute() if layout == "spy" else ArcaneEngine("ref")
+    model = LM(cfg, engine, device="cpu")
     params = torch.load(OUT + f"/serve_params_{{layout}}.pt")
     prompt = torch.load(OUT + f"/serve_prompt_{{layout}}.pt")
     cache = model.init_cache({slots}, {max_len})
     p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
     c = distribute(cache, to_shardings(cache_pspecs(cache, mesh), mesh))
-    k_pl = str(c[0]["k"].placements)
+    j = next(i for i, b in enumerate(c) if leaf in b)
+    placements = str(c[j][leaf].placements)
     plan = tp_view(model, p, mesh, c)[0].tp
     logits, c = serve_on_mesh(model, "prefill", p, c, {{"tokens": prompt}}, mesh)
+    logits = whole(logits)
     out = [logits]
     tok = torch.argmax(logits, -1).to(torch.int32)
+    if layout == "spy":
+        engine.calls.clear()
     for i in range({steps}):
         pos = torch.full(({slots},), {prompt} + i, dtype=torch.int32)
         logits, c = serve_on_mesh(model, "decode", p, c,
                                   {{"tokens": tok, "position": pos}}, mesh)
+        logits = whole(logits)
         out.append(logits)
         tok = torch.argmax(logits, -1).to(torch.int32)
-    res[layout] = {{"logits": torch.stack(out), "k_placements": k_pl,
-                   "choices": dict(plan.choices),
-                   "cache_k": c[0]["k"].full_tensor()}}
+    res[layout] = {{"logits": torch.stack(out), "placements": placements,
+                   "choices": dict(plan.choices), "gathered": dict(plan.gathered),
+                   "cache": tree_map(lambda t: t.full_tensor(), c),
+                   "calls": getattr(engine, "calls", None)}}
 torch.save(res, OUT + f"/serve{{RANK}}.pt")
 """
 
@@ -398,66 +560,200 @@ def jax_serve(jmodel, jparams, prompt, tokens):
     return np.stack(out)
 
 
-def test_tp_serve_matches_one_device(tmp_path):
-    """A prefill of 2 x 12 tokens and 8 greedy decode steps on a 1 x 4 mesh
-    through ``serve_on_mesh``: stablelm smoke (4 kv heads, the cache
-    sharded by heads) and gemma2 smoke (2 kv heads, the cache sharded by
-    sequence: slices of 8 of 32 positions, the decode steps crossing two
-    slices and the local layers' window of 16). Every rank's greedy
-    tokens equal one device's and the JAX package's, its f32 logits
-    within 1e-5 of one device's and of the JAX package's, and the cache
-    gathered from the ranks equals one device's cache."""
+def serve_refs(cases: dict, tmp) -> dict:
+    """One device's serve and the JAX package's of each case on the same
+    weights and prompt, the weights and prompt saved under ``tmp`` for the
+    ranks."""
     refs = {}
-    for layout, arch in SERVE_CASES.items():
-        model, params, jmodel, jparams = pair(arch)
+    for layout, (arch, extra, _, _) in cases.items():
+        model, params, jmodel, jparams = pair(arch, **extra)
         prompt = torch.from_numpy(np.random.default_rng(5).integers(
             0, model.cfg.vocab, (SLOTS, PROMPT)).astype(np.int32))
-        torch.save(params, tmp_path / f"serve_params_{layout}.pt")
-        torch.save(prompt, tmp_path / f"serve_prompt_{layout}.pt")
+        torch.save(params, tmp / f"serve_params_{layout}.pt")
+        torch.save(prompt, tmp / f"serve_prompt_{layout}.pt")
         logits, cache = one_device_serve(model, params, prompt)
         toks = torch.argmax(logits, -1).to(torch.int32).numpy()
-        refs[layout] = (logits, cache, jax_serve(jmodel, jparams, prompt.numpy(), toks))
+        refs[layout] = (model.cfg, logits, cache,
+                        jax_serve(jmodel, jparams, prompt.numpy(), toks))
+    return refs
+
+
+@pytest.fixture(scope="module")
+def tp_serves(tmp_path_factory):
+    """Every SERVE_CASES case served on 4 gloo ranks (a 1 x 4 mesh, one
+    launch), beside one device's serve and the JAX package's on the same
+    weights and prompt."""
+    tmp = tmp_path_factory.mktemp("tp_serves")
+    refs = serve_refs(SERVE_CASES, tmp)
     run_ranks(4, TP_SERVE.format(cases=SERVE_CASES, slots=SLOTS, max_len=MAX_LEN,
-                                 steps=STEPS, prompt=PROMPT), tmp_path)
-    for r in range(4):
-        res = torch.load(tmp_path / f"serve{r}.pt")
-        for layout, (logits, cache, jlogits) in refs.items():
-            mine = res[layout]
-            assert ("Shard(dim=2)" if layout == "heads" else "Shard(dim=3)") \
-                in mine["k_placements"]
-            assert set(mine["choices"].values()) == {"heads"}
-            assert torch.equal(torch.argmax(mine["logits"], -1),
-                               torch.argmax(logits, -1))
-            assert np.array_equal(np.argmax(jlogits, -1),
-                                  torch.argmax(logits, -1).numpy())
-            torch.testing.assert_close(mine["logits"], logits, atol=1e-5, rtol=0)
-            np.testing.assert_allclose(mine["logits"].numpy(), jlogits, atol=1e-5,
-                                       rtol=0)
-            torch.testing.assert_close(mine["cache_k"], cache[0]["k"], atol=1e-5,
-                                       rtol=0)
+                                 steps=STEPS, prompt=PROMPT), tmp)
+    return refs, [torch.load(tmp / f"serve{r}.pt") for r in range(4)]
 
 
-def test_cuda_engine_refuses_a_sequence_sharded_cache():
-    """``serve_on_mesh`` on ArcaneEngine("cuda") over gemma2 smoke's cache,
-    sharded by sequence on a 1 x 4 mesh (a fake world of 4 in this
-    process), raises ``ValueError`` before any step runs: the decode
-    kernel returns no log-sum-exp to merge the ranks' slices."""
-    from repro_torch.launch.dryrun import fake_world
-    from repro_torch.launch.mesh import make_host_mesh
-    from repro_torch.train.step import serve_on_mesh
-    cfg = get_smoke_config("gemma2-9b")
-    model = LM(cfg, ArcaneEngine("cuda"), device="cpu")
-    params = model.init_params(torch.Generator().manual_seed(0))
-    cache = model.init_cache(2, 32)
-    with fake_world(4):
-        mesh = make_host_mesh(model_axis=4)
-        p = sh.distribute(params, sh.to_shardings(sh.param_pspecs(params, mesh), mesh))
-        c = sh.distribute(cache, sh.to_shardings(sh.cache_pspecs(cache, mesh), mesh))
-        assert "Shard(dim=3)" in str(c[0]["k"].placements)
-        with pytest.raises(ValueError, match="sharded by sequence"):
-            serve_on_mesh(model, "decode", p, c, {
-                "tokens": torch.zeros(2, dtype=torch.int32),
-                "position": torch.zeros(2, dtype=torch.int32)}, mesh)
+# the mixers' serves on a 2 x 4 mesh: each data rank serves one of the 2
+# sequences, its caches' rows split over data; granite's and jamba's MoE
+# layers keep every row on every rank (``serve_split``)
+MIXER_SERVES = {k: SERVE_CASES[k] for k in ("mla", "rwkv", "mamba", "moe")}
+
+
+@pytest.fixture(scope="module")
+def tp_serves_2x4(tmp_path_factory):
+    """The MLA, RWKV-6 and Mamba cases served on 8 gloo ranks (a 2 x 4
+    mesh), beside one device's and the JAX package's serves."""
+    tmp = tmp_path_factory.mktemp("tp_serves_2x4")
+    refs = serve_refs(MIXER_SERVES, tmp)
+    run_ranks(8, TP_SERVE.format(cases=MIXER_SERVES, slots=SLOTS, max_len=MAX_LEN,
+                                 steps=STEPS, prompt=PROMPT), tmp)
+    return refs, [torch.load(tmp / f"serve{r}.pt") for r in range(8)]
+
+
+@pytest.mark.parametrize("layout", sorted(SERVE_CASES))
+def test_tp_serve_matches_one_device(tp_serves, layout):
+    """A prefill of 2 x 12 tokens and 8 greedy decode steps on a 1 x 4 mesh
+    through ``serve_on_mesh``: stablelm smoke (4 kv heads, the cache
+    sharded by heads), gemma2 smoke (2 kv heads, the cache sharded by
+    sequence: slices of 8 of 32 positions, the decode steps crossing two
+    slices and the local layers' window of 16; with ``ring_local_cache``
+    the local layers' ring of 16 slots in slices of 4, wrapping at
+    position 16), minicpm3 (MLA by heads, its latents by sequence), rwkv6
+    (by heads, its wkv state by heads) and jamba (Mamba by channels, its
+    states by channel; attention by heads over a cache sharded by
+    sequence). Every rank's greedy tokens equal one device's and the JAX
+    package's, its f32 logits within 1e-5 of one device's and of the JAX
+    package's, and the cache gathered from the ranks equals one device's
+    cache; nothing is gathered over ``model``."""
+    check_serve(*tp_serves, layout)
+
+
+@pytest.mark.parametrize("layout", sorted(MIXER_SERVES))
+def test_tp_serve_2x4_matches_one_device(tp_serves_2x4, layout):
+    """The same prefill and 8 decode steps of minicpm3, rwkv6, jamba and
+    granite on a 2 x 4 mesh (the batch and the caches' rows split over
+    data, but for the MoE models, whose dispatch groups of 24 prompt or 2
+    step tokens do not split: every row on every rank; the mixers over
+    model): every rank's greedy tokens and logits as on the 1 x 4 mesh,
+    and the gathered cache within 1e-5 of one device's (relatively, for
+    RWKV-6's state, whose sums order differs with the split rows)."""
+    check_serve(*tp_serves_2x4, layout, rtol=1e-5)
+
+
+def check_serve(refs, ranks, layout, rtol=0.0):
+    """Each rank's serve of ``layout`` against one device's and the JAX
+    package's (``test_tp_serve_matches_one_device``)."""
+    cfg, logits, cache, jlogits = refs[layout]
+    _, _, leaf, dim = SERVE_CASES[layout]
+    for res in ranks:
+        mine = res[layout]
+        assert f"Shard(dim={dim})" in mine["placements"]
+        assert mine["gathered"] == {}
+        assert set(mine["choices"].values()) <= {"heads", "channels"}
+        assert torch.equal(torch.argmax(mine["logits"], -1), torch.argmax(logits, -1))
+        assert np.array_equal(np.argmax(jlogits, -1), torch.argmax(logits, -1).numpy())
+        torch.testing.assert_close(mine["logits"], logits, atol=1e-5, rtol=0)
+        np.testing.assert_allclose(mine["logits"].numpy(), jlogits, atol=1e-5, rtol=0)
+        for j, blk in enumerate(cache):
+            for name, t in blk.items():
+                torch.testing.assert_close(mine["cache"][j][name], t, atol=1e-5,
+                                           rtol=rtol, msg=f"{layout} {j}/{name}")
+
+
+def test_kernel_route_asks_for_the_lse_at_rank_local_lengths(tp_serves):
+    """On the ``cuda`` engine's route (``KernelRoute``: the kernels' plain
+    versions standing in on the CPU) gemma2 smoke's decode steps over its
+    caches sharded by sequence ask each decode attention for its
+    log-sum-exp, at the rank-local lengths, unclamped: the global layer's
+    ``position + 1 − r·8``, the local layers' ring of 16 slots in slices of
+    4 ``min(position + 1, 16) − r·4``, with no window on either; and the
+    logits equal the ``ref`` engine's run bit for bit."""
+    refs, ranks = tp_serves
+    cfg = refs["spy"][0]
+    for r, res in enumerate(ranks):
+        calls = res["spy"]["calls"]
+        assert len(calls) == STEPS * cfg.n_layers
+        for n, (lengths, lse, window) in enumerate(calls):
+            step, layer = divmod(n, cfg.n_layers)
+            pos = PROMPT + step
+            spec = cfg.pattern[layer % len(cfg.pattern)]
+            if spec.kind == "attn_local":
+                want, want_window = min(pos + 1, 16) - r * 4, None
+            else:
+                want, want_window = pos + 1 - r * 8, None
+            assert lse and window == want_window
+            assert lengths.tolist() == [want] * SLOTS, (r, n, lengths)
+        assert torch.equal(res["spy"]["logits"], res["ring"]["logits"])
+
+
+def test_decode_lse_matches_the_partial_yardstick():
+    """The plain decode attention's (out, lse) at rank-local lengths over
+    one of 4 slices of 8 (lengths from below the slice, an empty one, to
+    above it; a window that starts inside it, after it or before it; with
+    and without a softcap) against ``partial_decode_attention``'s [lo, hi)
+    within 1e-6 (an empty slice: out 0, lse −inf, no NaN); the non-empty
+    rows' out against the JAX package's plain version; and the 4 slices'
+    partials merged (``merge_partials``' arithmetic) against the whole
+    cache's decode within 1e-6."""
+    from repro.kernels.decode_attention.ref import \
+        decode_attention_ref as jax_decode_ref
+    from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+    rng = np.random.default_rng(11)
+    b, hkv, g, d, s_l, m = 6, 2, 2, 16, 8, 4
+    q = torch.from_numpy(rng.standard_normal((b, hkv * g, d)).astype(np.float32))
+    kv = [torch.from_numpy(rng.standard_normal((b, hkv, m * s_l, d)).astype(np.float32))
+          for _ in range(2)]
+    position = torch.tensor([0, 5, 7, 13, 20, 31])
+    for softcap in (None, 50.0):
+        for window in (None, 5, 11):
+            parts = []
+            for r in range(m):
+                k, v = (t[:, :, r * s_l:(r + 1) * s_l] for t in kv)
+                lengths = (position + 1 - r * s_l).to(torch.int32)
+                out, lse = decode_attention_ref(
+                    q.reshape(b, hkv, g, d), k, v, lengths, softcap=softcap,
+                    window=window, return_lse=True)
+                out, lse = out.reshape(b, hkv * g, d), lse.reshape(b, hkv * g)
+                hi = (position + 1 - r * s_l).clamp(0, s_l)
+                lo = ((position + 1 - window - r * s_l).clamp(0, s_l)
+                      if window is not None else torch.zeros_like(hi))
+                y_out, y_lse = tpm.partial_decode_attention(q, k, v, lo, hi,
+                                                            softcap=softcap)
+                torch.testing.assert_close(out, y_out, atol=1e-6, rtol=1e-6)
+                torch.testing.assert_close(lse, y_lse, atol=1e-6, rtol=1e-6)
+                assert not torch.isnan(out).any() and not torch.isnan(lse).any()
+                empty = hi <= lo
+                assert torch.all(out[empty] == 0) and torch.all(lse[empty] == -np.inf)
+                jout = np.asarray(jax_decode_ref(
+                    jnp.asarray(q.reshape(b, hkv, g, d).numpy()), jnp.asarray(k.numpy()),
+                    jnp.asarray(v.numpy()), jnp.asarray(lengths.numpy()),
+                    softcap=softcap, window=window)).reshape(b, hkv * g, d)
+                np.testing.assert_allclose(out[~empty].numpy(), jout[~empty.numpy()],
+                                           atol=1e-6, rtol=1e-6)
+                parts.append((out, lse))
+            lse_all = torch.stack([l for _, l in parts])
+            mx = lse_all.amax(0)
+            w = torch.exp(lse_all - mx)
+            merged = sum(o * wi[..., None] for (o, _), wi in zip(parts, w)) / w.sum(0)[..., None]
+            whole = decode_attention_ref(q.reshape(b, hkv, g, d), *kv,
+                                         (position + 1).to(torch.int32),
+                                         softcap=softcap, window=window)
+            torch.testing.assert_close(merged, whole.reshape(b, hkv * g, d),
+                                       atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.parametrize("s", [1, 7, 16, 17, 23, 40])
+def test_ring_slot_positions(s):
+    """The prompt position each slot of a ring of 16 holds after s tokens:
+    the reference's ring write (``slots = arange(s - keep, s) % w``) fills
+    the first min(s, 16) slots with the same positions; without a ring,
+    slot g holds position g."""
+    from repro_torch.models.attention import slot_positions
+    w = 16
+    pos = slot_positions(s, w, True, "cpu")
+    keep = min(w, s)
+    want = {p % w: p for p in range(s - keep, s)}
+    assert sorted(want) == list(range(min(s, w)))     # the filled slots: a prefix
+    assert [int(pos[g]) for g in want] == list(want.values())
+    assert slot_positions(s, 32, False, "cpu")[:min(s, 32)].tolist() == \
+        list(range(min(s, 32)))
 
 
 # ------------------------------------------------------------ the plan
@@ -492,8 +788,10 @@ PLAN_CASES = {
     ("granite-moe-1b-a400m", 4): ("heads", "local", set()),
     ("qwen2.5-32b", 16): ("whole", None, {"attn"}),
     ("qwen2.5-32b", 4): ("heads", "local", set()),
-    ("minicpm3-4b", 16): ("mla", None, {"attn"}),
-    ("rwkv6-1.6b", 16): ("rwkv", None, {"mixer"}),
+    ("minicpm3-4b", 16): ("mla whole", None, {"attn"}),
+    ("minicpm3-4b", 4): ("mla", None, set()),
+    ("rwkv6-1.6b", 16): ("rwkv", None, set()),
+    ("jamba-1.5-large-398b", 16): ("heads", "gather", set()),
 }
 
 
@@ -503,8 +801,10 @@ def test_plan_chooses_per_layer(arch, m):
     (16 / m, m) mesh): each layer's attention head-parallel or whole (the
     reason named), where its k/v columns come from, and the leaves it
     gathers over ``model`` (a whole layer's sharded leaves, a gathered
-    mixer's): qwen2.5-32b's 40 heads on 16 ranks and minicpm3's MLA and
-    rwkv6's mixers gather; the rest is head-parallel."""
+    mixer's): qwen2.5-32b's 40 heads on 16 ranks and minicpm3's 40-head
+    MLA on 16 gather, with their reasons; minicpm3's MLA on 4, rwkv6's
+    mixer on 16 and jamba's Mamba mixers on 16 run on their shards (MLA
+    and RWKV-6 by heads, Mamba by channels); the rest is head-parallel."""
     cfg = get_config(arch)
     params = LM(cfg, device="cpu").param_shapes()
     dims = spec_dims(sh.param_pspecs(params, {"data": 16 // m, "model": m}))
@@ -512,10 +812,18 @@ def test_plan_chooses_per_layer(arch, m):
     for r in (0, m - 1):
         plan = tpm.plan(cfg, dims, tpm.ModelGroup(None, r, m))
         assert {p.split("/")[2] for p in plan.gathered} == roots
-        for j, blk in enumerate(plan.blocks):
-            if choice in ("mla", "rwkv"):
-                assert plan.choices[f"blocks/{j}/{'attn' if choice == 'mla' else 'mixer'}"] \
-                    .startswith("whole")
+        for j, (blk, spec) in enumerate(zip(plan.blocks, cfg.pattern)):
+            if spec.kind == "mla":
+                why = plan.choices[f"blocks/{j}/attn"]
+                assert blk.attn.heads == (choice == "mla")
+                assert why == ("heads" if choice == "mla" else
+                               "whole: 40 heads do not divide over 16 ranks; "
+                               "the rules replicate k_up, v_up")
+                continue
+            if spec.kind in ("rwkv", "mamba"):
+                assert blk.mixer and blk.attn is None
+                assert plan.choices[f"blocks/{j}/mixer"] == \
+                    ("heads" if spec.kind == "rwkv" else "channels")
                 continue
             assert blk.attn.heads == (choice == "heads")
             if kv is not None:
@@ -527,3 +835,168 @@ def test_plan_chooses_per_layer(arch, m):
         assert plan.embed == plan.unembed == (cfg.vocab % m == 0)
         assert all(b.experts == (cfg.moe is not None and cfg.moe.n_experts % m == 0)
                    for b, s in zip(plan.blocks, cfg.pattern) if s.moe)
+
+
+def test_plan_names_a_mixer_it_cannot_split():
+    """A mixer whose leaves the rules do not lay out by heads or channels
+    (here rwkv6's on a model axis of 3: 32 heads, 2,048 channels) or whose
+    state cache is laid out otherwise computes whole, its sharded leaves
+    gathered, and the plan says why; a Mamba mixer over a cache whose
+    channels are whole (a layout the rules never give) too."""
+    cfg = get_config("rwkv6-1.6b")
+    dims = spec_dims(sh.param_pspecs(LM(cfg, device="cpu").param_shapes(),
+                                     {"data": 1, "model": 3}))
+    plan = tpm.plan(cfg, dims, tpm.ModelGroup(None, 0, 3))
+    assert not plan.blocks[0].mixer
+    assert plan.choices["blocks/0/mixer"] == (
+        "whole: 32 heads do not divide over 3 ranks; the rules replicate r/w, "
+        "k/w, v/w, g/w, o/w, w0, wB, u, ln_scale, cm_k/w, cm_v/w, cm_r/w")
+    assert plan.gathered == {}        # nothing of it is sharded on 3
+    cfg = get_smoke_config("jamba-1.5-large-398b")
+    model = LM(cfg, device="cpu")
+    mesh = {"data": 1, "model": 4}
+    dims = spec_dims(sh.param_pspecs(model.param_shapes(), mesh))
+    cache = spec_dims(sh.cache_pspecs(model.cache_shapes(2, 32), mesh))
+    cache["0/ssm"] = None
+    plan = tpm.plan(cfg, dims, tpm.ModelGroup(None, 0, 4), cache)
+    assert not plan.blocks[0].mixer and plan.blocks[1].mixer
+    assert plan.choices["blocks/0/mixer"] == \
+        "whole: its cache ssm is not sharded by its channels"
+    assert all(p.startswith("blocks/0/mixer/") for p in plan.gathered)
+    assert "blocks/0/mixer/in_proj/w" in plan.gathered
+
+
+# --------------------------------- chip_smoke.py's TP serve checks, on gloo
+CHIP_TP = """
+import importlib
+sys.path.insert(0, {root!r})
+cs = importlib.import_module("chip_smoke")
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.engine import ArcaneEngine
+from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
+from repro_torch.kernels.decode_attention.kernel import decode_variant
+from repro_torch.kernels.flash_attention.kernel import flash_variant
+from repro_torch.kernels.gemm.kernel import gemm_variant
+from repro_torch.models.transformer import LM
+from repro_torch.train.step import serve_on_mesh, tp_view
+
+
+class Spy(ArcaneEngine):
+    def __init__(self):
+        super().__init__("ref")
+        self.counts = {{"gemm_cuda": 0, "flash_attention_cuda": 0,
+                       "decode_attention_cuda": 0}}
+        self.variants = {{"gemm_cuda": dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0),
+                         "flash_attention_cuda": {{"simt": 0, "mma": 0}},
+                         "decode_attention_cuda": {{"narrow": 0, "wide": 0}}}}
+
+    def _count(self, wrapper, variant):
+        self.counts[wrapper] += 1
+        self.variants[wrapper][variant] += 1
+
+    def gemm(self, x, w, c=None, **kw):
+        self._count("gemm_cuda", gemm_variant(x.reshape(-1, x.shape[-1]), w))
+        return super().gemm(x, w, c, **kw)
+
+    def attention(self, q, k, v, **kw):
+        self._count("flash_attention_cuda", flash_variant(q, k, v))
+        return super().attention(q, k, v, **kw)
+
+    def decode_attention(self, q, k, v, lengths, **kw):
+        self._count("decode_attention_cuda",
+                    decode_variant(q.shape[1] // k.shape[1], q.shape[2]))
+        return super().decode_attention(q, k, v, lengths, **kw)
+
+
+mesh = cs.tp_mesh((1, WORLD))
+out = {{}}
+for arch, kw in {cases}.items():
+    cfg = get_smoke_config(arch)
+    b, s, steps, max_len = cs.TP_SERVE_SLOTS, kw["prompt_len"], cs.TP_SERVE_NEW - 1, kw["max_len"]
+    spy = Spy()
+    model = LM(cfg, spy, device="cpu")
+    params = model.init_params(torch.Generator().manual_seed(0))
+    p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+    c0 = model.init_cache(b, max_len)
+    c = distribute(c0, to_shardings(cache_pspecs(c0, mesh), mesh))
+    plan = tp_view(model, p, mesh, c)[0].tp
+    prompt = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))
+    with torch.no_grad():
+        lg, c = serve_on_mesh(model, "prefill", p, c, {{"tokens": prompt}}, mesh)
+        for i in range(steps):
+            pos = torch.full((b,), s + i, dtype=torch.int32)
+            lg, c = serve_on_mesh(model, "decode", p, c, {{"tokens": torch.argmax(
+                lg, -1).to(torch.int32), "position": pos}}, mesh)
+    want = cs.expected_launches(torch, cfg, [b * s], steps, b, prompt_batch=b, plan=plan)
+    sv = cs.tp_serve(torch, mesh, "cpu", "ref", smoke=True, arch=arch, profile=False, **kw)
+    merge = (None if cfg.rwkv is not None
+             else cs.tp_lse_merge(torch, mesh, "cpu", "ref", arch, smoke=True, **kw))
+    out[arch] = {{"counts": [spy.counts, want[0]], "variants": [spy.variants, want[1]],
+                 "choices": plan.choices, "serve": sv["f32_copy"], "merge": merge}}
+torch.save(out, OUT + f"/chip_tp{{RANK}}.pt")
+"""
+CHIP_TP_CASES = {"minicpm3-4b": dict(prompt_len=64, max_len=128),
+                 "rwkv6-1.6b": dict(prompt_len=64, max_len=128),
+                 "jamba-1.5-large-398b": dict(prompt_len=64, max_len=128),
+                 "gemma2-9b": dict(prompt_len=64, max_len=128)}
+
+
+@pytest.fixture(scope="module")
+def chip_tp(tmp_path_factory):
+    """chip_smoke.py's launch model, ``tp_serve`` and ``tp_lse_merge`` on 4
+    gloo ranks (a 1 x 4 mesh) at smoke widths, the engine ``ref``."""
+    import pathlib
+    tmp = tmp_path_factory.mktemp("chip_tp")
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    run_ranks(4, CHIP_TP.format(root=root, cases=CHIP_TP_CASES), tmp, timeout=600)
+    return [torch.load(tmp / f"chip_tp{r}.pt") for r in range(4)]
+
+
+@pytest.mark.parametrize("arch", sorted(CHIP_TP_CASES))
+def test_chip_smoke_tp_launch_model_equals_the_engine_calls(chip_tp, arch):
+    """``expected_launches`` with a TP plan (each layer's attention or
+    mixer, FFN and unembed at a rank's shards) against the engine calls of
+    a smoke serve through ``serve_on_mesh`` on 4 ranks, each call counted
+    by the variant the card's wrapper would pick for its operands: MLA by
+    heads with its latents by sequence, RWKV-6 by heads, Mamba by channels
+    (in_proj routed on the product or on the weight), gemma2's attention
+    by heads; every rank alike."""
+    for res in chip_tp:
+        r = res[arch]
+        assert r["counts"][0] == r["counts"][1]
+        assert r["variants"][0] == r["variants"][1]
+        assert all(not v.startswith("whole") for v in r["choices"].values())
+
+
+@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "minicpm3-4b", "rwkv6-1.6b"])
+def test_chip_smoke_tp_serve_verdict_on_the_cpu(chip_tp, arch):
+    """``tp_serve``'s hold on a mixer's bf16 TP serve at smoke width: the
+    f32 copy's greedy tokens and logits (SERVE_F32_RTOL) and the bf16
+    run's drift from it within TP_SERVE_DRIFT times the plain run's, every
+    greedy token that differs from the plain run's at a near tie. (Phase
+    3's limits, calibrated at full width, are the card's check only.)"""
+    for res in chip_tp:
+        f32 = res[arch]["serve"]
+        assert f32["greedy_equal"] and f32["max_abs"] <= f32["limit"]
+        v = f32["bf16"]
+        tp, plain = v["drift_from_f32"]["tp"], v["drift_from_f32"]["plain"]
+        assert all(t <= 1.5 * q for t, q in zip(tp, plain))
+        assert v["greedy_flips"] == v["flips_at_near_ties"]
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "jamba-1.5-large-398b", "minicpm3-4b"])
+def test_chip_smoke_lse_merge_check_rejects_rounded_partials(chip_tp, arch):
+    """``tp_lse_merge`` at a smoke serve's shapes on 4 ranks: the ranks'
+    merged decode attention has the whole cache's bits in all but
+    TP_MERGE_SHARE of the elements, its rows giving ranks empty, partial
+    and full slices, and with each rank's partial rounded to bf16 before
+    the merge (``rounded_partials``) it does not."""
+    for res in chip_tp:
+        m = res[arch]["merge"]
+        assert m["ok"] and m["fault_rejected"], m
+        assert m["fault_share_bits_differ"] > 10 * m["share_bits_differ"]
+    lens = [res[arch]["merge"]["shape"]["rank_lengths"] for res in chip_tp]
+    s_l = chip_tp[0][arch]["merge"]["shape"]["S_l"]
+    assert min(lens[-1]) <= 0 and max(lens[0]) >= s_l
+    assert any(0 < n < s_l for ls in lens for n in ls)
