@@ -29,7 +29,11 @@ Phases:
      and 1500, its cross k over 1500 frames, its encoder's bidirectional
      attention over 1500 frames, its cross-attention in a prompt (Sq = 4
      and 224 over 1500 keys, non-causal) and in a step (B = 4 over the
-     1500-row cross cache)), the
+     1500-row cross cache)); attention on column blocks at the rules'
+     shards (q, k, v columns and o rows of internvl2-1b on 4, qwen2.5-32b
+     and whisper-large-v3 on 16, at M = 4 and at a prompt's M; flash on a
+     rank's q heads inside one GQA group: internvl2 4 over 1, qwen 3 over
+     1), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
      also at a ragged S = 100; each row names the variant the wrapper picks
      (gemm: gemv / wgmma / wmma / fma; flash: mma / simt), and a bf16 row
@@ -268,7 +272,9 @@ Phases:
   6a. dryrun (after phase 5c): ``repro_torch.launch.dryrun`` on this
      machine's torch, each cell in its own process, all at once (they
      trace on the host): gemma2-9b train_4k, prefill_32k, decode_32k and
-     rwkv6-1.6b long_500k on the 16x16 mesh, granite-moe-1b-a400m
+     rwkv6-1.6b long_500k, jamba-1.5-large-398b long_500k, qwen2.5-32b
+     decode_32k and llama4-scout-17b-a16e train_4k (attention on column
+     blocks) on the 16x16 mesh, granite-moe-1b-a400m
      train_4k on 2x16x16, under the fake process group and
      FakeTensorMode, the steps tensor-parallel over the model axis; a
      ``dryrun:`` line a cell (FLOPs, argument and peak GiB a rank against
@@ -277,7 +283,10 @@ Phases:
      rank fails the run.
      Then phase 5's step (8 x 512 tokens, 2 microbatches) traced on a
      world of one: its MemTracker peak beside the peaks phases 5 and 5b
-     measured in this run (a recorded comparison, no bound).
+     measured in this run (a recorded comparison, no bound); and the same
+     step at smoke width traced and run on this card on a world of one
+     NCCL rank, MemTracker's peak against max_memory_allocated, with the
+     ratio (``dryrun_smoke_peak``).
   6. result: a JSON line of the kernels (with each one's launches per
      variant, conv_layer's phase 4b, 4c and 4d launches included, and, for the
      serving kernels, per model, phase 3b's models
@@ -313,10 +322,16 @@ TP_SERVE_DRIFT), launch and variant counts exact at the shard shapes,
 decode-step and busy ms per rank beside one card's; the full-width Mamba
 block with its unrouted fault; the merged decode attention of a cache
 sharded by sequence at the serves' shapes with its rounded-partials
-fault (``tp_lse_merge``); and (gemma2-seq, with N = 3) gemma2-9b's cache
-sharded by sequence. A failing rank ends the others. It ends with the
-kernels line (launches summed over the ranks) and the device line,
-``count`` the cards seen.
+fault (``tp_lse_merge``); internvl2-1b at full width on column blocks
+(internvl2-blocks: 14 q heads over 2 kv heads, 3.5 a rank on 4), served
+as the mixers are (4 prompts of 128 text tokens behind 256 vision rows,
+max_len 512, 15 steps; the f32 copy; its planted ``block_cut_at_head``
+fault rejected; every layer on column blocks, nothing gathered) and one
+TP train step against the plain step (2 x 256 text tokens behind the
+vision rows; its planted gather-without-reduce-scatter fault rejected);
+and (gemma2-seq, with N = 3) gemma2-9b's cache sharded by sequence. A
+failing rank ends the others. It ends with the kernels line (launches
+summed over the ranks) and the device line, ``count`` the cards seen.
 """
 from __future__ import annotations
 
@@ -470,6 +485,22 @@ def gemm_cases(torch):
         for name, k, n, kind in tp4:
             cases.append((f"gemma2 tp4 {name}", torch.bfloat16, m, k, n, kind))
     cases.append(("gemma2 tp4 unembed", torch.bfloat16, 4, 3584, 64000, "t"))
+    # attention on column blocks (q heads that are not whole GQA groups a
+    # rank): the rules' column shards of q, k, v (with their biases where
+    # the model has them) and row shards of o (f32 partial products), at a
+    # decode step's 4 rows and at a prompt's: internvl2-1b on 4 (4 x (256 +
+    # 128) rows; q 224 columns, k and v 32), qwen2.5-32b on 16 (512; 320
+    # and 64), whisper-large-v3 on 16 (its encoder's 1500 frames; q, k, v
+    # 80 columns, no biases)
+    blocks = (("internvl2 tp4", 896, 224, 32, 1536, "bias"),
+              ("qwen2.5 tp16", 5120, 320, 64, 512, "bias"),
+              ("whisper tp16", 1280, 80, None, 1500, "w"))
+    for name, d, c, ck, prompt_m, kind in blocks:
+        for m in (4, prompt_m):
+            cases.append((f"{name} q", torch.bfloat16, m, d, c, kind))
+            if ck is not None:
+                cases.append((f"{name} kv", torch.bfloat16, m, d, ck, kind))
+            cases.append((f"{name} o", torch.bfloat16, m, c, d, "w32"))
     return cases
 
 
@@ -784,6 +815,11 @@ FLASH_CASES = [
     # gemma2-9b's heads on a model axis of 4 (phase 5c): a prefill of 4
     # prompts of 128, 4 query heads on 2 KV heads a rank
     ("gemma2 tp4", 4, 4, 2, 256, 128, 128, True, None, 50.0),
+    # a rank's q heads on column blocks, inside one GQA group: internvl2-1b
+    # on 4 (4 of its 14 heads over one kv head; 4 prompts of 256 + 128
+    # rows), qwen2.5-32b on 16 (3 of 40 heads over one kv head)
+    ("internvl2 tp4 blocks", 4, 4, 1, 64, 384, 384, True, None, None),
+    ("qwen2.5 tp16 blocks", 1, 3, 1, 128, 512, 512, True, None, None),
 ]
 
 
@@ -1185,7 +1221,8 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
     are PyTorch calls, as the reference's are plain jnp). With ``split``
     the layer's attention or mixer computes a rank's share on a model axis
     of ``split`` (``tensor_parallel.plan``): column-parallel products of
-    1/split of the columns (q, k, v and MLA's q_up by heads; Mamba's
+    1/split of the columns (q, k, v and MLA's q_up by heads or on column
+    blocks; Mamba's
     in_proj, dt_proj and RWKV's r, k, v, g, wB, cm_k, cm_r by heads or
     channels), row-parallel ones of 1/split of K (o, x_proj, out_proj,
     cm_v), the rest whole (MLA's q_down and kv_down, RWKV's wA); with
@@ -1282,8 +1319,14 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     one batch (Mamba's conv-state tail runs over the last d_conv - 1 tokens
     of each). ``plan`` (``tensor_parallel.plan``): a rank's products on its
     model axis, each layer's attention or mixer, FFN and the unembed at
-    their shards where the plan splits them (``layer_gemms``' ``split``);
-    every kernel still launches once a call, so only variants move."""
+    their shards where the plan splits them (``layer_gemms``' ``split``;
+    an attention on column blocks at the rules' column shards too); every
+    kernel still launches once a call, so only variants move, but for a
+    prompt's attention on column blocks: one flash launch an entry of
+    ``tensor_parallel.head_groups`` (a kv head each where the rank's q
+    heads straddle GQA groups). A prompt of ``prompt_batch`` sequences
+    carries the vision prefix of each."""
+    from repro_torch.distributed import tensor_parallel as tpm
     from repro_torch.kernels.gemm.kernel import gemm_variant
     from repro_torch.models.transformer import ENC_SPEC
     gemm = dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0)
@@ -1293,36 +1336,56 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
                           device="meta").T
     cross = enc_len if cfg.enc_dec else None
 
-    def splits(j):
-        if plan is None:
+    def splits(blk):
+        if blk is None:
             return 1, 1
-        blk = plan.blocks[j]
-        on_shards = blk.mixer or (blk.attn is not None and blk.attn.heads)
+        on_shards = blk.mixer or (blk.attn is not None and (blk.attn.heads
+                                                             or blk.attn.blocks))
         return (m_tp if on_shards else 1), (m_tp if blk.ffn else 1)
+
+    def flash(a) -> int:
+        """A prompt's flash launches of one attention."""
+        if a is None or not a.blocks:
+            return 1
+        _, _, q0, nq, k0, nk = tpm.column_block(
+            cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim, plan.mg.rank, m_tp)
+        return len(tpm.head_groups(q0, nq, k0, nk, cfg.n_heads // cfg.n_kv_heads))
+
+    def block(j):
+        return None if plan is None else plan.blocks[j]
 
     def add(m, prompt):
         for j, spec in enumerate(cfg.pattern):
-            split, ffn_split = splits(j)
+            split, ffn_split = splits(block(j))
             for a, b in layer_gemms(torch, cfg, spec, m, prompt,
                                     batch=prompt_batch, cross_rows=cross,
                                     split=split, ffn_split=ffn_split):
                 gemm[gemm_variant(a, b)] += cfg.n_periods
         if prompt and cfg.enc_dec:
-            for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True):
+            split, ffn_split = splits(None if plan is None else plan.enc)
+            for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True,
+                                    split=split, ffn_split=ffn_split):
                 gemm[gemm_variant(a, b)] += cfg.n_enc_layers
         rows = 1 if prompt else m
         gemm[gemm_variant(table_t.new_empty((rows, cfg.d_model)), table_t)] += 1
 
     for s in prompt_lens:
-        add(cfg.vision_prefix + s, True)
+        add(prompt_batch * cfg.vision_prefix + s, True)
     for _ in range(n_steps):
         add(slots, False)
     n_attn = cfg.n_periods * sum(spec.kind in ATTN_KINDS for spec in cfg.pattern)
     n_cross = cfg.n_layers if cfg.enc_dec else 0
+    # a prompt's flash launches: the decoder's attention and cross-attention
+    # layers, the encoder's
+    prompt_flash = cfg.n_periods * sum(
+        (flash(block(j) and block(j).attn) if spec.kind in ATTN_KINDS else 0)
+        + (flash(block(j) and block(j).cross) if cfg.enc_dec else 0)
+        for j, spec in enumerate(cfg.pattern))
+    prompt_flash += cfg.n_enc_layers * flash(None if plan is None or plan.enc is None
+                                             else plan.enc.attn)
     fv, dv = attention_variants(torch, cfg)
     counts = {"gemm_cuda": sum(gemm.values()),
-              "flash_attention_cuda": (n_attn + n_cross + cfg.n_enc_layers)
-              * len(prompt_lens),
+              "flash_attention_cuda": prompt_flash * len(prompt_lens),
               "decode_attention_cuda": (n_attn + n_cross) * n_steps}
     variants = {"gemm_cuda": gemm,
                 "flash_attention_cuda": {"simt": 0, "mma": 0},
@@ -3344,6 +3407,11 @@ TP_STEPS = 3
 TP_STEP1 = {"loss_rel": 1e-4, "gnorm_rel": 1e-3}
 TP_DRIFT = 3.0
 TP_FAULTS = ("combine_sum_dropped", "last_rank_experts_zeroed")
+# the planted fault of a TP step whose attention runs on column blocks: the
+# activations' all-gather left without its reduce-scatter backward (each
+# rank keeping its own block of its partial gradient, as a gather whose
+# result every rank reads whole would)
+TP_BLOCK_FAULTS = ("gather_without_reduce_scatter",)
 TP_SERVE_ARCH = "gemma2-9b"
 TP_SERVE_SLOTS, TP_SERVE_PROMPT, TP_SERVE_NEW = 4, 128, 16
 TP_SERVE_MAX_LEN = 256
@@ -3360,6 +3428,15 @@ TP_MIXER_SERVES = {"minicpm3-4b": {},
                                                 max_len=128)}
 # the mixers' TP train steps on (1, N): smoke configs, phase 5's batch
 TP_MIXER_TRAINS = ("jamba-1.5-large-398b", "minicpm3-4b")
+# --tp-case internvl2-blocks: internvl2-1b at full width on (1, N), its 14 q
+# heads over 2 kv heads on column blocks (3.5 heads a rank on 4: q 224
+# columns, k and v 32, half a kv head; its cache by sequence, 2 kv heads
+# not dividing 4): 4 prompts of 128 text tokens behind the 256 vision rows
+# of each, max_len 512, and one train step of 2 x 256 text tokens behind
+# 256 vision rows in 2 microbatches
+TP_BLOCKS_ARCH = "internvl2-1b"
+TP_BLOCKS_SERVE = dict(prompt_len=128, max_len=512)
+TP_BLOCKS_TRAIN = (2, 256, 2)
 # --tp-case gemma2-seq (run with --tp-ranks 3): gemma2-9b at full width on
 # a model axis of 3, the one mesh of four cards on which its full-width
 # cache shards by sequence (8 kv heads do not divide 3; 384 positions do)
@@ -3394,22 +3471,30 @@ def tp_mesh(shape):
 
 @contextlib.contextmanager
 def tp_fault(torch, fault, rank: int, world: int):
-    """A planted fault in the expert-parallel MoE while the block runs: the
+    """A planted fault while the step runs: in the expert-parallel MoE the
     ranks' partial combines left unsummed, or the last rank's experts
-    returning zeros."""
+    returning zeros; in attention on column blocks the activations'
+    gather left without its reduce-scatter backward (``gather_from_model``'s
+    backward: each rank keeps its own block of its partial gradient)."""
     import types
     import repro_torch.models.moe as moe
+    from repro_torch.distributed import tensor_parallel as tpm
     real_tpm, real_mm = moe.tpm, moe._expert_matmul
+    real_gather = tpm.gather_blocks
     if fault == "combine_sum_dropped":
         moe.tpm = types.SimpleNamespace(copy_to_model=real_tpm.copy_to_model,
                                         reduce_from_model=lambda x, mg: x)
     elif fault == "last_rank_experts_zeroed" and rank == world - 1:
         # zeroed in the graph: the backward still reaches every collective
         moe._expert_matmul = lambda x, w: real_mm(x, w) * 0.0
+    elif fault == "gather_without_reduce_scatter":
+        # on every rank alike: no rank waits in a collective the others skip
+        tpm.gather_blocks = lambda x, mg: tpm.gather_from_model(x, mg).contiguous()
     try:
         yield
     finally:
         moe.tpm, moe._expert_matmul = real_tpm, real_mm
+        tpm.gather_blocks = real_gather
 
 
 def update_gap(torch, m0, ref, other) -> float:
@@ -3433,18 +3518,22 @@ def gaps(a: list, b: list) -> dict:
                              for x, y in zip(a, b))}
 
 
-def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) -> dict:
+def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
+             batch: tuple | None = None, changes: dict | None = None) -> dict:
     """``arch`` (granite-moe-1b-a400m unless named; full width unless
-    ``smoke``; phase 5's batch, seed 0, ArcaneEngine("ref")): TP_STEPS
-    plain steps on this card in
+    ``smoke``, ``changes`` applied to its config; phase 5's batch unless
+    ``batch`` names (rows, text tokens, microbatches), a vision prefix's
+    rows standard normal from seed 0; seed 0, ArcaneEngine("ref")):
+    TP_STEPS plain steps on this card in
     bf16 and on an f32 copy of the weights, then the tensor-parallel step
     from the same weights on each mesh of ``meshes``, the model axis
-    computing each rank's heads, experts and vocab shard: step 1 against
-    the plain step within TP_STEP1 and, its update, within the plain
-    step's own gap to the f32 copy; the steps' gaps to the f32 run within
-    TP_DRIFT times the plain run's; and, for a model with experts, one TP
-    step on the first mesh with each TP_FAULTS fault planted, which must
-    leave the step-1 limits. Each step's ms."""
+    computing each rank's heads or column blocks, experts and vocab shard:
+    step 1 against the plain step within TP_STEP1 and, its update, within
+    the plain step's own gap to the f32 copy; the steps' gaps to the f32
+    run within TP_DRIFT times the plain run's; and one TP step on the
+    first mesh with each planted fault of the model's path (TP_FAULTS for
+    a model with experts, TP_BLOCK_FAULTS for attention on column blocks),
+    which must leave the step-1 limits. Each step's ms."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config, get_smoke_config
@@ -3457,13 +3546,21 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) ->
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step, tp_view
     cfg = (get_smoke_config if smoke else get_config)(arch)
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
     args = launcher.parse_args(TRAIN_ARGV)
+    rows, seq, micro = batch or (args.batch, args.seq, args.microbatches)
     model = LM(cfg, ArcaneEngine("ref"), device=dev)
     steps = TP_STEPS
     opt_cfg = AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=steps)
-    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=args.seq,
-                                    global_batch=args.batch))
+    source = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=seq, global_batch=rows))
     batches = [to_device(source.batch_at(i), torch.device(dev)) for i in range(steps)]
+    if cfg.vision_prefix:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for bt in batches:
+            bt["vision_embeds"] = torch.randn(
+                (rows, cfg.vision_prefix, cfg.d_model), device=dev,
+                generator=gen).to(cfg.cdtype)
     rank, world = dist.get_rank(), dist.get_world_size()
 
     def init(f32=False):
@@ -3498,13 +3595,13 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) ->
     params, opt = init()
     master0 = tree_map(lambda t: t.clone(), opt["master"])
     plain, plain1, plain_n = masters(params, opt, make_train_step(
-        model, opt_cfg, microbatches=args.microbatches))
+        model, opt_cfg, microbatches=micro))
     del params, opt
     cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
     model32 = LM(cfg32, ArcaneEngine("ref"), device=dev)
     params, opt = init(f32=True)
     f32, f32_1, f32_n = masters(params, opt, make_train_step(
-        model32, opt_cfg, microbatches=args.microbatches))
+        model32, opt_cfg, microbatches=micro))
     del params, opt, model32
     drift_plain = {**gaps(plain, f32), "update_rel": update_gap(torch, master0, f32_n,
                                                                 plain_n)}
@@ -3523,7 +3620,7 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) ->
         params = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
         opt = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
         plan = tp_view(model, params, mesh)[0].tp
-        step = make_train_step(model, opt_cfg, microbatches=args.microbatches,
+        step = make_train_step(model, opt_cfg, microbatches=micro,
                                grad_shardings=grad_sh(mesh))
         with tp_fault(torch, fault, rank, world):
             if fault is not None:
@@ -3548,8 +3645,12 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) ->
             "experts_a_rank": cfg.moe.n_experts // shape[1] if cfg.moe else None}
         del m1, mn
     # on a model axis of one the ranks' partial combines are the combine:
-    # dropping their sum changes nothing
-    for fault in (TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]) if cfg.moe else ():
+    # dropping their sum changes nothing; nor does a gather of one block
+    faults = (TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]) if cfg.moe else ()
+    if meshes[0][1] > 1 and any(a is not None and a.blocks for blk in plan.blocks
+                                for a in (blk.attn, blk.cross)):
+        faults += TP_BLOCK_FAULTS
+    for fault in faults:
         out, m1, _, _ = tp_run(meshes[0], fault)
         first = step1(out, m1)
         res["faults"][fault] = {**first, "rejected": not all(
@@ -3561,26 +3662,34 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH) ->
 def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
              exact: bool = False, arch: str = TP_SERVE_ARCH,
              prompt_len: int = TP_SERVE_PROMPT, max_len: int = TP_SERVE_MAX_LEN,
-             profile: bool = True) -> dict:
+             profile: bool = True, changes: dict | None = None) -> dict:
     """``arch`` (TP_SERVE_ARCH unless named; full width unless ``smoke``,
-    bf16, seed 0) served on the ``backend`` engine: TP_SERVE_SLOTS prompts
-    of ``prompt_len`` tokens prefilled as one batch and TP_SERVE_NEW - 1
+    ``changes`` applied to its config, bf16, seed 0) served on the
+    ``backend`` engine: TP_SERVE_SLOTS prompts of ``prompt_len`` tokens
+    (behind the vision prefix's rows of each, standard normal from seed
+    0, where the model has one) prefilled as one batch and TP_SERVE_NEW - 1
     greedy decode steps on this card, then the same through serve_on_mesh
     on ``mesh`` (its params and cache under the rules, the model axis
-    computing each rank's heads, FFN columns, mixer shards and vocab
-    shard), fed the plain run's tokens. Every step's greedy tokens must
-    equal the plain run's and its logits be within phase 3's limits
-    (``exact``: the same bits); a mixer's TP run on more than one rank is
-    held through an f32 copy instead (``tp_serve_f32``, TP_SERVE_DRIFT),
-    and where its path merges a sequence-sharded cache's partial softmaxes
-    it is served once more with them rounded to bf16 before the merge
-    (``rounded_partials``), which that check's verdict on it shows. The TP
-    run's launch counts must be exactly one card's (every product, prompt
-    attention and decode attention is one launch on either), and its
-    variant counts exactly those of the rank's shapes
-    (``expected_launches`` with the plan). With ``profile``, the decode
-    steps' host ms (each synchronised) and the card's busy ms a step
-    (torch.profiler) of both runs."""
+    computing each rank's heads or column blocks, FFN columns, mixer
+    shards and vocab shard), fed the plain run's tokens. Every step's
+    greedy tokens must equal the plain run's and its logits be within
+    phase 3's limits (``exact``: the same bits); a mixer's TP run, or one
+    whose attention runs on column blocks, on more than one rank is held
+    through an f32 copy instead (``tp_serve_f32``, TP_SERVE_DRIFT), and it
+    is served once more with each planted fault of its path
+    (``TP_SERVE_FAULTS``): a mixer whose path merges a sequence-sharded
+    cache's partial softmaxes with them rounded to bf16 before the merge
+    (``rounded_partials``, which that check's verdict on it shows), an
+    attention on column blocks with each rank's block of the output cut at
+    its first q head's boundary (``block_cut_at_head``, which it must
+    reject). The TP run's launch counts must be exactly those of the
+    rank's calls (``expected_launches`` with the plan: every product,
+    prompt attention and decode attention is one launch, but for a prompt's
+    attention on column blocks, whose q heads may straddle GQA groups),
+    and its variant counts exactly those of the rank's shapes. With
+    ``profile``, the decode steps' host ms (each synchronised) and the
+    card's busy ms a step (torch.profiler) of both runs."""
+    import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
@@ -3588,11 +3697,19 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     from repro_torch.models.transformer import LM
     from repro_torch.train.step import serve_on_mesh, tp_view
     cfg = (get_smoke_config if smoke else get_config)(arch)
+    if changes:
+        cfg = dataclasses.replace(cfg, **changes)
     model = LM(cfg, ArcaneEngine(backend), device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
     b, s, new = TP_SERVE_SLOTS, prompt_len, TP_SERVE_NEW
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
+    inputs = {"tokens": prompt}
+    if cfg.vision_prefix:
+        inputs["vision_embeds"] = torch.randn(
+            (b, cfg.vision_prefix, cfg.d_model), device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0)).to(cfg.cdtype)
+    s = cfg.vision_prefix + s                   # the first decode position
     on_card = dev != "cpu"
 
     def sync():
@@ -3613,7 +3730,7 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     # the plain serve on this card: its greedy tokens feed both runs
     with torch.no_grad():
         cache = model.init_cache(b, max_len)
-        lg, cache = model.prefill(params, {"tokens": prompt}, cache)
+        lg, cache = model.prefill(params, inputs, cache)
         plain, toks = [lg], [torch.argmax(lg, -1).to(torch.int32)]
         for i in range(new - 1):
             pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
@@ -3631,7 +3748,7 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     box = {}
 
     def served(c=c):
-        lg, box["c"] = serve_on_mesh(model, "prefill", p, c, {"tokens": prompt}, mesh)
+        lg, box["c"] = serve_on_mesh(model, "prefill", p, c, inputs, mesh)
         out = [lg]
         for i in range(new - 1):
             pos = torch.full((b,), s + i, dtype=torch.int32, device=dev)
@@ -3642,10 +3759,11 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         return out
 
     def expect(_):
-        return (*expected_launches(torch, cfg, [b * s], new - 1, b, prompt_batch=b,
-                                   plan=plan),
+        return (*expected_launches(torch, cfg, [b * prompt_len], new - 1, b,
+                                   prompt_batch=b, plan=plan),
                 f"(tensor-parallel on {m} ranks, rank {plan.mg.rank}: "
-                f"{b} x {s} prompt tokens in one prefill, {new - 1} decode steps)")
+                f"{b} x {prompt_len} prompt tokens in one prefill, {new - 1} "
+                f"decode steps)")
 
     if on_card:
         tp_out, counts, variants = counted_run(torch, cfg, served, expect)
@@ -3660,15 +3778,21 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     mixer = cfg.mla is not None or cfg.rwkv is not None or cfg.mamba is not None
     lse_path = any(blk.attn is not None and blk.attn.cache == "seq"
                    for blk in plan.blocks)
-    fault_out = None
-    if mixer and m > 1 and lse_path:
-        # the same serve with the ranks' partial softmaxes rounded to bf16
-        # before their merge, from a fresh cache
+    blocks = any(a is not None and a.blocks for blk in plan.blocks
+                 for a in (blk.attn, blk.cross))
+    faults = []
+    if m > 1 and mixer and lse_path:
+        faults.append("rounded_partials")
+    if m > 1 and blocks:
+        faults.append("block_cut_at_head")
+    fault_out = {}
+    for fault in faults:
+        # the same serve with the fault planted, from a fresh cache
         cache0 = model.init_cache(b, max_len)
         c_fault = distribute(cache0, to_shardings(cache_pspecs(cache0, mesh), mesh))
         del cache0
-        with rounded_partials(torch):
-            fault_out = served(c_fault)
+        with TP_SERVE_FAULTS[fault](torch):
+            fault_out[fault] = served(c_fault)
         del c_fault
     tp_ms = None
     if profile:
@@ -3690,8 +3814,8 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     if exact:
         ok = ok and all(g["same_bits"] for g in gaps)
     f32 = None
-    if not exact and mixer and m > 1:
-        f32 = tp_serve_f32(torch, model, params, mesh, dev, prompt, toks,
+    if not exact and (mixer or blocks) and m > 1:
+        f32 = tp_serve_f32(torch, model, params, mesh, dev, inputs, toks,
                            max_len, plain, tp_out, fault_out)
         ok = f32["ok"]
     out = {"arch": cfg.name, "mesh": "x".join(map(str, mesh.shape)),
@@ -3717,14 +3841,16 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     return out
 
 
-def tp_serve_f32(torch, model, params, mesh, dev, prompt, toks, max_len: int,
-                 plain: list, tp_out: list, fault_out=None) -> dict:
-    """A mixer's TP serve held through an f32 copy of the weights: the same
-    serve on that copy, on this card and through serve_on_mesh on ``mesh``,
-    fed the same tokens, must give the same greedy tokens at every step,
-    its logits within SERVE_F32_RTOL of the largest; and the bf16 TP run
-    must pass ``serve_verdict`` against the plain bf16 run and the card's
-    f32 run. ``fault_out``: a faulted bf16 TP run's logits, judged alike."""
+def tp_serve_f32(torch, model, params, mesh, dev, inputs, toks, max_len: int,
+                 plain: list, tp_out: list, fault_out: dict | None = None) -> dict:
+    """A mixer's TP serve, or one on column blocks, held through an f32
+    copy of the weights: the same serve of ``inputs`` (the prompt's tokens
+    and embeddings) on that copy, on this card and through serve_on_mesh
+    on ``mesh``, fed the same tokens, must give the same greedy tokens at
+    every step, its logits within SERVE_F32_RTOL of the largest; and the
+    bf16 TP run must pass ``serve_verdict`` against the plain bf16 run and
+    the card's f32 run. ``fault_out``: faulted bf16 TP runs' logits by
+    fault, judged alike (``faults``)."""
     import dataclasses
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
@@ -3735,12 +3861,14 @@ def tp_serve_f32(torch, model, params, mesh, dev, prompt, toks, max_len: int,
                                 compute_dtype="float32")
     model32 = LM(cfg32, ArcaneEngine(model.engine.backend), device=dev)
     params32 = tree_map(lambda t: t.float(), params)
-    b, s = prompt.shape
+    inputs = {k: v.float() if v.is_floating_point() else v for k, v in inputs.items()}
+    b, s = inputs["tokens"].shape
+    s += cfg32.vision_prefix
     positions = [torch.full((b,), s + i, dtype=torch.int32, device=dev)
                  for i in range(len(plain) - 1)]
     with torch.no_grad():
         cache = model32.init_cache(b, max_len)
-        lg, cache = model32.prefill(params32, {"tokens": prompt}, cache)
+        lg, cache = model32.prefill(params32, inputs, cache)
         one = [lg]
         for tok, pos in zip(toks, positions):
             lg, cache = model32.decode_step(params32, tok, pos, cache)
@@ -3751,7 +3879,7 @@ def tp_serve_f32(torch, model, params, mesh, dev, prompt, toks, max_len: int,
     c0 = model32.init_cache(b, max_len)
     c = distribute(c0, to_shardings(cache_pspecs(c0, mesh), mesh))
     del c0
-    lg, c = serve_on_mesh(model32, "prefill", p, c, {"tokens": prompt}, mesh)
+    lg, c = serve_on_mesh(model32, "prefill", p, c, inputs, mesh)
     tp32 = [lg]
     for tok, pos in zip(toks, positions):
         lg, c = serve_on_mesh(model32, "decode", p, c, {"tokens": tok, "position": pos},
@@ -3767,9 +3895,8 @@ def tp_serve_f32(torch, model, params, mesh, dev, prompt, toks, max_len: int,
            "limit": SERVE_F32_RTOL * absmax,
            "bf16": serve_verdict(torch, model.cfg, one, plain, tp_out)}
     out["ok"] = argmax and f32_max <= out["limit"] and out["bf16"]["ok"]
-    if fault_out is not None:
-        out["fault_rounded_partials"] = serve_verdict(torch, model.cfg, one, plain,
-                                                      fault_out)
+    out["faults"] = {name: serve_verdict(torch, model.cfg, one, plain, logits)
+                     for name, logits in (fault_out or {}).items()}
     return out
 
 
@@ -3815,6 +3942,25 @@ def serve_verdict(torch, cfg, one: list, plain: list, tp: list) -> dict:
 
 
 @contextlib.contextmanager
+def block_cut_at_head(torch):
+    """A planted fault in attention on column blocks: each rank's block of
+    the attention output, o's input, cut from its first q head's boundary
+    (q0·hd) instead of from r·c (``column_block``'s c0)."""
+    from repro_torch.distributed import tensor_parallel as tpm
+    real = tpm.column_block
+
+    def cut(n_heads, n_kv_heads, hd, rank, m):
+        _, c, q0, nq, k0, nk = real(n_heads, n_kv_heads, hd, rank, m)
+        return q0 * hd, c, q0, nq, k0, nk
+
+    tpm.column_block = cut
+    try:
+        yield
+    finally:
+        tpm.column_block = real
+
+
+@contextlib.contextmanager
 def rounded_partials(torch):
     """A planted fault in a sequence-sharded decode attention: each rank's
     partial softmax output rounded to bf16 before the ranks' merge
@@ -3828,6 +3974,11 @@ def rounded_partials(torch):
         yield
     finally:
         tpm.merge_partials = real
+
+
+# a TP serve's planted faults, by name (``tp_serve``)
+TP_SERVE_FAULTS = {"rounded_partials": rounded_partials,
+                   "block_cut_at_head": block_cut_at_head}
 
 
 def tp_lse_merge(torch, mesh, dev, backend: str, arch: str, smoke: bool = False,
@@ -4074,16 +4225,23 @@ def tp_case_runs(torch, world: int) -> dict:
         gemma2_serve(res, max_len=TP3_MAX_LEN)
         lse_merge(res, {TP_SERVE_ARCH: dict(max_len=TP3_MAX_LEN)})
 
+    def internvl2_blocks(res):
+        res["block_serves"] = {TP_BLOCKS_ARCH: tp_serve(
+            torch, mesh(), "cuda", "cuda", arch=TP_BLOCKS_ARCH, **TP_BLOCKS_SERVE)}
+        gc_cuda(torch)
+        res["block_trains"] = {TP_BLOCKS_ARCH: tp_train(
+            torch, "cuda", ((1, world),), arch=TP_BLOCKS_ARCH, batch=TP_BLOCKS_TRAIN)}
+
     return {"granite-train": granite_train, "mixer-trains": mixer_trains,
             "gemma2-serve": gemma2_serve, "mixer-serves": mixer_serves,
             "mamba-block": mamba_block, "lse-merge": lse_merge,
-            "gemma2-seq": gemma2_seq}
+            "internvl2-blocks": internvl2_blocks, "gemma2-seq": gemma2_seq}
 
 
 # --tp-case: what ``--tp-ranks N`` runs on each rank, by name (default
 # TP_DEFAULT_CASES; gemma2-seq is meant for --tp-ranks 3)
 TP_CASES = ("granite-train", "mixer-trains", "gemma2-serve", "mixer-serves",
-            "mamba-block", "lse-merge", "gemma2-seq")
+            "mamba-block", "lse-merge", "internvl2-blocks", "gemma2-seq")
 TP_DEFAULT_CASES = TP_CASES[:-1]
 
 
@@ -4094,7 +4252,8 @@ def tp_worker(torch, rank: int, world: int, port: int, out_path: Path,
     on the (1, world) and (2, world / 2) meshes and of TP_MIXER_TRAINS'
     smoke configs on (1, world); ``tp_serve`` of gemma2-9b and of
     TP_MIXER_SERVES on (1, world); ``tp_mamba_block``; ``tp_lse_merge`` at
-    the shapes of the mixer serves with attention; and (gemma2-seq)
+    the shapes of the mixer serves with attention; (internvl2-blocks)
+    internvl2-1b's serve and train step on column blocks; and (gemma2-seq)
     gemma2-9b's serve at max_len TP3_MAX_LEN with its lse merge (on 3
     ranks its cache shards by sequence). The result as JSON at
     ``out_path``."""
@@ -4178,6 +4337,7 @@ def tp_ranks_bad(ranks: list, n: int, smi_line: str) -> list:
         r = res["rank"]
         trains = [res["train"]] if "train" in res else []
         trains += list(res.get("mixer_trains", {}).values())
+        trains += list(res.get("block_trains", {}).values())
         for tr in trains:
             for mesh, m in tr["meshes"].items():
                 print(f"tensor-parallel: rank {r} train {tr['arch']} mesh {mesh}: "
@@ -4192,12 +4352,30 @@ def tp_ranks_bad(ranks: list, n: int, smi_line: str) -> list:
                       f"{json.dumps(tr['faults'])}", flush=True)
             if not all(f["rejected"] for f in tr["faults"].values()):
                 bad.append(f"rank {r}: a planted fault passes")
+        for tr in res.get("block_trains", {}).values():
+            if n > 1 and set(tr["faults"]) != set(TP_BLOCK_FAULTS):
+                bad.append(f"rank {r}: {tr['arch']}'s step ran no column-block fault")
+            if n > 1 and not all(set(m["choices"].values()) == {"blocks"}
+                                 and not m["gathered_over_model"]
+                                 for m in tr["meshes"].values()):
+                bad.append(f"rank {r}: {tr['arch']}'s step is not on column blocks "
+                           f"everywhere, or gathers over model")
         for sv in [*([res["serve"]] if "serve" in res else []),
-                   *res.get("mixer_serves", {}).values()]:
+                   *res.get("mixer_serves", {}).values(),
+                   *res.get("block_serves", {}).values()]:
             print(f"tensor-parallel: rank {r} serve {sv['arch']} {json.dumps(sv)} "
                   f"[{smi_line}]", flush=True)
             if not sv["ok"]:
                 bad.append(f"rank {r}: {sv['arch']}'s TP serve leaves the plain serve")
+        for sv in res.get("block_serves", {}).values():
+            if n > 1 and not (set(sv["choices"].values()) == {"blocks"}
+                              and not sv["gathered_over_model"]):
+                bad.append(f"rank {r}: {sv['arch']}'s serve is not on column blocks "
+                           f"everywhere, or gathers over model")
+            cut = ((sv["f32_copy"] or {}).get("faults") or {}).get("block_cut_at_head")
+            if n > 1 and (cut is None or cut["ok"]):
+                bad.append(f"rank {r}: {sv['arch']}'s serve passes the planted "
+                           f"block_cut_at_head fault, or ran none")
         for lm in res.get("lse_merge", {}).values():
             print(f"tensor-parallel: rank {r} lse merge {lm['arch']} {json.dumps(lm)} "
                   f"[{smi_line}]", flush=True)
@@ -5256,7 +5434,11 @@ DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
                 ("gemma2-9b", "decode_32k", "single"),
                 ("rwkv6-1.6b", "long_500k", "single"),
                 ("jamba-1.5-large-398b", "long_500k", "single"),
-                ("granite-moe-1b-a400m", "train_4k", "multi"))
+                ("granite-moe-1b-a400m", "train_4k", "multi"),
+                # attention on column blocks: 40 q heads over 8 kv heads, 2.5
+                # heads a rank on 16
+                ("qwen2.5-32b", "decode_32k", "single"),
+                ("llama4-scout-17b-a16e", "train_4k", "single"))
 # the cells whose peak a rank must fit the card: tensor-parallel compute
 # over the model axis brings gemma2-9b's cells under it, and jamba's once
 # its 63 Mamba mixers compute on their channel shards
@@ -5312,9 +5494,73 @@ def dryrun_world_of_one(summary: dict) -> dict:
     return rec
 
 
+def dryrun_smoke_peak(torch) -> dict:
+    """MemTracker's peak under FakeTensorMode against the allocator's, at
+    smoke width: phase 5's step (granite smoke, 8 x 512 tokens of the
+    dry-run's zero batch, 2 microbatches) traced on a fake world of one and
+    run on this card on a world of one NCCL rank and its (1, 1) mesh, laid
+    out as the trace lays it out (the rules' params, the ZeRO AdamW state),
+    its peak ``torch.cuda.max_memory_allocated`` over the step counted
+    from before the arguments were made, as the trace counts them."""
+    import dataclasses
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeConfig, get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.distributed.sharding import (distribute, param_pspecs,
+                                                  to_shardings, zero_pspecs)
+    from repro_torch.launch import train as launcher
+    from repro_torch.launch.dryrun import fake_world, trace_cell
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import FSDP_ARCHS, input_specs, opt_config_for
+    from repro_torch.models.transformer import LM, tree_map
+    from repro_torch.optim.adamw import adamw_init
+    from repro_torch.train.step import make_train_step
+    args = launcher.parse_args(TRAIN_ARGV)
+    shape = ShapeConfig(f"train_smoke_{args.batch}x{args.seq}", args.seq, args.batch,
+                        "train")
+    smoke = get_smoke_config(TRAIN_ARCH)
+    with fake_world(1):
+        rec = trace_cell(TRAIN_ARCH, shape, make_host_mesh(model_axis=1),
+                         cfg_overrides={f.name: getattr(smoke, f.name)
+                                        for f in dataclasses.fields(smoke)},
+                         microbatches=args.microbatches)
+    md_init(torch)
+    try:
+        mesh = tp_mesh((1, 1))
+        model = LM(smoke, ArcaneEngine("ref"), device="cuda")
+        batch = tree_map(lambda t: torch.zeros(t.shape, dtype=t.dtype, device="cuda"),
+                         input_specs(TRAIN_ARCH, shape, model)["batch"])
+        opt_cfg = opt_config_for(TRAIN_ARCH)
+        gc_cuda(torch)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated() - sum(t.nbytes for t in batch.values())
+        params = model.init_params(torch.Generator(device="cuda").manual_seed(0))
+        opt = adamw_init(opt_cfg, params)
+        opt = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
+        params = distribute(params, to_shardings(param_pspecs(
+            params, mesh, fsdp=TRAIN_ARCH in FSDP_ARCHS), mesh))
+        step = make_train_step(model, opt_cfg, microbatches=args.microbatches)
+        gc_cuda(torch)
+        # the peak from here: the step with its arguments in place
+        torch.cuda.reset_peak_memory_stats()
+        step(params, opt, batch)
+        torch.cuda.synchronize()
+        card = torch.cuda.max_memory_allocated() - base
+        del params, opt, step
+    finally:
+        dist.destroy_process_group()
+    gc_cuda(torch)
+    traced = rec["memory"]["peak_bytes"]
+    return {"arch": smoke.name, "shape": shape.name, "microbatches": args.microbatches,
+            "memtracker_peak_bytes": traced,
+            "argument_bytes": rec["memory"]["argument_bytes"],
+            "card_peak_bytes": card, "memtracker_over_card": traced / card}
+
+
 def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
     """Phase 6a: the dry-run cells, each in its own process, then phase 5's
-    step on a world of one in this process (while the cells trace)."""
+    step on a world of one in this process (while the cells trace), and
+    ``dryrun_smoke_peak``."""
     import os
     out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -5330,6 +5576,7 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
                      "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
                     stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
         one = dryrun_world_of_one(summary)
+        smoke_peak = dryrun_smoke_peak(torch)
         deadline = time.monotonic() + DRYRUN_TIMEOUT_S
         for tag, p in procs.items():
             p.wait(timeout=max(1.0, deadline - time.monotonic()))
@@ -5340,7 +5587,7 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
             if p.poll() is None:
                 p.kill()
                 p.wait()
-    out = {"cells": {}, "world_of_one": one}
+    out = {"cells": {}, "world_of_one": one, "smoke_peak": smoke_peak}
     for tag, p in procs.items():
         path = out_dir / f"{tag}.json"
         if p.returncode != 0 or not path.exists():
@@ -5361,6 +5608,13 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
           f"(ratio {m['over_phase5']:.3f}), phase 5b's sharded step on one NCCL rank "
           f"{m['phase5b_sharded_peak_bytes'] / 1e9:.2f} GB (ratio "
           f"{m['over_phase5b']:.3f}) [{smi_line}]", flush=True)
+    sp = smoke_peak
+    print(f"dryrun: phase 5's step at smoke width ({sp['arch']}, {sp['shape']}, "
+          f"{sp['microbatches']} microbatches) on a world of one: MemTracker peak "
+          f"{sp['memtracker_peak_bytes'] / 2**20:.2f} MiB (args "
+          f"{sp['argument_bytes'] / 2**20:.2f} MiB) against the card's "
+          f"max_memory_allocated over the same step {sp['card_peak_bytes'] / 2**20:.2f} "
+          f"MiB: ratio {sp['memtracker_over_card']:.3f} [{smi_line}]", flush=True)
     return out
 
 
@@ -5409,15 +5663,21 @@ KERNELS = {
 # the rows of a kernel that the kernels line also carries (bf16)
 MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2", "gemma2 tp4",
                                     "lse"),
-              "flash_attention": ("whisper", "internvl2", "gemma2 tp4"),
+              "flash_attention": ("whisper", "internvl2", "gemma2 tp4", "qwen2.5 tp16"),
               "gemm": ("granite unembed", "rwkv6", "jamba", "int8", "internvl2",
-                       "whisper", "gemma2 tp4")}
+                       "whisper", "gemma2 tp4", "qwen2.5 tp16")}
+
+
+# the phase-2 rows of the shard shapes, which ``--tp-ranks N`` runs too
+TP_ROW_PREFIXES = ("gemma2 tp4", "internvl2 tp4", "qwen2.5 tp16", "whisper tp16")
 
 
 def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
                 clock, cases=TP_DEFAULT_CASES) -> None:
-    """``--tp-ranks N``: the serving kernels' phase-2 rows at gemma2-9b's
-    shard shapes on a model axis of 4 and the decode attention's
+    """``--tp-ranks N``: the serving kernels' phase-2 rows at the shard
+    shapes (TP_ROW_PREFIXES: gemma2-9b's heads on a model axis of 4, the
+    column blocks of internvl2-1b on 4 and qwen2.5-32b and whisper-large-v3
+    on 16) and the decode attention's
     log-sum-exp rows (this process, card 0), then phase 5c on N cards
     (``run_tp_ranks``, running ``cases``); the kernels line (launches
     summed over the ranks' TP serve runs) and the device line with
@@ -5426,7 +5686,7 @@ def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
     timer = Timer(torch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     for run in (run_gemm, run_decode, run_flash):
-        run(torch, timer, gen, rows, prefix="gemma2 tp4")
+        run(torch, timer, gen, rows, prefix=TP_ROW_PREFIXES)
     run_decode_lse(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
@@ -5445,7 +5705,8 @@ def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
     def served(res, wrapper):     # a rank's launches over its TP serves
         return sum(sv["launches"][wrapper] for sv in
                    [*([res["serve"]] if "serve" in res else []),
-                    *res.get("mixer_serves", {}).values()])
+                    *res.get("mixer_serves", {}).values(),
+                    *res.get("block_serves", {}).values()])
 
     for name in ("gemm", "decode_attention", "flash_attention"):
         src, replaces, wrapper, _, _, _ = KERNELS[name]

@@ -35,12 +35,22 @@ the params and the cache, never inventing its own:
   row-parallel), in_proj's column block of ``[x | z]`` routed to the
   rank's channels of both halves (``route_channels``).
 
+* a GQA attention whose q heads do not split into whole GQA groups a rank
+  (``head_parallel``), or whose rank's column block of k is not inside the
+  kv heads its q heads read (``_blocks_contained``), runs on column blocks
+  (``column_block``): q, k and v column-parallel on the rank's own block
+  of the rules' shards, o row-parallel on its rows; the activations'
+  blocks are gathered (``gather_blocks``: all-gather forward,
+  reduce-scatter backward), each rank attends the q heads that overlap its
+  block (``head_groups``: one flash launch, or one a kv head where they
+  straddle GQA groups) and keeps its block of the result. Activations
+  move, never weights.
+
 A leaf the rules replicate over ``model`` is computed whole, as XLA would.
-A layer whose heads do not split into whole GQA groups a rank
-(``head_parallel``), and a mixer whose sharded leaves do not split on
-agreeing head or channel boundaries, gather their leaves over ``model``
-and compute whole; ``plan`` names every leaf it gathers and why. Every
-collective runs on the model group, including a group of one.
+A mixer whose sharded leaves do not split on agreeing head or channel
+boundaries gathers its leaves over ``model`` and computes whole; ``plan``
+names every leaf it gathers and why. Every collective runs on the model
+group, including a group of one.
 """
 from __future__ import annotations
 
@@ -182,6 +192,15 @@ def gather_columns(w: torch.Tensor, mg: ModelGroup, dim: int = -1) -> torch.Tens
     """The ranks' column shards of a weight joined along ``dim``; the
     gradient of the whole reduce-scattered back to the shards."""
     return _GatherColumns.apply(w, mg, dim)
+
+
+def gather_blocks(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
+    """The ranks' column blocks of an activation joined along the last dim,
+    where each rank goes on with a part of the whole of its own (a column
+    block attention's heads): the ranks' partial gradients of the whole
+    summed and reduce-scattered back to the blocks. Contiguous, so that
+    its heads keep the layout the kernels' tensor-core variants read."""
+    return gather_columns(x, mg).contiguous()
 
 
 def col_input(x: torch.Tensor, mg: ModelGroup) -> torch.Tensor:
@@ -382,17 +401,51 @@ def head_ranges(n_heads: int, n_kv_heads: int, rank: int, m: int) -> tuple:
     return q0, nq, q0 // group, max(1, nq // group)
 
 
+def column_block(n_heads: int, n_kv_heads: int, hd: int, rank: int,
+                 m: int) -> tuple:
+    """(c0, c, q0, nq, k0, nk): rank r's column block [c0, c0 + c) of q's
+    H·hd columns (c = H·hd/m, c0 = r·c), the q heads [q0, q0 + nq) that
+    overlap it (⌊c0/hd⌋ … ⌈(c0 + c)/hd⌉ − 1) and the kv heads [k0, k0 + nk)
+    those read."""
+    c = n_heads * hd // m
+    c0 = rank * c
+    group = n_heads // n_kv_heads
+    q0, q1 = c0 // hd, -(-(c0 + c) // hd)
+    k0, k1 = q0 // group, (q1 - 1) // group + 1
+    return c0, c, q0, q1 - q0, k0, k1 - k0
+
+
+def head_groups(q0: int, nq: int, k0: int, nk: int, group: int) -> tuple:
+    """The attention launches that cover q heads [q0, q0 + nq) over kv
+    heads [k0, k0 + nk), GQA groups of ``group`` q heads: ((q0', nq', k0',
+    nk'), ...). One where the kernel's map of local q head i to local kv
+    head i // (nq / nk) holds: the heads are whole groups, or inside one;
+    else one a kv head, over the q heads of its group in the range (the
+    heads straddle groups)."""
+    if nk == 1 or (q0 % group == 0 and nq % group == 0):
+        return ((q0, nq, k0, nk),)
+    out = []
+    for k in range(k0, k0 + nk):
+        lo, hi = max(q0, k * group), min(q0 + nq, (k + 1) * group)
+        out.append((lo, hi - lo, k, 1))
+    return tuple(out)
+
+
 @dataclasses.dataclass(frozen=True)
 class AttnTP:
     """How one attention (self or cross) of a layer runs: ``heads`` (this
-    rank's q heads, o row-parallel) or whole; ``kv``, where a rank's kv
+    rank's q heads, o row-parallel), ``blocks`` (this rank's column block
+    of q, k, v and rows of o, the activations' blocks gathered:
+    ``column_block``) or whole (neither); ``kv``, where a rank's kv
     columns come from under ``heads``: its own shard (``local``) or the
     ranks' shards gathered (``gather``); ``cache``, the layout of its cache
-    over ``model`` while serving: ``heads``, ``seq`` or ``whole``."""
+    over ``model`` that it computes on while serving: ``heads``, ``seq``
+    or ``whole``."""
     mg: ModelGroup
     heads: bool
     kv: str = "local"
     cache: str = "whole"
+    blocks: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -414,7 +467,8 @@ class ModelTP:
     """The model's plan: the embedding's and the unembedding's tables
     vocab-parallel, a ``BlockTP`` per pattern position and one for the
     encoder's layers, the leaves gathered over ``model`` (path: why), and
-    each layer's attention choice (path: "heads" or why it is whole)."""
+    each layer's attention choice (path: "heads", "blocks" or why it is
+    whole)."""
     mg: ModelGroup
     embed: bool
     unembed: bool
@@ -448,28 +502,31 @@ def model_dims(tree: PyTree, mesh) -> dict:
 
 def _attn_plan(mg, cfg, dims: dict, prefix: str, cache: Optional[str],
                cross: bool = False):
-    """(AttnTP, why it is whole or None) of the attention under ``prefix``
-    over a cache laid out by ``cache`` over ``model`` (None: no cache, a
-    train step). A whole layer keeps a cache sharded by sequence (a
-    self-attention's); any other sharded cache is gathered for it."""
-    whole = AttnTP(mg, False, cache="seq" if cache == "seq" and not cross
-                   else "whole")
+    """(AttnTP, its choice: "heads", "blocks" or why it is whole) of the
+    attention under ``prefix`` over a cache laid out by ``cache`` over
+    ``model`` (None: no cache, a train step). Head-parallel where
+    ``head_parallel`` holds and the cache allows; on column blocks where
+    the heads do not split so, or a sequence-sharded cache's slice could
+    not be filled from the rank's kv heads (``_blocks_contained``). A
+    layer on column blocks or whole keeps a self-attention's cache sharded
+    by sequence; any other sharded cache is gathered for it."""
+    seq = "seq" if cache == "seq" and not cross else "whole"
     if dims.get(f"{prefix}/q/w") is None or dims.get(f"{prefix}/k/w") is None:
-        return whole, "q or k replicated by the rules"
+        return AttnTP(mg, False, cache=seq), "whole: q or k replicated by the rules"
+    blocks = AttnTP(mg, False, cache=seq, blocks=True), "blocks"
     if not head_parallel(cfg.n_heads, cfg.n_kv_heads, mg.size):
-        return whole, (f"{cfg.n_heads} q heads over {mg.size} ranks are not "
-                       f"whole GQA groups a rank")
+        return blocks
     hd = cfg.resolved_head_dim
     _, _, k0, nk = head_ranges(cfg.n_heads, cfg.n_kv_heads, mg.rank, mg.size)
     cols = cfg.n_kv_heads * hd // mg.size
     kv = "local" if (k0 * hd, nk * hd) == (mg.rank * cols, cols) else "gather"
     if cache is not None and cache not in (("heads",) if cross
                                            else ("heads", "seq")):
-        return whole, f"its cache is laid out by {cache} over model"
+        return (AttnTP(mg, False, cache=seq),
+                f"whole: its cache is laid out by {cache} over model")
     if cache == "seq" and not _blocks_contained(cfg, mg.size):
-        return whole, ("a rank's column block of k is not inside its kv "
-                       "heads, so no all-to-all fills its cache slice")
-    return AttnTP(mg, True, kv, cache or "whole"), None
+        return blocks
+    return AttnTP(mg, True, kv, cache or "whole"), "heads"
 
 
 def _blocks_contained(cfg, m: int) -> bool:
@@ -542,11 +599,12 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
          ) -> ModelTP:
     """The model's plan on the layout ``dims`` (``model_dims`` of the
     params) and, while serving, ``cache_dims`` (of the cache). A layer's
-    attention is head-parallel where ``head_parallel`` holds and its q is
-    sharded; else its leaves sharded over ``model`` are gathered. While
-    serving, a cross-attention runs head-parallel only over a cache
-    sharded by heads, and a self-attention over one sharded by heads or by
-    sequence. An MLA, RWKV-6 or Mamba mixer runs on its heads or channels
+    attention is head-parallel where ``head_parallel`` holds and its q and
+    k are sharded, on column blocks where they are sharded but the heads
+    do not split so (``_attn_plan``), else whole, its leaves sharded over
+    ``model`` gathered. While serving, a cross-attention runs
+    head-parallel only over a cache sharded by heads, and a
+    self-attention over one sharded by heads or by sequence. An MLA, RWKV-6 or Mamba mixer runs on its heads or channels
     where ``_mixer_plan`` finds its leaves (and state cache) laid out so,
     else whole, its sharded leaves gathered; MLA keeps a latent cache
     sharded by sequence either way."""
@@ -579,6 +637,13 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
         cm = cache_mode(j, "c") if j is not None else None
         return AttnTP(mg, why is None, cache="seq" if cm == "seq" else "whole"), False
 
+    def attention(root: str, cm: Optional[str], cross: bool = False) -> AttnTP:
+        tp, choice = _attn_plan(mg, cfg, dims, root, cm, cross)
+        if choice.startswith("whole"):
+            gather_under(root, choice[len("whole: "):])
+        choices[root] = choice
+        return tp
+
     def block(prefix: str, j: Optional[int], spec) -> BlockTP:
         attn = cross = None
         on_shards = False
@@ -586,18 +651,10 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
             attn, on_shards = mixer(prefix, j, spec)
         else:
             cm = cache_mode(j, "k") if j is not None else None
-            attn, why = _attn_plan(mg, cfg, dims, f"{prefix}/attn", cm)
-            if why:
-                gather_under(f"{prefix}/attn", why)
-            choices[f"{prefix}/attn"] = "heads" if attn.heads else f"whole: {why}"
+            attn = attention(f"{prefix}/attn", cm)
             if f"{prefix}/cross/q/w" in dims:
                 cm = cache_mode(j, "xk") if j is not None else None
-                cross, why = _attn_plan(mg, cfg, dims, f"{prefix}/cross", cm,
-                                        cross=True)
-                if why:
-                    gather_under(f"{prefix}/cross", why)
-                choices[f"{prefix}/cross"] = ("heads" if cross.heads
-                                              else f"whole: {why}")
+                cross = attention(f"{prefix}/cross", cm, cross=True)
         ffn = dims.get(f"{prefix}/ffn/down/w") is not None
         experts = dims.get(f"{prefix}/ffn/gate") is not None
         return BlockTP(mg, attn, cross, ffn, experts, on_shards)

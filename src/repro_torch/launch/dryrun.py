@@ -13,8 +13,10 @@ sharding rules lay them:
   (``param_pspecs``, ZeRO-3 for ``FSDP_ARCHS``) and AdamW state
   (``zero_pspecs``), which is ``sharded_step``: the params gathered over
   the data axes with their ``model`` shards kept, the model run
-  tensor-parallel over ``model`` (head-parallel attention, column/row
-  FFN, expert-parallel MoE, vocab-parallel embedding, unembedding and
+  tensor-parallel over ``model`` (head-parallel attention, or attention on
+  the rules' column blocks where the q heads are not whole GQA groups a
+  rank, column/row FFN, expert-parallel MoE, vocab-parallel embedding,
+  unembedding and
   loss: ``distributed/tensor_parallel.py``), the batch split over the data
   axes, the grads reduce-scattered to the ZeRO shards, the global norm
   all-reduced.
@@ -22,14 +24,17 @@ sharding rules lay them:
   the serve steps laid over the mesh the same way: the params' ``model``
   shards kept, the cache laid out by ``cache_pspecs`` and computed on where
   it is (a head-parallel layer's heads, a sequence slice of every kv head
+  (a layer by heads or on column blocks)
   or of MLA's latents (``--ring-local-cache``: of a ring's slots), whose
   decode merges the ranks' partial softmaxes, a recurrent mixer's heads or
   channels), the batch split over the axes that shard the cache's rows.
 
-The leaves a rank gathers over ``model`` to compute whole (a layer whose
-heads do not split into whole GQA groups a rank, an MLA whose heads do not
-divide the axis, and the caches such layers read) are listed in the
-record, ``gathered_over_model`` (path: why).
+The leaves a rank gathers over ``model`` to compute whole (an MLA whose
+heads do not divide the axis, a mixer whose leaves the rules do not split
+on its heads or channels, and the caches such layers read) are listed in
+the record, ``gathered_over_model`` (path: why). An attention whose q
+heads are not whole GQA groups a rank gathers none: it runs on column
+blocks, its activations gathered.
 
 Three counters watch the step, all over executed ops:
 

@@ -14,6 +14,20 @@ rank's kv heads, or, sharded by sequence, the rank's slice of every kv
 head (of a ring cache, its slice of the ring's slots): a decode step then
 attends each slice, the decode kernel returning each row's log-sum-exp,
 and merges the ranks' partial softmaxes.
+
+On column blocks (``tp.blocks``: the q heads do not split into whole GQA
+groups a rank) q, k and v are column-parallel on the rank's block of the
+rules' shards and o row-parallel on its rows, as above, but the blocks
+need not be whole heads: the ranks' blocks of q, k and v are gathered
+(``gather_blocks``; no weight moves), each rank attends the q heads that
+overlap its block over the kv heads they read, one flash launch where
+those heads are whole GQA groups or inside one and one a kv head where
+they straddle groups (``tensor_parallel.head_groups``; the kernel maps
+local q head i to kv head i // (nq / nk), which a straddling range
+breaks), and keeps its block of the output (contiguous) for o. Its cache
+is the rules' layout: every kv head, by sequence (each rank's slice
+written from the gathered rows) or whole; a decode step attends every q
+head (over a sequence slice, merged as above) and keeps its block.
 """
 from __future__ import annotations
 
@@ -56,6 +70,16 @@ def _heads(tp) -> bool:
     return tp is not None and tp.heads
 
 
+def _blocks(tp) -> bool:
+    return tp is not None and tp.blocks
+
+
+def _sharded(tp) -> bool:
+    """Whether q, k, v run column-parallel and o row-parallel: by heads or
+    on column blocks."""
+    return _heads(tp) or _blocks(tp)
+
+
 def _head_ranges(cfg, tp) -> tuple:
     """(q0, nq, k0, nk): the q heads this rank computes and the kv heads
     they read (all of them without a head-parallel ``tp``)."""
@@ -64,19 +88,71 @@ def _head_ranges(cfg, tp) -> tuple:
     return tpm.head_ranges(cfg.n_heads, cfg.n_kv_heads, tp.mg.rank, tp.mg.size)
 
 
+def _column_block(cfg, tp) -> tuple:
+    """(c0, c, q0, nq, k0, nk) of this rank on column blocks
+    (``tensor_parallel.column_block``)."""
+    return tpm.column_block(cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim,
+                            tp.mg.rank, tp.mg.size)
+
+
 def _proj(engine, params, x, tp):
-    """q, k or v: the rank's own columns (column-parallel) under a
-    head-parallel ``tp``, else whole."""
-    if not _heads(tp):
+    """q, k or v: the rank's own columns (column-parallel) by heads or on
+    column blocks, else whole."""
+    if not _sharded(tp):
         return dense(engine, params, x)
     return dense_col(engine, params, x, tp.mg)
 
 
 def _out(engine, params, x, tp):
-    """o: row-parallel under a head-parallel ``tp``, else whole."""
-    if not _heads(tp):
+    """o: row-parallel by heads or on column blocks, else whole."""
+    if not _sharded(tp):
         return dense(engine, params, x)
     return dense_row(engine, params, x, tp.mg)
+
+
+def _gathered(engine, params, x, tp, n: int) -> torch.Tensor:
+    """On column blocks: every head of q, k or v, (B, n, S, hd), from the
+    ranks' column blocks of the projection gathered."""
+    return _split_heads(tpm.gather_blocks(dense_col(engine, params, x, tp.mg),
+                                          tp.mg), n)
+
+
+def _q(engine, params, cfg, x, tp, every: bool = False) -> torch.Tensor:
+    """The q heads this rank attends, (B, nq, S, hd), unrotated: its own
+    (head-parallel), on column blocks those that overlap its block (with
+    ``every``, all of them), else all."""
+    if _blocks(tp):
+        q = _gathered(engine, params, x, tp, cfg.n_heads)
+        if every:
+            return q
+        _, _, q0, nq, _, _ = _column_block(cfg, tp)
+        return q[:, q0:q0 + nq]
+    return _split_heads(_proj(engine, params, x, tp), _head_ranges(cfg, tp)[1])
+
+
+def _own_columns(cfg, tp, out: torch.Tensor) -> torch.Tensor:
+    """o's input from an attention output (B, ..., n·hd): on column blocks,
+    of every q head, this rank's block of the columns, contiguous (the
+    layout the GEMM's tensor-core variant reads); else as it is."""
+    if not _blocks(tp):
+        return out
+    c0, c = _column_block(cfg, tp)[:2]
+    return out[..., c0:c0 + c].contiguous()
+
+
+def _block_attention(engine, cfg, tp, q, k, v, **kw) -> torch.Tensor:
+    """On column blocks: the attention of the q heads that overlap this
+    rank's block, q (B, nq, S, hd), over every kv head's k and v (B, Hkv,
+    Skv, hd), one launch a ``head_groups`` entry (a kv head each where the
+    heads straddle GQA groups) → the rank's block of the output (B, S, c)."""
+    c0, c, q0, nq, k0, nk = _column_block(cfg, tp)
+    group = cfg.n_heads // cfg.n_kv_heads
+    outs = [engine.attention(q[:, a - q0:a - q0 + n], k[:, b:b + n_k],
+                             v[:, b:b + n_k], **kw)
+            for a, n, b, n_k in tpm.head_groups(q0, nq, k0, nk, group)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    off = c0 - q0 * cfg.resolved_head_dim      # the block from head q0's columns
+    return _merge_heads(out)[..., off:off + c].contiguous()
 
 
 def _kv_params(params, cfg, tp, k0: int, nk: int) -> dict:
@@ -91,7 +167,11 @@ def _kv_params(params, cfg, tp, k0: int, nk: int) -> dict:
 
 
 def _kv(engine, params, cfg, x, tp):
-    """The k and v of the kv heads this rank reads, (B, nk, S, hd) each."""
+    """The k and v of the kv heads this rank reads, (B, nk, S, hd) each
+    (on column blocks: of every kv head, gathered)."""
+    if _blocks(tp):
+        return tuple(_gathered(engine, params[n], x, tp, cfg.n_kv_heads)
+                     for n in ("k", "v"))
     _, _, k0, nk = _head_ranges(cfg, tp)
     if not _heads(tp):
         return tuple(_split_heads(dense(engine, params[n], x), nk)
@@ -101,9 +181,8 @@ def _kv(engine, params, cfg, x, tp):
                  for n in ("k", "v"))
 
 
-def _qkv(engine, params, cfg, x, positions, tp=None):
-    _, nq, _, _ = _head_ranges(cfg, tp)
-    q = _split_heads(_proj(engine, params["q"], x, tp), nq)
+def _qkv(engine, params, cfg, x, positions, tp=None, every: bool = False):
+    q = _q(engine, params["q"], cfg, x, tp, every)
     k, v = _kv(engine, params, cfg, x, tp)
     q = apply_rope(q, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     k = apply_rope(k, positions, theta=cfg.rope_theta, fraction=cfg.rope_fraction)
@@ -122,12 +201,19 @@ def attention_forward(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     if kv_override is None:
         q, k, v = _qkv(engine, params, cfg, x, positions, tp)
     else:
-        q = _split_heads(_proj(engine, params["q"], x, tp),
-                         _head_ranges(cfg, tp)[1])
+        q = _q(engine, params["q"], cfg, x, tp)
         k, v = kv_override
-    out = engine.attention(q, k, v, causal=causal, window=window,
-                           softcap=cfg.attn_softcap)
-    return _out(engine, params["o"], _merge_heads(out), tp)
+    return _out(engine, params["o"], _attend(engine, cfg, tp, q, k, v,
+                                             causal=causal, window=window), tp)
+
+
+def _attend(engine, cfg, tp, q, k, v, **kw) -> torch.Tensor:
+    """A prompt's attention of the q heads this rank attends → o's input,
+    (B, S, its columns)."""
+    if _blocks(tp):
+        return _block_attention(engine, cfg, tp, q, k, v,
+                                softcap=cfg.attn_softcap, **kw)
+    return _merge_heads(engine.attention(q, k, v, softcap=cfg.attn_softcap, **kw))
 
 
 def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
@@ -144,8 +230,7 @@ def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     """
     s = x.shape[1]
     q, k, v = _qkv(engine, params, cfg, x, positions, tp)
-    out = engine.attention(q, k, v, causal=True, window=window,
-                           softcap=cfg.attn_softcap)
+    out = _attend(engine, cfg, tp, q, k, v, causal=True, window=window)
     if tp is not None and tp.cache == "seq":
         for c, t in ((cache_k, k), (cache_v, v)):
             _write_seq_slice(cfg, tp, c, t, ring)
@@ -158,7 +243,7 @@ def attention_prefill(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     else:
         cache_k[:, :, :s] = k.to(cache_k.dtype)
         cache_v[:, :, :s] = v.to(cache_v.dtype)
-    return _out(engine, params["o"], _merge_heads(out), tp), cache_k, cache_v
+    return _out(engine, params["o"], out, tp), cache_k, cache_v
 
 
 def slot_positions(s: int, n_slots: int, ring: bool, device) -> torch.Tensor:
@@ -175,10 +260,11 @@ def slot_positions(s: int, n_slots: int, ring: bool, device) -> torch.Tensor:
 def _write_seq_slice(cfg, tp, cache: torch.Tensor, t: torch.Tensor,
                      ring: bool = False) -> None:
     """Prompt rows of every kv head into the rank's sequence slice of the
-    cache (B, Hkv, S_l, hd), from ``t``: every kv head (a whole layer) or
-    the rank's heads (head-parallel), whose rank-own column block goes to
-    each rank's slice by an all-to-all (heads to sequence). The slices are
-    of the ring's slots for a ring cache (``slot_positions``)."""
+    cache (B, Hkv, S_l, hd), from ``t``: every kv head (a whole layer, or
+    one on column blocks) or the rank's heads (head-parallel), whose
+    rank-own column block goes to each rank's slice by an all-to-all
+    (heads to sequence). The slices are of the ring's slots for a ring
+    cache (``slot_positions``)."""
     mg, (b, _, s, hd) = tp.mg, t.shape
     s_l = cache.shape[2]
     pos = slot_positions(s, mg.size * s_l, ring, t.device).reshape(mg.size, s_l)
@@ -210,8 +296,8 @@ def attention_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         return _decode_seq(engine, params, cfg, x, position, cache_k, cache_v,
                            window=window, ring=ring, tp=tp)
     b = x.shape[0]
-    hd = cfg.resolved_head_dim
-    q, k, v = _qkv(engine, params, cfg, x[:, None, :], position[:, None], tp)
+    q, k, v = _qkv(engine, params, cfg, x[:, None, :], position[:, None], tp,
+                   every=True)
     w = cache_k.shape[2]
     slot = position % w if ring else position
     rows = torch.arange(b, device=x.device)
@@ -222,14 +308,14 @@ def attention_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
                                   lengths.to(torch.int32),
                                   softcap=cfg.attn_softcap,
                                   window=None if ring else window)  # (B,Hq,hd)
-    out = _out(engine, params["o"], out.reshape(b, q.shape[1] * hd), tp)
+    out = _out(engine, params["o"], _own_columns(cfg, tp, out.reshape(b, -1)), tp)
     return out, cache_k, cache_v
 
 
 def _row_all_heads(engine, params, cfg, x, tp) -> torch.Tensor:
     """The new row's k or v of every kv head, (B, 1, Hkv * hd): whole, or
     the ranks' column blocks of it gathered (a row: no weight moves)."""
-    if not _heads(tp):
+    if not _sharded(tp):
         return dense(engine, params, x)
     return tpm.gather_last(dense(engine, params, x), tp.mg)
 
@@ -256,13 +342,14 @@ def _decode_seq(engine, params, cfg, x, position, cache_k, cache_v, *,
     every q head over its rows (the decode kernel over its slice with the
     rank-local lengths, returning each row's log-sum-exp; a ring with no
     window: it holds the window), the ranks merge (``merge_partials``)
-    and a head-parallel rank keeps its q heads for o."""
+    and a head-parallel rank keeps its q heads for o, one on column
+    blocks its block of the columns."""
     b, hd, mg = x.shape[0], cfg.resolved_head_dim, tp.mg
     q0, nq, _, _ = _head_ranges(cfg, tp)
     x1, pos1 = x[:, None, :], position[:, None]
     rope = dict(theta=cfg.rope_theta, fraction=cfg.rope_fraction)
     q = _proj(engine, params["q"], x1, tp)
-    if _heads(tp):
+    if _sharded(tp):
         q = tpm.gather_last(q, mg)
     q = apply_rope(_split_heads(q, cfg.n_heads), pos1, **rope)[:, :, 0]
     k = apply_rope(_split_heads(_row_all_heads(engine, params["k"], cfg, x1, tp),
@@ -282,5 +369,5 @@ def _decode_seq(engine, params, cfg, x, position, cache_k, cache_v, *,
                                        window=None if ring else window,
                                        return_lse=True)
     out = tpm.merge_partials(out, lse, mg).to(q.dtype)[:, q0:q0 + nq]
-    out = _out(engine, params["o"], out.reshape(b, nq * hd), tp)
-    return out, cache_k, cache_v
+    out = _own_columns(cfg, tp, out.reshape(b, nq * hd))
+    return _out(engine, params["o"], out, tp), cache_k, cache_v

@@ -19,8 +19,8 @@ prefill whose encoder output has another length raises ``ValueError``
 (the reference rebinds ``xk`` and ``xv`` to an output of any length).
 
 Under tensor parallelism each entry point takes the pattern position's
-``BlockTP`` (``tp``): its attention, MLA and cross-attention head-parallel
-or whole, a Mamba or RWKV-6 mixer on the rank's channels or heads or
+``BlockTP`` (``tp``): its attention, MLA and cross-attention head-parallel,
+on column blocks or whole, a Mamba or RWKV-6 mixer on the rank's channels or heads or
 whole, its dense FFN column/row-parallel, its MoE experts sharded; the
 norms compute whole.
 """
@@ -113,7 +113,8 @@ def _mixer_mg(tp):
 def _cross_kv(engine, params, cfg, enc_out, tp=None):
     """The cross-attention's K and V: the encoder output projected, as
     (B, Hkv, S_enc, hd) views of the projections (the rank's kv heads
-    under a head-parallel cross-attention)."""
+    under a head-parallel cross-attention; every kv head, the ranks'
+    blocks gathered, on column blocks)."""
     return attn._kv(engine, params["cross"], cfg, enc_out, _part(tp, "cross"))
 
 
@@ -306,16 +307,16 @@ def block_decode(engine, params, cfg, spec, x, position, cache, *,
 def _cross_decode(engine, params, cfg, h, cache, enc_len, tp=None):
     """One query a sequence over the cross cache: q and o projections
     around decode attention with every length ``enc_len`` (the rank's q
-    heads over its kv heads under a head-parallel ``tp``)."""
+    heads over its kv heads under a head-parallel ``tp``; on column blocks
+    every q head over the whole cache, the rank keeping its block)."""
     b, s = h.shape[0], cache["xk"].shape[2]
     if enc_len is None or not 0 < enc_len <= s:
         raise ValueError(f"{cfg.name}: enc_len={enc_len} for a cross cache "
                          f"of {s} frames")
-    nq = attn._head_ranges(cfg, tp)[1]
-    q = attn._split_heads(attn._proj(engine, params["q"], h[:, None, :], tp),
-                          nq)[:, :, 0]                          # (B, Hq, hd)
+    q = attn._q(engine, params["q"], cfg, h[:, None, :], tp,
+                every=True)[:, :, 0]                            # (B, Hq, hd)
     lengths = torch.full((b,), enc_len, dtype=torch.int32, device=h.device)
     o = engine.decode_attention(q, cache["xk"], cache["xv"], lengths,
                                 softcap=cfg.attn_softcap)
     return attn._out(engine, params["o"],
-                     o.reshape(b, nq * cfg.resolved_head_dim), tp)
+                     attn._own_columns(cfg, tp, o.reshape(b, -1)), tp)

@@ -322,6 +322,9 @@ def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
     a sequence slice of every kv head or of MLA's latents, the heads or
     channels of a recurrent mixer's state) and gathered elsewhere, a rank then
     keeping its shard of the result. ``batch`` holds ``tokens`` and, for a
+    prompt, the embeddings of a vision prefix or an encoder's frames
+    (``vision_embeds``, ``audio_embeds``; ``enc_len``: the frames a decode
+    step's cross-attention reads), split with the rows of ``tokens``; for a
     decode step, ``position``. → (the logits, whole over the vocab; the new
     cache as DTensors). A cache sharded by sequence decodes on any engine:
     the decode kernel returns each row's log-sum-exp, and the ranks merge

@@ -139,11 +139,11 @@ def trace_smoke(arch, shape, world=8, model_axis=4, **ov):
                                  cfg_overrides={**smoke_overrides(arch), **ov})
 
 
-def real_flops(arch, shape) -> float:
+def real_flops(arch, shape, model_axis=4) -> float:
     """FLOPs of rank 0's share of the cell's step on real CPU tensors: the
     same step (``make_train_step`` or ``serve_on_mesh``) on real DTensors
-    of the smoke config's weights in the fake world of 8 (the 2 x 4 mesh),
-    outside FakeTensorMode. The fake group moves no data, so the values are
+    of the smoke config's weights in the fake world of 8 (the 2 x 4 mesh,
+    or 1 x 8 with ``model_axis`` 8), outside FakeTensorMode. The fake group moves no data, so the values are
     meaningless, but every product has the rank's shapes: its rows of the
     batch (4 of 8 over a data axis of 2; granite's MoE groups do not split,
     so every rank takes all 8) and its share of the tensor-parallel
@@ -157,7 +157,7 @@ def real_flops(arch, shape) -> float:
     gen = torch.Generator().manual_seed(1)
     b = shape.global_batch
     with dryrun.fake_world(8):
-        mesh = make_host_mesh(model_axis=4)
+        mesh = make_host_mesh(model_axis=model_axis)
         p = distribute(params, to_shardings(param_pspecs(
             params, mesh, fsdp=arch in specs.FSDP_ARCHS), mesh))
         with FlopCounterMode(display=False) as fc:
@@ -344,6 +344,20 @@ def test_mixer_cells_compute_on_their_shards(arch, shape):
     rec = trace_smoke(arch, shape)
     assert rec["gathered_over_model"] == {}
     assert rec["flops"] == real_flops(arch, shape)
+
+
+@pytest.mark.parametrize("shape", [TRAIN, PREFILL, DECODE],
+                         ids=["train", "prefill", "decode"])
+def test_column_block_cells_gather_nothing(shape):
+    """qwen2.5-32b smoke's 4 q heads over 2 kv heads on a model axis of 8
+    (half a q head a rank: attention on column blocks, its cache by
+    sequence) on the 1 x 8 mesh: nothing gathered over ``model``, and the
+    trace's FLOPs those of a real run of the rank's share
+    (``real_flops``)."""
+    rec = trace_smoke("qwen2.5-32b", shape, model_axis=8)
+    assert rec["mesh"] == "1x8"
+    assert rec["gathered_over_model"] == {}
+    assert rec["flops"] == real_flops("qwen2.5-32b", shape, model_axis=8) > 0
 
 
 @pytest.mark.parametrize("shape", [PREFILL, DECODE], ids=["prefill", "decode"])

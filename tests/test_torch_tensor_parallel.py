@@ -12,8 +12,12 @@ helpers of tests/test_torch_distributed.py).
   ``loss_mask`` batch, minicpm3 (head-parallel MLA), jamba (channel-parallel
   Mamba, its in_proj columns routed) and rwkv6 smoke (head-parallel
   RWKV-6), whisper smoke (the encoder, cross-attention and the classic
-  MLP's biases) and internvl2 smoke (the vision prefix). All cases run in
-  one launch of 8 ranks; nothing is gathered over ``model``.
+  MLP's biases) and internvl2 smoke (the vision prefix); and attention on
+  column blocks: qwen2.5-32b and whisper smoke on a 1 × 8 mesh (half a q
+  head a rank; whisper's encoder, self- and cross-attention) and a qwen
+  smoke of 6 q / 3 kv heads on 2 × 4 (a rank's heads straddling GQA
+  groups). All cases run in one launch of 8 ranks; nothing is gathered
+  over ``model``.
 * A census of one rank's forward on a 1 × 4 mesh: the q, o, gate, up,
   down and unembed products and the expert and attention products at
   exactly 1/4 of one device's, no such leaf gathered over ``model``; the
@@ -23,15 +27,19 @@ helpers of tests/test_torch_distributed.py).
   ``F.cross_entropy`` and a plain lookup, targets at the shard edges.
 * A prefill and 8 decode steps on a 1 × 4 mesh over a cache sharded by
   heads (stablelm), by sequence (gemma2; gemma2 with a ring cache for its
-  local layers; jamba's attention), MLA's latents by sequence (minicpm3)
-  and the recurrent states by head or channel (rwkv6, jamba) against one
-  device and the JAX package's serve steps; on the kernels' route (a spy
+  local layers; jamba's attention; the straddling config on column
+  blocks), MLA's latents by sequence (minicpm3) and the recurrent states
+  by head or channel (rwkv6, jamba), and on a 1 × 8 mesh qwen2.5-32b and
+  whisper smoke on column blocks (their caches by sequence, whisper's
+  cross cache replicated), against one device and the JAX package's
+  serve steps; on the kernels' route (a spy
   standing in for the kernels on the CPU) the decode steps ask the decode
   attention for its log-sum-exp at the rank-local lengths.
 * The decode attention's log-sum-exp (the plain version) against
   ``partial_decode_attention`` and the JAX package's plain version, empty
   slices included; the ring's slot positions.
-* The per-layer and per-mixer head-parallel/gathered choice.
+* The per-layer and per-mixer head-parallel/column-block/gathered
+  choice; the column blocks' head ranges and flash launches.
 """
 import dataclasses
 import threading
@@ -82,18 +90,28 @@ def pair(arch: str, **extra):
 
 
 # ------------------------------------------------------- the train step
-# case: (arch, loss_mask); jamba is held to the port's single-device step
-# only (its jitted JAX step takes 19 s to compile here; tests/
-# test_torch_train.py holds the port's jamba loss and grads to the JAX
-# package's)
-STEP_CASES = {"qwen": ("qwen2.5-32b", False), "gemma2": ("gemma2-9b", False),
-              "granite": ("granite-moe-1b-a400m", False),
-              "qwen-loss-mask": ("qwen2.5-32b", True),
-              "minicpm3": ("minicpm3-4b", False),
-              "jamba": ("jamba-1.5-large-398b", False),
-              "rwkv6": ("rwkv6-1.6b", False),
-              "whisper": ("whisper-large-v3", False),
-              "internvl2": ("internvl2-1b", False)}
+# qwen2.5-32b smoke with 6 q heads over 3 kv heads (hd 16): on 4 ranks a
+# rank's column block is 1.5 q heads, and rank 1's (q heads 1 and 2) and
+# rank 2's (3 and 4) straddle two GQA groups each
+STRADDLE = dict(n_heads=6, n_kv_heads=3, head_dim=16)
+# case: (arch, loss_mask, config changes, model axis: a 2 x 4 or 1 x 8
+# mesh); jamba is held to the port's single-device step only (its jitted
+# JAX step takes 19 s to compile here; tests/test_torch_train.py holds the
+# port's jamba loss and grads to the JAX package's)
+STEP_CASES = {"qwen": ("qwen2.5-32b", False, {}, 4),
+              "gemma2": ("gemma2-9b", False, {}, 4),
+              "granite": ("granite-moe-1b-a400m", False, {}, 4),
+              "qwen-loss-mask": ("qwen2.5-32b", True, {}, 4),
+              "minicpm3": ("minicpm3-4b", False, {}, 4),
+              "jamba": ("jamba-1.5-large-398b", False, {}, 4),
+              "rwkv6": ("rwkv6-1.6b", False, {}, 4),
+              "whisper": ("whisper-large-v3", False, {}, 4),
+              "internvl2": ("internvl2-1b", False, {}, 4),
+              "qwen-blocks": ("qwen2.5-32b", False, {}, 8),
+              "straddle": ("qwen2.5-32b", False, STRADDLE, 4),
+              "whisper-blocks": ("whisper-large-v3", False, {}, 8)}
+# the cases whose attention runs on column blocks
+BLOCK_STEPS = ("qwen-blocks", "straddle", "whisper-blocks")
 STEP_KW = dict(total_steps=10, warmup_steps=0)
 
 TP_STEP = """
@@ -106,11 +124,12 @@ from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models.transformer import LM, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.step import make_train_step, tp_view
-mesh = make_host_mesh(model_axis=4)                 # 2 data x 4 model
+meshes = {{m: make_host_mesh(model_axis=m) for m in (4, 8)}}   # 2 x 4, 1 x 8
 res = {{}}
-for name, arch in {cases!r}.items():
+for name, (arch, extra, m) in {cases!r}.items():
+    mesh = meshes[m]
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
-                              compute_dtype="float32")
+                              compute_dtype="float32", **extra)
     model = LM(cfg, ArcaneEngine("ref"), device="cpu")
     params = torch.load(OUT + f"/params_{{name}}.pt")
     batch = torch.load(OUT + f"/batch_{{name}}.pt")
@@ -138,8 +157,8 @@ def tp_steps(tmp_path_factory):
     weights on the same seeded batch of 8 x 32."""
     tmp = tmp_path_factory.mktemp("tp_steps")
     cases = {}
-    for name, (arch, mask) in STEP_CASES.items():
-        model, params, jmodel, jparams = pair(arch)
+    for name, (arch, mask, extra, _) in STEP_CASES.items():
+        model, params, jmodel, jparams = pair(arch, **extra)
         rng = np.random.default_rng(7)
         cfg = model.cfg
         batch = {"tokens": rng.integers(0, cfg.vocab, (8, 32)).astype(np.int32)}
@@ -157,7 +176,8 @@ def tp_steps(tmp_path_factory):
         cases[name] = (model, params, jmodel, jparams, batch, tbatch)
     errors = []
     ranks = threading.Thread(target=lambda: _catch(errors, run_ranks, 8, TP_STEP.format(
-        cases={n: a for n, (a, _) in STEP_CASES.items()}, kw=STEP_KW), tmp))
+        cases={n: (a, extra, m) for n, (a, _, extra, m) in STEP_CASES.items()},
+        kw=STEP_KW), tmp))
     ranks.start()
     refs = {}
     try:
@@ -187,11 +207,12 @@ def _catch(errors: list, fn, *args):
 
 @pytest.mark.parametrize("case", sorted(STEP_CASES))
 def test_tp_step_matches_single_device(tp_steps, case):
-    """One TP step on 2 x 4 gloo ranks: the loss within 1e-4 and every
-    param within atol 2e-4, rtol 2e-3 of the JAX package's single-device
-    step (but jamba's) and of the port's; no leaf gathered over ``model``:
-    every attention and MLA by heads, RWKV-6 by heads, Mamba by
-    channels."""
+    """One TP step on 2 x 4 (or 1 x 8) gloo ranks: the loss within 1e-4 and
+    every param within atol 2e-4, rtol 2e-3 of the JAX package's
+    single-device step (but jamba's) and of the port's; no leaf gathered
+    over ``model``: every attention and MLA by heads, RWKV-6 by heads,
+    Mamba by channels, but for BLOCK_STEPS, whose every attention (an
+    encoder's and a cross-attention too) runs on column blocks."""
     refs, res = tp_steps
     mine = res[case]
     for params, loss in refs[case].values():
@@ -200,6 +221,8 @@ def test_tp_step_matches_single_device(tp_steps, case):
     assert mine["gathered"] == {}
     kinds = {spec.kind for spec in get_smoke_config(STEP_CASES[case][0]).pattern}
     expect = {"heads"} | ({"channels"} if "mamba" in kinds else set())
+    if case in BLOCK_STEPS:
+        expect = {"blocks"}
     assert set(mine["choices"].values()) == expect, mine["choices"]
 
 
@@ -440,18 +463,28 @@ def test_vocab_parallel_loss_and_embedding(tmp_path):
 
 # ------------------------------------------------------------- serving
 # layout → (arch, config changes, the cache leaf whose model placement is
-# checked, its sharded dim); "spy" runs gemma2 on the kernels' route
+# checked, its sharded dim, the model axis); "spy" runs gemma2 on the
+# kernels' route; "straddle" and BLOCK_SERVES run on column blocks
 SERVE_CASES = {
-    "heads": ("stablelm-3b", {}, "k", 2),
-    "seq": ("gemma2-9b", {}, "k", 3),
-    "ring": ("gemma2-9b", {"ring_local_cache": True}, "k", 3),
-    "mla": ("minicpm3-4b", {}, "c", 2),
-    "rwkv": ("rwkv6-1.6b", {}, "S", 2),
-    "mamba": ("jamba-1.5-large-398b", {}, "ssm", 2),
-    "spy": ("gemma2-9b", {"ring_local_cache": True}, "k", 3),
-    "moe": ("granite-moe-1b-a400m", {}, "k", 3),
+    "heads": ("stablelm-3b", {}, "k", 2, 4),
+    "seq": ("gemma2-9b", {}, "k", 3, 4),
+    "ring": ("gemma2-9b", {"ring_local_cache": True}, "k", 3, 4),
+    "mla": ("minicpm3-4b", {}, "c", 2, 4),
+    "rwkv": ("rwkv6-1.6b", {}, "S", 2, 4),
+    "mamba": ("jamba-1.5-large-398b", {}, "ssm", 2, 4),
+    "spy": ("gemma2-9b", {"ring_local_cache": True}, "k", 3, 4),
+    "moe": ("granite-moe-1b-a400m", {}, "k", 3, 4),
+    "straddle": ("qwen2.5-32b", STRADDLE, "k", 3, 4),
 }
-PROMPT, STEPS, MAX_LEN, SLOTS = 12, 8, 32, 2
+# on a 1 x 8 mesh: half a q head a rank, the caches by sequence (2 and 4 kv
+# heads); whisper's cross cache of ENC_FRAMES, which 8 does not divide, is
+# replicated, as whisper-large-v3's 1,500 frames are on 16 ranks
+BLOCK_SERVES = {
+    "qwen-blocks": ("qwen2.5-32b", {}, "k", 3, 8),
+    "whisper-blocks": ("whisper-large-v3", {}, "k", 3, 8),
+}
+ALL_SERVES = {**SERVE_CASES, **BLOCK_SERVES}
+PROMPT, STEPS, MAX_LEN, SLOTS, ENC_FRAMES = 12, 8, 32, 2, 12
 
 TP_SERVE = """
 import dataclasses
@@ -482,7 +515,7 @@ class KernelRoute(ArcaneEngine):
         return super().decode_attention(q, k, v, lengths, **kw)
 
 
-mesh = make_host_mesh(model_axis=4)                 # 1 or 2 data x 4 model
+meshes = {{}}
 
 
 def whole(lg):
@@ -497,20 +530,24 @@ def whole(lg):
 
 
 res = {{}}
-for layout, (arch, extra, leaf, _) in {cases!r}.items():
+for layout, (arch, extra, leaf, _, m) in {cases!r}.items():
+    if m not in meshes:                 # 1 x 4, 2 x 4 or 1 x 8
+        meshes[m] = make_host_mesh(model_axis=m)
+    mesh = meshes[m]
     cfg = dataclasses.replace(get_smoke_config(arch), param_dtype="float32",
                               compute_dtype="float32", **extra)
     engine = KernelRoute() if layout == "spy" else ArcaneEngine("ref")
     model = LM(cfg, engine, device="cpu")
     params = torch.load(OUT + f"/serve_params_{{layout}}.pt")
     prompt = torch.load(OUT + f"/serve_prompt_{{layout}}.pt")
-    cache = model.init_cache({slots}, {max_len})
+    enc = {enc} if cfg.enc_dec else 0
+    cache = model.init_cache({slots}, {max_len}, enc_len=enc)
     p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
     c = distribute(cache, to_shardings(cache_pspecs(cache, mesh), mesh))
     j = next(i for i, b in enumerate(c) if leaf in b)
     placements = str(c[j][leaf].placements)
     plan = tp_view(model, p, mesh, c)[0].tp
-    logits, c = serve_on_mesh(model, "prefill", p, c, {{"tokens": prompt}}, mesh)
+    logits, c = serve_on_mesh(model, "prefill", p, c, prompt, mesh, enc_len=enc)
     logits = whole(logits)
     out = [logits]
     tok = torch.argmax(logits, -1).to(torch.int32)
@@ -519,7 +556,8 @@ for layout, (arch, extra, leaf, _) in {cases!r}.items():
     for i in range({steps}):
         pos = torch.full(({slots},), {prompt} + i, dtype=torch.int32)
         logits, c = serve_on_mesh(model, "decode", p, c,
-                                  {{"tokens": tok, "position": pos}}, mesh)
+                                  {{"tokens": tok, "position": pos}}, mesh,
+                                  enc_len=enc)
         logits = whole(logits)
         out.append(logits)
         tok = torch.argmax(logits, -1).to(torch.int32)
@@ -531,28 +569,30 @@ torch.save(res, OUT + f"/serve{{RANK}}.pt")
 """
 
 
-def one_device_serve(model, params, prompt):
-    """Prefill, then STEPS greedy decode steps on one device: the logits of
-    each (STEPS + 1, SLOTS, V) and the final cache."""
-    cache = model.init_cache(SLOTS, MAX_LEN)
-    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+def one_device_serve(model, params, prompt, enc: int = 0):
+    """Prefill of the ``prompt`` batch, then STEPS greedy decode steps on
+    one device: the logits of each (STEPS + 1, SLOTS, V) and the final
+    cache."""
+    cache = model.init_cache(SLOTS, MAX_LEN, enc_len=enc)
+    logits, cache = model.prefill(params, prompt, cache)
     out = [logits]
     for i in range(STEPS):
         tok = torch.argmax(logits, -1).to(torch.int32)
         pos = torch.full((SLOTS,), PROMPT + i, dtype=torch.int32)
-        logits, cache = model.decode_step(params, tok, pos, cache)
+        logits, cache = model.decode_step(params, tok, pos, cache, enc_len=enc)
         out.append(logits)
     return torch.stack(out), cache
 
 
-def jax_serve(jmodel, jparams, prompt, tokens):
-    """The JAX package's prefill and decode steps fed the given greedy
-    tokens: the logits of each."""
-    jcache = jmodel.init_cache(SLOTS, MAX_LEN, dtype=jnp.float32)
-    lg, jcache = jax.jit(jmodel.prefill)(jparams, {"tokens": jnp.asarray(prompt)},
-                                         jcache)
+def jax_serve(jmodel, jparams, prompt, tokens, enc: int = 0):
+    """The JAX package's prefill of the ``prompt`` batch and decode steps
+    fed the given greedy tokens: the logits of each."""
+    import functools
+    jcache = jmodel.init_cache(SLOTS, MAX_LEN, dtype=jnp.float32, enc_len=enc)
+    lg, jcache = jax.jit(jmodel.prefill)(
+        jparams, {k: jnp.asarray(v.numpy()) for k, v in prompt.items()}, jcache)
     out = [np.asarray(lg)]
-    dec = jax.jit(jmodel.decode_step)
+    dec = jax.jit(functools.partial(jmodel.decode_step, enc_len=enc))
     for i in range(STEPS):
         lg, jcache = dec(jparams, jnp.asarray(tokens[i]),
                          jnp.full((SLOTS,), PROMPT + i, jnp.int32), jcache)
@@ -565,16 +605,21 @@ def serve_refs(cases: dict, tmp) -> dict:
     weights and prompt, the weights and prompt saved under ``tmp`` for the
     ranks."""
     refs = {}
-    for layout, (arch, extra, _, _) in cases.items():
+    for layout, (arch, extra, *_) in cases.items():
         model, params, jmodel, jparams = pair(arch, **extra)
-        prompt = torch.from_numpy(np.random.default_rng(5).integers(
-            0, model.cfg.vocab, (SLOTS, PROMPT)).astype(np.int32))
+        rng = np.random.default_rng(5)
+        prompt = {"tokens": torch.from_numpy(rng.integers(
+            0, model.cfg.vocab, (SLOTS, PROMPT)).astype(np.int32))}
+        enc = ENC_FRAMES if model.cfg.enc_dec else 0
+        if enc:
+            prompt["audio_embeds"] = torch.from_numpy(rng.standard_normal(
+                (SLOTS, enc, model.cfg.d_model)).astype(np.float32))
         torch.save(params, tmp / f"serve_params_{layout}.pt")
         torch.save(prompt, tmp / f"serve_prompt_{layout}.pt")
-        logits, cache = one_device_serve(model, params, prompt)
+        logits, cache = one_device_serve(model, params, prompt, enc)
         toks = torch.argmax(logits, -1).to(torch.int32).numpy()
         refs[layout] = (model.cfg, logits, cache,
-                        jax_serve(jmodel, jparams, prompt.numpy(), toks))
+                        jax_serve(jmodel, jparams, prompt, toks, enc))
     return refs
 
 
@@ -586,7 +631,7 @@ def tp_serves(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("tp_serves")
     refs = serve_refs(SERVE_CASES, tmp)
     run_ranks(4, TP_SERVE.format(cases=SERVE_CASES, slots=SLOTS, max_len=MAX_LEN,
-                                 steps=STEPS, prompt=PROMPT), tmp)
+                                 steps=STEPS, prompt=PROMPT, enc=ENC_FRAMES), tmp)
     return refs, [torch.load(tmp / f"serve{r}.pt") for r in range(4)]
 
 
@@ -599,11 +644,13 @@ MIXER_SERVES = {k: SERVE_CASES[k] for k in ("mla", "rwkv", "mamba", "moe")}
 @pytest.fixture(scope="module")
 def tp_serves_2x4(tmp_path_factory):
     """The MLA, RWKV-6 and Mamba cases served on 8 gloo ranks (a 2 x 4
-    mesh), beside one device's and the JAX package's serves."""
+    mesh) and BLOCK_SERVES in the same launch (a 1 x 8 mesh), beside one
+    device's and the JAX package's serves."""
     tmp = tmp_path_factory.mktemp("tp_serves_2x4")
-    refs = serve_refs(MIXER_SERVES, tmp)
-    run_ranks(8, TP_SERVE.format(cases=MIXER_SERVES, slots=SLOTS, max_len=MAX_LEN,
-                                 steps=STEPS, prompt=PROMPT), tmp)
+    cases = {**MIXER_SERVES, **BLOCK_SERVES}
+    refs = serve_refs(cases, tmp)
+    run_ranks(8, TP_SERVE.format(cases=cases, slots=SLOTS, max_len=MAX_LEN,
+                                 steps=STEPS, prompt=PROMPT, enc=ENC_FRAMES), tmp)
     return refs, [torch.load(tmp / f"serve{r}.pt") for r in range(8)]
 
 
@@ -616,12 +663,13 @@ def test_tp_serve_matches_one_device(tp_serves, layout):
     slices and the local layers' window of 16; with ``ring_local_cache``
     the local layers' ring of 16 slots in slices of 4, wrapping at
     position 16), minicpm3 (MLA by heads, its latents by sequence), rwkv6
-    (by heads, its wkv state by heads) and jamba (Mamba by channels, its
+    (by heads, its wkv state by heads), jamba (Mamba by channels, its
     states by channel; attention by heads over a cache sharded by
-    sequence). Every rank's greedy tokens equal one device's and the JAX
-    package's, its f32 logits within 1e-5 of one device's and of the JAX
-    package's, and the cache gathered from the ranks equals one device's
-    cache; nothing is gathered over ``model``."""
+    sequence) and the straddling config on column blocks (3 kv heads: the
+    cache by sequence). Every rank's greedy tokens equal one device's and
+    the JAX package's, its f32 logits within 1e-5 of one device's and of
+    the JAX package's, and the cache gathered from the ranks equals one
+    device's cache; nothing is gathered over ``model``."""
     check_serve(*tp_serves, layout)
 
 
@@ -637,16 +685,30 @@ def test_tp_serve_2x4_matches_one_device(tp_serves_2x4, layout):
     check_serve(*tp_serves_2x4, layout, rtol=1e-5)
 
 
+@pytest.mark.parametrize("layout", sorted(BLOCK_SERVES))
+def test_tp_serve_on_column_blocks_matches_one_device(tp_serves_2x4, layout):
+    """The same prefill and 8 decode steps of qwen2.5-32b smoke (4 q heads
+    over 2 kv heads: half a q head a rank) and whisper smoke (4 heads: its
+    encoder, self- and cross-attention; 12 audio frames) on a 1 x 8 mesh,
+    every attention on column blocks over a cache sharded by sequence
+    (whisper's cross cache replicated, used whole): every rank's greedy
+    tokens and logits as one device's and the JAX package's, the gathered
+    cache one device's; nothing is gathered over ``model``."""
+    check_serve(*tp_serves_2x4, layout)
+
+
 def check_serve(refs, ranks, layout, rtol=0.0):
     """Each rank's serve of ``layout`` against one device's and the JAX
     package's (``test_tp_serve_matches_one_device``)."""
     cfg, logits, cache, jlogits = refs[layout]
-    _, _, leaf, dim = SERVE_CASES[layout]
+    arch, extra, leaf, dim, m = ALL_SERVES[layout]
+    blocks = not tpm.head_parallel(cfg.n_heads, cfg.n_kv_heads, m)
     for res in ranks:
         mine = res[layout]
         assert f"Shard(dim={dim})" in mine["placements"]
         assert mine["gathered"] == {}
-        assert set(mine["choices"].values()) <= {"heads", "channels"}
+        assert set(mine["choices"].values()) <= ({"blocks"} if blocks
+                                                 else {"heads", "channels"})
         assert torch.equal(torch.argmax(mine["logits"], -1), torch.argmax(logits, -1))
         assert np.array_equal(np.argmax(jlogits, -1), torch.argmax(logits, -1).numpy())
         torch.testing.assert_close(mine["logits"], logits, atol=1e-5, rtol=0)
@@ -779,6 +841,32 @@ def test_head_parallel_rule():
     assert tpm.head_ranges(40, 8, 1, 4) == (10, 10, 2, 2)
 
 
+def test_column_blocks_and_their_flash_launches():
+    """A rank's column block of q, the q heads that overlap it and the kv
+    heads they read (``column_block``), and the flash launches over them
+    (``head_groups``): one where the heads sit inside one GQA group or are
+    whole groups, one a kv head where they straddle groups."""
+    cb = tpm.column_block
+    # qwen2.5-32b on 16: 2.5 heads a rank, inside a group of 5
+    assert cb(40, 8, 128, 0, 16) == (0, 320, 0, 3, 0, 1)
+    assert cb(40, 8, 128, 1, 16) == (320, 320, 2, 3, 0, 1)
+    assert cb(40, 8, 128, 2, 16) == (640, 320, 5, 3, 1, 1)
+    # internvl2-1b on 4: 3.5 heads a rank, inside a group of 7
+    assert cb(14, 2, 64, 1, 4) == (224, 224, 3, 4, 0, 1)
+    assert cb(14, 2, 64, 2, 4) == (448, 224, 7, 4, 1, 1)
+    # whisper-large-v3 on 16: 1.25 heads a rank, groups of one
+    assert cb(20, 20, 64, 3, 16) == (240, 80, 3, 2, 3, 2)
+    assert tpm.head_groups(3, 2, 3, 2, 1) == ((3, 2, 3, 2),)
+    # 6 q / 3 kv heads on 4: rank 1's heads 1 and 2 read kv heads 0 and 1
+    assert cb(6, 3, 16, 1, 4) == (24, 24, 1, 2, 0, 2)
+    assert tpm.head_groups(1, 2, 0, 2, 2) == ((1, 1, 0, 1), (2, 1, 1, 1))
+    assert tpm.head_groups(0, 2, 0, 1, 2) == ((0, 2, 0, 1),)
+    # 10 q / 5 kv on 4: heads 2..4 straddle groups 1 and 2 unevenly
+    assert cb(10, 5, 16, 1, 4) == (40, 40, 2, 3, 1, 2)
+    assert tpm.head_groups(2, 3, 1, 2, 2) == ((2, 2, 1, 1), (4, 1, 2, 1))
+    assert tpm.head_groups(4, 4, 2, 2, 2) == ((4, 4, 2, 2),)     # whole groups
+
+
 # (arch, m) → each attention-bearing pattern position's choice (or the
 # mixer computed whole), the k/v columns' source, and gathered leaf roots
 PLAN_CASES = {
@@ -786,8 +874,11 @@ PLAN_CASES = {
     ("gemma2-9b", 4): ("heads", "local", set()),
     ("granite-moe-1b-a400m", 16): ("heads", "gather", set()),
     ("granite-moe-1b-a400m", 4): ("heads", "local", set()),
-    ("qwen2.5-32b", 16): ("whole", None, {"attn"}),
+    ("qwen2.5-32b", 16): ("blocks", None, set()),
     ("qwen2.5-32b", 4): ("heads", "local", set()),
+    ("llama4-scout-17b-a16e", 16): ("blocks", None, set()),
+    ("whisper-large-v3", 16): ("blocks", None, set()),
+    ("internvl2-1b", 4): ("blocks", None, set()),
     ("minicpm3-4b", 16): ("mla whole", None, {"attn"}),
     ("minicpm3-4b", 4): ("mla", None, set()),
     ("rwkv6-1.6b", 16): ("rwkv", None, set()),
@@ -798,13 +889,16 @@ PLAN_CASES = {
 @pytest.mark.parametrize("arch,m", sorted(PLAN_CASES))
 def test_plan_chooses_per_layer(arch, m):
     """``plan`` on the production widths' layouts (``param_pspecs`` on a
-    (16 / m, m) mesh): each layer's attention head-parallel or whole (the
-    reason named), where its k/v columns come from, and the leaves it
-    gathers over ``model`` (a whole layer's sharded leaves, a gathered
-    mixer's): qwen2.5-32b's 40 heads on 16 ranks and minicpm3's 40-head
-    MLA on 16 gather, with their reasons; minicpm3's MLA on 4, rwkv6's
-    mixer on 16 and jamba's Mamba mixers on 16 run on their shards (MLA
-    and RWKV-6 by heads, Mamba by channels); the rest is head-parallel."""
+    (16 / m, m) mesh): each layer's attention head-parallel, on column
+    blocks or whole (the reason named), where its k/v columns come from,
+    and the leaves it gathers over ``model`` (a whole layer's sharded
+    leaves, a gathered mixer's): minicpm3's 40-head MLA on 16 gathers,
+    with its reason; qwen2.5-32b's and llama4-scout's 40 heads over 8 kv
+    heads on 16 ranks, whisper-large-v3's 20 (self, cross and the
+    encoder's) on 16 and internvl2-1b's 14 over 2 on 4 run on column
+    blocks, gathering nothing; minicpm3's MLA on 4, rwkv6's mixer on 16
+    and jamba's Mamba mixers on 16 run on their shards (MLA and RWKV-6 by
+    heads, Mamba by channels); the rest is head-parallel."""
     cfg = get_config(arch)
     params = LM(cfg, device="cpu").param_shapes()
     dims = spec_dims(sh.param_pspecs(params, {"data": 16 // m, "model": m}))
@@ -826,15 +920,49 @@ def test_plan_chooses_per_layer(arch, m):
                     ("heads" if spec.kind == "rwkv" else "channels")
                 continue
             assert blk.attn.heads == (choice == "heads")
+            assert blk.attn.blocks == (choice == "blocks")
             if kv is not None:
                 assert blk.attn.kv == kv
-            if choice == "whole":
-                assert "GQA groups" in plan.choices[f"blocks/{j}/attn"]
-                assert all(p in plan.gathered for p in dims
-                           if p.startswith(f"blocks/{j}/attn/") and dims[p] is not None)
+            if choice == "blocks":
+                assert plan.choices[f"blocks/{j}/attn"] == "blocks"
+            if blk.cross is not None:
+                assert blk.cross.blocks == (choice == "blocks")
+                assert plan.choices[f"blocks/{j}/cross"] == choice
+        if cfg.enc_dec:
+            assert plan.enc.attn.blocks == (choice == "blocks")
         assert plan.embed == plan.unembed == (cfg.vocab % m == 0)
         assert all(b.experts == (cfg.moe is not None and cfg.moe.n_experts % m == 0)
                    for b, s in zip(plan.blocks, cfg.pattern) if s.moe)
+
+
+@pytest.mark.parametrize("arch,m,max_len", [
+    ("qwen2.5-32b", 16, 32768), ("llama4-scout-17b-a16e", 16, 4096),
+    ("whisper-large-v3", 16, 448), ("internvl2-1b", 4, 512)])
+def test_column_block_plan_keeps_the_rules_caches(arch, m, max_len):
+    """While serving, on the production layouts of the params and of a
+    cache of 16 rows (``cache_pspecs``): every attention on column blocks
+    over its self-attention cache sharded by sequence (the kv heads do not
+    divide the axis), whisper's cross cache of 1,500 frames replicated and
+    used whole (``cache_kept`` false: nothing to gather), nothing gathered
+    over ``model``."""
+    cfg = get_config(arch)
+    model = LM(cfg, device="cpu")
+    mesh = {"data": 16 // m, "model": m}
+    dims = spec_dims(sh.param_pspecs(model.param_shapes(), mesh))
+    enc = 1500 if cfg.enc_dec else 0
+    cache = spec_dims(sh.cache_pspecs(model.cache_shapes(16, max_len, enc_len=enc),
+                                      mesh))
+    for r in (0, m - 1):
+        plan = tpm.plan(cfg, dims, tpm.ModelGroup(None, r, m), cache)
+        assert plan.gathered == {}
+        assert set(plan.choices.values()) == {"blocks"}
+        for j, blk in enumerate(plan.blocks):
+            assert blk.attn.blocks and blk.attn.cache == "seq"
+            assert tpm.cache_kept(plan, f"{j}/k")
+            if cfg.enc_dec:
+                assert cache[f"{j}/xk"] is None
+                assert blk.cross.blocks and blk.cross.cache == "whole"
+                assert not tpm.cache_kept(plan, f"{j}/xk")
 
 
 def test_plan_names_a_mixer_it_cannot_split():
@@ -868,6 +996,7 @@ def test_plan_names_a_mixer_it_cannot_split():
 
 # --------------------------------- chip_smoke.py's TP serve checks, on gloo
 CHIP_TP = """
+import dataclasses
 import importlib
 sys.path.insert(0, {root!r})
 cs = importlib.import_module("chip_smoke")
@@ -911,7 +1040,7 @@ class Spy(ArcaneEngine):
 mesh = cs.tp_mesh((1, WORLD))
 out = {{}}
 for arch, kw in {cases}.items():
-    cfg = get_smoke_config(arch)
+    cfg = dataclasses.replace(get_smoke_config(arch), **kw.get("changes", {{}}))
     b, s, steps, max_len = cs.TP_SERVE_SLOTS, kw["prompt_len"], cs.TP_SERVE_NEW - 1, kw["max_len"]
     spy = Spy()
     model = LM(cfg, spy, device="cpu")
@@ -920,26 +1049,35 @@ for arch, kw in {cases}.items():
     c0 = model.init_cache(b, max_len)
     c = distribute(c0, to_shardings(cache_pspecs(c0, mesh), mesh))
     plan = tp_view(model, p, mesh, c)[0].tp
-    prompt = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab, (b, s)).astype(np.int32))
+    prompt = {{"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (b, s)).astype(np.int32))}}
+    if cfg.vision_prefix:
+        prompt["vision_embeds"] = torch.randn((b, cfg.vision_prefix, cfg.d_model))
     with torch.no_grad():
-        lg, c = serve_on_mesh(model, "prefill", p, c, {{"tokens": prompt}}, mesh)
+        lg, c = serve_on_mesh(model, "prefill", p, c, prompt, mesh)
         for i in range(steps):
-            pos = torch.full((b,), s + i, dtype=torch.int32)
+            pos = torch.full((b,), cfg.vision_prefix + s + i, dtype=torch.int32)
             lg, c = serve_on_mesh(model, "decode", p, c, {{"tokens": torch.argmax(
                 lg, -1).to(torch.int32), "position": pos}}, mesh)
     want = cs.expected_launches(torch, cfg, [b * s], steps, b, prompt_batch=b, plan=plan)
     sv = cs.tp_serve(torch, mesh, "cpu", "ref", smoke=True, arch=arch, profile=False, **kw)
-    merge = (None if cfg.rwkv is not None
+    blocks = "changes" in kw
+    merge = (None if cfg.rwkv is not None or blocks
              else cs.tp_lse_merge(torch, mesh, "cpu", "ref", arch, smoke=True, **kw))
+    train = (cs.tp_train(torch, "cpu", ((1, WORLD),), smoke=True, arch=arch,
+                         batch=(2, 16, 2), changes=kw["changes"]) if blocks else None)
     out[arch] = {{"counts": [spy.counts, want[0]], "variants": [spy.variants, want[1]],
-                 "choices": plan.choices, "serve": sv["f32_copy"], "merge": merge}}
+                 "choices": plan.choices, "serve": sv["f32_copy"], "merge": merge,
+                 "train": train}}
 torch.save(out, OUT + f"/chip_tp{{RANK}}.pt")
 """
+# internvl2 smoke with the straddling heads: its attention on column blocks
+# on 4 ranks (chip_smoke's --tp-case internvl2-blocks at smoke width)
 CHIP_TP_CASES = {"minicpm3-4b": dict(prompt_len=64, max_len=128),
                  "rwkv6-1.6b": dict(prompt_len=64, max_len=128),
                  "jamba-1.5-large-398b": dict(prompt_len=64, max_len=128),
-                 "gemma2-9b": dict(prompt_len=64, max_len=128)}
+                 "gemma2-9b": dict(prompt_len=64, max_len=128),
+                 "internvl2-1b": dict(prompt_len=24, max_len=64, changes=STRADDLE)}
 
 
 @pytest.fixture(scope="module")
@@ -961,7 +1099,9 @@ def test_chip_smoke_tp_launch_model_equals_the_engine_calls(chip_tp, arch):
     by the variant the card's wrapper would pick for its operands: MLA by
     heads with its latents by sequence, RWKV-6 by heads, Mamba by channels
     (in_proj routed on the product or on the weight), gemma2's attention
-    by heads; every rank alike."""
+    by heads, internvl2's (6 q heads over 3 kv heads, behind its vision
+    prefix) on column blocks, its straddling ranks' prompt attention one
+    flash launch a kv head; every rank alike."""
     for res in chip_tp:
         r = res[arch]
         assert r["counts"][0] == r["counts"][1]
@@ -969,20 +1109,43 @@ def test_chip_smoke_tp_launch_model_equals_the_engine_calls(chip_tp, arch):
         assert all(not v.startswith("whole") for v in r["choices"].values())
 
 
-@pytest.mark.parametrize("arch", ["jamba-1.5-large-398b", "minicpm3-4b", "rwkv6-1.6b"])
+@pytest.mark.parametrize("arch", ["internvl2-1b", "jamba-1.5-large-398b", "minicpm3-4b",
+                                  "rwkv6-1.6b"])
 def test_chip_smoke_tp_serve_verdict_on_the_cpu(chip_tp, arch):
-    """``tp_serve``'s hold on a mixer's bf16 TP serve at smoke width: the
-    f32 copy's greedy tokens and logits (SERVE_F32_RTOL) and the bf16
-    run's drift from it within TP_SERVE_DRIFT times the plain run's, every
-    greedy token that differs from the plain run's at a near tie. (Phase
-    3's limits, calibrated at full width, are the card's check only.)"""
-    for res in chip_tp:
+    """``tp_serve``'s hold on a mixer's bf16 TP serve, or one on column
+    blocks, at smoke width: the f32 copy's greedy tokens and logits
+    (SERVE_F32_RTOL) and the bf16 run's drift from it within
+    TP_SERVE_DRIFT times the plain run's, every greedy token that differs
+    from the plain run's at a near tie. (Phase 3's limits, calibrated at
+    full width, are the card's check only.) On column blocks the same
+    check rejects the planted fault, each rank's block of the attention
+    output cut at its first q head's boundary (``block_cut_at_head``)."""
+    for r, res in enumerate(chip_tp):
         f32 = res[arch]["serve"]
         assert f32["greedy_equal"] and f32["max_abs"] <= f32["limit"]
         v = f32["bf16"]
         tp, plain = v["drift_from_f32"]["tp"], v["drift_from_f32"]["plain"]
         assert all(t <= 1.5 * q for t, q in zip(tp, plain))
         assert v["greedy_flips"] == v["flips_at_near_ties"]
+        if arch == "internvl2-1b":
+            assert not f32["faults"]["block_cut_at_head"]["ok"], r
+
+
+def test_chip_smoke_tp_train_on_column_blocks_rejects_its_fault(chip_tp):
+    """``tp_train`` of the straddling internvl2 smoke on 4 ranks (2 x 16
+    text tokens behind its vision prefix, 2 microbatches): every attention
+    on column blocks and nothing gathered; step 1 within its limits (the
+    plain bf16 step's own update gap to its f32 copy) and the steps' drift
+    within TP_DRIFT of the plain run's; the planted fault (the
+    activations' gather left without its reduce-scatter backward) leaves
+    the step-1 limits."""
+    for res in chip_tp:
+        tr = res["internvl2-1b"]["train"]
+        m = tr["meshes"]["1x4"]
+        assert set(m["choices"].values()) == {"blocks"} and m["gathered_over_model"] == {}
+        assert m["ok"], (m["step1"], tr["step1_limits"], m["drift"], tr["drift_plain"])
+        assert set(tr["faults"]) == {"gather_without_reduce_scatter"}
+        assert all(f["rejected"] for f in tr["faults"].values()), tr["faults"]
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "jamba-1.5-large-398b", "minicpm3-4b"])
