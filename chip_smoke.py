@@ -19,8 +19,10 @@ Phases:
      table.T at the odd N = 49155; rwkv6-1.6b's decay LoRA (N or K = 64)
      and unembed (N = 65536); jamba's Mamba x_proj (N = 544) and dt_proj
      (A a view of x_proj's output, rows 544 apart) at full width, and
-     jamba-smoke's (N = 12; A rows of 24 bytes); int8 also beside
-     torch._int_mm; MLA's absorbed decode attention at
+     jamba-smoke's (N = 12; A rows of 24 bytes); int8 at M = 4, 16, 512
+     and 513 (imma past 8 rows), B read along K at an odd N, and alpha with
+     a broadcast int32 bias into int8, each held bit for bit and beside
+     torch._int_mm where that computes the same function; MLA's absorbed decode attention at
      minicpm3-4b's G = 40, D = 288 and minicpm3-smoke's G = 4, D = 24, each
      row naming decode_variant's pick, narrow or wide; internvl2-1b's
      unembed (table.T at the odd N = 151655), its q and k with biases,
@@ -36,11 +38,13 @@ Phases:
      1), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
      also at a ragged S = 100; each row names the variant the wrapper picks
-     (gemm: gemv / wgmma / wmma / fma; flash: mma / simt), and a bf16 row
-     on a tensor-core variant also holds the earlier design (wmma, simt)
-     to the plain version on the same inputs, at the same tolerance, and
-     times it; gemma2's unembed (table.T) also at M = 512, where a
-     sequence's logits take wmma;
+     (gemm: gemv / wgmma / wmma / imma / fma; flash: mma / simt), and a row
+     on a tensor-core variant also holds the earlier design (wgmma: wmma,
+     imma: fma, flash mma: simt) to the plain version on the same inputs,
+     at the same tolerance (int8: the same bits as the kernel), and times
+     it; gemma2's unembed (table.T, B read along K) also at M = 512, and
+     granite's at M = 513 over its odd N, where a sequence's logits take
+     wgmma;
      conv_layer, maxpool and leakyrelu in int8, int16, int32, f32 and bf16
      at the paper's Fig. 4 shapes (3x256x256, k 3/5/7), ragged edges, and a
      first CNN layer's width (3x226x226, 64 filters; in bf16 and int8 also
@@ -89,7 +93,14 @@ Phases:
      jamba-smoke's x_proj and dt_proj on wmma past 8 rows); one flash
      launch per attention layer and prompt, one decode attention launch
      per attention layer and step (none for rwkv6), on flash_variant's and
-     decode_variant's picks. Then one request's prefill logits and first
+     decode_variant's picks. On gemma2-9b's weights, after its serve,
+     ``forward_leg``: LM.forward of 1 x 512 tokens through
+     ArcaneEngine("cuda"), launches and variants exact (every GEMM on
+     wgmma, the unembed of all 512 rows too; 42 flash launches on mma;
+     none on wmma or fma), its host ms, busy ms and the unembed's kernel
+     ms (torch.profiler), its f32 logits of every row against
+     ArcaneEngine("ref") within gemma2's limits (``forward:`` line). Then
+     one request's prefill logits and first
      decode-step logits through ArcaneEngine("cuda") are held against
      ArcaneEngine("ref") on the card (uncapped models also on an f32 copy
      of the weights); rwkv6's bf16 ones against the library engine
@@ -420,7 +431,9 @@ def bound_ms(nbytes: float, flops: float, dtype_name: str) -> tuple[float, str]:
 # ---------------------------------------------------------------- phase 2
 def gemm_cases(torch):
     """(name, dtype, M, K, N, kind): kind 'w' weight, 't' table.T, 'bias',
-    'a<R>' a weight with A the first K columns of an (M, R) tensor."""
+    'a<R>' a weight with A the first K columns of an (M, R) tensor, 'w32' a
+    weight with an f32 output, 'q8' an int8 weight with alpha 2^-10, a
+    broadcast int32 bias and an int8 output."""
     g2 = [("q", 3584, 4096), ("kv", 3584, 2048), ("gate_up", 3584, 14336),
           ("o", 4096, 3584), ("down", 14336, 3584)]
     cases = []
@@ -436,14 +449,21 @@ def gemm_cases(torch):
         for m in (1, 4, 512):
             cases.append(("stablelm up", dt, m, 2560, 6912, "w"))
             cases.append(("qwen2.5 k+bias", dt, m, 5120, 1024, "bias"))
-    # LM.forward's unembed of a whole sequence: table.T at M > 8 takes wmma
+    # LM.forward's unembed of a whole sequence: table.T (B read along K) at
+    # M > 8 takes wgmma, also at a ragged M over granite's odd N
     cases.append(("gemma2 unembed", torch.bfloat16, 512, 3584, 256000, "t"))
+    cases.append(("granite unembed", torch.bfloat16, 513, 1024, 49155, "t"))
     for m in (16, 100, 513):      # ragged prompt lengths: TMA zero-fills the edges
         for name, k, n in g2:
             if name in ("q", "gate_up"):
                 cases.append((f"gemma2 {name}", torch.bfloat16, m, k, n, "w"))
-    for m in (4, 512):
+    # int8 (imma past 8 rows): a weight at ragged M, B read along K at an
+    # odd N, and the epilogue (alpha, a broadcast int32 bias, int8 output
+    # rounded half to even: 'q8')
+    for m in (4, 16, 512, 513):
         cases.append(("int8", torch.int8, m, 1024, 1024, "w"))
+    cases.append(("int8 table.T", torch.int8, 513, 1024, 4099, "t"))
+    cases.append(("int8 alpha+bias->int8", torch.int8, 512, 1024, 1024, "q8"))
     # the recurrent families' shapes: rwkv6-1.6b's decay LoRA (N or K one
     # 64-wide tile) and its unembed; jamba's Mamba at full width (x_proj,
     # and dt_proj reading the first 512 columns of x_proj's output in
@@ -512,14 +532,16 @@ GEMM_BF16_TOL = (1e-3, 1.6e-2)        # atol, rtol: two bf16 ulps of the result
 
 
 def run_gemm(torch, timer, gen, rows, prefix: str = ""):
-    from repro_torch.kernels.gemm.kernel import _gemm, gemm_cuda, gemm_variant
+    from repro_torch.kernels.gemm.kernel import EARLIER, _gemm, gemm_cuda, gemm_variant
     from repro_torch.kernels.gemm.ref import gemm_ref
     for name, dt, m, k, n, kind in gemm_cases(torch):
         if not name.startswith(prefix):
             continue
         if dt == torch.int8:
             a = torch.randint(-8, 8, (m, k), device="cuda", dtype=torch.int8, generator=gen)
-            b = torch.randint(-8, 8, (k, n), device="cuda", dtype=torch.int8, generator=gen)
+            b = torch.randint(-8, 8, (n, k) if kind == "t" else (k, n), device="cuda",
+                              dtype=torch.int8, generator=gen)
+            b = b.T if kind == "t" else b
         else:
             width = int(kind[1:]) if kind.startswith("a") else k
             a = torch.randn((m, width), device="cuda", generator=gen).to(dt)[:, :k]
@@ -527,17 +549,29 @@ def run_gemm(torch, timer, gen, rows, prefix: str = ""):
                 b = (torch.randn((n, k), device="cuda", generator=gen) / math.sqrt(k)).to(dt).T
             else:
                 b = (torch.randn((k, n), device="cuda", generator=gen) / math.sqrt(k)).to(dt)
-        c = None
+        c, alpha = None, 1.0
         if kind == "bias":
             c = torch.randn((n,), device="cuda", generator=gen).to(dt).expand(m, n)
-        out_dtype = torch.float32 if kind in ("t", "w32") else None
-        kw = dict(alpha=1.0, beta=1.0 if c is not None else 0.0, out_dtype=out_dtype)
+        if kind == "q8":
+            # |A B| <= 8 * 8 * K = 2^16: alpha 2^-10 and |bias| <= 50 keep
+            # every output inside int8's range
+            c = torch.randint(-50, 51, (n,), device="cuda", dtype=torch.int32,
+                              generator=gen).expand(m, n)
+            alpha = 2.0 ** -10
+        out_dtype = torch.float32 if kind in ("t", "w32") and dt != torch.int8 else \
+            torch.int8 if kind == "q8" else None
+        kw = dict(alpha=alpha, beta=1.0 if c is not None else 0.0, out_dtype=out_dtype)
         out = gemm_cuda(a, b, c, **kw)
         ref = gemm_ref(a, b, c, **kw)
         variant = gemm_variant(a, b)
-        # where wgmma runs, the earlier WMMA kernel is held on the same inputs
-        earlier = _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, "wmma") \
-            if variant == "wgmma" else None
+        # where a tensor-core variant runs, its earlier kernel (wmma for
+        # wgmma, fma for imma) is held on the same inputs
+        earlier_v = EARLIER.get(variant)
+        earlier = None if earlier_v is None else \
+            _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, earlier_v)
+        # int8 sums are exact: the kernel's bits are the earlier kernel's
+        same_earlier = None if earlier is None or dt != torch.int8 else \
+            torch.equal(earlier, out)
         # the split-K GEMV adds its splits in a fixed order: same bits again
         same = torch.equal(out, gemm_cuda(a, b, c, **kw)) if variant == "gemv" else None
         torch.cuda.synchronize()
@@ -553,10 +587,11 @@ def run_gemm(torch, timer, gen, rows, prefix: str = ""):
         else:
             atol, rtol = 2e-3, 1e-5        # f32 sums of K terms in another order
         ok = check_close(err, absmax, atol, rtol) and same is not False and (
-            earlier_err is None or check_close(earlier_err, absmax, atol, rtol))
+            earlier_err is None or check_close(earlier_err, absmax, atol, rtol)) \
+            and same_earlier is not False
         ms = timer.ms(lambda: gemm_cuda(a, b, c, **kw))
-        wmma = None if earlier_err is None else timer.ms(
-            lambda: _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, "wmma"))
+        earlier_ms = None if earlier_err is None else timer.ms(
+            lambda: _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, earlier_v))
         plain = timer.ms(lambda: gemm_ref(a, b, c, **kw), reps=5)
         lib = None
         if dt != torch.int8:
@@ -564,7 +599,7 @@ def run_gemm(torch, timer, gen, rows, prefix: str = ""):
                 lib = timer.ms(lambda: torch.addmm(c, a, b))
             else:
                 lib = timer.ms(lambda: torch.matmul(a, b))
-        elif m > 16 and k % 8 == 0 and n % 8 == 0:
+        elif kind == "w" and m > 16 and k % 8 == 0 and n % 8 == 0:
             # int8 x int8 -> int32, the function at alpha 1, beta 0
             if not torch.equal(torch._int_mm(a, b), out):
                 ok = False
@@ -577,7 +612,8 @@ def run_gemm(torch, timer, gen, rows, prefix: str = ""):
                          dtype=str(dt).split(".")[-1], variant=variant,
                          max_abs_err=err, ref_absmax=absmax, atol=atol,
                          rtol=rtol, ok=ok, deterministic=same, ms=ms,
-                         earlier_ms=wmma, earlier_max_abs_err=earlier_err,
+                         earlier_variant=earlier_v, earlier_ms=earlier_ms,
+                         earlier_max_abs_err=earlier_err, earlier_same_bits=same_earlier,
                          plain_ms=plain, library_ms=lib, bound_ms=bms,
                          bound_by=by, bytes=nbytes))
 
@@ -1182,7 +1218,9 @@ def run_host(torch) -> dict:
 # jamba-smoke: 16) refuses the others. Their launch counts come from
 # ``layer_gemms`` and the attention layers of each model's pattern.
 SERVE_MODELS = (
-    dict(arch="gemma2-9b"), dict(arch="granite-moe-1b-a400m"),
+    # gemma2-9b's weights also run LM.forward over a whole sequence
+    # (``forward_leg``: the unembed of every row, table.T on wgmma)
+    dict(arch="gemma2-9b", forward=True), dict(arch="granite-moe-1b-a400m"),
     dict(arch="minicpm3-4b"),
     # rwkv6's bf16 logits are held to the library engine (``library_engine``):
     # this random-weight model carries a GEMM that sums K in another order
@@ -1304,7 +1342,7 @@ def attention_variants(torch, cfg) -> tuple[str, str]:
 
 def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
                       enc_len: int = 0, prompt_batch: int = 1,
-                      plan=None) -> tuple[dict, dict]:
+                      plan=None, forward_lens=()) -> tuple[dict, dict]:
     """The launch counts of a serving run, and per variant: per prompt
     (batch 1, M = its length, behind the vision prefix where there is
     one) and per decode step (M = the slots) each layer's engine GEMMs
@@ -1325,11 +1363,16 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     prompt's attention on column blocks: one flash launch an entry of
     ``tensor_parallel.head_groups`` (a kv head each where the rank's q
     heads straddle GQA groups). A prompt of ``prompt_batch`` sequences
-    carries the vision prefix of each."""
+    carries the vision prefix of each. ``forward_lens``: sequences through
+    ``LM.forward`` at batch 1 (behind the vision prefix), each layer's
+    GEMMs at M = its rows as ``block_forward`` runs them (MLA projects
+    once; no conv-state tail; an encoder-decoder's encoder and cross k and
+    v as in a prompt), the unembed of every row (M > 8: table.T past the
+    GEMV), the flash launches of a prompt."""
     from repro_torch.distributed import tensor_parallel as tpm
-    from repro_torch.kernels.gemm.kernel import gemm_variant
+    from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
     from repro_torch.models.transformer import ENC_SPEC
-    gemm = dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0)
+    gemm = dict.fromkeys(VARIANTS, 0)
     m_tp = 1 if plan is None else plan.mg.size
     vocab = cfg.vocab // m_tp if plan is not None and plan.unembed else cfg.vocab
     table_t = torch.empty((vocab, cfg.d_model), dtype=torch.bfloat16,
@@ -1354,7 +1397,7 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     def block(j):
         return None if plan is None else plan.blocks[j]
 
-    def add(m, prompt):
+    def add(m, prompt, unembed_rows=None):
         for j, spec in enumerate(cfg.pattern):
             split, ffn_split = splits(block(j))
             for a, b in layer_gemms(torch, cfg, spec, m, prompt,
@@ -1366,11 +1409,13 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
             for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True,
                                     split=split, ffn_split=ffn_split):
                 gemm[gemm_variant(a, b)] += cfg.n_enc_layers
-        rows = 1 if prompt else m
+        rows = unembed_rows or (1 if prompt else m)
         gemm[gemm_variant(table_t.new_empty((rows, cfg.d_model)), table_t)] += 1
 
     for s in prompt_lens:
         add(prompt_batch * cfg.vision_prefix + s, True)
+    for s in forward_lens:
+        add(cfg.vision_prefix + s, cfg.enc_dec, unembed_rows=cfg.vision_prefix + s)
     for _ in range(n_steps):
         add(slots, False)
     n_attn = cfg.n_periods * sum(spec.kind in ATTN_KINDS for spec in cfg.pattern)
@@ -1385,7 +1430,7 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
                                              else plan.enc.attn)
     fv, dv = attention_variants(torch, cfg)
     counts = {"gemm_cuda": sum(gemm.values()),
-              "flash_attention_cuda": prompt_flash * len(prompt_lens),
+              "flash_attention_cuda": prompt_flash * (len(prompt_lens) + len(forward_lens)),
               "decode_attention_cuda": (n_attn + n_cross) * n_steps}
     variants = {"gemm_cuda": gemm,
                 "flash_attention_cuda": {"simt": 0, "mma": 0},
@@ -1514,12 +1559,13 @@ def engine_logits(torch, cfg, params, prompt, engines: dict, extra=None) -> dict
     return logits
 
 
-def logits_gap(cfg, a, b, limits=None) -> dict:
+def logits_gap(cfg, a, b, limits=None, shape=None) -> dict:
     """|a - b| (max and mean) of two engines' logits, the largest |b|,
     whether the argmax agrees and, with ``limits`` (``logits_limits``),
     the limits beside them (an absolute one, or a share of the largest
-    |b|). Fails on logits ``a`` that are not finite or of the wrong shape."""
-    if not bool(a.isfinite().all()) or tuple(a.shape) != (1, cfg.vocab):
+    |b|). Fails on logits ``a`` that are not finite or of another shape
+    than ``shape`` (one row, (1, vocab), unless given)."""
+    if not bool(a.isfinite().all()) or tuple(a.shape) != (shape or (1, cfg.vocab)):
         fail(f"serve: {cfg.name}: logits not finite or of shape {tuple(a.shape)}")
     d = (a - b).abs()
     absmax = float(b.abs().max())
@@ -1576,13 +1622,14 @@ def engines_agree(torch, cfg, params, prompt, limits, reference: str = "ref",
     return cmp
 
 
-def counted_run(torch, cfg, fn, expect):
+def counted_run(torch, cfg, fn, expect, path=None):
     """``fn()`` with the serving kernels' launch and variant counts zeroed
     just before and read just after, held exactly to ``expect(fn())``:
     (counts, variants) as ``expected_launches`` gives them for what ran,
     and a note for the printed line. The run fails on any other count or
     variant, or when a kernel of the model's path (the GEMM; flash and
-    decode attention where it has attention layers) was launched no time.
+    decode attention where it has attention layers; ``path``, the wrappers'
+    names, where given) was launched no time.
     Returns fn's result, the counts and the variants."""
     from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
     from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
@@ -1598,9 +1645,10 @@ def counted_run(torch, cfg, fn, expect):
     name = cfg.name
     print(f"serve: {name} launches {counts} expected {want} {note}", flush=True)
     print(f"serve: {name} variants {variants} expected {want_var}", flush=True)
-    path = [w.__name__ for w in wrappers]
-    if not (cfg.enc_dec or any(spec.kind in ATTN_KINDS for spec in cfg.pattern)):
-        path = ["gemm_cuda"]
+    if path is None:
+        path = [w.__name__ for w in wrappers]
+        if not (cfg.enc_dec or any(spec.kind in ATTN_KINDS for spec in cfg.pattern)):
+            path = ["gemm_cuda"]
     if counts != want or min(counts[k] for k in path) <= 0:
         fail(f"serve: {name}: the main path did not run through every kernel as counted")
     if variants != want_var:
@@ -1657,13 +1705,15 @@ def meta_shapes(torch, model, params, params_delta: dict, slots: int,
 
 
 def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
-              max_len: int = 1024, prompt_lens=None, reference: str = "ref") -> dict:
+              max_len: int = 1024, prompt_lens=None, reference: str = "ref",
+              forward: bool = False) -> dict:
     """One model served through the port's launcher (full width unless
     ``smoke``): 4 slots, 6 requests of 16 new tokens, prompts of 16-512
     tokens or drawn from ``prompt_lens``, bf16 weights drawn on the card
     from seed 0; the launch counts zeroed just before and read just after.
     Then one request through ArcaneEngine("cuda") and ("ref") on the same
-    weights, and the profiler over a prefill and a few decode steps."""
+    weights, and the profiler over a prefill and a few decode steps; with
+    ``forward``, ``forward_leg`` on the same weights."""
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import tree_leaves
 
@@ -1738,7 +1788,90 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     if cfg.rwkv is not None:
         metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
     metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
+    if forward:
+        del sess, out
+        metrics["forward"] = forward_leg(torch, model, params)
     return metrics
+
+
+FORWARD_LEN = 512
+
+
+def forward_leg(torch, model, params) -> dict:
+    """``LM.forward`` of one batch of 1 x FORWARD_LEN tokens (seeded) on the
+    served weights through ArcaneEngine("cuda"), its launch and variant
+    counts zeroed just before and read just after and held exactly
+    (``expected_launches`` with ``forward_lens``: every GEMM on its pick,
+    the unembed of all 512 rows, B = table.T read along K, on wgmma; one
+    flash launch an attention layer; no decode attention), its host ms
+    (a synchronize on each side); the same forward through
+    ArcaneEngine("ref") on the same weights, the f32 logits of all 512
+    rows held to phase 3's limits for the model (``logits_limits``); then
+    torch.profiler over one more forward (a ``profile_window``, every
+    launch seen): busy ms, idle share, and the device ms of the GEMM
+    whose B is read along K (``gemm_wgmma_kernel<..., true>``: the
+    unembed) and of the rest. The leg's seconds are in the result."""
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM
+    t_leg = time.perf_counter()
+    cfg, name = model.cfg, model.cfg.name
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, FORWARD_LEN)),
+                                       device=model.device)}
+    cuda_lm = LM(cfg, ArcaneEngine("cuda"), device=model.device)
+
+    def timed():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, _ = cuda_lm.forward(params, batch)
+        torch.cuda.synchronize()
+        return logits, (time.perf_counter() - t0) * 1e3
+
+    def expect(_):
+        return (*expected_launches(torch, cfg, [], 0, 1, forward_lens=[FORWARD_LEN]),
+                f"(LM.forward of 1 x {FORWARD_LEN})")
+
+    with torch.no_grad():
+        timed()                                  # warm
+        (logits, host_ms), counts, variants = counted_run(
+            torch, cfg, timed, expect, path=("gemm_cuda", "flash_attention_cuda"))
+        ref_logits, _ = LM(cfg, ArcaneEngine("ref"), device=model.device).forward(
+            params, batch)
+        gap = logits_gap(cfg, logits, ref_logits, logits_limits(cfg),
+                         shape=(1, FORWARD_LEN, cfg.vocab))
+        gap["argmax_share_equal"] = float((logits.argmax(-1) == ref_logits.argmax(-1))
+                                          .float().mean())
+        del logits, ref_logits
+        torch.cuda.synchronize()
+        before = serve_launches()
+        with profile_window(torch) as prof:
+            t0 = time.perf_counter()
+            cuda_lm.forward(params, batch)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    prof_out = busy_share(prof, wall_ms, 1, "forward", exclude=("spin_kernel",))
+    groups = {"unembed_wgmma_b_along_k": 0.0, "gemm_wgmma_b_along_n": 0.0,
+              "gemm_other": 0.0, "flash_mma": 0.0, "rest": 0.0}
+    for kname, ms in device_ms(prof, exclude=("spin_kernel",)).items():
+        ids = set(IDENT.findall(kname))
+        key = ("unembed_wgmma_b_along_k" if "true" in ids else "gemm_wgmma_b_along_n") \
+            if "gemm_wgmma_kernel" in ids else \
+            "gemm_other" if ids & set(SERVE_KERNEL_NAMES["gemm_cuda"]) else \
+            "flash_mma" if "flash_mma_kernel" in ids else "rest"
+        groups[key] += ms
+    prof_out.update(device_ms_by_kernel=groups,
+                    **serve_events_seen(prof, before, f"{name} forward"))
+    out = {"tokens": FORWARD_LEN, "host_ms": host_ms, "cuda_vs_ref": gap,
+           "launches": counts, "variants": variants, "profile": prof_out,
+           "seconds": time.perf_counter() - t_leg}
+    print(f"forward: {name} LM.forward 1 x {FORWARD_LEN}: host_ms={host_ms:.2f} "
+          f"busy_ms={prof_out['device_busy_ms_per_forward']:.3f} unembed_ms="
+          f"{groups['unembed_wgmma_b_along_k']:.4f} idle={prof_out['device_idle_share']:.3f} "
+          f"cuda vs ref {json.dumps(gap)} leg_s={out['seconds']:.1f}", flush=True)
+    print(f"profile: {name} forward {json.dumps(prof_out)}", flush=True)
+    if not within_limits(gap):
+        fail(f"forward: {name}: LM.forward logits of cuda and ref disagree: {gap}")
+    return out
 
 
 def check_logits(torch, summary: dict, cfg, params, prompt, reference: str = "ref",
@@ -1908,17 +2041,20 @@ def run_serving(torch, summary: dict, specs, runner) -> dict:
     out = {"models": {}, "launches": {}, "variants": {}}
     for spec in specs:
         arch = spec["arch"] + (" --smoke" if spec.get("smoke") else "")
+        t0 = time.perf_counter()
         m = out["models"][arch] = runner(torch, summary, **spec)
-        for w, n in m["launches"].items():
-            out["launches"][w] = out["launches"].get(w, 0) + n
-        for w, vs in m["variants"].items():
-            tot = out["variants"].setdefault(w, {})
-            for v, n in vs.items():
-                tot[v] = tot.get(v, 0) + n
+        for run in (m, m.get("forward")):        # LM.forward's leg too
+            for w, n in (run or {}).get("launches", {}).items():
+                out["launches"][w] = out["launches"].get(w, 0) + n
+            for w, vs in (run or {}).get("variants", {}).items():
+                tot = out["variants"].setdefault(w, {})
+                for v, n in vs.items():
+                    tot[v] = tot.get(v, 0) + n
         gc.collect()
         torch.cuda.empty_cache()
+        m["seconds"] = time.perf_counter() - t0
         print(f"serve: {arch} freed; {torch.cuda.memory_allocated()} bytes "
-              f"still allocated", flush=True)
+              f"still allocated; {m['seconds']:.1f} s in all", flush=True)
     return out
 
 
@@ -2306,8 +2442,8 @@ def profile_steps(torch, step, steps: int, name: str) -> dict:
 # device event of these for each launch of the wrapper (decode attention's
 # merge kernel, which follows a split kernel, is left out)
 SERVE_KERNEL_NAMES = {
-    "gemm_cuda": ("gemm_fma_kernel", "gemm_wgmma_kernel", "gemm_wmma_bf16_kernel",
-                  "gemv_n_kernel", "gemv_t_kernel"),
+    "gemm_cuda": ("gemm_fma_kernel", "gemm_imma_kernel", "gemm_wgmma_kernel",
+                  "gemm_wmma_bf16_kernel", "gemv_n_kernel", "gemv_t_kernel"),
     "flash_attention_cuda": ("flash_kernel", "flash_mma_kernel"),
     "decode_attention_cuda": ("split_kernel", "split_wide_kernel"),
 }
@@ -5664,8 +5800,8 @@ KERNELS = {
 MORE_CASES = {"decode_attention": ("minicpm3", "whisper", "internvl2", "gemma2 tp4",
                                     "lse"),
               "flash_attention": ("whisper", "internvl2", "gemma2 tp4", "qwen2.5 tp16"),
-              "gemm": ("granite unembed", "rwkv6", "jamba", "int8", "internvl2",
-                       "whisper", "gemma2 tp4", "qwen2.5 tp16")}
+              "gemm": ("gemma2 unembed", "granite unembed", "rwkv6", "jamba", "int8",
+                       "internvl2", "whisper", "gemma2 tp4", "qwen2.5 tp16")}
 
 
 # the phase-2 rows of the shard shapes, which ``--tp-ranks N`` runs too
@@ -5736,6 +5872,10 @@ def print_kernel_rows(rows: list) -> None:
         var = f" variant={r['variant']}" if "variant" in r else ""
         earlier = "" if r.get("earlier_ms") is None else \
             f" earlier_ms={r['earlier_ms']:.4f} earlier_max_abs_err={r['earlier_max_abs_err']:.3e}"
+        if r.get("earlier_variant"):
+            earlier += f" earlier_variant={r['earlier_variant']}"
+        if r.get("earlier_same_bits") is not None:
+            earlier += f" earlier_same_bits={r['earlier_same_bits']}"
         other = "" if r.get("other_ms") is None else \
             (f" other_variant={r['other_variant']} other_ms={r['other_ms']:.4f} "
              f"other_max_abs_err={r['other_max_abs_err']:.3e}")
@@ -5991,6 +6131,9 @@ def main(argv=None) -> None:
             entry["launches_by_model"] = {
                 a: m["launches"][wrapper] for run in runs
                 for a, m in run.get("models", {}).items()}
+            entry["launches_by_model"].update({
+                f"{a} LM.forward": m["forward"]["launches"][wrapper]
+                for a, m in summary["serve"]["models"].items() if "forward" in m})
             entry["launches_by_model"]["trained granite (phase 5)"] = \
                 summary["train"]["serve"]["launches"][wrapper]
             entry["launches_by_model"]["restored granite (phase 5b)"] = \

@@ -21,14 +21,30 @@
 //    each strip. Ragged M, N and K are masked in the kernel, so no weight
 //    is ever padded or copied.
 //  * Prefill (M = prompt length) is bound by operations. bf16 with A
-//    K-contiguous and B N-contiguous goes through Hopper's tensor cores:
-//    TMA loads into a 4-stage ring under mbarriers, one producer warp, two
-//    consumer warpgroups on wgmma (128x128 block tile). Other bf16 layouts
-//    (a transposed table view, unaligned rows) go through WMMA 16x16x16
-//    tiles; f32 and int8 through a register-blocked CUDA-core kernel.
-//  * The variant (gemv, wgmma, wmma, fma) is picked by the caller from the
-//    operands (gemm_variant in kernel.py) and checked again here; a variant
-//    that cannot take the operands is refused, never replaced.
+//    K-contiguous goes through Hopper's tensor cores: TMA loads into a
+//    4-stage ring under mbarriers, one producer warp, two consumer
+//    warpgroups on wgmma (128x128 block tile). B is taken in both layouts
+//    that TMA can tile: N-contiguous (a weight), read through the wgmma
+//    descriptor's transpose bit, and K-contiguous (the unembed's table.T
+//    over a whole sequence), wgmma's native layout, tiled like A. Other
+//    bf16 operands (rows that are not 16-byte aligned, a broadcast A) go
+//    through WMMA 16x16x16 tiles.
+//  * int8 at M > 8 with 16-byte rows goes through the integer tensor cores
+//    (imma: mma.sync m16n8k32 s8 -> s32; a 4-stage cp.async ring; 64x64
+//    block tiles, so that M = 512, N = 1024 fills 128 SMs). wgmma takes
+//    8-bit operands only K-major, and a weight B (K, N) is N-contiguous;
+//    mma.sync's B fragment is K-major too. The transpose is made while the
+//    fragments are loaded: ldmatrix.trans moves 16-bit pairs of N, with
+//    its row addresses picking the rows of K so that two 32-bit results
+//    hold rows 4t..4t+3 of two columns, and two byte permutes (prmt) part
+//    them into each column's fragment. The sums are int32, exact in any
+//    order, so the output is bit for bit the CUDA-core kernel's. A
+//    K-contiguous B (a transposed view) loads as A does.
+//    f32, and int8 that imma does not take, run on a register-blocked
+//    CUDA-core kernel (fma).
+//  * The variant (gemv, wgmma, wmma, imma, fma) is picked by the caller
+//    from the operands (gemm_variant in kernel.py) and checked again here;
+//    a variant that cannot take the operands is refused, never replaced.
 //  * C is read through its own strides, so a broadcast bias (M stride 0)
 //    is never materialised.
 // Every launch returns cudaGetLastError() to the caller.
@@ -115,16 +131,20 @@ __device__ __forceinline__ void epilogue(const Epi& e, int m, int n, AccT acc) {
 }
 
 // The same for columns n and n + 1 (n even): one 4-byte store for a bf16
-// output with N even, else element by element with the N edge masked.
+// output and one 8-byte store for an f32 output with N even, else element
+// by element with the N edge masked.
 __device__ __forceinline__ void epilogue_pair(const Epi& e, int m, int n,
                                               float v0, float v1) {
-  if (e.out_code == BF16 && (e.N & 1) == 0 && n + 1 < e.N) {
+  if ((e.out_code == BF16 || e.out_code == F32) && (e.N & 1) == 0 && n + 1 < e.N) {
     if (e.alpha != 1.0f || e.has_c) {
       v0 = epi_scaled(e, m, n, v0);
       v1 = epi_scaled(e, m, n + 1, v1);
     }
-    *reinterpret_cast<__nv_bfloat162*>((bf16*)e.d + (ll)m * e.N + n) =
-        __floats2bfloat162_rn(v0, v1);
+    const ll di = (ll)m * e.N + n;
+    if (e.out_code == BF16)
+      *reinterpret_cast<__nv_bfloat162*>((bf16*)e.d + di) = __floats2bfloat162_rn(v0, v1);
+    else
+      *reinterpret_cast<float2*>((float*)e.d + di) = make_float2(v0, v1);
     return;
   }
   if (n < e.N) epilogue(e, m, n, v0);
@@ -546,8 +566,9 @@ void launch(Args g, const Epi& e, cudaStream_t s) {
 }  // namespace gv
 
 // ------------------------------------------------------- CUDA-core tiles
-// f32 and int8 at M > 8: a 64x64 block tile, K steps of 16, each thread a
-// 4x4 register tile on a strided layout (conflict-free shared reads).
+// f32 at M > 8, and int8 operands that imma does not take: a 64x64 block
+// tile, K steps of 16, each thread a 4x4 register tile on a strided layout
+// (conflict-free shared reads).
 template <typename T>
 __global__ void __launch_bounds__(THREADS)
 gemm_fma_kernel(const T* __restrict__ a, ll sam, ll sak, const T* __restrict__ b,
@@ -597,7 +618,8 @@ gemm_fma_kernel(const T* __restrict__ a, ll sam, ll sak, const T* __restrict__ b
 }
 
 // ------------------------------------------------------------ bf16 WMMA
-// bf16 at M > 8: tensor cores through WMMA 16x16x16 (f32 accumulate).
+// bf16 at M > 8 that wgmma does not take (rows not 16-byte aligned, a
+// broadcast A): tensor cores through WMMA 16x16x16 (f32 accumulate).
 // Block tile 64x128, K steps of 32, 8 warps as 2x4, each a 32x32 warp tile.
 // VA / VB: A's K stride / B's N stride is 1 and 16-byte aligned, so tiles
 // load as 16-byte vectors; otherwise element by element through strides.
@@ -681,18 +703,22 @@ gemm_wmma_bf16_kernel(const bf16* __restrict__ a, ll sam, ll sak,
 }
 
 // ------------------------------------------------------ bf16 wgmma + TMA
-// bf16 at M > 8 with A K-contiguous and B N-contiguous (rows and bases
-// 16-byte aligned): a 128x128 block tile (128x64 where 128x128 tiles
+// bf16 at M > 8 with A K-contiguous and B N- or K-contiguous (rows and
+// bases 16-byte aligned): a 128x128 block tile (128x64 where 128x128 tiles
 // would fill at most half the SMs: gemma2 kv at M=512 is 64 such tiles, q
 // at M <= 128 is 32), K steps of 64, a ring of STAGES
 // stages in shared memory loaded by TMA with 128-byte swizzle under
 // mbarriers. One producer warp keeps the loads in flight; two consumer
 // warpgroups each run wgmma m64n128k16 (bf16 -> f32) on 64 rows of the
 // tile, keeping one group of products in flight while the next stage is
-// waited for. A is K-major for wgmma; B (K, N) is MN-major, read through
-// the descriptor's transpose bit. TMA zero-fills past the ragged M, N and
-// K edges and the epilogue masks its stores, so no operand is padded or
-// copied.
+// waited for. A is K-major for wgmma. B (K, N) N-contiguous (KB false) is
+// MN-major, loaded as BN / 64 boxes of 64 columns and read through the
+// descriptor's transpose bit; B K-contiguous (KB true: a transposed view,
+// the unembed's table.T) is K-major like A, one box of BN rows of 64
+// elements a stage, read with the same descriptor as A. TMA zero-fills
+// past the ragged M, N and K edges (N is B's outer dimension when KB, so
+// an odd vocab needs no padding) and the epilogue masks its stores, so no
+// operand is padded or copied.
 namespace wg {
 
 constexpr int BM = 128, BK = 64, STAGES = 4;
@@ -764,7 +790,9 @@ __device__ __forceinline__ void fence_acc(float (&d)[R]) {
   for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
-// d (64x128 f32, per warpgroup) += A (64x16, K-major) * B (16x128, MN-major)
+// d (64x128 f32, per warpgroup) += A (64x16, K-major) * B (16x128; TB 1:
+// MN-major, read through the transpose bit; TB 0: K-major)
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
@@ -773,7 +801,7 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63 "
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
+      "}, %64, %65, p, 1, 1, 0, %67;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -783,32 +811,33 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t da, ui
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-// d (64x64 f32, per warpgroup) += A (64x16, K-major) * B (16x64, MN-major)
+// d (64x64 f32, per warpgroup) += A (64x16, K-major) * B (16x64, as above)
+template <int TB>
 __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t da, uint64_t db) {
   asm volatile(
       "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
       " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31 "
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      "}, %32, %33, p, 1, 1, 0, %35;\n}\n"
       :
         "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+      : "l"(da), "l"(db), "r"(1), "n"(TB));
 }
 
-template <int BN>
+template <int BN, int TB>
 __device__ __forceinline__ void wgmma_tile(float (&d)[BN / 2], uint64_t da, uint64_t db) {
-  if constexpr (BN == 128) wgmma_m64n128k16(d, da, db);
-  else wgmma_m64n64k16(d, da, db);
+  if constexpr (BN == 128) wgmma_m64n128k16<TB>(d, da, db);
+  else wgmma_m64n64k16<TB>(d, da, db);
 }
 
-template <int BN>
+template <int BN, bool KB>
 __global__ void __launch_bounds__(THREADS, 1)
 gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
                   const __grid_constant__ CUtensorMap tb, int M, int N, int K,
@@ -839,9 +868,13 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
         const uint32_t a_dst = base + s * STAGE_BYTES, b_dst = a_dst + A_BYTES;
         mbar_expect_tx(full(s), STAGE_BYTES);
         tma_load_2d(a_dst, &ta, full(s), kt * BK, m0);
+        if constexpr (KB) {
+          tma_load_2d(b_dst, &tb, full(s), kt * BK, n0);
+        } else {
 #pragma unroll
-        for (int c = 0; c < BN / 64; ++c)
-          tma_load_2d(b_dst + c * B_ATOM, &tb, full(s), n0 + 64 * c, kt * BK);
+          for (int c = 0; c < BN / 64; ++c)
+            tma_load_2d(b_dst + c * B_ATOM, &tb, full(s), n0 + 64 * c, kt * BK);
+        }
       }
     }
     return;
@@ -855,15 +888,17 @@ gemm_wgmma_kernel(const __grid_constant__ CUtensorMap ta,
     const int s = kt % STAGES;
     mbar_wait(full(s), (kt / STAGES) & 1);
     // A: this warpgroup's 64 rows of 128 B; 8-row atoms 1024 B apart, k16
-    // steps 32 B into the swizzled row. B: 8-row (K) atoms 1024 B apart,
-    // 64-column blocks 8 KB apart, k16 steps 2 KB.
+    // steps 32 B into the swizzled row. B N-contiguous: 8-row (K) atoms
+    // 1024 B apart, 64-column blocks 8 KB apart, k16 steps 2 KB; B
+    // K-contiguous: BN rows of 128 B, as A.
     const uint32_t a_s = base + s * STAGE_BYTES + wgi * (64 * 128);
     const uint32_t b_s = base + s * STAGE_BYTES + A_BYTES;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < BK / 16; ++kk)
-      wgmma_tile<BN>(acc, desc_sw128(a_s + kk * 32, 16, 1024),
-                     desc_sw128(b_s + kk * 2048, B_ATOM, 1024));
+      wgmma_tile<BN, KB ? 0 : 1>(acc, desc_sw128(a_s + kk * 32, 16, 1024),
+                                 KB ? desc_sw128(b_s + kk * 32, 16, 1024)
+                                    : desc_sw128(b_s + kk * 2048, B_ATOM, 1024));
     wgmma_commit();
     wgmma_wait<1>();                              // stage kt-1 is read
     if (kt > 0 && lane == 0) mbar_arrive(empty((kt - 1) % STAGES));
@@ -933,6 +968,13 @@ bool make_map(CUtensorMap* map, const void* ptr, ll inner, ll outer,
 // its two tensor maps.
 constexpr int MAX_DEVICES = 64;
 
+template <int BN, bool KB>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(gemm_wgmma_kernel<BN, KB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              smem_bytes<BN>());
+}
+
 int device_sms(int* sms) {
   static int cached[MAX_DEVICES] = {};    // 0: not set up yet
   int dev = 0;
@@ -942,14 +984,10 @@ int device_sms(int* sms) {
   if (cached[dev] == 0) {
     int n = 0;
     err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_wgmma_kernel<128>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes<128>());
-    if (err == cudaSuccess)
-      err = cudaFuncSetAttribute(gemm_wgmma_kernel<64>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 smem_bytes<64>());
+    if (err == cudaSuccess) err = allow_smem<128, false>();
+    if (err == cudaSuccess) err = allow_smem<64, false>();
+    if (err == cudaSuccess) err = allow_smem<128, true>();
+    if (err == cudaSuccess) err = allow_smem<64, true>();
     if (err != cudaSuccess) return (int)err;
     cached[dev] = n;
   }
@@ -957,20 +995,18 @@ int device_sms(int* sms) {
   return 0;
 }
 
-template <int BN>
+template <int BN, bool KB>
 void launch_bn(const CUtensorMap& ta, const CUtensorMap& tb, int M, int N,
                int K, const Epi& e, cudaStream_t s) {
   // M tiles vary fastest: the blocks that share a strip of B run together
   const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  gemm_wgmma_kernel<BN><<<grid, THREADS, smem_bytes<BN>(), s>>>(ta, tb, M, N, K, e);
+  gemm_wgmma_kernel<BN, KB><<<grid, THREADS, smem_bytes<BN>(), s>>>(ta, tb, M, N, K, e);
 }
 
-int launch(const bf16* a, ll sam, const bf16* b, ll sbk, int M, int N, int K,
-           const Epi& e, cudaStream_t s) {
-  CUtensorMap ta, tb;
-  if (!make_map(&ta, a, K, M, sam * 2, BK, BM) ||
-      !make_map(&tb, b, N, K, sbk * 2, 64, BK))
-    return (int)cudaErrorInvalidValue;
+// kb: B is K-contiguous (rows of K elements, sbn apart), else N-contiguous
+// (rows of N elements, sbk apart).
+int launch(const bf16* a, ll sam, const bf16* b, ll sbk, ll sbn, bool kb, int M,
+           int N, int K, const Epi& e, cudaStream_t s) {
   int sms = 0;
   const int err = device_sms(&sms);
   if (err) return err;
@@ -979,14 +1015,228 @@ int launch(const bf16* a, ll sam, const bf16* b, ll sbk, int M, int N, int K,
   // extra reads of A cost more than the idle SMs (on the H100, gemma2 down
   // at M=512, 112 tiles, took half as long again at 64 wide)
   const ll tiles = (ll)((M + BM - 1) / BM) * ((N + 127) / 128);
-  if (2 * tiles > sms) launch_bn<128>(ta, tb, M, N, K, e, s);
-  else launch_bn<64>(ta, tb, M, N, K, e, s);
+  const int bn = 2 * tiles > sms ? 128 : 64;
+  CUtensorMap ta, tb;
+  if (!make_map(&ta, a, K, M, sam * 2, BK, BM) ||
+      !(kb ? make_map(&tb, b, K, N, sbn * 2, BK, bn)
+           : make_map(&tb, b, N, K, sbk * 2, 64, BK)))
+    return (int)cudaErrorInvalidValue;
+  if (bn == 128) {
+    if (kb) launch_bn<128, true>(ta, tb, M, N, K, e, s);
+    else launch_bn<128, false>(ta, tb, M, N, K, e, s);
+  } else {
+    if (kb) launch_bn<64, true>(ta, tb, M, N, K, e, s);
+    else launch_bn<64, false>(ta, tb, M, N, K, e, s);
+  }
   return 0;
 }
 
 }  // namespace wg
 
 using gv::aligned;
+
+// ------------------------------------------------------- int8 imma (mma.sync)
+// int8 at M > 8, A K-contiguous with 16-byte rows, B N- or K-contiguous
+// with 16-byte rows: a 64x64 block tile (M = 512, N = 1024 is 128 blocks on
+// 132 SMs), K steps of 64 bytes, a ring of STAGES stages in shared memory
+// filled by 16-byte cp.async (zero-filled past the ragged M, N and K
+// edges), four warps of 32x32, each eight mma.sync m16n8k32 (s8 x s8 ->
+// s32) a 32-deep step. A's fragments come from ldmatrix. B N-contiguous
+// (NB true, a weight) is staged as it lies, rows of K, and its fragments
+// are transposed as they load: ldmatrix.trans gives lane (g, t) 16-bit
+// pairs of columns (2g, 2g + 1) from two rows of K, its row addresses
+// ordered so that four matrices give rows 4t..4t+3 and 16 + 4t..4t+3, and
+// prmt parts each pair of results into the fragments of column 2g and of
+// column 2g + 1 (two n8 tiles, even and odd columns of a 16-column
+// group). B K-contiguous is staged in rows of N and loads as A does. Rows
+// of 64 bytes are swizzled by 16-byte chunks so that each ldmatrix reads
+// eight distinct bank groups. The tile's int32 sums meet in shared memory
+// and the epilogue writes 32 consecutive columns a warp. The sums are
+// exact in any order: the output is the fma kernel's, bit for bit.
+namespace im {
+
+constexpr int BM = 64, BN = 64, BK = 64, STAGES = 4;
+constexpr int THREADS = 128;                     // 2 x 2 warps of 32 x 32
+constexpr int A_TILE = BM * BK, B_TILE = BN * BK;
+
+// Byte offset of 16-byte chunk c of row r in a tile of 64-byte rows: A and a
+// K-contiguous B (rows of M or N, ldmatrix reads 8 consecutive rows), and an
+// N-contiguous B (rows of K, ldmatrix.trans reads rows r, r + 1, r + 4, r + 5
+// ... of one 16-row group).
+__device__ __forceinline__ int sw_rows(int r, int c) { return r * 64 + ((c ^ ((r >> 1) & 3)) << 4); }
+__device__ __forceinline__ int sw_k(int r, int c) { return r * 64 + ((c ^ ((r >> 2) & 3)) << 4); }
+
+__device__ __forceinline__ void cp16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(N) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
+}
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t r;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(r) : "r"(a), "r"(b), "r"(sel));
+  return r;
+}
+__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Bytes of a 16-byte chunk that lie inside a row of `len` elements from `at`.
+__device__ __forceinline__ int in_row(int at, int len) {
+  return at >= len ? 0 : (len - at >= 16 ? 16 : len - at);
+}
+
+template <bool NB>
+__global__ void __launch_bounds__(THREADS)
+gemm_imma_kernel(const int8_t* __restrict__ a, ll sam, const int8_t* __restrict__ b,
+                 ll sb, int M, int N, int K, Epi e) {
+  // sb: B's row stride, along K (NB) or along N
+  __shared__ __align__(128) int8_t As[STAGES][A_TILE];
+  __shared__ __align__(128) int8_t Bs[STAGES][B_TILE];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2;
+  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
+  const int KT = (K + BK - 1) / BK;
+
+  // each thread copies two 16-byte chunks of A and two of B a stage
+  auto load = [&](int st, int kt) {
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int q = tid + i * THREADS, r = q / 4, c = q % 4;
+      const int m = m0 + r, n = n0 + r;
+      const int ab = m < M ? in_row(k0 + c * 16, K) : 0;
+      cp16(wg::smem_u32(&As[st][sw_rows(r, c)]), ab ? a + (ll)m * sam + k0 + c * 16 : a, ab);
+      if constexpr (NB) {                          // r: a row of K, c: 16 columns
+        const int bb = k0 + r < K ? in_row(n0 + c * 16, N) : 0;
+        cp16(wg::smem_u32(&Bs[st][sw_k(r, c)]), bb ? b + (ll)(k0 + r) * sb + n0 + c * 16 : b, bb);
+      } else {                                     // r: a row of N (column of B)
+        const int bb = n < N ? in_row(k0 + c * 16, K) : 0;
+        cp16(wg::smem_u32(&Bs[st][sw_rows(r, c)]), bb ? b + (ll)n * sb + k0 + c * 16 : b, bb);
+      }
+    }
+  };
+
+  int acc[2][2][2][4];                             // [m16][n16 group][n8 tile][frag]
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) acc[i][j][q][x] = 0;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < KT) load(st, st);
+    cp_commit();
+  }
+  // ldmatrix: lane l gives the address of row l % 8 of matrix l / 8
+  const int li = lane % 8, lj = lane / 8;
+  for (int kt = 0; kt < KT; ++kt) {
+    cp_wait<STAGES - 2>();
+    __syncthreads();                               // stage kt is in; kt - 1 is read
+    if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    cp_commit();
+    const int8_t* as = As[kt % STAGES];
+    const int8_t* bs = Bs[kt % STAGES];
+#pragma unroll
+    for (int kk = 0; kk < BK; kk += 32) {
+      uint32_t af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)                  // matrices: rows +0/+8, k +0/+16
+        ldsm_x4(af[i], wg::smem_u32(as + sw_rows(wm * 32 + i * 16 + (lj & 1) * 8 + li,
+                                                 kk / 16 + (lj >> 1))));
+      uint32_t bf[2][2][2];                        // [n16 group][n8 tile][k half]
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        uint32_t r[4];
+        if constexpr (NB) {
+          // matrix lj: rows kk + 16 (lj >> 1) + {0,1,4,5,8,9,12,13} + 2 (lj & 1)
+          const int kr = kk + (lj >> 1) * 16 + (li >> 1) * 4 + (li & 1) + (lj & 1) * 2;
+          ldsm_x4_t(r, wg::smem_u32(bs + sw_k(kr, wn * 2 + j)));
+          bf[j][0][0] = prmt(r[0], r[1], 0x6420);  // column 2g, k 4t..4t+3
+          bf[j][1][0] = prmt(r[0], r[1], 0x7531);  // column 2g + 1
+          bf[j][0][1] = prmt(r[2], r[3], 0x6420);  // the same, k 16 + 4t..
+          bf[j][1][1] = prmt(r[2], r[3], 0x7531);
+        } else {
+          // matrices: columns +0 (k +0, +16), +8 (k +0, +16)
+          ldsm_x4(r, wg::smem_u32(bs + sw_rows(wn * 32 + j * 16 + (lj >> 1) * 8 + li,
+                                               kk / 16 + (lj & 1))));
+          bf[j][0][0] = r[0];
+          bf[j][0][1] = r[1];
+          bf[j][1][0] = r[2];
+          bf[j][1][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int q = 0; q < 2; ++q) mma_s8(acc[i][j][q], af[i], bf[j][q][0], bf[j][q][1]);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();                                 // the ring is no longer read
+
+  // The tile's sums meet in shared memory (A's ring: 64 x 64 int32), then
+  // each thread applies the epilogue to every 128th of them, a warp to 32
+  // consecutive columns. Fragment (i, j, q) holds rows g, g + 8 of its m16
+  // tile at its columns 2t, 2t + 1; column x of n8 tile q of a 16-column
+  // group is 8q + x (K-contiguous B) or 2x + q (N-contiguous B: even and
+  // odd columns).
+  int* sums = reinterpret_cast<int*>(&As[0][0]);
+  static_assert(BM * BN * sizeof(int) <= sizeof(As), "the tile's sums fit A's ring");
+  const int g = lane / 4, t = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int r = wm * 32 + i * 16 + g + (x >> 1) * 8;
+          const int col = 2 * t + (x & 1), c0 = wn * 32 + j * 16;
+          sums[r * BN + (NB ? c0 + 2 * col + q : c0 + 8 * q + col)] = acc[i][j][q][x];
+        }
+  __syncthreads();
+  for (int i = tid; i < BM * BN; i += THREADS) {
+    const int m = m0 + i / BN, n = n0 + i % BN;
+    if (m < M && n < N) epilogue(e, m, n, sums[i]);
+  }
+}
+
+// nb: B is N-contiguous (rows of N, sbk apart), else K-contiguous (rows of
+// K, sbn apart).
+void launch(const int8_t* a, ll sam, const int8_t* b, ll sbk, ll sbn, bool nb, int M,
+            int N, int K, const Epi& e, cudaStream_t s) {
+  const dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM);
+  if (nb) gemm_imma_kernel<true><<<grid, THREADS, 0, s>>>(a, sam, b, sbk, M, N, K, e);
+  else gemm_imma_kernel<false><<<grid, THREADS, 0, s>>>(a, sam, b, sbn, M, N, K, e);
+}
+
+}  // namespace im
 
 template <typename T>
 void launch_fma(const T* a, ll sam, ll sak, const T* b, ll sbk, ll sbn,
@@ -1010,20 +1260,32 @@ void launch_wmma(const bf16* a, ll sam, ll sak, const bf16* b, ll sbk, ll sbn,
     gemm_wmma_bf16_kernel<false, false><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbk, sbn, M, N, K, e);
 }
 
-enum Variant { GEMV = 0, WGMMA = 1, WMMA = 2, FMA = 3 };
+enum Variant { GEMV = 0, WGMMA = 1, WMMA = 2, FMA = 3, IMMA = 4 };
 
-// What the wgmma variant takes (gemm_variant in kernel.py mirrors it).
-bool wgmma_ok(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
-              int M, int N, int K) {
-  return M > 8 && sak == 1 && sbn == 1 && sam % 8 == 0 && sbk % 8 == 0 &&
-         sam >= K && sbk >= N && aligned(a, 16) && aligned(b, 16);
+// A 2-D operand whose rows a tensor map or 16-byte copies can tile: inner
+// stride 1, rows a multiple of 16 bytes apart and no shorter than `inner`
+// elements, base 16-byte aligned (_rows16 in kernel.py).
+bool rows16(const void* p, ll rows, ll cols, ll inner, int elem) {
+  return cols == 1 && (rows * elem) % 16 == 0 && rows >= inner && aligned(p, 16);
+}
+
+// B's layout for wgmma (bf16) and imma (int8) at M > 8, A's rows tiled
+// (gemm_variant in kernel.py mirrors it): 1 N-contiguous, 2 K-contiguous,
+// 0 neither (the variant is refused).
+int mma_layout(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
+               int M, int N, int K, int elem) {
+  if (M <= 8 || !rows16(a, sam, sak, K, elem)) return 0;
+  if (rows16(b, sbk, sbn, N, elem)) return 1;
+  if (rows16(b, sbn, sbk, K, elem)) return 2;
+  return 0;
 }
 
 }  // namespace
 
 // Type codes: 0 f32, 1 bf16, 2 int8, 3 int32. Variant: 0 gemv (M <= 8), 1
-// wgmma, 2 wmma (bf16, M > 8), 3 fma (f32 or int8, M > 8); a variant that
-// cannot take the operands returns cudaErrorInvalidValue. c may be null
+// wgmma (bf16, M > 8, mma_layout), 2 wmma (bf16, M > 8), 3 fma (f32 or
+// int8, M > 8), 4 imma (int8, M > 8, mma_layout); a variant that cannot
+// take the operands returns cudaErrorInvalidValue. c may be null
 // (no epilogue term). d is (M, N) contiguous. gemv only: K is split into
 // `splits` runs of `chunk` rows (gemv_plan in kernel.py); with splits > 1,
 // ws holds splits * M * N partial sums (f32, int32 for int8) and tickets
@@ -1042,11 +1304,13 @@ extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
   cudaStream_t s = (cudaStream_t)stream;
   if (in_code != F32 && in_code != BF16 && in_code != I8) return (int)cudaErrorInvalidValue;
   bool ok;
+  const int layout = mma_layout(a, sam, sak, b, sbk, sbn, M, N, K, in_code == I8 ? 1 : 2);
   switch (variant) {
     case GEMV: ok = M <= 8 && gv::plan_ok(g); break;
-    case WGMMA: ok = in_code == BF16 && wgmma_ok(a, sam, sak, b, sbk, sbn, M, N, K); break;
+    case WGMMA: ok = in_code == BF16 && layout != 0; break;
     case WMMA: ok = in_code == BF16 && M > 8; break;
     case FMA: ok = in_code != BF16 && M > 8; break;
+    case IMMA: ok = in_code == I8 && layout != 0; break;
     default: ok = false;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -1059,10 +1323,14 @@ extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
       else gv::launch<int8_t>(g, e, s);
       break;
     case WGMMA:
-      err = wg::launch((const bf16*)a, sam, (const bf16*)b, sbk, M, N, K, e, s);
+      err = wg::launch((const bf16*)a, sam, (const bf16*)b, sbk, sbn, layout == 2, M, N, K,
+                       e, s);
       break;
     case WMMA:
       launch_wmma((const bf16*)a, sam, sak, (const bf16*)b, sbk, sbn, M, N, K, e, s);
+      break;
+    case IMMA:
+      im::launch((const int8_t*)a, sam, (const int8_t*)b, sbk, sbn, layout == 1, M, N, K, e, s);
       break;
     default:
       if (in_code == F32) launch_fma((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);

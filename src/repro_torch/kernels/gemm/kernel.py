@@ -4,9 +4,11 @@ Replaces ``repro/kernels/gemm/kernel.py: gemm_pallas``. The kernel reads A,
 B and C through their strides: a transposed view (the unembed's
 ``table.T``) and a broadcast bias (M stride 0) are taken as they are, with
 no copy. ``gemm_variant`` picks the kernel from the operands: ``gemv`` for
-M <= 8, ``wgmma`` (TMA + wgmma on tensor cores) for bf16 with A
-K-contiguous and B N-contiguous, ``wmma`` for other bf16 layouts, ``fma``
-(CUDA cores) for f32 and int8. At M <= 8 the GEMV kernels split K across
+M <= 8; at M > 8 with A K-contiguous and B N- or K-contiguous (a weight, or
+the unembed's ``table.T``), rows 16-byte aligned, ``wgmma`` (TMA + wgmma on
+tensor cores) for bf16 and ``imma`` (mma.sync on the integer tensor cores)
+for int8; ``wmma`` for other bf16 operands, ``fma`` (CUDA cores) for f32
+and other int8 operands. At M <= 8 the GEMV kernels split K across
 blocks by ``gemv_plan``; the splits' partial sums go to a workspace and
 are added in split order on the card. ``gemm_cuda.launches`` counts the
 kernel's launches and ``gemm_cuda.variants`` the launches of each variant.
@@ -24,7 +26,10 @@ from repro_torch.kernels.common import (acc_dtype, aligned16, ceil_div,
 
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 IN_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
-VARIANTS = {"gemv": 0, "wgmma": 1, "wmma": 2, "fma": 3}
+VARIANTS = {"gemv": 0, "wgmma": 1, "wmma": 2, "fma": 3, "imma": 4}
+# the earlier kernel of each tensor-core variant, which ``_gemm`` runs on
+# the same operands when asked (chip_smoke.py times the two side by side)
+EARLIER = {"wgmma": "wmma", "imma": "fma"}
 GEMV_KC = 1024          # most rows of K a GEMV block takes, B read along N (KC there)
 GEMV_NCOLS = 128        # columns of a GEMV strip, B read along N
 GEMV_TCOLS = 32         # the same, B read along K
@@ -46,25 +51,28 @@ def _fn():
     return _FN
 
 
-def _tma_ok(t: torch.Tensor, inner: int) -> bool:
-    """A 2-D operand that TMA can tile: inner stride 1, rows of at least
-    ``inner`` elements and a multiple of 16 bytes apart, base 16-byte
-    aligned."""
+def _rows16(t: torch.Tensor, inner: int) -> bool:
+    """A 2-D operand whose rows TMA or 16-byte copies can tile: inner
+    stride 1, rows of at least ``inner`` elements and a multiple of 16
+    bytes apart, base 16-byte aligned (``rows16`` in the source)."""
     rows, cols = t.stride()
-    return cols == 1 and rows % 8 == 0 and rows >= inner and aligned16(t)
+    return (cols == 1 and rows * t.element_size() % 16 == 0 and rows >= inner
+            and aligned16(t))
 
 
 def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
-    """The kernel that takes A (M, K) @ B (K, N) (``wgmma_ok`` in the
-    source checks the same)."""
+    """The kernel that takes A (M, K) @ B (K, N) (``mma_layout`` in the
+    source checks the same): B may be N-contiguous (a weight) or
+    K-contiguous (a transposed view)."""
     m, k = a.shape
     if m <= 8:
         return "gemv"
-    if a.dtype != torch.bfloat16:
+    if a.dtype == torch.float32:
         return "fma"
-    if _tma_ok(a, k) and _tma_ok(b, b.shape[1]):
-        return "wgmma"
-    return "wmma"
+    tiled = _rows16(a, k) and (_rows16(b, b.shape[1]) or _rows16(b.T, k))
+    if a.dtype == torch.bfloat16:
+        return "wgmma" if tiled else "wmma"
+    return "imma" if tiled else "fma"
 
 
 def b_layout(b: torch.Tensor) -> str:
@@ -121,9 +129,10 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
           alpha: float, beta: float, out_dtype: Optional[torch.dtype],
           variant: Optional[str]) -> torch.Tensor:
     """``gemm_cuda`` with the variant named: None takes ``gemm_variant``'s
-    choice, ``wmma`` runs the WMMA kernel on operands that would take
-    wgmma (so that ``chip_smoke.py`` holds that kernel to the plain version
-    at prefill shapes too)."""
+    choice; the earlier kernel of a tensor-core variant (``EARLIER``: wmma
+    for wgmma, fma for imma) runs on operands that would take the newer
+    one, so that ``chip_smoke.py`` holds it to the plain version at the
+    same shapes and times it."""
     check_cuda("gemm", a, b, *(() if c is None else (c,)))
     check_dtype("gemm a", a, IN_DTYPES)
     if b.dtype != a.dtype:
@@ -145,7 +154,7 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
         raise ValueError(f"gemm: out_dtype {out_dtype} not supported")
     best = gemm_variant(a, b)
     variant = variant or best
-    if variant != best and not (variant == "wmma" and best == "wgmma"):
+    if variant != best and variant != EARLIER.get(best):
         raise ValueError(f"gemm: variant {variant!r} does not take these "
                          "operands")
     out = torch.empty((m, n), dtype=out_dtype, device=a.device)

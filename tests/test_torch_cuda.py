@@ -19,7 +19,8 @@ from repro_torch.kernels.decode_attention.ref import decode_attention_ref
 from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
                                                         flash_variant)
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gemm.kernel import (b_layout, gemm_cuda, gemm_variant,
+from repro_torch.kernels.gemm import kernel as gemm_kernel
+from repro_torch.kernels.gemm.kernel import (_gemm, b_layout, gemm_cuda, gemm_variant,
                                              gemv_plan)
 from repro_torch.kernels.gemm.ref import gemm_ref
 from repro_torch.kernels.leakyrelu.kernel import leakyrelu_cuda
@@ -122,6 +123,111 @@ def test_wgmma_gemm_matches_plain_version(cuda_device, rng, m, k, n):
     ref = gemm_ref(a, b, c, beta=1.0)
     err = float((out.double() - ref.double()).abs().max())
     assert err <= 1e-3 + 1.6e-2 * float(ref.double().abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,wide", [(17, 80, 100, 0), (100, 3584, 127, 0),
+                                        (513, 1024, 49155, 0), (40, 200, 64, 24),
+                                        (9, 64, 1, 0), (300, 896, 1000, 8)])
+def test_wgmma_gemm_b_along_k_matches_plain_version(cuda_device, m, k, n, wide):
+    """The TMA + wgmma GEMM with B read along K (a transposed table view,
+    as the unembed's ``table.T``; with ``wide``, table rows that many
+    elements longer than K): odd N, N < 128, K not a multiple of 64, ragged
+    M; f32 logits and a bf16 output with a broadcast bias; within
+    chip_smoke's tolerances (f32: sums of K terms in another order; bf16:
+    two bf16 ulps of the result); the earlier WMMA kernel on the same
+    operands within the same."""
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    table = (torch.randn((n, k + wide), device=cuda_device, generator=gen) / k ** 0.5
+             ).to(torch.bfloat16)
+    b = table[:, :k].T
+    a = torch.randn((m, k), device=cuda_device, generator=gen).to(torch.bfloat16)
+    c = torch.randn((n,), device=cuda_device, generator=gen).to(torch.bfloat16).expand(m, n)
+    assert gemm_variant(a, b) == "wgmma" and b_layout(b) == "t"
+    for cc, kw, (atol, rtol) in ((None, dict(out_dtype=torch.float32), (2e-3, 1e-5)),
+                                 (c, dict(beta=1.0), (1e-3, 1.6e-2))):
+        before = dict(gemm_cuda.variants)
+        out = gemm_cuda(a, b, cc, **kw)
+        assert gemm_cuda.variants["wgmma"] == before["wgmma"] + 1
+        ref = gemm_ref(a, b, cc, **kw)
+        limit = atol + rtol * float(ref.double().abs().max())
+        assert out.shape == (m, n) and out.dtype == ref.dtype
+        assert float((out.double() - ref.double()).abs().max()) <= limit, (m, k, n, kw)
+        earlier = _gemm(a, b, cc, 1.0, kw.get("beta", 0.0), kw.get("out_dtype"), "wmma")
+        assert float((earlier.double() - ref.double()).abs().max()) <= limit, (m, k, n, kw)
+
+
+def _int8(rng, device, rows, cols, pad):
+    """An int8 (rows, cols) view of a (rows, cols + pad) tensor."""
+    x = rng.integers(-8, 8, (rows, cols + pad)).astype(np.int8)
+    return torch.from_numpy(x).to(device)[:, :cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n", "t"])
+def test_imma_gemm_bit_equal_to_plain_and_fma(cuda_device, rng, layout):
+    """int8 on the integer tensor cores (imma) at ragged M, N and K (K not a
+    multiple of 16: the copies' zero fill), B read along N (a weight) or
+    along K (a transposed view), rows padded to 16 bytes: bit for bit the
+    plain version and the CUDA-core fma kernel, at alpha 1, and with alpha,
+    a broadcast int32 bias and an int32 or int8 output (rounded half to
+    even)."""
+    for m, k, n in [(9, 64, 16), (100, 80, 130), (513, 1024, 1024), (33, 1000, 4099),
+                    (17, 2048, 48), (64, 31, 7)]:
+        a = _int8(rng, cuda_device, m, k, -k % 16)
+        if layout == "n":
+            b = _int8(rng, cuda_device, k, n, -n % 16 + 16)
+        else:
+            b = _int8(rng, cuda_device, n, k, -k % 16).T
+        assert gemm_variant(a, b) == "imma" and b_layout(b) == layout, (m, k, n)
+        c = torch.from_numpy(rng.integers(-100, 100, (n,)).astype(np.int32)
+                             ).to(cuda_device).expand(m, n)
+        # |A B| <= 64 K <= 2^17: alpha 2^-14 and |beta C| <= 25 stay inside int8
+        for cc, kw in ((None, dict()),
+                       (c, dict(alpha=0.5, beta=3.0, out_dtype=torch.int32)),
+                       (c, dict(alpha=2.0 ** -14, beta=0.25, out_dtype=torch.int8))):
+            before = gemm_cuda.variants["imma"]
+            out = gemm_cuda(a, b, cc, **kw)
+            assert gemm_cuda.variants["imma"] == before + 1
+            assert torch.equal(out, gemm_ref(a, b, cc, **kw)), (m, k, n, kw)
+            fma = _gemm(a, b, cc, kw.get("alpha", 1.0), kw.get("beta", 0.0),
+                        kw.get("out_dtype"), "fma")
+            assert torch.equal(out, fma), (m, k, n, kw)
+
+
+def _raw_gemm(a, b, variant: str) -> int:
+    """The C entry point called with ``variant`` whatever the operands (the
+    wrapper's own pick bypassed): its error code."""
+    m, k = a.shape
+    n = b.shape[1]
+    out_dt = torch.int32 if a.dtype == torch.int8 else a.dtype
+    out = torch.empty((m, n), dtype=out_dt, device=a.device)
+    err = gemm_kernel._fn()(a.data_ptr(), a.stride(0), a.stride(1), b.data_ptr(),
+                            b.stride(0), b.stride(1), None, 0, 0, 0, out.data_ptr(),
+                            gemm_kernel.CODES[out_dt], m, n, k, gemm_kernel.CODES[a.dtype],
+                            1.0, 0.0, gemm_kernel.VARIANTS[variant], 1, 0, None, None,
+                            torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
+@pytest.mark.cuda
+def test_tensor_core_variants_refuse_what_they_cannot_take(cuda_device, rng):
+    """imma and wgmma refuse operands without 16-byte rows (a strided A, a
+    24-byte row), the other dtype and M <= 8, on the C side (an error code,
+    no launch) and in the wrapper (ValueError); the wrapper never swaps in
+    another kernel."""
+    i8 = _int8(rng, cuda_device, 64, 2 * 128, 0)
+    w8 = _int8(rng, cuda_device, 128, 64, 0)
+    bf = torch.zeros((64, 128), dtype=torch.bfloat16, device=cuda_device)
+    wb = torch.zeros((128, 64), dtype=torch.bfloat16, device=cuda_device)
+    rows24 = torch.zeros((128, 12), dtype=torch.bfloat16, device=cuda_device)  # N = 12
+    for a, b, variant in ((i8[:, ::2], w8, "imma"), (bf, wb, "imma"), (i8[:8, :128], w8, "imma"),
+                          (i8[:, :128], w8, "wgmma"), (bf, rows24, "wgmma")):
+        assert _raw_gemm(a, b, variant) != 0, (a.dtype, a.stride(), b.stride(), variant)
+        with pytest.raises(ValueError):
+            _gemm(a, b, None, 1.0, 0.0, None, variant)
+    assert _raw_gemm(i8[:, :128], w8, "imma") == 0
 
 
 MMA_CASES = [  # (Hq, Hkv, Sq, Skv, kwargs)

@@ -79,29 +79,45 @@ def test_gemm_alpha_beta(rng):
 
 
 def test_gemm_int8_epilogue_rounds_and_bias_broadcast(rng):
-    """int8 with alpha/beta rounds half to even into int32, and a broadcast
-    bias (M stride 0) equals the materialised one."""
-    a_np = rng.integers(-8, 8, (5, 24)).astype(np.int8)
-    b_np = rng.integers(-8, 8, (24, 9)).astype(np.int8)
-    bias = rng.integers(-5, 5, (9,)).astype(np.int32)
-    (ja, ta), (jb, tb) = both(a_np, "int8"), both(b_np, "int8")
-    c_np = np.broadcast_to(bias, (5, 9))
-    out = gemm(ta, tb, torch.from_numpy(bias).expand(5, 9), alpha=0.5,
-               beta=1.5)
-    ref = jax_gemm_ref(ja, jb, jnp.asarray(c_np), alpha=0.5, beta=1.5)
-    assert out.dtype == torch.int32
-    np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+    """int8 with alpha/beta rounds half to even into int32 (and into int8),
+    and a broadcast bias (M stride 0) equals the materialised one; at M = 5
+    (the GEMV on the card) and M = 100 (imma), against the reference's
+    oracle and its Pallas kernel (interpret mode)."""
+    for m, alpha, out_dtype in ((5, 0.5, None), (100, 0.5, None), (100, 2.0 ** -5, "int8")):
+        a_np = rng.integers(-8, 8, (m, 24)).astype(np.int8)
+        b_np = rng.integers(-8, 8, (24, 9)).astype(np.int8)
+        bias = rng.integers(-5, 5, (9,)).astype(np.int32)
+        (ja, ta), (jb, tb) = both(a_np, "int8"), both(b_np, "int8")
+        c_np = np.broadcast_to(bias, (m, 9))
+        kw = dict(alpha=alpha, beta=1.5)
+        out = gemm(ta, tb, torch.from_numpy(bias).expand(m, 9),
+                   out_dtype=DT[out_dtype][1] if out_dtype else None, **kw)
+        jdt = DT[out_dtype][0] if out_dtype else None
+        ref = jax_gemm_ref(ja, jb, jnp.asarray(c_np), out_dtype=jdt, **kw)
+        pallas = jax_gemm(ja, jb, jnp.asarray(c_np), out_dtype=jdt, block_m=32,
+                          block_n=128, block_k=128, **kw)
+        assert out.dtype == (torch.int8 if out_dtype else torch.int32)
+        np.testing.assert_array_equal(out.numpy(), np.asarray(ref))
+        np.testing.assert_array_equal(out.numpy(), np.asarray(pallas))
 
 
 def test_gemm_transposed_b_view(rng):
-    """The unembed passes table.T: a view, read through its strides."""
-    table = rng.standard_normal((300, 48)).astype(np.float32)
-    x = rng.standard_normal((3, 48)).astype(np.float32)
-    out = gemm(torch.from_numpy(x), torch.from_numpy(table).T,
-               out_dtype=torch.float32)
-    ref = jax_gemm_ref(jnp.asarray(x), jnp.asarray(table).T)
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-4,
-                               rtol=1e-4)
+    """The unembed passes table.T: a view, read through its strides; at M =
+    3 (the GEMV on the card) and M = 100 (wgmma with B read along K in
+    bf16), in f32 and bf16 with f32 logits, against the reference's oracle
+    and its Pallas kernel (interpret mode)."""
+    for m, dt in ((3, "f32"), (100, "f32"), (100, "bf16")):
+        table = rng.standard_normal((300, 48)).astype(np.float32)
+        x = rng.standard_normal((m, 48)).astype(np.float32)
+        (jx, tx), (jt, tt) = both(x, dt), both(table, dt)
+        out = gemm(tx, tt.T, out_dtype=torch.float32)
+        ref = jax_gemm_ref(jx, jt.T, out_dtype=jnp.float32)
+        pallas = jax_gemm(jx, jt.T, out_dtype=jnp.float32, block_m=32,
+                          block_n=128, block_k=128)
+        assert out.dtype == torch.float32
+        for r in (ref, pallas):
+            np.testing.assert_allclose(out.numpy(), np.asarray(r), atol=1e-4,
+                                       rtol=1e-4)
 
 
 # -------------------------------------------------------- flash attention

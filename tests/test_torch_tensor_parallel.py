@@ -1005,7 +1005,7 @@ from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
 from repro_torch.kernels.decode_attention.kernel import decode_variant
 from repro_torch.kernels.flash_attention.kernel import flash_variant
-from repro_torch.kernels.gemm.kernel import gemm_variant
+from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
 from repro_torch.models.transformer import LM
 from repro_torch.train.step import serve_on_mesh, tp_view
 
@@ -1015,7 +1015,7 @@ class Spy(ArcaneEngine):
         super().__init__("ref")
         self.counts = {{"gemm_cuda": 0, "flash_attention_cuda": 0,
                        "decode_attention_cuda": 0}}
-        self.variants = {{"gemm_cuda": dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0),
+        self.variants = {{"gemm_cuda": dict.fromkeys(VARIANTS, 0),
                          "flash_attention_cuda": {{"simt": 0, "mma": 0}},
                          "decode_attention_cuda": {{"narrow": 0, "wide": 0}}}}
 

@@ -4,8 +4,8 @@
 strides and alignment; here they run on meta tensors (no storage) at the
 full-width shapes of the three served models, and on the tensors a CPU
 prefill of each model really hands the engine. The C side checks the same
-conditions again on the card (``wgmma_ok`` in ``csrc/gemm.cu``, ``mma_ok``
-in ``csrc/flash_attention.cu``). A last test emulates the tensor-core flash
+conditions again on the card (``mma_layout`` in ``csrc/gemm.cu``, mirrored
+here, ``mma_ok`` in ``csrc/flash_attention.cu``). A last test emulates the tensor-core flash
 kernel's roundings in plain PyTorch and holds them to the card's tolerance.
 """
 import math
@@ -21,7 +21,7 @@ from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.decode_attention.kernel import decode_variant
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.flash_attention.ref import attention_ref
-from repro_torch.kernels.gemm.kernel import gemm_variant
+from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
 from repro_torch.launch import serve as launcher
 from repro_torch.models.attention import _merge_heads, _split_heads
 from repro_torch.models.transformer import LM
@@ -61,11 +61,18 @@ def test_gemm_variant_prefill_projections_take_wgmma(arch, m):
 
 @pytest.mark.parametrize("case,expected", [
     ("decode M=1", "gemv"), ("decode M=4", "gemv"), ("M=8", "gemv"),
-    ("K=257", "wmma"), ("table.T", "wmma"), ("f32", "fma"), ("int8", "fma"),
+    ("K=257", "wmma"), ("table.T", "wgmma"), ("f32", "fma"), ("int8", "imma"),
     ("unaligned A base", "wmma"), ("broadcast A", "wmma"),
+    ("int8 table.T", "imma"), ("int8 strided A", "fma"), ("int8 K=257", "fma"),
+    ("f32 table.T", "fma"),
 ])
 def test_gemm_variant_other_operands_keep_their_kernels(case, expected):
+    """bf16 at M > 8 on wgmma with B read along N or along K (the unembed's
+    table.T), int8 on imma likewise; wmma keeps the bf16 operands TMA
+    cannot tile (unaligned rows or base, a broadcast A), fma f32 and the
+    int8 operands without 16-byte rows."""
     w = meta(3584, 14336)
+    i8 = torch.int8
     a, b = {
         "decode M=1": (meta(1, 3584), w),
         "decode M=4": (meta(4, 3584), w),
@@ -73,11 +80,126 @@ def test_gemm_variant_other_operands_keep_their_kernels(case, expected):
         "K=257": (meta(33, 257), meta(257, 65)),
         "table.T": (meta(512, 3584), meta(256000, 3584).T),
         "f32": (meta(512, 3584, dtype=torch.float32), meta(3584, 14336, dtype=torch.float32)),
-        "int8": (meta(512, 1024, dtype=torch.int8), meta(1024, 1024, dtype=torch.int8)),
+        "int8": (meta(512, 1024, dtype=i8), meta(1024, 1024, dtype=i8)),
         "unaligned A base": (torch.empty(512 * 3584 + 1, dtype=BF16)[1:].view(512, 3584), w),
         "broadcast A": (meta(1, 3584).expand(512, 3584), w),
+        "int8 table.T": (meta(512, 1024, dtype=i8), meta(49155, 1024, dtype=i8).T),
+        "int8 strided A": (meta(512, 2048, dtype=i8)[:, ::2], meta(1024, 1024, dtype=i8)),
+        "int8 K=257": (meta(33, 257, dtype=i8), meta(257, 64, dtype=i8)),
+        "f32 table.T": (meta(512, 3584, dtype=torch.float32),
+                        meta(256000, 3584, dtype=torch.float32).T),
     }[case]
     assert gemm_variant(a, b) == expected
+
+
+# the tied or separate unembed tables of the served archs (vocab, d_model),
+# and gemma2-9b's vocab shard on a model axis of 4 (phase 5c's shapes)
+TABLES = {arch: (get_config(arch).vocab, get_config(arch).d_model)
+          for arch in ("gemma2-9b", "granite-moe-1b-a400m", "internvl2-1b",
+                       "rwkv6-1.6b")}
+TABLES["gemma2-9b vocab shard of 4"] = (get_config("gemma2-9b").vocab // 4,
+                                        get_config("gemma2-9b").d_model)
+
+
+@pytest.mark.parametrize("m", [1, 4, 8, 16, 100, 512, 513])
+@pytest.mark.parametrize("table", sorted(TABLES))
+def test_gemm_variant_unembed_table_views(table, m):
+    """LM.forward's unembed of a whole sequence (``table.T``, B read along
+    K: odd vocabularies such as granite's 49155 and internvl2's 151655
+    included) takes wgmma past 8 rows and the GEMV at 8 or fewer."""
+    vocab, d = TABLES[table]
+    b = meta(vocab, d).T
+    assert gemm_variant(meta(m, d), b) == ("gemv" if m <= 8 else "wgmma")
+
+
+# ``rows16`` and ``mma_layout`` of csrc/gemm.cu as they stand there; the
+# mirror below is transcribed from them, and the test fails if either
+# changes without it.
+C_RULES = (
+    "bool rows16(const void* p, ll rows, ll cols, ll inner, int elem) {\n"
+    "  return cols == 1 && (rows * elem) % 16 == 0 && rows >= inner && aligned(p, 16);\n"
+    "}",
+    "int mma_layout(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,\n"
+    "               int M, int N, int K, int elem) {\n"
+    "  if (M <= 8 || !rows16(a, sam, sak, K, elem)) return 0;\n"
+    "  if (rows16(b, sbk, sbn, N, elem)) return 1;\n"
+    "  if (rows16(b, sbn, sbk, K, elem)) return 2;\n"
+    "  return 0;\n"
+    "}",
+    "    case WGMMA: ok = in_code == BF16 && layout != 0; break;\n"
+    "    case WMMA: ok = in_code == BF16 && M > 8; break;\n"
+    "    case FMA: ok = in_code != BF16 && M > 8; break;\n"
+    "    case IMMA: ok = in_code == I8 && layout != 0; break;",
+)
+
+
+def c_side(a: torch.Tensor, b: torch.Tensor) -> tuple[int, set]:
+    """``mma_layout`` of the C side for these operands, and the variants its
+    check accepts at M > 8 (gemv's plan check aside)."""
+    def rows16(t, rows, cols, inner, elem):
+        return cols == 1 and (rows * elem) % 16 == 0 and rows >= inner and \
+            t.data_ptr() % 16 == 0
+
+    (m, k), n = a.shape, b.shape[1]
+    (sam, sak), (sbk, sbn) = a.stride(), b.stride()
+    elem = 1 if a.dtype == torch.int8 else 2
+    layout = 0
+    if m > 8 and rows16(a, sam, sak, k, elem):
+        layout = 1 if rows16(b, sbk, sbn, n, elem) else \
+            2 if rows16(b, sbn, sbk, k, elem) else 0
+    ok = set()
+    if m > 8:
+        bf = a.dtype == torch.bfloat16
+        ok |= {"wmma"} if bf else {"fma"}
+        if layout and bf:
+            ok.add("wgmma")
+        if layout and a.dtype == torch.int8:
+            ok.add("imma")
+    return layout, ok
+
+
+def operand_layouts(dt, m: int, k: int, n: int):
+    """(A, B) pairs in the layouts a caller can hand the GEMM: A contiguous,
+    in wider rows, every other column, transposed, broadcast, off a 16-byte
+    base; B N-contiguous, K-contiguous (a transposed view), in wider rows,
+    strided, off a 16-byte base. Small CPU tensors: the picks read their
+    addresses."""
+    def t(*shape):
+        return torch.zeros(shape, dtype=dt)
+
+    a_all = {"contiguous": t(m, k), "wide rows": t(m, k + 24)[:, :k],
+             "every other column": t(m, 2 * k)[:, ::2], "transposed": t(k, m).T,
+             "broadcast": t(1, k).expand(m, k),
+             "off base": t(m * k + 1)[1:].view(m, k)}
+    b_all = {"n": t(k, n), "k (table.T)": t(n, k).T, "n wide rows": t(k, n + 40)[:, :n],
+             "k wide rows": t(n, k + 40)[:, :k].T, "strided": t(k, 2 * n)[:, ::2],
+             "off base": t(k * n + 1)[1:].view(k, n)}
+    return [(f"A {x}, B {y}", a, b) for x, a in a_all.items() for y, b in b_all.items()]
+
+
+def test_gemm_variant_mirrors_the_c_side_rules():
+    """``gemm_variant`` against the C side's rules (``C_RULES``, mirrored in
+    ``c_side``) over dtypes, M on both sides of 8, ragged K and N and every
+    operand layout of ``operand_layouts``: the pick is one the C side
+    accepts, and a tensor-core pick (wgmma, imma) is made exactly where the
+    C side finds a layout for bf16 or int8 operands."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "gemm.cu").read_text()
+    for rule in C_RULES:
+        assert rule in src, rule
+    seen = set()
+    for dt in (torch.bfloat16, torch.int8, torch.float32):
+        for m, k, n in ((9, 64, 48), (100, 80, 12), (33, 257, 65), (512, 96, 131)):
+            for name, a, b in operand_layouts(dt, m, k, n):
+                v = gemm_variant(a, b)
+                layout, ok = c_side(a, b)
+                assert v in ok, (dt, m, k, n, name, v, ok)
+                tensor_cores = layout != 0 and dt != torch.float32
+                assert (v in ("wgmma", "imma")) == tensor_cores, (dt, m, k, n, name, v)
+                seen.add(v)
+        assert gemm_variant(torch.zeros((8, 64), dtype=dt), torch.zeros((64, 48), dtype=dt)) \
+            == "gemv"
+    assert seen == {"wgmma", "wmma", "imma", "fma"}
 
 
 @pytest.mark.parametrize("s", [16, 100, 512])
@@ -222,7 +344,7 @@ class LaunchSpy(ArcaneEngine):
         super().__init__("ref")
         self.counts = {"gemm_cuda": 0, "flash_attention_cuda": 0,
                        "decode_attention_cuda": 0}
-        self.variants = {"gemm_cuda": dict.fromkeys(("gemv", "wgmma", "wmma", "fma"), 0),
+        self.variants = {"gemm_cuda": dict.fromkeys(VARIANTS, 0),
                          "flash_attention_cuda": {"simt": 0, "mma": 0},
                          "decode_attention_cuda": {"narrow": 0, "wide": 0}}
 
@@ -268,6 +390,35 @@ def test_chip_smoke_launch_counts_equal_the_engine_calls(arch):
                                             sess.stats["decode_steps"], args.slots)
     assert engine.counts == counts
     assert engine.variants == variants
+
+
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m", "minicpm3-4b",
+                                  "rwkv6-1.6b", "jamba-1.5-large-398b", "internvl2-1b",
+                                  "whisper-large-v3"])
+def test_chip_smoke_forward_launch_counts_equal_the_engine_calls(arch):
+    """chip_smoke.py's expected launches of ``LM.forward`` (``forward_lens``:
+    phase 3's forward leg) against the calls a bf16 smoke-config forward
+    of two sequences makes on the CPU: each layer's GEMMs as the forward
+    runs them, the unembed of every row on wgmma (B = table.T), one flash
+    launch an attention layer, no decode attention."""
+    cs = chip_smoke()
+    cfg = get_smoke_config(arch)
+    engine = LaunchSpy()
+    model = LM(cfg, engine, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen)
+    rng = np.random.default_rng(0)
+    lens = (16, 32)
+    for n in lens:
+        batch = {"tokens": torch.as_tensor(rng.integers(0, cfg.vocab, (1, n)))}
+        batch.update(cs.embed_inputs(torch, cfg, gen, 24 if cfg.enc_dec else 0))
+        logits, _ = model.forward(params, batch)
+        assert logits.shape == (1, n, cfg.vocab)
+    counts, variants = cs.expected_launches(torch, cfg, [], 0, 1, enc_len=24,
+                                            forward_lens=lens)
+    assert engine.counts == counts
+    assert engine.variants == variants
+    assert variants["gemm_cuda"]["wgmma"] >= 2 and counts["decode_attention_cuda"] == 0
 
 
 @pytest.mark.parametrize("arch,lens,enc_len", [
