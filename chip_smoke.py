@@ -8,7 +8,8 @@ Phases:
   1. device: needs ``torch.cuda.is_available()``; prints the card's name and
      power limit (nvidia-smi) and builds the six CUDA kernels from
      ``src/repro_torch/csrc`` with nvcc (one process per source, in
-     parallel).
+     parallel), each source's seconds, and the registers, spill bytes and
+     stack of each sgemm and sflash instantiation (``ptxas:`` lines).
   2. kernels: the time of an empty kernel between the timer's events (the
      floor of every time below), then each kernel against its plain
      PyTorch version on the card:
@@ -38,13 +39,14 @@ Phases:
      1), the
      bf16 prefill GEMM also at ragged M = 16, 100, 513 and flash attention
      also at a ragged S = 100; each row names the variant the wrapper picks
-     (gemm: gemv / wgmma / wmma / imma / fma; flash: mma / simt), and a row
-     on a tensor-core variant also holds the earlier design (wgmma: wmma,
-     imma: fma, flash mma: simt) to the plain version on the same inputs,
-     at the same tolerance (int8: the same bits as the kernel), and times
-     it; gemma2's unembed (table.T, B read along K) also at M = 512, and
-     granite's at M = 513 over its odd N, where a sequence's logits take
-     wgmma;
+     (gemm: gemv / wgmma / wmma / imma / sgemm / fma; flash: mma / sflash /
+     simt), and a row on a redesigned variant also holds the earlier design
+     (wgmma: wmma, imma and sgemm: fma, flash mma and sflash: simt) to the
+     plain version on the same inputs, at the same tolerance (int8: the
+     same bits as the kernel), and times it; gemma2's unembed (table.T, B
+     read along K) also at M = 512, and granite's at M = 513 over its odd
+     N, where a sequence's logits take wgmma; in f32 (sgemm) the prefill
+     GEMM also at M = 16, 100, 513 and both unembeds at M = 512;
      conv_layer, maxpool and leakyrelu in int8, int16, int32, f32 and bf16
      at the paper's Fig. 4 shapes (3x256x256, k 3/5/7), ragged edges, and a
      first CNN layer's width (3x226x226, 64 filters; in bf16 and int8 also
@@ -93,7 +95,10 @@ Phases:
      jamba-smoke's x_proj and dt_proj on wmma past 8 rows); one flash
      launch per attention layer and prompt, one decode attention launch
      per attention layer and step (none for rwkv6), on flash_variant's and
-     decode_variant's picks. On gemma2-9b's weights, after its serve,
+     decode_variant's picks. The f32 copies of ``check_logits`` (below)
+     are counted too: every GEMM past 8 rows on sgemm, every prompt
+     attention on sflash, none on fma or simt (``serve: ... f32 copy``
+     lines: launches, variants, seconds). On gemma2-9b's weights, after its serve,
      ``forward_leg``: LM.forward of 1 x 512 tokens through
      ArcaneEngine("cuda"), launches and variants exact (every GEMM on
      wgmma, the unembed of all 512 rows too; 42 flash launches on mma;
@@ -450,13 +455,18 @@ def gemm_cases(torch):
             cases.append(("stablelm up", dt, m, 2560, 6912, "w"))
             cases.append(("qwen2.5 k+bias", dt, m, 5120, 1024, "bias"))
     # LM.forward's unembed of a whole sequence: table.T (B read along K) at
-    # M > 8 takes wgmma, also at a ragged M over granite's odd N
+    # M > 8 takes wgmma, also at a ragged M over granite's odd N; in f32
+    # sgemm, at M = 512 over both vocabularies
     cases.append(("gemma2 unembed", torch.bfloat16, 512, 3584, 256000, "t"))
     cases.append(("granite unembed", torch.bfloat16, 513, 1024, 49155, "t"))
-    for m in (16, 100, 513):      # ragged prompt lengths: TMA zero-fills the edges
-        for name, k, n in g2:
-            if name in ("q", "gate_up"):
-                cases.append((f"gemma2 {name}", torch.bfloat16, m, k, n, "w"))
+    cases.append(("gemma2 unembed", torch.float32, 512, 3584, 256000, "t"))
+    cases.append(("granite unembed", torch.float32, 512, 1024, 49155, "t"))
+    # ragged prompt lengths: TMA (bf16) and cp.async (f32) zero-fill the edges
+    for dt in (torch.bfloat16, torch.float32):
+        for m in (16, 100, 513):
+            for name, k, n in g2:
+                if name in ("q", "gate_up"):
+                    cases.append((f"gemma2 {name}", dt, m, k, n, "w"))
     # int8 (imma past 8 rows): a weight at ragged M, B read along K at an
     # odd N, and the epilogue (alpha, a broadcast int32 bias, int8 output
     # rounded half to even: 'q8')
@@ -564,8 +574,8 @@ def run_gemm(torch, timer, gen, rows, prefix: str = ""):
         out = gemm_cuda(a, b, c, **kw)
         ref = gemm_ref(a, b, c, **kw)
         variant = gemm_variant(a, b)
-        # where a tensor-core variant runs, its earlier kernel (wmma for
-        # wgmma, fma for imma) is held on the same inputs
+        # where a redesigned variant runs, its earlier kernel (wmma for
+        # wgmma, fma for imma and sgemm) is held on the same inputs
         earlier_v = EARLIER.get(variant)
         earlier = None if earlier_v is None else \
             _gemm(a, b, c, kw["alpha"], kw["beta"], out_dtype, earlier_v)
@@ -860,7 +870,7 @@ FLASH_CASES = [
 
 
 def run_flash(torch, timer, gen, rows, prefix: str = ""):
-    from repro_torch.kernels.flash_attention.kernel import (_flash,
+    from repro_torch.kernels.flash_attention.kernel import (EARLIER, _flash,
                                                             flash_attention_cuda,
                                                             flash_variant)
     from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -876,10 +886,11 @@ def run_flash(torch, timer, gen, rows, prefix: str = ""):
             out = flash_attention_cuda(q, k, v, **kw)
             ref = attention_ref(q, k, v, **kw)
             variant = flash_variant(q, k, v)
-            # where mma runs, the earlier CUDA-core kernel is held on the
-            # same inputs
-            earlier = _flash(q, k, v, causal, win, cap, None, None, "simt") \
-                if variant == "mma" else None
+            # where a redesigned variant runs (mma, sflash), the earlier
+            # CUDA-core kernel (simt) is held on the same inputs
+            earlier_v = EARLIER.get(variant)
+            earlier = None if earlier_v is None else \
+                _flash(q, k, v, causal, win, cap, None, None, earlier_v)
             torch.cuda.synchronize()
             err = float((out.float() - ref.float()).abs().max())
             earlier_err = None if earlier is None else \
@@ -891,7 +902,7 @@ def run_flash(torch, timer, gen, rows, prefix: str = ""):
             ok = err <= atol and (earlier_err is None or earlier_err <= atol)
             ms = timer.ms(lambda: flash_attention_cuda(q, k, v, **kw))
             simt = None if earlier_err is None else timer.ms(
-                lambda: _flash(q, k, v, causal, win, cap, None, None, "simt"))
+                lambda: _flash(q, k, v, causal, win, cap, None, None, earlier_v))
             plain = timer.ms(lambda: attention_ref(q, k, v, **kw), reps=3, warmup=1)
             lib = None
             if cap is None and win is None:
@@ -912,8 +923,8 @@ def run_flash(torch, timer, gen, rows, prefix: str = ""):
                                   f"Skv={skv} causal={causal} window={win} softcap={cap}",
                              dtype=str(dt).split(".")[-1], variant=variant,
                              max_abs_err=err, atol=atol, rtol=0.0, ok=ok,
-                             ms=ms, earlier_ms=simt, earlier_max_abs_err=earlier_err,
-                             plain_ms=plain,
+                             ms=ms, earlier_variant=earlier_v, earlier_ms=simt,
+                             earlier_max_abs_err=earlier_err, plain_ms=plain,
                              library_ms=lib, bound_ms=bms, bound_by=by,
                              bytes=nbytes))
 
@@ -1228,8 +1239,11 @@ SERVE_MODELS = (
     # summing K in two halves, ``halves_engine``, lands as far from ref as
     # the kernels), while the kernels and cuBLAS sum in the same order (the
     # same bits in nearly every output: ``gemm_on_activations``; PERF.md)
+    # its profiled prefill is 128 tokens long, not 512: the profiler's
+    # processing of the wkv recurrence's per-token kernels over 512 tokens
+    # took 148 s of the run on the H100's host (PERF.md §6)
     dict(arch="rwkv6-1.6b", prompt_lens=(16, 32, 64, 128, 256, 512),
-         reference="library"),
+         reference="library", profile_len=128),
     dict(arch="jamba-1.5-large-398b", smoke=True, max_len=128,
          prompt_lens=(4, 9, 16, 32, 48, 64)),
 )
@@ -1238,7 +1252,7 @@ ATTN_KINDS = ("attn", "attn_local", "mla")
 
 def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
                 cross_rows: int | None = None, split: int = 1,
-                ffn_split: int = 1) -> list:
+                ffn_split: int = 1, dtype=None) -> list:
     """(A, B) of each engine GEMM of one layer at M = m rows, as meta
     tensors in the layouts the model hands the engine (A contiguous unless
     named; B a weight of a stacked parameter): attention's q, k, v, o
@@ -1264,11 +1278,12 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
     in_proj, dt_proj and RWKV's r, k, v, g, wB, cm_k, cm_r by heads or
     channels), row-parallel ones of 1/split of K (o, x_proj, out_proj,
     cm_v), the rest whole (MLA's q_down and kv_down, RWKV's wA); with
-    ``ffn_split`` the dense FFN's columns and rows likewise."""
+    ``ffn_split`` the dense FFN's columns and rows likewise. ``dtype``: the
+    tensors' (bf16 unless given; an f32 copy of the weights runs f32)."""
     from repro_torch.models.mlp import classic as classic_mlp
 
     def meta(*shape):
-        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        return torch.empty(shape, dtype=dtype or torch.bfloat16, device="meta")
 
     def w(k, n):
         return meta(cfg.n_periods, k, n)[0]
@@ -1315,16 +1330,17 @@ def layer_gemms(torch, cfg, spec, m: int, prompt: bool, batch: int = 1,
     return out
 
 
-def attention_variants(torch, cfg) -> tuple[str, str]:
+def attention_variants(torch, cfg, dtype=None) -> tuple[str, str]:
     """The flash variant of a prompt's attention layers (meta q, k, v in
     the model's layouts: q and k contiguous after the rotary embedding, v
     a view of its projection's heads; MLA's all contiguous) and the decode
-    variant of a step's (MLA's absorbed decode: one latent head for all)."""
+    variant of a step's (MLA's absorbed decode: one latent head for all),
+    in ``dtype`` (bf16 unless given)."""
     from repro_torch.kernels.decode_attention.kernel import decode_variant
     from repro_torch.kernels.flash_attention.kernel import flash_variant
 
     def meta(*shape):
-        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+        return torch.empty(shape, dtype=dtype or torch.bfloat16, device="meta")
 
     s, h, hkv = 512, cfg.n_heads, cfg.n_kv_heads
     if cfg.mla is not None:
@@ -1342,7 +1358,7 @@ def attention_variants(torch, cfg) -> tuple[str, str]:
 
 def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
                       enc_len: int = 0, prompt_batch: int = 1,
-                      plan=None, forward_lens=()) -> tuple[dict, dict]:
+                      plan=None, forward_lens=(), dtype=None) -> tuple[dict, dict]:
     """The launch counts of a serving run, and per variant: per prompt
     (batch 1, M = its length, behind the vision prefix where there is
     one) and per decode step (M = the slots) each layer's engine GEMMs
@@ -1368,14 +1384,17 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     GEMMs at M = its rows as ``block_forward`` runs them (MLA projects
     once; no conv-state tail; an encoder-decoder's encoder and cross k and
     v as in a prompt), the unembed of every row (M > 8: table.T past the
-    GEMV), the flash launches of a prompt."""
+    GEMV), the flash launches of a prompt. ``dtype``: the weights' and
+    activations' (bf16 unless given; the f32 copies of ``check_logits``
+    run f32)."""
     from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
     from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
     from repro_torch.models.transformer import ENC_SPEC
     gemm = dict.fromkeys(VARIANTS, 0)
     m_tp = 1 if plan is None else plan.mg.size
     vocab = cfg.vocab // m_tp if plan is not None and plan.unembed else cfg.vocab
-    table_t = torch.empty((vocab, cfg.d_model), dtype=torch.bfloat16,
+    table_t = torch.empty((vocab, cfg.d_model), dtype=dtype or torch.bfloat16,
                           device="meta").T
     cross = enc_len if cfg.enc_dec else None
 
@@ -1402,12 +1421,12 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
             split, ffn_split = splits(block(j))
             for a, b in layer_gemms(torch, cfg, spec, m, prompt,
                                     batch=prompt_batch, cross_rows=cross,
-                                    split=split, ffn_split=ffn_split):
+                                    split=split, ffn_split=ffn_split, dtype=dtype):
                 gemm[gemm_variant(a, b)] += cfg.n_periods
         if prompt and cfg.enc_dec:
             split, ffn_split = splits(None if plan is None else plan.enc)
             for a, b in layer_gemms(torch, cfg, ENC_SPEC, enc_len, True,
-                                    split=split, ffn_split=ffn_split):
+                                    split=split, ffn_split=ffn_split, dtype=dtype):
                 gemm[gemm_variant(a, b)] += cfg.n_enc_layers
         rows = unembed_rows or (1 if prompt else m)
         gemm[gemm_variant(table_t.new_empty((rows, cfg.d_model)), table_t)] += 1
@@ -1428,12 +1447,12 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
         for j, spec in enumerate(cfg.pattern))
     prompt_flash += cfg.n_enc_layers * flash(None if plan is None or plan.enc is None
                                              else plan.enc.attn)
-    fv, dv = attention_variants(torch, cfg)
+    fv, dv = attention_variants(torch, cfg, dtype)
     counts = {"gemm_cuda": sum(gemm.values()),
               "flash_attention_cuda": prompt_flash * (len(prompt_lens) + len(forward_lens)),
               "decode_attention_cuda": (n_attn + n_cross) * n_steps}
     variants = {"gemm_cuda": gemm,
-                "flash_attention_cuda": {"simt": 0, "mma": 0},
+                "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
                 "decode_attention_cuda": {"narrow": 0, "wide": 0}}
     variants["flash_attention_cuda"][fv] += counts["flash_attention_cuda"]
     variants["decode_attention_cuda"][dv] += counts["decode_attention_cuda"]
@@ -1706,14 +1725,15 @@ def meta_shapes(torch, model, params, params_delta: dict, slots: int,
 
 def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
               max_len: int = 1024, prompt_lens=None, reference: str = "ref",
-              forward: bool = False) -> dict:
+              forward: bool = False, profile_len: int = 512) -> dict:
     """One model served through the port's launcher (full width unless
     ``smoke``): 4 slots, 6 requests of 16 new tokens, prompts of 16-512
     tokens or drawn from ``prompt_lens``, bf16 weights drawn on the card
     from seed 0; the launch counts zeroed just before and read just after.
     Then one request through ArcaneEngine("cuda") and ("ref") on the same
-    weights, and the profiler over a prefill and a few decode steps; with
-    ``forward``, ``forward_leg`` on the same weights."""
+    weights, and the profiler over a prefill of ``profile_len`` tokens and
+    a few decode steps; with ``forward``, ``forward_leg`` on the same
+    weights. Prints the seconds of each leg."""
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import tree_leaves
 
@@ -1778,19 +1798,31 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
         f"{k}={v}" for k, v in metrics.items()
         if k not in ("launches", "variants", "prompt_lens", "meta_shapes")), flush=True)
 
+    legs = metrics["legs_s"] = {"serve": time.perf_counter() - t0}
+
+    def lap(leg):
+        legs[leg] = time.perf_counter() - t0 - sum(legs.values())
+
     req = min(done, key=lambda r: r.uid)
-    metrics["greedy_agreement"] = check_logits(torch, summary, cfg, params,
-                                               req.prompt, reference)
+    metrics["greedy_agreement"], metrics["f32_copy"] = check_logits(
+        torch, summary, cfg, params, req.prompt, reference)
+    lap("logits")
     if reference != "ref":
         metrics["gemm_on_activations"] = gemm_on_activations(
             torch, model, params, req.prompt, name)
-    metrics["prefill_profile"] = profile_prefill(torch, model, params, name)
+        lap("gemm_on_activations")
+    metrics["prefill_profile"] = profile_prefill(torch, model, params, name, profile_len)
+    lap("prefill_profile")
     if cfg.rwkv is not None:
         metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
+        lap("wkv_share")
     metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
+    lap("decode_profile")
     if forward:
         del sess, out
         metrics["forward"] = forward_leg(torch, model, params)
+        lap("forward")
+    print(f"serve: {name} seconds by leg {json.dumps(legs)}", flush=True)
     return metrics
 
 
@@ -1875,25 +1907,45 @@ def forward_leg(torch, model, params) -> dict:
 
 
 def check_logits(torch, summary: dict, cfg, params, prompt, reference: str = "ref",
-                 extra=None) -> dict:
+                 extra=None) -> tuple[dict, dict | None]:
     """One request through ArcaneEngine("cuda") and its reference engine on
     the same weights: the served bf16 ones, and for uncapped logits an f32
     copy too (against ref), each within its limits (the f32 copy's argmax
-    equal too) or the run fails. Returns whether each argmax agrees."""
+    equal too) or the run fails. The f32 copy's kernel launches (its
+    prefill of the prompt, one decode step of one row) are zeroed just
+    before and read just after, held exactly to ``expected_launches`` in
+    f32 (``counted_run``: every GEMM past 8 rows on sgemm, every prompt
+    attention on sflash, none on fma or simt). Returns whether each argmax
+    agrees, and the f32 copy's launches, variants and seconds (None for a
+    capped model)."""
     name = cfg.name
     cmp = engines_agree(torch, cfg, params, prompt, logits_limits(cfg), reference,
                         extra)
     summary.setdefault("serve_vs_ref", {})[name] = cmp
     print(f"serve: {name} cuda vs {reference} logits {json.dumps(cmp)}", flush=True)
+    f32_run = None
     if cfg.final_softcap is None:
         import dataclasses
         from repro_torch.models.transformer import tree_map
         cfg32 = dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
         params32 = tree_map(lambda x: x.float(), params)
-        cmp32 = engines_agree(torch, cfg32, params32, prompt,
-                              (None, None, SERVE_F32_RTOL, SERVE_F32_RTOL), extra=extra)
+        enc = extra["audio_embeds"].shape[1] if extra and "audio_embeds" in extra else 0
+        t0 = time.perf_counter()
+        cmp32, counts, variants = counted_run(
+            torch, cfg32,
+            lambda: engines_agree(torch, cfg32, params32, prompt,
+                                  (None, None, SERVE_F32_RTOL, SERVE_F32_RTOL),
+                                  extra=extra),
+            lambda _: (*expected_launches(torch, cfg32, [len(prompt)], 1, 1, enc,
+                                          dtype=torch.float32),
+                       f"(the f32 copy: a prompt of {len(prompt)} tokens and one "
+                       f"decode step, cuda and ref engines)"))
+        f32_run = {"launches": counts, "variants": variants,
+                   "seconds": time.perf_counter() - t0}
         del params32
         summary["serve_vs_ref"][name + " f32"] = cmp32
+        print(f"serve: {name} f32 copy launches {counts} variants {variants} "
+              f"seconds={f32_run['seconds']:.2f} (cuda and ref engines)", flush=True)
         print(f"serve: {name} cuda vs ref logits, f32 copy of the weights "
               f"{json.dumps(cmp32)}", flush=True)
         cmp = {**cmp, **{f"{k} f32": v for k, v in cmp32.items()}}
@@ -1903,7 +1955,7 @@ def check_logits(torch, summary: dict, cfg, params, prompt, reference: str = "re
                  f"disagree: {c}")
         if what.endswith("f32") and not c["argmax_equal"]:
             fail(f"serve: {name}: {what} greedy tokens of the two engines differ: {c}")
-    return {k: v["argmax_equal"] for k, v in cmp.items()}
+    return {k: v["argmax_equal"] for k, v in cmp.items()}, f32_run
 
 
 def wkv_share(torch, model, params, name: str, prompt_len: int = 512) -> dict:
@@ -2043,7 +2095,8 @@ def run_serving(torch, summary: dict, specs, runner) -> dict:
         arch = spec["arch"] + (" --smoke" if spec.get("smoke") else "")
         t0 = time.perf_counter()
         m = out["models"][arch] = runner(torch, summary, **spec)
-        for run in (m, m.get("forward")):        # LM.forward's leg too
+        # LM.forward's leg and the f32 copy's prefill and step too
+        for run in (m, m.get("forward"), m.get("f32_copy")):
             for w, n in (run or {}).get("launches", {}).items():
                 out["launches"][w] = out["launches"].get(w, 0) + n
             for w, vs in (run or {}).get("variants", {}).items():
@@ -2308,8 +2361,8 @@ def run_embed_serve(torch, summary: dict, arch: str, text_lens, max_len: int,
     print(f"serve: {cfg.name} " + " ".join(
         f"{k}={v}" for k, v in metrics.items()
         if k not in ("launches", "variants", "decode_step_ms_all")), flush=True)
-    metrics["greedy_agreement"] = check_logits(torch, summary, cfg, params, prompts[0],
-                                               "ref", extras[0])
+    metrics["greedy_agreement"], metrics["f32_copy"] = check_logits(
+        torch, summary, cfg, params, prompts[0], "ref", extras[0])
     metrics["prefill_profile"] = profile_prefill(torch, model, params, cfg.name,
                                                  max(text_lens), extras[-1])
     metrics["decode_profile"] = profile_steps(torch, run["step"], 3, cfg.name)
@@ -2353,7 +2406,7 @@ def run_decode_host(torch, arch: str, steps: int = 30, warm: int = 3) -> dict:
 
 def profile_prefill(torch, model, params, name: str, prompt_len: int = 512,
                     extra=None) -> dict:
-    """torch.profiler over one prefill of a 512-token prompt at batch 1, as
+    """torch.profiler over one prefill of ``prompt_len`` tokens at batch 1, as
     the session admits a request (in a ``profile_window``; with ``extra``,
     the stub frontends' embeddings of one sequence, behind the vision
     prefix or with the encoder): the card's busy time, its idle share of
@@ -2443,8 +2496,9 @@ def profile_steps(torch, step, steps: int, name: str) -> dict:
 # merge kernel, which follows a split kernel, is left out)
 SERVE_KERNEL_NAMES = {
     "gemm_cuda": ("gemm_fma_kernel", "gemm_imma_kernel", "gemm_wgmma_kernel",
-                  "gemm_wmma_bf16_kernel", "gemv_n_kernel", "gemv_t_kernel"),
-    "flash_attention_cuda": ("flash_kernel", "flash_mma_kernel"),
+                  "gemm_wmma_bf16_kernel", "gemv_n_kernel", "gemv_t_kernel",
+                  "sgemm_kernel"),
+    "flash_attention_cuda": ("flash_kernel", "flash_mma_kernel", "sflash_kernel"),
     "decode_attention_cuda": ("split_kernel", "split_wide_kernel"),
 }
 IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
@@ -2987,10 +3041,10 @@ def serve_trained(torch, summary: dict, trained, ckpt_dir: Path) -> dict:
     sess, counts, variants = counted_run(
         torch, cfg, lambda: serve_prompts(torch, model, params, prompts, 16,
                                           SERVE_TRAINED_MAX_LEN), expect)
-    agree = check_logits(torch, summary, cfg, params, prompts[0])
+    agree, f32_run = check_logits(torch, summary, cfg, params, prompts[0])
     return {"restored_step": step, "restored_equal": same, "launches": counts,
             "variants": variants, "decode_steps": sess.stats["decode_steps"],
-            "greedy_agreement": agree,
+            "greedy_agreement": agree, "f32_copy": f32_run,
             "out_tokens": [r.out_tokens for r in sorted(sess.finished,
                                                         key=lambda r: r.uid)]}
 
@@ -3455,10 +3509,11 @@ def md_checkpoint_serve(torch, summary: dict, cfg, mesh, trained) -> dict:
     sess, counts, variants = counted_run(
         torch, cfg, lambda: serve_prompts(torch, model, params, prompts, 16,
                                           SERVE_TRAINED_MAX_LEN), expect)
-    agree = check_logits(torch, summary, cfg, params, prompts[0])
+    agree, f32_run = check_logits(torch, summary, cfg, params, prompts[0])
     out = {"save_s": save_s, "restore_s": restore_s, "restored_equal": same,
            "launches": counts, "variants": variants,
-           "decode_steps": sess.stats["decode_steps"], "greedy_agreement": agree}
+           "decode_steps": sess.stats["decode_steps"], "greedy_agreement": agree,
+           "f32_copy": f32_run}
     print(f"multi-device: (d) checkpoint and serve {json.dumps(out)}", flush=True)
     return out
 
@@ -5916,6 +5971,34 @@ TP_PHASE_BUDGET_S = {"device": 90, "kernels": 120, "tensor_parallel": 1500}
 RUN_TARGET_S = 900
 
 
+def ptxas_resources(log: str, kernel: str) -> list:
+    """Registers, spill bytes and stack of each instantiation of ``kernel``
+    in an nvcc ``-Xptxas -v`` report (its mangled name cut to the part
+    from the kernel's name on)."""
+    out, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            cur = None
+            if kernel in m.group(1):
+                name = m.group(1)
+                cur = {"function": name[name.index(kernel):], "registers": None,
+                       "spill_stores": None, "spill_loads": None, "stack": None}
+                out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 class PhaseClock:
     """The host seconds of each phase: ``lap`` prints the time since the
     last lap (or since the clock was made) beside the phase's budget,
@@ -5997,11 +6080,22 @@ def main(argv=None) -> None:
         if opts.decode_host or opts.tp_ranks else _build.SOURCES
     build_s = _build.build_all(names)
     print(f"build: {', '.join(names)} in {build_s:.1f}s "
-          f"(nvcc, sm_90a, parallel)", flush=True)
+          f"(nvcc, sm_90a, parallel; each: " + ", ".join(
+              f"{n}.cu {t:.1f}s" for n, t in sorted(_build.BUILD_S.items(),
+                                                   key=lambda kv: -kv[1])) + ")",
+          flush=True)
     (out_dir / "chip_smoke_build.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
+    resources = {k: ptxas_resources(_build.BUILD_LOG.get(src, ""), k)
+                 for src, k in (("gemm", "sgemm_kernel"), ("flash_attention", "sflash_kernel"))}
+    for k, fns in resources.items():
+        for f in fns:
+            print(f"ptxas: {k} {f['function']}: {f['registers']} registers, "
+                  f"{f['spill_stores']} bytes spill stores, {f['spill_loads']} bytes "
+                  f"spill loads, {f['stack']} bytes stack", flush=True)
     summary.update(nvidia_smi=smi_line, device=torch.cuda.get_device_name(0),
-                   torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s)
+                   torch=torch.__version__, cuda=torch.version.cuda, build_s=build_s,
+                   build_s_each=dict(_build.BUILD_S), ptxas=resources)
     clock.lap("device")
 
     if opts.decode_host:
@@ -6115,6 +6209,10 @@ def main(argv=None) -> None:
                                    if phase == "serve" else
                                    [summary["sim"], summary["sim_pipelined"],
                                     summary["dse"]])
+        if phase == "serve":     # the restored granites' f32 copies (phases 5, 5b)
+            runs += [r["f32_copy"] for r in (summary["train"]["serve"],
+                                             summary["multi_device"]["serve"])
+                     if r.get("f32_copy")]
         variants = {}
         for run in runs:
             for v, n in run.get("variants", {}).get(wrapper, {}).items():
@@ -6134,6 +6232,10 @@ def main(argv=None) -> None:
             entry["launches_by_model"].update({
                 f"{a} LM.forward": m["forward"]["launches"][wrapper]
                 for a, m in summary["serve"]["models"].items() if "forward" in m})
+            entry["launches_by_model"].update({
+                f"{a} f32 copy": m["f32_copy"]["launches"][wrapper]
+                for run in (summary["serve"], summary["serve_embeds"])
+                for a, m in run["models"].items() if m.get("f32_copy")})
             entry["launches_by_model"]["trained granite (phase 5)"] = \
                 summary["train"]["serve"]["launches"][wrapper]
             entry["launches_by_model"]["restored granite (phase 5b)"] = \
@@ -6144,12 +6246,17 @@ def main(argv=None) -> None:
                                            f"(phase 5c)"] = res["launches"][wrapper]
         if name == "gemm":       # and by the full-width Mamba block's run
             entry["launches_mamba_block"] = summary["mamba_block"]["gemm_launches"]
-        more = [r for r in mine if r["dtype"] in ("bfloat16", "int8")
-                and r["case"].startswith(MORE_CASES.get(name, ()))]
+        more = [r for r in mine if (r["dtype"] in ("bfloat16", "int8")
+                                    and r["case"].startswith(MORE_CASES.get(name, ())))
+                or r.get("variant") in ("sgemm", "sflash")]
         if more:                 # this slice's own rows of the kernel
             entry["more_cases"] = [{"case": f"{r['case']} {r['dtype']}",
                                     "variant": r.get("variant"),
-                                    **{k: r[k] for k in keys}} for r in more]
+                                    **{k: r[k] for k in keys},
+                                    **({"earlier_variant": r["earlier_variant"],
+                                        "earlier_ms": r["earlier_ms"]}
+                                       if r.get("earlier_variant") else {})}
+                                   for r in more]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,7 +12,8 @@
 // the query tile can see are skipped, as the TPU kernel skips blocks.
 //
 // What bounds it on this card: operations, 4 * D flop per visible (row,
-// col) pair, at the tensor cores' rate for bf16. Two variants, picked by
+// col) pair, at the tensor cores' rate for bf16 and the CUDA cores' for
+// f32. Three variants, picked by
 // the caller from the operands (never by failure) and checked again here:
 //  * mma (bf16, D a multiple of 16 up to 256, D stride 1, every other
 //    stride and each base 16-byte aligned): FA2-style on tensor cores. One
@@ -32,12 +33,18 @@
 //    registers a thread. D is a template constant for 64, 80, 128 and 256.
 //    The one rounding the f32 kernel does not make is P in bf16 before
 //    P V: at most 2^-9 max|v|.
-//  * simt (f32, or any other layout): CUDA cores in f32, one block of 8
+//  * sflash (f32, D stride 1, the other strides multiples of 16 bytes,
+//    16-byte aligned bases): true f32 on the CUDA cores (67 TFLOP/s; tensor
+//    cores would mean TF32), FA2-style: 64 query rows a block, tiles of K
+//    and V refilled through cp.async as soon as read, S = Q K^T and O += P V as
+//    register-tiled SIMT products with float4 shared reads, the online
+//    softmax in exp2 with log2 e folded into the scale.
+//  * simt (bf16 or f32 operands that mma and sflash do not take; the
+//    earlier design of both): CUDA cores in f32, one block of 8
 //    warps per 32-row query tile and head; the query tile (pre-scaled) and
 //    one 32-key tile of K and V sit in shared memory as f32, lane j of a
 //    warp scores key j for the warp's 4 rows, and the P @ V step spreads D
-//    over the lanes. Any strides, D a multiple of 4 up to 256. The port's
-//    f32 is true f32: tensor cores would mean TF32.
+//    over the lanes. Any strides, D a multiple of 4 up to 256.
 // Every launch returns cudaGetLastError() to the caller.
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -535,7 +542,332 @@ int launch_mma(const void* q, const void* k, const void* v, void* out, int B,
   return launch_mma_d<256, false>(q, k, v, out, B, a, s);
 }
 
+// ------------------------------------------------------- f32 CUDA cores
+// sflash: f32 with D stride 1, every other stride a multiple of 4 elements
+// and each base 16-byte aligned (sflash_ok), D a multiple of 4 up to 256.
+// True f32 on the CUDA cores. One block of 256 threads per 64 query rows
+// and head, so that each tile of K and V serves 64 rows (twice simt's 32).
+// Q is copied to shared memory once; 64-key tiles of K and of V each have
+// one buffer, refilled by 16-byte cp.async as soon as the step that reads
+// it is done: K's next tile loads during P V, V's during the next Q K^T,
+// so every copy overlaps math and D = 256 takes 64-key tiles too. Rows
+// are padded to an odd number of 16-byte chunks, so that 8
+// consecutive rows read as float4 fall in distinct bank groups. S = Q K^T
+// and O += P V are two register-tiled SIMT products: lane (tr, tk) = (tid
+// / 16, tid % 16) keeps the scores of rows tr + 16 i (i < 4) and keys tk +
+// 16 j, reading Q and K along D as float4 (the 16 lanes of a row share
+// each Q read), and the sums of O of the same rows at the float4 chunks tk
+// + 16 c of D; P goes through shared memory and is read as float4 along
+// the keys. Chunks past the last multiple of 16 (D = 80: 4, D = 96: 8) are
+// spread as (row, chunk) pairs over the 16 lanes, so no lane idles in
+// P V. The online softmax runs in log2 units (scale * log2 e folded into
+// the scores, exp2): a row's max goes across its 16 lanes (a half warp) by
+// shuffles each tile, its sum stays a partial a lane until the end. The
+// grid is (heads, batch, query tiles) with the longest causal tiles first,
+// so the card starts every head's longest tile before any shorter one. D
+// is a template constant for the served head sizes (64, 80, 96, 128, 256);
+// any other multiple of 4 runs with D read at run time.
+namespace sf {
+
+constexpr int THREADS = 256;
+constexpr int BQ = 64;                  // query rows a block
+constexpr int BKV = 64;                 // keys a tile
+constexpr int KS = BKV / 16;            // keys a lane
+constexpr int LP = BKV + 16;            // a row of P: a warp's two rows in other banks
+
+// A staged row: D plus 4 or 8 floats, an odd number of 16-byte chunks.
+__host__ __device__ constexpr int ld_of(int D) { return D + (D % 8 == 0 ? 4 : 8); }
+
+inline size_t smem_bytes(int D) {
+  return sizeof(float) * ((size_t)(BQ + 2 * BKV) * ld_of(D) + (size_t)BQ * LP);
+}
+
+__device__ __forceinline__ float pick4(const float (&x)[4], int i) {
+  return i == 0 ? x[0] : i == 1 ? x[1] : i == 2 ? x[2] : x[3];
+}
+__device__ __forceinline__ float comp(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+__device__ __forceinline__ void fma4(float (&o)[4], float p, const float4& v) {
+  o[0] = fmaf(p, v.x, o[0]);
+  o[1] = fmaf(p, v.y, o[1]);
+  o[2] = fmaf(p, v.z, o[2]);
+  o[3] = fmaf(p, v.w, o[3]);
+}
+
+// EXACT: D == DMAX. Else D (<= DMAX, a multiple of 4) is read at run time
+// and a lane's last chunk column may lie past it.
+template <int DMAX, bool EXACT>
+__global__ void __launch_bounds__(THREADS, 1)
+sflash_kernel(const float* __restrict__ q, const float* __restrict__ k,
+              const float* __restrict__ v, float* __restrict__ out, Args a) {
+  constexpr int CH = DMAX / 4;                       // float4 chunks of D
+  constexpr int NF = EXACT ? CH / 16 : (CH + 15) / 16;   // chunk columns a lane
+  constexpr int REM = EXACT ? CH - 16 * NF : 0;      // the chunks past them
+  constexpr int PL = (4 * REM + 15) / 16;            // (row, chunk) pairs a lane
+  constexpr int PLA = PL > 0 ? PL : 1;
+  extern __shared__ __align__(16) float smem[];
+  const int D = EXACT ? DMAX : a.D, LD = ld_of(D), chunks = D / 4;
+  float* Qs = smem;                     // [BQ][LD]
+  float* Ks = Qs + BQ * LD;             // [BKV][LD]
+  float* Vs = Ks + BKV * LD;            // [BKV][LD]
+  float* Ps = Vs + BKV * LD;            // [BQ][LP]
+  const int tid = threadIdx.x, tr = tid / 16, tk = tid % 16;
+  // blocks start in the order of their index, heads fastest: the longest
+  // causal tiles (the last rows) first, they finish last
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int h = blockIdx.x, b = blockIdx.y, hk = h / a.group;
+  const float* qp = q + b * a.sqb + h * a.sqh;
+  const float* kp = k + b * a.skb + hk * a.skh;
+  const float* vp = v + b * a.svb + hk * a.svh;
+
+  for (int i = tid; i < BQ * chunks; i += THREADS) {
+    const int r = i / chunks, c = (i % chunks) * 4, row = q0 + r;
+    const bool in = row < a.Sq;
+    cp_async16(smem_u32(Qs + r * LD + c), qp + (in ? row * a.sqs + c : 0), in);
+  }
+
+  // columns any row of this tile can see
+  const int q_last = min(q0 + BQ, a.Sq) - 1;
+  const int lo = a.window > 0 ? max(0, q0 - a.window + 1) : 0;
+  int hi = a.causal ? q_last + 1 : a.Skv;
+  hi = min(hi, a.kv_len);
+  const int kbase = (lo / BKV) * BKV;
+  const int ntiles = hi > kbase ? (hi - kbase + BKV - 1) / BKV : 0;
+
+  auto load = [&](float* dst, const float* src, ll stride, int it) {
+    const int k0 = kbase + it * BKV;
+    for (int i = tid; i < BKV * chunks; i += THREADS) {
+      const int r = i / chunks, c = (i % chunks) * 4, col = k0 + r;
+      const bool in = col < a.Skv;
+      cp_async16(smem_u32(dst + r * LD + c), src + (in ? col * stride + c : 0), in);
+    }
+  };
+  if (ntiles > 0) load(Ks, kp, a.sks, 0);
+  cp_commit();                          // Q and K's first tile
+  if (ntiles > 0) load(Vs, vp, a.svs, 0);
+  cp_commit();                          // V's first tile
+
+  float o[4][NF][4], oe[PLA][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < NF; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][c][e] = 0.0f;
+  // pair p of this lane: row tr + 16 pr[p], chunk pc[p]
+  int pr[PLA], pc[PLA];
+  bool pok[PLA];
+#pragma unroll
+  for (int p = 0; p < PLA; ++p) {
+    const int x = tk + 16 * p;
+    pok[p] = PL > 0 && x < 4 * REM;
+    pr[p] = REM > 0 ? x / REM : 0;
+    pc[p] = 16 * NF + (REM > 0 ? x % REM : 0);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) oe[p][e] = 0.0f;
+  }
+  float m_r[4], l_r[4];                 // l_r: this lane's keys only, until the end
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    m_r[i] = NEG_INF;
+    l_r[i] = 0.0f;
+  }
+  const bool capped = a.softcap > 0.0f;
+  const float sl = a.scale * LOG2E;     // scores in log2 units
+  const float cap_in = capped ? a.scale / a.softcap : 0.0f;
+  const float cap_out = a.softcap * LOG2E;
+  const bool last_ok = EXACT || tk + 16 * (NF - 1) < chunks;   // the lane's last column
+  const float* qr = Qs + tr * LD;
+  const float* kr = Ks + tk * LD;
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_wait<1>();                       // K's tile (and Q) landed; V's may be in flight
+    __syncthreads();
+    const int k0 = kbase + it * BKV;
+
+    // S = Q K^T
+    float s[4][KS];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KS; ++j) s[i][j] = 0.0f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[4], kv[KS];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) qv[i] = *reinterpret_cast<const float4*>(qr + 16 * i * LD + d);
+#pragma unroll
+      for (int j = 0; j < KS; ++j) kv[j] = *reinterpret_cast<const float4*>(kr + 16 * j * LD + d);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < KS; ++j) {
+          float x = s[i][j];
+          x = fmaf(qv[i].x, kv[j].x, x);
+          x = fmaf(qv[i].y, kv[j].y, x);
+          x = fmaf(qv[i].z, kv[j].z, x);
+          s[i][j] = fmaf(qv[i].w, kv[j].w, x);
+        }
+    }
+    // scale, soft cap, mask
+    const bool full = k0 + BKV <= a.kv_len && (!a.causal || k0 + BKV - 1 <= q0) &&
+                      (a.window <= 0 || k0 > q0 + BQ - 1 - a.window);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        float x = capped ? cap_out * tanhf(s[i][j] * cap_in) : s[i][j] * sl;
+        if (!full) {
+          const int row = q0 + tr + 16 * i, col = k0 + tk + 16 * j;
+          bool ok = col < a.kv_len;
+          if (a.causal) ok = ok && col <= row;
+          if (a.window > 0) ok = ok && col > row - a.window;
+          x = ok ? x : NEG_INF;
+        }
+        s[i][j] = x;
+      }
+    // online softmax, each row over its half warp; P to shared memory
+    float alpha[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      float mx = s[i][0];
+#pragma unroll
+      for (int j = 1; j < KS; ++j) mx = fmaxf(mx, s[i][j]);
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      mx = fmaxf(m_r[i], mx);
+      alpha[i] = exp2f(m_r[i] - mx);
+      m_r[i] = mx;
+      float ls = 0.0f;
+#pragma unroll
+      for (int j = 0; j < KS; ++j) {
+        const float p = exp2f(s[i][j] - mx);
+        ls += p;
+        Ps[(tr + 16 * i) * LP + tk + 16 * j] = p;
+      }
+      l_r[i] = l_r[i] * alpha[i] + ls;
+#pragma unroll
+      for (int c = 0; c < NF; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][c][e] *= alpha[i];
+    }
+#pragma unroll
+    for (int p = 0; p < PL; ++p) {
+      const float al = pick4(alpha, pr[p]);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) oe[p][e] *= al;
+    }
+    cp_wait<0>();                       // V's tile landed
+    __syncthreads();                    // P and V are in; K's tile is read
+    if (it + 1 < ntiles) load(Ks, kp, a.sks, it + 1);
+    cp_commit();
+    // O += P V
+#pragma unroll 2
+    for (int kq = 0; kq < BKV / 4; ++kq) {
+      float4 pv[4], pe[PLA];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(Ps + (tr + 16 * i) * LP + kq * 4);
+#pragma unroll
+      for (int p = 0; p < PL; ++p)
+        pe[p] = pok[p] ? *reinterpret_cast<const float4*>(Ps + (tr + 16 * pr[p]) * LP + kq * 4)
+                       : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const float* vr = Vs + (kq * 4 + kk) * LD;
+        float4 vv[NF], ve[PLA];
+#pragma unroll
+        for (int c = 0; c < NF; ++c)
+          vv[c] = (c < NF - 1 || last_ok)
+                      ? *reinterpret_cast<const float4*>(vr + (tk + 16 * c) * 4)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int p = 0; p < PL; ++p)
+          ve[p] = pok[p] ? *reinterpret_cast<const float4*>(vr + pc[p] * 4)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < NF; ++c) fma4(o[i][c], comp(pv[i], kk), vv[c]);
+#pragma unroll
+        for (int p = 0; p < PL; ++p) fma4(oe[p], comp(pe[p], kk), ve[p]);
+      }
+    }
+    __syncthreads();                    // V's tile and P are read
+    if (it + 1 < ntiles) load(Vs, vp, a.svs, it + 1);
+    cp_commit();
+  }
+  cp_wait<0>();
+
+  float* op = out + ((ll)b * a.Hq + h) * a.Sq * D;
+  float inv[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float l = l_r[i];
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1) l += __shfl_xor_sync(0xffffffffu, l, off);
+    inv[i] = 1.0f / fmaxf(l, 1e-30f);
+    const int row = q0 + tr + 16 * i;
+    if (row >= a.Sq) continue;
+#pragma unroll
+    for (int c = 0; c < NF; ++c)
+      if (c < NF - 1 || last_ok)
+        *reinterpret_cast<float4*>(op + (ll)row * D + (tk + 16 * c) * 4) =
+            make_float4(o[i][c][0] * inv[i], o[i][c][1] * inv[i], o[i][c][2] * inv[i],
+                        o[i][c][3] * inv[i]);
+  }
+#pragma unroll
+  for (int p = 0; p < PL; ++p) {
+    const int row = q0 + tr + 16 * pr[p];
+    const float iv = pick4(inv, pr[p]);
+    if (pok[p] && row < a.Sq)
+      *reinterpret_cast<float4*>(op + (ll)row * D + pc[p] * 4) =
+          make_float4(oe[p][0] * iv, oe[p][1] * iv, oe[p][2] * iv, oe[p][3] * iv);
+  }
+}
+
+template <int DMAX, bool EXACT>
+int launch_d(const void* q, const void* k, const void* v, void* out, int B,
+             const Args& a, cudaStream_t s) {
+  const size_t bytes = smem_bytes(a.D);
+  auto kern = sflash_kernel<DMAX, EXACT>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(a.Hq, B, (a.Sq + BQ - 1) / BQ);
+  kern<<<grid, THREADS, bytes, s>>>((const float*)q, (const float*)k, (const float*)v,
+                                    (float*)out, a);
+  return 0;
+}
+
+int launch(const void* q, const void* k, const void* v, void* out, int B,
+           const Args& a, cudaStream_t s) {
+  switch (a.D) {                        // the served head sizes
+    case 64: return launch_d<64, true>(q, k, v, out, B, a, s);
+    case 80: return launch_d<80, true>(q, k, v, out, B, a, s);
+    case 96: return launch_d<96, true>(q, k, v, out, B, a, s);
+    case 128: return launch_d<128, true>(q, k, v, out, B, a, s);
+    case 256: return launch_d<256, true>(q, k, v, out, B, a, s);
+  }
+  if (a.D <= 64) return launch_d<64, false>(q, k, v, out, B, a, s);
+  if (a.D <= 128) return launch_d<128, false>(q, k, v, out, B, a, s);
+  return launch_d<256, false>(q, k, v, out, B, a, s);
+}
+
+}  // namespace sf
+
 inline bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
+
+// What the sflash variant takes (flash_variant in kernel.py mirrors it).
+bool sflash_ok(const void* q, const void* k, const void* v, const ll* st, int D,
+               int dtype_code) {
+  if (dtype_code != 0 || D % 4 != 0 || D > 256) return false;
+  if (st[3] != 1 || st[7] != 1 || st[11] != 1) return false;
+  for (int i = 0; i < 12; ++i)          // batch, head and row strides
+    if (i % 4 != 3 && st[i] % 4 != 0) return false;
+  return aligned16(q) && aligned16(k) && aligned16(v);
+}
 
 // What the mma variant takes (flash_variant in kernel.py mirrors it).
 bool mma_ok(const void* q, const void* k, const void* v, const ll* st, int D,
@@ -549,10 +881,11 @@ bool mma_ok(const void* q, const void* k, const void* v, const ll* st, int D,
 
 }  // namespace
 
-// dtype_code 0 f32, 1 bf16; variant 0 simt, 1 mma (refused with
+// dtype_code 0 f32, 1 bf16; variant 0 simt, 1 mma, 2 sflash (refused with
 // cudaErrorInvalidValue when the operands do not allow it). q, k, v take any
-// strides (simt) or the mma layout; out is (B, Hq, Sq, D) contiguous. D is
-// a multiple of 4 up to 256. softcap <= 0 means none, window <= 0 none.
+// strides (simt) or the mma or sflash layout; out is (B, Hq, Sq, D)
+// contiguous. D is a multiple of 4 up to 256. softcap <= 0 means none,
+// window <= 0 none.
 extern "C" int flash_attention_launch(
     const void* q, ll sqb, ll sqh, ll sqs, ll sqd, const void* k, ll skb,
     ll skh, ll sks, ll skd, const void* v, ll svb, ll svh, ll svs, ll svd,
@@ -562,14 +895,16 @@ extern "C" int flash_attention_launch(
   if (D > 256 || D % 4 != 0 || Hkv <= 0 || Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const ll st[12] = {sqb, sqh, sqs, sqd, skb, skh, sks, skd, svb, svh, svs, svd};
-  if (variant == 1 ? !mma_ok(q, k, v, st, D, dtype_code) : variant != 0)
-    return (int)cudaErrorInvalidValue;
+  const bool ok = variant == 0 || (variant == 1 && mma_ok(q, k, v, st, D, dtype_code)) ||
+                  (variant == 2 && sflash_ok(q, k, v, st, D, dtype_code));
+  if (!ok) return (int)cudaErrorInvalidValue;
   if (B * Hq * Sq == 0) return (int)cudaGetLastError();
   const Args a{sqb, sqh, sqs, sqd, skb, skh, sks, skd, svb, svh, svs, svd,
                Hq, Hq / Hkv, Sq, Skv, D, kv_len, causal, window, softcap, scale};
   cudaStream_t s = (cudaStream_t)stream;
   int err;
   if (variant == 1) err = launch_mma(q, k, v, out, B, a, s);
+  else if (variant == 2) err = sf::launch(q, k, v, out, B, a, s);
   else if (dtype_code == 0) err = launch<float>(q, k, v, out, B, a, s);
   else err = launch<bf16>(q, k, v, out, B, a, s);
   if (err) return err;

@@ -40,9 +40,13 @@
 //    them into each column's fragment. The sums are int32, exact in any
 //    order, so the output is bit for bit the CUDA-core kernel's. A
 //    K-contiguous B (a transposed view) loads as A does.
-//    f32, and int8 that imma does not take, run on a register-blocked
-//    CUDA-core kernel (fma).
-//  * The variant (gemv, wgmma, wmma, imma, fma) is picked by the caller
+//  * f32 at M > 8 with the same layouts (A K-contiguous, B N- or
+//    K-contiguous, 16-byte rows) stays on the CUDA cores in true f32
+//    (sgemm): 128x128 block tiles (128x64 for small grids), a 4-stage
+//    cp.async ring, float4 shared reads that feed 4 FMAs a float, 8x8
+//    register tiles a lane. f32 and int8 that sgemm and imma do not take
+//    run on a register-blocked CUDA-core kernel (fma), their earlier design.
+//  * The variant (gemv, wgmma, wmma, imma, sgemm, fma) is picked by the caller
 //    from the operands (gemm_variant in kernel.py) and checked again here;
 //    a variant that cannot take the operands is refused, never replaced.
 //  * C is read through its own strides, so a broadcast bias (M stride 0)
@@ -566,7 +570,7 @@ void launch(Args g, const Epi& e, cudaStream_t s) {
 }  // namespace gv
 
 // ------------------------------------------------------- CUDA-core tiles
-// f32 at M > 8, and int8 operands that imma does not take: a 64x64 block
+// f32 and int8 operands at M > 8 that sgemm and imma do not take: a 64x64 block
 // tile, K steps of 16, each thread a 4x4 register tile on a strided layout
 // (conflict-free shared reads).
 template <typename T>
@@ -1238,6 +1242,241 @@ void launch(const int8_t* a, ll sam, const int8_t* b, ll sbk, ll sbn, bool nb, i
 
 }  // namespace im
 
+// ----------------------------------------------------- f32 SIMT (sgemm)
+// f32 at M > 8, A K-contiguous with 16-byte rows, B N- or K-contiguous
+// with 16-byte rows (mma_layout with 4-byte elements). True f32 FMA on the
+// CUDA cores (67 TFLOP/s): tensor cores would mean TF32. A 128x128 block
+// tile (128x64 where 128-wide tiles would fill at most half the SMs), K
+// steps of 16, a ring of STAGES stages in dynamic shared memory filled by
+// 16-byte cp.async (zero-filled past the ragged M, N and K edges), so that
+// the next tiles load while this one is multiplied. 256 threads, 4 x 2
+// warps of 32 rows x BN/2 columns, each lane 8 rows x BN/16 columns of
+// register sums (64 at BN = 128; with B N-contiguous at most 128
+// registers a thread, so that two blocks share an SM). A is staged as it
+// lies (rows of K, 80
+// bytes apart: the 4 rows a warp reads at once fall in distinct bank
+// groups) and read 4 k at a time as float4, the 8 lanes of a row sharing
+// each read; B N-contiguous is staged in rows of K and read as float4 along
+// N (8 lanes, 128 contiguous bytes), B K-contiguous (a transposed view)
+// like A, in rows of N. Each k-quad a lane makes 16 float4 reads for 256
+// FMAs (BN = 128): 4 FMAs a shared float. With B K-contiguous a lane's
+// columns are 8 apart, so the tile's sums leave through shared memory, a
+// row of the output in one contiguous run. M tiles vary fastest, so the
+// blocks that share a strip of B run together.
+namespace sg {
+
+constexpr int BM = 128, BK = 16, STAGES = 4, THREADS = 256;
+constexpr int LD = BK + 4;                         // a staged row of K: 80 bytes
+
+template <int BN, bool NB> struct Ring {
+  static constexpr int A = BM * LD;                // floats of A a stage
+  static constexpr int B = NB ? BK * BN : BN * LD; // of B
+  static constexpr int STAGE = A + B;
+  static constexpr int BYTES = STAGES * STAGE * 4;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+
+// Bytes of a 16-byte chunk that lie inside a row of `len` floats from `at`.
+__device__ __forceinline__ int in_row(int at, int len) {
+  return at >= len ? 0 : (len - at >= 4 ? 16 : 4 * (len - at));
+}
+
+template <int BN, bool NB>
+__global__ void __launch_bounds__(THREADS, NB ? 2 : 1)
+sgemm_kernel(const float* __restrict__ a, ll sam, const float* __restrict__ b, ll sb,
+             int M, int N, int K, Epi e) {
+  // sb: B's row stride, along K (NB) or along N
+  using R = Ring<BN, NB>;
+  constexpr int TN = BN / 16, WN = BN / 2;         // columns a lane, a warp
+  constexpr int BCH = NB ? BK * BN / 4 : BN * BK / 4;   // B's 16-byte chunks a stage
+  extern __shared__ __align__(16) float smem[];
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int wm = warp / 2, wn = warp % 2, ty = lane / 8, tx = lane % 8;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int KT = (K + BK - 1) / BK;
+
+  auto load = [&](int st, int kt) {
+    float* as = smem + st * R::STAGE;
+    float* bs = as + R::A;
+    const int k0 = kt * BK;
+#pragma unroll
+    for (int i = 0; i < BM * BK / 4 / THREADS; ++i) {   // A: rows of M, 4 chunks
+      const int q = tid + i * THREADS, r = q / 4, c = q % 4, m = m0 + r;
+      const int ab = m < M ? in_row(k0 + c * 4, K) : 0;
+      im::cp16(smem_u32(as + r * LD + c * 4), ab ? a + (ll)m * sam + k0 + c * 4 : a, ab);
+    }
+#pragma unroll
+    for (int i = 0; i < BCH / THREADS; ++i) {
+      const int q = tid + i * THREADS;
+      if constexpr (NB) {                          // rows of K, BN / 4 chunks
+        const int r = q / (BN / 4), c = q % (BN / 4);
+        const int bb = k0 + r < K ? in_row(n0 + c * 4, N) : 0;
+        im::cp16(smem_u32(bs + r * BN + c * 4), bb ? b + (ll)(k0 + r) * sb + n0 + c * 4 : b,
+                 bb);
+      } else {                                     // rows of N, 4 chunks
+        const int r = q / 4, c = q % 4, n = n0 + r;
+        const int bb = n < N ? in_row(k0 + c * 4, K) : 0;
+        im::cp16(smem_u32(bs + r * LD + c * 4), bb ? b + (ll)n * sb + k0 + c * 4 : b, bb);
+      }
+    }
+  };
+
+  float acc[8][TN];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < STAGES - 1; ++st) {
+    if (st < KT) load(st, st);
+    im::cp_commit();
+  }
+  const int arow = (wm * 32 + ty) * LD;            // the lane's first row of A
+  const int bcol = NB ? wn * WN + tx * 4 : (wn * WN + tx) * LD;
+  for (int kt = 0; kt < KT; ++kt) {
+    im::cp_wait<STAGES - 2>();
+    __syncthreads();                               // stage kt is in; kt - 1 is read
+    if (kt + STAGES - 1 < KT) load((kt + STAGES - 1) % STAGES, kt + STAGES - 1);
+    im::cp_commit();
+    const float* as = smem + (kt % STAGES) * R::STAGE + arow;
+    const float* bs = smem + (kt % STAGES) * R::STAGE + R::A + bcol;
+#pragma unroll
+    for (int kq = 0; kq < BK / 4; ++kq) {
+      float4 av[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)                  // rows ty + 4 i of the warp's 32
+        av[i] = *reinterpret_cast<const float4*>(as + 4 * i * LD + kq * 4);
+      if constexpr (NB) {
+        float4 bv[4][TN / 4];                      // 4 k x columns tx*4 + 32 j + 0..3
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int j = 0; j < TN / 4; ++j)
+            bv[kk][j] = *reinterpret_cast<const float4*>(bs + (kq * 4 + kk) * BN + 32 * j);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float x = kk == 0 ? av[i].x : kk == 1 ? av[i].y : kk == 2 ? av[i].z : av[i].w;
+#pragma unroll
+            for (int j = 0; j < TN / 4; ++j) {
+              acc[i][4 * j] = fmaf(x, bv[kk][j].x, acc[i][4 * j]);
+              acc[i][4 * j + 1] = fmaf(x, bv[kk][j].y, acc[i][4 * j + 1]);
+              acc[i][4 * j + 2] = fmaf(x, bv[kk][j].z, acc[i][4 * j + 2]);
+              acc[i][4 * j + 3] = fmaf(x, bv[kk][j].w, acc[i][4 * j + 3]);
+            }
+          }
+      } else {
+        float4 bv[TN];                             // columns tx + 8 j, 4 k each
+#pragma unroll
+        for (int j = 0; j < TN; ++j)
+          bv[j] = *reinterpret_cast<const float4*>(bs + 8 * j * LD + kq * 4);
+#pragma unroll
+        for (int i = 0; i < 8; ++i)
+#pragma unroll
+          for (int j = 0; j < TN; ++j) {
+            float s = acc[i][j];
+            s = fmaf(av[i].x, bv[j].x, s);
+            s = fmaf(av[i].y, bv[j].y, s);
+            s = fmaf(av[i].z, bv[j].z, s);
+            acc[i][j] = fmaf(av[i].w, bv[j].w, s);
+          }
+      }
+    }
+  }
+  im::cp_wait<0>();
+  if constexpr (NB) {
+    // columns tx*4 + 32 (j / 4) + j % 4: pairs straight from the registers
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + wm * 32 + ty + 4 * i;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < TN; j += 2)
+        epilogue_pair(e, m, n0 + wn * WN + tx * 4 + 32 * (j / 4) + j % 4, acc[i][j],
+                      acc[i][j + 1]);
+    }
+  } else {
+    // columns tx + 8 j: the tile's sums meet in shared memory (the ring:
+    // BM rows of BN + 4), then a row's BN / 2 column pairs go to
+    // consecutive threads, each output row in one contiguous run
+    constexpr int LS = BN + 4;
+    static_assert(BM * LS <= STAGES * R::STAGE, "the tile's sums fit the ring");
+    float* sums = smem;
+    __syncthreads();                               // the ring is no longer read
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j)
+        sums[(wm * 32 + ty + 4 * i) * LS + wn * WN + tx + 8 * j] = acc[i][j];
+    __syncthreads();
+    for (int i = tid; i < BM * BN / 2; i += THREADS) {
+      const int r = i / (BN / 2), c = 2 * (i % (BN / 2)), m = m0 + r;
+      if (m < M) epilogue_pair(e, m, n0 + c, sums[r * LS + c], sums[r * LS + c + 1]);
+    }
+  }
+}
+
+template <int BN, bool NB>
+cudaError_t allow_smem() {
+  return cudaFuncSetAttribute(sgemm_kernel<BN, NB>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              Ring<BN, NB>::BYTES);
+}
+
+// Per device, once: its SM count, and the dynamic shared memory of each
+// instantiation.
+int setup(int* sms) {
+  static int cached[wg::MAX_DEVICES] = {};         // 0: not set up yet
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 0 || dev >= wg::MAX_DEVICES) return (int)cudaErrorInvalidDevice;
+  if (cached[dev] == 0) {
+    int n = 0;
+    err = cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) err = allow_smem<128, true>();
+    if (err == cudaSuccess) err = allow_smem<128, false>();
+    if (err == cudaSuccess) err = allow_smem<64, true>();
+    if (err == cudaSuccess) err = allow_smem<64, false>();
+    if (err != cudaSuccess) return (int)err;
+    cached[dev] = n;
+  }
+  *sms = cached[dev];
+  return 0;
+}
+
+template <int BN, bool NB>
+void launch_bn(const float* a, ll sam, const float* b, ll sb, int M, int N, int K,
+               const Epi& e, cudaStream_t s) {
+  const dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  sgemm_kernel<BN, NB><<<grid, THREADS, Ring<BN, NB>::BYTES, s>>>(a, sam, b, sb, M, N, K, e);
+}
+
+// nb: B is N-contiguous (rows of N, sbk apart), else K-contiguous (rows of
+// K, sbn apart).
+int launch(const float* a, ll sam, const float* b, ll sbk, ll sbn, bool nb, int M,
+           int N, int K, const Epi& e, cudaStream_t s) {
+  int sms = 0;
+  const int err = setup(&sms);
+  if (err) return err;
+  const ll tiles = (ll)((M + BM - 1) / BM) * ((N + 127) / 128);
+  if (2 * tiles > sms) {
+    if (nb) launch_bn<128, true>(a, sam, b, sbk, M, N, K, e, s);
+    else launch_bn<128, false>(a, sam, b, sbn, M, N, K, e, s);
+  } else {
+    if (nb) launch_bn<64, true>(a, sam, b, sbk, M, N, K, e, s);
+    else launch_bn<64, false>(a, sam, b, sbn, M, N, K, e, s);
+  }
+  return 0;
+}
+
+}  // namespace sg
+
 template <typename T>
 void launch_fma(const T* a, ll sam, ll sak, const T* b, ll sbk, ll sbn,
                 int M, int N, int K, const Epi& e, cudaStream_t s) {
@@ -1260,7 +1499,7 @@ void launch_wmma(const bf16* a, ll sam, ll sak, const bf16* b, ll sbk, ll sbn,
     gemm_wmma_bf16_kernel<false, false><<<grid, THREADS, 0, s>>>(a, sam, sak, b, sbk, sbn, M, N, K, e);
 }
 
-enum Variant { GEMV = 0, WGMMA = 1, WMMA = 2, FMA = 3, IMMA = 4 };
+enum Variant { GEMV = 0, WGMMA = 1, WMMA = 2, FMA = 3, IMMA = 4, SGEMM = 5 };
 
 // A 2-D operand whose rows a tensor map or 16-byte copies can tile: inner
 // stride 1, rows a multiple of 16 bytes apart and no shorter than `inner`
@@ -1269,7 +1508,7 @@ bool rows16(const void* p, ll rows, ll cols, ll inner, int elem) {
   return cols == 1 && (rows * elem) % 16 == 0 && rows >= inner && aligned(p, 16);
 }
 
-// B's layout for wgmma (bf16) and imma (int8) at M > 8, A's rows tiled
+// B's layout for wgmma (bf16), imma (int8) and sgemm (f32) at M > 8, A's rows tiled
 // (gemm_variant in kernel.py mirrors it): 1 N-contiguous, 2 K-contiguous,
 // 0 neither (the variant is refused).
 int mma_layout(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
@@ -1284,8 +1523,9 @@ int mma_layout(const void* a, ll sam, ll sak, const void* b, ll sbk, ll sbn,
 
 // Type codes: 0 f32, 1 bf16, 2 int8, 3 int32. Variant: 0 gemv (M <= 8), 1
 // wgmma (bf16, M > 8, mma_layout), 2 wmma (bf16, M > 8), 3 fma (f32 or
-// int8, M > 8), 4 imma (int8, M > 8, mma_layout); a variant that cannot
-// take the operands returns cudaErrorInvalidValue. c may be null
+// int8, M > 8), 4 imma (int8, M > 8, mma_layout), 5 sgemm (f32, M > 8,
+// mma_layout); a variant that cannot take the operands returns
+// cudaErrorInvalidValue. c may be null
 // (no epilogue term). d is (M, N) contiguous. gemv only: K is split into
 // `splits` runs of `chunk` rows (gemv_plan in kernel.py); with splits > 1,
 // ws holds splits * M * N partial sums (f32, int32 for int8) and tickets
@@ -1304,13 +1544,15 @@ extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
   cudaStream_t s = (cudaStream_t)stream;
   if (in_code != F32 && in_code != BF16 && in_code != I8) return (int)cudaErrorInvalidValue;
   bool ok;
-  const int layout = mma_layout(a, sam, sak, b, sbk, sbn, M, N, K, in_code == I8 ? 1 : 2);
+  const int elem = in_code == I8 ? 1 : in_code == BF16 ? 2 : 4;
+  const int layout = mma_layout(a, sam, sak, b, sbk, sbn, M, N, K, elem);
   switch (variant) {
     case GEMV: ok = M <= 8 && gv::plan_ok(g); break;
     case WGMMA: ok = in_code == BF16 && layout != 0; break;
     case WMMA: ok = in_code == BF16 && M > 8; break;
     case FMA: ok = in_code != BF16 && M > 8; break;
     case IMMA: ok = in_code == I8 && layout != 0; break;
+    case SGEMM: ok = in_code == F32 && layout != 0; break;
     default: ok = false;
   }
   if (!ok) return (int)cudaErrorInvalidValue;
@@ -1331,6 +1573,10 @@ extern "C" int gemm_launch(const void* a, ll sam, ll sak, const void* b,
       break;
     case IMMA:
       im::launch((const int8_t*)a, sam, (const int8_t*)b, sbk, sbn, layout == 1, M, N, K, e, s);
+      break;
+    case SGEMM:
+      err = sg::launch((const float*)a, sam, (const float*)b, sbk, sbn, layout == 1, M, N, K,
+                       e, s);
       break;
     default:
       if (in_code == F32) launch_fma((const float*)a, sam, sak, (const float*)b, sbk, sbn, M, N, K, e, s);

@@ -14,6 +14,7 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -26,6 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LIBS: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}       # name -> ptxas report of the last build
+BUILD_S: dict[str, float] = {}       # name -> seconds its last nvcc took
 
 
 def nvcc_path() -> str:
@@ -68,15 +70,24 @@ def _finish(name: str, proc: subprocess.Popen) -> None:
 
 
 def build_all(names=SOURCES) -> float:
-    """Compile every stale source in parallel; returns the seconds taken."""
+    """Compile every stale source in parallel; returns the seconds taken
+    (each source's in ``BUILD_S``)."""
     t0 = time.perf_counter()
     procs = {n: _start(n) for n in names if _stale(n)}
     errors = []
-    for n, p in procs.items():
+
+    def finish(n, p):            # a thread each: every compiler's output drained
         try:
             _finish(n, p)
         except RuntimeError as e:
             errors.append(str(e))
+        BUILD_S[n] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=finish, args=item) for item in procs.items()]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
     if errors:
         raise RuntimeError("\n".join(errors))
     return time.perf_counter() - t0

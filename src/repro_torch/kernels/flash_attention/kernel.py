@@ -3,10 +3,13 @@
 
 Replaces ``repro/kernels/flash_attention/kernel.py: flash_attention_pallas``.
 q, k and v are read through their strides, so the transposed head views of
-the model need no copy. Two variants: ``mma`` (bf16 on tensor cores) where
-``flash_variant`` finds the operands allow it, else ``simt`` (CUDA cores in
-f32). ``flash_attention_cuda.launches`` counts the kernel's launches and
-``flash_attention_cuda.variants`` the launches of each variant.
+the model need no copy. Three variants, picked by ``flash_variant`` from the
+operands: ``mma`` (bf16 on tensor cores), ``sflash`` (true f32 on the CUDA
+cores: 64-row query tiles, K and V tiles refilled by cp.async as soon as
+read, register-tiled products) and ``simt`` (CUDA cores in f32, any strides: the operands the
+other two refuse, and their earlier design). ``flash_attention_cuda.launches``
+counts the kernel's launches and ``flash_attention_cuda.variants`` the
+launches of each variant.
 """
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ from repro_torch.kernels.common import (aligned16, check_cuda, check_dtype,
                                         stream_ptr, strides_of)
 
 CODES = {torch.float32: 0, torch.bfloat16: 1}
-VARIANTS = {"simt": 0, "mma": 1}
+VARIANTS = {"simt": 0, "mma": 1, "sflash": 2}
+# the earlier kernel of each redesigned variant, which ``_flash`` runs on
+# the same operands when asked (chip_smoke.py times the two side by side)
+EARLIER = {"mma": "simt", "sflash": "simt"}
 
 _FN = None
 
@@ -41,15 +47,22 @@ def flash_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """``mma`` when the tensor-core kernel takes the operands: bf16, D a
     multiple of 16 up to 256, D stride 1, every other stride a multiple of
     16 bytes, each base 16-byte aligned (``mma_ok`` in the source checks the
-    same). Else ``simt``."""
+    same); ``sflash`` for f32 with D a multiple of 4 up to 256 and the same
+    layout (``sflash_ok``). Else ``simt``."""
     d = q.shape[-1]
-    if q.dtype != torch.bfloat16 or d % 16 or d > 256:
-        return "simt"
+    if q.dtype == torch.bfloat16:
+        best, elems = "mma", 8
+        if d % 16 or d > 256:
+            return "simt"
+    else:
+        best, elems = "sflash", 4
+        if d % 4 or d > 256:
+            return "simt"
     for t in (q, k, v):
         st = strides_of(t)
-        if st[3] != 1 or any(s % 8 for s in st[:3]) or not aligned16(t):
+        if st[3] != 1 or any(s % elems for s in st[:3]) or not aligned16(t):
             return "simt"
-    return "mma"
+    return best
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -66,9 +79,10 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
            scale: Optional[float], kv_len: Optional[int],
            variant: Optional[str]) -> torch.Tensor:
     """``flash_attention_cuda`` with the variant named: None takes
-    ``flash_variant``'s choice, ``simt`` runs the CUDA-core kernel on any
-    operands (so that ``chip_smoke.py`` holds it to the plain version in
-    bf16 at the model's shapes too)."""
+    ``flash_variant``'s choice; ``simt``, the earlier kernel of both
+    redesigned variants (``EARLIER``), runs on any operands (so that
+    ``chip_smoke.py`` holds it to the plain version at the model's shapes
+    and times it beside the newer one)."""
     check_cuda("flash_attention", q, k, v)
     check_dtype("flash_attention q", q, CODES)
     if k.dtype != q.dtype or v.dtype != q.dtype:
@@ -94,7 +108,7 @@ def _flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         scale = 1.0 / math.sqrt(d)
     best = flash_variant(q, k, v)
     variant = variant or best
-    if variant not in ("simt", best):
+    if variant not in (best, EARLIER.get(best, best)):
         raise ValueError(f"flash_attention: variant {variant!r} does not take "
                          "these operands")
     out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)

@@ -6,9 +6,11 @@ B and C through their strides: a transposed view (the unembed's
 no copy. ``gemm_variant`` picks the kernel from the operands: ``gemv`` for
 M <= 8; at M > 8 with A K-contiguous and B N- or K-contiguous (a weight, or
 the unembed's ``table.T``), rows 16-byte aligned, ``wgmma`` (TMA + wgmma on
-tensor cores) for bf16 and ``imma`` (mma.sync on the integer tensor cores)
-for int8; ``wmma`` for other bf16 operands, ``fma`` (CUDA cores) for f32
-and other int8 operands. At M <= 8 the GEMV kernels split K across
+tensor cores) for bf16, ``imma`` (mma.sync on the integer tensor cores)
+for int8 and ``sgemm`` (true f32 on the CUDA cores: a cp.async ring and
+8x8 register tiles) for f32; ``wmma`` for other bf16 operands, ``fma``
+(CUDA cores, the earlier design) for other f32 and int8 operands. At
+M <= 8 the GEMV kernels split K across
 blocks by ``gemv_plan``; the splits' partial sums go to a workspace and
 are added in split order on the card. ``gemm_cuda.launches`` counts the
 kernel's launches and ``gemm_cuda.variants`` the launches of each variant.
@@ -26,10 +28,10 @@ from repro_torch.kernels.common import (acc_dtype, aligned16, ceil_div,
 
 CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2, torch.int32: 3}
 IN_DTYPES = (torch.float32, torch.bfloat16, torch.int8)
-VARIANTS = {"gemv": 0, "wgmma": 1, "wmma": 2, "fma": 3, "imma": 4}
-# the earlier kernel of each tensor-core variant, which ``_gemm`` runs on
+VARIANTS = {"gemv": 0, "wgmma": 1, "wmma": 2, "fma": 3, "imma": 4, "sgemm": 5}
+# the earlier kernel of each redesigned variant, which ``_gemm`` runs on
 # the same operands when asked (chip_smoke.py times the two side by side)
-EARLIER = {"wgmma": "wmma", "imma": "fma"}
+EARLIER = {"wgmma": "wmma", "imma": "fma", "sgemm": "fma"}
 GEMV_KC = 1024          # most rows of K a GEMV block takes, B read along N (KC there)
 GEMV_NCOLS = 128        # columns of a GEMV strip, B read along N
 GEMV_TCOLS = 32         # the same, B read along K
@@ -67,11 +69,11 @@ def gemm_variant(a: torch.Tensor, b: torch.Tensor) -> str:
     m, k = a.shape
     if m <= 8:
         return "gemv"
-    if a.dtype == torch.float32:
-        return "fma"
     tiled = _rows16(a, k) and (_rows16(b, b.shape[1]) or _rows16(b.T, k))
     if a.dtype == torch.bfloat16:
         return "wgmma" if tiled else "wmma"
+    if a.dtype == torch.float32:
+        return "sgemm" if tiled else "fma"
     return "imma" if tiled else "fma"
 
 
@@ -129,10 +131,10 @@ def _gemm(a: torch.Tensor, b: torch.Tensor, c: Optional[torch.Tensor],
           alpha: float, beta: float, out_dtype: Optional[torch.dtype],
           variant: Optional[str]) -> torch.Tensor:
     """``gemm_cuda`` with the variant named: None takes ``gemm_variant``'s
-    choice; the earlier kernel of a tensor-core variant (``EARLIER``: wmma
-    for wgmma, fma for imma) runs on operands that would take the newer
-    one, so that ``chip_smoke.py`` holds it to the plain version at the
-    same shapes and times it."""
+    choice; the earlier kernel of a redesigned variant (``EARLIER``: wmma
+    for wgmma, fma for imma and sgemm) runs on operands that would take
+    the newer one, so that ``chip_smoke.py`` holds it to the plain version
+    at the same shapes and times it."""
     check_cuda("gemm", a, b, *(() if c is None else (c,)))
     check_dtype("gemm a", a, IN_DTYPES)
     if b.dtype != a.dtype:

@@ -16,7 +16,7 @@ from repro_torch.kernels.decode_attention.kernel import (_decode,
                                                          decode_variant,
                                                          split_chunk)
 from repro_torch.kernels.decode_attention.ref import decode_attention_ref
-from repro_torch.kernels.flash_attention.kernel import (flash_attention_cuda,
+from repro_torch.kernels.flash_attention.kernel import (_flash, flash_attention_cuda,
                                                         flash_variant)
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gemm import kernel as gemm_kernel
@@ -228,6 +228,148 @@ def test_tensor_core_variants_refuse_what_they_cannot_take(cuda_device, rng):
         with pytest.raises(ValueError):
             _gemm(a, b, None, 1.0, 0.0, None, variant)
     assert _raw_gemm(i8[:, :128], w8, "imma") == 0
+
+
+def _f32(rng, device, rows, cols, pad=0, s=1.0):
+    """An f32 (rows, cols) view of a (rows, cols + pad) tensor."""
+    x = (rng.standard_normal((rows, cols + pad)) * s).astype(np.float32)
+    return torch.from_numpy(x).to(device)[:, :cols]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["n", "t"])
+def test_sgemm_matches_plain_version(cuda_device, rng, layout):
+    """True f32 on the CUDA cores (sgemm) at ragged M, N and K (K = 257 on
+    rows padded to 16 bytes: the copies' partial zero fill), B read along N
+    (a weight) or along K (a transposed view), rows padded to 16 bytes where
+    N or K is odd, 128- and 64-wide tiles: alone, with alpha, and with a
+    broadcast bias and beta, within chip_smoke's f32 tolerance (sums of K
+    terms in another order); the earlier fma kernel on the same operands
+    within the same."""
+    for m, k, n in [(9, 80, 33), (100, 80, 1001), (513, 80, 129), (33, 257, 65),
+                    (512, 3584, 2049), (17, 4, 12)]:
+        a = _f32(rng, cuda_device, m, k, -k % 4)
+        if layout == "n":
+            b = _f32(rng, cuda_device, k, n, -n % 4, s=k ** -0.5)
+        else:
+            b = _f32(rng, cuda_device, n, k, -k % 4, s=k ** -0.5).T
+        assert gemm_variant(a, b) == "sgemm" and b_layout(b) == layout, (m, k, n)
+        c = _f32(rng, cuda_device, 1, n).expand(m, n)
+        full_c = _f32(rng, cuda_device, m, n)
+        for cc, alpha, beta in ((None, 1.0, 0.0), (None, -0.75, 0.0), (c, 1.0, 1.0),
+                                (full_c, 0.5, -1.5)):
+            kw = dict(alpha=alpha, beta=beta)
+            before = dict(gemm_cuda.variants)
+            out = gemm_cuda(a, b, cc, **kw)
+            assert gemm_cuda.variants["sgemm"] == before["sgemm"] + 1
+            assert {v: gemm_cuda.variants[v] for v in before if v != "sgemm"} == \
+                {v: n_ for v, n_ in before.items() if v != "sgemm"}
+            ref = gemm_ref(a, b, cc, **kw)
+            limit = 2e-3 + 1e-5 * float(ref.double().abs().max())
+            assert out.shape == (m, n) and out.dtype == torch.float32
+            assert float((out.double() - ref.double()).abs().max()) <= limit, (m, k, n, kw)
+            fma = _gemm(a, b, cc, alpha, beta, None, "fma")
+            assert float((fma.double() - ref.double()).abs().max()) <= limit, (m, k, n, kw)
+
+
+@pytest.mark.cuda
+def test_sgemm_refuses_what_it_cannot_take(cuda_device, rng):
+    """sgemm refuses f32 operands without 16-byte rows (a strided A, an
+    unaligned base, K = 257 on contiguous 1028-byte rows), bf16 operands and
+    M <= 8, on the C side (an error code, no launch) and in the wrapper
+    (ValueError); those f32 operands at M > 8 take fma."""
+    a = _f32(rng, cuda_device, 64, 256)
+    w = _f32(rng, cuda_device, 128, 64)
+    off = torch.zeros(64 * 128 + 1, device=cuda_device)[1:].view(64, 128)
+    k257 = _f32(rng, cuda_device, 64, 257)
+    w257 = _f32(rng, cuda_device, 257, 64)
+    bf = torch.zeros((64, 128), dtype=torch.bfloat16, device=cuda_device)
+    wb = torch.zeros((128, 64), dtype=torch.bfloat16, device=cuda_device)
+    for x, y, fma in ((a[:, ::2], w, True), (off, w, True), (k257, w257, True),
+                      (bf, wb, False), (a[:8, :128], w, False)):
+        assert _raw_gemm(x, y, "sgemm") != 0, (x.dtype, x.stride(), y.stride())
+        with pytest.raises(ValueError):
+            _gemm(x, y, None, 1.0, 0.0, None, "sgemm")
+        if fma:
+            assert gemm_variant(x, y) == "fma"
+    assert _raw_gemm(a[:, :128], w, "sgemm") == 0
+
+
+SFLASH_CASES = [  # (B, Hq, Hkv, Sq, Skv, kwargs)
+    (2, 8, 2, 130, 130, dict(causal=True)),
+    (1, 4, 4, 96, 200, dict(causal=False)),
+    (1, 4, 4, 224, 1500, dict(causal=False)),
+    (2, 8, 2, 129, 129, dict(causal=True, window=37)),
+    (1, 8, 2, 300, 300, dict(causal=True, window=100, softcap=30.0)),
+    (1, 4, 2, 100, 333, dict(causal=True, softcap=50.0)),
+    (1, 5, 1, 200, 64, dict(causal=True)),
+    (2, 4, 2, 100, 100, dict(causal=True, kv_len=61)),
+    (1, 4, 2, 70, 150, dict(causal=False, kv_len=97)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 80, 96, 128, 256])
+def test_sflash_matches_plain_version(cuda_device, rng, d):
+    """f32 flash attention on the CUDA cores (sflash) on head views (B, S,
+    H, D).transpose(1, 2): causal, windowed, soft-capped, non-causal with
+    Sq != Skv, kv_len < Skv, ragged S and GQA, within chip_smoke's f32
+    atol 2e-4; the earlier simt kernel on the same operands within the
+    same."""
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(cuda_device)
+
+    for b, hq, hkv, sq, skv, kw in SFLASH_CASES:
+        q = t(b, sq, hq, d).transpose(1, 2)
+        k, v = (t(b, skv, hkv, d).transpose(1, 2) for _ in range(2))
+        assert flash_variant(q, k, v) == "sflash"
+        before = dict(flash_attention_cuda.variants)
+        out = flash_attention_cuda(q, k, v, **kw)
+        assert flash_attention_cuda.variants == {**before, "sflash": before["sflash"] + 1}
+        ref = attention_ref(q, k, v, **kw)
+        err = float((out - ref).abs().max())
+        assert err <= 2e-4, (b, hq, hkv, sq, skv, kw, err)
+        simt = _flash(q, k, v, kw["causal"], kw.get("window"), kw.get("softcap"), None,
+                      kw.get("kv_len"), "simt")
+        assert float((simt - ref).abs().max()) <= 2e-4, (b, hq, hkv, sq, skv, kw)
+
+
+def _raw_flash(q, k, v, variant: str) -> int:
+    """The C entry point called with ``variant`` whatever the operands: its
+    error code."""
+    from repro_torch.kernels.common import strides_of
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    b, hq, sq, d = q.shape
+    out = torch.empty((b, hq, sq, d), dtype=q.dtype, device=q.device)
+    err = flash_kernel._fn()(q.data_ptr(), *strides_of(q), k.data_ptr(), *strides_of(k),
+                             v.data_ptr(), *strides_of(v), out.data_ptr(), b, hq,
+                             k.shape[1], sq, k.shape[2], d, k.shape[2], 1, 0, 0.0,
+                             d ** -0.5, flash_kernel.CODES[q.dtype],
+                             flash_kernel.VARIANTS[variant],
+                             torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    return err
+
+
+@pytest.mark.cuda
+def test_sflash_refuses_what_it_cannot_take(cuda_device):
+    """sflash refuses a D stride of 2, an unaligned base, a row stride that
+    is not a multiple of 16 bytes and bf16 operands, on the C side and in
+    the wrapper; the f32 ones take simt."""
+    z = torch.zeros((1, 4, 64, 128), device=cuda_device)
+    strided = z[..., ::2]
+    off = torch.zeros(4 * 64 * 64 + 1, device=cuda_device)[1:].view(1, 4, 64, 64)
+    rows66 = torch.zeros((1, 4, 64, 66), device=cuda_device)[..., :64]
+    bf = torch.zeros((1, 4, 64, 64), dtype=torch.bfloat16, device=cuda_device)
+    for x, simt in ((strided, True), (off, True), (rows66, True), (bf, False)):
+        assert _raw_flash(x, x, x, "sflash") != 0, (x.dtype, x.stride())
+        with pytest.raises(ValueError):
+            _flash(x, x, x, True, None, None, None, None, "sflash")
+        if simt:
+            assert flash_variant(x, x, x) == "simt"
+    ok = z[..., :64]
+    assert flash_variant(ok, ok, ok) == "sflash" and _raw_flash(ok, ok, ok, "sflash") == 0
 
 
 MMA_CASES = [  # (Hq, Hkv, Sq, Skv, kwargs)

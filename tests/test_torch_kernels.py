@@ -42,7 +42,7 @@ def f32(x) -> np.ndarray:
 
 # ------------------------------------------------------------------ gemm
 @pytest.mark.parametrize("m,k,n", [(8, 8, 8), (100, 70, 130), (128, 128, 128),
-                                   (33, 257, 65), (1, 64, 1)])
+                                   (33, 257, 65), (1, 64, 1), (513, 80, 33)])
 @pytest.mark.parametrize("dt", ["f32", "bf16", "int8"])
 def test_gemm_sweep(rng, m, k, n, dt):
     if dt == "int8":
@@ -103,10 +103,10 @@ def test_gemm_int8_epilogue_rounds_and_bias_broadcast(rng):
 
 def test_gemm_transposed_b_view(rng):
     """The unembed passes table.T: a view, read through its strides; at M =
-    3 (the GEMV on the card) and M = 100 (wgmma with B read along K in
-    bf16), in f32 and bf16 with f32 logits, against the reference's oracle
-    and its Pallas kernel (interpret mode)."""
-    for m, dt in ((3, "f32"), (100, "f32"), (100, "bf16")):
+    3 (the GEMV on the card) and M = 100 and 513 (sgemm in f32, wgmma in
+    bf16, with B read along K), in f32 and bf16 with f32 logits, against
+    the reference's oracle and its Pallas kernel (interpret mode)."""
+    for m, dt in ((3, "f32"), (100, "f32"), (513, "f32"), (100, "bf16")):
         table = rng.standard_normal((300, 48)).astype(np.float32)
         x = rng.standard_normal((m, 48)).astype(np.float32)
         (jx, tx), (jt, tt) = both(x, dt), both(table, dt)
@@ -154,12 +154,31 @@ def test_flash_attention_variants(rng, kwargs):
                                            (64, 128, True), (100, 52, True)])
 def test_flash_attention_shapes(rng, sq, skv, causal):
     """Sq != Skv; the causal mask is top-left aligned (rows and columns
-    both count from 0)."""
+    both count from 0); the chunked plain version and the port's
+    flash_attention in f32."""
     (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 1, 4, 4, sq, skv, 32)
     ref = jax_attention_ref(jq, jk, jv, causal=causal)
     pallas = jax_flash_attention(jq, jk, jv, causal=causal, block_q=32,
                                  block_k=32)
-    out = attention_chunked_ref(tq, tk, tv, causal=causal, chunk=32)
+    for out in (attention_chunked_ref(tq, tk, tv, causal=causal, chunk=32),
+                flash_attention(tq, tk, tv, causal=causal, block_k=32)):
+        for r in (ref, pallas):
+            np.testing.assert_allclose(out.numpy(), np.asarray(r), atol=2e-3,
+                                       rtol=1e-3)
+
+
+@pytest.mark.parametrize("kv_len,kwargs", [(61, dict(causal=True)),
+                                           (97, dict(causal=False)),
+                                           (80, dict(causal=True, window=37, softcap=30.0))])
+def test_flash_attention_kv_len_gqa(rng, kv_len, kwargs):
+    """f32 with GQA (8 query heads on 2), D = 80 and kv_len < Skv (the
+    columns past it masked), ragged S: the port's flash_attention against
+    the reference's oracle and its Pallas kernel (interpret mode)."""
+    (jq, tq), (jk, tk), (jv, tv) = _qkv(rng, 2, 8, 2, 100, 130, 80)
+    ref = jax_attention_ref(jq, jk, jv, kv_len=kv_len, **kwargs)
+    pallas = jax_flash_attention(jq, jk, jv, kv_len=kv_len, block_q=32, block_k=32,
+                                 **kwargs)
+    out = flash_attention(tq, tk, tv, kv_len=kv_len, block_k=32, **kwargs)
     for r in (ref, pallas):
         np.testing.assert_allclose(out.numpy(), np.asarray(r), atol=2e-3,
                                    rtol=1e-3)

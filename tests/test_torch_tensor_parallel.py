@@ -1004,6 +1004,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
 from repro_torch.kernels.decode_attention.kernel import decode_variant
+from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
 from repro_torch.models.transformer import LM
@@ -1016,7 +1017,7 @@ class Spy(ArcaneEngine):
         self.counts = {{"gemm_cuda": 0, "flash_attention_cuda": 0,
                        "decode_attention_cuda": 0}}
         self.variants = {{"gemm_cuda": dict.fromkeys(VARIANTS, 0),
-                         "flash_attention_cuda": {{"simt": 0, "mma": 0}},
+                         "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
                          "decode_attention_cuda": {{"narrow": 0, "wide": 0}}}}
 
     def _count(self, wrapper, variant):

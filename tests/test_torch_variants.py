@@ -19,6 +19,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.kernels.common import NEG_INF
 from repro_torch.kernels.decode_attention.kernel import decode_variant
+from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
@@ -61,18 +62,20 @@ def test_gemm_variant_prefill_projections_take_wgmma(arch, m):
 
 @pytest.mark.parametrize("case,expected", [
     ("decode M=1", "gemv"), ("decode M=4", "gemv"), ("M=8", "gemv"),
-    ("K=257", "wmma"), ("table.T", "wgmma"), ("f32", "fma"), ("int8", "imma"),
+    ("K=257", "wmma"), ("table.T", "wgmma"), ("f32", "sgemm"), ("int8", "imma"),
     ("unaligned A base", "wmma"), ("broadcast A", "wmma"),
     ("int8 table.T", "imma"), ("int8 strided A", "fma"), ("int8 K=257", "fma"),
-    ("f32 table.T", "fma"),
+    ("f32 table.T", "sgemm"), ("f32 strided A", "fma"), ("f32 unaligned A base", "fma"),
+    ("f32 K=257", "fma"), ("f32 M=8", "gemv"),
 ])
 def test_gemm_variant_other_operands_keep_their_kernels(case, expected):
     """bf16 at M > 8 on wgmma with B read along N or along K (the unembed's
-    table.T), int8 on imma likewise; wmma keeps the bf16 operands TMA
-    cannot tile (unaligned rows or base, a broadcast A), fma f32 and the
-    int8 operands without 16-byte rows."""
+    table.T), int8 on imma and f32 on sgemm likewise; wmma keeps the bf16
+    operands TMA cannot tile (unaligned rows or base, a broadcast A), fma
+    the f32 and int8 operands without 16-byte rows (every other column,
+    a base off 16 bytes, K = 257 on contiguous rows of 1028 bytes)."""
     w = meta(3584, 14336)
-    i8 = torch.int8
+    i8, f32 = torch.int8, torch.float32
     a, b = {
         "decode M=1": (meta(1, 3584), w),
         "decode M=4": (meta(4, 3584), w),
@@ -88,6 +91,11 @@ def test_gemm_variant_other_operands_keep_their_kernels(case, expected):
         "int8 K=257": (meta(33, 257, dtype=i8), meta(257, 64, dtype=i8)),
         "f32 table.T": (meta(512, 3584, dtype=torch.float32),
                         meta(256000, 3584, dtype=torch.float32).T),
+        "f32 strided A": (meta(512, 2 * 3584, dtype=f32)[:, ::2], meta(3584, 4096, dtype=f32)),
+        "f32 unaligned A base": (torch.empty(512 * 3584 + 1)[1:].view(512, 3584),
+                                 meta(3584, 4096, dtype=f32)),
+        "f32 K=257": (meta(33, 257, dtype=f32), meta(257, 64, dtype=f32)),
+        "f32 M=8": (meta(8, 3584, dtype=f32), meta(3584, 4096, dtype=f32)),
     }[case]
     assert gemm_variant(a, b) == expected
 
@@ -129,7 +137,10 @@ C_RULES = (
     "    case WGMMA: ok = in_code == BF16 && layout != 0; break;\n"
     "    case WMMA: ok = in_code == BF16 && M > 8; break;\n"
     "    case FMA: ok = in_code != BF16 && M > 8; break;\n"
-    "    case IMMA: ok = in_code == I8 && layout != 0; break;",
+    "    case IMMA: ok = in_code == I8 && layout != 0; break;\n"
+    "    case SGEMM: ok = in_code == F32 && layout != 0; break;",
+    "  const int elem = in_code == I8 ? 1 : in_code == BF16 ? 2 : 4;\n"
+    "  const int layout = mma_layout(a, sam, sak, b, sbk, sbn, M, N, K, elem);",
 )
 
 
@@ -142,7 +153,7 @@ def c_side(a: torch.Tensor, b: torch.Tensor) -> tuple[int, set]:
 
     (m, k), n = a.shape, b.shape[1]
     (sam, sak), (sbk, sbn) = a.stride(), b.stride()
-    elem = 1 if a.dtype == torch.int8 else 2
+    elem = a.element_size()
     layout = 0
     if m > 8 and rows16(a, sam, sak, k, elem):
         layout = 1 if rows16(b, sbk, sbn, n, elem) else \
@@ -155,6 +166,8 @@ def c_side(a: torch.Tensor, b: torch.Tensor) -> tuple[int, set]:
             ok.add("wgmma")
         if layout and a.dtype == torch.int8:
             ok.add("imma")
+        if layout and a.dtype == torch.float32:
+            ok.add("sgemm")
     return layout, ok
 
 
@@ -181,8 +194,8 @@ def test_gemm_variant_mirrors_the_c_side_rules():
     """``gemm_variant`` against the C side's rules (``C_RULES``, mirrored in
     ``c_side``) over dtypes, M on both sides of 8, ragged K and N and every
     operand layout of ``operand_layouts``: the pick is one the C side
-    accepts, and a tensor-core pick (wgmma, imma) is made exactly where the
-    C side finds a layout for bf16 or int8 operands."""
+    accepts, and a redesigned pick (wgmma for bf16, imma for int8, sgemm
+    for f32) is made exactly where the C side finds a layout."""
     src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
            / "gemm.cu").read_text()
     for rule in C_RULES:
@@ -194,12 +207,12 @@ def test_gemm_variant_mirrors_the_c_side_rules():
                 v = gemm_variant(a, b)
                 layout, ok = c_side(a, b)
                 assert v in ok, (dt, m, k, n, name, v, ok)
-                tensor_cores = layout != 0 and dt != torch.float32
-                assert (v in ("wgmma", "imma")) == tensor_cores, (dt, m, k, n, name, v)
+                assert (v in ("wgmma", "imma", "sgemm")) == (layout != 0), \
+                    (dt, m, k, n, name, v)
                 seen.add(v)
         assert gemm_variant(torch.zeros((8, 64), dtype=dt), torch.zeros((64, 48), dtype=dt)) \
             == "gemv"
-    assert seen == {"wgmma", "wmma", "imma", "fma"}
+    assert seen == {"wgmma", "wmma", "imma", "fma", "sgemm"}
 
 
 @pytest.mark.parametrize("s", [16, 100, 512])
@@ -215,10 +228,12 @@ def test_flash_variant_split_head_views_take_mma(arch, s):
 
 @pytest.mark.parametrize("case", ["f32", "D stride 2", "D=72", "unaligned base"])
 def test_flash_variant_other_operands_take_simt(case):
+    """bf16 operands mma does not take, and f32 ones sflash does not take
+    (``f32``: a D stride of 2), run the CUDA-core kernel."""
     q = _split_heads(meta(1, 64, 16 * 256), 16)
     k = _split_heads(meta(1, 64, 8 * 256), 8)
     if case == "f32":
-        q, k = q.float(), k.float()
+        q, k = q.float(), meta(1, 8, 64, 512, dtype=torch.float32)[..., ::2]
     elif case == "D stride 2":
         k = meta(1, 8, 64, 512)[..., ::2]
     elif case == "D=72":
@@ -227,6 +242,98 @@ def test_flash_variant_other_operands_take_simt(case):
     else:
         k = torch.empty(8 * 64 * 256 + 1, dtype=BF16)[1:].view(1, 8, 64, 256)
     assert flash_variant(q, k, k) == "simt"
+
+
+@pytest.mark.parametrize("s", [16, 100, 512])
+@pytest.mark.parametrize("arch", ARCHS + ("granite-moe-1b-a400m", "internvl2-1b",
+                                          "whisper-large-v3"))
+def test_flash_variant_f32_split_head_views_take_sflash(arch, s):
+    """f32 split-head views (the f32 copies' prompts) take sflash, as do
+    their contiguous copies; f32 with a D stride of 2 or a base off 16
+    bytes takes simt."""
+    cfg = get_config(arch)
+    hd = cfg.resolved_head_dim
+    f32 = torch.float32
+    q = _split_heads(meta(1, s, cfg.n_heads * hd, dtype=f32), cfg.n_heads)
+    k = _split_heads(meta(1, s, cfg.n_kv_heads * hd, dtype=f32), cfg.n_kv_heads)
+    assert flash_variant(q, k, k) == "sflash"
+    assert flash_variant(q.contiguous(), k.contiguous(), k) == "sflash"
+    strided = meta(1, cfg.n_kv_heads, s, 2 * hd, dtype=f32)[..., ::2]
+    assert flash_variant(q, strided, strided) == "simt"
+    off = torch.empty(cfg.n_kv_heads * s * hd + 1)[1:].view(1, cfg.n_kv_heads, s, hd)
+    assert flash_variant(q, off, k) == "simt"
+
+
+# ``mma_ok`` and ``sflash_ok`` of csrc/flash_attention.cu as they stand
+# there; ``flash_c_side`` is transcribed from them.
+FLASH_C_RULES = (
+    "  if (dtype_code != 1 || D % 16 != 0 || D > 256) return false;\n"
+    "  if (st[3] != 1 || st[7] != 1 || st[11] != 1) return false;\n"
+    "  for (int i = 0; i < 12; ++i)          // batch, head and row strides\n"
+    "    if (i % 4 != 3 && st[i] % 8 != 0) return false;\n"
+    "  return aligned16(q) && aligned16(k) && aligned16(v);",
+    "  if (dtype_code != 0 || D % 4 != 0 || D > 256) return false;\n"
+    "  if (st[3] != 1 || st[7] != 1 || st[11] != 1) return false;\n"
+    "  for (int i = 0; i < 12; ++i)          // batch, head and row strides\n"
+    "    if (i % 4 != 3 && st[i] % 4 != 0) return false;\n"
+    "  return aligned16(q) && aligned16(k) && aligned16(v);",
+    "  const bool ok = variant == 0 || (variant == 1 && mma_ok(q, k, v, st, D, dtype_code)) ||\n"
+    "                  (variant == 2 && sflash_ok(q, k, v, st, D, dtype_code));",
+)
+
+
+def flash_c_side(q, k, v) -> set:
+    """The variants the C side's check accepts for these operands."""
+    from repro_torch.kernels.common import strides_of
+    st = [x for t in (q, k, v) for x in strides_of(t)]
+    d = q.shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    inner = st[3] == 1 and st[7] == 1 and st[11] == 1
+
+    def layout(elems):
+        return inner and aligned and all(st[i] % elems == 0 for i in range(12) if i % 4 != 3)
+
+    ok = {"simt"}
+    if q.dtype == torch.bfloat16 and d % 16 == 0 and d <= 256 and layout(8):
+        ok.add("mma")
+    if q.dtype == torch.float32 and d % 4 == 0 and d <= 256 and layout(4):
+        ok.add("sflash")
+    return ok
+
+
+def test_flash_variant_mirrors_the_c_side_rules():
+    """``flash_variant`` against the C side's ``mma_ok`` and ``sflash_ok``
+    (``FLASH_C_RULES``, mirrored in ``flash_c_side``) over both dtypes,
+    head sizes that are and are not multiples of 16, and q, k, v as split
+    heads, contiguous, strided along D, in rows padded by 2 or 4 elements,
+    and off a 16-byte base: the pick is one the C side accepts, and the
+    redesigned kernel (mma for bf16, sflash for f32) is picked exactly
+    where the C side accepts it."""
+    src = (Path(__file__).resolve().parents[1] / "src" / "repro_torch" / "csrc"
+           / "flash_attention.cu").read_text()
+    for rule in FLASH_C_RULES:
+        assert rule in src, rule
+    seen = set()
+    for dt in (torch.bfloat16, torch.float32):
+        for d in (16, 24, 64, 72, 80, 256):
+            def t(*shape):
+                return torch.zeros(shape, dtype=dt)
+            layouts = {
+                "split heads": t(1, 40, 4 * d).view(1, 40, 4, d).transpose(1, 2),
+                "contiguous": t(1, 4, 40, d),
+                "D stride 2": t(1, 4, 40, 2 * d)[..., ::2],
+                "rows + 2": t(1, 4, 40, d + 2)[..., :d],
+                "rows + 4": t(1, 4, 40, d + 4)[..., :d],
+                "off base": t(4 * 40 * d + 4)[1:1 + 4 * 40 * d].view(1, 4, 40, d),
+            }
+            for qn, q in layouts.items():
+                for kn, k in layouts.items():
+                    v = flash_variant(q, k, k)
+                    ok = flash_c_side(q, k, k)
+                    assert v in ok, (dt, d, qn, kn, v, ok)
+                    assert (v != "simt") == (len(ok) > 1), (dt, d, qn, kn, v, ok)
+                    seen.add(v)
+    assert seen == set(FLASH_VARIANTS)
 
 
 class VariantSpy(ArcaneEngine):
@@ -345,7 +452,7 @@ class LaunchSpy(ArcaneEngine):
         self.counts = {"gemm_cuda": 0, "flash_attention_cuda": 0,
                        "decode_attention_cuda": 0}
         self.variants = {"gemm_cuda": dict.fromkeys(VARIANTS, 0),
-                         "flash_attention_cuda": {"simt": 0, "mma": 0},
+                         "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
                          "decode_attention_cuda": {"narrow": 0, "wide": 0}}
 
     def _count(self, wrapper, variant):
@@ -449,6 +556,76 @@ def test_chip_smoke_embed_launch_counts_equal_the_engine_calls(arch, lens, enc_l
     assert counts["flash_attention_cuda"] == len(lens) * (
         cfg.n_layers + n_cross + cfg.n_enc_layers)
     assert counts["decode_attention_cuda"] == 3 * (cfg.n_layers + n_cross)
+
+
+# check_logits' f32 copies: (arch, prompt length, encoder frames)
+F32_COPIES = [("granite-moe-1b-a400m", 24, 0), ("minicpm3-4b", 24, 0), ("rwkv6-1.6b", 16, 0),
+              ("jamba-1.5-large-398b", 16, 0), ("internvl2-1b", 24, 0),
+              ("whisper-large-v3", 9, 24)]
+
+
+def f32_copy(cfg):
+    import dataclasses
+    return dataclasses.replace(cfg, param_dtype="float32", compute_dtype="float32")
+
+
+@pytest.mark.parametrize("arch,n,enc_len", F32_COPIES)
+def test_chip_smoke_f32_copy_launch_counts_equal_the_engine_calls(arch, n, enc_len):
+    """chip_smoke.py's expected launches of ``check_logits``' f32 copy (one
+    prompt prefilled at batch 1, behind the vision prefix or over the
+    encoder's frames, then one decode step of one row, as
+    ``engine_logits`` runs them) against the calls an f32 copy of the
+    smoke config makes on the CPU: every GEMM past 8 rows on sgemm, every
+    prompt attention on sflash, none on fma or simt."""
+    cs = chip_smoke()
+    cfg = f32_copy(get_smoke_config(arch))
+    engine = LaunchSpy()
+    model = LM(cfg, engine, device="cpu")
+    gen = torch.Generator().manual_seed(0)
+    params = model.init_params(gen)
+    prompt = np.random.default_rng(0).integers(0, cfg.vocab, n).astype(np.int32)
+    batch = {"tokens": torch.as_tensor(prompt[None]),
+             **cs.embed_inputs(torch, cfg, gen, enc_len)}
+    at = cfg.vision_prefix + n
+    cache = model.init_cache(1, at + 8, enc_len=enc_len)
+    logits, cache = model.prefill(params, batch, cache)
+    assert logits.dtype == torch.float32
+    nxt = torch.argmax(logits, -1).to(torch.int32)
+    model.decode_step(params, nxt, torch.tensor([at], dtype=torch.int32), cache,
+                      enc_len=enc_len)
+    counts, variants = cs.expected_launches(torch, cfg, [n], 1, 1, enc_len,
+                                            dtype=torch.float32)
+    assert engine.counts == counts
+    assert engine.variants == variants
+    assert variants["gemm_cuda"]["sgemm"] > 0
+    assert variants["gemm_cuda"]["fma"] == 0 and variants["flash_attention_cuda"]["simt"] == 0
+
+
+def test_chip_smoke_f32_copies_at_full_width_take_the_redesigned_kernels():
+    """The f32 copies chip_smoke.py serves at full width (phase 3's and
+    3b's uncapped models, at each prompt length they draw from): every
+    GEMM past 8 rows on sgemm, every prompt attention on sflash, none on
+    fma or simt; a capped model (gemma2-9b) runs no f32 copy."""
+    cs = chip_smoke()
+    served = 0
+    for entry in cs.SERVE_MODELS + cs.EMBED_MODELS:
+        arch = entry["arch"]
+        cfg = get_smoke_config(arch) if entry.get("smoke") else get_config(arch)
+        if cfg.final_softcap:
+            continue
+        sgemm = 0
+        for n in entry.get("prompt_lens") or entry.get("text_lens") or (16, 513):
+            counts, variants = cs.expected_launches(torch, f32_copy(cfg), [n], 1, 1,
+                                                    entry.get("enc_len", 0),
+                                                    dtype=torch.float32)
+            g, f = variants["gemm_cuda"], variants["flash_attention_cuda"]
+            assert g["fma"] == 0 and f["simt"] == 0, (arch, n)
+            assert f["sflash"] == counts["flash_attention_cuda"], (arch, n)
+            assert g["sgemm"] + g["gemv"] == counts["gemm_cuda"], (arch, n)
+            sgemm += g["sgemm"]
+        assert sgemm > 0, arch
+        served += 1
+    assert served == 6
 
 
 def test_embed_full_width_gemm_and_attention_variants():
