@@ -9,7 +9,8 @@ Phases:
      power limit (nvidia-smi) and builds the six CUDA kernels from
      ``src/repro_torch/csrc`` with nvcc (one process per source, in
      parallel), each source's seconds, and the registers, spill bytes and
-     stack of each sgemm and sflash instantiation (``ptxas:`` lines).
+     stack of each sgemm, sflash and split_mla_kernel instantiation
+     (``ptxas:`` lines).
   2. kernels: the time of an empty kernel between the timer's events (the
      floor of every time below), then each kernel against its plain
      PyTorch version on the card:
@@ -25,7 +26,18 @@ Phases:
      a broadcast int32 bias into int8, each held bit for bit and beside
      torch._int_mm where that computes the same function; MLA's absorbed decode attention at
      minicpm3-4b's G = 40, D = 288 and minicpm3-smoke's G = 4, D = 24, each
-     row naming decode_variant's pick, narrow or wide; internvl2-1b's
+     row naming decode_variant's pick, narrow or wide; MLA's absorbed
+     decode on its own entry over the latent cache as the model holds it
+     (c and kr, ``MLA_CASES``: minicpm3-4b's r = 256, rope = 32 at the
+     serving lengths, over 4 x 32,768 rows, at 10 heads a rank, and a
+     rank's slice with its lse) on the mla variant, each row held to the
+     plain version per row, twice for the same bits, rejecting two planted
+     faults (V from the wrong columns, the last quarter of the keys
+     dropped), the earlier route (cat + pad + wide) held and timed beside
+     it and wide alone timed too; then one minicpm3-4b bf16 mla_decode on
+     the cuda engine under a TorchDispatchMode: no cat or pad over the
+     cache's S axis, the earlier route's two seen (``mla_decode_copies``);
+     internvl2-1b's
      unembed (table.T at the odd N = 151655), its q and k with biases,
      its prompt's causal attention over 256 + 512 rows at G = 7 and its
      decode attention; whisper-large-v3's classic MLP with biases at M = 4
@@ -95,7 +107,8 @@ Phases:
      jamba-smoke's x_proj and dt_proj on wmma past 8 rows); one flash
      launch per attention layer and prompt, one decode attention launch
      per attention layer and step (none for rwkv6), on flash_variant's and
-     decode_variant's picks. The f32 copies of ``check_logits`` (below)
+     decode_variant's picks (MLA's: mla_variant's, mla in bf16, wide on the
+     f32 copy). The f32 copies of ``check_logits`` (below)
      are counted too: every GEMM past 8 rows on sgemm, every prompt
      attention on sflash, none on fma or simt (``serve: ... f32 copy``
      lines: launches, variants, seconds). On gemma2-9b's weights, after its serve,
@@ -119,7 +132,10 @@ Phases:
      64 primer kernels, and must see a device event for every launch of
      the serving kernels in it: device busy time, idle share, time by
      kernel; for rwkv6 also the share of a 512-token prefill's host clock
-     that the plain wkv recurrence takes. Then one Mamba block of
+     that the plain wkv recurrence takes; minicpm3-4b's decode is profiled
+     one step more, over the same live slots, on the earlier route of its
+     absorbed decode (cat, pad, wide; ``earlier_mla_route``), its busy ms
+     by group printed before and after. Then one Mamba block of
      jamba-1.5-large-398b at full width (d 8192, d_inner 16384; random
      bf16 weights): a prefill of 4 x 512 tokens and 8 decode steps through
      ArcaneEngine("cuda"), ("ref") and the planted faults' engines;
@@ -841,6 +857,219 @@ def run_decode_lse(torch, timer, gen, rows):
               f"one launch: {one_launch}", flush=True)
 
 
+# MLA's absorbed decode on its own entry (``mla_decode_attention_cuda``):
+# q (B, G, r + rope) against the latent cache c (B, S, r) and its rope part
+# kr (B, S, rope), separate tensors as the model holds them (``MLABlock``'s
+# cache), at minicpm3-4b's r = 256, rope = 32 and scale 1/sqrt(96): (name,
+# B, G, r, rope, S, lengths, lse). The serving lengths at max_len 1024 (40
+# heads, and 10 a rank by heads on 4), a long latent cache of 32,768 rows,
+# every row full (75.5 MB), and a rank's slice of the cache sharded by
+# sequence on 4 with its lse (the rank-local lengths of LSE_CASES' minicpm3
+# row).
+MLA_CASES = [
+    ("minicpm3 MLA latent", 4, 40, 256, 32, 1024, RING, False),
+    ("minicpm3 MLA latent long", 4, 40, 256, 32, 32768, [32768] * 4, False),
+    ("minicpm3 MLA latent by heads tp4", 4, 10, 256, 32, 1024, RING, False),
+    ("lse minicpm3 MLA latent tp4", 4, 40, 256, 32, 256, [-512, 1, 200, 1024], True),
+]
+
+
+def mla_rolled(torch, q, c, kr):
+    """A planted fault's operands: the key rows' columns rotated by rope
+    (and q's with them, so every score is the same), so that the entry's V,
+    the first r columns of the rows, is columns [rope, r + rope) of the true
+    rows, the rope columns included."""
+    rope = kr.shape[2]
+    keys = torch.roll(torch.cat([c, kr], dim=-1), -rope, dims=-1)
+    r = c.shape[2]
+    return (torch.roll(q, -rope, dims=-1).contiguous(), keys[..., :r].contiguous(),
+            keys[..., r:].contiguous())
+
+
+def run_mla_decode(torch, timer, gen, rows, prefix: str = ""):
+    """Each MLA_CASES case in bf16 on the new entry: the mla variant
+    against the plain version (per row within DECODE_TOL's bf16 limits;
+    with lse, the lse within LSE_ATOL, empty rows out 0 and lse -inf, out
+    rounded to bf16 the bits of the call without lse), the same bits on a
+    second call, and two planted faults the check must reject: V read
+    from the wrong columns (``mla_rolled``) and the last quarter of the
+    keys dropped. The earlier route (the cat and pad copies, then wide, as
+    ``mla_decode`` ran it) is held to the same plain version and timed
+    beside the mla variant, as is wide alone on copies made beforehand,
+    the plain version, SDPA over the copies (no lse) and torch's sum over
+    the latent rows (what a plain read reaches under the timer); the bytes
+    bound reads the latent rows once (V is their first r columns)."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        EARLIER, _mla, decode_attention_cuda, mla_decode_attention_cuda, mla_variant)
+    from repro_torch.kernels.decode_attention.ref import (mla_decode_attention_ref,
+                                                          mla_keys_values)
+    dt = torch.bfloat16
+    atol, rtol, abs_cap = DECODE_TOL["bfloat16"]
+    for name, b, g, r, rope, s, lengths, lse in MLA_CASES:
+        if not name.startswith(prefix):
+            continue
+        d = r + rope
+        q = torch.randn((b, g, d), device="cuda", generator=gen).to(dt)
+        c = torch.randn((b, s, r), device="cuda", generator=gen).to(dt)
+        kr = torch.randn((b, s, rope), device="cuda", generator=gen).to(dt)
+        ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        kw = dict(scale=MLA_SCALE, return_lse=lse)
+        variant = mla_variant(q, c, kr)
+        n0 = decode_attention_cuda.launches
+        res = mla_decode_attention_cuda(q, c, kr, ln, **kw)
+        one_launch = decode_attention_cuda.launches == n0 + 1
+        again = mla_decode_attention_cuda(q, c, kr, ln, **kw)
+        out = res[0] if lse else res
+        same = torch.equal(out, again[0] if lse else again)
+        ref_res = mla_decode_attention_ref(q, c, kr, ln, **kw)
+        ref = ref_res[0] if lse else ref_res
+        earlier = _mla(q, c, kr, ln, MLA_SCALE, lse, EARLIER.get(variant, variant))
+        earlier_out = earlier[0] if lse else earlier
+        keys, vals = mla_keys_values(c, kr, dt)
+        wide = decode_attention_cuda(q[:, None], keys, vals, ln, **kw)
+        wide_out = (wide[0] if lse else wide)[:, 0, :, :r]
+        lost = mla_decode_attention_cuda(q, c, kr, ln.clamp(max=s) - s // 4, **kw)
+        rolled = mla_decode_attention_cuda(*mla_rolled(torch, q, c, kr), ln, **kw)
+        torch.cuda.synchronize()
+        full = ln > 0
+        err = float((out.float() - ref.float()).abs().max())
+        ratio = row_limit_ratio(out[full], ref[full], atol, rtol)
+        earlier_ratio = row_limit_ratio(earlier_out[full], ref[full], atol, rtol)
+        faults = {"v_from_wrong_columns": row_limit_ratio(
+                      (rolled[0] if lse else rolled)[full], ref[full], atol, rtol),
+                  "last_quarter_dropped": row_limit_ratio(
+                      (lost[0] if lse else lost)[full], ref[full], atol, rtol)}
+        ok = (variant == "mla" and one_launch and ratio <= 1.0 and err <= abs_cap
+              and same and earlier_ratio <= 1.0 and min(faults.values()) > 1.0
+              and torch.equal(wide_out, earlier_out))
+        extra = {}
+        if lse:
+            out_lse, ref_lse = res[1], ref_res[1]
+            empty = torch.isinf(ref_lse)
+            lse_err = float((out_lse[~empty] - ref_lse[~empty]).abs().max())
+            empties = (torch.equal(torch.isinf(out_lse), empty)
+                       and bool((out[empty] == 0).all()))
+            bits = out.dtype == torch.float32 and torch.equal(
+                out.to(dt), mla_decode_attention_cuda(q, c, kr, ln, scale=MLA_SCALE))
+            ok = ok and lse_err <= LSE_ATOL and empties and bits and bool(empty.any())
+            extra = dict(lse_max_abs_err=lse_err, empty_rows=int(empty.sum()),
+                         same_bits=bits)
+        del lost, rolled, again
+        ms = timer.ms(lambda: mla_decode_attention_cuda(q, c, kr, ln, **kw))
+        earlier_ms = timer.ms(lambda: _mla(q, c, kr, ln, MLA_SCALE, lse,
+                                           EARLIER.get(variant, variant)))
+        wide_ms = timer.ms(lambda: decode_attention_cuda(q[:, None], keys, vals, ln, **kw))
+        plain = timer.ms(lambda: mla_decode_attention_ref(q, c, kr, ln, **kw), reps=5)
+        # what a plain read of the latent rows reaches under the same timer
+        # (its L2 flush leaves dirty lines the read writes back)
+        read_ms = timer.ms(lambda: (c[:, :max(lengths)].sum(), kr[:, :max(lengths)].sum()))
+        lib = None
+        if not lse:
+            mask = (torch.arange(s, device="cuda")[None, :] < ln[:, None])[:, None, None, :]
+            lib = timer.ms(lambda: sdpa(q[:, :, None], keys, vals, attn_mask=mask,
+                                        scale=MLA_SCALE))
+        valid = sum(max(0, min(x, s)) for x in lengths)
+        nbytes = (q.numel() + valid * d) * 2 + b * 4 + \
+            (b * g * r * 4 + b * g * 4 if lse else b * g * r * 2)
+        bms, by = bound_ms(nbytes, 2.0 * valid * g * (d + r), "bfloat16")
+        del keys, vals, wide, earlier
+        rows.append(dict(kernel="decode_attention",
+                         case=f"{name} B={b} G={g} r={r} rope={rope} S={s} "
+                              f"len={lengths} lse={lse}",
+                         dtype="bfloat16", variant=variant, max_abs_err=err,
+                         atol=atol, rtol=rtol, abs_cap=abs_cap, row_limit_ratio=ratio,
+                         planted_fault_ratio=faults, ok=ok, deterministic=same,
+                         ms=ms, earlier_variant="cat+pad+" + EARLIER.get(variant, variant),
+                         earlier_ms=earlier_ms, earlier_row_limit_ratio=earlier_ratio,
+                         earlier_max_abs_err=float((earlier_out.float()
+                                                    - ref.float()).abs().max()),
+                         others=[{"variant": "wide_alone", "ms": wide_ms,
+                                  "same_bits": torch.equal(wide_out, earlier_out)}],
+                         speedup_vs_earlier=earlier_ms / ms, bound_share=bms / ms,
+                         read_ms=read_ms,
+                         plain_ms=plain, library_ms=lib, bound_ms=bms, bound_by=by,
+                         bytes=nbytes, **extra))
+        print(f"decode_attention mla: {name}: {variant} {ms:.4f} ms, earlier route "
+              f"(cat, pad, wide) {earlier_ms:.4f} ms ({earlier_ms / ms:.2f}x), wide "
+              f"alone {wide_ms:.4f} ms; bound {bms:.6f} ms ({by}), share "
+              f"{bms / ms:.3f} (torch's sum over the same rows {read_ms:.4f} ms, share "
+              f"{bms / read_ms:.3f}); worst err/limit {ratio:.3f}, earlier {earlier_ratio:.3f}, "
+              f"faults {json.dumps(faults)}; one launch {one_launch}", flush=True)
+
+
+def mla_decode_copies(torch) -> dict:
+    """One minicpm3-4b bf16 ``mla_decode`` (full width, one layer's weights
+    from seed 0, 4 slots of max_len 1024 at the serving positions) on
+    ArcaneEngine("cuda") under a TorchDispatchMode that counts the cat and
+    pad ops whose inputs have the cache's S axis: none on the mla route;
+    the same call on the earlier route (``earlier_mla_route``, a planted
+    fault for the count) must show both copies. The two layers' outputs
+    are held to each other within DECODE_TOL's bf16 limits."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from repro_torch.configs import get_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models import mla
+    cfg = get_config("minicpm3-4b")
+    ml, dt, b, s = cfg.mla, cfg.pdtype, 4, 1024
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = mla.mla_init(gen, cfg, "cuda")
+    c = torch.randn((b, s, ml.kv_lora_rank), generator=gen, device="cuda").to(dt)
+    kr = torch.randn((b, s, ml.qk_rope_head_dim), generator=gen, device="cuda").to(dt)
+    x = torch.randn((b, cfg.d_model), generator=gen, device="cuda").to(dt)
+    pos = torch.tensor(RING, dtype=torch.int32, device="cuda") - 1
+    engine = ArcaneEngine("cuda")
+
+    class Copies(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("cat", "constant_pad_nd", "pad") and any(
+                    isinstance(t, torch.Tensor) and s in t.shape[1:3]
+                    for t in tree_leaves((args, kwargs or {}))):
+                self.ops[name] = self.ops.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    def run(route):
+        cc, kk = c.clone(), kr.clone()
+        with route(torch), Copies() as mode:
+            out = mla.mla_decode(engine, params, cfg, x, pos, cc, kk)[0]
+        torch.cuda.synchronize()
+        return mode.ops, out
+
+    ops, out = run(lambda torch: contextlib.nullcontext())
+    planted, earlier = run(earlier_mla_route)
+    atol, rtol, _ = DECODE_TOL["bfloat16"]
+    res = {"copies": ops, "copies_earlier_route": planted,
+           "out_row_limit_ratio": row_limit_ratio(out, earlier, atol, rtol)}
+    res["ok"] = (sum(ops.values()) == 0 and sum(planted.values()) >= 2
+                 and bool(torch.isfinite(out).all()))
+    print(f"mla_decode copies: minicpm3-4b bf16 on the cuda engine: cat/pad ops over "
+          f"the cache's S axis {ops} (earlier route, planted: {planted}); layer "
+          f"output against the earlier route's, worst err/limit "
+          f"{res['out_row_limit_ratio']:.3f}; {'ok' if res['ok'] else 'FAIL'}",
+          flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def earlier_mla_route(torch):
+    """MLA's absorbed decode on the route it took before the mla variant:
+    ``mla_variant`` answers the earlier pick, so the wrapper copies the
+    cache (cat, pad) and runs wide."""
+    from repro_torch.kernels.decode_attention import kernel as dk
+    real = dk.mla_variant
+    dk.mla_variant = lambda q, c, kr: dk.decode_variant(q.shape[1],
+                                                        c.shape[2] + kr.shape[2])
+    try:
+        yield
+    finally:
+        dk.mla_variant = real
+
+
 # flash attention's cases: (name, B, Hq, Hkv, D, Sq, Skv, causal, window,
 # softcap)
 FLASH_CASES = [
@@ -1336,7 +1565,7 @@ def attention_variants(torch, cfg, dtype=None) -> tuple[str, str]:
     a view of its projection's heads; MLA's all contiguous) and the decode
     variant of a step's (MLA's absorbed decode: one latent head for all),
     in ``dtype`` (bf16 unless given)."""
-    from repro_torch.kernels.decode_attention.kernel import decode_variant
+    from repro_torch.kernels.decode_attention.kernel import decode_variant, mla_variant
     from repro_torch.kernels.flash_attention.kernel import flash_variant
 
     def meta(*shape):
@@ -1347,13 +1576,13 @@ def attention_variants(torch, cfg, dtype=None) -> tuple[str, str]:
         ml = cfg.mla
         qk = ml.qk_nope_head_dim + ml.qk_rope_head_dim
         q = k = v = meta(1, h, s, qk)
-        g, d = h, ml.kv_lora_rank + ml.qk_rope_head_dim
-    else:
-        hd = cfg.resolved_head_dim
-        q, k = meta(1, h, s, hd), meta(1, hkv, s, hd)
-        v = meta(1, s, hkv * hd).reshape(1, s, hkv, hd).transpose(1, 2)
-        g, d = h // hkv, hd
-    return flash_variant(q, k, v), decode_variant(g, d)
+        r, rope = ml.kv_lora_rank, ml.qk_rope_head_dim
+        return flash_variant(q, k, v), mla_variant(meta(4, h, r + rope), meta(4, s, r),
+                                                   meta(4, s, rope))
+    hd = cfg.resolved_head_dim
+    q, k = meta(1, h, s, hd), meta(1, hkv, s, hd)
+    v = meta(1, s, hkv * hd).reshape(1, s, hkv, hd).transpose(1, 2)
+    return flash_variant(q, k, v), decode_variant(h // hkv, hd)
 
 
 def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
@@ -1388,6 +1617,7 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
     activations' (bf16 unless given; the f32 copies of ``check_logits``
     run f32)."""
     from repro_torch.distributed import tensor_parallel as tpm
+    from repro_torch.kernels.decode_attention.kernel import VARIANTS as DECODE_VARIANTS
     from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
     from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
     from repro_torch.models.transformer import ENC_SPEC
@@ -1453,7 +1683,7 @@ def expected_launches(torch, cfg, prompt_lens, n_steps: int, slots: int,
               "decode_attention_cuda": (n_attn + n_cross) * n_steps}
     variants = {"gemm_cuda": gemm,
                 "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
-                "decode_attention_cuda": {"narrow": 0, "wide": 0}}
+                "decode_attention_cuda": dict.fromkeys(DECODE_VARIANTS, 0)}
     variants["flash_attention_cuda"][fv] += counts["flash_attention_cuda"]
     variants["decode_attention_cuda"][dv] += counts["decode_attention_cuda"]
     return counts, variants
@@ -1816,7 +2046,20 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     if cfg.rwkv is not None:
         metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
         lap("wkv_share")
-    metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name)
+    # MLA's absorbed decode also on its earlier route (the cat and pad
+    # copies, then wide), one step over the same live slots: what the
+    # copies cost
+    routes = {"on the earlier route (cat, pad, wide)": (earlier_mla_route(torch), 1)} \
+        if cfg.mla is not None else None
+    metrics["decode_profile"] = profile_decode(torch, sess, args.max_len, name,
+                                               routes=routes)
+    for before in metrics["decode_profile"]["routes"].values():
+        after, key = metrics["decode_profile"], "device_ms_per_step_by_kernel"
+        print(f"profile: {name} decode busy ms a step by group, earlier route -> mla: "
+              + ", ".join(f"{k} {before[key][k]:.3f} -> {v:.3f}"
+                          for k, v in after[key].items())
+              + f"; busy {before['device_busy_ms_per_step']:.3f} -> "
+              f"{after['device_busy_ms_per_step']:.3f}", flush=True)
     lap("decode_profile")
     if forward:
         del sess, out
@@ -2444,19 +2687,29 @@ def profile_prefill(torch, model, params, name: str, prompt_len: int = 512,
     return out
 
 
-def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3) -> dict:
+def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3,
+                   routes=None) -> dict:
     """torch.profiler over a few batched decode steps of the session (all 4
     slots live; in a ``profile_window``): the card's busy time, its idle
     share of the host clock, the kernels that take the most device time,
     and device time per step by kernel: the GEMV (gemv_n, gemv_t), decode
-    attention (split and merge kernels) and the rest. Fails unless the
-    profiler saw a device event for every launch of the serving kernels."""
+    attention (split and merge kernels), torch.cat's copies and the rest.
+    Fails unless the profiler saw a device event for every launch of the
+    serving kernels. ``routes`` ({label: (context, steps)}): further
+    windows over the same live slots, each step run inside its context,
+    returned under ``routes``."""
     rng = np.random.default_rng(1)
+    routes = routes or {}
+    more = sum(n for _, n in routes.values())
     for _ in range(sess.max_slots):
         sess.submit(rng.integers(0, sess.model.cfg.vocab, max_len // 4),
-                    max_new_tokens=steps + 2)
+                    max_new_tokens=steps + more + 2)
     sess.step()                       # admits (prefills) every request
     out = profile_steps(torch, sess.step, steps, name)
+    out["routes"] = {}
+    for label, (ctx, n) in routes.items():
+        with ctx:
+            out["routes"][label] = profile_steps(torch, sess.step, n, f"{name} {label}")
     sess.run_to_completion()
     return out
 
@@ -2479,12 +2732,13 @@ def profile_steps(torch, step, steps: int, name: str) -> dict:
     out = busy_share(prof, wall_ms, steps, "step", exclude=("spin_kernel", "nccl"))
     out["nccl_device_ms_per_step"] = sum(
         ms for k, ms in device_ms(prof).items() if "nccl" in k) / steps
-    groups = {"gemv": 0.0, "decode_attention": 0.0, "rest": 0.0}
+    groups = {"gemv": 0.0, "decode_attention": 0.0, "cat": 0.0, "rest": 0.0}
     for kname, ms in device_ms(prof, exclude=("spin_kernel", "nccl")).items():
         ids = set(IDENT.findall(kname))
         key = "gemv" if ids & {"gemv_n_kernel", "gemv_t_kernel"} else \
             "decode_attention" if ids & {"split_kernel", "split_wide_kernel",
-                                         "merge_kernel"} else "rest"
+                                         "split_mla_kernel", "merge_kernel"} else \
+            "cat" if "CatArrayBatchedCopy" in kname else "rest"
         groups[key] += ms / steps
     out.update(device_ms_per_step_by_kernel=groups, **seen)
     print(f"profile: {name} decode {json.dumps(out)}", flush=True)
@@ -2499,7 +2753,7 @@ SERVE_KERNEL_NAMES = {
                   "gemm_wmma_bf16_kernel", "gemv_n_kernel", "gemv_t_kernel",
                   "sgemm_kernel"),
     "flash_attention_cuda": ("flash_kernel", "flash_mma_kernel", "sflash_kernel"),
-    "decode_attention_cuda": ("split_kernel", "split_wide_kernel"),
+    "decode_attention_cuda": ("split_kernel", "split_wide_kernel", "split_mla_kernel"),
 }
 IDENT = re.compile(r"[A-Za-z_][A-Za-z0-9_]*")
 
@@ -4192,30 +4446,38 @@ def tp_lse_merge(torch, mesh, dev, backend: str, arch: str, smoke: bool = False,
     cfg = (get_smoke_config if smoke else get_config)(arch)
     mg = tpm.ModelGroup.of(mesh)
     b, s_l = TP_SERVE_SLOTS, max_len // mg.size
-    if cfg.mla is not None:
-        ml = cfg.mla
-        h, hkv, d = cfg.n_heads, 1, ml.kv_lora_rank + ml.qk_rope_head_dim
-        kw = dict(scale=1.0 / math.sqrt(ml.qk_nope_head_dim + ml.qk_rope_head_dim))
-    else:
-        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
-        kw = dict(softcap=cfg.attn_softcap)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     def randn(*shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    q, k, v = randn(b, h, d), randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)
+    engine = ArcaneEngine(backend)
+    lo = mg.rank * s_l
+    if cfg.mla is not None:     # the latent cache c, kr as the model holds it
+        ml = cfg.mla
+        h, hkv, d = cfg.n_heads, 1, ml.kv_lora_rank + ml.qk_rope_head_dim
+        kw = dict(scale=1.0 / math.sqrt(ml.qk_nope_head_dim + ml.qk_rope_head_dim))
+        q, k = randn(b, h, d), randn(b, max_len, ml.kv_lora_rank)
+        v = randn(b, max_len, ml.qk_rope_head_dim)
+
+        def attend(k, v, lengths, **more):
+            return engine.mla_decode_attention(q, k, v, lengths, **kw, **more)
+        k_l, v_l = k[:, lo:lo + s_l].contiguous(), v[:, lo:lo + s_l].contiguous()
+    else:
+        h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+        kw = dict(softcap=cfg.attn_softcap)
+        q, k, v = randn(b, h, d), randn(b, hkv, max_len, d), randn(b, hkv, max_len, d)
+
+        def attend(k, v, lengths, **more):
+            return engine.decode_attention(q, k, v, lengths, **kw, **more)
+        k_l, v_l = k[:, :, lo:lo + s_l].contiguous(), v[:, :, lo:lo + s_l].contiguous()
     pos = torch.tensor([3, s_l + 5, max_len // 2, max_len - 1][:b],
                        dtype=torch.int32, device=dev)
-    engine = ArcaneEngine(backend)
-    whole = engine.decode_attention(q, k, v, pos + 1, **kw)
+    whole = attend(k, v, pos + 1)
     _, lengths = seq_lengths(pos, s_l, mg, False)
-    lo = mg.rank * s_l
-    k_l, v_l = k[:, :, lo:lo + s_l].contiguous(), v[:, :, lo:lo + s_l].contiguous()
 
     def merged():
-        out, lse = engine.decode_attention(q, k_l, v_l, lengths.to(torch.int32),
-                                           return_lse=True, **kw)
+        out, lse = attend(k_l, v_l, lengths.to(torch.int32), return_lse=True)
         return tpm.merge_partials(out, lse, mg).to(torch.bfloat16)
 
     def share(x):
@@ -5879,6 +6141,7 @@ def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
     for run in (run_gemm, run_decode, run_flash):
         run(torch, timer, gen, rows, prefix=TP_ROW_PREFIXES)
     run_decode_lse(torch, timer, gen, rows)
+    run_mla_decode(torch, timer, gen, rows, prefix="lse")
     del timer
     torch.cuda.empty_cache()
     print_kernel_rows(rows)
@@ -6087,7 +6350,8 @@ def main(argv=None) -> None:
     (out_dir / "chip_smoke_build.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in _build.BUILD_LOG.items()))
     resources = {k: ptxas_resources(_build.BUILD_LOG.get(src, ""), k)
-                 for src, k in (("gemm", "sgemm_kernel"), ("flash_attention", "sflash_kernel"))}
+                 for src, k in (("gemm", "sgemm_kernel"), ("flash_attention", "sflash_kernel"),
+                                ("decode_attention", "split_mla_kernel"))}
     for k, fns in resources.items():
         for f in fns:
             print(f"ptxas: {k} {f['function']}: {f['registers']} registers, "
@@ -6116,14 +6380,18 @@ def main(argv=None) -> None:
           f"between the events", flush=True)
     summary["copy_calibration"] = copy_calibration(torch, timer)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    phase2 = (run_gemm, run_decode, run_decode_lse, run_flash, run_conv, run_maxpool,
-              run_leakyrelu)
-    for run in phase2[4:] if opts.cnn_kernels_only else phase2:
+    phase2 = (run_gemm, run_decode, run_decode_lse, run_mla_decode, run_flash, run_conv,
+              run_maxpool, run_leakyrelu)
+    for run in phase2[5:] if opts.cnn_kernels_only else phase2:
         run(torch, timer, gen, rows)
     del timer
     torch.cuda.empty_cache()
     print_kernel_rows(rows)
     summary["cases"] = rows
+    if not opts.cnn_kernels_only:
+        summary["mla_decode_copies"] = mla_decode_copies(torch)
+        if not summary["mla_decode_copies"]["ok"]:
+            failures.append("mla_decode copied the latent cache on the mla route")
     summary["host"] = run_host(torch)
     out_json.write_text(json.dumps(summary, indent=1))
     bad = [r for r in rows if not r["ok"]]

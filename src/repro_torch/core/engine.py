@@ -29,8 +29,10 @@ from repro_torch.core.encoding import ElemWidth, encode_xmk, fx_encode
 from repro_torch.kernels.common import is_integer
 from repro_torch.kernels.convlayer.kernel import conv_layer_cuda
 from repro_torch.kernels.convlayer.ref import conv_layer_ref
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
+                                                         mla_decode_attention_cuda)
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      mla_decode_attention_ref)
 from repro_torch.kernels.flash_attention.kernel import flash_attention_cuda
 from repro_torch.kernels.flash_attention.ref import attention_chunked_ref
 from repro_torch.kernels.gemm.kernel import gemm_cuda
@@ -173,6 +175,19 @@ class ArcaneEngine:
         if return_lse:
             return out[0].reshape(b, hq, d), out[1].reshape(b, hq)
         return out.reshape(b, hq, d)
+
+    def mla_decode_attention(self, q, c, kr, lengths, *, scale, return_lse=False):
+        """MLA's absorbed decode over the latent cache: q (B, H, r + rope),
+        c (B, S, r), kr (B, S, rope) → (B, H, r) (with ``return_lse`` f32
+        and the (B, H) lse), the function ``decode_attention`` computes over
+        cat(c, kr) and pad(c), its first r columns; logged as that call. On
+        the card no copy of the cache is made where the mla variant takes
+        the operands."""
+        b, hq, d = q.shape
+        self._log(6, q.dtype, (q.shape, (b, 1, c.shape[1], d)),
+                  4 * b * hq * c.shape[1] * d)
+        fn = mla_decode_attention_cuda if self._kernel(q) else mla_decode_attention_ref
+        return fn(q, c, kr, lengths, scale=scale, return_lse=return_lse)
 
 
 _DEFAULT: Optional[ArcaneEngine] = None

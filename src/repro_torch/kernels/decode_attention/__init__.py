@@ -1,1 +1,2 @@
-from repro_torch.kernels.decode_attention.ops import decode_attention  # noqa: F401
+from repro_torch.kernels.decode_attention.ops import (  # noqa: F401
+    decode_attention, mla_decode_attention)

@@ -6,8 +6,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
-from repro_torch.kernels.decode_attention.ref import decode_attention_ref
+from repro_torch.kernels.decode_attention.kernel import (decode_attention_cuda,
+                                                         mla_decode_attention_cuda)
+from repro_torch.kernels.decode_attention.ref import (decode_attention_ref,
+                                                      mla_decode_attention_ref)
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -31,3 +33,17 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if return_lse:
         return out[0].reshape(b, hq, d), out[1].reshape(b, hq)
     return out.reshape(b, hq, d)
+
+
+def mla_decode_attention(q: torch.Tensor, c: torch.Tensor, kr: torch.Tensor,
+                         lengths: torch.Tensor, *, scale: float,
+                         return_lse: bool = False):
+    """MLA's absorbed decode over the latent cache as the model holds it.
+
+    q: (B, H, r + rope); c: (B, S, r); kr: (B, S, rope); lengths: (B,) →
+    (B, H, r), exactly ``decode_attention(q, cat(c, kr)[:, None],
+    pad(c, rope)[:, None], lengths)[..., :r]``; with ``return_lse`` that
+    output in f32, unrounded, and the rows' log-sum-exp (B, H) f32.
+    """
+    fn = mla_decode_attention_cuda if q.is_cuda else mla_decode_attention_ref
+    return fn(q, c, kr, lengths, scale=scale, return_lse=return_lse)

@@ -6,6 +6,7 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.common import NEG_INF
 
@@ -68,3 +69,33 @@ def _with_lse(s, mask, v):
         some, l, torch.ones_like(l))
     lse = torch.where(some, m + torch.log(l), torch.full_like(l, -math.inf))
     return out, lse[..., 0]
+
+
+def mla_decode_attention_ref(q: torch.Tensor, c: torch.Tensor, kr: torch.Tensor,
+                             lengths: torch.Tensor, *, scale: float,
+                             return_lse: bool = False):
+    """MLA's absorbed decode, plain: q (B, G, r + rope) over the keys
+    cat(c, kr) and the values pad(c) (c (B, S, r), kr (B, S, rope), one
+    latent head), cast to q's dtype, through ``decode_attention_ref``, the
+    first r columns → (B, G, r); with ``return_lse`` (that output f32 and
+    the rows' lse (B, G))."""
+    out = decode_attention_ref(q[:, None], *mla_keys_values(c, kr, q.dtype),
+                               lengths, scale=scale, return_lse=return_lse)
+    return mla_columns(out, c.shape[2], return_lse)
+
+
+def mla_keys_values(c: torch.Tensor, kr: torch.Tensor, dtype):
+    """The latent cache as one KV head of decode attention, copied: keys
+    cat(c, kr) and values c zero-padded to r + rope, (B, 1, S, r + rope)
+    in ``dtype``."""
+    keys = torch.cat([c, kr], dim=-1)[:, None].to(dtype)
+    vals = F.pad(c, (0, kr.shape[2]))[:, None].to(dtype)
+    return keys, vals
+
+
+def mla_columns(out, r: int, return_lse: bool):
+    """Decode attention's (B, 1, G, r + rope) output over ``mla_keys_values``
+    (and its (B, 1, G) lse) → the first r columns (B, G, r) (and (B, G))."""
+    if return_lse:
+        return out[0][:, 0, :, :r], out[1][:, 0]
+    return out[:, 0, :, :r]

@@ -10,8 +10,11 @@ identity
 
 so one token's attention is the decode kernel's sweep over the latent
 cache, with one KV head for all H query heads (G = H) and D = kv_lora_rank
-+ rope; W_uv is applied to the latent output afterwards. The cache holds
-``c`` (B, S, r) and ``kr`` (B, S, rope), written in place.
++ rope: ``engine.mla_decode_attention`` over ``c`` and ``kr`` as they are
+held, V the first r columns of the key rows (no copy of the cache where
+the kernel takes the operands); W_uv is applied to the latent output
+afterwards. The cache holds ``c`` (B, S, r) and ``kr`` (B, S, rope),
+written in place.
 
 With an ``AttnTP`` (``tp``) whose ``heads`` is set a rank computes its
 heads: q_up is column-parallel, k_up and v_up are the rank's heads, o is
@@ -163,7 +166,7 @@ def mla_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     """
     m = cfg.mla
     b = x.shape[0]
-    r, rope = m.kv_lora_rank, m.qk_rope_head_dim
+    rope = m.qk_rope_head_dim
     qk_head = m.qk_nope_head_dim + rope
     q_nope, q_rope, c_new, kr_new = _project_qkv(
         engine, params, cfg, x[:, None, :], position[:, None], tp)
@@ -182,23 +185,22 @@ def mla_decode(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     # absorb W_uk into q: q_eff = W_ukᵀ q_nope → (B, H, r)
     q_eff = torch.einsum("bhd,hrd->bhr", q_nope[:, :, 0, :], params["k_up"])
     q_full = torch.cat([q_eff, q_rope[:, :, 0, :]], dim=-1)      # (B,H,r+rope)
-    keys = torch.cat([cache_c, cache_kr], dim=-1)[:, None]        # (B,1,S,r+rope)
-    vals = F.pad(cache_c, (0, rope))[:, None]                     # pad to r+rope
     scale = 1.0 / math.sqrt(qk_head)
-    kv = (keys.to(q_full.dtype), vals.to(q_full.dtype), lengths.to(torch.int32))
+    lengths = lengths.to(torch.int32)
     if _seq(tp):
         # every head over the rank's slice, the ranks merged, its heads kept
         h = q_full.shape[1]
         if _heads(tp):
             q_full = tpm.gather_heads(q_full, tp.mg)
-        out, lse = engine.decode_attention(q_full, *kv, scale=scale,
-                                           return_lse=True)
+        out, lse = engine.mla_decode_attention(q_full, cache_c, cache_kr, lengths,
+                                               scale=scale, return_lse=True)
         out = tpm.merge_partials(out, lse, tp.mg).to(q_full.dtype)
         if _heads(tp):
             out = out[:, tp.mg.rank * h:(tp.mg.rank + 1) * h]
     else:
-        out = engine.decode_attention(q_full, *kv, scale=scale)  # (B,H,r+rope)
-    out_v = torch.einsum("bhr,hrd->bhd", out[..., :r], params["v_up"])
+        out = engine.mla_decode_attention(q_full, cache_c, cache_kr, lengths,
+                                          scale=scale)                # (B,H,r)
+    out_v = torch.einsum("bhr,hrd->bhd", out, params["v_up"])
     out_v = out_v.reshape(b, out_v.shape[1] * m.v_head_dim)
     if _heads(tp):
         return dense_row(engine, params["o"], out_v, tp.mg), cache_c, cache_kr

@@ -955,6 +955,67 @@ def test_decode_attention_absorbed_shapes(cuda_device, rng, dt, d, g):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("return_lse", [False, True])
+@pytest.mark.parametrize("g,r,rope", [(40, 256, 32), (10, 256, 32), (17, 64, 16),
+                                      (40, 16, 8)])
+@pytest.mark.parametrize("dt", ["f32", "bf16"])
+def test_mla_decode_attention(cuda_device, rng, dt, g, r, rope, return_lse):
+    """MLA's absorbed decode on its own entry over the latent cache (c, kr)
+    against the plain version: bf16 at the shapes the mla variant takes on
+    it (one launch, counted as mla; rows within chip_smoke's bf16 limits;
+    the same bits twice; the earlier route, cat + pad + wide, within the
+    same limits), everything else (f32, r = 16) on the earlier route;
+    lengths empty, ragged, S and past S, over 3 splits of a 700-row cache."""
+    from repro_torch.kernels.decode_attention.kernel import (
+        EARLIER, _mla, mla_decode_attention_cuda, mla_variant)
+    from repro_torch.kernels.decode_attention.ref import mla_decode_attention_ref
+    tdt = {"f32": torch.float32, "bf16": torch.bfloat16}[dt]
+    b, s = 6, 700
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(device=cuda_device, dtype=tdt)
+
+    q, c, kr = t(b, g, r + rope), t(b, s, r), t(b, s, rope)
+    ln = torch.tensor([0, 1, 65, 300, s, s + 9], dtype=torch.int32, device=cuda_device)
+    pick = mla_variant(q, c, kr)
+    assert pick == ("mla" if dt == "bf16" and r >= 64 else
+                    "narrow" if g <= 8 and r + rope <= 256 else "wide")
+    kw = dict(scale=1.0 / 96 ** 0.5, return_lse=return_lse)
+    before = dict(decode_attention_cuda.variants)
+    out = mla_decode_attention_cuda(q, c, kr, ln, **kw)
+    assert decode_attention_cuda.variants[pick] == before[pick] + 1
+    again = mla_decode_attention_cuda(q, c, kr, ln, **kw)
+    ref = mla_decode_attention_ref(q, c, kr, ln, **kw)
+    runs = [out] + ([_mla(q, c, kr, ln, kw["scale"], return_lse, EARLIER["mla"])]
+                    if pick == "mla" else [])
+    for res in runs:
+        o, w = (res[0], ref[0]) if return_lse else (res, ref)
+        assert o.shape == (b, g, r)
+        rtol = 2.0 ** -7 if dt == "bf16" else 1e-5
+        lim = 1e-5 + rtol * w.float().abs().amax(-1)
+        assert bool(((o.float() - w.float()).abs().amax(-1) <= lim).all())
+        if return_lse:
+            full = torch.isfinite(ref[1])
+            assert torch.equal(full, torch.isfinite(res[1]))
+            assert float((res[1][full] - ref[1][full]).abs().max()) <= 1e-3
+    assert torch.equal(out[0] if return_lse else out, again[0] if return_lse else again)
+
+
+@pytest.mark.cuda
+def test_mla_decode_attention_refuses_what_it_does_not_take(cuda_device):
+    """A head count past 40 is refused on every route, and the earlier route
+    can be named only where the mla variant is the pick."""
+    from repro_torch.kernels.decode_attention.kernel import _mla, mla_decode_attention_cuda
+    ln = torch.ones((1,), dtype=torch.int32, device=cuda_device)
+    z = lambda *shape: torch.zeros(shape, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        mla_decode_attention_cuda(z(1, 41, 288), z(1, 8, 256), z(1, 8, 32), ln, scale=1.0)
+    with pytest.raises(ValueError):
+        _mla(z(1, 4, 24), z(1, 8, 16), z(1, 8, 8), ln, 1.0, False, "wide")
+
+
+@pytest.mark.cuda
 def test_decode_attention_refuses_shapes_outside_the_kernel(cuda_device):
     """What the plain version refuses, the wrapper refuses too; the narrow
     variant is refused past G = 8."""

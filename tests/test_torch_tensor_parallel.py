@@ -1003,7 +1003,7 @@ cs = importlib.import_module("chip_smoke")
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
-from repro_torch.kernels.decode_attention.kernel import decode_variant
+from repro_torch.kernels.decode_attention.kernel import decode_variant, mla_variant
 from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.gemm.kernel import VARIANTS, gemm_variant
@@ -1018,7 +1018,7 @@ class Spy(ArcaneEngine):
                        "decode_attention_cuda": 0}}
         self.variants = {{"gemm_cuda": dict.fromkeys(VARIANTS, 0),
                          "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
-                         "decode_attention_cuda": {{"narrow": 0, "wide": 0}}}}
+                         "decode_attention_cuda": {{"narrow": 0, "wide": 0, "mla": 0}}}}
 
     def _count(self, wrapper, variant):
         self.counts[wrapper] += 1
@@ -1036,6 +1036,10 @@ class Spy(ArcaneEngine):
         self._count("decode_attention_cuda",
                     decode_variant(q.shape[1] // k.shape[1], q.shape[2]))
         return super().decode_attention(q, k, v, lengths, **kw)
+
+    def mla_decode_attention(self, q, c, kr, lengths, **kw):
+        self._count("decode_attention_cuda", mla_variant(q, c, kr))
+        return super().mla_decode_attention(q, c, kr, lengths, **kw)
 
 
 mesh = cs.tp_mesh((1, WORLD))

@@ -18,7 +18,7 @@ import torch
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.kernels.common import NEG_INF
-from repro_torch.kernels.decode_attention.kernel import decode_variant
+from repro_torch.kernels.decode_attention.kernel import decode_variant, mla_variant
 from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention.kernel import flash_variant
 from repro_torch.kernels.flash_attention.ref import attention_ref
@@ -453,7 +453,7 @@ class LaunchSpy(ArcaneEngine):
                        "decode_attention_cuda": 0}
         self.variants = {"gemm_cuda": dict.fromkeys(VARIANTS, 0),
                          "flash_attention_cuda": dict.fromkeys(FLASH_VARIANTS, 0),
-                         "decode_attention_cuda": {"narrow": 0, "wide": 0}}
+                         "decode_attention_cuda": {"narrow": 0, "wide": 0, "mla": 0}}
 
     def _count(self, wrapper, variant):
         self.counts[wrapper] += 1
@@ -471,6 +471,10 @@ class LaunchSpy(ArcaneEngine):
         self._count("decode_attention_cuda",
                     decode_variant(q.shape[1] // k.shape[1], q.shape[2]))
         return super().decode_attention(q, k, v, lengths, **kw)
+
+    def mla_decode_attention(self, q, c, kr, lengths, **kw):
+        self._count("decode_attention_cuda", mla_variant(q, c, kr))
+        return super().mla_decode_attention(q, c, kr, lengths, **kw)
 
 
 @pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m", "minicpm3-4b",
