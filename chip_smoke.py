@@ -1468,11 +1468,12 @@ SERVE_MODELS = (
     # summing K in two halves, ``halves_engine``, lands as far from ref as
     # the kernels), while the kernels and cuBLAS sum in the same order (the
     # same bits in nearly every output: ``gemm_on_activations``; PERF.md)
-    # its profiled prefill is 128 tokens long, not 512: the profiler's
-    # processing of the wkv recurrence's per-token kernels over 512 tokens
-    # took 148 s of the run on the H100's host (PERF.md §6)
+    # its profiled prefill is 64 tokens long (one chunk of its scan), not
+    # 512: the profiler's processing of the wkv recurrence's per-token
+    # kernels took 148 s of the run over 512 tokens, 41.6 s over 128 on the
+    # H100's host (PERF.md §6)
     dict(arch="rwkv6-1.6b", prompt_lens=(16, 32, 64, 128, 256, 512),
-         reference="library", profile_len=128),
+         reference="library", profile_len=64),
     dict(arch="jamba-1.5-large-398b", smoke=True, max_len=128,
          prompt_lens=(4, 9, 16, 32, 48, 64)),
 )
@@ -2791,10 +2792,14 @@ def serve_events_seen(prof, before: dict, what: str) -> dict:
 def device_ms(prof, exclude=()) -> dict:
     """Device time (ms) by kernel name, from the device's own events only:
     an aten op's row repeats the time of the kernels it launched. Kernels
-    whose name holds a string of ``exclude`` are left out."""
+    whose name holds a string of ``exclude`` are left out. The profile's
+    ``key_averages`` is taken once and kept on it: each call walks every
+    event of the window (a second of host time for 100,000 events)."""
     from torch.autograd import DeviceType
+    if not hasattr(prof, "_averages"):
+        prof._averages = prof.key_averages()
     dev = {}
-    for evt in prof.key_averages():
+    for evt in prof._averages:
         if evt.device_type != DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -3882,13 +3887,26 @@ TP_MIXER_TRAINS = ("jamba-1.5-large-398b", "minicpm3-4b")
 TP_BLOCKS_ARCH = "internvl2-1b"
 TP_BLOCKS_SERVE = dict(prompt_len=128, max_len=512)
 TP_BLOCKS_TRAIN = (2, 256, 2)
+# --tp-case moe-rows: granite-moe-1b at full width on (2, N/2), its rows
+# split over data (a rank holds 2 of the 4 rows of the batch and of the
+# cache) and its MoE layers' dispatch groups the whole step's, their routing
+# shared over data (``models/moe.py``): 4 prompts of 16, then of 512
+# tokens, each followed by 16 decode steps (one dispatch group a prompt and
+# a step, which does not split into whole groups a rank)
+TP_ROWS_ARCH = "granite-moe-1b-a400m"
+TP_ROWS_SERVES = (dict(prompt_len=16, max_len=1024, new=17, profile=False),
+                  dict(prompt_len=512, max_len=1024, new=17))
 # --tp-case gemma2-seq (run with --tp-ranks 3): gemma2-9b at full width on
 # a model axis of 3, the one mesh of four cards on which its full-width
 # cache shards by sequence (8 kv heads do not divide 3; 384 positions do)
 TP3_MAX_LEN = 384
 # A mixer's bf16 TP serve on more than one rank sums its partial products
 # in another order than one card, and bf16 carries that, so it is held to
-# the plain serve through an f32 copy of the weights (``tp_serve_f32``):
+# the plain serve through an f32 copy of the weights (``tp_serve_f32``; so
+# is an MoE serve whose rows are split over data, --tp-case moe-rows: on
+# four H100s one greedy token of data rank 0's rows flipped at a near tie
+# in each of its two serves, while its f32 copy kept one card's tokens
+# within 3.1e-6):
 # over the steps, its logits' drift from the f32 run (max and mean |Δ|)
 # within TP_SERVE_DRIFT times the plain bf16 run's (readings of 1.0-1.18x
 # on four H100s); its greedy tokens the plain run's, but for a row where
@@ -4107,7 +4125,8 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
 def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
              exact: bool = False, arch: str = TP_SERVE_ARCH,
              prompt_len: int = TP_SERVE_PROMPT, max_len: int = TP_SERVE_MAX_LEN,
-             profile: bool = True, changes: dict | None = None) -> dict:
+             profile: bool = True, changes: dict | None = None,
+             new: int = TP_SERVE_NEW) -> dict:
     """``arch`` (TP_SERVE_ARCH unless named; full width unless ``smoke``,
     ``changes`` applied to its config, bf16, seed 0) served on the
     ``backend`` engine: TP_SERVE_SLOTS prompts of ``prompt_len`` tokens
@@ -4127,26 +4146,37 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     (``rounded_partials``, which that check's verdict on it shows), an
     attention on column blocks with each rank's block of the output cut at
     its first q head's boundary (``block_cut_at_head``, which it must
-    reject). The TP run's launch counts must be exactly those of the
-    rank's calls (``expected_launches`` with the plan: every product,
-    prompt attention and decode attention is one launch, but for a prompt's
-    attention on column blocks, whose q heads may straddle GQA groups),
-    and its variant counts exactly those of the rank's shapes. With
-    ``profile``, the decode steps' host ms (each synchronised) and the
-    card's busy ms a step (torch.profiler) of both runs."""
+    reject). An MoE model whose rows the mesh splits over data ranks
+    (``serve_split``) is held as a mixer's TP serve is, through the f32
+    copy; it is served once more with each rank routing its own tokens
+    alone (``own_ids``, which the f32 copy's verdict must reject); its
+    ranks' local cache bytes must be
+    1/n_data of the (1, model) layout's, and one more decode step's
+    collectives over the data axes (``axis_census``) exactly the MoE
+    layers' shared routing (``rows_census``): no cache leaf crosses. The
+    TP run's launch counts must be exactly those of the rank's calls
+    (``expected_launches`` with the plan and the rank's rows: every
+    product, prompt attention and decode attention is one launch, but for
+    a prompt's attention on column blocks, whose q heads may straddle GQA
+    groups), and its variant counts exactly those of the rank's shapes.
+    ``new``: the tokens of each prompt, the prefill's and ``new - 1``
+    decode steps'. With ``profile``, the decode steps' host ms (each
+    synchronised) and the card's busy ms a step (torch.profiler) of both
+    runs."""
     import dataclasses
     from repro_torch.configs import get_config, get_smoke_config
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
                                                   param_pspecs, to_shardings)
+    from repro_torch.distributed.sharding import axis_size
     from repro_torch.models.transformer import LM
-    from repro_torch.train.step import serve_on_mesh, tp_view
+    from repro_torch.train.step import rows_block, serve_on_mesh, serve_split, tp_view
     cfg = (get_smoke_config if smoke else get_config)(arch)
     if changes:
         cfg = dataclasses.replace(cfg, **changes)
     model = LM(cfg, ArcaneEngine(backend), device=dev)
     params = model.init_params(torch.Generator(device=dev).manual_seed(0))
-    b, s, new = TP_SERVE_SLOTS, prompt_len, TP_SERVE_NEW
+    b, s = TP_SERVE_SLOTS, prompt_len
     prompt = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab, (b, s)).astype(np.int32)).to(dev)
     inputs = {"tokens": prompt}
@@ -4190,6 +4220,12 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     del cache0
     plan = tp_view(model, p, mesh, c)[0].tp
     m = mesh.shape[mesh.mesh_dim_names.index("model")]
+    axes = serve_split(mesh, prompt)
+    n_rows = axis_size(mesh, axes)
+    rows = n_rows > 1 and any(spec.moe for spec in cfg.pattern)
+    b_l = b // n_rows
+    r0 = rows_block(mesh, axes)[0] * b_l
+    mine = slice(r0, r0 + b_l)                  # the rank's rows of the batch
     box = {}
 
     def served(c=c):
@@ -4204,11 +4240,11 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         return out
 
     def expect(_):
-        return (*expected_launches(torch, cfg, [b * prompt_len], new - 1, b,
-                                   prompt_batch=b, plan=plan),
-                f"(tensor-parallel on {m} ranks, rank {plan.mg.rank}: "
-                f"{b} x {prompt_len} prompt tokens in one prefill, {new - 1} "
-                f"decode steps)")
+        return (*expected_launches(torch, cfg, [b_l * prompt_len], new - 1, b_l,
+                                   prompt_batch=b_l, plan=plan),
+                f"(tensor-parallel on {m} ranks, rank {plan.mg.rank}, {b_l} of "
+                f"{b} rows: {b_l} x {prompt_len} prompt tokens in one prefill, "
+                f"{new - 1} decode steps)")
 
     if on_card:
         tp_out, counts, variants = counted_run(torch, cfg, served, expect)
@@ -4230,6 +4266,8 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         faults.append("rounded_partials")
     if m > 1 and blocks:
         faults.append("block_cut_at_head")
+    if rows:
+        faults.append("own_ids")
     fault_out = {}
     for fault in faults:
         # the same serve with the fault planted, from a fresh cache
@@ -4239,19 +4277,36 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
         with TP_SERVE_FAULTS[fault](torch):
             fault_out[fault] = served(c_fault)
         del c_fault
+    split = None
+    if rows:
+        # the rank's cache against the (1, model) layout's, and what one
+        # more decode step sends over the data axes
+        local, one = rows_cache_bytes(box["c"], m)
+        split = {"local_cache_bytes": local, "one_data_rank_cache_bytes": one,
+                 "n_data": n_rows}
+        census = axis_census(torch, mesh)
+        with torch.no_grad(), census:
+            step_tp(toks[-1], torch.full((b,), s + new - 1, dtype=torch.int32, device=dev))
+        sync()
+        split["data_axes_bytes"] = census.over("data", "pod")
+        split["expected_data_axes_bytes"] = rows_census(cfg, b, n_rows, m, plan)
+        split["ok"] = (split["local_cache_bytes"] * n_rows
+                       == split["one_data_rank_cache_bytes"]
+                       and split["data_axes_bytes"] == split["expected_data_axes_bytes"])
     tp_ms = None
     if profile:
         with torch.no_grad():
             _, tp_ms = decode_ms(step_tp, toks[:TP_PROFILE_STEPS])
+    plain_rows = [r[mine] for r in plain]
     gaps = []
-    for a, r in zip(tp_out, plain):
+    for a, r in zip(tp_out, plain_rows):
         d = (a.float() - r.float()).abs()
         gaps.append({"max_abs": float(d.max()), "mean_abs": float(d.mean()),
                      "argmax_equal": bool(torch.equal(torch.argmax(a, -1),
                                                       torch.argmax(r, -1))),
                      "same_bits": bool(torch.equal(a, r))})
     max_atol, mean_atol, max_rtol, mean_rtol = logits_limits(cfg)
-    absmax = max(float(r.abs().max()) for r in plain)
+    absmax = max(float(r.abs().max()) for r in plain_rows)
     max_lim = max_atol if max_atol else max_rtol * absmax
     mean_lim = mean_atol if mean_atol else mean_rtol * absmax
     within = all(g["max_abs"] <= max_lim and g["mean_abs"] <= mean_lim for g in gaps)
@@ -4259,10 +4314,11 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
     if exact:
         ok = ok and all(g["same_bits"] for g in gaps)
     f32 = None
-    if not exact and (mixer or blocks) and m > 1:
+    if not exact and ((mixer or blocks) and m > 1 or rows):
         f32 = tp_serve_f32(torch, model, params, mesh, dev, inputs, toks,
-                           max_len, plain, tp_out, fault_out)
-        ok = f32["ok"]
+                           max_len, plain_rows, tp_out, fault_out, mine)
+        ok = f32["ok"] and (not rows or (split["ok"]
+                                         and not f32["faults"]["own_ids"]["ok"]))
     out = {"arch": cfg.name, "mesh": "x".join(map(str, mesh.shape)),
            "rank": plan.mg.rank, "choices": plan.choices,
            "gathered_over_model": plan.gathered, "launches": counts,
@@ -4273,6 +4329,7 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
            "worst_mean_abs": max(g["mean_abs"] for g in gaps),
            "max_limit": max_lim, "mean_limit": mean_lim,
            "within_phase3_limits": within, "f32_copy": f32, "ok": ok,
+           "rows_split": split,
            "tp_decode_ms": tp_ms, "plain_decode_ms": plain_ms if profile else None}
     if on_card and profile:
         out["tp_profile"] = profile_steps(
@@ -4287,7 +4344,8 @@ def tp_serve(torch, mesh, dev, backend: str, smoke: bool = False,
 
 
 def tp_serve_f32(torch, model, params, mesh, dev, inputs, toks, max_len: int,
-                 plain: list, tp_out: list, fault_out: dict | None = None) -> dict:
+                 plain: list, tp_out: list, fault_out: dict | None = None,
+                 mine: slice = slice(None)) -> dict:
     """A mixer's TP serve, or one on column blocks, held through an f32
     copy of the weights: the same serve of ``inputs`` (the prompt's tokens
     and embeddings) on that copy, on this card and through serve_on_mesh
@@ -4295,7 +4353,8 @@ def tp_serve_f32(torch, model, params, mesh, dev, inputs, toks, max_len: int,
     every step, its logits within SERVE_F32_RTOL of the largest; and the
     bf16 TP run must pass ``serve_verdict`` against the plain bf16 run and
     the card's f32 run. ``fault_out``: faulted bf16 TP runs' logits by
-    fault, judged alike (``faults``)."""
+    fault, judged alike (``faults``). ``mine``: the rank's rows of the
+    batch, those its TP runs return (``plain`` holds only those)."""
     import dataclasses
     from repro_torch.core.engine import ArcaneEngine
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
@@ -4319,6 +4378,7 @@ def tp_serve_f32(torch, model, params, mesh, dev, inputs, toks, max_len: int,
             lg, cache = model32.decode_step(params32, tok, pos, cache)
             one.append(lg)
     del cache
+    one = [lg[mine] for lg in one]
     p = distribute(params32, to_shardings(param_pspecs(params32, mesh), mesh))
     del params32
     c0 = model32.init_cache(b, max_len)
@@ -4421,9 +4481,108 @@ def rounded_partials(torch):
         tpm.merge_partials = real
 
 
+@contextlib.contextmanager
+def own_ids(torch):
+    """A planted fault in an MoE serve whose rows are split over data
+    ranks: each rank routes its own tokens alone, its dispatch groups,
+    capacity and drops those of its rows only (no ``rows_group`` for the
+    MoE layers), where the sound path shares the ranks' expert ids and
+    keeps the one device's groups."""
+    import repro_torch.train.step as step
+    real = step.rows_group
+    step.rows_group = lambda mesh, axes: None
+    try:
+        yield
+    finally:
+        step.rows_group = real
+
+
 # a TP serve's planted faults, by name (``tp_serve``)
 TP_SERVE_FAULTS = {"rounded_partials": rounded_partials,
-                   "block_cut_at_head": block_cut_at_head}
+                   "block_cut_at_head": block_cut_at_head, "own_ids": own_ids}
+
+
+def rows_cache_bytes(cache, m: int) -> tuple[int, int]:
+    """(this rank's local bytes of the DTensor ``cache``, a rank's bytes of
+    the same cache laid out by ``cache_pspecs`` on a (1, m) mesh: every
+    row, its ``model`` shard)."""
+    from repro_torch.distributed.sharding import cache_pspecs, map_with_path
+    specs: dict = {}
+    map_with_path(lambda ps, sp: specs.__setitem__(ps, sp),
+                  cache_pspecs(cache, {"data": 1, "model": m}))
+    sizes = [0, 0]
+
+    def add(ps, t):
+        sizes[0] += t.to_local().nbytes
+        sizes[1] += t.numel() * t.element_size() // (m if "model" in tuple(specs[ps]) else 1)
+
+    map_with_path(add, cache)
+    return sizes[0], sizes[1]
+
+
+def axis_census(torch, mesh):
+    """A dispatch mode that sums the bytes each collective returns (as the
+    dry-run's census counts them), by mesh axis of its group and op:
+    ``over(*axes)`` gives {op: bytes} over the groups of ``axes``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from repro_torch.launch.dryrun import COLLECTIVES, _tensor_bytes
+    axis_of = {mesh.get_group(a).group_name: a for a in mesh.mesh_dim_names}
+
+    def group_name(arg):
+        if isinstance(arg, str):
+            return arg
+        if isinstance(arg, torch.ScriptObject) and \
+                arg._type().qualified_name().endswith(".ProcessGroup"):
+            return dist.ProcessGroup.unbox(arg).group_name
+        return None
+
+    class Census(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.bytes: dict = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if any(issubclass(t, DTensor) for t in types):
+                return NotImplemented
+            out = func(*args, **(kwargs or {}))
+            op = COLLECTIVES.get(str(getattr(func, "_overloadpacket", None)))
+            if op is not None:
+                axis = next((axis_of[n] for n in map(group_name, args) if n in axis_of),
+                            "other")
+                key = (axis, op)
+                self.bytes[key] = self.bytes.get(key, 0) + _tensor_bytes(out)
+            return out
+
+        def over(self, *axes) -> dict:
+            return {op: n for (a, op), n in sorted(self.bytes.items()) if a in axes}
+
+    return Census()
+
+
+def rows_census(cfg, b: int, n: int, m: int, plan) -> dict:
+    """What a decode step of ``b`` rows split over ``n`` data ranks sends
+    over the data axes, by op (the bytes each collective returns): each MoE
+    layer's expert ids (T·k int32, gathered), the rank's block of its
+    experts' capacity rows (reduce-scattered) and every block of their
+    outputs (gathered), ``models/moe.py: _moe_rows``; nothing else."""
+    from repro_torch.models.moe import dispatch_groups, splits_whole
+    e, k, d = cfg.moe.n_experts, cfg.moe.top_k, cfg.d_model
+    out = {"all-gather": 0, "reduce-scatter": 0}
+    it = 4 if cfg.compute_dtype == "float32" else 2
+    if splits_whole(b // n, n):
+        return {}
+    g, s_g = dispatch_groups(b)
+    cap = int(cfg.moe.capacity_factor * s_g * k / e) + 1
+    c = -(-g * cap // n)
+    for j, spec in enumerate(cfg.pattern):
+        if not spec.moe:
+            continue
+        e_l = e // m if plan.blocks[j].experts else e
+        out["all-gather"] += cfg.n_periods * (b * k * 4 + n * e_l * c * d * it)
+        out["reduce-scatter"] += cfg.n_periods * e_l * c * d * it
+    return out
 
 
 def tp_lse_merge(torch, mesh, dev, backend: str, arch: str, smoke: bool = False,
@@ -4678,6 +4837,15 @@ def tp_case_runs(torch, world: int) -> dict:
         gemma2_serve(res, max_len=TP3_MAX_LEN)
         lse_merge(res, {TP_SERVE_ARCH: dict(max_len=TP3_MAX_LEN)})
 
+    def moe_rows(res):
+        if world % 2:
+            fail(f"tensor-parallel: moe-rows needs a data axis of 2: {world} ranks")
+        res["rows_serves"] = {}
+        for kw in TP_ROWS_SERVES:
+            gc_cuda(torch)
+            res["rows_serves"][f"{TP_ROWS_ARCH} prompts of {kw['prompt_len']}"] = tp_serve(
+                torch, tp_mesh((2, world // 2)), "cuda", "cuda", arch=TP_ROWS_ARCH, **kw)
+
     def internvl2_blocks(res):
         res["block_serves"] = {TP_BLOCKS_ARCH: tp_serve(
             torch, mesh(), "cuda", "cuda", arch=TP_BLOCKS_ARCH, **TP_BLOCKS_SERVE)}
@@ -4688,13 +4856,15 @@ def tp_case_runs(torch, world: int) -> dict:
     return {"granite-train": granite_train, "mixer-trains": mixer_trains,
             "gemma2-serve": gemma2_serve, "mixer-serves": mixer_serves,
             "mamba-block": mamba_block, "lse-merge": lse_merge,
-            "internvl2-blocks": internvl2_blocks, "gemma2-seq": gemma2_seq}
+            "internvl2-blocks": internvl2_blocks, "moe-rows": moe_rows,
+            "gemma2-seq": gemma2_seq}
 
 
 # --tp-case: what ``--tp-ranks N`` runs on each rank, by name (default
-# TP_DEFAULT_CASES; gemma2-seq is meant for --tp-ranks 3)
+# TP_DEFAULT_CASES; gemma2-seq is meant for --tp-ranks 3, moe-rows for an
+# even N)
 TP_CASES = ("granite-train", "mixer-trains", "gemma2-serve", "mixer-serves",
-            "mamba-block", "lse-merge", "internvl2-blocks", "gemma2-seq")
+            "mamba-block", "lse-merge", "internvl2-blocks", "moe-rows", "gemma2-seq")
 TP_DEFAULT_CASES = TP_CASES[:-1]
 
 
@@ -4815,11 +4985,27 @@ def tp_ranks_bad(ranks: list, n: int, smi_line: str) -> list:
                            f"everywhere, or gathers over model")
         for sv in [*([res["serve"]] if "serve" in res else []),
                    *res.get("mixer_serves", {}).values(),
-                   *res.get("block_serves", {}).values()]:
+                   *res.get("block_serves", {}).values(),
+                   *res.get("rows_serves", {}).values()]:
             print(f"tensor-parallel: rank {r} serve {sv['arch']} {json.dumps(sv)} "
                   f"[{smi_line}]", flush=True)
             if not sv["ok"]:
                 bad.append(f"rank {r}: {sv['arch']}'s TP serve leaves the plain serve")
+        for name, sv in res.get("rows_serves", {}).items():
+            sp, f32 = sv["rows_split"], sv["f32_copy"]
+            print(f"tensor-parallel: rank {r} rows over data {name} mesh {sv['mesh']}: "
+                  f"local cache {sp['local_cache_bytes']} bytes, the (1, model) layout's "
+                  f"{sp['one_data_rank_cache_bytes']} ({sp['n_data']} data ranks); a "
+                  f"decode step over the data axes {json.dumps(sp['data_axes_bytes'])} "
+                  f"bytes by op, the MoE routing's {json.dumps(sp['expected_data_axes_bytes'])}; "
+                  f"greedy-equal {sv['greedy_equal']}, f32 copy greedy-equal "
+                  f"{f32['greedy_equal']}, own_ids fault {json.dumps(f32['faults']['own_ids'])} "
+                  f"[{smi_line}]", flush=True)
+            if not sp["ok"]:
+                bad.append(f"rank {r}: {name}: the cache rows are not split over data, "
+                           f"or more than the MoE routing crosses the data axes")
+            if f32["faults"]["own_ids"]["ok"]:
+                bad.append(f"rank {r}: {name} passes the planted own_ids fault")
         for sv in res.get("block_serves", {}).values():
             if n > 1 and not (set(sv["choices"].values()) == {"blocks"}
                               and not sv["gathered_over_model"]):
@@ -5891,12 +6077,25 @@ DRYRUN_CELLS = (("gemma2-9b", "train_4k", "single"),
                 # attention on column blocks: 40 q heads over 8 kv heads, 2.5
                 # heads a rank on 16
                 ("qwen2.5-32b", "decode_32k", "single"),
-                ("llama4-scout-17b-a16e", "train_4k", "single"))
+                ("llama4-scout-17b-a16e", "train_4k", "single"),
+                # an MoE decode step's rows split over data, its dispatch
+                # group's routing shared (87.6 GiB a rank with every row)
+                ("llama4-scout-17b-a16e", "decode_32k", "single"))
 # the cells whose peak a rank must fit the card: tensor-parallel compute
 # over the model axis brings gemma2-9b's cells under it, and jamba's once
-# its 63 Mamba mixers compute on their channel shards
+# its 63 Mamba mixers compute on their channel shards (by arch); an MoE
+# model's decode step once its rows stay split over data (by cell:
+# llama4-scout's train_4k, 84.1 GiB a rank, does not fit yet)
 DRYRUN_FIT = ("gemma2-9b", "jamba-1.5-large-398b")
+DRYRUN_FIT_CELLS = (("llama4-scout-17b-a16e", "decode_32k"),)
 DRYRUN_TIMEOUT_S = 600
+# the cells whose traces take longest (76-190 s each on the card's host):
+# started on the host's idle cores when phase 5b starts, so that phase 6a
+# waits on them for less than their whole trace
+DRYRUN_EARLY = (("gemma2-9b", "train_4k", "single"),
+                ("gemma2-9b", "prefill_32k", "single"),
+                ("granite-moe-1b-a400m", "train_4k", "multi"),
+                ("llama4-scout-17b-a16e", "train_4k", "single"))
 CARD_BYTES = 80e9                    # the H100's memory
 
 
@@ -6010,24 +6209,41 @@ def dryrun_smoke_peak(torch) -> dict:
             "card_peak_bytes": card, "memtracker_over_card": traced / card}
 
 
-def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
-    """Phase 6a: the dry-run cells, each in its own process, then phase 5's
-    step on a world of one in this process (while the cells trace), and
-    ``dryrun_smoke_peak``."""
+DRYRUN_DIR = ROOT / "build" / "chip_smoke" / "dryrun"
+
+
+def start_dryrun(cells, procs: dict) -> dict:
+    """Each of ``cells`` traced in a process of its own
+    (``launch/dryrun.py``), added to ``procs`` by tag."""
     import os
-    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
-    out_dir.mkdir(parents=True, exist_ok=True)
+    DRYRUN_DIR.mkdir(parents=True, exist_ok=True)
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    procs = {}
+    for arch, shape, mesh in cells:
+        tag = f"{arch}__{shape}__{mesh}"
+        (DRYRUN_DIR / f"{tag}.json").unlink(missing_ok=True)
+        with open(DRYRUN_DIR / f"{tag}.log", "w") as log:
+            procs[tag] = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+                 "--shape", shape, "--mesh", mesh, "--out", str(DRYRUN_DIR)],
+                stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+    return procs
+
+
+def stop_dryrun(procs: dict) -> None:
+    for p in procs.values():
+        if p.poll() is None:
+            p.kill()
+            p.wait()
+
+
+def run_dryrun(torch, summary: dict, smi_line: str, procs: dict) -> dict:
+    """Phase 6a: the dry-run cells, each in its own process (``procs``:
+    those started already, DRYRUN_EARLY), then phase 5's step on a world of
+    one in this process (while the cells trace), and
+    ``dryrun_smoke_peak``."""
+    out_dir = DRYRUN_DIR
     try:
-        for arch, shape, mesh in DRYRUN_CELLS:
-            tag = f"{arch}__{shape}__{mesh}"
-            (out_dir / f"{tag}.json").unlink(missing_ok=True)
-            with open(out_dir / f"{tag}.log", "w") as log:
-                procs[tag] = subprocess.Popen(
-                    [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-                     "--shape", shape, "--mesh", mesh, "--out", str(out_dir)],
-                    stdout=log, stderr=subprocess.STDOUT, env=env, cwd=ROOT)
+        start_dryrun([c for c in DRYRUN_CELLS if c not in DRYRUN_EARLY], procs)
         one = dryrun_world_of_one(summary)
         smoke_peak = dryrun_smoke_peak(torch)
         deadline = time.monotonic() + DRYRUN_TIMEOUT_S
@@ -6036,12 +6252,10 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
     except subprocess.TimeoutExpired:
         fail(f"dryrun: a cell ran past {DRYRUN_TIMEOUT_S} s")
     finally:
-        for p in procs.values():
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+        stop_dryrun(procs)
     out = {"cells": {}, "world_of_one": one, "smoke_peak": smoke_peak}
-    for tag, p in procs.items():
+    for tag in (f"{a}__{sh}__{m}" for a, sh, m in DRYRUN_CELLS):
+        p = procs[tag]
         path = out_dir / f"{tag}.json"
         if p.returncode != 0 or not path.exists():
             tail = (out_dir / f"{tag}.log").read_text()[-3000:]
@@ -6049,7 +6263,8 @@ def run_dryrun(torch, summary: dict, smi_line: str) -> dict:
         rec = json.loads(path.read_text())
         out["cells"][tag] = rec
         print(dryrun_line(rec, smi_line), flush=True)
-        if rec["arch"] in DRYRUN_FIT and rec["memory"]["peak_bytes"] > CARD_BYTES:
+        if (rec["arch"] in DRYRUN_FIT or (rec["arch"], rec["shape"]) in DRYRUN_FIT_CELLS) \
+                and rec["memory"]["peak_bytes"] > CARD_BYTES:
             fail(f"dryrun: {tag} traces a peak of {rec['memory']['peak_bytes'] / 1e9:.2f} "
                  f"GB a rank, past the card's 80 GB")
     m = one["measured"]
@@ -6160,7 +6375,8 @@ def run_tp_only(torch, n: int, smi_line: str, summary: dict, out_json: Path,
         return sum(sv["launches"][wrapper] for sv in
                    [*([res["serve"]] if "serve" in res else []),
                     *res.get("mixer_serves", {}).values(),
-                    *res.get("block_serves", {}).values()])
+                    *res.get("block_serves", {}).values(),
+                    *res.get("rows_serves", {}).values()])
 
     for name in ("gemm", "decode_attention", "flash_attention"):
         src, replaces, wrapper, _, _, _ = KERNELS[name]
@@ -6225,11 +6441,16 @@ def print_kernel_rows(rows: list) -> None:
 # time on one H100 (PERF.md §6) and at least 30 s; about twice for the
 # parallel nvcc build and the kernel rows (35-48 s each, varying with the
 # machine). A phase that grows shows before the run nears its 1200 s
-# limit; the phases took 804-818 s in all, under RUN_TARGET_S.
+# limit. The phases took 855-959 s in all, past RUN_TARGET_S, until
+# rwkv6's profiled prefill was cut to 64 tokens, each profile's
+# key_averages taken once and DRYRUN_EARLY's cells started with phase 5b:
+# 610-633 s (PERF.md §6). Those cells share the host with phases 5b and 5c
+# (5b 49.8 → 55.7 s on one host), so part of phase 6a's budget (80 s left
+# of its 165-220) went to 5b's.
 PHASE_BUDGET_S = {"device": 100, "kernels": 100, "cnn": 30, "sim": 30,
                   "sim_pipelined": 30, "dse": 60, "serve": 380,
-                  "serve_embeds": 60, "train": 160, "multi_device": 80,
-                  "tensor_parallel": 100, "dryrun": 240}
+                  "serve_embeds": 60, "train": 160, "multi_device": 100,
+                  "tensor_parallel": 100, "dryrun": 180}
 TP_PHASE_BUDGET_S = {"device": 90, "kernels": 120, "tensor_parallel": 1500}
 RUN_TARGET_S = 900
 
@@ -6306,7 +6527,8 @@ def main(argv=None) -> None:
                     metavar="CASE",
                     help="with --tp-ranks: the runs on each rank, by name "
                          f"(default {' '.join(TP_DEFAULT_CASES)}; gemma2-seq, "
-                         "gemma2-9b's cache sharded by sequence, with --tp-ranks 3)")
+                         "gemma2-9b's cache sharded by sequence, with --tp-ranks 3; "
+                         "moe-rows, granite's rows split over data, with an even N)")
     ap.add_argument("--tp-worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--tp-port", type=int, default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args(argv)
@@ -6443,20 +6665,25 @@ def main(argv=None) -> None:
     clock.lap("train")
     out_json.write_text(json.dumps(summary, indent=1))
 
-    # ---- phase 5b: the multi-device layer on a world of one NCCL rank
-    summary["multi_device"] = run_multi_device(torch, summary)
-    clock.lap("multi_device")
-    out_json.write_text(json.dumps(summary, indent=1))
+    # ---- phase 5b: the multi-device layer on a world of one NCCL rank (the
+    # longest dry-run cells trace meanwhile on the host's idle cores)
+    dryrun_procs = start_dryrun(DRYRUN_EARLY, {})
+    try:
+        summary["multi_device"] = run_multi_device(torch, summary)
+        clock.lap("multi_device")
+        out_json.write_text(json.dumps(summary, indent=1))
 
-    # ---- phase 5c: tensor parallelism on a world of one NCCL rank
-    summary["tensor_parallel"] = run_tensor_parallel(torch, summary, smi_line)
-    clock.lap("tensor_parallel")
-    out_json.write_text(json.dumps(summary, indent=1))
+        # ---- phase 5c: tensor parallelism on a world of one NCCL rank
+        summary["tensor_parallel"] = run_tensor_parallel(torch, summary, smi_line)
+        clock.lap("tensor_parallel")
+        out_json.write_text(json.dumps(summary, indent=1))
 
-    # ---- phase 6a: the dry-run on the production meshes, traced on the host
-    summary["dryrun"] = run_dryrun(torch, summary, smi_line)
-    clock.lap("dryrun")
-    out_json.write_text(json.dumps(summary, indent=1))
+        # ---- phase 6a: the dry-run on the production meshes, traced on the host
+        summary["dryrun"] = run_dryrun(torch, summary, smi_line, dryrun_procs)
+        clock.lap("dryrun")
+        out_json.write_text(json.dumps(summary, indent=1))
+    finally:
+        stop_dryrun(dryrun_procs)
 
     if failures:
         fail("; ".join(failures))

@@ -122,6 +122,13 @@ class ModelConfig:
     def cdtype(self) -> torch.dtype:
         return DTYPES[self.compute_dtype]
 
+    @property
+    def sub_quadratic(self) -> bool:
+        """Can this arch run 500k-token decode? SSM/hybrid: yes (attention
+        layers in hybrids keep a full KV cache; pure full-attention: no)."""
+        return all(s.kind in ("mamba", "rwkv") for s in self.pattern) or \
+            any(s.kind in ("mamba", "rwkv") for s in self.pattern)
+
     def param_count(self) -> int:
         """Analytic parameter count (embedding + blocks), term for term as
         the reference's."""

@@ -82,6 +82,36 @@ class ModelGroup:
                    mesh.shape[i])
 
 
+@dataclasses.dataclass(frozen=True)
+class RowsGroup:
+    """The data ranks a serve step splits its rows over (``serve_on_mesh``):
+    their process group, this rank's block of the rows (its coordinate on
+    the split axes, pod-major, as ``train/step.py: split_batch`` cuts the
+    batch, which is its rank in the group) and the number of blocks. Only
+    an MoE layer reads it (``models/moe.py``): its dispatch groups are the
+    whole step's tokens, in the order of the blocks."""
+    group: Any
+    rank: int
+    size: int
+
+
+def gather_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
+    """The ranks' ``x`` stacked along dim 0 in the order of their blocks
+    (no backward). The result starts as zeros: a group that moves no data
+    (the dry-run's fake one) leaves valid indices in it."""
+    out = x.new_zeros((rows.size * x.shape[0], *x.shape[1:]))
+    dist.all_gather_into_tensor(out, x.contiguous(), group=rows.group)
+    return out
+
+
+def reduce_scatter_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
+    """x: (size · m, ...) → the sum over the ranks of this rank's block of
+    m along dim 0 (no backward)."""
+    out = x.new_empty((x.shape[0] // rows.size, *x.shape[1:]))
+    dist.reduce_scatter_tensor(out, x.contiguous(), group=rows.group)
+    return out
+
+
 def _all_reduce(x: torch.Tensor, mg: ModelGroup, op=dist.ReduceOp.SUM):
     out = x.contiguous().clone()
     dist.all_reduce(out, op=op, group=mg.group)
@@ -453,13 +483,16 @@ class BlockTP:
     """One pattern position's plan: its attention or MLA and its
     cross-attention (None where the block has none), the dense FFN
     column/row-parallel, the MoE experts sharded, a Mamba or RWKV-6 mixer
-    on the rank's channels or heads (``mixer``)."""
+    on the rank's channels or heads (``mixer``); an MoE block's ``rows``
+    where a serve step splits its rows over more than one data rank
+    (None elsewhere)."""
     mg: ModelGroup
     attn: Optional[AttnTP]
     cross: Optional[AttnTP]
     ffn: bool
     experts: bool
     mixer: bool = False
+    rows: Optional[RowsGroup] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -595,8 +628,8 @@ def cache_kept(tp: "ModelTP", path: str) -> bool:
     return False
 
 
-def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
-         ) -> ModelTP:
+def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None,
+         rows: Optional[RowsGroup] = None) -> ModelTP:
     """The model's plan on the layout ``dims`` (``model_dims`` of the
     params) and, while serving, ``cache_dims`` (of the cache). A layer's
     attention is head-parallel where ``head_parallel`` holds and its q and
@@ -607,7 +640,8 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
     self-attention over one sharded by heads or by sequence. An MLA, RWKV-6 or Mamba mixer runs on its heads or channels
     where ``_mixer_plan`` finds its leaves (and state cache) laid out so,
     else whole, its sharded leaves gathered; MLA keeps a latent cache
-    sharded by sequence either way."""
+    sharded by sequence either way. ``rows``: the data ranks a serve step
+    splits its rows over, handed to the MoE blocks."""
     gathered: dict = {}
     choices: dict = {}
 
@@ -657,7 +691,8 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None
                 cross = attention(f"{prefix}/cross", cm, cross=True)
         ffn = dims.get(f"{prefix}/ffn/down/w") is not None
         experts = dims.get(f"{prefix}/ffn/gate") is not None
-        return BlockTP(mg, attn, cross, ffn, experts, on_shards)
+        return BlockTP(mg, attn, cross, ffn, experts, on_shards,
+                       rows if spec.moe else None)
 
     blocks = tuple(block(f"blocks/{j}", j, spec)
                    for j, spec in enumerate(cfg.pattern))

@@ -27,7 +27,10 @@ sharding rules lay them:
   (a layer by heads or on column blocks)
   or of MLA's latents (``--ring-local-cache``: of a ring's slots), whose
   decode merges the ranks' partial softmaxes, a recurrent mixer's heads or
-  channels), the batch split over the axes that shard the cache's rows.
+  channels), the batch split over the axes that shard the cache's rows
+  (an MoE layer whose dispatch groups do not fall into whole groups a
+  rank shares its expert ids and capacity rows over them,
+  ``models/moe.py``).
 
 The leaves a rank gathers over ``model`` to compute whole (an MLA whose
 heads do not divide the axis, a mixer whose leaves the rules do not split

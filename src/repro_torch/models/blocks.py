@@ -132,7 +132,8 @@ def _ffn_apply(engine, params, cfg, spec, x, tp=None):
     Python float, so that the decode step launches nothing for it)."""
     if spec.moe:
         return moe(engine, params["ffn"], cfg, x,
-                   mg=tp.mg if tp is not None and tp.experts else None)
+                   mg=tp.mg if tp is not None and tp.experts else None,
+                   rows=None if tp is None else tp.rows)
     return mlp(engine, params["ffn"], cfg, x,
                mg=tp.mg if tp is not None and tp.ffn else None), 0.0
 

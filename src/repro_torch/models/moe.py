@@ -20,6 +20,23 @@ dispatches as above, runs its E/m experts on their slots, and combines
 them; the ranks' partial combines are summed in f32 (only the order of the
 combine's sum changes). No all-to-all is needed while the tokens are
 replicated over the model ranks.
+
+A serve step whose rows are split over data ranks (``rows``: each rank
+holds a block of the batch, ``serve_on_mesh``) keeps the one device's
+groups, which are the whole step's tokens in batch order: where they do
+not fall into whole groups a rank, each rank routes its own tokens, the
+ranks' expert ids are all-gathered (T·k int32: the only input that couples
+a group's tokens is which slots an expert keeps), and every rank computes
+each slot's position in its expert over the whole group, as one device
+does. The expert rows of the group are then shared over the data ranks as
+the reference's ``constrain(xe, "model", "batch")`` lays them out: each
+rank fills the rows of its own kept slots (zeros elsewhere), a
+reduce-scatter over the data ranks hands each its block of every expert's
+rows, it runs its experts on that block only (no expert FLOP repeats over
+data), and an all-gather of the outputs lets it combine its own tokens.
+Per layer, over the data ranks: the ids, and the expert rows in and out
+(E_l × G·cap × d each, E_l the rank's experts). This path serves only: its
+collectives have no backward.
 """
 from __future__ import annotations
 
@@ -62,6 +79,20 @@ def moe_init(gen, cfg: ModelConfig, device) -> dict:
     }
 
 
+def _slot_positions(slot_expert: torch.Tensor, e: int) -> torch.Tensor:
+    """(G, n) expert ids of each group's slots in group order → each slot's
+    position in its expert within its group (a stable sort by expert)."""
+    g, n_slots = slot_expert.shape
+    dev = slot_expert.device
+    order = torch.argsort(slot_expert, dim=-1, stable=True)
+    sorted_e = torch.gather(slot_expert, 1, order)
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
+    pos_sorted = torch.arange(n_slots, device=dev) - torch.gather(
+        group_start, 1, sorted_e)
+    return torch.zeros_like(pos_sorted).scatter_(1, order, pos_sorted)
+
+
 def _group_dispatch(xt, expert_ids, gate_vals, e: int, cap: int):
     """Group-local dispatch of G groups. xt: (G, S_g, d); ids/gates:
     (G, S_g, k).
@@ -73,14 +104,7 @@ def _group_dispatch(xt, expert_ids, gate_vals, e: int, cap: int):
     dev = xt.device
     slot_expert = expert_ids.reshape(g, s_g * k)
     slot_gate = gate_vals.reshape(g, s_g * k)
-    n_slots = s_g * k
-    order = torch.argsort(slot_expert, dim=-1, stable=True)
-    sorted_e = torch.gather(slot_expert, 1, order)
-    group_start = torch.searchsorted(
-        sorted_e, torch.arange(e, device=dev).expand(g, e).contiguous())
-    pos_sorted = torch.arange(n_slots, device=dev) - torch.gather(
-        group_start, 1, sorted_e)
-    slot_pos = torch.zeros_like(pos_sorted).scatter_(1, order, pos_sorted)
+    slot_pos = _slot_positions(slot_expert, e)
     keep = slot_pos < cap
     flat_idx = torch.where(keep, slot_expert * cap + slot_pos,
                            torch.full_like(slot_pos, e * cap))
@@ -118,11 +142,75 @@ def _expert_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return torch.bmm(x.float(), w.float())
 
 
+def splits_whole(t_local: int, n: int) -> bool:
+    """Whether ``n`` ranks of ``t_local`` tokens each hold whole dispatch
+    groups of their ``n · t_local`` tokens, the same groups as their own
+    tokens make (so a rank's dispatch needs no other rank's tokens)."""
+    g, s_g = dispatch_groups(n * t_local)
+    return g % n == 0 and dispatch_groups(t_local) == (g // n, s_g)
+
+
+def _swiglu_experts(params: dict, cfg: ModelConfig, xe: torch.Tensor,
+                    dtype) -> torch.Tensor:
+    """The grouped expert SwiGLU of (E_l, C, d) rows → (E_l, C, d) in
+    ``dtype``."""
+    act = activation(cfg.act)
+    gg = act(_expert_matmul(xe, params["gate"]))
+    uu = _expert_matmul(xe, params["up"])
+    return _expert_matmul((gg * uu).to(xe.dtype), params["down"]).to(dtype)
+
+
+def _moe_rows(params: dict, cfg: ModelConfig, xt: torch.Tensor,
+              expert_ids: torch.Tensor, gate_vals: torch.Tensor,
+              mg: Optional[tpm.ModelGroup], rows: tpm.RowsGroup) -> torch.Tensor:
+    """The rank's tokens xt (T_l, d), routed (ids, gates (T_l, k)), through
+    the one device's dispatch groups of the ``rows.size`` ranks' T_l tokens
+    each (module docstring) → (T_l, d)."""
+    t_l, d = xt.shape
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    n, dev = rows.size, xt.device
+    t = n * t_l
+    g, s_g = dispatch_groups(t)
+    cap = int(cfg.moe.capacity_factor * s_g * k / e) + 1
+    every = tpm.gather_rows(expert_ids.to(torch.int32), rows).long()  # (T, k)
+    slot_pos = _slot_positions(every.reshape(g, s_g * k), e).reshape(t * k)
+    first = rows.rank * t_l * k           # the rank's first slot in the step
+    slot = torch.arange(first, first + t_l * k, device=dev)
+    slot_pos = slot_pos[first:first + t_l * k]
+    # an expert's capacity rows, G·cap, in group order; each rank's block c
+    c = -(-g * cap // n)
+    row = slot // (s_g * k) * cap + slot_pos
+    e_l = params["gate"].shape[0]
+    e0 = 0 if mg is None else mg.rank * e_l
+    local_e = expert_ids.reshape(-1) - e0
+    mine = (slot_pos < cap) & (local_e >= 0) & (local_e < e_l)
+    spare = e_l * n * c
+    flat_idx = torch.where(mine, local_e * (n * c) + row, torch.full_like(row, spare))
+    token_of_slot = torch.arange(t_l, device=dev).repeat_interleave(k)
+    dispatched = xt.new_zeros((spare + 1, d))
+    # kept slots of the rank's experts hit distinct rows; the rest the spare
+    dispatched[flat_idx] = xt[token_of_slot]
+    # (E_l, n·c, d) → (n·E_l, c, d): the ranks' blocks of every expert's rows
+    blocks = dispatched[:spare].reshape(e_l, n, c, d).transpose(0, 1)
+    xe = tpm.reduce_scatter_rows(blocks.reshape(n * e_l, c, d), rows)  # (E_l, c, d)
+    y = _swiglu_experts(params, cfg, xe, xt.dtype)
+    y = tpm.gather_rows(y, rows).reshape(n, e_l, c, d).transpose(0, 1).reshape(spare, d)
+    gathered = y[flat_idx.clamp(max=spare - 1)]
+    gathered = torch.where(mine[:, None], gathered, torch.zeros_like(gathered))
+    weighted = gathered * gate_vals.reshape(-1)[:, None].to(gathered.dtype)
+    out = weighted.reshape(t_l, k, d).sum(
+        dim=1, dtype=None if mg is None else torch.float32)
+    return out if mg is None else tpm.reduce_from_model(out, mg)
+
+
 def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
-        x: torch.Tensor, mg: Optional[tpm.ModelGroup] = None
+        x: torch.Tensor, mg: Optional[tpm.ModelGroup] = None,
+        rows: Optional[tpm.RowsGroup] = None
         ) -> tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) → (out, aux_loss); with ``mg``, the rank's experts
-    (module docstring)."""
+    """x: (B, S, d) → (out, aux_loss); with ``mg``, the rank's experts;
+    with ``rows``, a serve step's rows split over data ranks, the groups
+    the whole step's (module docstring; the aux loss, which serving
+    drops, then of the rank's tokens)."""
     b, s, d = x.shape
     mcfg = cfg.moe
     e, k = mcfg.n_experts, mcfg.top_k
@@ -143,6 +231,10 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
     ce = batch_mean(F.one_hot(expert_ids, e).float().sum(dim=1).mean(dim=0))
     aux = e * torch.sum(me * ce) * mcfg.router_aux_coef
 
+    if rows is not None and not splits_whole(t, rows.size):
+        out = _moe_rows(params, cfg, xt, expert_ids, gate_vals, mg, rows)
+        return out.reshape(b, s, d).to(x.dtype), aux.float()
+
     # ---- grouped dispatch --------------------------------------------------
     g, s_g = dispatch_groups(t)
     cap = int(mcfg.capacity_factor * s_g * k / e) + 1
@@ -159,11 +251,7 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         xe = xe[e0:e0 + e_l]
 
     # ---- grouped expert SwiGLU --------------------------------------------
-    act = activation(cfg.act)
-    gg = act(_expert_matmul(xe, params["gate"]))
-    uu = _expert_matmul(xe, params["up"])
-    y = _expert_matmul((gg * uu).to(xe.dtype), params["down"]).to(xt.dtype)
-    y = constrain(y, "model", "batch", None)
+    y = constrain(_swiglu_experts(params, cfg, xe, xt.dtype), "model", "batch", None)
 
     # ---- combine ------------------------------------------------------------
     if mg is not None:                # the other ranks' experts' rows: zero

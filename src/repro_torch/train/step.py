@@ -26,7 +26,7 @@ from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.sharding import (axis_size, batch_entry,
                                               batch_split, map_with_path,
                                               mesh_sizes)
-from repro_torch.models.moe import dispatch_groups
+from repro_torch.models.moe import splits_whole
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -133,24 +133,30 @@ def data_split(cfg, mesh, batch: dict, microbatches: int = 1) -> tuple:
     entry = batch_entry(b // microbatches, mesh)
     axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
     n = axis_size(mesh, axes)
-    if n > 1 and any(spec.moe for spec in cfg.pattern):
-        g, s_g = dispatch_groups(b // microbatches * (s + cfg.vision_prefix))
-        if g % n or dispatch_groups(g // n * s_g) != (g // n, s_g):
-            return ()
+    if n > 1 and any(spec.moe for spec in cfg.pattern) and \
+            not splits_whole(b // microbatches * (s + cfg.vision_prefix) // n, n):
+        return ()
     return tuple(axes)
 
 
-def split_batch(batch: dict, mesh, axes: tuple, microbatches: int = 1) -> dict:
-    """This rank's part of the batch along ``axes`` (its coordinate there,
-    pod-major): of each microbatch the same share, so that each of its
-    microbatches is its share of the reference's microbatch."""
-    if not axes:
-        return batch
+def rows_block(mesh, axes: tuple) -> tuple[int, int]:
+    """(this rank's block, the number of blocks) of a batch split over
+    ``axes``: its coordinate there, pod-major."""
     sizes, coord = mesh_sizes(mesh), dict(zip(mesh.mesh_dim_names,
                                               mesh.get_coordinate()))
     idx, n = 0, 1
     for a in axes:
         idx, n = idx * sizes[a] + coord[a], n * sizes[a]
+    return idx, n
+
+
+def split_batch(batch: dict, mesh, axes: tuple, microbatches: int = 1) -> dict:
+    """This rank's part of the batch along ``axes`` (``rows_block``): of
+    each microbatch the same share, so that each of its microbatches is its
+    share of the reference's microbatch."""
+    if not axes:
+        return batch
+    idx, n = rows_block(mesh, axes)
 
     def part(v):
         mb = v.reshape(microbatches, -1, *v.shape[1:])
@@ -168,13 +174,28 @@ def _group(mesh, axes: tuple):
     return mesh[axes]._flatten().get_group()
 
 
-def tp_view(model: LM, params, mesh, cache=None) -> tuple:
+def rows_group(mesh, axes: tuple):
+    """The ``tensor_parallel.RowsGroup`` of a serve step whose rows are
+    split over ``axes``, or None where they are not split over more than
+    one rank."""
+    idx, n = rows_block(mesh, axes)
+    if n == 1:
+        return None
+    group = _group(mesh, axes)
+    if dist.get_rank(group) != idx:
+        raise RuntimeError(f"the group of {axes} holds this rank at "
+                           f"{dist.get_rank(group)}, its block of the rows is {idx}")
+    return tpm.RowsGroup(group, idx, n)
+
+
+def tp_view(model: LM, params, mesh, cache=None, rows=None) -> tuple:
     """(the model computing on this rank's ``model`` shards, each param
     leaf's compute placements): the plan (``tensor_parallel.plan``) reads
-    the params' layout and, while serving, the cache's."""
+    the params' layout and, while serving, the cache's; ``rows``
+    (``rows_group``) goes to its MoE blocks."""
     plan = tpm.plan(model.cfg, tpm.model_dims(params, mesh),
                     tpm.ModelGroup.of(mesh),
-                    None if cache is None else tpm.model_dims(cache, mesh))
+                    None if cache is None else tpm.model_dims(cache, mesh), rows)
     return (model.tensor_parallel(plan),
             tpm.compute_placements(params, mesh, plan.gathered))
 
@@ -288,24 +309,14 @@ def make_serve_steps(model: LM, *, enc_len: int = 0):
     return prefill_step, decode_step
 
 
-def serve_split(cfg, mesh, tokens) -> tuple:
+def serve_split(mesh, tokens) -> tuple:
     """The mesh axes a serve step splits its rows over: those that shard
-    the cache's rows (``batch_entry``), or none where the model has MoE
-    layers whose dispatch groups of the step's tokens (a prompt's, the
-    vision prefix included, or a decode step's one a row) would not split
-    into whole groups a rank: a group's capacity and drops depend on its
-    tokens, so a split would change the result (as ``data_split`` keeps a
-    train step whole)."""
-    b = tokens.shape[0]
-    entry = batch_entry(b, mesh)
-    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
-    n = axis_size(mesh, axes)
-    if n > 1 and any(spec.moe for spec in cfg.pattern):
-        t = b * (tokens.shape[1] + cfg.vision_prefix) if tokens.dim() > 1 else b
-        g, s_g = dispatch_groups(t)
-        if g % n or dispatch_groups(g // n * s_g) != (g // n, s_g):
-            return ()
-    return tuple(axes)
+    the cache's rows (``batch_entry``), for every model. An MoE layer's
+    dispatch groups stay the whole step's tokens: where they do not fall
+    into whole groups a rank, its ranks share their routing
+    (``models/moe.py``), so the split changes no result."""
+    entry = batch_entry(tokens.shape[0], mesh)
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
@@ -315,9 +326,9 @@ def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
     step: the params gathered over the data axes with their ``model``
     shards kept (``tp_view``, which reads the cache's layout too); this
     rank's rows of the batch and the cache (the axes that shard the cache's
-    rows; ``serve_split``: every row where an MoE layer's dispatch groups
-    would not split whole, the cache's rows then gathered and the rank
-    keeping its rows of the result); the cache's ``model`` shards kept where the layer computes on
+    rows, ``serve_split``; an MoE layer's routing shared over them,
+    ``rows_group``, so its dispatch groups are the whole step's); the
+    cache's ``model`` shards kept where the layer computes on
     them (``tensor_parallel.cache_kept``: heads of a head-parallel layer,
     a sequence slice of every kv head or of MLA's latents, the heads or
     channels of a recurrent mixer's state) and gathered elsewhere, a rank then
@@ -325,15 +336,15 @@ def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,
     prompt, the embeddings of a vision prefix or an encoder's frames
     (``vision_embeds``, ``audio_embeds``; ``enc_len``: the frames a decode
     step's cross-attention reads), split with the rows of ``tokens``; for a
-    decode step, ``position``. → (the logits, whole over the vocab; the new
-    cache as DTensors). A cache sharded by sequence decodes on any engine:
+    decode step, ``position``. → (the logits of the rank's rows, whole over
+    the vocab; the new cache as DTensors). A cache sharded by sequence decodes on any engine:
     the decode kernel returns each row's log-sum-exp, and the ranks merge
     their slices."""
     from torch.distributed.tensor import DTensor, Replicate
     names = mesh.mesh_dim_names
-    axes = serve_split(model.cfg, mesh, batch["tokens"])
+    axes = serve_split(mesh, batch["tokens"])
 
-    tp_model, compute = tp_view(model, params, mesh, cache)
+    tp_model, compute = tp_view(model, params, mesh, cache, rows_group(mesh, axes))
     prefill_step, decode_step = make_serve_steps(tp_model, enc_len=enc_len)
     plan = tp_model.tp
 

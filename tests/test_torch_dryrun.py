@@ -145,8 +145,9 @@ def real_flops(arch, shape, model_axis=4) -> float:
     of the smoke config's weights in the fake world of 8 (the 2 x 4 mesh,
     or 1 x 8 with ``model_axis`` 8), outside FakeTensorMode. The fake group moves no data, so the values are
     meaningless, but every product has the rank's shapes: its rows of the
-    batch (4 of 8 over a data axis of 2; granite's MoE groups do not split,
-    so every rank takes all 8) and its share of the tensor-parallel
+    batch (4 of 8 over a data axis of 2; granite's train step, whose MoE
+    groups do not split, takes all 8, and its serve steps 4 of 8, the
+    groups' routing shared over data) and its share of the tensor-parallel
     products."""
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
                                                   to_shardings)
@@ -180,12 +181,16 @@ def real_flops(arch, shape, model_axis=4) -> float:
 
 @pytest.mark.parametrize("arch,shape", [
     ("gemma2-9b", TRAIN), ("gemma2-9b", PREFILL), ("gemma2-9b", DECODE),
-    ("granite-moe-1b-a400m", TRAIN), ("rwkv6-1.6b", PREFILL)],
+    ("granite-moe-1b-a400m", TRAIN), ("granite-moe-1b-a400m", DECODE),
+    ("rwkv6-1.6b", PREFILL)],
     ids=["gemma2-train", "gemma2-prefill", "gemma2-decode", "granite-train",
-         "rwkv6-prefill"])
+         "granite-decode", "rwkv6-prefill"])
 def test_trace_flops_equal_a_real_cpu_run(arch, shape):
     """The fake trace's per-rank FLOPs are those of a real run of the rank's
-    share (``real_flops``)."""
+    share (``real_flops``); granite's decode step computes its experts on
+    the rank's block of the capacity rows (``models/moe.py``), whose shape
+    the data do not change, whatever the fake group leaves in the ids it
+    gathers."""
     rec = trace_smoke(arch, shape)
     assert rec["flops"] > 0
     assert rec["flops"] == real_flops(arch, shape)

@@ -54,6 +54,18 @@ def test_configs_equal_reference(arch):
                 type(getattr(ref, sub)).__name__, sub
 
 
+@pytest.mark.parametrize("smoke", [False, True], ids=["full", "smoke"])
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_sub_quadratic_equals_reference(arch, smoke):
+    """``ModelConfig.sub_quadratic``, the reference's formula copied: equal
+    to the reference's for every arch, full width and smoke; true exactly
+    for the archs with an RWKV-6 or Mamba layer."""
+    mine = (get_smoke_config if smoke else get_config)(arch)
+    ref = (jax_get_smoke_config if smoke else jax_get_config)(arch)
+    assert mine.sub_quadratic == ref.sub_quadratic
+    assert mine.sub_quadratic == (arch in ("jamba-1.5-large-398b", "rwkv6-1.6b"))
+
+
 @pytest.mark.parametrize("func5", [0, 1, 2, 4, 5, 6, 30])
 @pytest.mark.parametrize("width", ["W", "H", "B"])
 def test_encode_xmk_words_match_reference(func5, width):

@@ -35,6 +35,14 @@ helpers of tests/test_torch_distributed.py).
   serve steps; on the kernels' route (a spy
   standing in for the kernels on the CPU) the decode steps ask the decode
   attention for its log-sum-exp at the rank-local lengths.
+* The same serve on a 2 × 4 mesh, the rows split over data, of
+  minicpm3, rwkv6, jamba, granite and llama4-scout smoke, and of
+  llama4-scout with every token routed to one expert (its capacity drops
+  decided across the data ranks), each rank's cache leaves holding its
+  rows only, against one device's and the JAX package's serve steps; the
+  same with each rank routing its own tokens alone, which must leave them;
+  chip_smoke.py's ``tp_serve`` of the MoE rows on a 2 × 2 mesh (launches,
+  the cache's bytes, what crosses the data axis, the planted fault).
 * The decode attention's log-sum-exp (the plain version) against
   ``partial_decode_attention`` and the JAX package's plain version, empty
   slices included; the ring's slot positions.
@@ -483,8 +491,38 @@ BLOCK_SERVES = {
     "qwen-blocks": ("qwen2.5-32b", {}, "k", 3, 8),
     "whisper-blocks": ("whisper-large-v3", {}, "k", 3, 8),
 }
-ALL_SERVES = {**SERVE_CASES, **BLOCK_SERVES}
+# MoE serves on the 2 x 4 mesh only: llama4-scout smoke (top-1 of 4
+# experts), and the same with router weights that send every token to
+# expert 0 (``plant_overflow``), so that the capacity drops are decided
+# across the data ranks; "-own-ids" serves it with each rank routing its
+# own tokens alone (no ``rows_group``), which must leave one device's logits
+MOE_SERVES = {
+    "llama4": ("llama4-scout-17b-a16e", {}, "k", 3, 4),
+    # granite behind a vision prefix of 4 rows a sequence: the prompt's
+    # group counts them (2 x (4 + 12) tokens)
+    "moe-vision": ("granite-moe-1b-a400m", {"vision_prefix": 4}, "k", 3, 4),
+    "moe-overflow": ("llama4-scout-17b-a16e", {}, "k", 3, 4),
+    "moe-overflow-own-ids": ("llama4-scout-17b-a16e", {}, "k", 3, 4),
+}
+ALL_SERVES = {**SERVE_CASES, **BLOCK_SERVES, **MOE_SERVES}
 PROMPT, STEPS, MAX_LEN, SLOTS, ENC_FRAMES = 12, 8, 32, 2, 12
+
+
+def plant_overflow(jparams):
+    """The reference's params with every token routed to expert 0: channel
+    0 of the residual stream held at 1 (the embedding's column 0, no
+    attention or expert output written to it), so that every MoE layer's
+    normed input has the same positive channel 0, and the router reading
+    that channel alone, expert 0 first by a wide margin."""
+    p = jax.tree.map(lambda a: np.array(a, copy=True), jparams)
+    p["embed"]["table"][:, 0] = 1.0
+    for blk in p["blocks"]:
+        blk["attn"]["o"]["w"][..., 0] = 0.0
+        blk["ffn"]["down"][..., 0] = 0.0
+        router = blk["ffn"]["router"]["w"]
+        router[...] = 0.0
+        router[..., 0, :] = np.linspace(8.0, 1.0, router.shape[-1])
+    return p
 
 TP_SERVE = """
 import dataclasses
@@ -493,7 +531,8 @@ from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed.sharding import (cache_pspecs, distribute,
                                               param_pspecs, to_shardings)
 from repro_torch.launch.mesh import make_host_mesh
-from repro_torch.models.transformer import LM, tree_map
+from repro_torch.models.transformer import LM, tree_leaves, tree_map
+from repro_torch.train import step
 from repro_torch.train.step import serve_on_mesh, tp_view
 
 
@@ -519,10 +558,9 @@ meshes = {{}}
 
 
 def whole(lg):
-    # the logits of every sequence: each data rank's rows gathered (an MoE
-    # model's serve step computes every row on every rank)
+    # the logits of every sequence: each data rank's rows gathered
     n = mesh.shape[0]
-    if n == 1 or lg.shape[0] == {slots}:
+    if n == 1:
         return lg
     out = lg.new_empty((n * lg.shape[0], *lg.shape[1:]))
     dist.all_gather_into_tensor(out, lg.contiguous(), group=mesh.get_group("data"))
@@ -547,6 +585,9 @@ for layout, (arch, extra, leaf, _, m) in {cases!r}.items():
     j = next(i for i, b in enumerate(c) if leaf in b)
     placements = str(c[j][leaf].placements)
     plan = tp_view(model, p, mesh, c)[0].tp
+    rows_group = step.rows_group
+    if layout.endswith("own-ids"):      # the planted fault
+        step.rows_group = lambda mesh, axes: None
     logits, c = serve_on_mesh(model, "prefill", p, c, prompt, mesh, enc_len=enc)
     logits = whole(logits)
     out = [logits]
@@ -554,14 +595,17 @@ for layout, (arch, extra, leaf, _, m) in {cases!r}.items():
     if layout == "spy":
         engine.calls.clear()
     for i in range({steps}):
-        pos = torch.full(({slots},), {prompt} + i, dtype=torch.int32)
+        pos = torch.full(({slots},), {prompt} + cfg.vision_prefix + i, dtype=torch.int32)
         logits, c = serve_on_mesh(model, "decode", p, c,
                                   {{"tokens": tok, "position": pos}}, mesh,
                                   enc_len=enc)
         logits = whole(logits)
         out.append(logits)
         tok = torch.argmax(logits, -1).to(torch.int32)
+    step.rows_group = rows_group
     res[layout] = {{"logits": torch.stack(out), "placements": placements,
+                   "data": mesh.shape[0],
+                   "local_rows": sorted({{t.to_local().shape[1] for t in tree_leaves(c)}}),
                    "choices": dict(plan.choices), "gathered": dict(plan.gathered),
                    "cache": tree_map(lambda t: t.full_tensor(), c),
                    "calls": getattr(engine, "calls", None)}}
@@ -578,7 +622,7 @@ def one_device_serve(model, params, prompt, enc: int = 0):
     out = [logits]
     for i in range(STEPS):
         tok = torch.argmax(logits, -1).to(torch.int32)
-        pos = torch.full((SLOTS,), PROMPT + i, dtype=torch.int32)
+        pos = torch.full((SLOTS,), PROMPT + model.cfg.vision_prefix + i, dtype=torch.int32)
         logits, cache = model.decode_step(params, tok, pos, cache, enc_len=enc)
         out.append(logits)
     return torch.stack(out), cache
@@ -595,7 +639,8 @@ def jax_serve(jmodel, jparams, prompt, tokens, enc: int = 0):
     dec = jax.jit(functools.partial(jmodel.decode_step, enc_len=enc))
     for i in range(STEPS):
         lg, jcache = dec(jparams, jnp.asarray(tokens[i]),
-                         jnp.full((SLOTS,), PROMPT + i, jnp.int32), jcache)
+                         jnp.full((SLOTS,), PROMPT + jmodel.cfg.vision_prefix + i,
+                                  jnp.int32), jcache)
         out.append(np.asarray(lg))
     return np.stack(out)
 
@@ -607,6 +652,10 @@ def serve_refs(cases: dict, tmp) -> dict:
     refs = {}
     for layout, (arch, extra, *_) in cases.items():
         model, params, jmodel, jparams = pair(arch, **extra)
+        if layout.startswith("moe-overflow"):
+            planted = plant_overflow(jparams)
+            jparams = jax.tree.map(jnp.asarray, planted)
+            params = params_from_numpy(planted, model.cfg, "cpu")
         rng = np.random.default_rng(5)
         prompt = {"tokens": torch.from_numpy(rng.integers(
             0, model.cfg.vocab, (SLOTS, PROMPT)).astype(np.int32))}
@@ -614,6 +663,9 @@ def serve_refs(cases: dict, tmp) -> dict:
         if enc:
             prompt["audio_embeds"] = torch.from_numpy(rng.standard_normal(
                 (SLOTS, enc, model.cfg.d_model)).astype(np.float32))
+        if model.cfg.vision_prefix:
+            prompt["vision_embeds"] = torch.from_numpy(rng.standard_normal(
+                (SLOTS, model.cfg.vision_prefix, model.cfg.d_model)).astype(np.float32))
         torch.save(params, tmp / f"serve_params_{layout}.pt")
         torch.save(prompt, tmp / f"serve_prompt_{layout}.pt")
         logits, cache = one_device_serve(model, params, prompt, enc)
@@ -635,10 +687,12 @@ def tp_serves(tmp_path_factory):
     return refs, [torch.load(tmp / f"serve{r}.pt") for r in range(4)]
 
 
-# the mixers' serves on a 2 x 4 mesh: each data rank serves one of the 2
-# sequences, its caches' rows split over data; granite's and jamba's MoE
-# layers keep every row on every rank (``serve_split``)
+# the mixers' and MoE models' serves on a 2 x 4 mesh: each data rank serves
+# one of the 2 sequences, its caches' rows split over data; the MoE layers'
+# dispatch groups (24 prompt or 2 step tokens) are the whole step's, their
+# routing shared over data (``models/moe.py``)
 MIXER_SERVES = {k: SERVE_CASES[k] for k in ("mla", "rwkv", "mamba", "moe")}
+MIXER_SERVES.update({k: v for k, v in MOE_SERVES.items() if not k.endswith("own-ids")})
 
 
 @pytest.fixture(scope="module")
@@ -647,7 +701,7 @@ def tp_serves_2x4(tmp_path_factory):
     mesh) and BLOCK_SERVES in the same launch (a 1 x 8 mesh), beside one
     device's and the JAX package's serves."""
     tmp = tmp_path_factory.mktemp("tp_serves_2x4")
-    cases = {**MIXER_SERVES, **BLOCK_SERVES}
+    cases = {**MIXER_SERVES, **BLOCK_SERVES, **MOE_SERVES}
     refs = serve_refs(cases, tmp)
     run_ranks(8, TP_SERVE.format(cases=cases, slots=SLOTS, max_len=MAX_LEN,
                                  steps=STEPS, prompt=PROMPT, enc=ENC_FRAMES), tmp)
@@ -675,14 +729,34 @@ def test_tp_serve_matches_one_device(tp_serves, layout):
 
 @pytest.mark.parametrize("layout", sorted(MIXER_SERVES))
 def test_tp_serve_2x4_matches_one_device(tp_serves_2x4, layout):
-    """The same prefill and 8 decode steps of minicpm3, rwkv6, jamba and
-    granite on a 2 x 4 mesh (the batch and the caches' rows split over
-    data, but for the MoE models, whose dispatch groups of 24 prompt or 2
-    step tokens do not split: every row on every rank; the mixers over
-    model): every rank's greedy tokens and logits as on the 1 x 4 mesh,
-    and the gathered cache within 1e-5 of one device's (relatively, for
-    RWKV-6's state, whose sums order differs with the split rows)."""
+    """The same prefill and 8 decode steps of minicpm3, rwkv6, jamba,
+    granite (also behind a vision prefix of 4 rows a sequence) and
+    llama4-scout (with and without the planted overflow) on a 2 x 4 mesh:
+    the batch and the caches' rows split over data, each rank's local cache
+    leaves holding 1 of the 2 rows; the MoE layers' dispatch groups of 24
+    (32 with the prefix) prompt or 2 step tokens, which do not split, the
+    whole step's, their expert ids shared over data; the mixers and
+    experts over model. Every rank's greedy tokens and logits as on the
+    1 x 4 mesh (one device's and the JAX package's within 1e-5), and the
+    gathered cache within 1e-5 of one device's (relatively, for RWKV-6's
+    state, whose sums order differs with the split rows)."""
     check_serve(*tp_serves_2x4, layout, rtol=1e-5)
+
+
+def test_moe_serve_routing_own_ids_alone_is_rejected(tp_serves_2x4):
+    """The planted overflow served on 2 x 4 with each rank routing its own
+    tokens alone (its groups, capacity and drops those of its one row):
+    its logits leave one device's by far more than the 1e-5 the sound path
+    keeps to, at the prefill and at every decode step (one device keeps
+    the first row's token of each step's group and drops the second's)."""
+    refs, ranks = tp_serves_2x4
+    _, logits, *_ = refs["moe-overflow"]
+    assert refs["moe-overflow-own-ids"][1].equal(logits)
+    for res in ranks:
+        mine = res["moe-overflow-own-ids"]
+        assert mine["local_rows"] == [SLOTS // 2]
+        gap = (mine["logits"] - logits).abs().amax(dim=(1, 2))
+        assert torch.all(gap > 1e-2), gap
 
 
 @pytest.mark.parametrize("layout", sorted(BLOCK_SERVES))
@@ -706,6 +780,7 @@ def check_serve(refs, ranks, layout, rtol=0.0):
     for res in ranks:
         mine = res[layout]
         assert f"Shard(dim={dim})" in mine["placements"]
+        assert mine["local_rows"] == [SLOTS // mine["data"]]
         assert mine["gathered"] == {}
         assert set(mine["choices"].values()) <= ({"blocks"} if blocks
                                                  else {"heads", "channels"})
@@ -826,6 +901,32 @@ def spec_dims(pspecs) -> dict:
     sh.map_with_path(lambda p, s: out.__setitem__(
         p, next((i for i, e in enumerate(s) if e == "model"), None)), pspecs)
     return out
+
+
+def test_serve_split_gives_the_batch_axes_for_moe_models():
+    """``serve_split`` splits a serve step's rows over the axes that shard
+    the cache's rows whatever the model: an MoE model's decode step of 128
+    rows (one dispatch group, which does not split) and its prompt of 32 x
+    32,768 tokens alike, on the production meshes; a single row stays on
+    every rank. The MoE layers keep the one device's groups by sharing
+    their routing (``models/moe.py: splits_whole`` is false for the
+    decode step's rows)."""
+    from repro_torch.models.moe import splits_whole
+    from repro_torch.train.step import serve_split
+    single = {"data": 16, "model": 16}
+    multi = {"pod": 2, "data": 16, "model": 16}
+    for arch in ("granite-moe-1b-a400m", "llama4-scout-17b-a16e"):
+        cache = LM(get_config(arch), device="cpu").cache_shapes(128, 64)
+        rows = set()
+        sh.map_with_path(lambda _, sp: rows.add(tuple(sp)[1]),
+                         sh.cache_pspecs(cache, single))
+        assert rows == {"data"}
+    assert serve_split(single, torch.zeros(128, dtype=torch.int32)) == ("data",)
+    assert serve_split(multi, torch.zeros(128, dtype=torch.int32)) == ("pod", "data")
+    assert serve_split(single, torch.zeros((32, 4), dtype=torch.int32)) == ("data",)
+    assert serve_split(single, torch.zeros(1, dtype=torch.int32)) == ()
+    assert not splits_whole(128 // 16, 16) and not splits_whole(128 // 32, 32)
+    assert splits_whole(32 * 32_768 // 16, 16)
 
 
 def test_head_parallel_rule():
@@ -995,14 +1096,10 @@ def test_plan_names_a_mixer_it_cannot_split():
 
 
 # --------------------------------- chip_smoke.py's TP serve checks, on gloo
-CHIP_TP = """
-import dataclasses
-import importlib
-sys.path.insert(0, {root!r})
-cs = importlib.import_module("chip_smoke")
-from repro_torch.configs import get_config, get_smoke_config
+# the engine calls of a serve counted by the variant the card's wrapper
+# would pick (a format string of the rank scripts below)
+SPY = """
 from repro_torch.core.engine import ArcaneEngine
-from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
 from repro_torch.kernels.decode_attention.kernel import decode_variant, mla_variant
 from repro_torch.kernels.flash_attention.kernel import VARIANTS as FLASH_VARIANTS
 from repro_torch.kernels.flash_attention.kernel import flash_variant
@@ -1042,6 +1139,15 @@ class Spy(ArcaneEngine):
         return super().mla_decode_attention(q, c, kr, lengths, **kw)
 
 
+"""
+CHIP_TP = """
+import dataclasses
+import importlib
+sys.path.insert(0, {root!r})
+cs = importlib.import_module("chip_smoke")
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
+""" + SPY + """
 mesh = cs.tp_mesh((1, WORLD))
 out = {{}}
 for arch, kw in {cases}.items():
@@ -1168,3 +1274,88 @@ def test_chip_smoke_lse_merge_check_rejects_rounded_partials(chip_tp, arch):
     s_l = chip_tp[0][arch]["merge"]["shape"]["S_l"]
     assert min(lens[-1]) <= 0 and max(lens[0]) >= s_l
     assert any(0 < n < s_l for ls in lens for n in ls)
+
+
+# ------------------- chip_smoke.py's --tp-case moe-rows, on gloo (2 x 2)
+CHIP_ROWS = """
+import importlib
+sys.path.insert(0, {root!r})
+cs = importlib.import_module("chip_smoke")
+from repro_torch.configs import get_smoke_config
+from repro_torch.distributed.sharding import cache_pspecs, distribute, param_pspecs, to_shardings
+""" + SPY + """
+mesh = cs.tp_mesh((2, 2))
+arch, kw = {arch!r}, {kw!r}
+cfg = get_smoke_config(arch)
+b, s, steps = cs.TP_SERVE_SLOTS, kw["prompt_len"], kw["new"] - 1
+spy = Spy()
+model = LM(cfg, spy, device="cpu")
+params = model.init_params(torch.Generator().manual_seed(0))
+p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+c0 = model.init_cache(b, kw["max_len"])
+c = distribute(c0, to_shardings(cache_pspecs(c0, mesh), mesh))
+plan = tp_view(model, p, mesh, c)[0].tp
+prompt = {{"tokens": torch.from_numpy(np.random.default_rng(0).integers(
+    0, cfg.vocab, (b, s)).astype(np.int32))}}
+
+
+def whole(lg):
+    # every row's logits: the data ranks' rows gathered
+    out = lg.new_empty((2 * lg.shape[0], *lg.shape[1:]))
+    dist.all_gather_into_tensor(out, lg.contiguous(), group=mesh.get_group("data"))
+    return out
+
+
+with torch.no_grad():
+    lg, c = serve_on_mesh(model, "prefill", p, c, prompt, mesh)
+    for i in range(steps):
+        pos = torch.full((b,), s + i, dtype=torch.int32)
+        lg, c = serve_on_mesh(model, "decode", p, c, {{"tokens": torch.argmax(
+            whole(lg), -1).to(torch.int32), "position": pos}}, mesh)
+want = cs.expected_launches(torch, cfg, [b // 2 * s], steps, b // 2, prompt_batch=b // 2,
+                            plan=plan)
+sv = cs.tp_serve(torch, mesh, "cpu", "ref", smoke=True, arch=arch, **kw)
+torch.save({{"counts": [spy.counts, want[0]], "variants": [spy.variants, want[1]],
+            "serve": sv}}, OUT + f"/chip_rows{{RANK}}.pt")
+"""
+CHIP_ROWS_CASE = ("llama4-scout-17b-a16e",
+                  dict(prompt_len=16, max_len=64, new=9, profile=False))
+
+
+@pytest.fixture(scope="module")
+def chip_rows(tmp_path_factory):
+    """chip_smoke.py's ``tp_serve`` of an MoE model whose rows the mesh
+    splits over data (its --tp-case moe-rows) on 4 gloo ranks, a 2 x 2
+    mesh, at smoke width on the engine ``ref``: llama4-scout smoke (top-1
+    of 4 experts), 4 prompts of 16 tokens, 8 decode steps."""
+    import pathlib
+    tmp = tmp_path_factory.mktemp("chip_rows")
+    root = str(pathlib.Path(__file__).resolve().parents[1])
+    arch, kw = CHIP_ROWS_CASE
+    run_ranks(4, CHIP_ROWS.format(root=root, arch=arch, kw=kw), tmp, timeout=600)
+    return [torch.load(tmp / f"chip_rows{r}.pt") for r in range(4)]
+
+
+def test_chip_smoke_moe_rows_serve_on_the_cpu(chip_rows):
+    """On each rank: the launch model with the rank's 2 of 4 rows
+    (``expected_launches``) equal to the engine calls of the serve, each
+    counted by the variant the card's wrapper would pick; the local cache
+    half the (1, 2) layout's bytes; one decode step's collectives over the
+    data axis exactly the MoE layers' shared routing (``rows_census``: the
+    expert ids gathered, the capacity rows reduce-scattered and gathered
+    back), no cache leaf among them; the f32 copy greedy-equal to one
+    device's and within SERVE_F32_RTOL; and the planted ``own_ids`` fault
+    (each rank routing its own tokens alone) rejected by the f32 copy's
+    verdict. (Phase 3's bf16 limits, calibrated at full width, are the
+    card's check only.)"""
+    for r, res in enumerate(chip_rows):
+        assert res["counts"][0] == res["counts"][1], r
+        assert res["variants"][0] == res["variants"][1], r
+        sv = res["serve"]
+        sp, f32 = sv["rows_split"], sv["f32_copy"]
+        assert sp["n_data"] == 2 and sp["ok"], sp
+        assert sp["local_cache_bytes"] * 2 == sp["one_data_rank_cache_bytes"] > 0
+        assert set(sp["data_axes_bytes"]) == {"all-gather", "reduce-scatter"}
+        assert sp["data_axes_bytes"] == sp["expected_data_axes_bytes"]
+        assert f32["greedy_equal"] and f32["max_abs"] <= f32["limit"], f32
+        assert not f32["faults"]["own_ids"]["ok"], f32["faults"]
