@@ -346,7 +346,12 @@ but gemma2-seq): granite-moe-1b-a400m's tensor-parallel train step at
 full width on a (1, N) and a (2, N/2) mesh and the mixers' smoke steps
 on (1, N), 3 steps each against the plain step and an f32 copy on the
 same card (TP_STEP1 and the plain step's update gap to the f32 copy;
-TP_DRIFT), the planted TP_FAULTS rejected where there are experts;
+TP_DRIFT), the planted TP_FAULTS rejected where there are experts (the
+MoE rows' own fault on (2, N/2), where each rank's 1,024 tokens of a
+microbatch are half its one dispatch group and the ranks share its
+routing); on each mesh whether the batch was split over data, a rank's
+tokens, its busy ms a step and peak memory, and its step's bytes over
+data by op, held equal to ``train_rows_census``;
 gemma2-9b and the mixers' models served tensor-parallel on the cuda
 engine on a (1, N) mesh (gemma2: the plain serve's greedy tokens and
 logits within phase 3's limits; a mixer's through an f32 copy,
@@ -3855,8 +3860,23 @@ TP_STEPS = 3
 # the TP run's within TP_DRIFT times the plain run's. A planted fault must
 # leave the step-1 limits.
 TP_STEP1 = {"loss_rel": 1e-4, "gnorm_rel": 1e-3}
+# On a mesh that splits the batch over data, step 1's grad norm is held
+# with the embedding's index sums in f32 on both sides
+# (``index_sums_in_f32``, as phase 5 shows them), its loss and update in
+# bf16 as on one card; a planted fault's step 1 is held with the f32 index
+# sums throughout. The bf16 index sums of a repeated token stall as they
+# grow, and a data rank's sums cover its share of the tokens only, so the
+# split step's bf16 embedding grad sits nearer the f32 copy's than one
+# card's does (granite-moe-1b on (2, 2), four H100s: grad norm 2.85e-3 off
+# the plain step's, 2.2e-3 off the f32 copy's, where the plain step sits
+# 5.1e-3 off it; 3.1e-4 with the index sums in f32): a gap TP_STEP1's grad
+# norm cannot tell from a fault's (last_rank_experts_zeroed reads 2.3e-3).
+# Both readings are kept ("step1", "step1_f32_index_sums").
 TP_DRIFT = 3.0
-TP_FAULTS = ("combine_sum_dropped", "last_rank_experts_zeroed")
+# the last runs on a mesh whose data axis splits the rows of an MoE layer
+# whose dispatch groups do not split whole (its routing shared over data)
+TP_FAULTS = ("combine_sum_dropped", "last_rank_experts_zeroed",
+             "rows_gather_without_reduce_scatter")
 # the planted fault of a TP step whose attention runs on column blocks: the
 # activations' all-gather left without its reduce-scatter backward (each
 # rank keeping its own block of its partial gradient, as a gather whose
@@ -3938,15 +3958,33 @@ def tp_fault(torch, fault, rank: int, world: int):
     ranks' partial combines left unsummed, or the last rank's experts
     returning zeros; in attention on column blocks the activations'
     gather left without its reduce-scatter backward (``gather_from_model``'s
-    backward: each rank keeps its own block of its partial gradient)."""
+    backward: each rank keeps its own block of its partial gradient); in
+    an MoE layer whose routing is shared over data ranks the outputs'
+    all-gather left without its reduce-scatter backward (each rank keeps
+    its own block of its gradient, its own tokens' share only)."""
     import types
     import repro_torch.models.moe as moe
     from repro_torch.distributed import tensor_parallel as tpm
     real_tpm, real_mm = moe.tpm, moe._expert_matmul
     real_gather = tpm.gather_blocks
     if fault == "combine_sum_dropped":
-        moe.tpm = types.SimpleNamespace(copy_to_model=real_tpm.copy_to_model,
-                                        reduce_from_model=lambda x, mg: x)
+        moe.tpm = types.SimpleNamespace(**dict(vars(real_tpm),
+                                               reduce_from_model=lambda x, mg: x))
+    elif fault == "rows_gather_without_reduce_scatter":
+        class KeepOwnBlock(torch.autograd.Function):
+            @staticmethod
+            def forward(ctx, x, rows):
+                ctx.rows = rows
+                return real_tpm._gather_rows(x, rows)
+
+            @staticmethod
+            def backward(ctx, grad):
+                n = grad.shape[0] // ctx.rows.size
+                return grad[ctx.rows.rank * n:(ctx.rows.rank + 1) * n].contiguous(), None
+
+        # on every rank alike: no rank waits in a collective the others skip
+        moe.tpm = types.SimpleNamespace(**dict(vars(real_tpm),
+                                               gather_rows=KeepOwnBlock.apply))
     elif fault == "last_rank_experts_zeroed" and rank == world - 1:
         # zeroed in the graph: the backward still reaches every collective
         moe._expert_matmul = lambda x, w: real_mm(x, w) * 0.0
@@ -3958,6 +3996,21 @@ def tp_fault(torch, fault, rank: int, world: int):
     finally:
         moe.tpm, moe._expert_matmul = real_tpm, real_mm
         tpm.gather_blocks = real_gather
+
+
+@contextlib.contextmanager
+def profiled_step(torch):
+    """A TP step's window on the card: torch.profiler (``profile_window``)
+    and the peak memory of the block (``max_memory_allocated``, reset on
+    entry, beside what was allocated then): {"prof", "allocated_before",
+    "max_memory_allocated"}."""
+    gc_cuda(torch)
+    torch.cuda.reset_peak_memory_stats()
+    out = {"allocated_before": torch.cuda.memory_allocated()}
+    with profile_window(torch) as prof:
+        out["prof"] = prof
+        yield out
+    out["max_memory_allocated"] = torch.cuda.max_memory_allocated()
 
 
 def update_gap(torch, m0, ref, other) -> float:
@@ -3995,8 +4048,14 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
     the plain step's own gap to the f32 copy; the steps' gaps to the f32
     run within TP_DRIFT times the plain run's; and one TP step on the
     first mesh with each planted fault of the model's path (TP_FAULTS for
-    a model with experts, TP_BLOCK_FAULTS for attention on column blocks),
-    which must leave the step-1 limits. Each step's ms."""
+    a model with experts, the last on the first mesh whose data axis
+    splits an MoE layer's dispatch groups; TP_BLOCK_FAULTS for attention
+    on column blocks), which must leave the step-1 limits. Each step's ms;
+    for each mesh whether the step split the batch over data, a rank's
+    tokens a step, the step's bytes over the data axes by op (step 2,
+    ``axis_census``), held equal to ``train_rows_census`` where the data
+    axis splits, and on the card the busy ms and the peak memory of step
+    3 (``profiled_step``; NCCL's kernels apart from the busy ms)."""
     import dataclasses
     import torch.distributed as dist
     from repro_torch.configs import get_config, get_smoke_config
@@ -4005,6 +4064,7 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
     from repro_torch.distributed.sharding import (distribute, param_pspecs,
                                                   to_shardings, zero_pspecs)
     from repro_torch.launch import train as launcher
+    from repro_torch.models.moe import splits_whole
     from repro_torch.models.transformer import LM, tree_map
     from repro_torch.optim.adamw import AdamWConfig, adamw_init
     from repro_torch.train.step import make_train_step, tp_view
@@ -4036,24 +4096,32 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
         if dev != "cpu":
             torch.cuda.synchronize()
 
-    def run(step, params, opt, lo, hi):
+    def run(step, params, opt, lo, hi, window=contextlib.nullcontext):
         out = []
         for b in batches[lo:hi]:
             sync()
-            t0 = time.perf_counter()
-            params, opt, m = step(params, opt, b)
-            sync()
+            with window() as w:
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, b)
+                sync()
+                ms = (time.perf_counter() - t0) * 1e3
             out.append({"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
-                        "ms": (time.perf_counter() - t0) * 1e3})
+                        "ms": ms, "data_split": bool(m.get("data_split", False))})
+            if w is not None:
+                out[-1]["window"] = w
         return params, opt, out
 
-    def masters(params, opt, step, whole=lambda t: t):
+    def masters(params, opt, step, whole=lambda t: t, windows=()):
         """A run of ``steps``: its readings and its master after step 1 and
-        after the last (whole tensors, on this card)."""
-        params, opt, first = run(step, params, opt, 0, 1)
+        after the last (whole tensors, on this card); step i + 2 runs in
+        ``windows[i]`` where given (its reading keeps the window)."""
+        params, opt, out = run(step, params, opt, 0, 1)
         m1 = tree_map(lambda t: whole(t).clone(), opt["master"])
-        params, opt, rest = run(step, params, opt, 1, steps)
-        return first + rest, m1, tree_map(whole, opt["master"])
+        for i in range(1, steps):
+            win = windows[i - 1] if i - 1 < len(windows) else contextlib.nullcontext
+            params, opt, more = run(step, params, opt, i, i + 1, win)
+            out += more
+        return out, m1, tree_map(whole, opt["master"])
 
     params, opt = init()
     master0 = tree_map(lambda t: t.clone(), opt["master"])
@@ -4073,11 +4141,24 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
     del f32_1
     res = {"arch": cfg.name, "plain": plain, "f32": f32, "drift_plain": drift_plain,
            "step1_limits": limits, "meshes": {}, "faults": {}}
+    # where a mesh splits the batch over data: the plain step 1 with the
+    # embedding's index sums in f32 (TP_STEP1's comment)
+    plain_is = None
+    if any(shape[0] > 1 for shape in meshes):
+        params, opt = init()
+        with index_sums_in_f32():
+            params, opt, out = run(make_train_step(model, opt_cfg, microbatches=micro),
+                                   params, opt, 0, 1)
+        plain_is = (out, opt["master"])
+        del params, opt
 
     def grad_sh(mesh):
         return to_shardings(zero_pspecs(model.param_shapes(), mesh), mesh)
 
-    def tp_run(shape, fault=None):
+    def tp_run(shape, fault=None, one_step=False, index_sums=contextlib.nullcontext):
+        """The TP run on ``shape`` (one step where ``one_step`` or a fault is
+        planted; in ``index_sums``): its readings, master after step 1 and
+        after the last, and plan."""
         mesh = tp_mesh(shape)
         params, opt = init()
         params = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
@@ -4085,39 +4166,83 @@ def tp_train(torch, dev, meshes, smoke: bool = False, arch: str = TRAIN_ARCH,
         plan = tp_view(model, params, mesh)[0].tp
         step = make_train_step(model, opt_cfg, microbatches=micro,
                                grad_shardings=grad_sh(mesh))
-        with tp_fault(torch, fault, rank, world):
-            if fault is not None:
+        with tp_fault(torch, fault, rank, world), index_sums():
+            if fault is not None or one_step:
                 params, opt, out = run(step, params, opt, 0, 1)
                 return out, tree_map(lambda t: t.full_tensor(), opt["master"]), None, plan
-            out, m1, mn = masters(params, opt, step, lambda t: t.full_tensor())
+            windows = [lambda: axis_census(torch, mesh)]
+            if dev != "cpu":
+                windows.append(lambda: profiled_step(torch))
+            out, m1, mn = masters(params, opt, step, lambda t: t.full_tensor(), windows)
         return out, m1, mn, plan
 
-    def step1(out, m1):
-        return {**gaps(out[:1], plain[:1]),
-                "update_rel": update_gap(torch, master0, plain1, m1)}
+    def cost(shape, out) -> dict:
+        """What a rank's TP step on ``shape`` split, sent over data and
+        took (the module docstring's readings)."""
+        n_data = shape[0] if out[0]["data_split"] else 1
+        census = out[1].pop("window")
+        res = {"data_split": out[0]["data_split"], "rank_tokens": rows * seq // n_data,
+               "data_axes_bytes": census.over("data", "pod"),
+               "expected_data_axes_bytes": train_rows_census(
+                   cfg, model.param_shapes(), rows, seq, micro, n_data, shape[1])}
+        res["census_ok"] = shape[0] == 1 or \
+            res["data_axes_bytes"] == res["expected_data_axes_bytes"]
+        if dev != "cpu":
+            win = out[2].pop("window")
+            prof = win.pop("prof")
+            busy = busy_share(prof, out[2]["ms"], 1, "step", exclude=("spin_kernel", "nccl"))
+            res["profile_step3"] = {
+                **busy, "nccl_device_ms_per_step": sum(
+                    ms for k, ms in device_ms(prof).items() if "nccl" in k)}
+            res["memory_step3"] = win
+        return res
 
+    def step1(out, m1, ref=(plain, plain1)):
+        return {**gaps(out[:1], ref[0][:1]),
+                "update_rel": update_gap(torch, master0, ref[1], m1)}
+
+    def within(first):
+        return all(first[k] <= v for k, v in limits.items())
+
+    rows_mesh = None              # where the data axis splits an MoE layer's groups
     for shape in meshes:
         out, m1, mn, plan = tp_run(shape)
         first = step1(out, m1)
+        held, judged = {}, first
+        if shape[0] > 1:          # the batch split over data: the grad norm
+            out1, m1_is, _, _ = tp_run(shape, one_step=True,  # held so
+                                       index_sums=index_sums_in_f32)
+            held = {"step1_f32_index_sums": step1(out1, m1_is, plain_is)}
+            judged = {**first, "gnorm_rel": held["step1_f32_index_sums"]["gnorm_rel"]}
+            del m1_is
         drift = {**gaps(out, f32), "update_rel": update_gap(torch, master0, f32_n, mn)}
-        ok = all(first[k] <= v for k, v in limits.items()) and all(
-            drift[k] <= TP_DRIFT * drift_plain[k] for k in drift)
+        spent = cost(shape, out)
+        ok = within(judged) and all(
+            drift[k] <= TP_DRIFT * drift_plain[k] for k in drift) and spent["census_ok"]
         res["meshes"]["x".join(map(str, shape))] = {
-            "steps": out, "step1": first, "drift": drift, "ok": ok,
+            "steps": out, "step1": first, **held, "drift": drift, "ok": ok, **spent,
             "choices": plan.choices, "gathered_over_model": plan.gathered,
             "experts_a_rank": cfg.moe.n_experts // shape[1] if cfg.moe else None}
+        if rows_mesh is None and cfg.moe and spent["data_split"] and shape[0] > 1 and \
+                not splits_whole(spent["rank_tokens"] // micro, shape[0]):
+            rows_mesh = shape
         del m1, mn
     # on a model axis of one the ranks' partial combines are the combine:
     # dropping their sum changes nothing; nor does a gather of one block
-    faults = (TP_FAULTS if meshes[0][1] > 1 else TP_FAULTS[1:]) if cfg.moe else ()
+    faults = [(f, meshes[0]) for f in TP_FAULTS[:2]
+              if cfg.moe and (meshes[0][1] > 1 or f != "combine_sum_dropped")]
+    if rows_mesh is not None:
+        faults.append((TP_FAULTS[2], rows_mesh))
     if meshes[0][1] > 1 and any(a is not None and a.blocks for blk in plan.blocks
                                 for a in (blk.attn, blk.cross)):
-        faults += TP_BLOCK_FAULTS
-    for fault in faults:
-        out, m1, _, _ = tp_run(meshes[0], fault)
-        first = step1(out, m1)
-        res["faults"][fault] = {**first, "rejected": not all(
-            first[k] <= v for k, v in limits.items())}
+        faults += [(f, meshes[0]) for f in TP_BLOCK_FAULTS]
+    for fault, shape in faults:
+        split = shape[0] > 1
+        out, m1, _, _ = tp_run(shape, fault, index_sums=index_sums_in_f32 if split
+                               else contextlib.nullcontext)
+        first = step1(out, m1, plain_is if split else (plain, plain1))
+        res["faults"][fault] = {**first, "mesh": "x".join(map(str, shape)),
+                                "f32_index_sums": split, "rejected": not within(first)}
         del m1
     return res
 
@@ -4585,6 +4710,91 @@ def rows_census(cfg, b: int, n: int, m: int, plan) -> dict:
     return out
 
 
+def train_rows_census(cfg, params, rows: int, seq: int, micro: int, n: int,
+                      m: int) -> dict:
+    """What a TP train step of ``rows`` x ``seq`` tokens in ``micro``
+    microbatches, split over the ``n`` data ranks of an (n, m) mesh, sends
+    over the data axis, by op (the bytes each collective returns;
+    ``params``: the param tree's shapes, laid out by ``param_pspecs`` and
+    the grads and optimizer by ``zero_pspecs``):
+
+    * each param leaf the params' layout shards over data gathered over
+      data (its ``model`` shard kept);
+    * each grad, ``model``-local, reduced over data to the optimizer's
+      layout: a reduce-scatter where it shards the leaf over data, else an
+      all-reduce (in f32 where microbatches add up, else the param's dtype);
+    * each updated leaf gathered back over data where the optimizer's
+      layout shards it there and the params' does not (the param's dtype);
+    * each microbatch's masked-in token count (``LM.loss``), the loss (and
+      in one microbatch its three metrics), 4 bytes each;
+    * in each MoE layer and microbatch ``moe_data_collectives``' forward
+      twice (remat replays it: the period's last collective is the
+      combine's sum over ``model``) and its backward once."""
+    from repro_torch.distributed.sharding import map_with_path, param_pspecs, zero_pspecs
+    out = {"all-gather": 0, "reduce-scatter": 0, "all-reduce": 0}
+    if n == 1:
+        return {}
+    sizes = {"data": n, "model": m}
+    specs: dict = {}
+    for tree in (param_pspecs(params, sizes), zero_pspecs(params, sizes)):
+        map_with_path(lambda path, sp: specs.setdefault(path, []).append(
+            [(e,) if isinstance(e, str) else tuple(e or ()) for e in sp]), tree)
+
+    def leaf(path, t):
+        pspec, zspec = specs[path]
+        over = lambda spec, a: any(a in e for e in spec)  # noqa: E731
+        full = t.numel() * t.element_size()
+        model_local = full // (m if over(pspec, "model") else 1)
+        if over(pspec, "data"):
+            out["all-gather"] += model_local
+        grad = model_local * (4 // t.element_size() if micro > 1 else 1)
+        if over(zspec, "data"):
+            out["reduce-scatter"] += grad // n
+        else:
+            out["all-reduce"] += grad
+        local = full // math.prod(s for a, s in sizes.items() if over(zspec, a))
+        for a in ("model", "data"):          # back to the params' layout
+            if over(zspec, a) and not over(pspec, a):
+                local *= sizes[a]
+                if a == "data":
+                    out["all-gather"] += local
+
+    map_with_path(leaf, params)
+    out["all-reduce"] += 4 * micro + 4 * (1 if micro > 1 else 4)
+    if cfg.moe is not None:
+        fwd, bwd = moe_data_collectives(
+            cfg, rows // micro * (seq + cfg.vision_prefix) // n, n, m)
+        n_moe = cfg.n_periods * sum(spec.moe for spec in cfg.pattern)
+        for op, b in fwd + fwd + bwd:        # the forward, remat's replay
+            out[op] += micro * n_moe * b
+    return {op: b for op, b in out.items() if b}
+
+
+def moe_data_collectives(cfg, tokens: int, n: int, m: int) -> tuple[list, list]:
+    """One MoE layer's collectives over the ``n`` data ranks a train step's
+    microbatch is split across, a rank holding ``tokens`` of it and its
+    experts split over a model axis of ``m``: (forward, backward), each a
+    list of (op, the bytes the collective returns). The aux loss's two
+    per-expert means (E f32 each; the router probs' mean's grad in the
+    backward), and where a rank's tokens are not whole dispatch groups the
+    shared routing (``models/moe.py: _moe_rows``): the expert ids gathered
+    (T·k int32), the rank's experts' block of c = ⌈G·cap / n⌉ capacity rows
+    reduce-scattered and the outputs gathered (n blocks); the backward
+    mirrors the two row collectives."""
+    from repro_torch.models.moe import dispatch_groups, splits_whole
+    e, k = cfg.moe.n_experts, cfg.moe.top_k
+    fwd, bwd = [("all-reduce", e * 4)] * 2, [("all-reduce", e * 4)]
+    if not splits_whole(tokens, n):
+        it = 4 if cfg.compute_dtype == "float32" else 2
+        g, s_g = dispatch_groups(n * tokens)
+        cap = int(cfg.moe.capacity_factor * s_g * k / e) + 1
+        block = -(-g * cap // n) * (e // m) * cfg.d_model * it
+        fwd += [("all-gather", n * tokens * k * 4), ("reduce-scatter", block),
+                ("all-gather", n * block)]
+        bwd += [("reduce-scatter", block), ("all-gather", n * block)]
+    return fwd, bwd
+
+
 def tp_lse_merge(torch, mesh, dev, backend: str, arch: str, smoke: bool = False,
                  max_len: int = TP_SERVE_MAX_LEN, **_) -> dict:
     """The decode attention of ``arch``'s TP serve over a cache sharded by
@@ -4969,7 +5179,9 @@ def tp_ranks_bad(ranks: list, n: int, smi_line: str) -> list:
                 if not m["ok"]:
                     bad.append(f"rank {r} {tr['arch']} mesh {mesh} leaves the step-1 "
                                f"limits {tr['step1_limits']} or {TP_DRIFT} x the "
-                               f"plain run's drift {tr['drift_plain']}")
+                               f"plain run's drift {tr['drift_plain']}, or its bytes "
+                               f"over data {m['data_axes_bytes']} are not "
+                               f"train_rows_census' {m['expected_data_axes_bytes']}")
             if tr["faults"]:
                 print(f"tensor-parallel: rank {r} {tr['arch']} planted faults "
                       f"{json.dumps(tr['faults'])}", flush=True)

@@ -386,14 +386,16 @@ def constrain(x, *roles):
 # ---------------------------------------------------- the split batch's stats
 # A train step that splits the batch over data ranks computes each rank's
 # share of the loss on local tensors. A statistic that the reference takes
-# over the whole batch (the MoE aux loss's per-expert means) is averaged
-# over those ranks by ``batch_mean`` while ``batch_split`` is open.
+# over the whole batch is taken over those ranks while ``batch_split`` is
+# open: the MoE aux loss's per-expert means averaged (``batch_mean``), a
+# ``loss_mask``'s count summed (``batch_sum``).
 _BATCH_GROUP = None
 
 
 @contextlib.contextmanager
 def batch_split(group):
-    """While open, ``batch_mean`` averages over ``group`` (None: not)."""
+    """While open, ``batch_mean`` averages and ``batch_sum`` sums over
+    ``group`` (None: not)."""
     global _BATCH_GROUP
     saved, _BATCH_GROUP = _BATCH_GROUP, group
     try:
@@ -429,3 +431,22 @@ def batch_mean(x: torch.Tensor) -> torch.Tensor:
     if group is None:
         return x
     return _AllReduceSum.apply(x, group) / dist.get_world_size(group)
+
+
+def batch_ranks() -> int:
+    """The number of ranks the batch is split across (1 outside
+    ``batch_split``)."""
+    group = _BATCH_GROUP
+    return 1 if group is None else dist.get_world_size(group)
+
+
+def batch_sum(x: torch.Tensor) -> torch.Tensor:
+    """The sum of ``x`` over the ranks the batch is split across (an
+    all-reduce with no gradient, every rank of the group in the same
+    order); ``x`` itself outside ``batch_split``."""
+    group = _BATCH_GROUP
+    if group is None:
+        return x
+    out = x.detach().clone()
+    dist.all_reduce(out, group=group)
+    return out

@@ -45,6 +45,11 @@ the params and the cache, never inventing its own:
   block (``head_groups``: one flash launch, or one a kv head where they
   straddle GQA groups) and keeps its block of the result. Activations
   move, never weights.
+* a step whose batch rows are split over data ranks (``RowsGroup``)
+  shares an MoE layer's dispatch groups over them: the expert ids and
+  outputs all-gathered (``gather_rows``: reduce-scatter backward), the
+  capacity rows reduce-scattered (``reduce_scatter_rows``: all-gather
+  backward).
 
 A leaf the rules replicate over ``model`` is computed whole, as XLA would.
 A mixer whose sharded leaves do not split on agreeing head or channel
@@ -84,32 +89,65 @@ class ModelGroup:
 
 @dataclasses.dataclass(frozen=True)
 class RowsGroup:
-    """The data ranks a serve step splits its rows over (``serve_on_mesh``):
-    their process group, this rank's block of the rows (its coordinate on
-    the split axes, pod-major, as ``train/step.py: split_batch`` cuts the
-    batch, which is its rank in the group) and the number of blocks. Only
-    an MoE layer reads it (``models/moe.py``): its dispatch groups are the
-    whole step's tokens, in the order of the blocks."""
+    """The data ranks a step splits its batch rows over (a train step's
+    ``sharded_step``, a serve step's ``serve_on_mesh``): their process
+    group, this rank's block of the rows (its coordinate on the split axes,
+    pod-major, as ``train/step.py: split_batch`` cuts the batch, which is
+    its rank in the group) and the number of blocks. Only an MoE layer
+    reads it (``models/moe.py``): its dispatch groups are the whole step's
+    tokens, in the order of the blocks."""
     group: Any
     rank: int
     size: int
 
 
-def gather_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
-    """The ranks' ``x`` stacked along dim 0 in the order of their blocks
-    (no backward). The result starts as zeros: a group that moves no data
-    (the dry-run's fake one) leaves valid indices in it."""
+def _gather_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
     out = x.new_zeros((rows.size * x.shape[0], *x.shape[1:]))
     dist.all_gather_into_tensor(out, x.contiguous(), group=rows.group)
     return out
 
 
-def reduce_scatter_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
-    """x: (size · m, ...) → the sum over the ranks of this rank's block of
-    m along dim 0 (no backward)."""
+def _reduce_scatter_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
     out = x.new_empty((x.shape[0] // rows.size, *x.shape[1:]))
     dist.reduce_scatter_tensor(out, x.contiguous(), group=rows.group)
     return out
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return _gather_rows(x, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _reduce_scatter_rows(grad, ctx.rows), None
+
+
+class _ReduceScatterRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, rows):
+        ctx.rows = rows
+        return _reduce_scatter_rows(x, rows)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _gather_rows(grad, ctx.rows), None
+
+
+def gather_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
+    """The ranks' ``x`` stacked along dim 0 in the order of their blocks;
+    where ``x`` needs a gradient, each rank's gradient is the sum over the
+    ranks of its block of theirs (a reduce-scatter). The result starts as
+    zeros: a group that moves no data (the dry-run's fake one) leaves valid
+    indices in a gather of ids, which carries no gradient."""
+    return _GatherRows.apply(x, rows)
+
+
+def reduce_scatter_rows(x: torch.Tensor, rows: RowsGroup) -> torch.Tensor:
+    """x: (size · m, ...) → the sum over the ranks of this rank's block of
+    m along dim 0; its gradient all-gathered back to every rank."""
+    return _ReduceScatterRows.apply(x, rows)
 
 
 def _all_reduce(x: torch.Tensor, mg: ModelGroup, op=dist.ReduceOp.SUM):
@@ -484,8 +522,8 @@ class BlockTP:
     cross-attention (None where the block has none), the dense FFN
     column/row-parallel, the MoE experts sharded, a Mamba or RWKV-6 mixer
     on the rank's channels or heads (``mixer``); an MoE block's ``rows``
-    where a serve step splits its rows over more than one data rank
-    (None elsewhere)."""
+    where a train or serve step splits its batch rows over more than one
+    data rank (None elsewhere)."""
     mg: ModelGroup
     attn: Optional[AttnTP]
     cross: Optional[AttnTP]
@@ -640,8 +678,8 @@ def plan(cfg, dims: dict, mg: ModelGroup, cache_dims: Optional[dict] = None,
     self-attention over one sharded by heads or by sequence. An MLA, RWKV-6 or Mamba mixer runs on its heads or channels
     where ``_mixer_plan`` finds its leaves (and state cache) laid out so,
     else whole, its sharded leaves gathered; MLA keeps a latent cache
-    sharded by sequence either way. ``rows``: the data ranks a serve step
-    splits its rows over, handed to the MoE blocks."""
+    sharded by sequence either way. ``rows``: the data ranks a train or
+    serve step splits its batch rows over, handed to the MoE blocks."""
     gathered: dict = {}
     choices: dict = {}
 

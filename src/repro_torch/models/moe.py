@@ -21,10 +21,11 @@ them; the ranks' partial combines are summed in f32 (only the order of the
 combine's sum changes). No all-to-all is needed while the tokens are
 replicated over the model ranks.
 
-A serve step whose rows are split over data ranks (``rows``: each rank
-holds a block of the batch, ``serve_on_mesh``) keeps the one device's
-groups, which are the whole step's tokens in batch order: where they do
-not fall into whole groups a rank, each rank routes its own tokens, the
+A step whose batch rows are split over data ranks (``rows``: each rank
+holds a block of the batch; a train step's ``sharded_step``, a serve
+step's ``serve_on_mesh``) keeps the one device's groups, which are the
+whole step's tokens in batch order: where they do not fall into whole
+groups a rank, each rank routes its own tokens, the
 ranks' expert ids are all-gathered (T·k int32: the only input that couples
 a group's tokens is which slots an expert keeps), and every rank computes
 each slot's position in its expert over the whole group, as one device
@@ -35,8 +36,12 @@ reduce-scatter over the data ranks hands each its block of every expert's
 rows, it runs its experts on that block only (no expert FLOP repeats over
 data), and an all-gather of the outputs lets it combine its own tokens.
 Per layer, over the data ranks: the ids, and the expert rows in and out
-(E_l × G·cap × d each, E_l the rank's experts). This path serves only: its
-collectives have no backward.
+(E_l × G·cap × d each, E_l the rank's experts). In a train step the
+backward mirrors the two row collectives: the outputs' gradients are
+reduce-scattered, so each rank's block sums every rank's tokens' share,
+and the capacity rows' gradients all-gathered, so each rank reads its own
+slots' (under remat a period's forward, these collectives included, runs
+again in the backward, in the same order on every rank).
 """
 from __future__ import annotations
 
@@ -165,7 +170,11 @@ def _moe_rows(params: dict, cfg: ModelConfig, xt: torch.Tensor,
               mg: Optional[tpm.ModelGroup], rows: tpm.RowsGroup) -> torch.Tensor:
     """The rank's tokens xt (T_l, d), routed (ids, gates (T_l, k)), through
     the one device's dispatch groups of the ``rows.size`` ranks' T_l tokens
-    each (module docstring) → (T_l, d)."""
+    each (module docstring) → (T_l, d). Under ``mg`` a rank dispatches and
+    combines its experts' slots only, so the tokens' and the gates'
+    gradients are summed over the model ranks (``copy_to_model``)."""
+    if mg is not None:
+        xt, gate_vals = tpm.copy_to_model(xt, mg), tpm.copy_to_model(gate_vals, mg)
     t_l, d = xt.shape
     e, k = cfg.moe.n_experts, cfg.moe.top_k
     n, dev = rows.size, xt.device
@@ -208,9 +217,10 @@ def moe(engine: ArcaneEngine, params: dict, cfg: ModelConfig,
         rows: Optional[tpm.RowsGroup] = None
         ) -> tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d) → (out, aux_loss); with ``mg``, the rank's experts;
-    with ``rows``, a serve step's rows split over data ranks, the groups
-    the whole step's (module docstring; the aux loss, which serving
-    drops, then of the rank's tokens)."""
+    with ``rows``, a step's batch rows split over data ranks, the groups
+    the whole step's (module docstring). The aux loss's per-expert means
+    are the rank's tokens', averaged over the ranks where a train step
+    splits the batch (``batch_mean``: the shares are equal)."""
     b, s, d = x.shape
     mcfg = cfg.moe
     e, k = mcfg.n_experts, mcfg.top_k

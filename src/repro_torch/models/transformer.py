@@ -39,6 +39,7 @@ from repro_torch import resolve_device
 from repro_torch.configs.base import LayerSpec, ModelConfig
 from repro_torch.core.engine import ArcaneEngine, default_engine
 from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.distributed.sharding import batch_ranks, batch_sum
 from repro_torch.models import blocks as blk
 from repro_torch.models.layers import (embed, embedding_init, make_norm,
                                        sinusoidal_at, sinusoidal_positions,
@@ -246,7 +247,10 @@ class LM:
     def loss(self, params, batch) -> tuple[torch.Tensor, dict]:
         """Next-token cross-entropy over the (optionally ``loss_mask``ed)
         text positions plus the summed MoE aux loss → (total, {"ce", "aux",
-        "tokens"}), f32 scalars."""
+        "tokens"}), f32 scalars. In a train step that splits the batch over
+        data ranks (``batch_split``) ``tokens`` is the whole batch's count
+        and ``ce`` this rank's share of the whole batch's, times the ranks:
+        their mean is one device's."""
         logits, aux = self._forward(params, batch)
         targets = batch["tokens"][:, 1:].long()
         lg = logits[:, :-1]
@@ -262,8 +266,11 @@ class LM:
             logz = tpm.vocab_logsumexp(lg, mg)
             gold = tpm.vocab_gold(lg, targets, mg)
         nll = (logz - gold) * mask
-        denom = torch.clamp(mask.sum(), min=1.0)
-        ce = nll.sum() / denom
+        # the whole batch's count (a split batch's shares may hold different
+        # ones); each rank's share is scaled so that the ranks' mean is the
+        # whole batch's ce
+        denom = torch.clamp(batch_sum(mask.sum()), min=1.0)
+        ce = nll.sum() * batch_ranks() / denom
         return ce + aux, {"ce": ce, "aux": aux, "tokens": denom}
 
     # ------------------------------------------------------------ serving

@@ -26,7 +26,6 @@ from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.distributed.sharding import (axis_size, batch_entry,
                                               batch_split, map_with_path,
                                               mesh_sizes)
-from repro_torch.models.moe import splits_whole
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init, adamw_update
 
@@ -119,24 +118,22 @@ def is_sharded(params: PyTree) -> bool:
     return mod is not None and isinstance(tree_leaves(params)[0], mod.DTensor)
 
 
-def data_split(cfg, mesh, batch: dict, microbatches: int = 1) -> tuple:
+def data_split(mesh, batch: dict, microbatches: int = 1) -> tuple:
     """The mesh axes a sharded step splits the batch over: those that
-    ``batch_pspecs`` gives a microbatch's leading dim, or none where the
-    split would change the result. The split is exact where the loss is a
-    mean of per-token terms over equal shares: not with a ``loss_mask``
-    (the shares' token counts differ), and for MoE layers only where each
-    shard's tokens are whole dispatch groups of the reference's size (the
-    aux loss's means are averaged over the shards, ``batch_mean``)."""
-    if "loss_mask" in batch:
-        return ()
-    b, s = batch["tokens"].shape
-    entry = batch_entry(b // microbatches, mesh)
-    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
-    n = axis_size(mesh, axes)
-    if n > 1 and any(spec.moe for spec in cfg.pattern) and \
-            not splits_whole(b // microbatches * (s + cfg.vision_prefix) // n, n):
-        return ()
-    return tuple(axes)
+    ``batch_pspecs`` gives a microbatch's leading dim, for every model and
+    batch. The split changes no result: a ``loss_mask``'s count is the
+    whole batch's (``LM.loss``: ``batch_sum``), an MoE layer's aux loss
+    averages its per-expert means over the ranks (``batch_mean``; the
+    shares are equal), and its dispatch groups stay the one device's:
+    where they do not fall into whole groups a rank, its ranks share
+    their routing (``rows_group``, ``models/moe.py``)."""
+    return _batch_axes(mesh, batch["tokens"].shape[0] // microbatches)
+
+
+def _batch_axes(mesh, rows: int) -> tuple:
+    """The mesh axes ``batch_pspecs`` gives a leading dim of ``rows``."""
+    entry = batch_entry(rows, mesh)
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 def rows_block(mesh, axes: tuple) -> tuple[int, int]:
@@ -175,9 +172,9 @@ def _group(mesh, axes: tuple):
 
 
 def rows_group(mesh, axes: tuple):
-    """The ``tensor_parallel.RowsGroup`` of a serve step whose rows are
-    split over ``axes``, or None where they are not split over more than
-    one rank."""
+    """The ``tensor_parallel.RowsGroup`` of a train or serve step whose
+    batch rows are split over ``axes``, or None where they are not split
+    over more than one rank."""
     idx, n = rows_block(mesh, axes)
     if n == 1:
         return None
@@ -192,7 +189,8 @@ def tp_view(model: LM, params, mesh, cache=None, rows=None) -> tuple:
     """(the model computing on this rank's ``model`` shards, each param
     leaf's compute placements): the plan (``tensor_parallel.plan``) reads
     the params' layout and, while serving, the cache's; ``rows``
-    (``rows_group``) goes to its MoE blocks."""
+    (``rows_group``: the data ranks the batch rows are split over) goes to
+    its MoE blocks."""
     plan = tpm.plan(model.cfg, tpm.model_dims(params, mesh),
                     tpm.ModelGroup.of(mesh),
                     None if cache is None else tpm.model_dims(cache, mesh), rows)
@@ -200,37 +198,22 @@ def tp_view(model: LM, params, mesh, cache=None, rows=None) -> tuple:
             tpm.compute_placements(params, mesh, plan.gathered))
 
 
-def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
-                 microbatches: int = 1, grad_shardings=None):
-    """The step on DTensor params and optimizer state, computed on local
-    tensors, tensor-parallel over the mesh's ``model`` axis:
-
-      1. the params are gathered over the data axes (an all-gather where
-         ZeRO-3 shards them there) and keep their ``model`` shards, but for
-         the leaves the plan computes whole (``tp_view``), gathered over
-         ``model`` too;
-      2. the model runs on the rank's shards (``LM.tensor_parallel``: its
-         products' shares, the collectives over ``model`` inside) on the
-         batch split over the axes of ``data_split`` (or all of it:
-         ``data_split`` False in the metrics);
-      3. the grads, model-local as the params were, are reduced over the
-         split axes to the optimizer's placements (a reduce-scatter where
-         the optimizer leaf is sharded over them, an all-reduce elsewhere)
-         and divided by their size; a leaf computed whole takes its
-         ``model`` shard of its grad;
-      4. ``adamw_update`` runs on each rank's shards with the global norm
-         (the shards' squared sums all-reduced, a shard replicated over
-         any mesh axis, ``model`` included, counted once); the updated
-         shards, gathered to the params' placements, become the new
-         params."""
-    from torch.distributed.tensor import DTensor, Partial, Replicate
+def sharded_grads(model: LM, params, batch, microbatches: int = 1,
+                  grad_shardings=None, master=None) -> tuple:
+    """Steps 1-3 of ``sharded_step`` → (loss, scalar metrics, grads, the
+    split axes): the loss and metrics averaged over the ranks the batch is
+    split across (each rank's share of the loss is scaled so that their
+    mean is the whole batch's, ``LM.loss``), the grads this rank's local
+    shards in ``master``'s placements (default: the params'), reduced over
+    the split axes through ``grad_shardings``' placements."""
+    from torch.distributed.tensor import DTensor, Partial
     mesh = tree_leaves(params)[0].device_mesh
     names = mesh.mesh_dim_names
-    axes = data_split(model.cfg, mesh, batch, microbatches)
+    axes = data_split(mesh, batch, microbatches)
     group = _group(mesh, axes)
     n = axis_size(mesh, axes)
 
-    tp_model, compute = tp_view(model, params, mesh)
+    tp_model, compute = tp_view(model, params, mesh, rows=rows_group(mesh, axes))
     local = tree_map(lambda p, pl: p.redistribute(mesh, pl).to_local(),
                      params, compute)
     with batch_split(group):
@@ -239,7 +222,7 @@ def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
                                                       microbatches),
                                           microbatches)
     del local
-    master = opt_state["master"]
+    master = params if master is None else master
     if grad_shardings is None:
         grad_shardings = tree_map(lambda m: m.placements, master)
     else:
@@ -256,6 +239,51 @@ def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
 
     local_grads = tree_map(reduce, grads, compute, grad_shardings, master)
     del grads
+
+    def mean(v):                   # over the ranks the batch is split across
+        if n == 1:
+            return v
+        v = v.clone()
+        dist.all_reduce(v, group=group)
+        return v / n
+
+    out = {"loss": mean(loss)}
+    for k, v in metrics.items():
+        if v.dim() == 0:
+            out[k] = mean(v)
+    return out.pop("loss"), out, local_grads, axes
+
+
+def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
+                 microbatches: int = 1, grad_shardings=None):
+    """The step on DTensor params and optimizer state, computed on local
+    tensors, tensor-parallel over the mesh's ``model`` axis:
+
+      1. the params are gathered over the data axes (an all-gather where
+         ZeRO-3 shards them there) and keep their ``model`` shards, but for
+         the leaves the plan computes whole (``tp_view``), gathered over
+         ``model`` too;
+      2. the model runs on the rank's shards (``LM.tensor_parallel``: its
+         products' shares, the collectives over ``model`` inside) on its
+         share of the batch, split over the axes of ``data_split`` (every
+         model and batch: an MoE layer's dispatch groups shared over them
+         through ``rows_group``, a ``loss_mask``'s count taken over the
+         whole batch);
+      3. the grads, model-local as the params were, are reduced over the
+         split axes to the optimizer's placements (a reduce-scatter where
+         the optimizer leaf is sharded over them, an all-reduce elsewhere)
+         and divided by their size; a leaf computed whole takes its
+         ``model`` shard of its grad (``sharded_grads``);
+      4. ``adamw_update`` runs on each rank's shards with the global norm
+         (the shards' squared sums all-reduced, a shard replicated over
+         any mesh axis, ``model`` included, counted once); the updated
+         shards, gathered to the params' placements, become the new
+         params."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = tree_leaves(params)[0].device_mesh
+    master = opt_state["master"]
+    loss, metrics, local_grads, axes = sharded_grads(
+        model, params, batch, microbatches, grad_shardings, master)
 
     def sq(g, m):
         copies = math.prod(s for s, p in zip(mesh.shape, m.placements)
@@ -283,19 +311,8 @@ def sharded_step(model: LM, opt_cfg: AdamWConfig, params, opt_state, batch,
                                              run_check=False
                                              ).redistribute(mesh, p.placements),
         params, new_local, master)
-
-    def mean(v, divide=True):      # over the ranks the batch is split across
-        if n == 1:
-            return v
-        v = v.clone()
-        dist.all_reduce(v, group=group)
-        return v / n if divide else v
-
-    out = {"loss": mean(loss)}
-    for k, v in metrics.items():
-        if v.dim() == 0:
-            out[k] = mean(v, divide=k != "tokens")
-    return params, opt_state, {**out, **om, "data_split": bool(axes)}
+    return params, opt_state, {"loss": loss, **metrics, **om,
+                               "data_split": bool(axes)}
 
 
 def make_serve_steps(model: LM, *, enc_len: int = 0):
@@ -315,8 +332,7 @@ def serve_split(mesh, tokens) -> tuple:
     dispatch groups stay the whole step's tokens: where they do not fall
     into whole groups a rank, its ranks share their routing
     (``models/moe.py``), so the split changes no result."""
-    entry = batch_entry(tokens.shape[0], mesh)
-    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+    return _batch_axes(mesh, tokens.shape[0])
 
 
 def serve_on_mesh(model: LM, kind: str, params, cache, batch: dict, mesh, *,

@@ -7,7 +7,9 @@ of tests/test_distributed.py on gloo ranks (one process a rank, a
 sharded train step against the single-device step (the port's and the
 JAX package's), compressed against uncompressed data parallelism, the
 GPipe forward, and the elastic restore across meshes; then the MoE data
-split, ``grad_shardings=None`` and the launcher on 4 ranks."""
+split (dispatch groups whole a rank or shared over data, in one or two
+microbatches, a ``loss_mask`` with an empty share), ``grad_shardings=None``
+and the launcher on 4 ranks."""
 import dataclasses
 import json
 import os
@@ -29,6 +31,7 @@ from repro.configs import get_config as jax_get_config
 from repro.configs import get_smoke_config as jax_get_smoke_config
 from repro.core.engine import ArcaneEngine as JaxEngine
 from repro.distributed import sharding as jsh
+from repro.models import moe as jax_moe
 from repro.models.transformer import LM as JaxLM
 from repro.optim.adamw import AdamWConfig as JaxAdamWConfig
 from repro.optim.adamw import adamw_init as jax_adamw_init
@@ -37,7 +40,7 @@ from repro_torch.configs import ARCHS, get_smoke_config
 from repro_torch.core.engine import ArcaneEngine
 from repro_torch.distributed import sharding as sh
 from repro_torch.models import moe as moe_mod
-from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.convert import params_from_numpy, tree_to_numpy
 from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
 from repro_torch.train.step import make_train_step
@@ -518,6 +521,12 @@ def test_elastic_checkpoint_restore_across_meshes(tmp_path):
                                                   "step_000000002"]
 
 
+# the MoE data split's variants: name → (GROUP_TOKENS, microbatches, a
+# loss_mask whose second half of the rows, data rank 1's share, is zeros)
+MOE_VARIANTS = {"groups-split": (64, 1, False), "one-group": (8192, 1, False),
+                "one-group-2-micro": (8192, 2, False),
+                "one-group-empty-share": (8192, 1, True)}
+
 MOE_SPLIT = """
 import dataclasses
 import repro_torch.models.moe as moe
@@ -533,62 +542,122 @@ cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
                           param_dtype="float32", compute_dtype="float32")
 model = LM(cfg, ArcaneEngine("ref"), device="cpu")
 params0 = torch.load(OUT + "/params.pt")
-tokens = torch.load(OUT + "/tokens.pt")
+batches = torch.load(OUT + "/batches.pt")
 opt_cfg = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=3)
 mesh = make_host_mesh(model_axis=1)                      # 2-way data
 res = {}
-for group_tokens in (64, 8192):
+for name, (group_tokens, micro, _) in %r.items():
     moe.GROUP_TOKENS = group_tokens
     params = tree_map(lambda t: t.clone(), params0)
     opt = adamw_init(opt_cfg, params)
     p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
     o = distribute(opt, to_shardings(zero_pspecs(opt, mesh), mesh))
-    step = make_train_step(model, opt_cfg,
+    step = make_train_step(model, opt_cfg, microbatches=micro,
                            grad_shardings=to_shardings(zero_pspecs(params, mesh), mesh))
     ms = []
-    for i in range(2):
-        p, o, m = step(p, o, {"tokens": tokens[i]})
+    for b in batches[name]:
+        p, o, m = step(p, o, b)
         ms.append({k: float(v) for k, v in m.items()})
-    res[group_tokens] = {"params": tree_map(lambda t: t.full_tensor(), p),
-                         "metrics": ms}
+    res[name] = {"params": tree_map(lambda t: t.full_tensor(), p), "metrics": ms}
 if RANK == 0:
     torch.save(res, OUT + "/result.pt")
-"""
+""" % (MOE_VARIANTS,)
 
 
-def test_moe_data_split_matches_single_device(tmp_path, monkeypatch):
-    """granite-moe-1b smoke (f32) on a 2-way data mesh, two steps of 8 x
-    32 tokens, in both branches of the split, each against the
-    single-device step within the limits of the 2 x 4 test: with dispatch
-    groups of 64 tokens (``GROUP_TOKENS`` set to 64 on both sides: 4
-    groups, 2 a rank) the batch is split and the aux loss's per-expert
-    means are averaged over the ranks (``data_split`` true); with the
-    reference's 8192 (one group, which no rank holds whole) every rank
-    computes the whole batch (``data_split`` false). The aux metric is
-    the single device's in both."""
+@pytest.fixture(scope="module")
+def moe_split(tmp_path_factory):
+    """granite-moe-1b smoke (f32) on a 2-way data mesh (one launch of 2
+    gloo ranks), two steps of 8 x 32 tokens in each MOE_VARIANTS variant,
+    and the single-device steps of the same, the port's and the JAX
+    package's jitted step (its ``GROUP_TOKENS`` set alike) on the same
+    weights: name → (the ranks' metrics and params, the port's single
+    device's, the JAX package's)."""
+    tmp = tmp_path_factory.mktemp("moe_split")
     cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"), **F32)
     model = LM(cfg, ArcaneEngine("ref"), device="cpu")
     params0 = model.init_params(torch.Generator().manual_seed(0))
-    tokens = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab, (2, 8, 32)).astype(np.int32))
-    torch.save(params0, tmp_path / "params.pt")
-    torch.save(tokens, tmp_path / "tokens.pt")
-    run_ranks(2, MOE_SPLIT, tmp_path)
-    res = torch.load(tmp_path / "result.pt")
+    rng = np.random.default_rng(1)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (2, 8, 32)).astype(np.int32))
+    mask = torch.from_numpy((rng.random((2, 8, 32)) < 0.6).astype(np.float32))
+    mask[:, 4:] = 0.0
+    batches = {name: [{"tokens": tokens[i], **({"loss_mask": mask[i]} if masked else {})}
+                      for i in range(2)]
+               for name, (_, _, masked) in MOE_VARIANTS.items()}
+    torch.save(params0, tmp / "params.pt")
+    torch.save(batches, tmp / "batches.pt")
+    run_ranks(2, MOE_SPLIT, tmp)
+    res = torch.load(tmp / "result.pt")
     kw = dict(lr=1e-2, warmup_steps=1, total_steps=3)
-    for group_tokens, split in ((64, True), (8192, False)):
-        monkeypatch.setattr(moe_mod, "GROUP_TOKENS", group_tokens)
-        params = tree_map(lambda t: t.clone(), params0)
-        opt = adamw_init(AdamWConfig(**kw), params)
-        step = make_train_step(model, AdamWConfig(**kw))
-        for i in range(2):
-            params, opt, m = step(params, opt, {"tokens": tokens[i]})
-            mine = res[group_tokens]["metrics"][i]
-            assert mine["data_split"] == float(split)
-            for k in ("loss", "ce", "aux", "grad_norm"):
-                assert abs(mine[k] - float(m[k])) < 1e-4 * max(1.0, abs(float(m[k]))), k
-            assert mine["tokens"] == float(m["tokens"])
-        assert_close(res[group_tokens]["params"], params, atol=2e-4, rtol=2e-3)
+    jmodel = JaxLM(dataclasses.replace(jax_get_smoke_config("granite-moe-1b-a400m"),
+                                       **F32), JaxEngine(backend="ref"))
+    jparams0 = jax.tree.map(jnp.asarray, tree_to_numpy(params0))
+    out = {}
+    real, jax_real = moe_mod.GROUP_TOKENS, jax_moe.GROUP_TOKENS
+    try:
+        for name, (group_tokens, micro, _) in MOE_VARIANTS.items():
+            moe_mod.GROUP_TOKENS = jax_moe.GROUP_TOKENS = group_tokens
+            params = tree_map(lambda t: t.clone(), params0)
+            opt = adamw_init(AdamWConfig(**kw), params)
+            step = make_train_step(model, AdamWConfig(**kw), microbatches=micro)
+            jp = jparams0
+            jo = jax_adamw_init(JaxAdamWConfig(**kw), jp)
+            jstep = jax.jit(jax_make_train_step(jmodel, JaxAdamWConfig(**kw),
+                                                microbatches=micro))
+            ms, jms = [], []
+            for b in batches[name]:
+                params, opt, m = step(params, opt, b)
+                ms.append({k: float(v) for k, v in m.items()})
+                jp, jo, jm = jstep(jp, jo, {k: jnp.asarray(v.numpy()) for k, v in b.items()})
+                jms.append({k: float(v) for k, v in jm.items()})
+            out[name] = (res[name], {"params": params, "metrics": ms},
+                         {"params": jp, "metrics": jms})
+    finally:
+        moe_mod.GROUP_TOKENS, jax_moe.GROUP_TOKENS = real, jax_real
+    return out
+
+
+def assert_moe_split(mine: dict, *refs: dict):
+    """Every step's metrics within 1e-4 (relative past 1) of each single
+    device's (the port's, the JAX package's), ``data_split`` true, the
+    token count equal; the params within the limits of the 2 x 4 test."""
+    for one in refs:
+        assert len(mine["metrics"]) == len(one["metrics"])
+        for a, b in zip(mine["metrics"], one["metrics"]):
+            assert a["data_split"] == 1.0
+            assert set(a) == set(b) | {"data_split"}
+            for k in b:
+                assert abs(a[k] - b[k]) < 1e-4 * max(1.0, abs(b[k])), k
+            if "tokens" in b:
+                assert a["tokens"] == b["tokens"]
+        assert_close(mine["params"], one["params"], atol=2e-4, rtol=2e-3)
+
+
+def test_moe_data_split_matches_single_device(moe_split):
+    """granite-moe-1b smoke (f32) on a 2-way data mesh, two steps of 8 x
+    32 tokens, the batch split over data (``data_split`` true) whatever the
+    dispatch groups, each against the single-device step (the port's and
+    the JAX package's) within the limits of the 2 x 4 test: with groups of 64 tokens (``GROUP_TOKENS`` set to
+    64 on both sides: 4 groups, 2 a rank) each rank dispatches its own
+    groups; with the reference's 8192 (one group, which no rank holds
+    whole) the ranks share its routing (``models/moe.py: _moe_rows``).
+    The aux loss's per-expert means are averaged over the ranks, and the
+    aux metric is the single device's in both."""
+    for name in ("groups-split", "one-group"):
+        assert_moe_split(*moe_split[name])
+
+
+def test_moe_split_in_two_microbatches_matches_single_device(moe_split):
+    """The same in 2 microbatches of 4 x 32: a rank holds 2 rows of each,
+    and each microbatch's one group shares its routing over data."""
+    assert_moe_split(*moe_split["one-group-2-micro"])
+
+
+def test_loss_mask_with_an_empty_share_matches_single_device(moe_split):
+    """A ``loss_mask`` that holds no token of data rank 1's rows: the ce is
+    the whole batch's masked mean (the count summed over the ranks, rank 1
+    adding no nll), ``tokens`` one device's count, the step one
+    device's."""
+    assert_moe_split(*moe_split["one-group-empty-share"])
 
 
 LAUNCH = """
@@ -609,8 +678,8 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-# granite (MoE with one dispatch group, so every rank computes the whole
-# batch) and qwen (its batch split over data too), both in f32: on the
+# granite (MoE with one dispatch group a microbatch, its routing shared
+# over data) and qwen, their batches split over data, both in f32: on the
 # (2, 2) mesh the step is tensor-parallel over model, and a
 # tensor-parallel product sums the ranks' f32 partials in another order
 # than one device. bf16 carries that rounding: with granite as

@@ -14,6 +14,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+from pathlib import Path
 
 import jax
 import pytest
@@ -39,6 +40,17 @@ from repro_torch.models.transformer import LM, tree_leaves, tree_map
 from repro_torch.optim.adamw import adamw_init
 from repro_torch.train.step import make_serve_steps, make_train_step
 from torch.utils.flop_counter import FlopCounterMode
+
+def chip_smoke():
+    """chip_smoke.py at the repo's root, whose yardsticks the card's census
+    shares."""
+    import importlib
+    import sys
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    return importlib.import_module("chip_smoke")
+
 
 CELLS = [(arch, s.name) for arch in sorted(REF_ARCHS) for s in ref_grid(arch)]
 
@@ -145,10 +157,9 @@ def real_flops(arch, shape, model_axis=4) -> float:
     of the smoke config's weights in the fake world of 8 (the 2 x 4 mesh,
     or 1 x 8 with ``model_axis`` 8), outside FakeTensorMode. The fake group moves no data, so the values are
     meaningless, but every product has the rank's shapes: its rows of the
-    batch (4 of 8 over a data axis of 2; granite's train step, whose MoE
-    groups do not split, takes all 8, and its serve steps 4 of 8, the
-    groups' routing shared over data) and its share of the tensor-parallel
-    products."""
+    batch (4 of 8 over a data axis of 2; granite's MoE groups, which do
+    not split, share their routing over data) and its share of the
+    tensor-parallel products."""
     from repro_torch.distributed.sharding import (cache_pspecs, distribute,
                                                   to_shardings)
     from repro_torch.train.step import serve_on_mesh
@@ -241,8 +252,8 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
       reduced over the data axis where the batch is split (a reduce-scatter
       where the ZeRO leaf is sharded there, else an all-reduce); the
       updated ZeRO shards gathered back to the params' layout; the 4-byte
-      all-reduces of the norm and, where the batch is split, of the four
-      metrics;
+      all-reduces of the norm and, where the batch is split, of the
+      masked-in token count (``LM.loss``) and the four metrics;
     * in the model, over ``model``, on the rank's ``rows`` x ``seq``
       tokens: the vocab-parallel embedding's sum (forward) and the
       unembedding's input-grad sum (backward, f32), the loss's max and two
@@ -253,7 +264,13 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
       MoE layer's partial combine summed (f32) and its tokens' and gates'
       grads summed. Remat runs each period's forward again in the
       backward, but for its last collective: the checkpoint stops once the
-      tensors the backward needs are rebuilt."""
+      tensors the backward needs are rebuilt;
+    * in an MoE layer, over data, where the batch is split: the aux loss's
+      per-expert means and, where the rank's tokens are not whole dispatch
+      groups, the shared routing (``models/moe.py: _moe_rows``), as
+      chip_smoke.py's ``moe_data_collectives`` counts them for the card's
+      census. Remat's replay repeats all of these: the period's last
+      collective is its combine's sum over ``model``."""
     cfg = get_smoke_config(arch)
     model = LM(cfg, device="cpu")
     params = model.param_shapes()
@@ -287,7 +304,7 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
             if sharded(zs, i) and not sharded(ps, i):
                 local *= sizes[i]
                 out["all-gather"] += local
-    out["all-reduce"] += 4 * (5 if data_split else 1)
+    out["all-reduce"] += 4 * (6 if data_split else 1)
 
     it = torch.empty((), dtype=cfg.cdtype).element_size()
     tok, dm = rows * seq, cfg.d_model
@@ -295,6 +312,10 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
     nk = cfg.n_kv_heads * cfg.resolved_head_dim
     gather_kv = cfg.n_kv_heads % m != 0
     out["all-reduce"] += act + act32 + 3 * rows * (seq - 1) * 4
+    n_data = sizes[d] if data_split else 1
+    moe_fwd, moe_bwd = [], []                          # one MoE layer's, over data
+    if cfg.moe is not None and n_data > 1:
+        moe_fwd, moe_bwd = chip_smoke().moe_data_collectives(cfg, tok, n_data, m)
     for _ in range(cfg.n_periods):
         fwd = []
         for spec in cfg.pattern:
@@ -303,6 +324,10 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
                 out["reduce-scatter"] += 2 * dm * nk // m * it
             fwd += [("all-reduce", act32)]               # o
             out["all-reduce"] += 3 * act32               # q, k, v inputs
+            if spec.moe:
+                fwd += moe_fwd
+                for op, n in moe_bwd:
+                    out[op] += n
             fwd += [("all-reduce", act32)]               # down / combine
             out["all-reduce"] += (act + tok * cfg.moe.top_k * 4 if spec.moe
                                   else 2 * act32)
@@ -311,13 +336,16 @@ def expected_census(arch: str, mesh_sizes: dict, data_split: bool,
     return {k: v for k, v in out.items() if v}
 
 
-@pytest.mark.parametrize("arch,split", [("gemma2-9b", True),
-                                        ("granite-moe-1b-a400m", False)],
-                         ids=["gemma2-fsdp-split", "granite-unsplit"])
-def test_census_equals_the_specs(arch, split):
+@pytest.mark.parametrize("arch", ["gemma2-9b", "granite-moe-1b-a400m"],
+                         ids=["gemma2-fsdp-split", "granite-split"])
+def test_census_equals_the_specs(arch):
+    """The train step's census on the 2 x 4 mesh, its batch of 8 split over
+    data (4 rows a rank): gemma2 under FSDP, and granite, whose one
+    dispatch group of the ranks' 256 tokens shares its routing over
+    data."""
     rec = trace_smoke(arch, TRAIN)
     assert rec["collective_bytes"] == expected_census(
-        arch, {"data": 2, "model": 4}, split, rows=4 if split else 8)
+        arch, {"data": 2, "model": 4}, True, rows=4)
     assert set(rec["collective_calls"]) == set(rec["collective_bytes"])
     assert rec["gathered_over_model"] == {}
 

@@ -17,7 +17,11 @@ helpers of tests/test_torch_distributed.py).
   head a rank; whisper's encoder, self- and cross-attention) and a qwen
   smoke of 6 q / 3 kv heads on 2 × 4 (a rank's heads straddling GQA
   groups). All cases run in one launch of 8 ranks; nothing is gathered
-  over ``model``.
+  over ``model``; every batch is split over data, granite's one dispatch
+  group and the ``loss_mask`` too. In the same launch, granite smoke with
+  every token routed to experts 0 and 1: the grads of the split step,
+  its routing shared over data, against one device's, and three planted
+  faults that must leave them.
 * A census of one rank's forward on a 1 × 4 mesh: the q, o, gate, up,
   down and unembed products and the expert and attention products at
   exactly 1/4 of one device's, no such leaf gathered over ``model``; the
@@ -42,7 +46,9 @@ helpers of tests/test_torch_distributed.py).
   rows only, against one device's and the JAX package's serve steps; the
   same with each rank routing its own tokens alone, which must leave them;
   chip_smoke.py's ``tp_serve`` of the MoE rows on a 2 × 2 mesh (launches,
-  the cache's bytes, what crosses the data axis, the planted fault).
+  the cache's bytes, what crosses the data axis, the planted fault) and
+  its ``tp_train`` of granite on (1, 4) and (2, 2) (the data-axis census,
+  the MoE rows' planted fault).
 * The decode attention's log-sum-exp (the plain version) against
   ``partial_decode_attention`` and the JAX package's plain version, empty
   slices included; the ring's slot positions.
@@ -72,7 +78,7 @@ from repro_torch.distributed import tensor_parallel as tpm
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import LM
 from repro_torch.optim.adamw import AdamWConfig, adamw_init
-from repro_torch.train.step import make_train_step
+from repro_torch.train.step import loss_and_grads, make_train_step
 from test_torch_distributed import F32, assert_close, run_ranks
 
 
@@ -152,9 +158,55 @@ for name, (arch, extra, m) in {cases!r}.items():
     res[name] = {{"params": tree_map(lambda t: t.full_tensor(), p),
                  "metrics": {{k: float(v) for k, v in m.items()}},
                  "gathered": dict(plan.gathered), "choices": dict(plan.choices)}}
+
+# the MoE rows' grads on 2 x 4, sound and with each planted fault
+import contextlib, types
+import chip_smoke
+import repro_torch.models.moe as moe
+from torch.distributed.tensor import DTensor
+from repro_torch.distributed import tensor_parallel as tpm
+from repro_torch.train import step as step_mod
+
+
+@contextlib.contextmanager
+def planted(fault):
+    real_tpm, real_rows = moe.tpm, step_mod.rows_group
+    if fault == "no_copy_to_model":
+        moe.tpm = types.SimpleNamespace(**dict(vars(tpm), copy_to_model=lambda x, mg: x))
+    elif fault == "own_ids":
+        step_mod.rows_group = lambda mesh, axes: None
+    try:
+        if fault == "rows_gather_without_reduce_scatter":
+            with chip_smoke.tp_fault(torch, fault, RANK, WORLD):
+                yield
+        else:
+            yield
+    finally:
+        moe.tpm, step_mod.rows_group = real_tpm, real_rows
+
+
+mesh = meshes[4]
+cfg = dataclasses.replace(get_smoke_config("granite-moe-1b-a400m"),
+                          param_dtype="float32", compute_dtype="float32")
+model = LM(cfg, ArcaneEngine("ref"), device="cpu")
+params = torch.load(OUT + "/rows_params.pt")
+batch = torch.load(OUT + "/rows_batch.pt")
+p = distribute(params, to_shardings(param_pspecs(params, mesh), mesh))
+grads = {{}}
+for fault in (None, *{faults!r}):
+    with planted(fault):
+        _, _, g, axes = step_mod.sharded_grads(model, p, batch)
+    grads[fault] = tree_map(lambda t, q: DTensor.from_local(
+        t, mesh, q.placements, run_check=False).full_tensor(), g, p)
+res["rows_grads"] = {{"axes": axes, "grads": grads}}
 if RANK == 0:
     torch.save(res, OUT + "/result.pt")
 """
+# the MoE rows' planted faults in a train step (``rows_grads``): the
+# outputs' all-gather without its reduce-scatter backward, ``_moe_rows``
+# without ``copy_to_model`` under expert parallelism, each rank routing its
+# own tokens alone
+ROWS_FAULTS = ("rows_gather_without_reduce_scatter", "no_copy_to_model", "own_ids")
 
 
 @pytest.fixture(scope="module")
@@ -182,10 +234,17 @@ def tp_steps(tmp_path_factory):
         torch.save(params, tmp / f"params_{name}.pt")
         torch.save(tbatch, tmp / f"batch_{name}.pt")
         cases[name] = (model, params, jmodel, jparams, batch, tbatch)
+    rows_model, _, rows_jmodel, jparams = pair("granite-moe-1b-a400m")
+    rows_jparams = plant_overflow(jax.tree.map(np.asarray, jparams))
+    rows_params = params_from_numpy(rows_jparams, rows_model.cfg, "cpu")
+    rows_batch = {"tokens": torch.from_numpy(np.random.default_rng(3).integers(
+        0, rows_model.cfg.vocab, (8, 32)).astype(np.int32))}
+    torch.save(rows_params, tmp / "rows_params.pt")
+    torch.save(rows_batch, tmp / "rows_batch.pt")
     errors = []
     ranks = threading.Thread(target=lambda: _catch(errors, run_ranks, 8, TP_STEP.format(
         cases={n: (a, extra, m) for n, (a, _, extra, m) in STEP_CASES.items()},
-        kw=STEP_KW), tmp))
+        kw=STEP_KW, faults=ROWS_FAULTS), tmp))
     ranks.start()
     refs = {}
     try:
@@ -199,6 +258,11 @@ def tp_steps(tmp_path_factory):
                 jparams, jax_adamw_init(JaxAdamWConfig(**STEP_KW), jparams),
                 {k: jnp.asarray(v) for k, v in batch.items()})
             refs[name]["jax"] = (j_p, float(j_m["loss"]))
+        refs["rows_grads"] = loss_and_grads(rows_model, rows_params, rows_batch)[2]
+        refs["rows_grads_jax"] = jax.jit(jax.grad(
+            lambda p, b: rows_jmodel.loss(p, b)[0]))(
+            jax.tree.map(jnp.asarray, rows_jparams),
+            {"tokens": jnp.asarray(rows_batch["tokens"].numpy())})
     finally:
         ranks.join()
     if errors:
@@ -227,11 +291,59 @@ def test_tp_step_matches_single_device(tp_steps, case):
         assert abs(mine["metrics"]["loss"] - loss) < 1e-4
         assert_close(mine["params"], params, atol=2e-4, rtol=2e-3)
     assert mine["gathered"] == {}
+    # the batch split over the data axes, granite's MoE and a loss_mask too
+    assert mine["metrics"]["data_split"] == 1.0
     kinds = {spec.kind for spec in get_smoke_config(STEP_CASES[case][0]).pattern}
     expect = {"heads"} | ({"channels"} if "mamba" in kinds else set())
     if case in BLOCK_STEPS:
         expect = {"blocks"}
     assert set(mine["choices"].values()) == expect, mine["choices"]
+
+
+def grad_gaps(mine, ref) -> dict:
+    """Each leaf's |mine − ref| / |ref| (Frobenius norms), by path."""
+    flat, out = {}, {}
+    sh.map_with_path(lambda p, t: flat.__setitem__(p, t), ref)
+    sh.map_with_path(lambda p, t: out.__setitem__(p, float(
+        torch.linalg.vector_norm(t - flat[p]) / torch.linalg.vector_norm(flat[p]))), mine)
+    return out
+
+
+def test_moe_rows_train_grads_match_one_device(tp_steps):
+    """granite smoke (f32) on 2 x 4, every token routed to experts 0 and 1
+    (``plant_overflow``: the capacity drops of the one dispatch group of
+    256 tokens decided across the data ranks), the batch split over data
+    and the routing shared (``_moe_rows``): the grads reduced over data
+    (``sharded_grads``) against one device's within the limits of the
+    2 x 4 test, each of the three flows through the shared routing: the
+    router's (through the gates), the tokens' (through the dispatch index:
+    every leaf below the MoE layer) and the experts' (through the rank's
+    block of the capacity rows); and against ``jax.grad`` of the JAX
+    package's loss on the same planted weights, within the same limits."""
+    refs, res = tp_steps
+    rows = res["rows_grads"]
+    assert rows["axes"] == ("data",)
+    mine, one = rows["grads"][None], refs["rows_grads"]
+    assert_close(mine, one, atol=2e-4, rtol=2e-3)
+    assert_close(mine, refs["rows_grads_jax"], atol=2e-4, rtol=2e-3)
+    gaps = grad_gaps(mine, one)
+    for flow in ("ffn/router/w", "attn/q/w", "embed/table", "ffn/gate", "ffn/down"):
+        assert any(flow in k for k in gaps), flow
+    assert max(gaps.values()) < 1e-4, gaps
+
+
+@pytest.mark.parametrize("fault", ROWS_FAULTS)
+def test_moe_rows_train_fault_leaves_one_device(tp_steps, fault):
+    """The same grads with a planted fault: the outputs' all-gather left
+    without its reduce-scatter backward (each rank's experts learn from
+    its own tokens only), ``_moe_rows`` without ``copy_to_model`` under
+    expert parallelism (the tokens' and gates' grads of one model rank's
+    experts only), each rank routing its own tokens alone (its capacity
+    and drops its rows'): some leaf's grad more than 1e-2 off one
+    device's."""
+    refs, res = tp_steps
+    gaps = grad_gaps(res["rows_grads"]["grads"][fault], refs["rows_grads"])
+    assert max(gaps.values()) > 1e-2, gaps
 
 
 # ---------------------------------------------------------- the census
@@ -1315,9 +1427,14 @@ with torch.no_grad():
 want = cs.expected_launches(torch, cfg, [b // 2 * s], steps, b // 2, prompt_batch=b // 2,
                             plan=plan)
 sv = cs.tp_serve(torch, mesh, "cpu", "ref", smoke=True, arch=arch, **kw)
+train = cs.tp_train(torch, "cpu", ((1, 4), (2, 2)), smoke=True, batch={train_batch!r})
 torch.save({{"counts": [spy.counts, want[0]], "variants": [spy.variants, want[1]],
-            "serve": sv}}, OUT + f"/chip_rows{{RANK}}.pt")
+            "serve": sv, "train": train}}, OUT + f"/chip_rows{{RANK}}.pt")
 """
+# chip_smoke's granite-train at smoke width: 8 rows of 32 tokens in 2
+# microbatches, so that on (2, 2) a rank's 64 tokens of a microbatch are
+# half its one dispatch group
+CHIP_ROWS_TRAIN = (8, 32, 2)
 CHIP_ROWS_CASE = ("llama4-scout-17b-a16e",
                   dict(prompt_len=16, max_len=64, new=9, profile=False))
 
@@ -1327,12 +1444,15 @@ def chip_rows(tmp_path_factory):
     """chip_smoke.py's ``tp_serve`` of an MoE model whose rows the mesh
     splits over data (its --tp-case moe-rows) on 4 gloo ranks, a 2 x 2
     mesh, at smoke width on the engine ``ref``: llama4-scout smoke (top-1
-    of 4 experts), 4 prompts of 16 tokens, 8 decode steps."""
+    of 4 experts), 4 prompts of 16 tokens, 8 decode steps; then its
+    ``tp_train`` of granite smoke (--tp-case granite-train) on (1, 4) and
+    (2, 2), CHIP_ROWS_TRAIN's batch."""
     import pathlib
     tmp = tmp_path_factory.mktemp("chip_rows")
     root = str(pathlib.Path(__file__).resolve().parents[1])
     arch, kw = CHIP_ROWS_CASE
-    run_ranks(4, CHIP_ROWS.format(root=root, arch=arch, kw=kw), tmp, timeout=600)
+    run_ranks(4, CHIP_ROWS.format(root=root, arch=arch, kw=kw,
+                                  train_batch=CHIP_ROWS_TRAIN), tmp, timeout=600)
     return [torch.load(tmp / f"chip_rows{r}.pt") for r in range(4)]
 
 
@@ -1359,3 +1479,33 @@ def test_chip_smoke_moe_rows_serve_on_the_cpu(chip_rows):
         assert sp["data_axes_bytes"] == sp["expected_data_axes_bytes"]
         assert f32["greedy_equal"] and f32["max_abs"] <= f32["limit"], f32
         assert not f32["faults"]["own_ids"]["ok"], f32["faults"]
+
+
+def test_chip_smoke_granite_train_splits_its_rows_on_the_cpu(chip_rows):
+    """chip_smoke's ``tp_train`` of granite smoke (bf16) on each rank of
+    4: on (2, 2) the batch split over data (a rank's 128 tokens), the
+    step's bytes over the data axis by op exactly ``train_rows_census``
+    (the MoE layers' shared routing, forward, backward and remat's replay,
+    the aux loss's means, the grads' reduction and the ZeRO gathers), step
+    1 within TP_STEP1 and the plain step's update gap (its loss and update
+    in bf16, its grad norm with the embedding's index sums in f32 on both
+    sides, as on every mesh that splits the batch over data), the drift
+    within TP_DRIFT; the planted
+    ``rows_gather_without_reduce_scatter`` fault run on (2, 2) and
+    rejected, with the model-axis faults on (1, 4)."""
+    for r, res in enumerate(chip_rows):
+        tr = res["train"]
+        m = tr["meshes"]["2x2"]
+        assert m["ok"], (r, m["step1"], tr["step1_limits"], m["drift"], tr["drift_plain"])
+        assert m["data_split"] and m["rank_tokens"] == 128
+        assert m["data_axes_bytes"] == m["expected_data_axes_bytes"]
+        assert set(m["data_axes_bytes"]) == {"all-gather", "reduce-scatter", "all-reduce"}
+        assert tr["meshes"]["1x4"]["ok"]
+        assert {f: v["mesh"] for f, v in tr["faults"].items()} == {
+            "combine_sum_dropped": "1x4", "last_rank_experts_zeroed": "1x4",
+            "rows_gather_without_reduce_scatter": "2x2"}
+        # on (2, 2) step 1 is held with the embedding's index sums in f32
+        assert "step1_f32_index_sums" in m and "step1_f32_index_sums" not in \
+            tr["meshes"]["1x4"]
+        assert tr["faults"]["rows_gather_without_reduce_scatter"]["f32_index_sums"]
+        assert all(f["rejected"] for f in tr["faults"].values()), tr["faults"]
