@@ -132,9 +132,21 @@ Phases:
      64 primer kernels, and must see a device event for every launch of
      the serving kernels in it: device busy time, idle share, time by
      kernel; for rwkv6 also the share of a 512-token prefill's host clock
-     that the plain wkv recurrence takes; minicpm3-4b's decode is profiled
-     one step more, over the same live slots, on the earlier route of its
-     absorbed decode (cat, pad, wide; ``earlier_mla_route``), its busy ms
+     that the plain wkv recurrence takes. The session captures its decode
+     step (``serving/graphs.py``: the first step eager, the second
+     captured, replays after), so the serve's counts are those of replays,
+     and its decode-step ms and tokens/s leave the capture's seconds out
+     (printed apart); the decode profile covers the graphed steps and an
+     eager window (``graphs.eager()``) over the same live slots, each also
+     timed unprofiled, the graph's capture seconds, nodes and pool bytes,
+     its kernel nodes of the serving kernels (held equal to a step's
+     launches), and ``graph_vs_eager``: each graphed step's greedy tokens
+     equal to the eager step's from the same state, its logits bit for bit
+     where the step runs no library product, within the limits elsewhere,
+     and a planted stale-token replay rejected. minicpm3-4b's decode is
+     profiled one step more, eager over the same live slots, on the earlier
+     route of its absorbed decode (cat, pad, wide; ``earlier_mla_route``;
+     its variants must read wide, not mla), its busy ms
      by group printed before and after. Then one Mamba block of
      jamba-1.5-large-398b at full width (d 8192, d_inner 16384; random
      bf16 weights): a prefill of 4 x 512 tokens and 8 decode steps through
@@ -1968,8 +1980,9 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     from seed 0; the launch counts zeroed just before and read just after.
     Then one request through ArcaneEngine("cuda") and ("ref") on the same
     weights, and the profiler over a prefill of ``profile_len`` tokens and
-    a few decode steps; with ``forward``, ``forward_leg`` on the same
-    weights. Prints the seconds of each leg."""
+    the session's graphed and eager decode steps (``profile_decode``); with
+    ``forward``, ``forward_leg`` on the same weights. Prints the seconds of
+    each leg."""
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import tree_leaves
 
@@ -2017,11 +2030,13 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     peak = torch.cuda.max_memory_allocated()
     done = sess.finished
     n_steps = st["decode_steps"]
+    # the serve's one capture is kept apart from its steps and tokens/s, as
+    # a jit's compile is (its seconds: capture_s)
     metrics = {
         "requests": len(done), "tokens": out["tokens"], "seconds": out["seconds"],
-        "tokens_per_s": out["tokens"] / out["seconds"],
-        "decode_steps": n_steps,
-        "decode_step_ms": st["decode_s"] / n_steps * 1e3,
+        "tokens_per_s": out["tokens"] / (out["seconds"] - st["capture_s"]),
+        "decode_steps": n_steps, "capture_s": st["capture_s"],
+        "decode_step_ms": (st["decode_s"] - st["capture_s"]) / n_steps * 1e3,
         "prefill_tokens": st["prefill_tokens"],
         "prefill_ms_per_token": st["prefill_s"] / st["prefill_tokens"] * 1e3,
         "max_memory_allocated": peak, "params": n_params, "init_s": init_s,
@@ -2053,7 +2068,7 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
         metrics["prefill_profile"]["wkv"] = wkv_share(torch, model, params, name)
         lap("wkv_share")
     # MLA's absorbed decode also on its earlier route (the cat and pad
-    # copies, then wide), one step over the same live slots: what the
+    # copies, then wide), one eager step over the same live slots: what the
     # copies cost
     routes = {"on the earlier route (cat, pad, wide)": (earlier_mla_route(torch), 1)} \
         if cfg.mla is not None else None
@@ -2693,31 +2708,215 @@ def profile_prefill(torch, model, params, name: str, prompt_len: int = 512,
     return out
 
 
+# unprofiled host-clock steps of each of ``profile_decode``'s legs (graphed
+# replays, then eager steps over the same live slots)
+DECODE_TIMED_STEPS = 5
+# the ops of a library product (cuBLAS): a decode step that dispatches one
+# is held to phase 3's limits graphed against eager (cuBLAS may pick
+# another algorithm on the capture stream), one that dispatches none bit
+# for bit
+LIBRARY_GEMM_OPS = ("aten.mm", "aten.bmm", "aten.addmm", "aten.baddbmm",
+                    "aten.addbmm", "aten._scaled_mm", "aten._int_mm", "aten.mv",
+                    "aten.dot")
+
+
 def profile_decode(torch, sess, max_len: int, name: str, steps: int = 3,
                    routes=None) -> dict:
-    """torch.profiler over a few batched decode steps of the session (all 4
-    slots live; in a ``profile_window``): the card's busy time, its idle
+    """The session's decode step over its 4 live slots, graphed (replays of
+    the step it captured while serving) beside an eager window of the same
+    slots (``graphs.eager()``): each leg ``steps`` steps under
+    torch.profiler (in a ``profile_window``: the card's busy time, its idle
     share of the host clock, the kernels that take the most device time,
-    and device time per step by kernel: the GEMV (gemv_n, gemv_t), decode
-    attention (split and merge kernels), torch.cat's copies and the rest.
-    Fails unless the profiler saw a device event for every launch of the
-    serving kernels. ``routes`` ({label: (context, steps)}): further
-    windows over the same live slots, each step run inside its context,
-    returned under ``routes``."""
+    device time per step by kernel: the GEMV (gemv_n, gemv_t), decode
+    attention (split and merge kernels), torch.cat's copies and the rest;
+    each fails unless the profiler saw a device event for every launch of
+    the serving kernels) and DECODE_TIMED_STEPS unprofiled (host-clock ms a
+    step); the capture's readings (``graph_readings``); ``graph_vs_eager``
+    over ``steps`` more steps. ``routes`` ({label: (context, steps)}):
+    further eager windows over the same live slots, each step inside
+    ``graphs.eager()`` and its context, returned under ``routes`` with the
+    decode attention variants they launched, which must be wide and not
+    mla (the one route window: ``earlier_mla_route``)."""
+    from repro_torch.kernels.decode_attention.kernel import decode_attention_cuda
+    from repro_torch.serving import graphs
     rng = np.random.default_rng(1)
     routes = routes or {}
     more = sum(n for _, n in routes.values())
+    new = 2 * (steps + DECODE_TIMED_STEPS) + steps + more + 3
     for _ in range(sess.max_slots):
         sess.submit(rng.integers(0, sess.model.cfg.vocab, max_len // 4),
-                    max_new_tokens=steps + more + 2)
+                    max_new_tokens=new)
     sess.step()                       # admits (prefills) every request
     out = profile_steps(torch, sess.step, steps, name)
+    out["step_ms"] = timed_steps(torch, sess.step, DECODE_TIMED_STEPS)
+    with graphs.eager():
+        eager = out["eager"] = profile_steps(torch, sess.step, steps, f"{name} eager")
+        eager["step_ms"] = timed_steps(torch, sess.step, DECODE_TIMED_STEPS)
+    out["graph"] = graph_readings(torch, sess, name)
+    print(f"profile: {name} decode step, graphed vs eager over the same slots: "
+          f"{out['step_ms']:.3f} vs {eager['step_ms']:.3f} ms a step (host clock, "
+          f"{DECODE_TIMED_STEPS} steps each, unprofiled); profiled "
+          f"{out['wall_ms_per_step']:.3f} vs {eager['wall_ms_per_step']:.3f} ms, busy "
+          f"{out['device_busy_ms_per_step']:.3f} vs {eager['device_busy_ms_per_step']:.3f} "
+          f"ms, idle share {out['device_idle_share']:.3f} vs "
+          f"{eager['device_idle_share']:.3f}", flush=True)
+    out["vs_eager"] = graph_vs_eager(torch, sess, steps, name)
     out["routes"] = {}
     for label, (ctx, n) in routes.items():
-        with ctx:
-            out["routes"][label] = profile_steps(torch, sess.step, n, f"{name} {label}")
+        before = dict(decode_attention_cuda.variants)
+        with graphs.eager(), ctx:
+            r = out["routes"][label] = profile_steps(torch, sess.step, n,
+                                                     f"{name} {label}")
+        r["decode_variants"] = {k: v - before[k]
+                                for k, v in decode_attention_cuda.variants.items()}
+        print(f"profile: {name} {label}: decode attention variants "
+              f"{r['decode_variants']}", flush=True)
+        if r["decode_variants"].get("mla") or not r["decode_variants"].get("wide"):
+            fail(f"profile: {name}: the eager window {label!r} did not run its route")
     sess.run_to_completion()
     return out
+
+
+def timed_steps(torch, step, n: int) -> float:
+    """The host-clock ms a step of ``n`` calls of ``step``, from the first
+    call to the card's end."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        step()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def graph_kernel_nodes(kernel_nodes: dict) -> dict:
+    """A graph's kernel nodes of the serving kernels by wrapper
+    (SERVE_KERNEL_NAMES), matched in libcuda's mangled names (a name's
+    length, then the name)."""
+    return {w: sum(n for k, n in kernel_nodes.items()
+                   if any(f"{len(x)}{x}" in k or k == x for x in names))
+            for w, names in SERVE_KERNEL_NAMES.items()}
+
+
+def graph_readings(torch, sess, name: str) -> dict:
+    """The session's captured decode step: its captures and replays, the
+    capture's seconds, the graph's private pool bytes, its nodes and its
+    kernel nodes of the serving kernels by wrapper (``graph_kernel_nodes``),
+    each held equal to the launches a replay adds to its wrapper's count
+    (the capture's delta): a counted node for every launch. Fails where
+    the step was not captured or the nodes differ."""
+    g = sess.graph
+    if g is None or g.graph is None:
+        fail(f"profile: {name}: the session's decode step is not captured")
+    st = dict(g.stats)
+    names = st.pop("kernel_nodes")
+    per_step = dict.fromkeys(SERVE_KERNEL_NAMES, 0)
+    for w, n, _ in g.delta:
+        if w.__name__ in per_step:
+            per_step[w.__name__] = n
+    st.update(launches_a_step=per_step,
+              kernel_nodes=None if names is None else graph_kernel_nodes(names),
+              all_kernel_nodes=None if names is None else sum(names.values()))
+    print(f"profile: {name} graph {json.dumps(st)}", flush=True)
+    if names is not None and st["kernel_nodes"] != per_step:
+        fail(f"profile: {name}: the captured step holds {st['kernel_nodes']} kernel "
+             f"nodes of the serving kernels for {per_step} launches a step")
+    return st
+
+
+def library_gemms(torch, fn) -> dict:
+    """The library products (LIBRARY_GEMM_OPS) that ``fn()`` dispatches, by op."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    seen: dict = {}
+
+    class Census(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            op = str(func.overloadpacket)
+            if op in LIBRARY_GEMM_OPS:
+                seen[op] = seen.get(op, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Census():
+        fn()
+    return seen
+
+
+def stale_tokens(torch, sess):
+    """The planted fault: the step's inputs loaded without the tokens (the
+    positions refreshed, the token buffer left as the last step had it)."""
+    return lambda: sess._inputs[1].copy_(torch.from_numpy(sess.positions))
+
+
+def graph_vs_eager(torch, sess, steps: int, name: str) -> dict:
+    """``steps`` graphed steps of the session, each beside the eager step
+    from the same state (the cache copied before it and put back after):
+    the live slots' greedy tokens identical, and their logits bit for bit
+    where the step dispatches no library product (``library_gemms``, read
+    on one more eager step from the state), else within phase 3's limits
+    (``logits_limits``); the largest difference printed. Then one replay
+    with the planted ``stale_tokens`` fault, the host's next tokens made to
+    differ from the buffer's, against the eager step on those tokens from
+    the same state, which the same check must reject (the cache and the
+    host's tokens put back after). Fails otherwise."""
+    from repro_torch.models.transformer import tree_leaves
+    cfg = sess.model.cfg
+    limits = logits_limits(cfg)
+    leaves = tree_leaves(sess.cache)
+    t0 = time.perf_counter()
+    res = {"steps": []}
+
+    def from_state(fn):
+        saved = [t.clone() for t in leaves]
+        try:
+            return fn().clone()
+        finally:
+            for t, c in zip(leaves, saved):
+                t.copy_(c)
+
+    def eager_logits():
+        sess._load_inputs()
+        return sess._eager_decode()
+
+    # an eager step from the same state (a recurrent state is not written
+    # twice)
+    res["library_gemms"] = library_gemms(torch, lambda: from_state(eager_logits))
+
+    def verdict(graphed, eager, live) -> dict:
+        g, e = graphed[live], eager[live]
+        bitwise = bool(torch.equal(g, e))
+        gap = logits_gap(cfg, g, e, limits, shape=(len(live), cfg.vocab))
+        tokens = bool(torch.equal(g.argmax(-1), e.argmax(-1)))
+        ok = tokens and (bitwise if not res["library_gemms"] else within_limits(gap))
+        return {"tokens_equal": tokens, "bitwise": bitwise,
+                "max_abs_diff": gap["max_abs"], "max_limit": gap["max_limit"], "ok": ok}
+
+    for _ in range(steps):
+        live = [i for i, r in enumerate(sess.slots) if r is not None]
+        eager = from_state(eager_logits)
+        sess.step()
+        res["steps"].append(verdict(sess.logits, eager, live))
+    live = [i for i, r in enumerate(sess.slots) if r is not None]
+    last = sess._inputs.clone()       # the buffers as the last step left them
+    host = sess.last_tokens.copy()
+    # next tokens other than the buffer's: a random-weight model's greedy
+    # tokens may repeat, which would leave a stale buffer right
+    sess.last_tokens[:] = (last[0].cpu().numpy() + 1) % cfg.vocab
+    try:
+        eager = from_state(eager_logits)
+        sess._inputs.copy_(last)
+        sess._load_inputs = stale_tokens(torch, sess)
+        res["fault"] = verdict(from_state(sess.decode), eager, live)
+    finally:
+        sess.__dict__.pop("_load_inputs", None)
+        sess.last_tokens[:] = host
+    res["seconds"] = time.perf_counter() - t0
+    print(f"profile: {name} graphed vs eager steps {json.dumps(res)}", flush=True)
+    if not all(v["ok"] for v in res["steps"]):
+        fail(f"profile: {name}: the graphed decode step differs from the eager step "
+             f"(library products {res['library_gemms']})")
+    if res["fault"]["ok"]:
+        fail(f"profile: {name}: the graphed-vs-eager check does not reject the planted "
+             f"stale-token replay")
+    return res
 
 
 def profile_steps(torch, step, steps: int, name: str) -> dict:

@@ -108,13 +108,37 @@ def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
     """Zeroed counters, one for each 32 columns of N: each GEMV leaves the
     ones it used at 0 again, so they are made once per device and stream
     (and grown). GEMVs on one stream run one after another and may share
-    them; GEMVs on two streams may overlap, so each stream has its own."""
+    them; GEMVs on two streams may overlap, so each stream has its own.
+    A stream being captured into a CUDA graph must have them already
+    (``reserve_tickets``): made in the capture, they would come from the
+    graph's pool, and a later growth would free memory the graph uses."""
     key = (device.index, stream)
     t = _TICKETS.get(key)
     need = ceil_div(n, 32)
     if t is None or t.numel() < need:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(f"gemm: the stream being captured has split-K "
+                               f"counters for {0 if t is None else t.numel()} "
+                               f"of the {need} 32-column strips this GEMV needs: "
+                               "make them before the capture (reserve_tickets)")
         t = _TICKETS[key] = torch.zeros(max(need, 8192), dtype=torch.int32,
                                         device=device)
+    return t
+
+
+def reserve_tickets(device: torch.device, stream: int, like: int):
+    """Make ``stream``'s split-K counters before a capture on it, as many as
+    stream ``like`` holds: the stream whose eager run of the same step grew
+    them to its largest plan's need (``gemv_plan`` depends on the shapes
+    only, so the captured step needs no more). Returns them (None where
+    ``like`` has none: the step splits no GEMV)."""
+    src = _TICKETS.get((device.index, like))
+    if src is None:
+        return None
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < src.numel():
+        t = _TICKETS[key] = torch.zeros_like(src)
     return t
 
 

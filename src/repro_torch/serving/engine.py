@@ -14,9 +14,25 @@ with a vision prefix or an encoder (internvl2-1b, whisper-large-v3) needs
 embeddings beside the tokens, and is served through ``LM.prefill`` and
 ``LM.decode_step`` directly (``check_token_prompts``).
 
-Timing: ``stats`` sums the host-clock seconds of prefills and decode steps.
-Each ends in a device-to-host copy of the sampled token, which waits for
-the device, so the clock covers the device's work.
+The decode step is compiled, as the reference's ``jax.jit`` compiles it:
+on the card the session captures ``LM.decode_step`` once as a CUDA graph
+(``serving/graphs.py: StepGraph``) and replays it every step after. The
+first decode step runs eagerly and is the warm-up; the second is captured
+and replayed; a new key (another engine, a kernel route patched, a param
+or cache buffer reallocated) drops the graph and starts again. The step
+reads the tokens and positions from static device buffers, which each step
+fills from the host's arrays in one copy; sampling stays outside the
+graph. ``graphs.eager()`` runs the step eagerly in its window (the
+counterpart of ``jax.disable_jit``); nothing else does on the card, and a
+capture that fails raises. On the CPU the same static-buffer step runs
+eagerly. The engine's ``record`` trace logs the step when Python runs it
+(the warm-up and the capture), as jit logs at trace time; the kernels'
+launch counters move with every replay.
+
+Timing: ``stats`` sums the host-clock seconds of prefills and decode steps
+(a capture's seconds included, and kept apart in ``capture_s``). Each ends
+in a device-to-host copy of the sampled token, which waits for the device,
+so the clock covers the device's work.
 """
 from __future__ import annotations
 
@@ -29,7 +45,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.blocks import check_prompt_length
-from repro_torch.models.transformer import LM
+from repro_torch.models.transformer import LM, tree_leaves
+from repro_torch.serving import graphs
 
 PyTree = Any
 
@@ -82,7 +99,14 @@ class ServeSession:
         self.pending: list[Request] = []
         self.finished: list[Request] = []
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
-                      "decode_s": 0.0, "decode_steps": 0}
+                      "decode_s": 0.0, "decode_steps": 0, "capture_s": 0.0}
+        # the decode step's static inputs: row 0 the tokens, row 1 the
+        # positions; its logits, (slots, vocab) f32, are ``logits``
+        self._inputs = torch.zeros((2, max_slots), dtype=torch.int32,
+                                   device=self.device)
+        self.logits: Optional[torch.Tensor] = None
+        self.graph = (graphs.StepGraph(self.device, f"{model.cfg.name} decode step")
+                      if self.device.type == "cuda" else None)
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, **kw) -> Request:
@@ -135,6 +159,41 @@ class ServeSession:
             tok = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
         return tok.to(torch.int32).cpu().numpy()
 
+    def graph_key(self) -> tuple:
+        """What a captured decode step stands for, as jit's cache key: the
+        fixed (slots, max_len) shapes, the engine, the kernels' route and
+        plan functions in force, and the buffers the graph reads and writes
+        (every param and cache leaf, by address)."""
+        m = self.model
+        return (self.max_slots, self.max_len, id(m.engine), m.engine.backend,
+                id(m.tp), graphs.routes(),
+                tuple(t.data_ptr() for t in tree_leaves((self.params, self.cache))))
+
+    def _load_inputs(self) -> None:
+        """The host's tokens and positions into the static buffers."""
+        self._inputs.copy_(torch.from_numpy(
+            np.stack((self.last_tokens, self.positions))))
+
+    def _eager_decode(self) -> torch.Tensor:
+        logits, self.cache = self.model.decode_step(
+            self.params, self._inputs[0], self._inputs[1], self.cache)
+        return logits
+
+    def decode(self) -> torch.Tensor:
+        """One decode step of every slot from the host's tokens and
+        positions: the cache written in place, the logits (slots, vocab)
+        f32 returned and kept in ``logits`` (on the card the graph's static
+        output, which the next step overwrites). No host state moves."""
+        self._load_inputs()
+        if self.graph is None or graphs.is_eager():
+            self.logits = self._eager_decode()
+        else:
+            captures = self.graph.stats["captures"]
+            self.logits = self.graph(self.graph_key(), self._eager_decode)
+            if self.graph.stats["captures"] != captures:
+                self.stats["capture_s"] += self.graph.stats["capture_s"]
+        return self.logits
+
     def step(self) -> int:
         """Admit pending requests, decode one token for all live slots.
         Returns number of live slots."""
@@ -143,10 +202,7 @@ class ServeSession:
         if not live:
             return 0
         t0 = time.perf_counter()
-        tokens = torch.as_tensor(self.last_tokens, device=self.device)
-        positions = torch.as_tensor(self.positions, device=self.device)
-        logits, self.cache = self.model.decode_step(self.params, tokens,
-                                                    positions, self.cache)
+        logits = self.decode()
         greedy = self._sample(logits, 0.0)
         self.stats["decode_s"] += time.perf_counter() - t0
         self.stats["decode_steps"] += 1

@@ -1377,3 +1377,76 @@ def test_dse_point_on_the_card_equals_the_cpu(cuda_device, scenario):
     if scenario == "cnn-small":
         _, images = model_point_images(spec)
         assert all(t.is_cuda for t in images.values())
+
+
+# ------------------------------------- the session's captured decode step
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,library", [("gemma2-9b", False), ("stablelm-3b", False),
+                                          ("granite-moe-1b-a400m", True),
+                                          ("minicpm3-4b", True), ("rwkv6-1.6b", True),
+                                          ("jamba-1.5-large-398b", True)])
+def test_graphed_session_matches_eager_session(cuda_device, arch, library):
+    """A session that captures its decode step against the same serve run
+    under ``graphs.eager()`` on the same weights (bf16 smoke configs): the
+    same tokens, and each step's logits bit for bit where the step runs
+    no cuBLAS product (``library``: MoE experts and router, MLA's
+    absorption, the recurrences' einsums), within 1e-3 of the largest
+    logit elsewhere; a capture, and a replay for every step after the
+    second."""
+    import weakref
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import ServeSession
+
+    cfg = get_smoke_config(arch)
+    model = LM(cfg, ArcaneEngine("cuda"), device=cuda_device)
+    params = model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    lens = (16, 4, 16, 9, 3) if cfg.mamba or cfg.rwkv else (12, 4, 17, 9, 3)
+
+    def serve():
+        sess = ServeSession(model, params, max_slots=3, max_len=64)
+        prompts = np.random.default_rng(1).integers(0, cfg.vocab, (5, 17))
+        reqs = [sess.submit(p[:n], max_new_tokens=6) for p, n in zip(prompts, lens)]
+        logits = []
+        while sess.pending or any(s is not None for s in sess.slots):
+            sess.step()
+            logits.append(sess.logits.clone())
+        return [r.out_tokens for r in reqs], logits, sess
+
+    toks, logits, sess = serve()
+    assert sess.graph.stats["captures"] == 1
+    assert sess.graph.stats["replays"] == sess.stats["decode_steps"] - 1
+    with graphs.eager():
+        etoks, elogits, esess = serve()
+    assert esess.graph.stats["captures"] == 0 and toks == etoks
+    for a, b in zip(logits, elogits):
+        if library:
+            assert float((a - b).abs().max()) <= 1e-3 * float(b.abs().max())
+        else:
+            assert torch.equal(a, b)
+    gone = weakref.ref(sess)      # no cycle through the graph: freed at once
+    del sess
+    assert gone() is None
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises_naming_the_op(cuda_device, monkeypatch):
+    """A capture that fails raises, naming the port's line at fault: here
+    a split-K GEMV on a capture stream whose ticket counters were not made
+    before the capture (``reserve_tickets`` planted away)."""
+    from repro_torch.serving.graphs import StepGraph
+    a = torch.randn((4, 4096), device=cuda_device, dtype=torch.bfloat16)
+    b = torch.randn((4096, 4096), device=cuda_device, dtype=torch.bfloat16)
+    assert gemv_plan(4096, 4096, "n", torch.cuda.get_device_properties(0)
+                     .multi_processor_count)[0] > 1
+    g = StepGraph(torch.device(cuda_device), "planted step")
+    g("key", lambda: gemm_cuda(a, b))         # the warm-up: eager
+    monkeypatch.setattr(gemm_kernel, "reserve_tickets", lambda *a, **kw: None)
+    before = gemm_cuda.launches
+    with pytest.raises(RuntimeError, match=r"planted step: the capture failed at "
+                       r"kernels/gemm/kernel.py:\d+ .*reserve_tickets"):
+        g("key", lambda: gemm_cuda(a, b))
+    assert gemm_cuda.launches == before and g.graph is None
