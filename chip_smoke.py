@@ -143,7 +143,25 @@ Phases:
      launches), and ``graph_vs_eager``: each graphed step's greedy tokens
      equal to the eager step's from the same state, its logits bit for bit
      where the step runs no library product, within the limits elsewhere,
-     and a planted stale-token replay rejected. minicpm3-4b's decode is
+     and a planted stale-token replay rejected. The session also captures
+     its prefill once a prompt length (``StepGraphs``: a length's first
+     admit eager, its second captured, replays after), into one batch-1
+     cache inserted into the slot's rows; the serve's prefill ms a token
+     leaves those captures out (``prefill_capture_s``). Each model's
+     repeated-length leg (``prefill_graph_leg``; ``prefill graphs:``
+     lines): 8 requests of 16 new tokens on 4 slots, prompts of 128 and
+     512 tokens alternating (rwkv6 64 and 128, jamba-smoke 16 and 64),
+     launches exact; each length captured once and replayed three times,
+     the decode step's graph kept; each length's graph's kernel nodes equal
+     to one prefill's launches; TTFT graphed and eager from the same slot
+     (host ms, busy ms and idle share); graphed logits against the eager
+     prefill's (bit for bit without a library product, else within the
+     limits) and the slot's cache rows bit for bit; a planted stale-prompt
+     replay rejected; the leg's tokens equal to the same requests served
+     inside ``graphs.eager()``; the capture seconds, pool MB, the batch-1
+     cache's MB and its zeroing and insert's device ms; the leg's prefill
+     seconds graphed, captures included, and eager, and the replays a
+     length needs before its capture pays for itself. minicpm3-4b's decode is
      profiled one step more, eager over the same live slots, on the earlier
      route of its absorbed decode (cat, pad, wide; ``earlier_mla_route``;
      its variants must read wide, not mla), its busy ms
@@ -349,7 +367,9 @@ line; it also runs against an earlier tree's wrappers (without variants),
 to time two trees' kernels in one call. ``--decode-host [ARCH]`` only
 times the serving decode step's host clock (``decode_host:`` line;
 gemma2-9b unless an arch id is named), to compare two trees in turns, and
-prints no result line. ``--tp-ranks N`` needs N cards of one host: the
+prints no result line; ``--serve-prefill`` likewise only phase 3's
+six-request serves, three from new sessions for each served model, and
+their prefill ms a token (``serve_prefill:`` lines). ``--tp-ranks N`` needs N cards of one host: the
 three serving kernels' rows at gemma2-9b's shard shapes on a model axis
 of 4 and the decode attention's lse rows, then N worker processes, a
 card and an NCCL rank each (``tcp://localhost``, a free port), all at
@@ -1489,10 +1509,12 @@ SERVE_MODELS = (
     # 512: the profiler's processing of the wkv recurrence's per-token
     # kernels took 148 s of the run over 512 tokens, 41.6 s over 128 on the
     # H100's host (PERF.md §6)
+    # (and its repeated-length leg's prompts are 64 and 128 tokens long,
+    # the graphed against eager profile at 64)
     dict(arch="rwkv6-1.6b", prompt_lens=(16, 32, 64, 128, 256, 512),
-         reference="library", profile_len=64),
+         reference="library", profile_len=64, leg_lens=(64, 128)),
     dict(arch="jamba-1.5-large-398b", smoke=True, max_len=128,
-         prompt_lens=(4, 9, 16, 32, 48, 64)),
+         prompt_lens=(4, 9, 16, 32, 48, 64), leg_lens=(16, 64)),
 )
 ATTN_KINDS = ("attn", "attn_local", "mla")
 
@@ -1971,27 +1993,36 @@ def meta_shapes(torch, model, params, params_delta: dict, slots: int,
     return rec
 
 
+def serve_argv(arch: str, smoke: bool = False, max_len: int = 1024,
+               prompt_lens=None) -> list:
+    """The launcher's arguments of phase 3's six-request serve of a
+    SERVE_MODELS entry."""
+    argv = ["--arch", arch, "--requests", "6", "--max-new", "16",
+            "--slots", "4", "--max-len", str(max_len), "--seed", "0",
+            "--backend", "cuda"]
+    argv += ["--prompt-lens", *map(str, prompt_lens)] if prompt_lens else \
+        ["--prompt-len", "16", "513"]
+    return argv + (["--smoke"] if smoke else [])
+
+
 def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
               max_len: int = 1024, prompt_lens=None, reference: str = "ref",
-              forward: bool = False, profile_len: int = 512) -> dict:
+              forward: bool = False, profile_len: int = 512,
+              leg_lens=(128, 512)) -> dict:
     """One model served through the port's launcher (full width unless
     ``smoke``): 4 slots, 6 requests of 16 new tokens, prompts of 16-512
     tokens or drawn from ``prompt_lens``, bf16 weights drawn on the card
     from seed 0; the launch counts zeroed just before and read just after.
     Then one request through ArcaneEngine("cuda") and ("ref") on the same
     weights, and the profiler over a prefill of ``profile_len`` tokens and
-    the session's graphed and eager decode steps (``profile_decode``); with
-    ``forward``, ``forward_leg`` on the same weights. Prints the seconds of
-    each leg."""
+    the session's graphed and eager decode steps (``profile_decode``); the
+    repeated-length leg over prompts of ``leg_lens`` (``prefill_graph_leg``);
+    with ``forward``, ``forward_leg`` on the same weights. Prints the
+    seconds of each leg."""
     from repro_torch.launch import serve as launcher
     from repro_torch.models.transformer import tree_leaves
 
-    argv = ["--arch", arch, "--requests", "6", "--max-new", "16",
-            "--slots", "4", "--max-len", str(max_len), "--seed", "0",
-            "--backend", "cuda"]
-    argv += ["--prompt-lens", *map(str, prompt_lens)] if prompt_lens else \
-        ["--prompt-len", "16", "513"]
-    args = launcher.parse_args(argv + (["--smoke"] if smoke else []))
+    args = launcher.parse_args(serve_argv(arch, smoke, max_len, prompt_lens))
     t0 = time.perf_counter()
     before = memory_now(torch)
     model, params = launcher.build(args)
@@ -2030,15 +2061,20 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
     peak = torch.cuda.max_memory_allocated()
     done = sess.finished
     n_steps = st["decode_steps"]
-    # the serve's one capture is kept apart from its steps and tokens/s, as
-    # a jit's compile is (its seconds: capture_s)
+    # the serve's captures are kept apart from its steps, prefills and
+    # tokens/s, as a jit's compile is (their seconds: capture_s, the decode
+    # step's, and prefill_capture_s, a repeated prompt length's)
+    captures_s = st["capture_s"] + st["prefill_capture_s"]
     metrics = {
         "requests": len(done), "tokens": out["tokens"], "seconds": out["seconds"],
-        "tokens_per_s": out["tokens"] / (out["seconds"] - st["capture_s"]),
+        "tokens_per_s": out["tokens"] / (out["seconds"] - captures_s),
         "decode_steps": n_steps, "capture_s": st["capture_s"],
         "decode_step_ms": (st["decode_s"] - st["capture_s"]) / n_steps * 1e3,
         "prefill_tokens": st["prefill_tokens"],
-        "prefill_ms_per_token": st["prefill_s"] / st["prefill_tokens"] * 1e3,
+        "prefill_capture_s": st["prefill_capture_s"],
+        "prefill_graphs": sess.prefill_graphs.stats,
+        "prefill_ms_per_token":
+            (st["prefill_s"] - st["prefill_capture_s"]) / st["prefill_tokens"] * 1e3,
         "max_memory_allocated": peak, "params": n_params, "init_s": init_s,
         "meta_shapes": meta,
         "gemm_per_step": per_step, "gemm_per_prompt": per_prompt,
@@ -2082,6 +2118,9 @@ def run_serve(torch, summary: dict, arch: str, smoke: bool = False,
               + f"; busy {before['device_busy_ms_per_step']:.3f} -> "
               f"{after['device_busy_ms_per_step']:.3f}", flush=True)
     lap("decode_profile")
+    metrics["prefill_graphs"] = prefill_graph_leg(
+        torch, model, params, name, leg_lens, args.max_len, profile_len)
+    lap("prefill_graphs")
     if forward:
         del sess, out
         metrics["forward"] = forward_leg(torch, model, params)
@@ -2360,7 +2399,7 @@ def run_serving(torch, summary: dict, specs, runner) -> dict:
         t0 = time.perf_counter()
         m = out["models"][arch] = runner(torch, summary, **spec)
         # LM.forward's leg and the f32 copy's prefill and step too
-        for run in (m, m.get("forward"), m.get("f32_copy")):
+        for run in (m, m.get("forward"), m.get("f32_copy"), m.get("prefill_graphs")):
             for w, n in (run or {}).get("launches", {}).items():
                 out["launches"][w] = out["launches"].get(w, 0) + n
             for w, vs in (run or {}).get("variants", {}).items():
@@ -2668,6 +2707,45 @@ def run_decode_host(torch, arch: str, steps: int = 30, warm: int = 3) -> dict:
     return out
 
 
+# the six-request serves of each SERVE_MODELS entry that --serve-prefill
+# runs, each from a new session (the first a warm-up for the model)
+SERVE_PREFILL_REPEATS = 3
+
+
+def run_serve_prefill(torch) -> dict:
+    """Only phase 3's six-request serves (``serve_argv``), each model's
+    SERVE_PREFILL_REPEATS times from a new session: each serve's prefill
+    ms a token, its prefill captures left out as phase 3 leaves them out,
+    and its prefill seconds with them, and the median of the serves after
+    the first. Reads only what the session's API gives every tree's
+    (``stats``; ``prefill_capture_s`` 0 where a session has none), so this
+    file copied into an earlier tree's root times that tree's serves, to
+    compare two trees in turns."""
+    from repro_torch.launch import serve as launcher
+    out = {}
+    for spec in SERVE_MODELS:
+        args = launcher.parse_args(serve_argv(
+            spec["arch"], spec.get("smoke", False), spec.get("max_len", 1024),
+            spec.get("prompt_lens")))
+        model, params = launcher.build(args)
+        runs = []
+        for _ in range(SERVE_PREFILL_REPEATS):
+            st = launcher.serve(model, params, args)["session"].stats
+            captures = st.get("prefill_capture_s", 0.0)
+            runs.append({"prefill_ms_per_token":
+                         (st["prefill_s"] - captures) / st["prefill_tokens"] * 1e3,
+                         "prefill_s": st["prefill_s"], "prefill_capture_s": captures,
+                         "prefill_tokens": st["prefill_tokens"]})
+        name = model.cfg.name
+        out[name] = {"runs": runs, "median_ms_per_token": statistics.median(
+            r["prefill_ms_per_token"] for r in runs[1:])}
+        print(f"serve_prefill: {name} prefill_ms_per_token median="
+              f"{out[name]['median_ms_per_token']:.4f} runs={json.dumps(runs)}", flush=True)
+        del model, params
+        torch.cuda.empty_cache()
+    return out
+
+
 def profile_prefill(torch, model, params, name: str, prompt_len: int = 512,
                     extra=None) -> dict:
     """torch.profiler over one prefill of ``prompt_len`` tokens at batch 1, as
@@ -2917,6 +2995,218 @@ def graph_vs_eager(torch, sess, steps: int, name: str) -> dict:
         fail(f"profile: {name}: the graphed-vs-eager check does not reject the planted "
              f"stale-token replay")
     return res
+
+
+# the repeated-length leg (``prefill_graph_leg``): 8 requests of 16 new
+# tokens on 4 slots, prompts of two lengths alternating, so that each
+# length is admitted four times (eager, captured, replayed twice)
+LEG_REQUESTS, LEG_NEW, LEG_SLOTS = 8, 16, 4
+# unprofiled host-clock prefills of each of its TTFT legs (graphed, eager)
+LEG_TIMED = 5
+
+
+def prefill_graph_leg(torch, model, params, name: str, lens, max_len: int,
+                      profile_len: int) -> dict:
+    """The session's prefill graphs by prompt length: LEG_REQUESTS requests
+    of LEG_NEW new tokens on LEG_SLOTS slots through a new ServeSession,
+    prompts of the two ``lens`` alternating, the launch counts zeroed
+    before and held exactly after (``counted_run``). Checks, failing
+    otherwise: each length captured once and replayed three times, the
+    decode step captured once and replayed every step after (no admit
+    drops it); each length's graph holds as many kernel nodes of the
+    serving kernels as one prefill of it launches (``expected_launches``),
+    as its replay adds to the counters. Then, from the same free slot:
+    TTFT (the prefill, the argmax and its copy to the host) graphed and
+    eager (``graphs.eager()``) at the longer length (``profile_len`` where
+    it is shorter: rwkv6's profiler cost), LEG_TIMED unprofiled each (host
+    ms) and one each in a ``profile_window`` (busy ms, idle share, a device
+    event for every launch); at each length the graphed logits against
+    the eager prefill of the same prompt (bit for bit where it dispatches
+    no library product, else within phase 3's limits) and the slot's cache
+    rows after the insert bit for bit; a planted replay whose prompt
+    buffer still holds the previous prompt of that length, which the same
+    check must reject; the leg's greedy tokens served again inside
+    ``graphs.eager()`` on the same session, equal. Reports the captures'
+    seconds, nodes and kernel nodes, the family's pool MB, the batch-1
+    cache's MB and the device ms of its zeroing and insert (``Timer``),
+    the leg's prefill seconds graphed (its warm-ups and captures included)
+    and eager, and the replays after which a length's capture pays for
+    itself (``break_even_replays``: the longer length's capture seconds
+    over the host ms a replay saves against an eager prefill)."""
+    from repro_torch.models.transformer import tree_leaves
+    from repro_torch.serving import graphs
+    from repro_torch.serving.engine import ServeSession
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab, lens[i % 2]).astype(np.int32)
+               for i in range(LEG_REQUESTS)]
+    sess = ServeSession(model, params, max_slots=LEG_SLOTS, max_len=max_len)
+    fam = sess.prefill_graphs
+
+    def serve():
+        reqs = [sess.submit(p, max_new_tokens=LEG_NEW) for p in prompts]
+        sess.run_to_completion()
+        return [r.out_tokens for r in reqs]
+
+    def expect(toks):
+        if any(len(t) != LEG_NEW for t in toks):
+            fail(f"prefill graphs: {name}: tokens {[len(t) for t in toks]}")
+        n_steps = sess.stats["decode_steps"]
+        return (*expected_launches(torch, cfg, [len(p) for p in prompts], n_steps,
+                                   LEG_SLOTS),
+                f"(the repeated-length leg: prompts of {lens[0]} and {lens[1]} "
+                f"alternating, decode_steps={n_steps})")
+
+    toks, counts, variants = counted_run(torch, cfg, serve, expect)
+    st = sess.stats
+    out = {"lens": list(lens), "launches": counts, "variants": variants,
+           "serve_s": time.perf_counter() - t0,
+           # the leg's prefills, its captures included (graphed) against
+           # the same requests' inside graphs.eager() (below)
+           "leg_prefill_s": {"graphed": st["prefill_s"]},
+           "prefill_capture_s": st["prefill_capture_s"], "family": fam.stats,
+           "decode_graph": {k: sess.graph.stats[k] for k in ("captures", "replays")},
+           "one_cache_mb": sum(t.nbytes for t in tree_leaves(sess.one_cache)) / 2**20,
+           "pool_mb": fam.stats["pool_bytes"] / 2**20, "members": {}}
+    rule = {s: (g.stats["captures"], g.stats["replays"]) for s, g in fam.members.items()}
+    if rule != {s: (1, LEG_REQUESTS // 2 - 1) for s in lens}:
+        fail(f"prefill graphs: {name}: captures and replays by length {rule}, "
+             f"not one capture and {LEG_REQUESTS // 2 - 1} replays for each of {lens}")
+    if out["decode_graph"] != {"captures": 1, "replays": st["decode_steps"] - 1}:
+        fail(f"prefill graphs: {name}: the decode step's graph {out['decode_graph']} "
+             f"over {st['decode_steps']} steps: an admit dropped it")
+    for s, g in fam.members.items():
+        m = dict(g.stats)
+        names = m.pop("kernel_nodes")
+        per = dict.fromkeys(SERVE_KERNEL_NAMES, 0)
+        for w, n, _ in g.delta:
+            if w.__name__ in per:
+                per[w.__name__] = n
+        want = {w: n for w, n in expected_launches(torch, cfg, [s], 0, LEG_SLOTS)[0].items()
+                if w in per}
+        m.update(launches_a_prefill=per,
+                 kernel_nodes=None if names is None else graph_kernel_nodes(names),
+                 all_kernel_nodes=None if names is None else sum(names.values()))
+        out["members"][s] = m
+        print(f"prefill graphs: {name} at {s} tokens {json.dumps(m)}", flush=True)
+        if per != want or (names is not None and m["kernel_nodes"] != per):
+            fail(f"prefill graphs: {name} at {s}: kernel nodes {m['kernel_nodes']}, "
+                 f"a replay's launches {per}, one prefill's {want}")
+
+    # TTFT from the same free slot, graphed and eager
+    p_len = min(profile_len, max(lens))
+    prompt = rng.integers(0, cfg.vocab, p_len).astype(np.int32)
+
+    def ttft():
+        return int(sess._sample(sess.prefill(prompt, 0), 0.0)[0])
+
+    def profiled(label):
+        torch.cuda.synchronize()
+        before = serve_launches()
+        with profile_window(torch) as prof:
+            t = time.perf_counter()
+            ttft()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t) * 1e3
+        r = busy_share(prof, wall_ms, 1, "prefill", exclude=("spin_kernel",))
+        r.update(**serve_events_seen(prof, before, f"{name} {label} prefill"))
+        return r
+
+    ttft_out = out["ttft"] = {"prompt_len": p_len}
+    ttft_out["graphed"] = profiled("graphed")
+    ttft_out["graphed"]["host_ms"] = timed_steps(torch, ttft, LEG_TIMED)
+    with graphs.eager():
+        ttft_out["eager"] = profiled("eager")
+        ttft_out["eager"]["host_ms"] = timed_steps(torch, ttft, LEG_TIMED)
+    g_, e_ = ttft_out["graphed"], ttft_out["eager"]
+    print(f"prefill graphs: {name} TTFT at {p_len} tokens, graphed vs eager from the "
+          f"same slot: {g_['host_ms']:.3f} vs {e_['host_ms']:.3f} ms (host clock, "
+          f"{LEG_TIMED} each, unprofiled); profiled {g_['wall_ms_per_prefill']:.3f} vs "
+          f"{e_['wall_ms_per_prefill']:.3f} ms, busy {g_['device_busy_ms_per_prefill']:.3f} "
+          f"vs {e_['device_busy_ms_per_prefill']:.3f} ms, idle share "
+          f"{g_['device_idle_share']:.3f} vs {e_['device_idle_share']:.3f}", flush=True)
+    # the replays after which the length's capture has paid for itself:
+    # its capture's seconds over the host ms a replay saves
+    saved_ms = e_["host_ms"] - g_["host_ms"]
+    ttft_out["break_even_replays"] = \
+        fam.members[p_len].stats["capture_s"] * 1e3 / saved_ms if saved_ms > 0 else None
+
+    # graphed against eager prefills of the same prompts into slot 1
+    limits = logits_limits(cfg)
+
+    def rows():
+        return [t[:, 1].clone() for t in tree_leaves(sess.cache)]
+
+    def graphed(q):
+        return sess.prefill(q, 1).clone(), rows()
+
+    def eager(q):
+        with graphs.eager():
+            return sess.prefill(q, 1).clone(), rows()
+
+    def verdict(g, e, library) -> dict:
+        bitwise = bool(torch.equal(g[0], e[0]))
+        gap = logits_gap(cfg, g[0], e[0], limits)
+        tokens = bool(torch.equal(g[0].argmax(-1), e[0].argmax(-1)))
+        rows_equal = all(torch.equal(a, b) for a, b in zip(g[1], e[1]))
+        return {"tokens_equal": tokens, "bitwise": bitwise, "rows_bitwise": rows_equal,
+                "max_abs_diff": gap["max_abs"], "max_limit": gap["max_limit"],
+                "ok": tokens and rows_equal and (within_limits(gap) if library else bitwise)}
+
+    vs = out["vs_eager"] = {}
+    for s in lens:
+        q, q2 = (rng.integers(0, cfg.vocab, s).astype(np.int32) for _ in range(2))
+        library = library_gemms(torch, lambda: eager(q))
+        r = vs[s] = verdict(graphed(q), eager(q), library)
+        r["library_gemms"] = library
+        # the planted fault: the buffer left holding q, the slot refreshed
+        want = eager(q2)
+        graphed(q)
+        sess._load_prompt = lambda prompt, slot: sess._slot.fill_(slot)
+        try:
+            r["fault"] = verdict(graphed(q2), want, library)
+        finally:
+            sess.__dict__.pop("_load_prompt", None)
+    print(f"prefill graphs: {name} graphed vs eager prefills {json.dumps(vs)}", flush=True)
+    if not all(r["ok"] for r in vs.values()):
+        fail(f"prefill graphs: {name}: a graphed prefill differs from the eager one")
+    if any(r["fault"]["ok"] for r in vs.values()):
+        fail(f"prefill graphs: {name}: the graphed-vs-eager check does not reject the "
+             f"planted stale-prompt replay")
+
+    # what the batch-1 cache costs a prefill: its zeroing and the insert
+    # (write it, read it, write the slot's rows: 3x its bytes moved)
+    timer = Timer(torch)
+    ones, bigs = tree_leaves(sess.one_cache), tree_leaves(sess.cache)
+
+    def zero_and_insert():
+        for t in ones:
+            t.zero_()
+        for big, one in zip(bigs, ones):
+            big.index_copy_(1, sess._slot, one)
+
+    out["insert_ms"] = timer.ms(zero_and_insert)
+    out["insert_bound_ms"] = 3 * out["one_cache_mb"] * 2**20 / HBM_BYTES_PER_S * 1e3
+    del timer
+
+    before = st["prefill_s"]
+    with graphs.eager():
+        out["eager_tokens_equal"] = serve() == toks
+    out["leg_prefill_s"]["eager"] = st["prefill_s"] - before
+    out["break_even_replays"] = ttft_out["break_even_replays"]
+    if not out["eager_tokens_equal"]:
+        fail(f"prefill graphs: {name}: the leg's greedy tokens differ from the same "
+             f"requests served inside graphs.eager()")
+    out["seconds"] = time.perf_counter() - t0
+    print(f"prefill graphs: {name} " + " ".join(
+        f"{k}={json.dumps(out[k])}" for k in ("lens", "family", "decode_graph",
+                                             "prefill_capture_s", "leg_prefill_s",
+                                             "break_even_replays", "one_cache_mb",
+                                             "pool_mb", "insert_ms", "insert_bound_ms",
+                                             "eager_tokens_equal", "seconds")),
+          flush=True)
+    return out
 
 
 def profile_steps(torch, step, steps: int, name: str) -> dict:
@@ -6928,6 +7218,9 @@ def main(argv=None) -> None:
                     help="only the serving decode step's host clock of ARCH "
                          "(default gemma2-9b; to time two trees in turns); no "
                          "result line")
+    ap.add_argument("--serve-prefill", action="store_true",
+                    help="only phase 3's six-request serves' prefill ms a token "
+                         "(to time two trees in turns); no result line")
     ap.add_argument("--json", default=None,
                     help="where the details go (default build/chip_smoke/chip_smoke.json)")
     ap.add_argument("--tp-ranks", type=int, default=None, metavar="N",
@@ -6973,7 +7266,7 @@ def main(argv=None) -> None:
           f"python={sys.version.split()[0]}", flush=True)
     names = ("convlayer", "maxpool", "leakyrelu") if opts.cnn_kernels_only else \
         ("gemm", "decode_attention", "flash_attention") \
-        if opts.decode_host or opts.tp_ranks else _build.SOURCES
+        if opts.decode_host or opts.serve_prefill or opts.tp_ranks else _build.SOURCES
     build_s = _build.build_all(names)
     print(f"build: {', '.join(names)} in {build_s:.1f}s "
           f"(nvcc, sm_90a, parallel; each: " + ", ".join(
@@ -6997,6 +7290,10 @@ def main(argv=None) -> None:
 
     if opts.decode_host:
         summary["decode_host"] = run_decode_host(torch, opts.decode_host)
+        out_json.write_text(json.dumps(summary, indent=1))
+        return
+    if opts.serve_prefill:
+        summary["serve_prefill"] = run_serve_prefill(torch)
         out_json.write_text(json.dumps(summary, indent=1))
         return
     if opts.tp_ranks:
@@ -7138,6 +7435,9 @@ def main(argv=None) -> None:
             entry["launches_by_model"].update({
                 f"{a} LM.forward": m["forward"]["launches"][wrapper]
                 for a, m in summary["serve"]["models"].items() if "forward" in m})
+            entry["launches_by_model"].update({
+                f"{a} repeated-length leg": m["prefill_graphs"]["launches"][wrapper]
+                for a, m in summary["serve"]["models"].items() if "prefill_graphs" in m})
             entry["launches_by_model"].update({
                 f"{a} f32 copy": m["f32_copy"]["launches"][wrapper]
                 for run in (summary["serve"], summary["serve_embeds"])

@@ -3,36 +3,53 @@
 
 A fixed pool of ``max_slots`` sequence slots shares one batched cache: KV
 rows for the attention layers, the recurrent states for the Mamba and RWKV
-layers. Requests are admitted into free slots at any step (batch-1 prefill
-of the prompt, which zeroes the slot's rows and writes its states into
-them); every step decodes one token for all slots and updates every slot's
-states in place. The decode kernel reads only each slot's valid cache rows,
-so ragged lengths cost nothing extra.
+layers. Requests are admitted into free slots at any step; every step
+decodes one token for all slots and updates every slot's states in place.
+The decode kernel reads only each slot's valid cache rows, so ragged
+lengths cost nothing extra.
+
+An admit prefills as the reference's does: into a batch-1 cache that
+starts at zero, written after into the slot's rows of the batched cache
+(the reference's ``_insert_slot``). The session keeps one batch-1 cache of
+``max_len`` rows (``one_cache``), made with the session, and static device
+buffers for the prompt (``(1, max_len)`` int32, the prompt in its first
+``s`` columns) and the slot (int64, the index of the insert's
+``index_copy_`` along the batch axis). Each admit copies the prompt into
+its buffer in one host-to-device copy and fills the slot's, then runs the
+prefill function: the batch-1 cache zeroed, ``LM.prefill`` on the
+buffer's first ``s`` columns, every batch-1 leaf copied into the slot's
+rows. Sampling stays outside.
 
 The session takes token prompts only, as the reference's does: a model
 with a vision prefix or an encoder (internvl2-1b, whisper-large-v3) needs
 embeddings beside the tokens, and is served through ``LM.prefill`` and
 ``LM.decode_step`` directly (``check_token_prompts``).
 
-The decode step is compiled, as the reference's ``jax.jit`` compiles it:
-on the card the session captures ``LM.decode_step`` once as a CUDA graph
-(``serving/graphs.py: StepGraph``) and replays it every step after. The
-first decode step runs eagerly and is the warm-up; the second is captured
-and replayed; a new key (another engine, a kernel route patched, a param
-or cache buffer reallocated) drops the graph and starts again. The step
-reads the tokens and positions from static device buffers, which each step
-fills from the host's arrays in one copy; sampling stays outside the
-graph. ``graphs.eager()`` runs the step eagerly in its window (the
-counterpart of ``jax.disable_jit``); nothing else does on the card, and a
-capture that fails raises. On the CPU the same static-buffer step runs
-eagerly. The engine's ``record`` trace logs the step when Python runs it
-(the warm-up and the capture), as jit logs at trace time; the kernels'
-launch counters move with every replay.
+Both steps are compiled, as the reference's ``jax.jit`` compiles them
+(``serving/graphs.py``). On the card the session captures
+``LM.decode_step`` once as a CUDA graph (``StepGraph``) and replays it
+every step after: the first decode step runs eagerly and is the warm-up,
+the second is captured and replayed. The decode step reads the tokens and
+positions from static device buffers, which each step fills from the
+host's arrays in one copy. The prefill function is captured once for each
+prompt length (``StepGraphs``, as jit traces ``_prefill1`` once a shape):
+the first admit of a length runs eagerly, the second captures, later ones
+replay; the lengths' graphs share one pool, and each replay's logits are
+sampled before the next prefill runs. An admit writes the batched cache in
+place and leaves the decode step's graph as it is. A new key (another
+engine, a kernel route patched, a param, cache or buffer reallocated)
+drops a step's graph, or every prefill graph, and starts again.
+``graphs.eager()`` runs both steps eagerly in its window (the counterpart
+of ``jax.disable_jit``); nothing else does on the card, and a capture
+that fails raises. On the CPU the same static-buffer steps run eagerly.
+The engine's ``record`` trace logs a step when Python runs it (the
+warm-up and the capture), as jit logs at trace time; the kernels' launch
+counters move with every replay.
 
 Timing: ``stats`` sums the host-clock seconds of prefills and decode steps
-(a capture's seconds included, and kept apart in ``capture_s``). Each ends
-in a device-to-host copy of the sampled token, which waits for the device,
-so the clock covers the device's work.
+(a capture's seconds included, and kept apart in ``prefill_capture_s``
+and ``capture_s``). Each ends in a device-to-host copy of the sampled
+token, which waits for the device, so the clock covers the device's work.
 """
 from __future__ import annotations
 
@@ -99,14 +116,24 @@ class ServeSession:
         self.pending: list[Request] = []
         self.finished: list[Request] = []
         self.stats = {"prefill_s": 0.0, "prefill_tokens": 0,
-                      "decode_s": 0.0, "decode_steps": 0, "capture_s": 0.0}
+                      "prefill_capture_s": 0.0, "decode_s": 0.0,
+                      "decode_steps": 0, "capture_s": 0.0}
         # the decode step's static inputs: row 0 the tokens, row 1 the
         # positions; its logits, (slots, vocab) f32, are ``logits``
         self._inputs = torch.zeros((2, max_slots), dtype=torch.int32,
                                    device=self.device)
         self.logits: Optional[torch.Tensor] = None
+        # the prefill's: the batch-1 cache, the prompt in the first s
+        # columns of ``_prompt``, the slot its rows go to
+        self.one_cache = model.init_cache(1, max_len)
+        self._prompt = torch.zeros((1, max_len), dtype=torch.int32,
+                                   device=self.device)
+        self._slot = torch.zeros((1,), dtype=torch.int64, device=self.device)
+        cuda = self.device.type == "cuda"
         self.graph = (graphs.StepGraph(self.device, f"{model.cfg.name} decode step")
-                      if self.device.type == "cuda" else None)
+                      if cuda else None)
+        self.prefill_graphs = (graphs.StepGraphs(self.device, f"{model.cfg.name} prefill")
+                               if cuda else None)
 
     # ------------------------------------------------------------------ API
     def submit(self, prompt, **kw) -> Request:
@@ -129,19 +156,7 @@ class ServeSession:
                                  f"{req.max_new_tokens} new tokens exceed "
                                  f"max_len {self.max_len}")
             t0 = time.perf_counter()
-            # The reference prefills into a fresh batch-1 cache and inserts
-            # it into the slot. Here the slot's rows of the batched cache
-            # are zeroed and prefilled in place, through views: the same
-            # contents, without a second cache.
-            one_cache = tuple({k: v[:, slot:slot + 1] for k, v in c.items()}
-                              for c in self.cache)
-            for c in one_cache:
-                for v in c.values():
-                    v.zero_()
-            tokens = torch.as_tensor(req.prompt[None], device=self.device)
-            logits, _ = self.model.prefill(self.params, {"tokens": tokens},
-                                           one_cache)
-            tok = int(self._sample(logits, req.temperature)[0])
+            tok = int(self._sample(self.prefill(req.prompt, slot), req.temperature)[0])
             self.stats["prefill_s"] += time.perf_counter() - t0
             self.stats["prefill_tokens"] += s
             req.out_tokens.append(tok)
@@ -169,6 +184,46 @@ class ServeSession:
                 id(m.tp), graphs.routes(),
                 tuple(t.data_ptr() for t in tree_leaves((self.params, self.cache))))
 
+    def prefill_key(self) -> tuple:
+        """What every captured prefill stands for beside its prompt length:
+        ``graph_key``'s, the batch-1 cache's and the prompt's and slot's
+        buffers' addresses too."""
+        return self.graph_key() + (tuple(t.data_ptr() for t in tree_leaves(
+            (self.one_cache, self._prompt, self._slot))),)
+
+    def _load_prompt(self, prompt: np.ndarray, slot: int) -> None:
+        """The prompt into its buffer's first columns, in one copy; the
+        slot into its buffer."""
+        self._prompt[0, :len(prompt)].copy_(torch.from_numpy(prompt))
+        self._slot.fill_(slot)
+
+    def _eager_prefill(self, s: int) -> torch.Tensor:
+        """The prefill of the buffer's first ``s`` tokens into the zeroed
+        batch-1 cache, inserted into the slot's rows: (1, vocab) logits."""
+        ones = tree_leaves(self.one_cache)
+        for t in ones:
+            t.zero_()
+        logits, _ = self.model.prefill(self.params, {"tokens": self._prompt[:, :s]},
+                                       self.one_cache)
+        for big, one in zip(tree_leaves(self.cache), ones):
+            big.index_copy_(1, self._slot, one)
+        return logits
+
+    def prefill(self, prompt: np.ndarray, slot: int) -> torch.Tensor:
+        """Prefill ``prompt`` into ``slot``: the batched cache's rows of
+        the slot written in place, the last position's logits (1, vocab)
+        f32 returned (on the card a graph's static output, which the next
+        prefill may overwrite: read it first)."""
+        s = len(prompt)
+        self._load_prompt(prompt, slot)
+        fam = self.prefill_graphs
+        if fam is None or graphs.is_eager():
+            return self._eager_prefill(s)
+        before = fam.captured_s
+        logits = fam(s, self.prefill_key(), lambda: self._eager_prefill(s))
+        self.stats["prefill_capture_s"] += fam.captured_s - before
+        return logits
+
     def _load_inputs(self) -> None:
         """The host's tokens and positions into the static buffers."""
         self._inputs.copy_(torch.from_numpy(
@@ -188,10 +243,9 @@ class ServeSession:
         if self.graph is None or graphs.is_eager():
             self.logits = self._eager_decode()
         else:
-            captures = self.graph.stats["captures"]
+            before = self.graph.captured_s
             self.logits = self.graph(self.graph_key(), self._eager_decode)
-            if self.graph.stats["captures"] != captures:
-                self.stats["capture_s"] += self.graph.stats["capture_s"]
+            self.stats["capture_s"] += self.graph.captured_s - before
         return self.logits
 
     def step(self) -> int:

@@ -1436,7 +1436,8 @@ def test_graphed_session_matches_eager_session(cuda_device, arch, library):
 def test_failed_capture_raises_naming_the_op(cuda_device, monkeypatch):
     """A capture that fails raises, naming the port's line at fault: here
     a split-K GEMV on a capture stream whose ticket counters were not made
-    before the capture (``reserve_tickets`` planted away)."""
+    before the capture (``reserve_tickets`` planted away, and the counters
+    that earlier captures left to the device's capture stream hidden)."""
     from repro_torch.serving.graphs import StepGraph
     a = torch.randn((4, 4096), device=cuda_device, dtype=torch.bfloat16)
     b = torch.randn((4096, 4096), device=cuda_device, dtype=torch.bfloat16)
@@ -1444,9 +1445,139 @@ def test_failed_capture_raises_naming_the_op(cuda_device, monkeypatch):
                      .multi_processor_count)[0] > 1
     g = StepGraph(torch.device(cuda_device), "planted step")
     g("key", lambda: gemm_cuda(a, b))         # the warm-up: eager
+    cur = torch.cuda.current_stream().cuda_stream
+    monkeypatch.setattr(gemm_kernel, "_TICKETS", {k: v for k, v in gemm_kernel._TICKETS.items()
+                                                  if k[1] == cur})
     monkeypatch.setattr(gemm_kernel, "reserve_tickets", lambda *a, **kw: None)
     before = gemm_cuda.launches
     with pytest.raises(RuntimeError, match=r"planted step: the capture failed at "
                        r"kernels/gemm/kernel.py:\d+ .*reserve_tickets"):
         g("key", lambda: gemm_cuda(a, b))
     assert gemm_cuda.launches == before and g.graph is None
+
+
+# ------------------------------------- the session's captured prefills
+def prefill_session(cuda_device, arch: str):
+    """A 3-slot session of ``arch``'s bf16 smoke config through
+    ArcaneEngine("cuda"), random weights from seed 0."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.core.engine import ArcaneEngine
+    from repro_torch.models.transformer import LM
+    from repro_torch.serving.engine import ServeSession
+
+    model = LM(get_smoke_config(arch), ArcaneEngine("cuda"), device=cuda_device)
+    params = model.init_params(torch.Generator(device=cuda_device).manual_seed(0))
+    return ServeSession(model, params, max_slots=3, max_len=64)
+
+
+def prefill_and_rows(sess, prompt, slot: int):
+    """The prefill's logits and the slot's rows of every cache leaf after
+    it, copied."""
+    from repro_torch.models.transformer import tree_leaves
+    logits = sess.prefill(prompt, slot).clone()
+    return logits, [t[:, slot].clone() for t in tree_leaves(sess.cache)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["gemma2-9b", "stablelm-3b"])
+def test_graphed_prefill_matches_eager_prefill(cuda_device, arch):
+    """Kernel-only smoke configs (no cuBLAS product in the prefill):
+    prompts of 12, 5, 12, 5, 12 and 12 tokens into slots 0, 1, 2 in turn,
+    each prefill's logits and the slot's cache rows after the insert equal
+    bit for bit to the eager prefill of the same prompt into the same slot
+    (``graphs.eager()``); each length captured once, at its second admit,
+    and replayed from then on."""
+    from repro_torch.serving import graphs
+    sess = prefill_session(cuda_device, arch)
+    rng = np.random.default_rng(2)
+    for i, s in enumerate((12, 5, 12, 5, 12, 12)):
+        prompt = rng.integers(0, sess.model.cfg.vocab, s).astype(np.int32)
+        logits, rows = prefill_and_rows(sess, prompt, i % 3)
+        with graphs.eager():
+            want, want_rows = prefill_and_rows(sess, prompt, i % 3)
+        assert torch.equal(logits, want)
+        assert all(torch.equal(a, b) for a, b in zip(rows, want_rows))
+    assert {s: (g.stats["captures"], g.stats["replays"])
+            for s, g in sess.prefill_graphs.members.items()} == {12: (1, 3), 5: (1, 1)}
+
+
+@pytest.mark.cuda
+def test_prefill_replays_in_turn_match_eager(cuda_device):
+    """Two lengths' graphs in one pool, where a graph's output may lie in
+    memory the other uses as a temporary: captured in turn, then replayed
+    A, B, A, B on new prompts, each output read before the next replay:
+    each equals the eager prefill of its prompt bit for bit (gemma2-9b
+    smoke)."""
+    from repro_torch.serving import graphs
+    sess = prefill_session(cuda_device, "gemma2-9b")
+    rng = np.random.default_rng(3)
+
+    def prompt(s):
+        return rng.integers(0, sess.model.cfg.vocab, s).astype(np.int32)
+
+    for s in (17, 6, 17, 6):              # warm-ups, then the captures
+        sess.prefill(prompt(s), 0)
+    prompts = [prompt(s) for s in (17, 6, 17, 6)]
+    got = [sess.prefill(p, 1).clone() for p in prompts]
+    assert sess.prefill_graphs.stats["replays"] == 2 + len(prompts)
+    with graphs.eager():
+        want = [sess.prefill(p, 1).clone() for p in prompts]
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_sessions_capture_on_one_stream_into_pools_of_their_own(cuda_device):
+    """Every graph of the card is captured on one stream, made once, so its
+    cuBLAS workspace and split-K counters are held once a device, not once
+    a session: two sessions' decode steps and prefills captured on it, each
+    session's decode graph in a pool of its own, its prefill graphs in
+    their family's; their tokens equal the same serves' under
+    ``graphs.eager()``."""
+    from repro_torch.serving import graphs
+
+    def serve(sess):
+        rng = np.random.default_rng(4)
+        reqs = [sess.submit(rng.integers(0, sess.model.cfg.vocab, n), max_new_tokens=4)
+                for n in (11, 11, 6, 11)]
+        sess.run_to_completion()
+        return [r.out_tokens for r in reqs]
+
+    sessions = [prefill_session(cuda_device, "gemma2-9b") for _ in range(2)]
+    streams = dict(graphs._STREAMS)
+    toks = [serve(sess) for sess in sessions]
+    assert set(graphs._STREAMS) == set(streams) | {torch.cuda.current_device()}
+    assert all(graphs._STREAMS[k] is v for k, v in streams.items())
+    pools = []
+    for sess in sessions:
+        assert sess.graph.stats["captures"] == 1
+        assert sess.prefill_graphs.members[11].stats["captures"] == 1
+        assert sess.prefill_graphs.members[11].pool is sess.prefill_graphs.pool
+        pools += [sess.graph.pool.handle, sess.prefill_graphs.pool.handle]
+    assert len(set(pools)) == 4
+    with graphs.eager():
+        assert [serve(prefill_session(cuda_device, "gemma2-9b")) for _ in range(2)] == toks
+
+
+@pytest.mark.cuda
+def test_failed_prefill_capture_raises_naming_the_op(cuda_device, monkeypatch):
+    """A prefill capture that fails raises, naming the port's line at
+    fault, and leaves its length uncaptured: here the last position's
+    split-K unembed GEMV on a capture stream without ticket counters
+    (``reserve_tickets`` planted away, the other streams' counters
+    hidden)."""
+    sess = prefill_session(cuda_device, "gemma2-9b")
+    cfg = sess.model.cfg
+    assert gemv_plan(cfg.vocab, cfg.d_model, "t", torch.cuda.get_device_properties(0)
+                     .multi_processor_count)[0] > 1
+    prompt = np.arange(9, dtype=np.int32)
+    sess.prefill(prompt, 0)                   # the warm-up: eager
+    cur = torch.cuda.current_stream().cuda_stream
+    monkeypatch.setattr(gemm_kernel, "_TICKETS", {k: v for k, v in gemm_kernel._TICKETS.items()
+                                                  if k[1] == cur})
+    monkeypatch.setattr(gemm_kernel, "reserve_tickets", lambda *a, **kw: None)
+    before = gemm_cuda.launches
+    with pytest.raises(RuntimeError, match=r"prefill at 9: the capture failed at "
+                       r"kernels/gemm/kernel.py:\d+ .*reserve_tickets"):
+        sess.prefill(prompt, 0)
+    assert gemm_cuda.launches == before
+    assert sess.prefill_graphs.members[9].graph is None

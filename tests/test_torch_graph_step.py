@@ -214,13 +214,20 @@ class CpuStepGraph(graphs.StepGraph):
     """StepGraph with the card's capture stood in on the CPU: the capture
     runs the step once through ``graphs.counted`` (as on the card, where
     Python runs it into the graph), and a replay reruns it into the static
-    output with its counters held, as a graph's replay runs no Python."""
+    output with its counters held, as a graph's replay runs no Python. The
+    replay that follows the capture is the capture's own run: on the card
+    a capture records the step and its first replay runs it, so a
+    recurrent state is written once."""
 
     def _capture(self, fn):
         out, delta = graphs.counted(fn)
+        captured = [True]          # the capture's run stands for a replay
 
         class Replay:
             def replay(self):
+                if captured:
+                    captured.pop()
+                    return
                 out.copy_(graphs.counted(fn)[0])
 
         self.stats.update(captures=self.stats["captures"] + 1, capture_s=0.0)
